@@ -8,16 +8,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. build every CUDA kernel of the port from csrc/ (one nvcc per source,
      all started together) and print the build time;
   2. hold each kernel against its plain PyTorch version on the card, at the
-     serving shape and at the long-context shapes, with TF32 off; time the
-     kernel, the plain version and one PyTorch library call computing the
-     same function (a yardstick only; the port never calls it);
+     serving shape (through strided views of a fused qkv tensor, as the
+     transformer hands them over), at the long-context shapes, at the
+     largest D, and on views that take the kernel's misaligned load path,
+     with TF32 off; time the kernel (back-to-back calls by CUDA events;
+     device time per launch by torch.profiler; the wrapper's host time per
+     call on the host clock), the plain version and one PyTorch library
+     call computing the same function (a yardstick only; the port never
+     calls it);
   3. drive the serving path a user would run: the registered full-width
      transformer (vocab 10000, d_model 256, 4 heads, 4 layers) behind
      ServePlane + TelemetryServer, hot-reloading a checkpoint committed by
      save_replicated_step; POST /predict three requests of 1, 2 and 3
      examples, check each answer (200, served step, shape, finite, equal to
      a dense forward of the same weights), check that the flash kernel was
-     launched num_layers times per flush, then commit step 2 and check
+     launched num_layers times per flush; POST one request with token ids
+     outside the vocabulary (answered 200, NaN rows where the ids fall
+     outside [-V, V), as the JAX package answers) and check that the next
+     answer still equals the dense forward; then commit step 2 and check
      that the next answer reports it and differs.
 
 Output, last lines: a JSON line each for the phase-2 shape table, the
@@ -52,21 +60,35 @@ BF16_TOL = 2e-2
 LOGITS_TOL = 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): device memory rate and
-# the arithmetic rate for the type the work is done on
+# the arithmetic rate for the type the work is done on. The kernel computes
+# float32 attention on the tensor cores as 3xTF32 (three TF32 products per
+# float32 product, to keep float32 accuracy), so its float32 peak is a third
+# of the 495 TFLOP/s TF32 rate; the 67 TFLOP/s of float32 outside the tensor
+# cores is no longer the least time the card could take.
 MEM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 
+F32, BF16 = torch.float32, torch.bfloat16
 KERNEL_SHAPES = [
-    # (B, T, H, D), causal, dtype
-    ((8, 35, 4, 64), True, torch.float32),  # the serving shape
-    ((1, 128, 4, 64), True, torch.float32),
-    ((1, 128, 4, 64), False, torch.float32),
-    ((1, 1024, 4, 64), True, torch.float32),
-    ((1, 1024, 4, 64), False, torch.float32),
-    ((1, 4096, 4, 64), True, torch.float32),  # the model's max_len
-    ((1, 4096, 4, 64), False, torch.float32),
-    ((2, 256, 4, 256), True, torch.float32),  # the contract's largest D
-    ((1, 1024, 4, 64), True, torch.bfloat16),
+    # (B, T, H, D), causal, dtype, layout: "qkv" = strided views of one
+    # fused (B, T, 3 H D) tensor, as the transformer passes them; "shifted"
+    # = views one element off 16-byte alignment (the misaligned load path)
+    ((8, 35, 4, 64), True, F32, "qkv"),  # the serving shape
+    ((8, 35, 4, 64), True, BF16, "qkv"),
+    ((1, 128, 4, 64), True, F32, "contiguous"),
+    ((1, 128, 4, 64), False, F32, "contiguous"),
+    ((1, 1024, 4, 64), True, F32, "contiguous"),
+    ((1, 1024, 4, 64), False, F32, "contiguous"),
+    ((1, 4096, 4, 64), True, F32, "contiguous"),  # the model's max_len
+    ((1, 4096, 4, 64), False, F32, "contiguous"),
+    ((2, 256, 4, 256), True, F32, "contiguous"),  # the contract's largest D
+    ((2, 65, 4, 64), True, F32, "contiguous"),  # one row past a tile
+    ((2, 100, 3, 33), True, F32, "contiguous"),  # odd D: misaligned path
+    ((8, 35, 4, 64), True, F32, "shifted"),
+    ((1, 1024, 4, 64), True, BF16, "contiguous"),
+    ((1, 4096, 4, 64), True, BF16, "contiguous"),
+    ((2, 256, 4, 256), True, BF16, "contiguous"),
+    ((8, 35, 4, 64), True, BF16, "shifted"),
 ]
 SERVE_SHAPE = KERNEL_SHAPES[0]
 REQUEST_SIZES = (1, 2, 3)
@@ -101,7 +123,7 @@ def attention_bound(shape, causal: bool, dtype) -> tuple[float, str]:
     """Least time (ms) the card could take for one attention forward:
     q, k, v read once and o written once over the memory rate, against
     the two products' multiply-adds (4 D flops per visible (query, key)
-    pair) over the peak rate for the inputs' type."""
+    pair) over the peak rate for the inputs' type (PEAK_FLOPS)."""
     b, t, h, d = shape
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = 4 * b * t * h * d * itemsize
@@ -131,6 +153,55 @@ def phase_build() -> None:
     print(f"build phase: {total:.2f}s for {len(results)} kernel(s)", flush=True)
 
 
+def make_inputs(shape, dtype, layout: str, gen: torch.Generator):
+    """q, k, v on the card, from the generator, in the given layout."""
+    b, t, h, d = shape
+    if layout == "qkv":
+        qkv = torch.randn((b, t, 3 * h * d), generator=gen).to("cuda", dtype)
+        return [x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1)]
+    if layout == "shifted":
+        n = b * t * h * d
+        return [
+            torch.randn(n + 1, generator=gen).to("cuda", dtype)[1:].view(shape)
+            for _ in range(3)
+        ]
+    return [torch.randn(shape, generator=gen).to("cuda", dtype) for _ in range(3)]
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """The host's time per call of fn, in µs: the enqueue alone, on the
+    host clock, with no synchronisation inside the run of calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def device_us(fn, name: str, calls: int = 20):
+    """Device time per call of the kernels whose name contains `name` (all
+    of the call's kernels for ""), in µs, from torch.profiler over `calls`
+    calls; a string saying why where the profiler records no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key
+    )
+    if total <= 0:
+        return "not measured (the profiler recorded no device time)"
+    return total / calls
+
+
 def phase_kernels(gen: torch.Generator) -> list[dict]:
     import torch.nn.functional as F
 
@@ -138,11 +209,11 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
     from mgwfbp_tpu_torch.parallel.ringattn import local_attention
 
     rows = []
-    for shape, causal, dtype in KERNEL_SHAPES:
-        q, k, v = (
-            torch.randn(shape, generator=gen).to("cuda", dtype)
-            for _ in range(3)
-        )
+    for shape, causal, dtype, layout in KERNEL_SHAPES:
+        q, k, v = make_inputs(shape, dtype, layout, gen)
+        aligned = fa.aligned_path(q, k, v)
+        if aligned != (layout != "shifted" and shape[3] % 4 == 0):
+            fail(f"{layout} views at {shape} {dtype} chose aligned={aligned}")
         got = fa.flash_attention(q, k, v, causal=causal)
         want = fa.flash_attention_reference(q, k, v, causal=causal)
         dense = local_attention(q, k, v, causal=causal)
@@ -154,31 +225,53 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         if err > tol or dense_err > tol:
             fail(
-                f"flash kernel disagrees at {shape} causal={causal} {dtype}: "
-                f"max |kernel - plain| {err:.3e}, |kernel - dense| "
+                f"flash kernel disagrees at {shape} causal={causal} {dtype} "
+                f"{layout}: max |kernel - plain| {err:.3e}, |kernel - dense| "
                 f"{dense_err:.3e} > {tol}"
             )
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+        # the library's kernels fault on views off 16-byte alignment: the
+        # yardstick takes aligned copies of them
+        qt, kt, vt = (
+            (x if aligned else x.clone()).transpose(1, 2) for x in (q, k, v)
+        )
+
+        def kernel():
+            return fa.flash_attention(q, k, v, causal=causal)
+
+        kernel_ms = time_ms(kernel)
+        dev_us = device_us(kernel, "flash_")
+        wrapper_us = host_us(kernel)
         plain_ms = time_ms(
             lambda: fa.flash_attention_reference(q, k, v, causal=causal),
             max_iters=20,
         )
-        library_ms = time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-        )
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        library_ms = time_ms(library)
+        library_dev_us = device_us(library, "")
         bound_ms, bound_by = attention_bound(shape, causal, dtype)
         rows.append({
             "shape": list(shape), "causal": causal,
-            "dtype": str(dtype).replace("torch.", ""),
+            "dtype": str(dtype).replace("torch.", ""), "layout": layout,
+            "path": "aligned" if aligned else "misaligned",
             "max_abs_err": err, "max_abs_err_vs_dense": dense_err,
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": kernel_ms, "device_us": dev_us, "host_us": wrapper_us,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_us": library_dev_us,
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
+        dev, lib = (
+            f"{x:.2f}" if isinstance(x, float) else x
+            for x in (dev_us, library_dev_us)
+        )
         print(
-            f"flash {shape} causal={causal} {dtype}: err {err:.2e} "
-            f"(dense {dense_err:.2e}) kernel {kernel_ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"flash {shape} causal={causal} {dtype} {layout} "
+            f"({rows[-1]['path']} path): err {err:.2e} (dense "
+            f"{dense_err:.2e}) kernel {kernel_ms:.4f} ms, device {dev} us "
+            f"per launch, wrapper host {wrapper_us:.2f} us per call, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (device {lib} us), bound "
             f"{bound_ms:.5f} ms ({bound_by})", flush=True,
         )
     return rows
@@ -277,6 +370,7 @@ def phase_serve(gen: torch.Generator) -> tuple[int, list[dict]]:
                 f"/predict: {len(REQUEST_SIZES)} requests, {flushes} flushes, "
                 f"{launches} flash launches", flush=True,
             )
+            check_out_of_vocabulary(server.port, meta, examples[:1], want1[:1])
             forward_breakdown(model, examples[:1])
 
             params2 = params_to_flax(init_weights(module, gen))
@@ -304,6 +398,42 @@ def phase_serve(gen: torch.Generator) -> tuple[int, list[dict]]:
             plane.close()
             server.close()
     return launches, latencies
+
+
+def check_out_of_vocabulary(port: int, meta, clean: np.ndarray,
+                            want: np.ndarray) -> None:
+    """Token ids outside the vocabulary are answered as the JAX package
+    answers them (its embedding is jnp.take in mode "fill"): 200, with ids
+    in [-V, -1] wrapped to id + V and NaN wherever an id outside [-V, V)
+    reaches through attention. The card must take no fault from them: the
+    next in-vocabulary answer still equals the dense forward."""
+    v = meta.num_classes
+    x = np.concatenate([clean, clean])
+    x[0, 5] = v
+    x[1, 3] = -1
+    code, doc, _ = _post(port, x.tolist())
+    if code != 200:
+        fail(f"out-of-vocabulary /predict answered {code}: {doc}")
+    out = np.asarray(doc["outputs"], np.float32)
+    if out.shape != x.shape + (v,):
+        fail(f"out-of-vocabulary /predict output shape {out.shape}")
+    # position 5 onwards sees the NaN row of id V; id -1 is id V - 1
+    if not np.isnan(out[0, 5:]).all() or not np.isfinite(out[1]).all():
+        fail("out-of-vocabulary answer: NaN rows not where jnp.take puts them")
+    wrapped = clean.copy()
+    wrapped[0, 3] = v - 1
+    code, doc, _ = _post(port, wrapped.tolist())
+    if code != 200 or not np.abs(
+        np.asarray(doc["outputs"], np.float32) - out[1:]
+    ).max() <= LOGITS_TOL:
+        fail("id -1 was not answered as id V - 1")
+    code, doc, _ = _post(port, clean.tolist())
+    err = float(np.abs(np.asarray(doc["outputs"], np.float32) - want).max())
+    if code != 200 or not err <= LOGITS_TOL:
+        fail(f"after out-of-vocabulary ids /predict answered {code}, "
+             f"{err:.3e} from the dense forward")
+    print(f"/predict: out-of-vocabulary ids answered 200; the next answer is "
+          f"{err:.2e} from the dense forward", flush=True)
 
 
 def forward_breakdown(model, x: np.ndarray, reps: int = 10) -> None:
@@ -374,6 +504,8 @@ def main() -> int:
         "max_abs_err": serve["max_abs_err"],
         "ms": serve["ms"],
         "kernel_ms": serve["ms"],
+        "device_us": serve["device_us"],
+        "host_us": serve["host_us"],
         "plain_ms": serve["plain_ms"],
         "bound_ms": serve["bound_ms"],
         "bound_by": serve["bound_by"],

@@ -25,6 +25,19 @@ from mgwfbp_tpu_torch.parallel.ringattn import local_attention
 _LN_EPS = 1e-6  # flax.linen.LayerNorm default
 
 
+def take_fill(embed: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """``embed(ids)`` with the semantics of ``flax.linen.Embed``, which is
+    ``jnp.take(table, ids, axis=0)`` in mode "fill": ids in [-V, -1] wrap
+    to ``id + V``, ids outside [-V, V) give rows of NaN. The index is
+    clamped before the gather, so an id outside the table never reaches
+    the card's gather as an out-of-bounds index."""
+    v = embed.num_embeddings
+    ids = torch.where(ids < 0, ids + v, ids)
+    valid = (ids >= 0) & (ids < v)
+    rows = embed(ids.clamp(0, v - 1))
+    return rows.masked_fill(~valid.unsqueeze(-1), float("nan"))
+
+
 class Block(nn.Module):
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
                  dropout: float, attn_impl: str = "dense"):
@@ -97,7 +110,7 @@ class TransformerLM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pos = torch.arange(x.shape[1], device=x.device)
-        h = self.tok_embed(x) + self.pos_embed(pos)
+        h = take_fill(self.tok_embed, x) + self.pos_embed(pos)
         for block in self.blocks:
             h = block(h)
         return self.head(self.ln_out(h))

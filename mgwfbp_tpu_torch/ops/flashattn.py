@@ -15,10 +15,14 @@ same block-by-block online-softmax recurrence written in PyTorch, which is
 also what ``chip_smoke.py`` holds the kernel against on the card.
 ``flash_attention.launches`` counts kernel launches.
 
-The CUDA kernel tiles the sequence its own way (64 x 64 tiles, ragged
-edges masked) and ignores ``block_q``/``block_k`` beyond the shape check;
-the online softmax is exact up to rounding whatever the tiling, so both
-versions agree to float32 rounding.
+The kernel computes both products on the tensor cores: 3xTF32 ``mma.sync``
+for float32, ``wgmma`` fed by TMA for bfloat16 (the source's header says
+why). Each type has an aligned load path (16-byte ``cp.async``; TMA) and a
+misaligned one inside the same kernel; ``aligned_path`` chooses from the
+pointers and strides, and both count as launches. The kernel tiles the
+sequence its own way (64-row query tiles, ragged edges masked) and ignores
+``block_q``/``block_k`` beyond the shape check; the online softmax is exact
+up to rounding whatever the tiling.
 """
 
 from __future__ import annotations
@@ -125,7 +129,7 @@ def _bind():
             [ctypes.c_void_p] * 4
             + [ctypes.c_int] * 5
             + [ctypes.c_longlong] * 9
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         err_str = lib.mgwfbp_cuda_error_string
@@ -133,6 +137,37 @@ def _bind():
         err_str.restype = ctypes.c_char_p
         _bound = (fn, err_str)
     return _bound
+
+
+def _aligned(code: int, shape, ptrs, strides) -> bool:
+    """Whether the kernel may take its aligned load path: every base
+    address 16-byte aligned and every batch, time and head stride (of a
+    dimension longer than 1) a multiple of 16 bytes; float32 also needs
+    D % 4 == 0 (16-byte ``cp.async`` of whole column groups). bfloat16's
+    aligned path is TMA, which needs exactly the 16-byte rule and refuses
+    a zero stride (a broadcast view)."""
+    if (ptrs[0] | ptrs[1] | ptrs[2]) & 15:
+        return False
+    if code == 0 and shape[3] & 3:
+        return False
+    bits = 0
+    for i in range(3):
+        if shape[i] > 1:
+            st = strides[0][i], strides[1][i], strides[2][i]
+            if code == 1 and 0 in st:
+                return False
+            bits |= st[0] | st[1] | st[2]
+    return not bits & (3 if code == 0 else 7)
+
+
+def aligned_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether ``flash_attention`` launches these views on the kernel's
+    aligned load path (``_aligned``) rather than its misaligned one."""
+    return _aligned(
+        _DTYPE_CODES.get(q.dtype, 1), q.shape,
+        (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+        (q.stride(), k.stride(), v.stride()),
+    )
 
 
 def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
@@ -149,25 +184,28 @@ def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
             f"flash_attention: the CUDA kernel takes float32 or bfloat16, "
             f"got {q.dtype}"
         )
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1:
-            raise ValueError(
-                f"flash_attention: {name} must have a unit stride along D, "
-                f"got strides {tuple(x.stride())}"
-            )
-    b, t, h, d = q.shape
-    fn, err_str = _bind()
-    o = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), code,
-            b, t, h, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            float(scale), int(bool(causal)), stream,
+    strides = sq, sk, sv = q.stride(), k.stride(), v.stride()
+    if sq[3] != 1 or sk[3] != 1 or sv[3] != 1:
+        raise ValueError(
+            "flash_attention: q, k, v must have a unit stride along D, got "
+            f"strides {sq}, {sk}, {sv}"
         )
+    shape = b, t, h, d = q.shape
+    ptrs = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    fn, err_str = _bound or _bind()
+    o = torch.empty(shape, dtype=q.dtype, device=dev)
+    args = (
+        *ptrs, o.data_ptr(), code, b, t, h, d,
+        sq[0], sq[1], sq[2], sk[0], sk[1], sk[2], sv[0], sv[1], sv[2],
+        float(scale), int(bool(causal)), int(_aligned(code, shape, ptrs, strides)),
+    )
+    # the raw handle of the current stream: torch.cuda.current_stream()
+    # builds a Stream object per call, which costs more than the launch
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err} "
@@ -193,14 +231,14 @@ def flash_attention(
     for unsupported shapes (callers guard with ``flash_supported``). A CUDA
     tensor runs the hand-written kernel (or raises); a CPU tensor runs
     ``flash_attention_reference``."""
-    _check(q, k, v, block_q, block_k)
-    if scale is None:
-        scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, causal=causal, scale=scale, block_q=block_q,
             block_k=block_k,
         )
+    _check(q, k, v, block_q, block_k)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _launch(q, k, v, causal, scale)

@@ -1,10 +1,9 @@
 """Request plane: bounded queue + dispatcher thread (micro-batching).
 
 Port of ``mgwfbp_tpu/serving/service.py``; the packer and the stats are
-the reference's, line for line. One addition: ``handle`` also refuses
-(400) inputs the model's ``check_inputs`` rejects — out-of-vocabulary
-token ids — because on the card such an index is a sticky device fault,
-where XLA would have filled it silently.
+the reference's, line for line. Out-of-vocabulary token ids are answered
+as the reference answers them (200, NaN rows: see
+``models.transformer.take_fill``).
 
 Continuous micro-batching in the MG-WFBP spirit — never compute with an
 idle slot you could have filled, never wait longer than the deadline to
@@ -166,10 +165,6 @@ class PredictService:
                 "error": f"batch of {x.shape[0]} exceeds the serve slot "
                          f"({self.max_batch}); split the request"
             }
-        try:
-            self.model.check_inputs(x)
-        except ValueError as e:
-            return 400, {"error": str(e)}
         pending = _Pending(x)
         try:
             self._queue.put_nowait(pending)

@@ -6,7 +6,9 @@ machine that has only PyTorch: from the root of a checkout,
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 (``--noconftest`` because tests/conftest.py sets JAX up). Tolerances are
-tests/test_flashattn.py's: float32 2e-5, bfloat16 2e-2.
+tests/test_flashattn.py's: float32 2e-5 (3xTF32 keeps float32 accuracy),
+bfloat16 2e-2 (inputs and output in bfloat16; P is rounded to bfloat16 for
+the second product, about 2^-9 relative).
 """
 
 import numpy as np
@@ -28,16 +30,39 @@ def card():
     return torch.device("cuda")
 
 
+F32, BF16 = torch.float32, torch.bfloat16
+TOL = {F32: 2e-5, BF16: 2e-2}
+
+
+def _qkv(shape, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(device, dtype) for _ in range(3)]
+
+
 @pytest.mark.parametrize("shape,causal,dtype,tol", [
-    ((8, 35, 4, 64), True, torch.float32, 2e-5),
-    ((2, 100, 3, 40), False, torch.float32, 2e-5),
-    ((1, 256, 2, 256), False, torch.float32, 2e-5),
-    ((1, 128, 2, 64), True, torch.bfloat16, 2e-2),
+    ((8, 35, 4, 64), True, F32, 2e-5),     # the serving shape
+    ((2, 100, 3, 40), False, F32, 2e-5),   # D not a power of two
+    ((1, 256, 2, 256), False, F32, 2e-5),  # the largest D
+    ((1, 128, 2, 64), True, BF16, 2e-2),
+    ((8, 35, 4, 64), True, BF16, 2e-2),
+    ((2, 100, 3, 40), True, BF16, 2e-2),
+    ((2, 256, 4, 256), True, BF16, 2e-2),
+    ((2, 256, 4, 256), False, BF16, 2e-2),
+    ((2, 256, 4, 256), True, F32, 2e-5),
+    ((2, 100, 3, 33), True, F32, 2e-5),    # misaligned: odd D
+    ((2, 100, 3, 33), False, BF16, 2e-2),
+    ((3, 1, 2, 64), True, F32, 2e-5),      # T = 1
+    ((3, 1, 2, 64), False, BF16, 2e-2),
+    ((2, 65, 2, 64), True, F32, 2e-5),     # one row past a tile
+    ((2, 65, 2, 64), True, BF16, 2e-2),
+    ((2, 65, 2, 64), False, F32, 2e-5),
+    ((1, 4096, 2, 64), True, F32, 2e-5),   # the model's max_len
+    ((1, 4096, 2, 64), True, BF16, 2e-2),
+    ((64, 35, 4, 64), True, F32, 2e-5),    # B * H = 256
+    ((64, 35, 4, 64), True, BF16, 2e-2),
 ])
 def test_kernel_matches_plain(card, shape, causal, dtype, tol):
-    gen = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn(shape, generator=gen).to(card, dtype)
-               for _ in range(3))
+    q, k, v = _qkv(shape, dtype, card)
     before = fa.flash_attention.launches
     got = fa.flash_attention(q, k, v, causal=causal)
     want = fa.flash_attention_reference(q, k, v, causal=causal)
@@ -47,17 +72,55 @@ def test_kernel_matches_plain(card, shape, causal, dtype, tol):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
-def test_kernel_reads_strided_qkv_views(card):
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_kernel_reads_strided_qkv_views(card, dtype):
     """The transformer hands the kernel views of its fused qkv product
-    (B, T, H, D) with a row stride of 3 * H * D."""
+    (B, T, H, D) with a row stride of 3 * H * D; the kernel reads them in
+    place and gives the contiguous inputs' result bit for bit."""
     b, t, h, d = 4, 35, 4, 64
-    qkv = torch.randn((b, t, 3 * h * d), generator=torch.Generator().manual_seed(1)).to(card)
+    gen = torch.Generator().manual_seed(1)
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen).to(card, dtype)
     q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
-    assert not q.is_contiguous()
+    assert not q.is_contiguous() and fa.aligned_path(q, k, v)
     got = fa.flash_attention(q, k, v)
     want = fa.flash_attention(*(x.contiguous() for x in (q, k, v)))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_both_load_paths_agree_and_count(card, dtype, causal):
+    """A view shifted off 16-byte alignment takes the misaligned load path
+    of the same kernel; it loads the same values, so the result is the
+    aligned path's bit for bit, and each path counts one launch."""
+    shape = (2, 65, 3, 64)
+    n = 2 * 65 * 3 * 64
+    gen = torch.Generator().manual_seed(3)
+    flat = [torch.randn(n + 1, generator=gen).to(card, dtype) for _ in range(3)]
+    shifted = [x[1:].view(shape) for x in flat]
+    aligned = [x.clone() for x in shifted]
+    assert not fa.aligned_path(*shifted) and fa.aligned_path(*aligned)
+    before = fa.flash_attention.launches
+    a = fa.flash_attention(*aligned, causal=causal)
+    m = fa.flash_attention(*shifted, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    assert torch.equal(a, m)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_kernel_reads_broadcast_views(card, dtype):
+    """k and v shared by every head (zero head stride), as in multi-query
+    attention: float32 reads them on its aligned path, bfloat16 on its
+    misaligned one (TMA refuses a zero stride)."""
+    q, k, v = _qkv((2, 65, 3, 64), dtype, card, seed=4)
+    k, v = (x[:, :, :1].expand(2, 65, 3, 64) for x in (k, v))
+    assert fa.aligned_path(q, k, v) == (dtype == F32)
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
 
 
 def test_kernel_refuses_what_it_cannot_run(card):

@@ -249,19 +249,52 @@ def test_predict_service_validation_matches_jax(jax_ckpts):
         s.close()
         parked.join(timeout=10)
         assert not parked.is_alive()
-    # token ids outside the vocabulary: XLA clamps the gather and answers,
-    # the port refuses them (on the card such an index is a device fault
-    # that would fail every later flush)
-    port = PredictService(pm)
-    code, doc = port.handle(np.full((1, 35), VOCAB, np.int32))
-    assert code == 400 and "token ids" in doc["error"]
-    port.start()
+
+
+def test_out_of_vocabulary_ids_answer_like_jax(jax_ckpts):
+    """Token ids outside [0, V): the JAX model gathers with ``jnp.take`` in
+    mode "fill" (ids in [-V, -1] wrap, the rest give NaN rows) and its
+    service answers 200. The port answers the same code with the same
+    outputs, NaN exactly where the JAX package has NaN, and its next
+    in-vocabulary answer is unaffected."""
+    tag = jax_ckpts["all_reduce"]
+    step = committed_sharded_steps(tag)[-1]
+    jm, pm = _jax_model(), _port_model()
+    jm.load_step(tag, step)
+    pm.load_step(tag, step)
+    x = _tokens(3, seed=6)
+    x[0, 5] = VOCAB
+    x[1, 3] = -1
+    x[2, 34] = -VOCAB - 1
+    wrapped = x[1].copy()
+    wrapped[3] = VOCAB - 1
+    services = [JaxService(jm), PredictService(pm)]
+    for s in services:
+        s.start()
     try:
-        code, doc = port.handle(_tokens(1)[0])
-        assert code == 200 and len(doc["outputs"]) == 1
-        assert doc["served_step"] == step
+        (jcode, jdoc), (code, doc) = (s.handle(x) for s in services)
+        assert code == jcode == 200
+        want = np.asarray(jdoc["outputs"], np.float32)
+        got = np.asarray(doc["outputs"], np.float32)
+        assert got.shape == want.shape == (3, 35, VOCAB)
+        nan = np.isnan(want)
+        assert nan[0].any() and nan[2].any() and not nan[1].any()
+        np.testing.assert_array_equal(np.isnan(got), nan)
+        np.testing.assert_allclose(got[~nan], want[~nan], rtol=TOL, atol=TOL)
+        # id -1 is id V - 1
+        code, doc = services[1].handle(wrapped)
+        assert code == 200
+        np.testing.assert_allclose(doc["outputs"][0], got[1], rtol=TOL, atol=TOL)
+        clean = _tokens(1, seed=7)
+        (jcode, jdoc), (code, doc) = (s.handle(clean) for s in services)
+        assert code == jcode == 200 and doc["served_step"] == step
+        np.testing.assert_allclose(
+            np.asarray(doc["outputs"], np.float32),
+            np.asarray(jdoc["outputs"], np.float32), rtol=TOL, atol=TOL,
+        )
     finally:
-        port.close()
+        for s in services:
+            s.close()
 
 
 def test_jax_reads_port_checkpoint(tmp_path):
