@@ -26,12 +26,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      outside the vocabulary (answered 200, NaN rows where the ids fall
      outside [-V, V), as the JAX package answers) and check that the next
      answer still equals the dense forward; then commit step 2 and check
-     that the next answer reports it and differs.
+     that the next answer reports it and differs;
+  4. drive the training path a user would run, full-width ResNet-20 at
+     the per-worker batch 32 on synthetic CIFAR-10:
+     (a) the Trainer at one worker, policy auto, TRAIN_STEPS steps, one
+         evaluate and the epoch's commit: the loss of the last 5 steps
+         falls below the first 5's, eval is finite, the committed step
+         reads back equal to the live parameters; then the step time (CUDA
+         events, median of 20) and torch.profiler's busy share;
+     (b) the merged all-reduce at one worker over NCCL, policy mgwfbp on a
+         tb the hooks measure on the card, on the ici prior (one leaf per
+         group) and on MERGING_LINK (which must merge leaves): each of
+         REDUCER_STEPS steps launches num_groups all-reduces in group
+         order and its reduced gradients equal, bit for bit, a copy taken
+         before the reduction; the hooks' arrival order is printed beside
+         the reducer's permutation;
+     (c) two processes on the one card over gloo, GLOO_STEPS steps of
+         mgwfbp on each of GLOO_LINKS: merged gradients equal the
+         leaf-by-leaf all_reduce and both ranks' parameters are identical,
+         bit for bit, every step.
 
 Output, last lines: a JSON line each for the phase-2 shape table, the
 serving forward's breakdown (host time of one flush's run_padded, device
-time by kernel from torch.profiler) and the /predict latencies, the card's name and power limit (nvidia-smi), the kernels line
-({"kernels": [...]}) and, last, {"ok": true, "device": {...}}.
+time by kernel from torch.profiler), the /predict latencies and the
+training phase ({"train": ...}), the card's name and power limit
+(nvidia-smi), the kernels line ({"kernels": [...]}) and, last,
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -472,6 +492,476 @@ def forward_breakdown(model, x: np.ndarray, reps: int = 10) -> None:
     print(json.dumps({"forward": out}), flush=True)
 
 
+TRAIN_DEVICE = "cuda"  # the training phases' device
+TRAIN_STEPS = 40  # phase (a): optimizer steps of the trainer
+REDUCER_STEPS = 10  # phase (b)
+GLOO_STEPS = 5  # phase (c), on each of GLOO_LINKS
+# the reference's 56Gb IB constants at 16 workers: against a backward of
+# about 10 ms mgwfbp merges ResNet-20's 65 leaves into a few tens of groups
+# of several leaves (the ici prior at 1 or 2 workers leaves them alone)
+MERGING_LINK = ("56GbIB", 16)
+GLOO_LINKS = (("ici", None), MERGING_LINK)  # None: the world's size
+
+
+def _step_profile(fn, steps: int = 5) -> dict:
+    """torch.profiler over `steps` calls of fn: the card's busy share (sum
+    of kernel time over the host's wall time), the kernels and the host
+    operators that take most time, per call. A reading, not a check:
+    where the profiler records no device time this says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    dev = [(e.key, e.self_device_time_total) for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = [(e.key, e.self_cpu_time_total, e.count) for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    busy_us = sum(t for _, t in dev)
+    out = {
+        "busy_share": (
+            busy_us / wall_us if busy_us > 0
+            else "not measured (the profiler recorded no device time)"
+        ),
+        "wall_ms_per_step": wall_us / steps / 1e3,
+        "device_ms_per_step": busy_us / steps / 1e3,
+        "top_kernels_ms_per_step": [
+            [k[:60], t / steps / 1e3]
+            for k, t in sorted(dev, key=lambda r: -r[1])[:6]
+        ],
+        "top_host_ops_ms_per_step": [
+            [k[:60], t / steps / 1e3, n // steps]
+            for k, t, n in sorted(host, key=lambda r: -r[1])[:10]
+        ],
+    }
+    return out
+
+
+def train_phase_trainer(ckpt_root: str) -> dict:
+    """(a) The trainer a user runs, at one worker: full-width ResNet-20,
+    batch 32, synthetic CIFAR-10, policy auto, TRAIN_STEPS steps, one
+    evaluate and the epoch's commit; then the step time and the card's
+    busy share on one batch."""
+    from mgwfbp_tpu_torch.checkpoint import read_step
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.convert import flatten_flax, variables_to_flax
+    from mgwfbp_tpu_torch.train import Trainer
+
+    cfg = make_config("resnet20", batch_size=32, policy="auto",
+                      num_batches_per_epoch=TRAIN_STEPS, logdir=ckpt_root,
+                      checkpoint_dir=ckpt_root)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device=TRAIN_DEVICE, synthetic_data=True)
+    metrics = tr.fit(1)
+    fit_s = time.perf_counter() - t0
+    losses = tr.losses
+    if len(losses) != TRAIN_STEPS:
+        fail(f"the trainer took {len(losses)} steps, not {TRAIN_STEPS}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not np.isfinite(losses).all() or not last5 < first5:
+        fail(f"training loss did not fall: first 5 {first5:.4f}, last 5 "
+             f"{last5:.4f} ({losses})")
+    ev = metrics["eval"]
+    if not np.isfinite([ev["loss"], ev["top1"], ev["top5"]]).all():
+        fail(f"evaluate returned non-finite metrics {ev}")
+    params, bstats, meta = read_step(tr.ckpt_dir, tr.iteration)
+    live_p, live_b = variables_to_flax(tr.model)
+    for live, saved in ((live_p, params), (live_b, bstats)):
+        live = flatten_flax(live)
+        if list(live) != list(saved) or not all(
+            np.array_equal(live[k], saved[k]) for k in live
+        ):
+            fail("the committed step does not read back equal to the live "
+                 "parameters")
+    # step time: one fixed batch, CUDA events around each step, median of
+    # 20 after 5 of warm-up (each step ends in the metrics' host read)
+    xb, yb = tr.bundle.train.load_batch(0, 0)
+    x, y = tr._to_device(xb[None], yb[None])
+    times = []
+    for i in range(25):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tr.train_step(x, y)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 5:
+            times.append(start.elapsed_time(end))
+    step_ms = float(np.median(times))
+    prof = _step_profile(lambda: tr.train_step(x, y))
+    busy = prof["busy_share"]
+    tr.close()
+    out = {
+        "steps": TRAIN_STEPS, "batch": 32, "fit_s": fit_s,
+        "loss_first5": first5, "loss_last5": last5, "eval": ev,
+        "committed_step": int(meta["iteration"]), "step_ms": step_ms,
+        "step_ms_min": float(np.min(times)), "images_per_s": 32e3 / step_ms,
+        "busy_share": busy, "profile": prof,
+    }
+    print(f"train (a): {TRAIN_STEPS} steps in {fit_s:.1f}s, loss "
+          f"{first5:.4f} -> {last5:.4f}, eval {ev}, step {step_ms:.3f} ms "
+          f"({out['images_per_s']:.0f} images/s), busy share {busy}",
+          flush=True)
+    return out
+
+
+def _grad_copies(params):
+    """Hooks that copy each parameter's gradient as it lands, before any
+    reduction writes .grad."""
+    copies: dict[int, torch.Tensor] = {}
+    hooks = [
+        p.register_post_accumulate_grad_hook(
+            lambda t, j=j: copies.__setitem__(j, t.grad.detach().clone())
+        )
+        for j, p in enumerate(params)
+    ]
+    return copies, hooks
+
+
+def _held_groups(groups, arrivals) -> int:
+    """Groups that were complete before a lower group had launched, so that
+    the strict group order held their launch back."""
+    pos = {k: i for i, k in enumerate(arrivals)}
+    held, launched_at = 0, -1
+    for members in groups:
+        complete_at = max(pos[k] for k in members)
+        launched_at = max(launched_at, complete_at)
+        held += launched_at > complete_at
+    return held
+
+
+def _reducer_run(dev, bundle, tb, connection: str, nworkers: int) -> dict:
+    """REDUCER_STEPS steps of a fresh model through the merged all-reduce,
+    policy mgwfbp on ``tb`` and the named link's alpha-beta constants."""
+    from mgwfbp_tpu_torch.convert import flax_leaves
+    from mgwfbp_tpu_torch.models import create_model
+    from mgwfbp_tpu_torch.models.common import init_weights
+    from mgwfbp_tpu_torch.optim import make_optimizer
+    from mgwfbp_tpu_torch.parallel.allreduce import make_merged_allreduce
+    from mgwfbp_tpu_torch.parallel.costmodel import lookup_alpha_beta
+    from mgwfbp_tpu_torch.train import TrainStep
+
+    model, _ = create_model("resnet20")
+    init_weights(model, torch.Generator().manual_seed(1)).to(dev)
+    params = [t for _, t in flax_leaves(model)]
+    reducer = make_merged_allreduce(
+        model, policy="mgwfbp", tb=tb,
+        cost_model=lookup_alpha_beta(connection, nworkers),
+    )
+    opt, lr_fn, _ = make_optimizer(model.parameters(), 0.1,
+                                   num_batches_per_epoch=REDUCER_STEPS)
+    step = TrainStep(model, opt, lr_fn, reducer=reducer)
+    copies, hooks = _grad_copies(params)
+    checks = {"bitwise": True}
+    sync = reducer.synchronize
+
+    def checked_sync():
+        out = sync()
+        for j, p in enumerate(params):
+            if not torch.equal(p.grad, copies[j]):
+                checks["bitwise"] = False
+        return out
+
+    reducer.synchronize = checked_sync
+    launches = []
+    for k in range(REDUCER_STEPS):
+        xb, yb = bundle.train.load_batch(0, k)
+        x = torch.from_numpy(xb).to(dev).movedim(-1, -3).contiguous()
+        y = torch.from_numpy(yb.astype(np.int64)).to(dev)
+        before = reducer.launches
+        m = step(x[None], y[None])
+        launches.append(reducer.launches - before)
+        if not np.isfinite(m["loss"]):
+            fail(f"reducer phase ({connection}): non-finite loss at step {k}")
+    for h in hooks:
+        h.remove()
+    reducer.detach()
+    g = reducer.num_groups
+    label = f"reducer phase ({connection} at {nworkers} workers)"
+    if launches != [g] * REDUCER_STEPS:
+        fail(f"{label}: all-reduce launches per step {launches}, expected "
+             f"{g} (num_groups) each")
+    if reducer.launch_log != list(range(g)):
+        fail(f"{label}: groups launched in the order {reducer.launch_log}")
+    if not checks["bitwise"]:
+        fail(f"{label}: reduced gradients differ from the copies taken "
+             "before the reduction")
+    groups = [list(gr) for gr in reducer.schedule.groups]
+    return {
+        "cost_model": f"{connection} at {nworkers} workers",
+        "num_groups": g, "groups": groups,
+        "largest_group": max(len(gr) for gr in groups),
+        "held_by_group_order": _held_groups(groups, reducer.arrivals),
+        "predicted_nonoverlap_s": reducer.schedule.predicted_nonoverlap_time,
+        "allreduce_launches_per_step": launches,
+        "bitwise_equal_to_pre_reduction_copy": True,
+        "arrivals": list(reducer.arrivals),
+    }
+
+
+def train_phase_reducer() -> dict:
+    """(b) The merged all-reduce at one worker over NCCL: policy mgwfbp on
+    a tb the hooks measure on the card, REDUCER_STEPS steps on each of two
+    cost models: the ``ici`` prior at one worker (every leaf its own group)
+    and the reference's comm-bound MERGING_LINK (groups of many leaves).
+    Each step launches num_groups all-reduces, in group order, and its
+    reduced gradients equal, bit for bit, the same backward's gradients
+    copied before the reduction (the mean over one rank is the identity)."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.convert import flax_leaves, keystr
+    from mgwfbp_tpu_torch.data import data_prepare
+    from mgwfbp_tpu_torch.models import create_model
+    from mgwfbp_tpu_torch.models.common import init_weights
+    from mgwfbp_tpu_torch.parallel.allreduce import arrival_order
+    from mgwfbp_tpu_torch.parallel.mesh import init_distributed
+    from mgwfbp_tpu_torch.profiling import benchmark_backward
+    from mgwfbp_tpu_torch.train import cross_entropy
+
+    dev = torch.device(TRAIN_DEVICE, 0) if TRAIN_DEVICE == "cuda" else (
+        torch.device(TRAIN_DEVICE)
+    )
+    rdv = tempfile.TemporaryDirectory(prefix="mgwfbp_nccl_")
+    init_distributed(dev, num_processes=1, process_id=0,
+                     init_method=f"file://{os.path.join(rdv.name, 'rdv')}")
+    try:
+        model, _ = create_model("resnet20")
+        init_weights(model, torch.Generator().manual_seed(1)).to(dev)
+        bundle = data_prepare("cifar10", batch_size=32, seed=1, synthetic=True)
+        leaves = flax_leaves(model)
+        names = [keystr(p) for p, _ in leaves]
+        perm = arrival_order(len(names), names=names)
+        xb, yb = bundle.train.load_batch(0, 0)
+        x = torch.from_numpy(xb).to(dev).movedim(-1, -3).contiguous()
+        y = torch.from_numpy(yb.astype(np.int64)).to(dev)
+        model.train()
+        tb = benchmark_backward(
+            model, lambda: cross_entropy(model(x), y), [t for _, t in leaves],
+            perm,
+        )
+        runs = [_reducer_run(dev, bundle, tb, "ici", 1),
+                _reducer_run(dev, bundle, tb, *MERGING_LINK)]
+    finally:
+        dist.destroy_process_group()
+        rdv.cleanup()
+    if runs[1]["num_groups"] >= len(names):
+        fail(f"reducer phase: {runs[1]['cost_model']} merged no leaves "
+             f"({runs[1]['num_groups']} groups for {len(names)} leaves)")
+    names_arr = [names[j] for j in perm]
+    measured = [names_arr[k] for k in runs[0].pop("arrivals")]
+    runs[1].pop("arrivals")
+    stem = [i for i, n in enumerate(names_arr) if n.startswith("['ConvBN_0']")]
+    ici, merged = runs
+    out = {
+        "policy": "mgwfbp", "cost_model": ici["cost_model"],
+        "num_groups": ici["num_groups"], "groups": ici["groups"],
+        "predicted_nonoverlap_s": ici["predicted_nonoverlap_s"],
+        "allreduce_launches_per_step": ici["allreduce_launches_per_step"],
+        "bitwise_equal_to_pre_reduction_copy": True,
+        "merging": merged,
+        "tb": list(tb), "tb_total_s": float(sum(tb)), "tb_source": tb.source,
+        "arrival_positions_of_the_stem_in_the_permutation": stem,
+        "arrival_positions_of_the_stem_measured": [
+            measured.index(names_arr[i]) for i in stem
+        ],
+        "permutation_order": names_arr,
+        "measured_hook_order": measured,
+    }
+    for r in runs:
+        print(f"train (b): {r['cost_model']}: {r['num_groups']} groups "
+              f"(largest {r['largest_group']} leaves, "
+              f"{r['held_by_group_order']} held back by the group order), "
+              f"{r['allreduce_launches_per_step'][0]} all-reduces per step "
+              f"over {REDUCER_STEPS} steps, reduced == pre-reduction bit for "
+              "bit", flush=True)
+    print(f"train (b): tb {sum(tb) * 1e3:.3f} ms ({tb.source}); the stem is "
+          f"at arrival positions {stem} of the permutation, "
+          f"{out['arrival_positions_of_the_stem_measured']} as measured",
+          flush=True)
+    return out
+
+
+def _gloo_rank(rank: int, world: int, rdv: str, out_path: str,
+               device: str, tb: list) -> None:
+    """(c) One of two processes on the one card over gloo: GLOO_STEPS steps
+    of a fresh model on each of GLOO_LINKS."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.convert import flax_leaves
+    from mgwfbp_tpu_torch.data import ShardInfo, data_prepare
+    from mgwfbp_tpu_torch.models import create_model
+    from mgwfbp_tpu_torch.models.common import init_weights
+    from mgwfbp_tpu_torch.optim import make_optimizer
+    from mgwfbp_tpu_torch.parallel.allreduce import make_merged_allreduce
+    from mgwfbp_tpu_torch.parallel.costmodel import lookup_alpha_beta
+    from mgwfbp_tpu_torch.train import TrainStep
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                            world_size=world, rank=rank)
+    results = []
+    try:
+        bundle = data_prepare("cifar10", batch_size=32,
+                              shard=ShardInfo(rank, world), seed=2,
+                              synthetic=True)
+        for connection, nworkers in ((c, world if n is None else n)
+                                     for c, n in GLOO_LINKS):
+            result = {"rank": rank, "cost_model":
+                      f"{connection} at {nworkers} workers", "steps": 0,
+                      "merged_equals_leafwise": True,
+                      "params_identical": True}
+            results.append(result)
+            model, _ = create_model("resnet20")
+            init_weights(model, torch.Generator().manual_seed(2)).to(dev)
+            params = [t for _, t in flax_leaves(model)]
+            reducer = make_merged_allreduce(
+                model, policy="mgwfbp", tb=tb,
+                cost_model=lookup_alpha_beta(connection, nworkers),
+            )
+            opt, lr_fn, _ = make_optimizer(model.parameters(), 0.1,
+                                           num_batches_per_epoch=GLOO_STEPS)
+            step = TrainStep(model, opt, lr_fn, reducer=reducer)
+            copies, hooks = _grad_copies(params)
+            sync = reducer.synchronize
+
+            def checked_sync(sync=sync, params=params, copies=copies,
+                             result=result):
+                out = sync()
+                for j, p in enumerate(params):
+                    leafwise = copies[j].clone()
+                    dist.all_reduce(leafwise)
+                    leafwise.div_(world)
+                    if not torch.equal(p.grad, leafwise):
+                        result["merged_equals_leafwise"] = False
+                return out
+
+            reducer.synchronize = checked_sync
+            for k in range(GLOO_STEPS):
+                xb, yb = bundle.train.load_batch(0, k)
+                x = torch.from_numpy(xb).to(dev).movedim(-1, -3).contiguous()
+                y = torch.from_numpy(yb.astype(np.int64)).to(dev)
+                step(x[None], y[None])
+                flat = torch.cat([p.detach().reshape(-1) for p in params]).cpu()
+                gathered = [torch.empty_like(flat) for _ in range(world)]
+                dist.all_gather(gathered, flat)
+                if not all(torch.equal(t, gathered[0]) for t in gathered):
+                    result["params_identical"] = False
+                result["steps"] += 1
+            result["num_groups"] = reducer.num_groups
+            result["num_leaves"] = len(params)
+            result["launches"] = reducer.launches
+            for h in hooks:
+                h.remove()
+            reducer.detach()
+    finally:
+        dist.destroy_process_group()
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+
+
+def train_phase_gloo(tb: list) -> dict:
+    """(c) Two processes on the one card over gloo (NCCL refuses two ranks
+    on one device): GLOO_STEPS steps of mgwfbp on phase (b)'s measured tb
+    (the trainer broadcasts rank 0's), on the ``ici`` prior at two workers
+    and on MERGING_LINK; both ranks' parameters are bit-identical after
+    every step and each step's merged gradients equal, bit for bit, the
+    same gradients reduced leaf by leaf."""
+    import torch.multiprocessing as mp
+
+    world = 2
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_gloo_") as d:
+        ctx = mp.get_context("spawn")
+        outs = [os.path.join(d, f"rank{r}.json") for r in range(world)]
+        procs = [
+            ctx.Process(target=_gloo_rank,
+                        args=(r, world, os.path.join(d, "rdv"), outs[r],
+                              TRAIN_DEVICE, tb))
+            for r in range(world)
+        ]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(300)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in procs]
+        results = []
+        for path in outs:
+            if os.path.exists(path):
+                with open(path) as f:
+                    results.append(json.load(f))
+    if codes != [0] * world or len(results) != world:
+        fail(f"gloo phase: ranks exited {codes}")
+    for rank_results in results:
+        if len(rank_results) != len(GLOO_LINKS):
+            fail(f"gloo phase: {rank_results}")
+        for r in rank_results:
+            if r["steps"] != GLOO_STEPS or not r["merged_equals_leafwise"] or (
+                not r["params_identical"]
+            ):
+                fail(f"gloo phase: {r}")
+    merged = results[0][1]
+    if merged["num_groups"] >= merged["num_leaves"]:
+        fail(f"gloo phase: {merged['cost_model']} merged no leaves ({merged})")
+    runs = []
+    for i, r in enumerate(results[0]):
+        print(f"train (c): 2 ranks over gloo, {r['cost_model']}: "
+              f"{GLOO_STEPS} steps, {r['num_groups']} groups; merged == "
+              "leaf-by-leaf and the ranks' parameters equal, bit for bit, "
+              "after every step", flush=True)
+        runs.append({"cost_model": r["cost_model"],
+                     "num_groups": r["num_groups"],
+                     "launches": [rr[i]["launches"] for rr in results]})
+    return {"world": world, "steps": GLOO_STEPS,
+            "num_groups": runs[0]["num_groups"], "launches": runs[0]["launches"],
+            "runs": runs,
+            "merged_equals_leafwise_bitwise": True,
+            "params_identical_every_step": True}
+
+
+def phase_train() -> dict:
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_train_") as ckpt:
+        a = train_phase_trainer(ckpt)
+    b = train_phase_reducer()
+    c = train_phase_gloo(b["tb"])
+    return {
+        "model": "resnet20", "step_ms": a["step_ms"],
+        "images_per_s": a["images_per_s"], "busy_share": a["busy_share"],
+        "num_groups": b["num_groups"], "groups": b["groups"],
+        "merging_num_groups": b["merging"]["num_groups"],
+        "merging_groups": b["merging"]["groups"],
+        "tb_total_s": b["tb_total_s"], "tb_source": b["tb_source"],
+        "allreduce_launches_per_step": b["allreduce_launches_per_step"],
+        "arrival": {
+            k: b[k] for k in (
+                "arrival_positions_of_the_stem_in_the_permutation",
+                "arrival_positions_of_the_stem_measured",
+                "permutation_order", "measured_hook_order",
+            )
+        },
+        "trainer": a, "reducer": {
+            k: ({kk: vv for kk, vv in v.items() if kk != "groups"}
+                if k == "merging" else v)
+            for k, v in b.items()
+            if k not in ("permutation_order", "measured_hook_order", "groups",
+                         "tb")
+        },
+        "gloo": c,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -493,6 +983,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(gen)
     launches, latencies = phase_serve(gen)
+    train = phase_train()
 
     serve = rows[0]
     kernels = [{
@@ -513,6 +1004,7 @@ def main() -> int:
     }]
     print(json.dumps({"flash_attention_shapes": rows}))
     print(json.dumps({"predict_latencies": latencies}))
+    print(json.dumps({"train": train}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

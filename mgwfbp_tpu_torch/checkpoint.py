@@ -10,10 +10,11 @@ manifest is renamed into place last, so its presence is the commit marker.
 ``ShardSource`` is a copy of the JAX package's reader (this package does not
 import that one): it reads replicated and sharded (``rs_fwd_ag`` /
 ``rs_opt_ag``) sections alike, one leaf or one element range at a time off
-numpy memmaps. ``save_replicated_step`` writes what the JAX trainer writes
-for a single-process ``all_reduce`` run: a replicated ``params`` section,
-an empty ``batch_stats`` section, ``p00000/params.l<j>.npy`` in the order
-jax flattens the parameter tree, and the manifest last.
+numpy memmaps; ``read_step`` reads a step's params and batch statistics.
+``save_replicated_step`` writes what the JAX trainer writes for a
+single-process ``all_reduce`` run: replicated ``params`` and
+``batch_stats`` sections, ``p00000/<section>.l<j>.npy`` in the order jax
+flattens each tree, and the manifest last.
 
 numpy has no bfloat16 without the ``ml_dtypes`` package, which this package
 does not need: a bfloat16 leaf is carried as its raw 16-bit patterns
@@ -30,7 +31,7 @@ from typing import Any, Callable, Mapping, Optional
 import numpy as np
 import torch
 
-from mgwfbp_tpu_torch.convert import flatten_flax, keystr
+from mgwfbp_tpu_torch.convert import flatten_flax, flax_path, keystr
 
 SHARD_SUBDIR = "sharded"
 MANIFEST_FILE = "manifest.json"
@@ -434,26 +435,30 @@ class ShardSource:
 
 def save_replicated_step(
     directory: str, step: int, params: Mapping[str, Any],
-    *, meta: Optional[dict] = None,
+    *, batch_stats: Optional[Mapping[str, Any]] = None,
+    meta: Optional[dict] = None,
 ) -> str:
-    """Commit one step of ``params`` (a Flax-form tree, nested or flat
-    dotted dict of numpy arrays, e.g. ``convert.params_to_flax(module)``)
-    in the shard-native format, as a single-process ``all_reduce`` run of
-    the JAX trainer writes it. Returns the step directory."""
-    leaves = flatten_flax(params)
+    """Commit one step of ``params`` and ``batch_stats`` (Flax-form trees,
+    nested or flat dotted dicts of numpy arrays, e.g. from
+    ``convert.variables_to_flax(module)``) in the shard-native format, as
+    a single-process ``all_reduce`` run of the JAX trainer writes it: no
+    optimizer section, so a JAX restore keeps its own optimizer state.
+    Returns the step directory."""
     step_dir = os.path.join(directory, SHARD_SUBDIR, f"{int(step):08d}")
     os.makedirs(step_dir, exist_ok=True)
     tmp = os.path.join(step_dir, f".tmp.p00000.{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
-    docs = []
-    for j, (path, leaf) in enumerate(leaves.items()):
-        arr = np.ascontiguousarray(leaf)
-        docs.append({
-            "path": keystr(path),
-            "shape": [int(s) for s in arr.shape],
-            "dtype": arr.dtype.name,
-        })
-        np.save(os.path.join(tmp, f"params.l{j}.npy"), arr)
+    sections: dict[str, list[dict]] = {}
+    for section, tree in (("params", params), ("batch_stats", batch_stats)):
+        docs = sections[section] = []
+        for j, (path, leaf) in enumerate(flatten_flax(tree or {}).items()):
+            arr = np.ascontiguousarray(leaf)
+            docs.append({
+                "path": keystr(path),
+                "shape": [int(s) for s in arr.shape],
+                "dtype": arr.dtype.name,
+            })
+            np.save(os.path.join(tmp, f"{section}.l{j}.npy"), arr)
     final = os.path.join(step_dir, "p00000")
     if os.path.isdir(final):  # a torn previous attempt never committed
         shutil.rmtree(final)
@@ -465,11 +470,11 @@ def save_replicated_step(
         "process_count": 1,
         "mesh_axes": {"data": 1, "seq": 1},
         "comm_op": "all_reduce",
-        "leaves": docs,
+        "leaves": sections["params"],
         "rng": [],
         "meta": dict(meta or {"iteration": int(step)}),
         "params": {"kind": "replicated"},
-        "batch_stats": {"kind": "replicated", "leaves": []},
+        "batch_stats": {"kind": "replicated", "leaves": sections["batch_stats"]},
     }
     mpath = os.path.join(step_dir, MANIFEST_FILE)
     mtmp = mpath + ".tmp"
@@ -477,3 +482,29 @@ def save_replicated_step(
         json.dump(manifest, f)
     os.replace(mtmp, mpath)  # the commit
     return step_dir
+
+
+def read_step(directory: str, step: int) -> tuple[dict, dict, dict]:
+    """(params, batch_stats, meta) of a committed step, whichever package
+    wrote it: flat dicts of dotted Flax path -> numpy array (the storage
+    type of the manifest dtype) and the manifest's ``meta``."""
+    step_dir = os.path.join(directory, SHARD_SUBDIR, f"{int(step):08d}")
+    try:
+        with open(os.path.join(step_dir, MANIFEST_FILE)) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError) as e:
+        raise CheckpointRestoreError(
+            f"step {step} in {directory!r} has no readable manifest ({e})"
+        ) from e
+    src = ShardSource(step_dir, manifest)
+    src.validate()
+
+    def section(name: str) -> dict:
+        if src.section_kind(name) == "none":
+            return {}
+        return {
+            flax_path(doc["path"]): np.asarray(src.read_leaf(name, j))
+            for j, doc in enumerate(src.section_docs(name))
+        }
+
+    return section("params"), section("batch_stats"), src.meta

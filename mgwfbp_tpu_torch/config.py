@@ -1,0 +1,126 @@
+"""Training configuration (counterpart of ``mgwfbp_tpu/config.py``).
+
+One dataclass with per-model presets, ``MGWFBP_<FIELD>`` environment
+overrides and keyword overrides, resolved by ``make_config`` exactly as the
+JAX package resolves them. Only the fields the port's training path reads
+are kept; the rest of the JAX config (lowerings other than ``all_reduce``,
+autotune, telemetry, resilience, serving) is listed in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    # model/data
+    dnn: str = "resnet20"
+    dataset: str = "cifar10"
+    data_dir: str = "./data"
+    batch_size: int = 32  # per-worker batch (weak scaling)
+    lr: float = 0.1
+    max_epochs: int = 141
+    nsteps_update: int = 1  # gradient accumulation micro-steps
+    augment: bool = True  # train-split augmentation
+
+    # distributed: the number of data-parallel workers (one per card)
+    nworkers: int = 1
+
+    # MG-WFBP scheduler
+    policy: str = "auto"  # auto | mgwfbp | threshold | single | wfbp | none
+    threshold: int = 0  # elements, for policy='threshold'
+    connection: str = "ici"  # cost-model link class
+    comm_profile: Optional[str] = None  # path to a calibrated alpha-beta json
+
+    # numerics
+    comm_dtype: Optional[str] = None  # wire dtype, e.g. 'bfloat16'
+    weight_decay: float = 1e-4
+    momentum: float = 0.9
+    norm_clip: Optional[float] = None
+
+    # schedule
+    lr_schedule: str = "auto"  # auto | step | cosine | ptb | anneal | vgg | const
+    warmup_epochs: int = 5
+
+    # io / bookkeeping
+    logdir: str = "./logs"
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every_epochs: int = 1
+    grad_guard: bool = True  # drop the update on non-finite gradients
+    seed: int = 0
+    num_batches_per_epoch: Optional[int] = None
+    eval_every_epochs: int = 1
+
+    def tag(self) -> str:
+        from mgwfbp_tpu_torch.utils.logging import run_tag
+
+        return run_tag(dataclasses.asdict(self))
+
+
+# Dataset-keyed SGD constants; make_config fills them for any model trained
+# on that dataset unless the preset or caller overrides.
+_DATASET_SGD: dict[str, dict] = {
+    "imagenet": dict(momentum=0.875, weight_decay=2 * 3.0517578125e-05),
+    "ptb": dict(momentum=0.0, weight_decay=0.0),
+}
+# The JAX package's presets (its transformer preset also sets the LM window
+# length, which belongs to the language-model training path, not ported yet).
+PRESETS: dict[str, dict] = {
+    "mnistnet": dict(dataset="mnist", batch_size=64, lr=0.01, max_epochs=10),
+    "lenet": dict(dataset="mnist", batch_size=64, lr=0.01, max_epochs=10),
+    "resnet20": dict(dataset="cifar10", batch_size=32, lr=0.1, max_epochs=141),
+    "resnet56": dict(dataset="cifar10", batch_size=32, lr=0.1, max_epochs=141),
+    "resnet110": dict(dataset="cifar10", batch_size=32, lr=0.1, max_epochs=141),
+    "vgg16": dict(dataset="cifar10", batch_size=128, lr=0.1, max_epochs=141,
+                  lr_schedule="vgg"),
+    "resnet50": dict(dataset="imagenet", batch_size=128, lr=0.01, max_epochs=70),
+    "resnet152": dict(dataset="imagenet", batch_size=32, lr=0.01, max_epochs=70),
+    "densenet121": dict(dataset="imagenet", batch_size=64, lr=0.01, max_epochs=70),
+    "densenet161": dict(dataset="imagenet", batch_size=32, lr=0.01, max_epochs=70),
+    "densenet201": dict(dataset="imagenet", batch_size=64, lr=0.01, max_epochs=70),
+    "googlenet": dict(dataset="imagenet", batch_size=64, lr=0.01, max_epochs=70),
+    "inceptionv3": dict(dataset="imagenet", batch_size=64, lr=0.01, max_epochs=70),
+    "inceptionv4": dict(dataset="imagenet", batch_size=64, lr=0.01, max_epochs=70),
+    "alexnet": dict(dataset="imagenet", batch_size=128, lr=0.01, max_epochs=70),
+    "lstm": dict(dataset="ptb", batch_size=20, lr=22.0, max_epochs=40,
+                 lr_schedule="ptb", norm_clip=0.25),
+    "transformer": dict(dataset="ptb", batch_size=16, lr=1.0, max_epochs=40,
+                        lr_schedule="cosine", weight_decay=1e-5, momentum=0.9),
+    "lstman4": dict(dataset="an4", batch_size=4, lr=2e-4, max_epochs=100,
+                    lr_schedule="anneal", norm_clip=400.0),
+    "fcn5net": dict(dataset="mnist", batch_size=64, lr=0.05, max_epochs=10),
+    "lr": dict(dataset="mnist", batch_size=64, lr=0.01, max_epochs=10),
+}
+
+
+def make_config(dnn: str, **overrides) -> TrainConfig:
+    """Config for a model with its preset applied, then ``MGWFBP_<FIELD>``
+    environment and keyword overrides (None values are ignored)."""
+    base = dict(PRESETS.get(dnn, {}))
+    base["dnn"] = dnn
+    for field in dataclasses.fields(TrainConfig):
+        if field.name == "dnn":
+            # the model comes from the caller; an MGWFBP_DNN left in the
+            # environment would mix one model's name with another's preset
+            continue
+        env = os.environ.get(f"MGWFBP_{field.name.upper()}")
+        if env is not None:
+            base[field.name] = _coerce(env, field.type)
+    base.update({k: v for k, v in overrides.items() if v is not None})
+    for k, v in _DATASET_SGD.get(base.get("dataset", "cifar10"), {}).items():
+        base.setdefault(k, v)
+    return TrainConfig(**base)
+
+
+def _coerce(value: str, typ) -> object:
+    s = str(typ)
+    if "int" in s:
+        return int(value)
+    if "float" in s:
+        return float(value)
+    if "bool" in s:
+        return value.lower() in ("1", "true", "yes")
+    return value

@@ -7,17 +7,28 @@ leaf is addressed by the dotted form of that path (``Block_0.qkv.kernel``);
 ``flax_path`` turns either spelling into the dotted one.
 
 Name and layout rules (Flax -> torch):
-  * module ``Block_<i>`` -> ``blocks.<i>``; every other module keeps its name;
+  * module ``<Type>_<i>`` inside a container -> ``<container>.<i>``
+    (``Block_3`` -> ``blocks.3``, ``BasicBlock_3`` -> ``blocks.3``); a
+    module's ``FLAX_NAMES`` renames its children (``ConvBN_0`` ->
+    ``conv1``, ``Conv_0`` -> ``conv``, ``BatchNorm_0`` -> ``bn``); every
+    other module keeps its name;
   * ``Dense.kernel`` (in, out) -> ``Linear.weight`` (out, in), transposed;
-  * ``LayerNorm.scale`` -> ``LayerNorm.weight``;
+  * ``Conv.kernel`` (H, W, I, O) -> ``Conv2d.weight`` (O, I, H, W);
+  * ``LayerNorm.scale`` / ``BatchNorm.scale`` -> ``weight``;
   * ``Embed.embedding`` (num, d) -> ``Embedding.weight`` (num, d), as is;
-  * ``bias`` -> ``bias``.
+  * ``bias`` -> ``bias``;
+  * the ``batch_stats`` collection's ``mean`` / ``var`` ->
+    ``running_mean`` / ``running_var``.
+
+``params_from_flax``/``torch_key`` map by name alone (the transformer's
+layout); ``state_from_flax``/``variables_to_flax`` walk the module, which
+every model's layout needs.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -68,19 +79,6 @@ def _torch_module_path(flax_modules: list[str]) -> list[str]:
     return out
 
 
-def _flax_module_path(torch_modules: list[str]) -> list[str]:
-    out: list[str] = []
-    i = 0
-    while i < len(torch_modules):
-        if torch_modules[i] == "blocks" and i + 1 < len(torch_modules):
-            out.append(f"Block_{torch_modules[i + 1]}")
-            i += 2
-        else:
-            out.append(torch_modules[i])
-            i += 1
-    return out
-
-
 def torch_key(path: str) -> str:
     """state_dict key of a dotted Flax leaf path."""
     *mods, leaf = flax_path(path).split(".")
@@ -108,28 +106,152 @@ def params_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return state
 
 
+def flax_module_paths(module: nn.Module) -> dict[str, str]:
+    """torch submodule path -> dotted Flax module path, for every submodule.
+
+    Containers (``nn.ModuleList``/``nn.Sequential``) are transparent and
+    their i-th child is named ``<TypeName>_<i>`` (Flax's auto-name: a
+    ``Block`` in ``blocks`` is ``Block_<i>``, a ``BasicBlock`` is
+    ``BasicBlock_<i>``); any other child keeps its attribute name unless
+    its parent's ``FLAX_NAMES`` renames it (``conv1`` -> ``ConvBN_0``)."""
+    out: dict[str, str] = {}
+
+    def walk(mod: nn.Module, tpath: str, fpath: str) -> None:
+        out[tpath] = fpath
+        names = getattr(mod, "FLAX_NAMES", {})
+        for name, child in mod.named_children():
+            tp = f"{tpath}.{name}" if tpath else name
+            if isinstance(child, (nn.ModuleList, nn.Sequential)):
+                for i, sub in child.named_children():
+                    fp = f"{type(sub).__name__}_{i}"
+                    walk(sub, f"{tp}.{i}", f"{fpath}.{fp}" if fpath else fp)
+            else:
+                fp = names.get(name, name)
+                walk(child, tp, f"{fpath}.{fp}" if fpath else fp)
+
+    walk(module, "", "")
+    return out
+
+
+# (Flax collection, Flax leaf) -> (torch attribute, torch -> Flax layout,
+# Flax -> torch layout), per module type; conv kernels are (H, W, I, O) in
+# Flax and (O, I, H, W) in torch, dense kernels (in, out) and (out, in)
+_T = (lambda t: t.t(), lambda t: t.t())
+_CONV = (lambda t: t.permute(2, 3, 1, 0), lambda t: t.permute(3, 2, 0, 1))
+_ID = (lambda t: t, lambda t: t)
+
+
+def _leaf_rules(sub: nn.Module) -> dict[tuple[str, str], tuple]:
+    from mgwfbp_tpu_torch.models.common import BatchNorm
+
+    if isinstance(sub, nn.Linear):
+        return {("params", "kernel"): ("weight", *_T),
+                ("params", "bias"): ("bias", *_ID)}
+    if isinstance(sub, nn.Conv2d):
+        rules = {("params", "kernel"): ("weight", *_CONV)}
+        if sub.bias is not None:
+            rules[("params", "bias")] = ("bias", *_ID)
+        return rules
+    if isinstance(sub, nn.LayerNorm):
+        return {("params", "scale"): ("weight", *_ID),
+                ("params", "bias"): ("bias", *_ID)}
+    if isinstance(sub, nn.Embedding):
+        return {("params", "embedding"): ("weight", *_ID)}
+    if isinstance(sub, BatchNorm):
+        return {("params", "scale"): ("weight", *_ID),
+                ("params", "bias"): ("bias", *_ID),
+                ("batch_stats", "mean"): ("running_mean", *_ID),
+                ("batch_stats", "var"): ("running_var", *_ID)}
+    if any(True for _ in sub.parameters(recurse=False)):
+        raise TypeError(f"no Flax counterpart for module {type(sub).__name__}")
+    return {}
+
+
+def _leaf_map(module: nn.Module) -> dict[tuple[str, str], tuple]:
+    """(collection, dotted Flax leaf path) -> (state_dict key, torch ->
+    Flax layout, Flax -> torch layout) for every leaf of ``module``."""
+    subs = dict(module.named_modules())
+    out = {}
+    for tpath, fpath in flax_module_paths(module).items():
+        for (coll, leaf), (attr, to_flax, to_torch) in _leaf_rules(
+            subs[tpath]
+        ).items():
+            key = f"{tpath}.{attr}" if tpath else attr
+            out[(coll, f"{fpath}.{leaf}" if fpath else leaf)] = (
+                key, to_flax, to_torch,
+            )
+    return out
+
+
+def _nest(flat: Mapping[str, Any]) -> dict[str, Any]:
+    tree: dict[str, Any] = {}
+    for path, leaf in flat.items():
+        *mods, name = path.split(".")
+        node = tree
+        for part in mods:
+            node = node.setdefault(part, {})
+        node[name] = leaf
+    return tree
+
+
+def flax_leaves(
+    module: nn.Module, collection: str = "params"
+) -> list[tuple[str, torch.Tensor]]:
+    """(dotted Flax path, the module's own tensor) for every leaf of a
+    collection, in the order jax flattens the Flax tree (keys sorted at
+    every level): the leaf order, and so the leaf indices, of the JAX
+    package's gradient pytree."""
+    tensors = dict(module.named_parameters())
+    tensors.update(module.named_buffers())
+    paths = {
+        path: key for (coll, path), (key, _, _) in _leaf_map(module).items()
+        if coll == collection
+    }
+    return [(p, tensors[paths[p]]) for p in flatten_flax(paths)]
+
+
+def variables_to_flax(module: nn.Module) -> tuple[dict, dict]:
+    """(params, batch_stats): the module's parameters and batch statistics
+    as nested Flax-form dicts of float32 numpy arrays on the host."""
+    state = module.state_dict()
+    flat: dict[str, dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for (coll, path), (key, to_flax, _) in _leaf_map(module).items():
+        t = to_flax(state[key].detach()).to("cpu", torch.float32)
+        # a copy: a CPU module's own storage would change under the caller
+        flat[coll][path] = np.array(t.numpy(), copy=True)
+    return _nest(flat["params"]), _nest(flat["batch_stats"])
+
+
 def params_to_flax(module: nn.Module) -> dict[str, Any]:
     """The module's parameters as a nested Flax-form dict of numpy arrays
     (float32 on the host, whatever device the module lives on)."""
-    tree: dict[str, Any] = {}
-    for mod_name, sub in module.named_modules():
-        leaves: dict[str, torch.Tensor] = {}
-        if isinstance(sub, nn.Linear):
-            leaves = {"kernel": sub.weight.t(), "bias": sub.bias}
-        elif isinstance(sub, nn.LayerNorm):
-            leaves = {"scale": sub.weight, "bias": sub.bias}
-        elif isinstance(sub, nn.Embedding):
-            leaves = {"embedding": sub.weight}
-        elif any(True for _ in sub.parameters(recurse=False)):
-            raise TypeError(
-                f"no Flax counterpart for module {mod_name!r} "
-                f"({type(sub).__name__})"
-            )
-        if not leaves:
-            continue
-        node = tree
-        for part in _flax_module_path(mod_name.split(".")):
-            node = node.setdefault(part, {})
-        for leaf, t in leaves.items():
-            node[leaf] = t.detach().to("cpu", torch.float32).contiguous().numpy()
-    return tree
+    return variables_to_flax(module)[0]
+
+
+def state_from_flax(
+    module: nn.Module,
+    params: Mapping[str, Any],
+    batch_stats: Optional[Mapping[str, Any]] = None,
+) -> dict[str, torch.Tensor]:
+    """A state_dict for ``module`` from Flax-form ``params`` (and
+    ``batch_stats``), nested or flat dotted dicts of arrays. Every leaf the
+    module has must be given and every leaf given must exist: a mismatch
+    raises KeyError naming the leaves."""
+    rules = _leaf_map(module)
+    given = {("params", p): leaf for p, leaf in flatten_flax(params).items()}
+    for p, leaf in flatten_flax(batch_stats or {}).items():
+        given[("batch_stats", p)] = leaf
+    want = set(rules) if batch_stats is not None else {
+        k for k in rules if k[0] == "params"
+    }
+    missing, extra = sorted(want - set(given)), sorted(set(given) - set(rules))
+    if missing or extra:
+        raise KeyError(
+            f"Flax tree does not match {type(module).__name__}: missing "
+            f"{missing[:8]}, unexpected {extra[:8]}"
+        )
+    state = {}
+    for k, leaf in given.items():
+        key, _, to_torch = rules[k]
+        state[key] = to_torch(_to_tensor(leaf)).contiguous()
+    return state

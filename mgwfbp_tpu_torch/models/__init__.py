@@ -2,8 +2,9 @@
 
 ``create_model`` returns the module plus a ``ModelMeta`` describing the
 canonical input, with the same fields as the JAX registry's (the input
-dtype is a numpy dtype here). Only the transformer LM is ported so far;
-the rest of the zoo is listed in ROADMAP.md.
+dtype is a numpy dtype here; image inputs are NHWC, as the loaders hand
+them over). Ported so far: the CIFAR ResNets and the transformer LM; the
+rest of the zoo is listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -65,6 +66,41 @@ def create_model(name: str, dataset: Optional[str] = None,
             module, meta = factory(nc)
         meta = dataclasses.replace(meta, dataset=dataset)
     return module, meta
+
+
+CIFAR_HWC = (32, 32, 3)
+
+
+def _register_cifar_resnet(depth: int):
+    @register(f"resnet{depth}")
+    def _factory(nc, depth=depth):
+        from mgwfbp_tpu_torch.models.resnet_cifar import CifarResNet
+
+        nc = nc or 10
+        return (
+            CifarResNet(depth=depth, num_classes=nc),
+            ModelMeta(f"resnet{depth}", "cifar10", nc, CIFAR_HWC),
+        )
+
+
+for _d in (20, 32, 44, 56, 110):
+    _register_cifar_resnet(_d)
+
+
+def _register_preresnet(depth: int):
+    @register(f"preresnet{depth}")
+    def _factory(nc, depth=depth):
+        from mgwfbp_tpu_torch.models.resnet_cifar import CifarResNet
+
+        nc = nc or 10
+        return (
+            CifarResNet(depth=depth, num_classes=nc, preact=True),
+            ModelMeta(f"preresnet{depth}", "cifar10", nc, CIFAR_HWC),
+        )
+
+
+for _d in (20, 110):
+    _register_preresnet(_d)
 
 
 @register("transformer")

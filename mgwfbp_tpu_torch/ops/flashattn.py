@@ -216,21 +216,7 @@ def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     return o
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    causal: bool = True,
-    scale: Optional[float] = None,
-    block_q: int = 128,
-    block_k: int = 128,
-) -> torch.Tensor:
-    """Blockwise-softmax attention over (B, T, H, D) tensors.
-
-    Drop-in equivalent of ``ringattn.local_attention``; raises ValueError
-    for unsupported shapes (callers guard with ``flash_supported``). A CUDA
-    tensor runs the hand-written kernel (or raises); a CPU tensor runs
-    ``flash_attention_reference``."""
+def _dispatch(q, k, v, causal, scale, block_q, block_k) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, causal=causal, scale=scale, block_q=block_q,
@@ -242,6 +228,44 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _launch(q, k, v, causal, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward on either device; a backward that refuses, as
+    ``jax.grad`` through the JAX package's Pallas kernel does (it has no
+    reverse-mode rule). Without this the card's output would carry no
+    graph and a backward would silently drop dL/dq, dL/dk and dL/dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, block_q, block_k):
+        return _dispatch(q, k, v, causal, scale, block_q, block_k)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise NotImplementedError(
+            "flash_attention has no backward kernel yet (ROADMAP.md Queue 2, "
+            "the flash-attention backward); train through dense attention "
+            "(attn_impl='dense')"
+        )
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """Blockwise-softmax attention over (B, T, H, D) tensors.
+
+    Drop-in equivalent of ``ringattn.local_attention`` for the forward;
+    raises ValueError for unsupported shapes (callers guard with
+    ``flash_supported``). A CUDA tensor runs the hand-written kernel (or
+    raises); a CPU tensor runs ``flash_attention_reference``. A backward
+    through the result raises NotImplementedError on both devices."""
+    return _FlashAttention.apply(q, k, v, causal, scale, block_q, block_k)
 
 
 flash_attention.launches = 0

@@ -1,1 +1,3 @@
-"""Parallel attention of the port (counterpart of ``mgwfbp_tpu/parallel``)."""
+"""Parallelism of the port (counterpart of ``mgwfbp_tpu/parallel``): the
+merge solver and cost models, the hook-driven merged all-reduce, process
+groups, and dense attention."""

@@ -151,3 +151,83 @@ def test_transformer_flash_on_card_matches_dense(card):
         a, b = flash(x), dense(x)
     assert fa.flash_attention.launches == before + 2
     assert (a - b).abs().max().item() <= 1e-4
+
+
+def test_flash_backward_refuses_on_card(card):
+    q, k, v = (t.requires_grad_() for t in _qkv((1, 64, 2, 32), F32, card))
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v)
+    assert out.requires_grad and fa.flash_attention.launches == before + 1
+    with pytest.raises(NotImplementedError, match="backward"):
+        out.sum().backward()
+
+
+def _small_resnet(seed=3):
+    from mgwfbp_tpu_torch.models.common import init_weights as cnn_init
+    from mgwfbp_tpu_torch.models.resnet_cifar import CifarResNet
+
+    return cnn_init(CifarResNet(depth=8, widths=(4, 8, 16)),
+                    torch.Generator().manual_seed(seed))
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One optimizer step of the small ResNet from the same weights and
+    batch on the card and on the CPU (TF32 off): the same float32 math in
+    another order, within rtol 1e-4 / atol 1e-5."""
+    from mgwfbp_tpu_torch.optim import make_optimizer
+    from mgwfbp_tpu_torch.train import TrainStep
+
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(1, 8, 3, 16, 16).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 10, (1, 8)))
+    states = []
+    for dev in (torch.device("cpu"), card):
+        model = _small_resnet().to(dev)
+        opt, lr_fn, _ = make_optimizer(model.parameters(), 0.1,
+                                       lr_schedule="const")
+        m = TrainStep(model, opt, lr_fn)(x.to(dev), y.to(dev))
+        assert m["grads_nonfinite"] == 0.0
+        states.append({k: v.cpu() for k, v in model.state_dict().items()})
+    for k in states[0]:
+        torch.testing.assert_close(states[1][k], states[0][k], rtol=1e-4,
+                                   atol=1e-5, msg=k)
+
+
+def test_merged_allreduce_over_nccl_at_one_worker(card, tmp_path):
+    """At one worker over NCCL every merge group launches once per step and
+    the reduced gradients equal the pre-reduction gradients bit for bit."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.convert import flax_leaves
+    from mgwfbp_tpu_torch.parallel.allreduce import make_merged_allreduce
+    from mgwfbp_tpu_torch.parallel.costmodel import lookup_alpha_beta
+    from mgwfbp_tpu_torch.parallel.mesh import init_distributed
+    from mgwfbp_tpu_torch.train import cross_entropy
+
+    init_distributed(card, num_processes=1, process_id=0,
+                     init_method=f"file://{tmp_path / 'rdv'}")
+    try:
+        model = _small_resnet().to(card).train()
+        params = [t for _, t in flax_leaves(model)]
+        reducer = make_merged_allreduce(
+            model, policy="threshold", threshold=600,
+            cost_model=lookup_alpha_beta("ici", 1),
+        )
+        copies = {}
+        hooks = [p.register_post_accumulate_grad_hook(
+            lambda t, j=j: copies.__setitem__(j, t.grad.clone()))
+            for j, p in enumerate(params)]
+        rs = np.random.RandomState(5)
+        x = torch.from_numpy(rs.randn(8, 3, 16, 16).astype(np.float32)).to(card)
+        y = torch.from_numpy(rs.randint(0, 10, 8)).to(card)
+        reducer.begin(active=True)
+        cross_entropy(model(x), y).backward()
+        reducer.synchronize()
+        assert 1 < reducer.num_groups < len(params)
+        assert reducer.launch_log == list(range(reducer.num_groups))
+        assert all(torch.equal(p.grad, copies[j]) for j, p in enumerate(params))
+        for h in hooks:
+            h.remove()
+        reducer.detach()
+    finally:
+        dist.destroy_process_group()

@@ -108,6 +108,30 @@ def test_other_devices_raise_instead_of_falling_back():
         port.flash_attention(q, q, q)
 
 
+def test_backward_refuses_in_both_packages():
+    """The JAX kernel has no reverse-mode rule, so jax.grad through it
+    raises; the port's forward works under grad mode but a backward raises
+    too, on either device (the card's output would otherwise carry no
+    graph and drop dL/dq, dL/dk, dL/dv without a word)."""
+    import jax
+
+    arrays = _qkv(t=32)
+    jx = [jnp.asarray(a) for a in arrays]
+    with pytest.raises(AssertionError):  # pallas_call's missing rule
+        jax.grad(lambda q: jax_flash(q, jx[1], jx[2], block_q=16,
+                                     block_k=16).sum())(jx[0])
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrays)
+    out = port.flash_attention(q, k, v, block_q=16, block_k=16)
+    want = port.flash_attention_reference(q.detach(), k.detach(), v.detach(),
+                                          block_q=16, block_k=16)
+    assert out.requires_grad and torch.equal(out.detach(), want)
+    with pytest.raises(NotImplementedError, match="backward"):
+        out.sum().backward()
+    with torch.no_grad():  # serving: no graph, nothing refused
+        assert not port.flash_attention(q, k, v, block_q=16,
+                                        block_k=16).requires_grad
+
+
 def test_port_imports_no_jax_flax_or_reference():
     """Every module of the port, chip_smoke.py and chip_compare.py import
     without pulling jax, flax or mgwfbp_tpu into the interpreter."""

@@ -178,4 +178,4 @@ def test_registry_transformer_is_the_published_width():
     small, smeta = models.create_model("transformer", num_classes=77)
     assert small.vocab_size == 77 and smeta.num_classes == 77
     with pytest.raises(ValueError):
-        models.create_model("resnet20")
+        models.create_model("no_such_model")
