@@ -41,17 +41,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
          order and its reduced gradients equal, bit for bit, a copy taken
          before the reduction; the hooks' arrival order is printed beside
          the reducer's permutation;
+         Two more steps of each run are traced (profiling.
+         trace_group_times): per-group device times, or None and why;
      (c) two processes on the one card over gloo, GLOO_STEPS steps of
          mgwfbp on each of GLOO_LINKS: merged gradients equal the
          leaf-by-leaf all_reduce and both ranks' parameters are identical,
-         bit for bit, every step.
+         bit for bit, every step; then a few unchecked steps timed, and
+         telemetry.overlap.summarize of that reducer at that step time;
+     (d) calibration on the card: ``mgwfbp_tpu_torch.calibrate
+         --prior-extend 56GbIB`` at one worker over NCCL and ``--forward
+         --model resnet20``, both read back and checked (the card's name
+         in meta, gamma >= 0, pack_beta > 0, overlap in [0, 1], tb and tf
+         finite from hooks); ResNet-20's schedule solved on that profile at
+         1 and 16 workers beside (b)'s prior-based ones.
 
 Output, last lines: a JSON line each for the phase-2 shape table, the
 serving forward's breakdown (host time of one flush's run_padded, device
-time by kernel from torch.profiler), the /predict latencies and the
-training phase ({"train": ...}), the card's name and power limit
-(nvidia-smi), the kernels line ({"kernels": [...]}) and, last,
-{"ok": true, "device": {...}}.
+time by kernel from torch.profiler), the /predict latencies, the training
+phase ({"train": ...}) and the calibration phase ({"calibrate": ...}), the
+card's name and power limit (nvidia-smi), the kernels line ({"kernels":
+[...]}) and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -680,6 +689,8 @@ def _reducer_run(dev, bundle, tb, connection: str, nworkers: int) -> dict:
             fail(f"reducer phase ({connection}): non-finite loss at step {k}")
     for h in hooks:
         h.remove()
+    reducer.synchronize = sync
+    traced = _trace_reducer(step, reducer, bundle, dev)
     reducer.detach()
     g = reducer.num_groups
     label = f"reducer phase ({connection} at {nworkers} workers)"
@@ -701,7 +712,57 @@ def _reducer_run(dev, bundle, tb, connection: str, nworkers: int) -> dict:
         "allreduce_launches_per_step": launches,
         "bitwise_equal_to_pre_reduction_copy": True,
         "arrivals": list(reducer.arrivals),
+        "trace": traced,
     }
+
+
+TRACE_STEPS = 2  # phase (b): steps traced per run
+
+
+def _trace_reducer(step, reducer, bundle, dev) -> dict:
+    """TRACE_STEPS steps of a run under torch.profiler: each group's
+    all-reduce time (trace_group_times' arithmetic, None unless every
+    group's range holds a collective kernel), the device time of each
+    group's range whatever it holds (at one rank: the pack copies), the
+    kernels found in the ranges, and why there are no group times. A
+    reading, not a check."""
+    from mgwfbp_tpu_torch.profiling import (
+        collective_group_times,
+        group_times_from_rows,
+        is_collective_kernel,
+        trace_group_rows,
+    )
+
+    xb, yb = bundle.train.load_batch(0, 0)
+    x = torch.from_numpy(xb).to(dev).movedim(-1, -3).contiguous()[None]
+    y = torch.from_numpy(yb.astype(np.int64)).to(dev)[None]
+
+    def run():
+        for _ in range(TRACE_STEPS):
+            step(x, y)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    rows = trace_group_rows(run)
+    g = reducer.num_groups
+    kernels = sorted({ident.split(" ", 1)[1] for ident, _ in rows})
+    out = {"group_times_s": collective_group_times(rows, g, TRACE_STEPS),
+           "range_device_s": group_times_from_rows(rows, g, TRACE_STEPS),
+           "kernels": kernels,
+           "kernel_rows_per_step": len(rows) / TRACE_STEPS}
+    if out["group_times_s"] is None:
+        bare = [gi for gi in range(g) if not any(
+            ident.startswith(f"mgwfbp_group{gi:04d} ")
+            and is_collective_kernel(ident.split(" ", 1)[1])
+            for ident, _ in rows)]
+        out["reason"] = (
+            f"{len(bare)} of {g} groups had no collective kernel in their "
+            "range (NCCL launches none for a sum over one rank); "
+            "range_device_s is what their ranges held"
+            if rows else "the trace holds no device activity in any group's "
+            "range"
+        )
+    return out
 
 
 def train_phase_reducer() -> dict:
@@ -763,7 +824,7 @@ def train_phase_reducer() -> dict:
         "predicted_nonoverlap_s": ici["predicted_nonoverlap_s"],
         "allreduce_launches_per_step": ici["allreduce_launches_per_step"],
         "bitwise_equal_to_pre_reduction_copy": True,
-        "merging": merged,
+        "merging": merged, "trace": ici["trace"],
         "tb": list(tb), "tb_total_s": float(sum(tb)), "tb_source": tb.source,
         "arrival_positions_of_the_stem_in_the_permutation": stem,
         "arrival_positions_of_the_stem_measured": [
@@ -779,6 +840,15 @@ def train_phase_reducer() -> dict:
               f"{r['allreduce_launches_per_step'][0]} all-reduces per step "
               f"over {REDUCER_STEPS} steps, reduced == pre-reduction bit for "
               "bit", flush=True)
+        t = r["trace"]
+        times, ranges = t["group_times_s"], t["range_device_s"]
+        print(f"train (b): {r['cost_model']}: traced group all-reduce times "
+              + (f"sum {sum(times) * 1e3:.4f} ms over {len(times)} groups"
+                 if times is not None else f"None ({t['reason']})")
+              + "; device time in the groups' ranges "
+              + (f"sum {sum(ranges) * 1e3:.4f} ms" if ranges is not None
+                 else "None (some range held nothing)")
+              + f"; kernels in the ranges: {t['kernels']}", flush=True)
     print(f"train (b): tb {sum(tb) * 1e3:.3f} ms ({tb.source}); the stem is "
           f"at arrival positions {stem} of the permutation, "
           f"{out['arrival_positions_of_the_stem_measured']} as measured",
@@ -860,11 +930,39 @@ def _gloo_rank(rank: int, world: int, rdv: str, out_path: str,
             result["launches"] = reducer.launches
             for h in hooks:
                 h.remove()
+            reducer.synchronize = sync
+            result["overlap"] = _gloo_overlap(
+                step, reducer, bundle, dev, tb,
+                lookup_alpha_beta(connection, nworkers),
+            )
             reducer.detach()
     finally:
         dist.destroy_process_group()
         with open(out_path, "w") as f:
             json.dump(results, f)
+
+
+GLOO_TIMED_STEPS = 3  # phase (c): unchecked steps timed for the overlap
+
+
+def _gloo_overlap(step, reducer, bundle, dev, tb, cost_model) -> dict:
+    """GLOO_TIMED_STEPS steps without the checks (``measure_step_time``: the
+    host clock, a synchronisation at the end), and the overlap accounting of this
+    reducer at that step time (starts replayed from tb in the arrival
+    permutation's order)."""
+    from mgwfbp_tpu_torch.profiling import measure_step_time
+    from mgwfbp_tpu_torch.telemetry import summarize
+
+    xb, yb = bundle.train.load_batch(0, GLOO_STEPS)
+    x = torch.from_numpy(xb).to(dev).movedim(-1, -3).contiguous()[None]
+    y = torch.from_numpy(yb.astype(np.int64)).to(dev)[None]
+    step_s = measure_step_time(step, x, y, warmup=1, iters=GLOO_TIMED_STEPS,
+                               device=dev)
+    s = summarize(reducer, cost_model, tb, step_s)
+    return {**s.to_event_fields(),
+            "note": "starts replayed from tb in the arrival permutation's "
+                    "order, which places the stem among the first arrivals "
+                    "although its hooks fire last"}
 
 
 def train_phase_gloo(tb: list) -> dict:
@@ -921,9 +1019,16 @@ def train_phase_gloo(tb: list) -> dict:
               f"{GLOO_STEPS} steps, {r['num_groups']} groups; merged == "
               "leaf-by-leaf and the ranks' parameters equal, bit for bit, "
               "after every step", flush=True)
+        ov = r["overlap"]
+        print(f"train (c): {r['cost_model']}: overlap ({ov['attribution']}) "
+              f"efficiency {ov['efficiency']:.4f}: {ov['comm_s'] * 1e3:.4f} ms "
+              f"comm per step = {ov['hidden_s'] * 1e3:.4f} hidden + "
+              f"{ov['exposed_s'] * 1e3:.4f} exposed, step "
+              f"{ov['step_s'] * 1e3:.3f} ms", flush=True)
         runs.append({"cost_model": r["cost_model"],
                      "num_groups": r["num_groups"],
-                     "launches": [rr[i]["launches"] for rr in results]})
+                     "launches": [rr[i]["launches"] for rr in results],
+                     "overlap": [rr[i]["overlap"] for rr in results]})
     return {"world": world, "steps": GLOO_STEPS,
             "num_groups": runs[0]["num_groups"], "launches": runs[0]["launches"],
             "runs": runs,
@@ -931,12 +1036,12 @@ def train_phase_gloo(tb: list) -> dict:
             "params_identical_every_step": True}
 
 
-def phase_train() -> dict:
+def phase_train() -> tuple[dict, dict]:
     with tempfile.TemporaryDirectory(prefix="mgwfbp_train_") as ckpt:
         a = train_phase_trainer(ckpt)
     b = train_phase_reducer()
     c = train_phase_gloo(b["tb"])
-    return {
+    return b, {
         "model": "resnet20", "step_ms": a["step_ms"],
         "images_per_s": a["images_per_s"], "busy_share": a["busy_share"],
         "num_groups": b["num_groups"], "groups": b["groups"],
@@ -962,6 +1067,111 @@ def phase_train() -> dict:
     }
 
 
+def _solve_on(cost_model, tb) -> dict:
+    """ResNet-20's mgwfbp schedule (arrival order, as the reducer solves
+    it) on a cost model and tb."""
+    from mgwfbp_tpu_torch.convert import flax_leaves, keystr
+    from mgwfbp_tpu_torch.models import create_model
+    from mgwfbp_tpu_torch.parallel.allreduce import arrival_order
+    from mgwfbp_tpu_torch.parallel.solver import LayerSpec, build_schedule
+
+    model, _ = create_model("resnet20")
+    leaves = flax_leaves(model)
+    perm = arrival_order(len(leaves), names=[keystr(p) for p, _ in leaves])
+    specs = [LayerSpec(keystr(leaves[j][0]), leaves[j][1].numel(), 4)
+             for j in perm]
+    s = build_schedule(specs, tb, policy="mgwfbp", cost_model=cost_model)
+    return {"num_groups": s.num_groups,
+            "groups": [list(g) for g in s.groups],
+            "largest_group": max(len(g) for g in s.groups),
+            "predicted_nonoverlap_s": s.predicted_nonoverlap_time}
+
+
+def phase_calibrate(b: dict, gloo: dict) -> dict:
+    """(d) The cost model measured on the card: ``calibrate --prior-extend
+    56GbIB`` at one worker over NCCL and ``--forward --model resnet20`` at
+    the per-worker batch, read back and checked; ResNet-20's schedule on
+    that profile at 1 and 16 workers beside (b)'s prior-based ones; (b)'s
+    traced group times and (c)'s overlap accounting."""
+    from mgwfbp_tpu_torch import calibrate
+    from mgwfbp_tpu_torch.parallel.costmodel import load_profile, resolve_profile
+    from mgwfbp_tpu_torch.profiling import load_layer_profile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_calibrate_") as d:
+        prof_path = os.path.join(d, "profile.json")
+        layer_path = os.path.join(d, "layers.json")
+        if calibrate.main(["--out", prof_path, "--prior-extend", "56GbIB"]):
+            fail("calibrate --prior-extend returned non-zero")
+        if calibrate.main(["--out", layer_path, "--forward", "--model",
+                           "resnet20", "--batch-size", "32"]):
+            fail("calibrate --forward returned non-zero")
+        with open(prof_path) as f:
+            meta = json.load(f)["meta"]
+        family = load_profile(prof_path)
+        layers = load_layer_profile(layer_path)
+    calibrate_s = time.perf_counter() - t0
+    card = torch.cuda.get_device_name(0)
+    measured = resolve_profile(family, 1)
+    if meta.get("device_kind") != card or meta.get("backend") != "nccl":
+        fail(f"calibrate meta names {meta.get('device_kind')!r} over "
+             f"{meta.get('backend')!r}, not {card!r} over nccl")
+    if not (measured.gamma >= 0.0 and measured.pack_beta > 0.0
+            and 0.0 <= measured.overlap <= 1.0):
+        fail(f"calibrated constants out of range: gamma {measured.gamma}, "
+             f"pack_beta {measured.pack_beta}, overlap {measured.overlap}")
+    for key in ("tb_s", "tf_s"):
+        if len(layers[key]) != 65 or not np.isfinite(layers[key]).all():
+            fail(f"calibrate --forward: {key} is not 65 finite values")
+    if layers["source"] != "hooks" or layers["tf_source"] != "hooks":
+        fail(f"calibrate --forward: sources {layers['source']}, "
+             f"{layers['tf_source']}, not hooks")
+    tb = b["tb"]
+    schedules = {}
+    for n in (1, 16):
+        schedules[str(n)] = _solve_on(resolve_profile(family, n), tb)
+    prior = {"ici at 1 workers": {k: b[k] for k in (
+                 "num_groups", "groups", "predicted_nonoverlap_s")},
+             f"{MERGING_LINK[0]} at {MERGING_LINK[1]} workers": {
+                 k: b["merging"][k] for k in (
+                     "num_groups", "groups", "predicted_nonoverlap_s")}}
+    for n, s in schedules.items():
+        print(f"calibrate (d): calibrated profile at {n} worker(s): "
+              f"{s['num_groups']} groups (largest {s['largest_group']} "
+              "leaves)", flush=True)
+    for k, s in prior.items():
+        print(f"calibrate (d): (b)'s {k}: {s['num_groups']} groups",
+              flush=True)
+    print(f"calibrate (d): alpha {measured.alpha:.4g} s, beta "
+          f"{measured.beta:.4g} s/B, gamma {measured.gamma:.4g} s, pack_beta "
+          f"{measured.pack_beta:.4g} s/B, overlap {measured.overlap:.4g}, tb "
+          f"{sum(layers['tb_s']) * 1e3:.4f} ms, tf "
+          f"{sum(layers['tf_s']) * 1e3:.4f} ms ({calibrate_s:.1f}s)",
+          flush=True)
+    return {
+        "device_kind": meta["device_kind"], "backend": meta["backend"],
+        "measured_world": 1, "seconds": calibrate_s,
+        "alpha_s": measured.alpha, "beta_s_per_byte": measured.beta,
+        "gamma_s": measured.gamma,
+        "pack_beta_s_per_byte": measured.pack_beta,
+        "overlap": measured.overlap,
+        "update_beta": "not measured (ROADMAP.md Queue 1 item 7)",
+        "curve": {"sizes_bytes": list(measured.sizes_bytes),
+                  "times_s": list(measured.times_s)},
+        "gamma_samples_s": meta.get("gamma_samples_s"),
+        "prior_fields": meta.get("prior_fields"),
+        "tb_total_s": sum(layers["tb_s"]), "tf_total_s": sum(layers["tf_s"]),
+        "tb_s": layers["tb_s"], "tf_s": layers["tf_s"],
+        "schedules_on_calibrated": schedules,
+        "schedules_on_priors": prior,
+        "trace_b": {"ici": b["trace"], "merging": b["merging"]["trace"]},
+        "overlap_c": [
+            {"cost_model": r["cost_model"], **r["overlap"][0]}
+            for r in gloo["runs"]
+        ],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -983,7 +1193,8 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(gen)
     launches, latencies = phase_serve(gen)
-    train = phase_train()
+    reducer_b, train = phase_train()
+    calibrated = phase_calibrate(reducer_b, train["gloo"])
 
     serve = rows[0]
     kernels = [{
@@ -1005,6 +1216,7 @@ def main() -> int:
     print(json.dumps({"flash_attention_shapes": rows}))
     print(json.dumps({"predict_latencies": latencies}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"calibrate": calibrated}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -1,0 +1,366 @@
+"""Communication calibration CLI (counterpart of ``mgwfbp_tpu/calibrate.py``):
+measure the merge schedule's cost model on the live world and write a
+profile that ``train_cli --comm-profile`` loads.
+
+    python -m mgwfbp_tpu_torch.calibrate --out p.json --prior-extend 56GbIB
+    python -m mgwfbp_tpu_torch.calibrate --out tb.json --forward --model resnet20
+    python -m mgwfbp_tpu_torch.train_cli --dnn resnet20 --comm-profile p.json
+
+The flags and the JSON report line are the JAX CLI's, plus ``--device``
+(default ``cuda``; a missing card raises, ``cpu`` runs over gloo). One
+process forms a one-rank group; several come from the launch environment
+``parallel.mesh.init_distributed`` reads (``MGWFBP_COORDINATOR`` /
+``MGWFBP_NUM_PROCESSES`` / ``MGWFBP_PROCESS_ID``, SLURM, OpenMPI), one per
+card, and rank 0 writes the profile. Modes:
+
+  * default: a sampled all-reduce curve plus gamma, pack_beta and overlap
+    over the whole world;
+  * ``--world-sizes 2,4``: one entry per extent, each over the first n
+    ranks, in a ``family`` profile;
+  * ``--prior-extend CONN``: the whole world measured, the other extents of
+    ``--prior-world-sizes`` taking CONN's alpha-beta with the measured
+    gamma, pack_beta and overlap (``meta`` names which field came from
+    where); the mode for one card, where a one-rank all-reduce moves no
+    bytes and alpha, beta measure only the dispatch floor;
+  * ``--forward --model M``: a layer profile (tb and tf from hooks,
+    schema 2).
+
+Not measured here: ``update_beta`` (written as 0.0 and named in ``meta``;
+it needs the sharded lowering) and ``--two-level``, both ROADMAP.md
+Queue 1 item 7.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import platform
+import tempfile
+from typing import Optional
+
+NOT_PORTED = "ROADMAP.md Queue 1 item 7"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="mgwfbp-calibrate-torch")
+    p.add_argument("--out", required=True, help="output profile json path")
+    p.add_argument("--min-log2", type=int, default=13,
+                   help="smallest payload (log2 elements)")
+    p.add_argument("--max-log2", type=int, default=24,
+                   help="largest payload (log2 elements)")
+    p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--warmup", type=int, default=5)
+    p.add_argument("--no-gamma", action="store_true",
+                   help="skip the bucket-path benchmarks (gamma, pack_beta): "
+                        "both save as 0.0")
+    p.add_argument("--no-overlap", action="store_true",
+                   help="skip the comm/compute overlap probe (saves 1.0)")
+    p.add_argument("--allgather", action="store_true",
+                   help="also sweep an all-gather and fit ag_fraction")
+    p.add_argument("--gamma-total-log2", type=int, default=22,
+                   help="fixed total payload for the gamma fit (log2 elems)")
+    p.add_argument("--world-sizes", default=None,
+                   help="comma list of world sizes to calibrate, each over "
+                        "the first n ranks: a 'family' profile")
+    p.add_argument("--prior-extend", default=None, metavar="CONN",
+                   help="measure the whole world and fill the extents of "
+                        "--prior-world-sizes from the named alpha-beta "
+                        "prior, with the measured gamma/pack_beta/overlap "
+                        "(a 'family' profile; meta separates measured_fields "
+                        "from prior_fields)")
+    p.add_argument("--prior-world-sizes", default="2,4,8,16",
+                   help="extents for the prior-extended entries")
+    p.add_argument("--two-level", dest="two_level", action="store_true",
+                   help=f"per-link calibration (not ported: {NOT_PORTED})")
+    p.add_argument("--forward", action="store_true",
+                   help="layer-profile mode (needs --model): per-layer "
+                        "backward AND forward seconds from hooks, written as "
+                        "a schema-2 layer profile (tb_profile.json format)")
+    p.add_argument("--model", default=None,
+                   help="model to benchmark in --forward mode (e.g. resnet20)")
+    p.add_argument("--batch-size", type=int, default=8,
+                   help="per-device batch for the --forward benchmark")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    return p
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    p = build_parser()
+    args = p.parse_args(argv)
+    if args.prior_extend and args.world_sizes:
+        p.error("--prior-extend and --world-sizes are mutually exclusive: "
+                "the former measures ONE world size and prior-fills the "
+                "rest, the latter measures each listed extent")
+    if args.forward and not args.model:
+        p.error("--forward needs --model (the layer profile is per-model)")
+    if args.two_level:
+        p.error(f"--two-level is not ported ({NOT_PORTED}: the two-level "
+                "cost model and its hierarchical lowering)")
+    if args.forward:
+        return _forward_main(args)
+    return _comm_main(args)
+
+
+def _device_kind(device) -> str:
+    import torch
+
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return f"cpu ({platform.machine() or 'unknown'})"
+
+
+def _calibrate_group(args, group, device):
+    """The sampled curve plus gamma, pack_beta, overlap (and ag_fraction)
+    over one process group."""
+    from mgwfbp_tpu_torch.parallel.costmodel import SampledCost
+    from mgwfbp_tpu_torch.profiling import (
+        fit_ag_fraction,
+        profile_allgather,
+        profile_allreduce,
+        profile_group_overhead,
+        profile_overlap_capability,
+        profile_pack_overhead,
+    )
+
+    sizes = tuple(2**k for k in range(args.min_log2, args.max_log2 + 1))
+    prof = profile_allreduce(group, device, sizes=sizes, warmup=args.warmup,
+                             iters=args.iters)
+    gamma, gsamples, pack_beta = 0.0, None, 0.0
+    if not args.no_gamma:
+        gamma, gsamples = profile_group_overhead(
+            group, device, alpha=prof.model.alpha,
+            total_elems=2**args.gamma_total_log2,
+        )
+        pack_beta = profile_pack_overhead(group, device)
+    overlap = 1.0
+    if not args.no_overlap:
+        overlap = profile_overlap_capability(group, device)
+    ag_fraction = 0.5
+    if args.allgather:
+        ag_prof = profile_allgather(group, device, sizes=sizes,
+                                    warmup=args.warmup, iters=args.iters)
+        ag_fraction = fit_ag_fraction(prof, ag_prof)
+    model = SampledCost(
+        sizes_bytes=tuple(prof.sizes_bytes),
+        times_s=tuple(prof.times_s),
+        ab=prof.model,
+        gamma=gamma,
+        overlap=overlap,
+        pack_beta=pack_beta,
+        update_beta=0.0,
+        ag_fraction=ag_fraction,
+    )
+    return model, prof, gsamples
+
+
+def _fields(model) -> dict:
+    return {
+        "alpha_s": model.alpha,
+        "beta_s_per_byte": model.beta,
+        "gamma_s": model.gamma,
+        "overlap": model.overlap,
+        "pack_beta_s_per_byte": model.pack_beta,
+        "update_beta_s_per_byte": model.update_beta,
+        "ag_fraction": model.ag_fraction,
+    }
+
+
+def _start_group(device_arg: str, rdv_dir: str):
+    """(device, started): the running world, else the launch
+    environment's, else a one-rank group of this process alone (rendezvous
+    in ``rdv_dir``); ``started`` says this call started it."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.parallel.mesh import init_distributed
+
+    running = dist.is_initialized()
+    device = init_distributed(device_arg)
+    if not dist.is_initialized():
+        device = init_distributed(
+            device, num_processes=1, process_id=0,
+            init_method=f"file://{os.path.join(rdv_dir, 'rendezvous')}",
+        )
+    return device, not running
+
+
+def _comm_main(args) -> int:
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.parallel.costmodel import (
+        AlphaBeta,
+        ProfileFamily,
+        lookup_alpha_beta,
+        save_profile,
+    )
+
+    rdv = tempfile.TemporaryDirectory(prefix="mgwfbp_calibrate_")
+    device, started = _start_group(args.device, rdv.name)
+    try:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        backend = dist.get_backend()
+        meta = {
+            "device_kind": _device_kind(device),
+            "n_devices": world,
+            "backend": backend,
+            "link": (
+                "nccl" if backend == "nccl"
+                else "gloo through host memory (not a card's link)"
+            ),
+            "payload_log2_range": [args.min_log2, args.max_log2],
+            "iters": args.iters,
+            "not_measured": {
+                "update_beta": f"saved as 0.0: needs the sharded lowering "
+                               f"({NOT_PORTED})",
+            },
+        }
+        if world == 1:
+            meta["note"] = (
+                "a one-rank all-reduce moves no bytes: alpha and beta here "
+                "measure the collective's dispatch floor"
+            )
+        if args.prior_extend:
+            measured, _, gamma_samples = _calibrate_group(args, None, device)
+            prior_sizes = sorted(
+                {int(s) for s in args.prior_world_sizes.split(",")} - {world}
+            )
+            entries: dict = {world: measured}
+            for n in prior_sizes:
+                ab = lookup_alpha_beta(args.prior_extend, n)
+                entries[n] = AlphaBeta(
+                    alpha=ab.alpha, beta=ab.beta, gamma=measured.gamma,
+                    overlap=measured.overlap, pack_beta=measured.pack_beta,
+                    update_beta=measured.update_beta,
+                    ag_fraction=measured.ag_fraction,
+                )
+            out_model = ProfileFamily(entries=entries)
+            meta["measured_fields"] = {
+                str(world): "all (sampled curve + gamma + pack_beta + overlap)",
+                **{
+                    str(n): "gamma, pack_beta, overlap "
+                            f"(measured at world={world} over {backend})"
+                    for n in prior_sizes
+                },
+            }
+            meta["prior_fields"] = {
+                str(n): f"alpha, beta ({args.prior_extend} prior: no world "
+                        f"of {n} available to measure)"
+                for n in prior_sizes
+            }
+            if gamma_samples:
+                meta["gamma_samples_s"] = [[k, t] for k, t in gamma_samples]
+            report = {
+                "measured_world": world,
+                **_fields(measured),
+                "prior_extended": prior_sizes,
+                "out": args.out,
+            }
+        elif args.world_sizes:
+            extents = sorted({int(s) for s in args.world_sizes.split(",")})
+            if extents[-1] > world:
+                raise SystemExit(
+                    f"--world-sizes {extents[-1]}: only {world} devices "
+                    "available (one process per device)"
+                )
+            entries, summary = {}, {}
+            for n in extents:
+                sub = dist.new_group(list(range(n)))
+                if rank < n:
+                    model, _, _ = _calibrate_group(args, sub, device)
+                    entries[n] = model
+                    summary[str(n)] = _fields(model)
+                dist.barrier()
+            out_model = ProfileFamily(entries=entries)
+            meta["world_sizes"] = extents
+            report = {"family": summary, "out": args.out}
+        else:
+            out_model, prof, gamma_samples = _calibrate_group(
+                args, None, device
+            )
+            if gamma_samples:
+                meta["gamma_samples_s"] = [[k, t] for k, t in gamma_samples]
+            report = {
+                **_fields(out_model),
+                "samples": len(prof.sizes_bytes),
+                "out": args.out,
+            }
+        if rank == 0:
+            os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+            save_profile(args.out, out_model, meta=meta)
+            print(json.dumps(report), flush=True)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+        rdv.cleanup()
+    return 0
+
+
+def _forward_main(args) -> int:
+    """--forward: per-layer backward and forward seconds from hooks on one
+    device, written as a schema-2 layer profile."""
+    import numpy as np
+    import torch
+
+    from mgwfbp_tpu_torch import models as zoo
+    from mgwfbp_tpu_torch.convert import flax_leaves, keystr
+    from mgwfbp_tpu_torch.models.common import init_weights
+    from mgwfbp_tpu_torch.parallel.allreduce import arrival_order
+    from mgwfbp_tpu_torch.profiling import (
+        benchmark_backward,
+        benchmark_forward,
+        layer_profile_doc,
+        save_layer_profile,
+    )
+    from mgwfbp_tpu_torch.train.step import cross_entropy
+    from mgwfbp_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    model, meta = zoo.create_model(args.model)
+    if meta.task != "classify":
+        raise SystemExit(
+            f"--forward --model {args.model}: {meta.task} models are not "
+            "ported to the training path yet (ROADMAP.md Queue 1)"
+        )
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.to(device).train()
+    b = max(args.batch_size, 1)
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(
+        rs.randn(b, *meta.input_shape).astype(np.float32)
+    ).to(device).movedim(-1, -3).contiguous()
+    y = torch.from_numpy(
+        rs.randint(0, meta.num_classes, (b,)).astype(np.int64)
+    ).to(device)
+    leaves = flax_leaves(model)
+    names = [keystr(path) for path, _ in leaves]
+    params = [t for _, t in leaves]
+    perm = arrival_order(len(names), names=names)
+
+    def loss_of():
+        return cross_entropy(model(x), y)
+
+    tb = benchmark_backward(model, loss_of, params, perm,
+                            warmup=args.warmup, iters=args.iters)
+    tf = benchmark_forward(model, loss_of, params, perm,
+                           warmup=args.warmup, iters=args.iters)
+    doc = layer_profile_doc(
+        tb, [names[j] for j in perm], tf=tf,
+        meta={"model": args.model, "batch_size": b,
+              "device_kind": _device_kind(device)},
+    )
+    save_layer_profile(args.out, doc)
+    print(json.dumps({
+        "model": args.model,
+        "tb_total_s": doc["total_s"],
+        "tf_total_s": doc["tf_total_s"],
+        "layers": len(doc["tb_s"]),
+        "source": doc["source"],
+        "tf_source": doc["tf_source"],
+        "out": args.out,
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -4,7 +4,8 @@ One dataclass with per-model presets, ``MGWFBP_<FIELD>`` environment
 overrides and keyword overrides, resolved by ``make_config`` exactly as the
 JAX package resolves them. Only the fields the port's training path reads
 are kept; the rest of the JAX config (lowerings other than ``all_reduce``,
-autotune, telemetry, resilience, serving) is listed in ROADMAP.md.
+autotune, the live telemetry plane, resilience, serving) is listed in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -50,6 +51,10 @@ class TrainConfig:
     checkpoint_dir: Optional[str] = None
     checkpoint_every_epochs: int = 1
     grad_guard: bool = True  # drop the update on non-finite gradients
+    # the event stream (telemetry/events.py): step spans, per-epoch overlap
+    # accounting; written to telemetry_dir, default <logdir>/<tag>
+    telemetry: bool = False
+    telemetry_dir: Optional[str] = None
     seed: int = 0
     num_batches_per_epoch: Optional[int] = None
     eval_every_epochs: int = 1

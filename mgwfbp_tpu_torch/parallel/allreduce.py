@@ -24,6 +24,12 @@ The permutation from leaves to arrival order is the JAX package's
 (``arrival_order``: natural-sorted Flax paths, reversed), so both packages
 solve identical schedules. The order in which hooks actually fire is
 recorded in ``arrivals``.
+
+While ``torch.profiler`` records, each group's pack and collective run
+inside a ``record_function`` range named ``group_scope_name(gi)`` (the JAX
+package's ``mgwfbp_groupNNNN`` scope), which ``profiling.trace_group_times``
+attributes device time by; an untraced step launches exactly the same
+work with no annotation.
 """
 
 from __future__ import annotations
@@ -49,6 +55,14 @@ from mgwfbp_tpu_torch.parallel.solver import (
 )
 
 _DIGITS = re.compile(r"(\d+)")
+
+GROUP_SCOPE_PREFIX = "mgwfbp_group"
+
+
+def group_scope_name(gi: int) -> str:
+    """Profiler-range label of merge group ``gi`` (the JAX package's
+    name-scope label)."""
+    return f"{GROUP_SCOPE_PREFIX}{gi:04d}"
 
 
 def _natural_key(name: str) -> tuple:
@@ -79,7 +93,8 @@ class MergedAllreduce:
     arrival positions. ``launches`` counts collectives launched (the chip
     smoke's launch counter); ``launch_log`` and ``arrivals`` record the
     group indices launched and the arrival positions whose hooks fired,
-    in order, since the last ``begin``."""
+    in order, since the last ``begin``. Collectives run over ``group``
+    (the default process group when None)."""
 
     def __init__(
         self,
@@ -90,6 +105,7 @@ class MergedAllreduce:
         *,
         mean: bool = True,
         comm_dtype: Optional[torch.dtype] = None,
+        group: Optional[dist.ProcessGroup] = None,
     ):
         self.schedule = schedule
         self.layout = layout
@@ -97,7 +113,8 @@ class MergedAllreduce:
         self.params = list(params)
         self.mean = mean
         self.comm_dtype = comm_dtype
-        self.world = dist.get_world_size()
+        self.group = group
+        self.world = dist.get_world_size(group)
         self._arr = [self.params[j] for j in self.perm]
         self._shapes = [tuple(p.shape) for p in self._arr]
         self._group_of = [0] * len(self._arr)
@@ -157,6 +174,13 @@ class MergedAllreduce:
             self._next += 1
 
     def _launch(self, gi: int) -> None:
+        if torch.autograd._profiler_enabled():
+            with torch.profiler.record_function(group_scope_name(gi)):
+                self._pack_and_reduce(gi)
+        else:
+            self._pack_and_reduce(gi)
+
+    def _pack_and_reduce(self, gi: int) -> None:
         buf = buckets_lib.pack_group(
             [p.grad for p in self._arr], self.layout, gi
         )
@@ -165,7 +189,7 @@ class MergedAllreduce:
         if self.comm_dtype is not None and buf.dtype != self.comm_dtype:
             buf = buf.to(self.comm_dtype)
         work = dist.all_reduce(
-            buf, op=dist.ReduceOp.SUM, async_op=True
+            buf, op=dist.ReduceOp.SUM, group=self.group, async_op=True
         )
         self._inflight.append((buf, work))
         self.launches += 1

@@ -5,10 +5,12 @@ The merge solver needs ``t_comm(bytes) = alpha + beta * bytes`` for one
 all-reduce over P workers. The tables below are the JAX package's: the
 reference clusters' measured constants (56Gb IB, 10GbE, 1GbE) and the
 uncalibrated TPU ICI/DCN priors, kept so that both packages solve the same
-schedules. None of them describes NCCL on NVLink; calibrating it is an open
-item (ROADMAP.md). Profiles (``--comm-profile``) are read and written in
-the JAX package's JSON schema; flat and sampled profiles are supported,
-two-level and per-world-size families are not ported.
+schedules. None of them describes a GPU: ``python -m
+mgwfbp_tpu_torch.calibrate`` measures the card's constants and writes a
+profile that ``--comm-profile`` loads. Profiles are read and written in
+the JAX package's JSON schema, so either package loads the other's:
+flat, sampled and per-world-size ``family`` profiles; two-level profiles
+are refused (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
-from typing import Mapping, Optional
+import os
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -213,16 +216,96 @@ PROFILE_SCHEMA_VERSION = 3
 _SUPPORTED_PROFILE_SCHEMAS = (1, 2, 3)
 
 
-def check_schema_version(d: dict, path: str = "<profile>") -> int:
+def check_schema_version(
+    d: dict,
+    path: str = "<profile>",
+    supported: Sequence[int] = _SUPPORTED_PROFILE_SCHEMAS,
+    what: str = "profile",
+) -> int:
+    """Validate a document's schema_version (absent = 1, the legacy
+    unstamped layout); a version this build does not read raises."""
     v = d.get("schema_version", 1)
-    if isinstance(v, bool) or not isinstance(v, int) or v not in (
-        _SUPPORTED_PROFILE_SCHEMAS
+    if isinstance(v, bool) or not isinstance(v, int) or v not in tuple(
+        supported
     ):
         raise ValueError(
-            f"{path}: unsupported profile schema_version {v!r}; this build "
-            f"reads versions {_SUPPORTED_PROFILE_SCHEMAS}"
+            f"{path}: unsupported {what} schema_version {v!r}; this build "
+            f"reads versions {tuple(supported)}"
         )
     return v
+
+
+def fit_alpha_beta(
+    sizes_bytes: Sequence[float], times_s: Sequence[float]
+) -> AlphaBeta:
+    """Closed-form least-squares fit of t = alpha + beta * size, with
+    alpha >= 0 and beta >= 0 (a negative startup latency would break the
+    merge rule ``t_wait < alpha``)."""
+    x = np.asarray(sizes_bytes, dtype=np.float64)
+    y = np.asarray(times_s, dtype=np.float64)
+    if x.size < 2:
+        raise ValueError("need at least two (size, time) samples to fit alpha-beta")
+    xm, ym = x.mean(), y.mean()
+    denom = ((x - xm) ** 2).sum()
+    if denom == 0.0:
+        raise ValueError("all sizes identical; cannot fit beta")
+    beta = float(((x - xm) * (y - ym)).sum() / denom)
+    if beta < 0.0:
+        # time falling with size is noise: the constant model at the mean
+        return AlphaBeta(alpha=max(float(ym), 0.0), beta=0.0)
+    alpha = float(ym - beta * xm)
+    if alpha < 0.0:
+        # refit through the origin under alpha >= 0
+        beta = max(float((x * y).sum() / (x * x).sum()), 0.0)
+        alpha = 0.0
+    return AlphaBeta(alpha=alpha, beta=beta)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProfileFamily:
+    """Calibrations of one link class at several world sizes (``calibrate
+    --world-sizes`` or ``--prior-extend``). ``at(P)`` returns an exact
+    extent's entry as it is (a sampled curve stays a curve) and resolves
+    any other extent by ``interp_alpha_beta`` over the entries'
+    two-parameter summaries."""
+
+    entries: Mapping[int, "AlphaBeta | SampledCost"]
+
+    def at(self, nworkers: int) -> "AlphaBeta | SampledCost":
+        if nworkers in self.entries:
+            return self.entries[nworkers]
+        summaries = {
+            k: (
+                dataclasses.replace(
+                    v.ab, gamma=v.gamma, overlap=v.overlap,
+                    pack_beta=v.pack_beta, update_beta=v.update_beta,
+                    ag_fraction=v.ag_fraction,
+                )
+                if isinstance(v, SampledCost)
+                else v
+            )
+            for k, v in self.entries.items()
+        }
+        return interp_alpha_beta(summaries, nworkers)
+
+
+def resolve_profile(
+    model: "AlphaBeta | SampledCost | ProfileFamily", nworkers: int
+) -> "AlphaBeta | SampledCost":
+    """Pin a loaded profile to a world size (a family needs the extent;
+    flat and sampled models are already concrete)."""
+    if isinstance(model, ProfileFamily):
+        return model.at(nworkers)
+    return model
+
+
+def committed_profile_or_prior(path, connection: str, nworkers: int):
+    """(cost model, source): the profile at ``path`` resolved at
+    ``nworkers`` when the file exists (source = the path), else the
+    ``lookup_alpha_beta`` prior (source = None)."""
+    if path and os.path.exists(path):
+        return resolve_profile(load_profile(path), nworkers), path
+    return lookup_alpha_beta(connection, nworkers), None
 
 
 def _model_dict(model: "AlphaBeta | SampledCost") -> dict:
@@ -238,30 +321,11 @@ def _model_dict(model: "AlphaBeta | SampledCost") -> dict:
             "update_beta": model.update_beta,
             "ag_fraction": model.ag_fraction,
         }
-    return {"kind": "flat", **dataclasses.asdict(model)}
+    return dataclasses.asdict(model)
 
 
-def save_profile(
-    path: str, model: "AlphaBeta | SampledCost", meta: Optional[dict] = None
-) -> None:
-    """Persist a flat or sampled model, stamped with the schema version."""
-    doc = _model_dict(model)
-    doc["schema_version"] = PROFILE_SCHEMA_VERSION
-    if meta:
-        doc["meta"] = meta
-    with open(path, "w") as f:
-        json.dump(doc, f)
-
-
-def load_profile(path: str) -> "AlphaBeta | SampledCost":
-    """Load a flat or sampled profile written by either package."""
-    with open(path) as f:
-        d = json.load(f)
-    check_schema_version(d, path=path)
-    d.pop("schema_version", None)
-    d.pop("meta", None)
-    kind = d.pop("kind", "flat")
-    if kind == "sampled":
+def _model_from_dict(d: dict) -> "AlphaBeta | SampledCost":
+    if d.get("kind") == "sampled":
         return SampledCost(
             sizes_bytes=tuple(d["sizes_bytes"]),
             times_s=tuple(d["times_s"]),
@@ -272,19 +336,65 @@ def load_profile(path: str) -> "AlphaBeta | SampledCost":
             update_beta=d.get("update_beta", 0.0),
             ag_fraction=d.get("ag_fraction", 0.5),
         )
-    if kind != "flat":
+    return AlphaBeta(**{k: v for k, v in d.items() if k != "kind"})
+
+
+def save_profile(
+    path: str,
+    model: "AlphaBeta | SampledCost | ProfileFamily",
+    meta: Optional[dict] = None,
+) -> None:
+    """Persist a flat, sampled or family model, stamped with the schema
+    version; ``meta`` (device, backend, what was measured) is carried for
+    provenance and ignored on load."""
+    if isinstance(model, ProfileFamily):
+        doc = {
+            "kind": "family",
+            "entries": {
+                str(k): _model_dict(v) for k, v in sorted(model.entries.items())
+            },
+        }
+    elif isinstance(model, SampledCost):
+        doc = _model_dict(model)
+    else:
+        doc = {"kind": "flat", **dataclasses.asdict(model)}
+    doc["schema_version"] = PROFILE_SCHEMA_VERSION
+    if meta:
+        doc["meta"] = meta
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
+def load_profile(path: str) -> "AlphaBeta | SampledCost | ProfileFamily":
+    """Load a flat, sampled or family profile written by either package
+    (resolve a family with ``resolve_profile(model, nworkers)``)."""
+    with open(path) as f:
+        d = json.load(f)
+    check_schema_version(d, path=path)
+    d.pop("schema_version", None)
+    d.pop("meta", None)
+    kind = d.get("kind", "flat")
+    if kind == "family":
+        return ProfileFamily(entries={
+            int(k): _model_from_dict(v) for k, v in d["entries"].items()
+        })
+    if kind not in ("flat", "sampled"):
         raise ValueError(
-            f"{path}: {kind!r} profiles are not ported (flat and sampled "
-            "only; see ROADMAP.md)"
+            f"{path}: {kind!r} profiles are not ported (flat, sampled and "
+            "family only; two-level is ROADMAP.md Queue 1 item 7)"
         )
-    return AlphaBeta(**d)
+    return _model_from_dict(d)
 
 
 __all__ = [
     "AlphaBeta",
+    "ProfileFamily",
     "SampledCost",
+    "committed_profile_or_prior",
+    "fit_alpha_beta",
     "interp_alpha_beta",
     "load_profile",
     "lookup_alpha_beta",
+    "resolve_profile",
     "save_profile",
 ]

@@ -29,6 +29,19 @@ import numpy as np
 CostFn = Callable[[float], float]  # bytes -> seconds
 
 
+def effective_cost_fn(cost_model, comm_op: str = "all_reduce") -> CostFn:
+    """Per-bucket link-occupancy predictor for a lowering: for the
+    ``all_reduce`` lowering, ``cost_model.predict``. The sharded lowerings
+    (which add the shard update's ``update_beta`` term) are not ported
+    (ROADMAP.md Queue 1 item 7)."""
+    if comm_op != "all_reduce":
+        raise ValueError(
+            f"comm_op {comm_op!r} is not ported: the port lowers all_reduce "
+            "only (the sharded lowerings are ROADMAP.md Queue 1 item 7)"
+        )
+    return cost_model.predict
+
+
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """One gradient tensor, in arrival order."""

@@ -1,1 +1,34 @@
-"""Telemetry plane of the port (so far: the serving HTTP endpoints)."""
+"""Telemetry plane of the port: the event stream (``events``), overlap
+accounting (``overlap``) and the serving HTTP endpoints (``serve``)."""
+
+from mgwfbp_tpu_torch.telemetry.events import (
+    EVENT_SCHEMA_VERSION,
+    EVENT_TYPES,
+    EventWriter,
+    events_of,
+    find_stream_paths,
+    read_events,
+    stream_filename,
+)
+from mgwfbp_tpu_torch.telemetry.overlap import (
+    GroupOverlap,
+    OverlapSummary,
+    attribute_overlap,
+    group_comm_times,
+    summarize,
+)
+
+__all__ = [
+    "EVENT_SCHEMA_VERSION",
+    "EVENT_TYPES",
+    "EventWriter",
+    "GroupOverlap",
+    "OverlapSummary",
+    "attribute_overlap",
+    "events_of",
+    "find_stream_paths",
+    "group_comm_times",
+    "read_events",
+    "stream_filename",
+    "summarize",
+]

@@ -5,9 +5,15 @@ all-reduce and its backward profile, the train/eval loop and step commits.
 One process per card; the world is whatever ``torch.distributed`` was
 started with (``parallel.mesh.init_distributed``), one worker when it was
 not started. At one worker there is no reducer: no communication exists
-to schedule (the JAX trainer's single-device rule). Resume, preemption,
-rollback, autotune, telemetry, the serving shadow and elastic resize are
-not ported (ROADMAP.md).
+to schedule (the JAX trainer's single-device rule). The cost model is the
+``--comm-profile`` resolved at the world size, else the ``connection``
+prior; the measured backward profile is written to
+``<logdir>/<tag>/tb_profile.json``. With ``telemetry`` on, each step
+writes a ``step`` span and each epoch an ``epoch`` record, the ``overlap``
+accounting and one ``comm_group`` record per merge group
+(``telemetry/overlap.py``). Resume, preemption, rollback, autotune, the
+rest of the telemetry plane, the serving shadow and elastic resize are not
+ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,9 +37,21 @@ from mgwfbp_tpu_torch.parallel.allreduce import (
     arrival_order,
     make_merged_allreduce,
 )
-from mgwfbp_tpu_torch.parallel.costmodel import load_profile, lookup_alpha_beta
+from mgwfbp_tpu_torch.parallel.costmodel import (
+    load_profile,
+    lookup_alpha_beta,
+    resolve_profile,
+)
 from mgwfbp_tpu_torch.parallel.mesh import rank, world_size
-from mgwfbp_tpu_torch.profiling import TbProfile, benchmark_backward
+from mgwfbp_tpu_torch.parallel.solver import LayerSpec, size_prior_tb
+from mgwfbp_tpu_torch.profiling import (
+    TbProfile,
+    benchmark_backward,
+    layer_profile_doc,
+    save_layer_profile,
+    trace_group_times,
+)
+from mgwfbp_tpu_torch.telemetry import EventWriter, stream_filename, summarize
 from mgwfbp_tpu_torch.train.step import TrainStep, cross_entropy, eval_sums
 from mgwfbp_tpu_torch.utils.device import resolve_device
 from mgwfbp_tpu_torch.utils.logging import get_logger
@@ -57,6 +75,8 @@ class Trainer:
             logfile=os.path.join(config.logdir, config.tag(), "train.log")
             if config.logdir else None,
         )
+        self.telemetry = self._open_telemetry()
+        self._measured_group_times: Optional[list[float]] = None
         self.shard = ShardInfo(self.rank, self.world)
         self.bundle = data_prepare(
             config.dataset, data_dir=config.data_dir,
@@ -116,6 +136,28 @@ class Trainer:
         self.losses: list[float] = []  # every optimizer step's mean loss
 
     # ------------------------------------------------------------------
+    def _open_telemetry(self) -> Optional[EventWriter]:
+        cfg = self.config
+        if not cfg.telemetry:
+            return None
+        tel_dir = cfg.telemetry_dir or (
+            os.path.join(cfg.logdir, cfg.tag()) if cfg.logdir else None
+        )
+        if tel_dir is None:
+            self.log.warning("telemetry requested but neither telemetry_dir "
+                             "nor logdir is set; telemetry disabled")
+            return None
+        return EventWriter(
+            os.path.join(tel_dir, stream_filename(self.rank, self.world)),
+            run={
+                "model": cfg.dnn, "dataset": cfg.dataset,
+                "world": self.world, "comm_op": "all_reduce",
+                "policy": cfg.policy, "tag": cfg.tag(),
+                "process_index": self.rank, "process_count": self.world,
+                "device": str(self.device),
+            },
+        )
+
     def _steps_per_epoch(self) -> int:
         steps = self.bundle.num_batches_per_epoch // max(
             self.config.nsteps_update, 1
@@ -142,13 +184,29 @@ class Trainer:
         if self.world == 1:
             self.log.info(
                 "single device: skipping merged-allreduce scheduling "
-                "(policy %s inert)", cfg.policy,
+                "(policy %s inert%s)", cfg.policy,
+                f"; --comm-profile {cfg.comm_profile} unused"
+                if cfg.comm_profile else "",
             )
             return None
         if cfg.comm_profile:
-            self.cost_model = load_profile(cfg.comm_profile)
+            self.cost_model = resolve_profile(
+                load_profile(cfg.comm_profile), self.world
+            )
+            self.log.info(
+                "cost model: %s resolved at world %d (%s, alpha %.4g s, "
+                "beta %.4g s/B, gamma %.4g s, overlap %.3g)",
+                cfg.comm_profile, self.world,
+                type(self.cost_model).__name__, self.cost_model.alpha,
+                self.cost_model.beta, self.cost_model.gamma,
+                self.cost_model.overlap,
+            )
         else:
             self.cost_model = lookup_alpha_beta(cfg.connection, self.world)
+            self.log.info(
+                "cost model: the %r prior at world %d (no --comm-profile)",
+                cfg.connection, self.world,
+            )
         if cfg.policy in ("mgwfbp", "auto") and profile_backward:
             self.tb = self._profile_backward()
         return make_merged_allreduce(
@@ -157,14 +215,21 @@ class Trainer:
             comm_dtype=getattr(torch, cfg.comm_dtype) if cfg.comm_dtype else None,
         )
 
+    def _arrival_leaves(self) -> tuple[list, list[int], list[str]]:
+        """(leaf tensors, arrival permutation, leaf names), as the reducer
+        orders them."""
+        leaves = flax_leaves(self.model)
+        names = [keystr(p) for p, _ in leaves]
+        return [t for _, t in leaves], arrival_order(len(names), names=names), names
+
     def _profile_backward(self) -> TbProfile:
         """Backward benchmark at the per-worker batch. Measured times differ
         per rank, so rank 0's are broadcast: every rank must solve the
-        identical schedule, or the ranks' collectives mismatch."""
+        identical schedule, or the ranks' collectives mismatch. Rank 0
+        writes the profile to ``<logdir>/<tag>/tb_profile.json``."""
         x, y = self.bundle.train.load_batch(0, 0)
         x, y = self._to_device(x, y)
-        leaves = flax_leaves(self.model)
-        perm = arrival_order(len(leaves), names=[keystr(p) for p, _ in leaves])
+        params, perm, names = self._arrival_leaves()
 
         def loss_of():
             return cross_entropy(self.model(x), y)
@@ -172,13 +237,18 @@ class Trainer:
         t0 = time.perf_counter()
         self.model.train()
         tb = benchmark_backward(
-            self.model, loss_of, [t for _, t in leaves], perm,
-            warmup=2, iters=10,
+            self.model, loss_of, params, perm, warmup=2, iters=10,
         )
         if self.world > 1:
             vals = torch.tensor(list(tb), dtype=torch.float64, device=self.device)
             dist.broadcast(vals, 0)
             tb = TbProfile(vals.tolist(), source=tb.source)
+        if self.rank == 0 and self.config.logdir:
+            save_layer_profile(
+                os.path.join(self.config.logdir, self.config.tag(),
+                             "tb_profile.json"),
+                layer_profile_doc(tb, [names[j] for j in perm]),
+            )
         self.log.info(
             "backward benchmark: %.3g s total over %d tensors, per-layer "
             "source=%s (%.1f s)", sum(tb), len(tb), tb.source,
@@ -207,8 +277,14 @@ class Trainer:
                 np.stack([m[0] for m in micro]), np.stack([m[1] for m in micro])
             )
             micro = []
+            t_step = self.telemetry.now() if self.telemetry else 0.0
             metrics = self.train_step(x, y)
             self.iteration += 1
+            if self.telemetry is not None:
+                self.telemetry.emit(
+                    "step", step=self.iteration, epoch=int(epoch),
+                    start_s=t_step, dur_s=self.telemetry.now() - t_step,
+                )
             epoch_pos += 1
             self.losses.append(metrics["loss"])
             if first_loss is None:
@@ -237,11 +313,86 @@ class Trainer:
         out = {k: v for k, v in metrics.items() if k != "grads_nonfinite"}
         if first_loss is not None:
             out["first_loss"] = first_loss
+        epoch_dur = time.time() - t_epoch
+        if self.telemetry is not None and epoch_pos > 0:
+            self.telemetry.emit("epoch", epoch=int(epoch), steps=epoch_pos,
+                                dur_s=epoch_dur)
+            self._emit_overlap(epoch_dur / epoch_pos, epoch)
         self.log.info(
-            "epoch %d done in %.1f s (lr %.5f)", epoch,
-            time.time() - t_epoch, self.epoch_schedule(float(epoch)),
+            "epoch %d done in %.1f s (lr %.5f)", epoch, epoch_dur,
+            self.epoch_schedule(float(epoch)),
         )
         return out
+
+    def _overlap_tb(self) -> list[float]:
+        """The tb the schedule was solved on: measured, else the volume
+        prior the solver fell back to."""
+        if self.tb is not None:
+            return list(self.tb)
+        params, perm, names = self._arrival_leaves()
+        return size_prior_tb(
+            [LayerSpec(names[j], params[j].numel(), params[j].element_size())
+             for j in perm],
+            self.cost_model,
+        )
+
+    def _emit_overlap(self, step_s: float, epoch: int) -> None:
+        """One ``overlap`` record and one ``comm_group`` record per merge
+        group for this epoch's schedule (host arithmetic only)."""
+        if self.reducer is None or self.cost_model is None or step_s <= 0.0:
+            return
+        summary = summarize(
+            self.reducer, self.cost_model, self._overlap_tb(), step_s,
+            measured=self._measured_group_times,
+        )
+        self.telemetry.emit("overlap", step=self.iteration, epoch=int(epoch),
+                            **summary.to_event_fields())
+        for fields in summary.group_event_fields(self.iteration):
+            self.telemetry.emit("comm_group", **fields)
+        self.log.info(
+            "overlap (%s): %.4g s comm/step = %.4g hidden + %.4g exposed -> "
+            "efficiency %.3f (starts replayed in the arrival permutation's "
+            "order)", summary.attribution, summary.comm_s, summary.hidden_s,
+            summary.exposed_s, summary.efficiency,
+        )
+
+    def _trace_group_times(self, iters: int = 2) -> None:
+        """``MGWFBP_TELEMETRY_TRACE=1``: trace ``iters`` real training steps
+        under torch.profiler before the first epoch (never inside it: the
+        traced steps synchronise) and keep the per-group device times for
+        the overlap records. Every rank takes the same steps; where the
+        trace finds no collective kernel in some group's range (the CPU,
+        NCCL over one rank) the records stay on the cost model."""
+        want = float(os.environ.get("MGWFBP_TELEMETRY_TRACE") == "1")
+        if self.world > 1:
+            flag = torch.tensor([want], device=self.device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+            want = flag.item()
+        if not want:
+            return
+        n = self.config.nsteps_update
+        batches = [self.bundle.train.load_batch(0, k) for k in range(iters * n)]
+
+        def run():
+            for i in range(iters):
+                group = batches[i * n:(i + 1) * n]
+                self.train_step(*self._to_device(
+                    np.stack([b[0] for b in group]),
+                    np.stack([b[1] for b in group]),
+                ))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        measured = trace_group_times(run, self.reducer.num_groups, iters=iters)
+        self.iteration += iters
+        if measured is None:
+            self.log.info("telemetry trace: no device time of a collective "
+                          "kernel in every group's range; overlap stays on "
+                          "the cost model")
+        else:
+            self._measured_group_times = measured
+            self.log.info("telemetry trace: %d group comm time(s) measured",
+                          len(measured))
 
     def evaluate(self) -> dict:
         """Loss, top-1 and top-5 over every sample of the val loader,
@@ -293,6 +444,10 @@ class Trainer:
             if num_epochs is not None else cfg.max_epochs
         )
         metrics: dict = {}
+        if self.telemetry is not None and self.reducer is not None and (
+            self._measured_group_times is None
+        ):
+            self._trace_group_times()
         for epoch in range(self.start_epoch, end):
             metrics = {"train": self.train_epoch(epoch)}
             if (epoch + 1) % cfg.eval_every_epochs == 0:
@@ -309,3 +464,5 @@ class Trainer:
     def close(self) -> None:
         if self.reducer is not None:
             self.reducer.detach()
+        if self.telemetry is not None:
+            self.telemetry.close()

@@ -12,7 +12,11 @@ CPU). Several processes, one per card, form a world from
 environment; each takes the card of its local rank (``LOCAL_RANK``,
 ``SLURM_LOCALID``, ``OMPI_COMM_WORLD_LOCAL_RANK``, else the process id
 modulo the host's cards) unless ``--device cuda:K`` names one. Prints one
-JSON result line at the end.
+JSON result line at the end. ``--comm-profile`` takes a profile written by
+``python -m mgwfbp_tpu_torch.calibrate``; ``--telemetry`` writes the event
+stream (``MGWFBP_TELEMETRY_TRACE=1`` adds a profiler trace of two steps
+before the first epoch, whose per-group device times replace the cost
+model's in the overlap records).
 """
 
 from __future__ import annotations
@@ -52,7 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--connection", default=None,
                    help="cost-model link class: ici|dcn|56GbIB|10GbE")
     p.add_argument("--comm-profile", dest="comm_profile", default=None,
-                   help="path to a calibrated alpha-beta json")
+                   help="path to a calibrated alpha-beta json "
+                        "(python -m mgwfbp_tpu_torch.calibrate); a family "
+                        "profile resolves at the world size")
     p.add_argument("--comm-dtype", dest="comm_dtype", default=None,
                    help="wire dtype for the all-reduce, e.g. bfloat16")
     p.add_argument("--synthetic", action="store_true",
@@ -64,6 +70,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-profile-backward", action="store_true",
                    help="skip the backward benchmark (volume prior)")
     p.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None)
+    p.add_argument("--telemetry", action="store_true",
+                   help="write the event stream: step spans, and per epoch "
+                        "an epoch record, the overlap accounting and one "
+                        "comm_group record per merge group; render with "
+                        "tools/telemetry_report.py")
+    p.add_argument("--telemetry-dir", dest="telemetry_dir", default=None,
+                   help="directory for the event stream (default "
+                        "<logdir>/<tag>; implies --telemetry)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--logdir", default=None)
     p.add_argument("--coordinator", default=None,
@@ -83,7 +97,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             "dataset", "data_dir", "batch_size", "lr", "max_epochs",
             "nsteps_update", "policy", "threshold", "connection",
             "comm_profile", "comm_dtype", "logdir", "checkpoint_dir", "seed",
-            "num_batches_per_epoch",
+            "num_batches_per_epoch", "telemetry_dir",
         )
         if getattr(args, k, None) is not None
     }
@@ -91,6 +105,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         overrides["augment"] = False
     if args.no_grad_guard:
         overrides["grad_guard"] = False
+    if args.telemetry or args.telemetry_dir:
+        overrides["telemetry"] = True
     return make_config(args.dnn, **overrides)
 
 
