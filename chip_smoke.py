@@ -53,13 +53,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
          --model resnet20``, both read back and checked (the card's name
          in meta, gamma >= 0, pack_beta > 0, overlap in [0, 1], tb and tf
          finite from hooks); ResNet-20's schedule solved on that profile at
-         1 and 16 workers beside (b)'s prior-based ones.
+         1 and 16 workers beside (b)'s prior-based ones;
+  5. (e) train the language models a user would train, each at full width
+     through the Trainer on synthetic PTB, with TF32 off: the PTB LSTM
+     (vocab 10000, hidden 1500, 2 layers, window 35, batch 20, its BPTT
+     carry) and the transformer (d_model 256, 4 heads, 4 layers, window 64,
+     batch 16, dense attention as the JAX package trains it). For each:
+     LM_STEPS steps (LM_EPOCHS epochs of the first LM_EPOCH_STEPS batches;
+     the PTB loader does not shuffle, so later epochs see the same text)
+     whose last 5 losses fall below the first 5's; one evaluate (finite
+     loss and perplexity); the commit read back equal to the live
+     parameters; one window of the card's logits and carry against the
+     same weights on the CPU (LM_WINDOW_TOL); no flash launch during
+     training; then the step time (CUDA events, median of 20 after 5),
+     tokens/s, torch.profiler's busy share and kernels per step, tb from
+     the hooks and the mgwfbp groups it gives at 1 worker (ici) and on
+     MERGING_LINK, and for the LSTM where the hooks put the embedding's
+     gradient against where the arrival permutation puts it.
 
 Output, last lines: a JSON line each for the phase-2 shape table, the
 serving forward's breakdown (host time of one flush's run_padded, device
 time by kernel from torch.profiler), the /predict latencies, the training
-phase ({"train": ...}) and the calibration phase ({"calibrate": ...}), the
-card's name and power limit (nvidia-smi), the kernels line ({"kernels":
+phase ({"train": ...}), the calibration phase ({"calibrate": ...}), the
+language models ({"lm": ...}), the card's name and power limit (nvidia-smi), the kernels line ({"kernels":
 [...]}) and, last, {"ok": true, "device": {...}}.
 """
 
@@ -532,6 +548,8 @@ def _step_profile(fn, steps: int = 5) -> dict:
     host = [(e.key, e.self_cpu_time_total, e.count) for e in events
             if e.device_type == torch.autograd.DeviceType.CPU]
     busy_us = sum(t for _, t in dev)
+    kernels = sum(e.count for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
     out = {
         "busy_share": (
             busy_us / wall_us if busy_us > 0
@@ -539,6 +557,7 @@ def _step_profile(fn, steps: int = 5) -> dict:
         ),
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_ms_per_step": busy_us / steps / 1e3,
+        "kernels_per_step": kernels / steps,
         "top_kernels_ms_per_step": [
             [k[:60], t / steps / 1e3]
             for k, t in sorted(dev, key=lambda r: -r[1])[:6]
@@ -1067,15 +1086,16 @@ def phase_train() -> tuple[dict, dict]:
     }
 
 
-def _solve_on(cost_model, tb) -> dict:
-    """ResNet-20's mgwfbp schedule (arrival order, as the reducer solves
-    it) on a cost model and tb."""
+def _solve_on(cost_model, tb, name: str = "resnet20") -> dict:
+    """A registered model's mgwfbp schedule (arrival order, as the reducer
+    solves it) on a cost model and tb."""
     from mgwfbp_tpu_torch.convert import flax_leaves, keystr
     from mgwfbp_tpu_torch.models import create_model
     from mgwfbp_tpu_torch.parallel.allreduce import arrival_order
     from mgwfbp_tpu_torch.parallel.solver import LayerSpec, build_schedule
 
-    model, _ = create_model("resnet20")
+    with torch.device("meta"):  # shapes only
+        model, _ = create_model(name)
     leaves = flax_leaves(model)
     perm = arrival_order(len(leaves), names=[keystr(p) for p, _ in leaves])
     specs = [LayerSpec(keystr(leaves[j][0]), leaves[j][1].numel(), 4)
@@ -1172,6 +1192,200 @@ def phase_calibrate(b: dict, gloo: dict) -> dict:
     }
 
 
+LM_MODELS = ("lstm", "transformer")
+LM_EPOCHS, LM_EPOCH_STEPS = 4, 10  # phase (e): 40 steps per model
+LM_STEPS = LM_EPOCHS * LM_EPOCH_STEPS
+# one window of the card's logits and carry against the same weights on the
+# CPU, TF32 off: cuDNN's LSTM and cuBLAS sum in other orders than the CPU's
+# kernels, over 35 recurrent steps or 4 residual layers and a 10000-way
+# head; the bound is relative to the largest logit
+LM_WINDOW_TOL = 1e-4
+
+
+def _lm_window_check(tr, name: str) -> dict:
+    """One validation window through the trained model on the card and
+    through a CPU copy of the same weights; the LSTM from the carry the
+    training left."""
+    from mgwfbp_tpu_torch import models
+
+    xb, _ = tr.bundle.val.load_batch(0, 0)
+    ref, _ = models.create_model(name)
+    ref = models.for_training(ref)
+    ref.load_state_dict({k: v.detach().cpu()
+                         for k, v in tr.model.state_dict().items()})
+    ref.eval()
+    tr.model.eval()
+    try:
+        with torch.no_grad():
+            x = torch.from_numpy(xb)
+            if tr.carry is None:
+                got, want = tr.model(x.cuda()), ref(x)
+                carries = []
+            else:
+                got, got_c = tr.model(x.cuda(), tr.carry)
+                want, want_c = ref(x, tuple((c.cpu(), h.cpu())
+                                            for c, h in tr.carry))
+                carries = [(a, b) for ga, wa in zip(got_c, want_c)
+                           for a, b in zip(ga, wa)]
+    finally:
+        tr.model.train()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got.cpu() - want).abs().max())
+    carry_err = max((float((a.cpu() - b).abs().max()) for a, b in carries),
+                    default=0.0)
+    if not torch.isfinite(got).all() or err > LM_WINDOW_TOL * scale or (
+        carry_err > LM_WINDOW_TOL
+    ):
+        fail(f"{name}: the card's window differs from the CPU's: logits "
+             f"{err:.3e} (largest logit {scale:.3g}), carry {carry_err:.3e}")
+    return {"max_abs_err_logits": err, "largest_logit": scale,
+            "max_abs_err_carry": carry_err if carries else None,
+            "tolerance": f"{LM_WINDOW_TOL} x max(1, largest logit); "
+                         f"{LM_WINDOW_TOL} on the carry"}
+
+
+def _hook_arrival(tr) -> list[str]:
+    """The Flax paths of the leaves in the order their post-accumulate-grad
+    hooks fire in one backward of the LM loss."""
+    from mgwfbp_tpu_torch.convert import flax_leaves, keystr
+    from mgwfbp_tpu_torch.train.step import forward_loss
+
+    leaves = flax_leaves(tr.model)
+    order: list[str] = []
+    hooks = [t.register_post_accumulate_grad_hook(
+                 lambda _t, n=keystr(p): order.append(n))
+             for p, t in leaves]
+    xb, yb = tr.bundle.train.load_batch(0, 0)
+    x, y = tr._to_device(xb, yb)
+    try:
+        loss, _, _ = forward_loss(tr.model, "lm", x, y, tr._zero_carry())
+        loss.backward()
+    finally:
+        for h in hooks:
+            h.remove()
+        for _, t in leaves:
+            t.grad = None
+    return order
+
+
+def _lm_run(name: str, root: str) -> dict:
+    from mgwfbp_tpu_torch.checkpoint import read_step
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.convert import (
+        flatten_flax,
+        flax_leaves,
+        keystr,
+        variables_to_flax,
+    )
+    from mgwfbp_tpu_torch.ops import flash_attention
+    from mgwfbp_tpu_torch.parallel.allreduce import arrival_order
+    from mgwfbp_tpu_torch.parallel.costmodel import lookup_alpha_beta
+    from mgwfbp_tpu_torch.train import Trainer
+
+    cfg = make_config(name, num_batches_per_epoch=LM_EPOCH_STEPS,
+                      eval_every_epochs=LM_EPOCHS,
+                      checkpoint_every_epochs=LM_EPOCHS,
+                      logdir=os.path.join(root, "logs"),
+                      checkpoint_dir=os.path.join(root, "ckpt"))
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device=TRAIN_DEVICE, synthetic_data=True)
+    if getattr(tr.model, "attn_impl", "dense") != "dense":
+        fail(f"{name}: the trainer's model attends with {tr.model.attn_impl}")
+    flash_attention.launches = 0  # training starts here
+    metrics = tr.fit(LM_EPOCHS)
+    flash_launches = flash_attention.launches  # ... and ends here
+    fit_s = time.perf_counter() - t0
+    losses = tr.losses
+    if len(losses) != LM_STEPS:
+        fail(f"{name}: the trainer took {len(losses)} steps, not {LM_STEPS}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not np.isfinite(losses).all() or not last5 < first5:
+        fail(f"{name}: training loss did not fall: first 5 {first5:.4f}, "
+             f"last 5 {last5:.4f} ({losses})")
+    if flash_launches:
+        fail(f"{name}: training launched the flash kernel {flash_launches} "
+             "times")
+    ev = metrics["eval"]
+    if not np.isfinite([ev["loss"], ev["perplexity"]]).all():
+        fail(f"{name}: evaluate returned non-finite metrics {ev}")
+    params, _, meta = read_step(tr.ckpt_dir, tr.iteration)
+    live = flatten_flax(variables_to_flax(tr.model)[0])
+    if list(live) != list(params) or not all(
+        np.array_equal(live[k], params[k]) for k in live
+    ):
+        fail(f"{name}: the committed step does not read back equal to the "
+             "live parameters")
+    window = _lm_window_check(tr, name)
+    # step time: one fixed batch, CUDA events around each step, median of
+    # 20 after 5 of warm-up (each step ends in the metrics' host read)
+    xb, yb = tr.bundle.train.load_batch(0, 0)
+    x, y = tr._to_device(xb[None], yb[None])
+    tokens = xb.size
+    times = []
+    for i in range(25):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tr.step_batch(x, y)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 5:
+            times.append(start.elapsed_time(end))
+    step_ms = float(np.median(times))
+    prof = _step_profile(lambda: tr.step_batch(x, y))
+    tb = tr._profile_backward()
+    leaves = flax_leaves(tr.model)
+    names = [keystr(p) for p, _ in leaves]
+    perm_names = [names[j] for j in arrival_order(len(names), names=names)]
+    schedules = {
+        f"{conn} at {n} workers": _solve_on(lookup_alpha_beta(conn, n), tb,
+                                            name)
+        for conn, n in (("ici", 1), MERGING_LINK)
+    }
+    out = {
+        "steps": LM_STEPS, "batch": cfg.batch_size,
+        "window": int(xb.shape[1]), "fit_s": fit_s,
+        "params": int(sum(t.numel() for _, t in leaves)),
+        "leaves": len(leaves), "loss_first5": first5, "loss_last5": last5,
+        "eval": ev, "committed_step": int(meta["iteration"]),
+        "window_check": window, "flash_launches_training": flash_launches,
+        "step_ms": step_ms, "step_ms_min": float(np.min(times)),
+        "tokens_per_s": tokens * 1e3 / step_ms,
+        "busy_share": prof["busy_share"],
+        "kernels_per_step": prof["kernels_per_step"], "profile": prof,
+        "tb_source": tb.source, "tb_total_s": float(sum(tb)),
+        "num_groups": {k: v["num_groups"] for k, v in schedules.items()},
+        "schedules": schedules,
+    }
+    if name == "lstm":
+        emb = "['embedding']['embedding']"
+        measured = _hook_arrival(tr)
+        out["embedding_arrival"] = {
+            "in_the_permutation": perm_names.index(emb),
+            "measured_by_hooks": measured.index(emb),
+            "leaves": len(measured),
+        }
+    tr.close()
+    print(f"lm (e): {name}: {LM_STEPS} steps in {fit_s:.1f}s, loss "
+          f"{first5:.4f} -> {last5:.4f}, eval {ev}, step {step_ms:.3f} ms "
+          f"({out['tokens_per_s']:.0f} tokens/s), busy share "
+          f"{out['busy_share']}, {out['kernels_per_step']:.0f} kernels per "
+          f"step, groups {out['num_groups']} (tb {tb.source}), window err "
+          f"{window['max_abs_err_logits']:.2e}"
+          + (f", embedding arrives at {out['embedding_arrival']}"
+             if name == "lstm" else ""), flush=True)
+    return out
+
+
+def phase_lm() -> dict:
+    """(e) Both language models at full width through the Trainer."""
+    out = {}
+    for name in LM_MODELS:
+        with tempfile.TemporaryDirectory(prefix=f"mgwfbp_{name}_") as root:
+            out[name] = _lm_run(name, root)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -1195,6 +1409,7 @@ def main() -> int:
     launches, latencies = phase_serve(gen)
     reducer_b, train = phase_train()
     calibrated = phase_calibrate(reducer_b, train["gloo"])
+    lm = phase_lm()
 
     serve = rows[0]
     kernels = [{
@@ -1217,6 +1432,7 @@ def main() -> int:
     print(json.dumps({"predict_latencies": latencies}))
     print(json.dumps({"train": train}))
     print(json.dumps({"calibrate": calibrated}))
+    print(json.dumps({"lm": lm}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -23,7 +23,9 @@ card, and rank 0 writes the profile. Modes:
     where); the mode for one card, where a one-rank all-reduce moves no
     bytes and alpha, beta measure only the dispatch floor;
   * ``--forward --model M``: a layer profile (tb and tf from hooks,
-    schema 2).
+    schema 2) of a classifier on random images or of a language model on
+    random tokens (the LSTM from a zero carry, the transformer through
+    dense attention, as both train).
 
 Not measured here: ``update_beta`` (written as 0.0 and named in ``meta``;
 it needs the sharded lowering) and ``--two-level``, both ROADMAP.md
@@ -312,33 +314,49 @@ def _forward_main(args) -> int:
         layer_profile_doc,
         save_layer_profile,
     )
-    from mgwfbp_tpu_torch.train.step import cross_entropy
+    from mgwfbp_tpu_torch.train.step import forward_loss
     from mgwfbp_tpu_torch.utils.device import resolve_device
 
+    if args.model not in zoo.model_names():
+        raise SystemExit(
+            f"--forward --model {args.model}: not ported yet (still to port: "
+            "lstman4 and the rest of the CNN zoo, ROADMAP.md Queue 1); the "
+            f"port's models: {', '.join(zoo.model_names())}"
+        )
     device = resolve_device(args.device)
     model, meta = zoo.create_model(args.model)
-    if meta.task != "classify":
-        raise SystemExit(
-            f"--forward --model {args.model}: {meta.task} models are not "
-            "ported to the training path yet (ROADMAP.md Queue 1)"
-        )
+    model = zoo.for_training(model)
     init_weights(model, torch.Generator().manual_seed(0))
     model.to(device).train()
     b = max(args.batch_size, 1)
     rs = np.random.RandomState(0)
-    x = torch.from_numpy(
-        rs.randn(b, *meta.input_shape).astype(np.float32)
-    ).to(device).movedim(-1, -3).contiguous()
-    y = torch.from_numpy(
-        rs.randint(0, meta.num_classes, (b,)).astype(np.int64)
-    ).to(device)
+    carry = None
+    if meta.task == "lm":
+        # integer tokens and next-token targets; a BPTT model from its
+        # zero carry, as an epoch starts
+        x, y = (
+            torch.from_numpy(
+                rs.randint(0, meta.num_classes, (b, *meta.input_shape))
+                .astype(np.int64)
+            ).to(device)
+            for _ in range(2)
+        )
+        if meta.has_carry:
+            carry = model.initial_carry(b, device)
+    else:
+        x = torch.from_numpy(
+            rs.randn(b, *meta.input_shape).astype(np.float32)
+        ).to(device).movedim(-1, -3).contiguous()
+        y = torch.from_numpy(
+            rs.randint(0, meta.num_classes, (b,)).astype(np.int64)
+        ).to(device)
     leaves = flax_leaves(model)
     names = [keystr(path) for path, _ in leaves]
     params = [t for _, t in leaves]
     perm = arrival_order(len(names), names=names)
 
     def loss_of():
-        return cross_entropy(model(x), y)
+        return forward_loss(model, meta.task, x, y, carry)[0]
 
     tb = benchmark_backward(model, loss_of, params, perm,
                             warmup=args.warmup, iters=args.iters)

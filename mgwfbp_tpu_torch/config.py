@@ -26,6 +26,7 @@ class TrainConfig:
     max_epochs: int = 141
     nsteps_update: int = 1  # gradient accumulation micro-steps
     augment: bool = True  # train-split augmentation
+    num_steps: Optional[int] = None  # LM window length override (default 35)
 
     # distributed: the number of data-parallel workers (one per card)
     nworkers: int = 1
@@ -71,8 +72,7 @@ _DATASET_SGD: dict[str, dict] = {
     "imagenet": dict(momentum=0.875, weight_decay=2 * 3.0517578125e-05),
     "ptb": dict(momentum=0.0, weight_decay=0.0),
 }
-# The JAX package's presets (its transformer preset also sets the LM window
-# length, which belongs to the language-model training path, not ported yet).
+# The JAX package's presets.
 PRESETS: dict[str, dict] = {
     "mnistnet": dict(dataset="mnist", batch_size=64, lr=0.01, max_epochs=10),
     "lenet": dict(dataset="mnist", batch_size=64, lr=0.01, max_epochs=10),
@@ -93,7 +93,8 @@ PRESETS: dict[str, dict] = {
     "lstm": dict(dataset="ptb", batch_size=20, lr=22.0, max_epochs=40,
                  lr_schedule="ptb", norm_clip=0.25),
     "transformer": dict(dataset="ptb", batch_size=16, lr=1.0, max_epochs=40,
-                        lr_schedule="cosine", weight_decay=1e-5, momentum=0.9),
+                        lr_schedule="cosine", weight_decay=1e-5, momentum=0.9,
+                        num_steps=64),
     "lstman4": dict(dataset="an4", batch_size=4, lr=2e-4, max_epochs=100,
                     lr_schedule="anneal", norm_clip=400.0),
     "fcn5net": dict(dataset="mnist", batch_size=64, lr=0.05, max_epochs=10),

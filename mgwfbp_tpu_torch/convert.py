@@ -8,7 +8,8 @@ leaf is addressed by the dotted form of that path (``Block_0.qkv.kernel``);
 
 Name and layout rules (Flax -> torch):
   * module ``<Type>_<i>`` inside a container -> ``<container>.<i>``
-    (``Block_3`` -> ``blocks.3``, ``BasicBlock_3`` -> ``blocks.3``); a
+    (``Block_3`` -> ``blocks.3``, ``BasicBlock_3`` -> ``blocks.3``,
+    ``OptimizedLSTMCell_1`` -> ``cells.1``); a
     module's ``FLAX_NAMES`` renames its children (``ConvBN_0`` ->
     ``conv1``, ``Conv_0`` -> ``conv``, ``BatchNorm_0`` -> ``bn``); every
     other module keeps its name;
@@ -16,6 +17,9 @@ Name and layout rules (Flax -> torch):
   * ``Conv.kernel`` (H, W, I, O) -> ``Conv2d.weight`` (O, I, H, W);
   * ``LayerNorm.scale`` / ``BatchNorm.scale`` -> ``weight``;
   * ``Embed.embedding`` (num, d) -> ``Embedding.weight`` (num, d), as is;
+  * ``OptimizedLSTMCell``'s gate leaves ``<gate>.kernel`` (in, H) and
+    ``<gate>.bias`` (H,) -> the cell's own parameters ``<gate>_weight``
+    (H, in), transposed, and ``<gate>_bias`` (one parameter per leaf);
   * ``bias`` -> ``bias``;
   * the ``batch_stats`` collection's ``mean`` / ``var`` ->
     ``running_mean`` / ``running_var``.
@@ -35,6 +39,7 @@ import torch
 from torch import nn
 
 _BLOCK = re.compile(r"^Block_(\d+)$")
+_LSTM_CELL = re.compile(r"^OptimizedLSTMCell_(\d+)$")
 _KEYSTR_PART = re.compile(r"\['([^']*)'\]|\.([A-Za-z_]\w*)|\[(\d+)\]")
 
 
@@ -75,7 +80,13 @@ def _torch_module_path(flax_modules: list[str]) -> list[str]:
     out = []
     for name in flax_modules:
         m = _BLOCK.match(name)
-        out.extend(["blocks", m.group(1)] if m else [name])
+        cell = _LSTM_CELL.match(name)
+        if m:
+            out.extend(["blocks", m.group(1)])
+        elif cell:
+            out.extend(["cells", cell.group(1)])
+        else:
+            out.append(name)
     return out
 
 
@@ -86,6 +97,9 @@ def torch_key(path: str) -> str:
             "bias": "bias"}.get(leaf)
     if name is None:
         raise KeyError(f"no torch counterpart for Flax leaf {path!r}")
+    if len(mods) >= 2 and _LSTM_CELL.match(mods[-2]):
+        # an LSTM gate's leaf is a parameter of the cell itself
+        return ".".join(_torch_module_path(mods[:-1]) + [f"{mods[-1]}_{name}"])
     return ".".join(_torch_module_path(mods) + [name])
 
 
@@ -143,6 +157,7 @@ _ID = (lambda t: t, lambda t: t)
 
 def _leaf_rules(sub: nn.Module) -> dict[tuple[str, str], tuple]:
     from mgwfbp_tpu_torch.models.common import BatchNorm
+    from mgwfbp_tpu_torch.models.lstm import GATES, OptimizedLSTMCell
 
     if isinstance(sub, nn.Linear):
         return {("params", "kernel"): ("weight", *_T),
@@ -157,6 +172,13 @@ def _leaf_rules(sub: nn.Module) -> dict[tuple[str, str], tuple]:
                 ("params", "bias"): ("bias", *_ID)}
     if isinstance(sub, nn.Embedding):
         return {("params", "embedding"): ("weight", *_ID)}
+    if isinstance(sub, OptimizedLSTMCell):
+        rules = {}
+        for g in GATES:
+            rules[("params", f"i{g}.kernel")] = (f"i{g}_weight", *_T)
+            rules[("params", f"h{g}.kernel")] = (f"h{g}_weight", *_T)
+            rules[("params", f"h{g}.bias")] = (f"h{g}_bias", *_ID)
+        return rules
     if isinstance(sub, BatchNorm):
         return {("params", "scale"): ("weight", *_ID),
                 ("params", "bias"): ("bias", *_ID),

@@ -1,8 +1,8 @@
-"""Data subsystem (counterpart of the image branch of
+"""Data subsystem (counterpart of the CIFAR-10 and PTB branches of
 ``mgwfbp_tpu/data/__init__.py``): ``data_prepare`` resolves a dataset name
 to sharded train/val loaders, from real files when present, else from the
-synthetic twin. Only CIFAR-10 is ported; the other datasets are listed in
-ROADMAP.md.
+synthetic twin. CIFAR-10 and PTB are ported; the other datasets are listed
+in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -23,13 +23,20 @@ from mgwfbp_tpu_torch.data.loader import (
     ShardedLoader,
     normalize_images,
 )
+from mgwfbp_tpu_torch.data.ptb import (
+    NUM_STEPS,
+    VOCAB_SIZE,
+    carry_layout,
+    load_ptb_stream,
+    synthetic_ptb_stream,
+)
 from mgwfbp_tpu_torch.data.sharding import ShardInfo
 
 # synthetic sizes, as in the JAX package; MGWFBP_SYNTH_TRAIN_N /
 # MGWFBP_SYNTH_VAL_N override them and MGWFBP_SYNTH_MODE=hard selects the
 # held-out-generalization generator
-_SYNTH_TRAIN = {"cifar10": 4096}
-_SYNTH_VAL = {"cifar10": 512}
+_SYNTH_TRAIN = {"cifar10": 4096, "ptb": 512}
+_SYNTH_VAL = {"cifar10": 512, "ptb": 64}
 
 
 def _synth_size(split: str, name: str) -> int:
@@ -56,14 +63,19 @@ def data_prepare(
     seed: int = 0,
     synthetic: Optional[bool] = None,
     augment: bool = True,
+    num_steps: Optional[int] = None,
 ) -> DataBundle:
     """Sharded train/val loaders; ``batch_size`` is per process.
-    ``synthetic=True`` forces the synthetic twin, None looks for files."""
+    ``synthetic=True`` forces the synthetic twin, None looks for files.
+    ``num_steps`` overrides the LM window length (default 35)."""
     name = dataset.lower()
+    if name == "ptb":
+        return _ptb_prepare(data_dir, batch_size, shard, seed, synthetic,
+                            num_steps)
     if name != "cifar10":
         raise ValueError(
-            f"dataset {dataset!r} is not ported yet (cifar10 only; see "
-            "ROADMAP.md)"
+            f"dataset {dataset!r} is not ported yet (cifar10 and ptb only; "
+            "see ROADMAP.md)"
         )
     train = val = None
     if not synthetic:
@@ -95,6 +107,45 @@ def data_prepare(
         train=train_loader,
         val=val_loader,
         num_classes=train.num_classes,
+        synthetic=is_synth,
+        num_batches_per_epoch=len(train_loader),
+    )
+
+
+def _ptb_prepare(data_dir: str, batch_size: int, shard: ShardInfo, seed: int,
+                 synthetic: Optional[bool],
+                 num_steps: Optional[int]) -> DataBundle:
+    """PTB in the stateful-BPTT layout: one contiguous sub-stream per batch
+    element and per rank (``ptb.carry_layout``), no shuffling and no sample
+    sharding, so the carry sees textually consecutive windows every step.
+    The synthetic sizes are fixed, as in the JAX package (no environment
+    override)."""
+    nsteps = num_steps or NUM_STEPS
+    streams = None
+    if not synthetic:
+        streams = (load_ptb_stream(data_dir, "train"),
+                   load_ptb_stream(data_dir, "valid"))
+        if streams[0] is None or streams[1] is None:
+            streams = None
+    is_synth = streams is None
+    if is_synth:
+        if synthetic is False:
+            raise FileNotFoundError(f"PTB files not found under {data_dir!r}")
+        vocab_size = VOCAB_SIZE
+        train_stream = synthetic_ptb_stream(_SYNTH_TRAIN["ptb"], seed=seed)
+        val_stream = synthetic_ptb_stream(_SYNTH_VAL["ptb"], seed=seed + 1)
+    else:
+        (train_stream, vocab_size), (val_stream, _) = streams
+    train, val = (
+        carry_layout(stream, nsteps, batch_size, shard.rank, shard.nranks,
+                     vocab_size)
+        for stream in (train_stream, val_stream)
+    )
+    train_loader = ShardedLoader(train, batch_size, shuffle=False, seed=seed)
+    return DataBundle(
+        train=train_loader,
+        val=ShardedLoader(val, batch_size, shuffle=False, seed=seed),
+        num_classes=vocab_size,
         synthetic=is_synth,
         num_batches_per_epoch=len(train_loader),
     )

@@ -3,8 +3,8 @@
 ``create_model`` returns the module plus a ``ModelMeta`` describing the
 canonical input, with the same fields as the JAX registry's (the input
 dtype is a numpy dtype here; image inputs are NHWC, as the loaders hand
-them over). Ported so far: the CIFAR ResNets and the transformer LM; the
-rest of the zoo is listed in ROADMAP.md.
+them over). Ported so far: the CIFAR ResNets, the PTB LSTM and the
+transformer LM; the rest of the zoo is listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -119,3 +119,29 @@ def _transformer(nc):
             has_carry=False,
         ),
     )
+
+
+@register("lstm")
+def _lstm(nc):
+    from mgwfbp_tpu_torch.models.lstm import PTBLSTM
+
+    nc = nc or DATASET_CLASSES["ptb"]
+    return (
+        PTBLSTM(vocab_size=nc),
+        ModelMeta(
+            name="lstm", dataset="ptb", num_classes=nc, input_shape=(35,),
+            input_dtype=np.int32, task="lm", has_carry=True,
+        ),
+    )
+
+
+def for_training(module):
+    """The module as the JAX package trains it. The registered transformer
+    serves through the flash kernel, which has no backward (nor has the
+    JAX package's Pallas kernel); the JAX registry trains it through dense
+    attention, and so does the port."""
+    from mgwfbp_tpu_torch.models.transformer import TransformerLM
+
+    if isinstance(module, TransformerLM):
+        module.set_attn_impl("dense")
+    return module

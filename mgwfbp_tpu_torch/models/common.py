@@ -134,10 +134,20 @@ def init_weights(module: nn.Module,
                  generator: Optional[torch.Generator] = None) -> nn.Module:
     """Flax's initializers from a seeded generator: convs
     ``variance_scaling(2, fan_out, truncated_normal)``, dense kernels
-    LeCun truncated normal, biases zero, BatchNorm scale one and bias zero,
-    running mean zero and variance one."""
+    LeCun truncated normal, biases zero, embeddings normal with std
+    1/sqrt(d), LayerNorm and BatchNorm scale one and bias zero, running
+    mean zero and variance one; a module with its own ``init_flax_`` (the
+    LSTM cell) initializes itself."""
     for sub in module.modules():
-        if isinstance(sub, nn.Conv2d):
+        if hasattr(sub, "init_flax_"):
+            sub.init_flax_(generator)
+        elif isinstance(sub, nn.Embedding):
+            sub.weight.normal_(0.0, sub.embedding_dim ** -0.5,
+                               generator=generator)
+        elif isinstance(sub, nn.LayerNorm):
+            sub.weight.fill_(1.0)
+            sub.bias.zero_()
+        elif isinstance(sub, nn.Conv2d):
             o, _, kh, kw = sub.weight.shape
             std = math.sqrt(2.0 / (kh * kw * o)) / _TRUNC_STD
             nn.init.trunc_normal_(sub.weight, 0.0, std, -2 * std, 2 * std,

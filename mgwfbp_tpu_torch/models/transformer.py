@@ -13,12 +13,11 @@ ring attention) is not ported yet.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mgwfbp_tpu_torch.models.common import init_weights  # noqa: F401
 from mgwfbp_tpu_torch.ops.flashattn import flash_attention, flash_supported
 from mgwfbp_tpu_torch.parallel.ringattn import local_attention
 
@@ -108,26 +107,25 @@ class TransformerLM(nn.Module):
         self.ln_out = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.head = nn.Linear(d_model, vocab_size)
 
+    def with_max_len(self, max_len: int) -> "TransformerLM":
+        """A fresh model like this one with a position table of
+        ``max_len`` rows."""
+        return TransformerLM(
+            self.vocab_size, self.d_model, self.num_heads, self.num_layers,
+            self.d_ff, max_len, self.dropout, self.attn_impl,
+        )
+
+    def set_attn_impl(self, attn_impl: str) -> None:
+        """Switch every block between dense and flash attention."""
+        if attn_impl not in ("dense", "flash"):
+            raise ValueError(f"attn_impl must be dense or flash, got {attn_impl!r}")
+        for block in self.blocks:
+            block.attn_impl = attn_impl
+        self.attn_impl = attn_impl
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pos = torch.arange(x.shape[1], device=x.device)
         h = take_fill(self.tok_embed, x) + self.pos_embed(pos)
         for block in self.blocks:
             h = block(h)
         return self.head(self.ln_out(h))
-
-
-@torch.no_grad()
-def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Flax-style initialization from a seeded generator: dense kernels
-    LeCun-normal (std 1/sqrt(fan_in)), biases zero, embeddings normal with
-    std 1/sqrt(d), LayerNorm scale one and bias zero."""
-    for sub in module.modules():
-        if isinstance(sub, nn.Linear):
-            sub.weight.normal_(0.0, sub.in_features ** -0.5, generator=generator)
-            sub.bias.zero_()
-        elif isinstance(sub, nn.Embedding):
-            sub.weight.normal_(0.0, sub.embedding_dim ** -0.5, generator=generator)
-        elif isinstance(sub, nn.LayerNorm):
-            sub.weight.fill_(1.0)
-            sub.bias.zero_()
-    return module

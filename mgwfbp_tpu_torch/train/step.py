@@ -1,5 +1,6 @@
 """The data-parallel train step with MG-WFBP merged all-reduce (counterpart
-of the ``all_reduce`` path of ``mgwfbp_tpu/train/step.py``, classify task).
+of the ``all_reduce`` path of ``mgwfbp_tpu/train/step.py``, classify and
+lm tasks).
 
 One ``TrainStep`` call is one optimizer step:
 
@@ -10,15 +11,23 @@ One ``TrainStep`` call is one optimizer step:
     all-reduce as its gradients land; ``synchronize`` waits and unpacks.
     Without a reducer (policy 'none', several workers) each leaf is
     all-reduced on its own after the backward; one worker reduces nothing;
+  * the loss: mean softmax cross-entropy in float32, over the batch
+    (classify) or over every token of the batch (lm, logits reshaped to
+    (B*T, V)); the metric beside it is the accuracy or the perplexity
+    ``exp(loss)``;
+  * a BPTT carry (the LSTM) goes in, threads through the micro-batches in
+    order, each micro-step starting from the previous one's carry
+    detached, and comes out detached; a windowed LM (the transformer)
+    passes none;
   * the non-finite guard: the reduced gradients' non-finite values are
     counted and, when the count is not zero, the WHOLE pre-step state is
     kept: parameters, momentum buffers and the step counter (the optimizer
-    does not run) and the batch-norm running statistics, which torch
-    updates in place during the forward and the step therefore restores
-    from a snapshot taken before it;
+    does not run), the carry that came in, and the batch-norm running
+    statistics, which torch updates in place during the forward and the
+    step therefore restores from a snapshot taken before it;
   * the learning rate is set from ``lr_fn(step)`` before every update;
-  * batch-norm running statistics and the metrics (mean loss, accuracy,
-    non-finite count) are averaged across ranks.
+  * batch-norm running statistics and the metrics (mean loss, accuracy or
+    perplexity, non-finite count) are averaged across ranks.
 
 The model's buffers are re-seated as views of one flat tensor, so the
 snapshot, the restore and the cross-rank average are one operation each.
@@ -33,14 +42,36 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from mgwfbp_tpu_torch.models.lstm import repackage_carry
 from mgwfbp_tpu_torch.optim import clip_by_global_norm_, set_lr
 from mgwfbp_tpu_torch.parallel.allreduce import MergedAllreduce
 from mgwfbp_tpu_torch.parallel.mesh import world_size
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross-entropy with integer labels, in float32."""
-    return F.cross_entropy(logits.float(), labels.long())
+    """Mean softmax cross-entropy with integer labels, in float32; LM logits
+    (B, T, V) count every token, reshaped to (B*T, V)."""
+    logits = logits.float()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1).long())
+
+
+def forward_loss(model: nn.Module, task: str, x: torch.Tensor,
+                 y: torch.Tensor, carry=None):
+    """(loss, metric, new carry) of one batch: the metric is the accuracy
+    (classify) or the perplexity (lm); a model with a BPTT carry takes and
+    returns one, the others return the carry they were given (None)."""
+    if carry is not None:
+        logits, carry = model(x, carry)
+    else:
+        logits = model(x)
+    loss = cross_entropy(logits, y)
+    with torch.no_grad():
+        if task == "lm":
+            metric = torch.exp(loss.detach())
+        else:
+            metric = (logits.argmax(-1) == y).float().mean()
+    return loss, metric, carry
 
 
 def flatten_buffers(module: nn.Module) -> Optional[torch.Tensor]:
@@ -76,8 +107,11 @@ def nonfinite_count(tensors) -> torch.Tensor:
 
 
 class TrainStep:
-    """``step(x, y) -> metrics``: x (n, B, C, H, W) and y (n, B) tensors on
-    the model's device, n = ``nsteps_update`` micro-batches."""
+    """``step(x, y) -> metrics`` (classify, windowed lm) and ``step(x, y,
+    carry) -> (metrics, carry)`` (an lm with a BPTT carry): x (n, B, C, H,
+    W) images and y (n, B) labels, or x and y (n, B, T) tokens, on the
+    model's device, n = ``nsteps_update`` micro-batches. ``task`` is the
+    model's (``ModelMeta.task``): classify or lm."""
 
     def __init__(
         self,
@@ -89,8 +123,13 @@ class TrainStep:
         nsteps_update: int = 1,
         grad_guard: bool = True,
         norm_clip: Optional[float] = None,
+        task: str = "classify",
     ):
+        if task not in ("classify", "lm"):
+            raise ValueError(f"task must be classify or lm, got {task!r}")
         self.model = model
+        self.task = task
+        self.metric = "accuracy" if task == "classify" else "perplexity"
         self.optimizer = optimizer
         self.lr_fn = lr_fn
         self.reducer = reducer
@@ -102,7 +141,7 @@ class TrainStep:
         self.buffers = flatten_buffers(model)
         self.step = 0  # optimizer updates applied: the schedule's count
 
-    def __call__(self, x: torch.Tensor, y: torch.Tensor) -> dict[str, float]:
+    def __call__(self, x: torch.Tensor, y: torch.Tensor, carry=None):
         n = self.nsteps_update
         if x.shape[0] != n or y.shape[0] != n:
             raise ValueError(
@@ -115,19 +154,23 @@ class TrainStep:
             self.buffers.clone()
             if self.grad_guard and self.buffers is not None else None
         )
+        carry_in = carry
         for p in self.params:
             p.grad = None
         loss_sum = torch.zeros((), device=x.device)
-        acc_sum = torch.zeros((), device=x.device)
+        metric_sum = torch.zeros((), device=x.device)
         for i in range(n):
             if reducer is not None:
                 reducer.begin(active=i == n - 1, scale=1.0 / n)
-            logits = model(x[i])
-            loss = cross_entropy(logits, y[i])
+            loss, metric, carry = forward_loss(
+                model, self.task, x[i], y[i], carry
+            )
             loss.backward()
+            if carry is not None:
+                carry = repackage_carry(carry)
             with torch.no_grad():
                 loss_sum += loss.detach()
-                acc_sum += (logits.argmax(-1) == y[i]).float().mean()
+                metric_sum += metric
         if reducer is not None:
             reduced = reducer.synchronize()
         else:
@@ -140,14 +183,14 @@ class TrainStep:
                     g.div_(self.world)
             reduced = grads
         metrics = torch.stack([
-            loss_sum / n, acc_sum / n,
+            loss_sum / n, metric_sum / n,
             nonfinite_count(reduced) if self.grad_guard
             else torch.zeros((), device=x.device),
         ])
         if self.world > 1:
             dist.all_reduce(metrics)
             metrics.div_(self.world)
-        loss_v, acc_v, bad = metrics.tolist()
+        loss_v, metric_v, bad = metrics.tolist()
         if bad == 0.0:
             if self.norm_clip is not None:
                 clip_by_global_norm_([p.grad for p in self.params],
@@ -158,13 +201,18 @@ class TrainStep:
             if self.world > 1 and self.buffers is not None:
                 dist.all_reduce(self.buffers)
                 self.buffers.div_(self.world)
-        elif snapshot is not None:
+        else:
             # a skipped step never happened: the forward's running
-            # statistics go back too
-            self.buffers.copy_(snapshot)
+            # statistics and the carry go back too
+            if snapshot is not None:
+                self.buffers.copy_(snapshot)
+            carry = carry_in
         for p in self.params:
             p.grad = None
-        return {"loss": loss_v, "accuracy": acc_v, "grads_nonfinite": bad}
+        out = {"loss": loss_v, self.metric: metric_v, "grads_nonfinite": bad}
+        if carry_in is None:
+            return out
+        return out, carry
 
 
 @torch.no_grad()
@@ -181,3 +229,24 @@ def eval_sums(model: nn.Module, x: torch.Tensor, y: torch.Tensor) -> torch.Tenso
         per.sum(), top1.sum(), top5.sum(),
         torch.tensor(float(y.shape[0]), device=logits.device),
     ])
+
+
+@torch.no_grad()
+def lm_eval_sums(model: nn.Module, x: torch.Tensor, y: torch.Tensor,
+                 carry=None):
+    """([loss, count] summed over one eval batch, new carry): each sample's
+    loss is its mean token loss (the JAX eval step's lm sums); a model
+    with a BPTT carry takes and returns one."""
+    if carry is not None:
+        logits, carry = model(x, carry)
+    else:
+        logits = model(x)
+    logits = logits.float()
+    per_token = F.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long(),
+        reduction="none",
+    ).view(y.shape)
+    per = per_token.mean(-1)
+    return torch.stack([
+        per.sum(), torch.tensor(float(y.shape[0]), device=logits.device),
+    ]), carry

@@ -1,6 +1,10 @@
 """The trainer (counterpart of the ``all_reduce`` training path of
 ``mgwfbp_tpu/train/trainer.py``): loaders, model, optimizer, the merged
-all-reduce and its backward profile, the train/eval loop and step commits.
+all-reduce and its backward profile, the train/eval loop and step commits,
+for classifiers and language models. A model with a BPTT carry (the LSTM)
+starts each epoch, and each evaluation, from a zero carry and threads it
+through the steps; the transformer trains through dense attention, as the
+JAX package trains it (``models.for_training``).
 
 One process per card; the world is whatever ``torch.distributed`` was
 started with (``parallel.mesh.init_distributed``), one worker when it was
@@ -9,7 +13,9 @@ to schedule (the JAX trainer's single-device rule). The cost model is the
 ``--comm-profile`` resolved at the world size, else the ``connection``
 prior; the measured backward profile is written to
 ``<logdir>/<tag>/tb_profile.json``. With ``telemetry`` on, each step
-writes a ``step`` span and each epoch an ``epoch`` record, the ``overlap``
+writes a ``step`` span and each epoch an ``epoch`` record (for a
+language model both also hold its ``loss`` and ``perplexity``), the
+``overlap``
 accounting and one ``comm_group`` record per merge group
 (``telemetry/overlap.py``). Resume, preemption, rollback, autotune, the
 rest of the telemetry plane, the serving shadow and elastic resize are not
@@ -18,6 +24,7 @@ ported (ROADMAP.md).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -52,7 +59,12 @@ from mgwfbp_tpu_torch.profiling import (
     trace_group_times,
 )
 from mgwfbp_tpu_torch.telemetry import EventWriter, stream_filename, summarize
-from mgwfbp_tpu_torch.train.step import TrainStep, cross_entropy, eval_sums
+from mgwfbp_tpu_torch.train.step import (
+    TrainStep,
+    eval_sums,
+    forward_loss,
+    lm_eval_sums,
+)
 from mgwfbp_tpu_torch.utils.device import resolve_device
 from mgwfbp_tpu_torch.utils.logging import get_logger
 
@@ -82,17 +94,22 @@ class Trainer:
             config.dataset, data_dir=config.data_dir,
             batch_size=config.batch_size, shard=self.shard, seed=config.seed,
             synthetic=synthetic_data, augment=config.augment,
+            num_steps=config.num_steps,
         )
-        self.model, self.meta = zoo.create_model(
+        model, self.meta = zoo.create_model(
             config.dnn, dataset=config.dataset,
             num_classes=self.bundle.num_classes,
         )
-        if self.meta.task != "classify":
-            raise ValueError(
-                f"training {config.dnn!r} ({self.meta.task}) is not ported "
-                "yet: the port trains classifiers (ROADMAP.md)"
-            )
+        self.model = zoo.for_training(model)
+        self._apply_lm_window()
         init_weights(self.model, torch.Generator().manual_seed(config.seed))
+        # dropout draws from torch's global generator: a function of the
+        # seed and the rank, so that ranks draw different masks (the JAX
+        # step folds the device index into its dropout key)
+        torch.manual_seed(
+            int(np.random.SeedSequence([config.seed, self.rank])
+                .generate_state(1)[0])
+        )
         self.model.to(self.device)
         if self.world > 1:
             # identical replicas from rank 0, as the reference's
@@ -126,7 +143,9 @@ class Trainer:
                 scaled_clip_threshold(config.norm_clip, self.world)
                 if config.norm_clip is not None else None
             ),
+            task=self.meta.task,
         )
+        self.carry = self._zero_carry()
         self.ckpt_dir = (
             os.path.join(config.checkpoint_dir, config.tag())
             if config.checkpoint_dir else None
@@ -158,6 +177,31 @@ class Trainer:
             },
         )
 
+    def _apply_lm_window(self) -> None:
+        """Windowed-LM length override (``num_steps``): the meta the batches
+        are built from, and a position table at least that long."""
+        n = self.config.num_steps
+        if not (n and self.meta.task == "lm" and not self.meta.has_carry):
+            return
+        self.meta = dataclasses.replace(self.meta, input_shape=(n,))
+        if getattr(self.model, "max_len", n) < n:
+            self.model = self.model.with_max_len(n)
+
+    def _zero_carry(self):
+        """A fresh zero carry at the per-worker batch (None for a model
+        without one)."""
+        if not self.meta.has_carry:
+            return None
+        return self.model.initial_carry(self.config.batch_size, self.device)
+
+    def step_batch(self, x: torch.Tensor, y: torch.Tensor) -> dict:
+        """One optimizer step on device batches; a carry model threads
+        ``self.carry`` through it."""
+        if self.carry is None:
+            return self.train_step(x, y)
+        metrics, self.carry = self.train_step(x, y, self.carry)
+        return metrics
+
     def _steps_per_epoch(self) -> int:
         steps = self.bundle.num_batches_per_epoch // max(
             self.config.nsteps_update, 1
@@ -167,14 +211,17 @@ class Trainer:
         return steps
 
     def _to_device(self, x: np.ndarray, y: np.ndarray):
-        """NHWC numpy batches (leading micro-step axis optional) -> NCHW
-        float32 and int64 tensors on the card, permuted there."""
+        """Numpy batches (leading micro-step axis optional) -> tensors on
+        the card: NHWC images become NCHW float32, permuted there; tokens
+        stay (B, T); labels and targets become int64."""
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(
             self.device, non_blocking=True
         )
         yt = torch.from_numpy(np.asarray(y, np.int64)).to(
             self.device, non_blocking=True
         )
+        if self.meta.task == "lm":
+            return xt, yt
         return xt.movedim(-1, -3).contiguous(), yt
 
     def _build_reducer(self, profile_backward: bool):
@@ -230,9 +277,10 @@ class Trainer:
         x, y = self.bundle.train.load_batch(0, 0)
         x, y = self._to_device(x, y)
         params, perm, names = self._arrival_leaves()
+        carry = self._zero_carry()
 
         def loss_of():
-            return cross_entropy(self.model(x), y)
+            return forward_loss(self.model, self.meta.task, x, y, carry)[0]
 
         t0 = time.perf_counter()
         self.model.train()
@@ -261,6 +309,8 @@ class Trainer:
         cfg = self.config
         loader = self.bundle.train
         loader.set_epoch(epoch)
+        # a fresh hidden state each epoch, carried across its steps
+        self.carry = self._zero_carry()
         n = cfg.nsteps_update
         micro: list = []
         epoch_pos = 0
@@ -278,12 +328,13 @@ class Trainer:
             )
             micro = []
             t_step = self.telemetry.now() if self.telemetry else 0.0
-            metrics = self.train_step(x, y)
+            metrics = self.step_batch(x, y)
             self.iteration += 1
             if self.telemetry is not None:
                 self.telemetry.emit(
                     "step", step=self.iteration, epoch=int(epoch),
                     start_s=t_step, dur_s=self.telemetry.now() - t_step,
+                    **self._lm_fields(metrics),
                 )
             epoch_pos += 1
             self.losses.append(metrics["loss"])
@@ -296,10 +347,11 @@ class Trainer:
                 )
             if self.iteration % log_interval == 0:
                 dt = (time.time() - t_window) / log_interval
+                metric = self.train_step.metric
                 self.log.info(
-                    "epoch %d iter %d: loss %.4f, accuracy %.4f | %.4f "
+                    "epoch %d iter %d: loss %.4f, %s %.4f | %.4f "
                     "s/iter, %.1f samples/s", epoch, self.iteration,
-                    metrics["loss"], metrics["accuracy"], dt,
+                    metrics["loss"], metric, metrics[metric], dt,
                     cfg.batch_size * self.world * n / dt,
                 )
                 t_window = time.time()
@@ -316,13 +368,20 @@ class Trainer:
         epoch_dur = time.time() - t_epoch
         if self.telemetry is not None and epoch_pos > 0:
             self.telemetry.emit("epoch", epoch=int(epoch), steps=epoch_pos,
-                                dur_s=epoch_dur)
+                                dur_s=epoch_dur, **self._lm_fields(metrics))
             self._emit_overlap(epoch_dur / epoch_pos, epoch)
         self.log.info(
             "epoch %d done in %.1f s (lr %.5f)", epoch, epoch_dur,
             self.epoch_schedule(float(epoch)),
         )
         return out
+
+    def _lm_fields(self, metrics: dict) -> dict:
+        """The loss and perplexity a language model's step and epoch
+        records carry (nothing for a classifier)."""
+        if self.meta.task != "lm" or not metrics:
+            return {}
+        return {"loss": metrics["loss"], "perplexity": metrics["perplexity"]}
 
     def _overlap_tb(self) -> list[float]:
         """The tb the schedule was solved on: measured, else the volume
@@ -376,7 +435,7 @@ class Trainer:
         def run():
             for i in range(iters):
                 group = batches[i * n:(i + 1) * n]
-                self.train_step(*self._to_device(
+                self.step_batch(*self._to_device(
                     np.stack([b[0] for b in group]),
                     np.stack([b[1] for b in group]),
                 ))
@@ -396,7 +455,9 @@ class Trainer:
 
     def evaluate(self) -> dict:
         """Loss, top-1 and top-5 over every sample of the val loader,
-        summed across ranks."""
+        summed across ranks (a language model: ``_evaluate_lm``)."""
+        if self.meta.task == "lm":
+            return self._evaluate_lm()
         self.model.eval()
         sums = torch.zeros(4, device=self.device)
         try:
@@ -411,6 +472,36 @@ class Trainer:
         c = max(count, 1.0)
         return {"loss": loss / c, "top1": top1 / c, "top5": top5 / c,
                 "count": count}
+
+    def _evaluate_lm(self) -> dict:
+        """Loss (the mean over samples of each sample's mean token loss),
+        count and ``perplexity = exp(loss)`` over the val loader, summed
+        across ranks. A carry model threads its carry from zero through
+        the batches and skips a batch of another size, which its carry
+        cannot take."""
+        self.model.eval()
+        sums = torch.zeros(2, device=self.device)
+        carry = self._zero_carry()
+        try:
+            for xb, yb in self.bundle.val:
+                if carry is not None and len(xb) != self.config.batch_size:
+                    self.log.warning(
+                        "evaluate: skipping %d-sample batch (carry model "
+                        "requires fixed batch %d)", len(xb),
+                        self.config.batch_size,
+                    )
+                    continue
+                x, y = self._to_device(xb, yb)
+                batch_sums, carry = lm_eval_sums(self.model, x, y, carry)
+                sums += batch_sums
+        finally:
+            self.model.train()
+        if self.world > 1:
+            dist.all_reduce(sums)
+        loss, count = sums.tolist()
+        loss /= max(count, 1.0)
+        return {"loss": loss, "count": count,
+                "perplexity": float(np.exp(loss))}
 
     def save_step(self, epoch: int, epoch_step: int = 0) -> Optional[str]:
         """Commit the current step (params + batch statistics, replicated,

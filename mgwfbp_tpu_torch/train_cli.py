@@ -3,6 +3,8 @@
     python -m mgwfbp_tpu_torch.train_cli --dnn resnet20 --synthetic
     python -m mgwfbp_tpu_torch.train_cli --dnn resnet20 --synthetic \\
         --device cpu --epochs 1 --num-batches-per-epoch 8
+    python -m mgwfbp_tpu_torch.train_cli --dnn lstm --synthetic \\
+        --device cpu --batch-size 4 --num-batches-per-epoch 4 --epochs 1
 
 The flags are the JAX CLI's for the fields the port reads, plus
 ``--device`` (default ``cuda``; a missing card raises, ``cpu`` runs on the
@@ -12,7 +14,8 @@ CPU). Several processes, one per card, form a world from
 environment; each takes the card of its local rank (``LOCAL_RANK``,
 ``SLURM_LOCALID``, ``OMPI_COMM_WORLD_LOCAL_RANK``, else the process id
 modulo the host's cards) unless ``--device cuda:K`` names one. Prints one
-JSON result line at the end. ``--comm-profile`` takes a profile written by
+JSON result line at the end (language models add ``perplexity`` to their
+train and eval metrics). ``--comm-profile`` takes a profile written by
 ``python -m mgwfbp_tpu_torch.calibrate``; ``--telemetry`` writes the event
 stream (``MGWFBP_TELEMETRY_TRACE=1`` adds a profiler trace of two steps
 before the first epoch, whose per-group device times replace the cost
@@ -26,6 +29,7 @@ import json
 from typing import Optional
 
 from mgwfbp_tpu_torch.config import PRESETS, TrainConfig, make_config
+from mgwfbp_tpu_torch.models import model_names
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="mgwfbp-train-torch",
         description="MG-WFBP data-parallel training on CUDA (PyTorch port)",
     )
-    p.add_argument("--dnn", default="resnet20", help=f"model: {sorted(PRESETS)}")
+    p.add_argument("--dnn", default="resnet20",
+                   help=f"model: {model_names()} (presets: {sorted(PRESETS)})")
     p.add_argument("--dataset", default=None)
     p.add_argument("--data-dir", dest="data_dir", default=None)
     p.add_argument("--batch-size", dest="batch_size", type=int, default=None,
@@ -45,6 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-batches-per-epoch", dest="num_batches_per_epoch",
                    type=int, default=None,
                    help="cap optimizer steps per epoch (smoke runs)")
+    p.add_argument("--num-steps", dest="num_steps", type=int, default=None,
+                   help="LM window length (default: the preset's, else 35)")
     p.add_argument("--nsteps-update", dest="nsteps_update", type=int,
                    default=None, help="gradient accumulation micro-steps")
     p.add_argument("--policy", default=None,
@@ -97,7 +104,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             "dataset", "data_dir", "batch_size", "lr", "max_epochs",
             "nsteps_update", "policy", "threshold", "connection",
             "comm_profile", "comm_dtype", "logdir", "checkpoint_dir", "seed",
-            "num_batches_per_epoch", "telemetry_dir",
+            "num_batches_per_epoch", "telemetry_dir", "num_steps",
         )
         if getattr(args, k, None) is not None
     }

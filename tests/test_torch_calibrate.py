@@ -18,7 +18,10 @@ their mgwfbp_tpu counterparts).
     errors, a clean exit for --world-sizes beyond the world, a sampled
     profile from the default mode, a family over two gloo processes,
     --prior-extend's measured and prior fields, --two-level refused, and
-    --forward's schema-2 layer profile read by the JAX reader.
+    --forward's schema-2 layer profile read by the JAX reader, for
+    ResNet-20 and for the full-width PTB LSTM at batch 1 (integer tokens,
+    a zero carry); --forward for a model still to port names it and the
+    ROADMAP.md queue.
 
 Sweeps are tiny (payloads of 2^8..2^10 elements, 2 timed calls).
 """
@@ -377,3 +380,31 @@ def test_forward_writes_a_layer_profile_the_jax_reader_reads(tmp_path, capsys):
              jax.tree_util.tree_flatten_with_path(shapes)[0]]
     perm = jax_arrival_order(len(names), names=names)
     assert doc["arrival_names"] == [names[j] for j in perm]
+
+
+def test_forward_profiles_the_lstm_from_tokens_and_a_carry(tmp_path, capsys):
+    out = tmp_path / "lstm.json"
+    assert calibrate.main(["--out", str(out), "--forward", "--model", "lstm",
+                           "--batch-size", "1", *TINY]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    doc = jax_load_layer_profile(str(out))
+    assert report["layers"] == 27 and doc["meta"]["model"] == "lstm"
+    assert doc["source"] == doc["tf_source"] == "hooks"
+    assert np.isfinite(doc["tb_s"] + doc["tf_s"]).all()
+    jm, _ = jax_create_model("lstm")
+    shapes = jax.eval_shape(
+        lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 35), jnp.int32),
+                        train=False)
+    )["params"]
+    names = [jax.tree_util.keystr(kp) for kp, _ in
+             jax.tree_util.tree_flatten_with_path(shapes)[0]]
+    perm = jax_arrival_order(len(names), names=names)
+    assert doc["arrival_names"] == [names[j] for j in perm]
+
+
+@pytest.mark.parametrize("model", ["lstman4", "googlenet"])
+def test_forward_refuses_a_model_still_to_port(tmp_path, model):
+    with pytest.raises(SystemExit, match=f"--model {model}: not ported yet"
+                       r".*lstman4 and the rest of the CNN zoo.*Queue 1"):
+        calibrate.main(["--out", str(tmp_path / "x.json"), "--forward",
+                        "--model", model, "--device", "cpu"])

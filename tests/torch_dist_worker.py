@@ -13,7 +13,14 @@ Imports torch and the port only (no JAX), reads its inputs from
     the spec's global batches (this rank's slice), state saved after
     steps 1 and 5, one run per ``nsteps_update``;
   * ``nan``: a step whose batch holds a NaN on one rank leaves the whole
-    state (parameters, batch statistics, momentum, step counter) as it was.
+    state (parameters, batch statistics, momentum, step counter) as it was;
+  * ``lm_nsteps``: the same for the small PTB LSTM and its BPTT carry
+    (tests/test_torch_train_lm.py): the port's TrainStep from the spec's
+    initial weights and a zero carry over the spec's global token batches
+    (this rank's rows), parameters and carry saved after steps 1 and 3,
+    one run per ``nsteps_update``; then a step whose batch holds a token
+    outside the vocabulary on the last rank (a NaN embedding row) leaves
+    parameters, momentum, step counter and carry as they were.
 """
 
 from __future__ import annotations
@@ -34,8 +41,12 @@ from mgwfbp_tpu_torch.convert import (  # noqa: E402
     state_from_flax,
     variables_to_flax,
 )
+from mgwfbp_tpu_torch.models.lstm import PTBLSTM  # noqa: E402
 from mgwfbp_tpu_torch.models.resnet_cifar import CifarResNet  # noqa: E402
-from mgwfbp_tpu_torch.optim import make_optimizer  # noqa: E402
+from mgwfbp_tpu_torch.optim import (  # noqa: E402
+    make_optimizer,
+    scaled_clip_threshold,
+)
 from mgwfbp_tpu_torch.parallel.allreduce import make_merged_allreduce  # noqa: E402
 from mgwfbp_tpu_torch.parallel.costmodel import lookup_alpha_beta  # noqa: E402
 from mgwfbp_tpu_torch.train.step import TrainStep, cross_entropy  # noqa: E402
@@ -164,6 +175,62 @@ def _train(spec, arrays, rank, world, out, n: int) -> None:
     reducer.detach()
 
 
+def _lm_state(model, step, carry) -> dict:
+    out = _state(model, step)
+    for li, (c, h) in enumerate(carry):
+        out[f"carry/{li}/c"] = c.detach().numpy().copy()
+        out[f"carry/{li}/h"] = h.detach().numpy().copy()
+    return out
+
+
+def _lm_train(spec, arrays, rank, world, out, n: int) -> None:
+    lm = spec["lm"]
+    model = PTBLSTM(lm["vocab"], lm["hidden"], 2, 0.0)
+    params = {k[len("lm_params/"):]: arrays[k] for k in arrays.files
+              if k.startswith("lm_params/")}
+    model.load_state_dict(state_from_flax(model, params))
+    b = lm["batch"]
+    opt, lr_fn, _ = make_optimizer(
+        model.parameters(), lm["lr"], momentum=lm["momentum"],
+        weight_decay=0.0, lr_schedule="ptb", dataset="ptb",
+        num_batches_per_epoch=lm["batches_per_epoch"],
+    )
+    reducer = make_merged_allreduce(
+        model, policy="mgwfbp", cost_model=lookup_alpha_beta("10GbE", world)
+    )
+    step = TrainStep(model, opt, lr_fn, reducer=reducer, nsteps_update=n,
+                     norm_clip=scaled_clip_threshold(lm["norm_clip"], world),
+                     task="lm")
+    carry = model.initial_carry(b)
+    xs, ys = arrays[f"lm_x_n{n}"], arrays[f"lm_y_n{n}"]
+    rows = slice(rank * b, (rank + 1) * b)
+    for k in range(xs.shape[0]):
+        x = torch.from_numpy(xs[k][:, rows])
+        y = torch.from_numpy(ys[k][:, rows])
+        m, carry = step(x, y, carry)
+        out[f"lm_n{n}/metrics{k + 1}"] = np.asarray(
+            [m["loss"], m["perplexity"], m["grads_nonfinite"]]
+        )
+        if k + 1 in (1, 3):
+            for key, v in _lm_state(model, step, carry).items():
+                out[f"lm_n{n}/s{k + 1}/{key}"] = v
+    if n == 1:
+        # one more step whose batch holds a token outside the vocabulary
+        # on the last rank only: its embedding row is NaN, as in jnp.take
+        before = _lm_state(model, step, carry)
+        x = torch.from_numpy(xs[0][:, rows].copy())
+        if rank == world - 1:
+            x[0, 0, 0] = lm["vocab"]
+        m, carry = step(x, torch.from_numpy(ys[0][:, rows]), carry)
+        after = _lm_state(model, step, carry)
+        out["lm_nan/nonfinite"] = np.float64(m["grads_nonfinite"])
+        out["lm_nan/unchanged"] = np.bool_(
+            before.keys() == after.keys()
+            and all(np.array_equal(before[k], after[k]) for k in before)
+        )
+    reducer.detach()
+
+
 def run(rank: int, world: int, init_file: str, out_dir: str) -> None:
     torch.manual_seed(0)
     torch.set_num_threads(1)
@@ -179,6 +246,8 @@ def run(rank: int, world: int, init_file: str, out_dir: str) -> None:
             _merge(spec, arrays, rank, world, out)
         for n in spec.get("train_nsteps", ()):
             _train(spec, arrays, rank, world, out, n)
+        for n in spec.get("lm_nsteps", ()):
+            _lm_train(spec, arrays, rank, world, out, n)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
