@@ -70,12 +70,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the hooks and the mgwfbp groups it gives at 1 worker (ici) and on
      MERGING_LINK, and for the LSTM where the hooks put the embedding's
      gradient against where the arrival permutation puts it.
+  6. (f) train the bench model a user would train: ResNet-50 at full width
+     (224 x 224, 1000 classes) on synthetic ImageNet without augmentation,
+     through the Trainer at bfloat16 (``--dtype bfloat16``), batch 128 (64
+     on an out-of-memory error, printed): RESNET50_STEPS steps whose last 5
+     losses fall below the first 5's, one evaluate, the commit read back
+     equal to the live parameters and batch statistics, one batch of the
+     card's bfloat16 logits against the same weights at float32
+     (RESNET50_BF16_TOL), the committed checkpoint served through /predict
+     against a float32 forward (RESNET50_SERVE_TOL), no flash launch; then
+     the step time (median of 20 after 5), images/s, the float32 step at
+     the same batch, torch.profiler's busy share, kernels per step and the
+     shares of device time in convolutions, layout transposes and
+     batch-norm statistics; last, the bench grid (``mgwfbp_tpu_torch.bench``)
+     at RESNET50_BENCH_ITERS iterations.
+
+Every phase runs with TF32 off (``utils.device.set_matmul_precision``).
 
 Output, last lines: a JSON line each for the phase-2 shape table, the
 serving forward's breakdown (host time of one flush's run_padded, device
 time by kernel from torch.profiler), the /predict latencies, the training
 phase ({"train": ...}), the calibration phase ({"calibrate": ...}), the
-language models ({"lm": ...}), the card's name and power limit (nvidia-smi), the kernels line ({"kernels":
+language models ({"lm": ...}), the bench payload ({"bench": ...}), ResNet-50
+({"resnet50": ...}), the card's name and power limit (nvidia-smi), the kernels line ({"kernels":
 [...]}) and, last, {"ok": true, "device": {...}}.
 """
 
@@ -528,7 +545,7 @@ MERGING_LINK = ("56GbIB", 16)
 GLOO_LINKS = (("ici", None), MERGING_LINK)  # None: the world's size
 
 
-def _step_profile(fn, steps: int = 5) -> dict:
+def _step_profile(fn, steps: int = 5, all_kernels: bool = False) -> dict:
     """torch.profiler over `steps` calls of fn: the card's busy share (sum
     of kernel time over the host's wall time), the kernels and the host
     operators that take most time, per call. A reading, not a check:
@@ -567,6 +584,8 @@ def _step_profile(fn, steps: int = 5) -> dict:
             for k, t, n in sorted(host, key=lambda r: -r[1])[:10]
         ],
     }
+    if all_kernels:
+        out["all_kernels_ms_per_step"] = [[k, t / steps / 1e3] for k, t in dev]
     return out
 
 
@@ -890,7 +909,9 @@ def _gloo_rank(rank: int, world: int, rdv: str, out_path: str,
     from mgwfbp_tpu_torch.parallel.costmodel import lookup_alpha_beta
     from mgwfbp_tpu_torch.train import TrainStep
 
-    torch.backends.cudnn.allow_tf32 = False
+    from mgwfbp_tpu_torch.utils.device import set_matmul_precision
+
+    set_matmul_precision(None)
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(0)
@@ -1386,12 +1407,245 @@ def phase_lm() -> dict:
     return out
 
 
+RESNET50_BATCH, RESNET50_FALLBACK = 128, 64  # the preset's, then on OOM
+RESNET50_STEPS = 32  # phase (f): 512 synthetic images repeated
+RESNET50_BENCH_ITERS = 10  # the bench grid at a reduced count in the smoke
+# one batch of the card's bfloat16 logits against the same weights at
+# float32 on the card, eval mode: bfloat16 keeps 8 bits, and 53 layers
+# round each activation again (measured on the CPU at 224: 1.2 % relative
+# L2); the bound is relative L2 and max abs against max(1, largest logit)
+RESNET50_BF16_TOL = 5e-2
+# /predict of the committed float32 checkpoint against a float32 forward of
+# the live weights on the card: the same math, through cuDNN algorithms
+# that may differ with the batch (the serve slot pads to 8)
+RESNET50_SERVE_TOL = 1e-3
+SERVE_IMAGES = 2
+# substrings of the device kernels counted as convolutions (cuDNN's and
+# CUTLASS's implicit-GEMM fprop/dgrad/wgrad kernels), layout transposes,
+# and batch-norm statistics
+CONV_KERNELS = ("conv", "fprop", "dgrad", "wgrad", "implicit_gemm", "xmma")
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw", "nchw2nhwc", "nhwc2nchw")
+BN_KERNELS = ("batch_norm", "welford", "var_mean")
+
+
+def _kernel_shares(prof: dict) -> dict:
+    """Shares of the step's device time by kernel family, from a
+    torch.profiler run (``_step_profile(..., all_kernels=True)``)."""
+    rows = prof.get("all_kernels_ms_per_step") or []
+    total = sum(ms for _, ms in rows)
+    if total <= 0:
+        return {"note": "not measured (the profiler recorded no device time)"}
+
+    def share(keys):
+        return sum(ms for k, ms in rows if any(s in k for s in keys)) / total
+
+    return {"conv": share(CONV_KERNELS), "layout_transposes": share(LAYOUT_KERNELS),
+            "batch_norm": share(BN_KERNELS), "device_ms_per_step": total}
+
+
+def _resnet50_train(root: str, batch: int) -> tuple:
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.train import Trainer
+
+    cfg = make_config("resnet50", dtype="bfloat16", batch_size=batch,
+                      augment=False,
+                      logdir=os.path.join(root, "logs"),
+                      checkpoint_dir=os.path.join(root, "ckpt"))
+    tr = Trainer(cfg, device=TRAIN_DEVICE, synthetic_data=True)
+    epochs = max(RESNET50_STEPS // max(tr._steps_per_epoch(), 1), 1)
+    cfg.eval_every_epochs = cfg.checkpoint_every_epochs = epochs
+    t0 = time.perf_counter()
+    metrics = tr.fit(epochs)
+    return tr, metrics, time.perf_counter() - t0
+
+
+def _resnet50_serve(ckpt_dir: str, step: int, model, x: np.ndarray) -> dict:
+    """The committed checkpoint behind /predict (float32, NHWC requests)
+    against a float32 forward of the live weights on the card."""
+    from mgwfbp_tpu_torch import models
+    from mgwfbp_tpu_torch.serving.model import ServingModel
+    from mgwfbp_tpu_torch.serving.plane import ServePlane
+    from mgwfbp_tpu_torch.telemetry.serve import MetricsAggregator, TelemetryServer
+
+    module, meta = models.create_model("resnet50")
+    serving = ServingModel(module, meta, device=TRAIN_DEVICE)
+    agg = MetricsAggregator(run={"role": "serve", "dnn": meta.name})
+    server = TelemetryServer(agg, 0)
+    plane = ServePlane(serving, ckpt_dir, emit=agg.observe, server=server)
+    try:
+        plane.start()
+        if plane.poll_now() != step and serving.served_step() != step:
+            fail(f"resnet50: the committed step {step} was not installed")
+        code, doc, dt = _post(server.port, x.tolist())
+    finally:
+        plane.close()
+        server.close()
+    if code != 200 or doc.get("served_step") != step:
+        fail(f"resnet50 /predict answered {code}, step {doc.get('served_step')}")
+    got = np.asarray(doc["outputs"], np.float32)
+    model.eval()
+    try:
+        with torch.no_grad():
+            want = model(torch.from_numpy(x).to(TRAIN_DEVICE).movedim(-1, -3)
+                         .contiguous()).float().cpu().numpy()
+    finally:
+        model.train()
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or not np.isfinite(got).all() or (
+        err > RESNET50_SERVE_TOL * scale
+    ):
+        fail(f"resnet50 /predict differs from the float32 forward: shape "
+             f"{got.shape}, max abs {err:.3e} (largest logit {scale:.3g})")
+    return {"images": len(x), "ms": dt * 1e3, "served_step": step,
+            "max_abs_err_vs_float32_forward": err, "largest_logit": scale,
+            "tolerance": f"{RESNET50_SERVE_TOL} x max(1, largest logit)"}
+
+
+def _bf16_vs_f32_logits(tr, x: torch.Tensor) -> dict:
+    from mgwfbp_tpu_torch.train.step import model_forward
+
+    tr.model.eval()
+    try:
+        with torch.no_grad():
+            low = model_forward(tr.model, x, None, torch.bfloat16)
+            ref = tr.model(x).float()
+    finally:
+        tr.model.train()
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((low - ref).abs().max())
+    rel = float((low - ref).norm() / ref.norm())
+    if not torch.isfinite(low).all() or rel > RESNET50_BF16_TOL or (
+        err > RESNET50_BF16_TOL * scale
+    ):
+        fail(f"resnet50: bfloat16 logits differ from float32: relative L2 "
+             f"{rel:.3e}, max abs {err:.3e} (largest logit {scale:.3g})")
+    return {"rel_l2": rel, "max_abs_err": err, "largest_logit": scale,
+            "tolerance": f"{RESNET50_BF16_TOL} relative L2 and x max(1, "
+                         "largest logit) max abs"}
+
+
+def _timed_steps(step, x, y, n: int = 20, warmup: int = 5) -> list[float]:
+    """ms of each of n steps after warm-up, CUDA events around each (each
+    step ends in the metrics' host read)."""
+    times = []
+    for i in range(warmup + n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(x, y)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    return times
+
+
+def phase_resnet50() -> dict:
+    """(f) ResNet-50 at full width (224 x 224, 1000 classes) on synthetic
+    ImageNet through the Trainer at bfloat16."""
+    from mgwfbp_tpu_torch import bench
+    from mgwfbp_tpu_torch.checkpoint import read_step
+    from mgwfbp_tpu_torch.convert import flatten_flax, variables_to_flax
+    from mgwfbp_tpu_torch.ops import flash_attention
+    from mgwfbp_tpu_torch.train.step import TrainStep
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_resnet50_") as root:
+        flash_attention.launches = 0  # this path's run starts here
+        batch = RESNET50_BATCH
+        try:
+            tr, metrics, fit_s = _resnet50_train(root, batch)
+        except torch.cuda.OutOfMemoryError:
+            import gc
+
+            gc.collect()
+            torch.cuda.empty_cache()
+            batch = RESNET50_FALLBACK
+            print(f"resnet50 (f): out of memory at batch {RESNET50_BATCH}; "
+                  f"batch {batch}", flush=True)
+            tr, metrics, fit_s = _resnet50_train(root, batch)
+        losses = tr.losses
+        out.update(batch=batch, steps=len(losses), fit_s=fit_s)
+        if len(losses) < RESNET50_STEPS:
+            fail(f"resnet50: the trainer took {len(losses)} steps")
+        first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        if not np.isfinite(losses).all() or not last5 < first5:
+            fail(f"resnet50: training loss did not fall: first 5 {first5:.4f}, "
+                 f"last 5 {last5:.4f} ({losses})")
+        ev = metrics["eval"]
+        if not np.isfinite([ev["loss"], ev["top1"], ev["top5"]]).all():
+            fail(f"resnet50: evaluate returned non-finite metrics {ev}")
+        params, bstats, meta = read_step(tr.ckpt_dir, tr.iteration)
+        live_p, live_b = variables_to_flax(tr.model)
+        for live, saved in ((live_p, params), (live_b, bstats)):
+            live = flatten_flax(live)
+            if list(live) != list(saved) or not all(
+                np.array_equal(live[k], saved[k]) for k in live
+            ):
+                fail("resnet50: the committed step does not read back equal "
+                     "to the live parameters and batch statistics")
+        xb, yb = tr.bundle.val.load_batch(0, 0)
+        x, y = tr._to_device(xb[None], yb[None])
+        out.update(loss_first5=first5, loss_last5=last5, eval=ev,
+                   committed_step=int(meta["iteration"]),
+                   input_channels_last=bool(
+                       x[0].is_contiguous(memory_format=torch.channels_last)),
+                   leaves=len(params), batch_stat_leaves=len(bstats),
+                   params=int(sum(v.size for v in params.values())))
+        out["bf16_vs_f32_logits"] = _bf16_vs_f32_logits(tr, x[0])
+        out["serve"] = _resnet50_serve(tr.ckpt_dir, tr.iteration, tr.model,
+                                       xb[:SERVE_IMAGES])
+        out["flash_launches"] = flash_attention.launches  # ... ends here
+        if out["flash_launches"]:
+            fail(f"resnet50: the path launched the flash kernel "
+                 f"{out['flash_launches']} times")
+        times = _timed_steps(tr.train_step, x, y)
+        out.update(step_ms=float(np.median(times)),
+                   step_ms_min=float(np.min(times)))
+        out["images_per_s"] = batch * 1e3 / out["step_ms"]
+        prof = _step_profile(lambda: tr.train_step(x, y), all_kernels=True)
+        out.update(busy_share=prof["busy_share"],
+                   kernels_per_step=prof["kernels_per_step"],
+                   kernel_shares=_kernel_shares(prof))
+        prof.pop("all_kernels_ms_per_step", None)
+        out["profile"] = prof
+        f32 = TrainStep(tr.model, tr.optimizer, tr.lr_fn)
+        times32 = _timed_steps(f32, x, y)
+        out["float32_step_ms"] = float(np.median(times32))
+        out["float32_images_per_s"] = batch * 1e3 / out["float32_step_ms"]
+        tr.close()
+        del tr, f32, x, y
+        torch.cuda.empty_cache()
+    os.environ["MGWFBP_BENCH_ITERS"] = str(RESNET50_BENCH_ITERS)
+    try:
+        payload = bench.run_bench(TRAIN_DEVICE)
+    finally:
+        del os.environ["MGWFBP_BENCH_ITERS"]
+    print(json.dumps({"bench": payload}), flush=True)
+    if payload.get("error") or set(payload["policies"]) != set(bench.POLICIES):
+        fail(f"resnet50: the bench grid failed: {payload}")
+    out["bench"] = payload
+    print(f"resnet50 (f): {out['steps']} bf16 steps at batch {batch} in "
+          f"{out['fit_s']:.1f}s, loss {out['loss_first5']:.4f} -> "
+          f"{out['loss_last5']:.4f}, eval {out['eval']}, step "
+          f"{out['step_ms']:.3f} ms ({out['images_per_s']:.0f} images/s; "
+          f"float32 {out['float32_step_ms']:.3f} ms), busy share "
+          f"{out['busy_share']}, {out['kernels_per_step']:.0f} kernels per "
+          f"step, shares {out['kernel_shares']}, bf16 vs f32 logits "
+          f"{out['bf16_vs_f32_logits']['rel_l2']:.3e}, /predict "
+          f"{out['serve']['max_abs_err_vs_float32_forward']:.2e}, bench mfu "
+          f"{payload['mfu']}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     import mgwfbp_tpu_torch  # noqa: F401 — fails outside a checkout
+    from mgwfbp_tpu_torch.utils.device import set_matmul_precision
+
+    set_matmul_precision(None)  # float32 phases: TF32 off (the trainer's)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1410,6 +1664,7 @@ def main() -> int:
     reducer_b, train = phase_train()
     calibrated = phase_calibrate(reducer_b, train["gloo"])
     lm = phase_lm()
+    resnet50 = phase_resnet50()
 
     serve = rows[0]
     kernels = [{
@@ -1433,6 +1688,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"calibrate": calibrated}))
     print(json.dumps({"lm": lm}))
+    print(json.dumps({"resnet50": resnet50}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -18,6 +18,11 @@ What is ported so far:
     (the merge solver), ``parallel.{buckets,allreduce}`` (one
     ``dist.all_reduce`` per merge group, launched from gradient hooks),
     ``parallel.mesh``, ``profiling``, ``train`` and ``train_cli``;
+  * the language models (``models.lstm``, ``data.ptb``), and the ImageNet
+    ResNets (``models.resnet_imagenet``, the ``imagenet`` data) at float32
+    or bfloat16 (the mixed-precision policy of ``train.step``);
+  * ``calibrate``, trace attribution and the event stream (``telemetry``);
+    ``bench`` (the merge-policy grid on the card, one JSON line);
   * ``convert`` (Flax parameter and batch-statistics trees <-> PyTorch
     state dicts) and ``checkpoint`` (the shard-native format's reader and
     a single-process replicated writer).

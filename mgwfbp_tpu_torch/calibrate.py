@@ -37,7 +37,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import platform
 import tempfile
 from typing import Optional
 
@@ -100,17 +99,14 @@ def main(argv: Optional[list[str]] = None) -> int:
     if args.two_level:
         p.error(f"--two-level is not ported ({NOT_PORTED}: the two-level "
                 "cost model and its hierarchical lowering)")
+    from mgwfbp_tpu_torch.utils.device import set_matmul_precision
+    from mgwfbp_tpu_torch.utils.logging import get_logger
+
+    # calibration times float32 work: the precision the trainer sets for it
+    set_matmul_precision(None, log=get_logger("mgwfbp.calibrate"))
     if args.forward:
         return _forward_main(args)
     return _comm_main(args)
-
-
-def _device_kind(device) -> str:
-    import torch
-
-    if device.type == "cuda":
-        return torch.cuda.get_device_name(device)
-    return f"cpu ({platform.machine() or 'unknown'})"
 
 
 def _calibrate_group(args, group, device):
@@ -169,24 +165,6 @@ def _fields(model) -> dict:
     }
 
 
-def _start_group(device_arg: str, rdv_dir: str):
-    """(device, started): the running world, else the launch
-    environment's, else a one-rank group of this process alone (rendezvous
-    in ``rdv_dir``); ``started`` says this call started it."""
-    import torch.distributed as dist
-
-    from mgwfbp_tpu_torch.parallel.mesh import init_distributed
-
-    running = dist.is_initialized()
-    device = init_distributed(device_arg)
-    if not dist.is_initialized():
-        device = init_distributed(
-            device, num_processes=1, process_id=0,
-            init_method=f"file://{os.path.join(rdv_dir, 'rendezvous')}",
-        )
-    return device, not running
-
-
 def _comm_main(args) -> int:
     import torch.distributed as dist
 
@@ -196,14 +174,16 @@ def _comm_main(args) -> int:
         lookup_alpha_beta,
         save_profile,
     )
+    from mgwfbp_tpu_torch.parallel.mesh import start_group
+    from mgwfbp_tpu_torch.utils.device import device_kind
 
     rdv = tempfile.TemporaryDirectory(prefix="mgwfbp_calibrate_")
-    device, started = _start_group(args.device, rdv.name)
+    device, started = start_group(args.device, rdv.name)
     try:
         world, rank = dist.get_world_size(), dist.get_rank()
         backend = dist.get_backend()
         meta = {
-            "device_kind": _device_kind(device),
+            "device_kind": device_kind(device),
             "n_devices": world,
             "backend": backend,
             "link": (
@@ -315,7 +295,7 @@ def _forward_main(args) -> int:
         save_layer_profile,
     )
     from mgwfbp_tpu_torch.train.step import forward_loss
-    from mgwfbp_tpu_torch.utils.device import resolve_device
+    from mgwfbp_tpu_torch.utils.device import device_kind, resolve_device
 
     if args.model not in zoo.model_names():
         raise SystemExit(
@@ -365,7 +345,7 @@ def _forward_main(args) -> int:
     doc = layer_profile_doc(
         tb, [names[j] for j in perm], tf=tf,
         meta={"model": args.model, "batch_size": b,
-              "device_kind": _device_kind(device)},
+              "device_kind": device_kind(device)},
     )
     save_layer_profile(args.out, doc)
     print(json.dumps({

@@ -38,6 +38,10 @@ class TrainConfig:
     comm_profile: Optional[str] = None  # path to a calibrated alpha-beta json
 
     # numerics
+    # compute dtype: None/'float32', or 'bfloat16' (mixed precision: the
+    # forward and backward on bfloat16 copies; master weights, batch
+    # statistics and optimizer state stay float32)
+    dtype: Optional[str] = None
     comm_dtype: Optional[str] = None  # wire dtype, e.g. 'bfloat16'
     weight_decay: float = 1e-4
     momentum: float = 0.9

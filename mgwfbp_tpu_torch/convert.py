@@ -8,7 +8,8 @@ leaf is addressed by the dotted form of that path (``Block_0.qkv.kernel``);
 
 Name and layout rules (Flax -> torch):
   * module ``<Type>_<i>`` inside a container -> ``<container>.<i>``
-    (``Block_3`` -> ``blocks.3``, ``BasicBlock_3`` -> ``blocks.3``,
+    (``Block_3`` -> ``blocks.3``, ``BasicBlock_3`` or ``Bottleneck_3`` ->
+    ``blocks.3``,
     ``OptimizedLSTMCell_1`` -> ``cells.1``); a
     module's ``FLAX_NAMES`` renames its children (``ConvBN_0`` ->
     ``conv1``, ``Conv_0`` -> ``conv``, ``BatchNorm_0`` -> ``bn``); every

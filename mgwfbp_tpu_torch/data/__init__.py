@@ -1,8 +1,8 @@
-"""Data subsystem (counterpart of the CIFAR-10 and PTB branches of
-``mgwfbp_tpu/data/__init__.py``): ``data_prepare`` resolves a dataset name
-to sharded train/val loaders, from real files when present, else from the
-synthetic twin. CIFAR-10 and PTB are ported; the other datasets are listed
-in ROADMAP.md.
+"""Data subsystem (counterpart of the CIFAR-10, ImageNet and PTB branches
+of ``mgwfbp_tpu/data/__init__.py``): ``data_prepare`` resolves a dataset
+name to sharded train/val loaders, from real files when present, else from
+the synthetic twin. CIFAR-10, ImageNet and PTB are ported; the other
+datasets are listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -14,7 +14,10 @@ from typing import Optional
 from mgwfbp_tpu_torch.data.datasets import (
     CIFAR_MEAN,
     CIFAR_STD,
+    IMAGENET_MEAN,
+    IMAGENET_STD,
     load_cifar10,
+    load_imagenet_hdf5,
     synthetic_images,
     synthetic_images_hard,
 )
@@ -35,8 +38,13 @@ from mgwfbp_tpu_torch.data.sharding import ShardInfo
 # synthetic sizes, as in the JAX package; MGWFBP_SYNTH_TRAIN_N /
 # MGWFBP_SYNTH_VAL_N override them and MGWFBP_SYNTH_MODE=hard selects the
 # held-out-generalization generator
-_SYNTH_TRAIN = {"cifar10": 4096, "ptb": 512}
-_SYNTH_VAL = {"cifar10": 512, "ptb": 64}
+_SYNTH_TRAIN = {"cifar10": 4096, "imagenet": 512, "ptb": 512}
+_SYNTH_VAL = {"cifar10": 512, "imagenet": 128, "ptb": 64}
+_IMAGES = {  # name: (default H x W, mean, std, loader, val split)
+    "cifar10": ((32, 32), CIFAR_MEAN, CIFAR_STD, load_cifar10, "test"),
+    "imagenet": ((224, 224), IMAGENET_MEAN, IMAGENET_STD, load_imagenet_hdf5,
+                 "val"),
+}
 
 
 def _synth_size(split: str, name: str) -> int:
@@ -64,23 +72,28 @@ def data_prepare(
     synthetic: Optional[bool] = None,
     augment: bool = True,
     num_steps: Optional[int] = None,
+    image_hw: Optional[tuple[int, int]] = None,
 ) -> DataBundle:
     """Sharded train/val loaders; ``batch_size`` is per process.
     ``synthetic=True`` forces the synthetic twin, None looks for files.
-    ``num_steps`` overrides the LM window length (default 35)."""
+    ``augment=False`` leaves the train split normalize-only. ``num_steps``
+    overrides the LM window length (default 35), ``image_hw`` the image
+    size (real files must store that size)."""
     name = dataset.lower()
     if name == "ptb":
         return _ptb_prepare(data_dir, batch_size, shard, seed, synthetic,
                             num_steps)
-    if name != "cifar10":
+    if name not in _IMAGES:
         raise ValueError(
-            f"dataset {dataset!r} is not ported yet (cifar10 and ptb only; "
-            "see ROADMAP.md)"
+            f"dataset {dataset!r} is not ported yet (cifar10, imagenet and "
+            "ptb only; see ROADMAP.md)"
         )
+    hw_default, mean, std, load, val_split = _IMAGES[name]
+    h, w = image_hw or hw_default
     train = val = None
     if not synthetic:
-        train = load_cifar10(data_dir, "train")
-        val = load_cifar10(data_dir, "test")
+        train = load(data_dir, "train")
+        val = load(data_dir, val_split)
     is_synth = train is None or val is None
     if is_synth:
         if synthetic is False:
@@ -88,14 +101,24 @@ def data_prepare(
         gen = synthetic_images
         if os.environ.get("MGWFBP_SYNTH_MODE", "easy") == "hard":
             gen = synthetic_images_hard
-        train = gen(_synth_size("train", name), (32, 32, 3), 10, seed)
-        val = gen(_synth_size("val", name), (32, 32, 3), 10, seed + 1)
-    normalize = normalize_images(CIFAR_MEAN, CIFAR_STD)
+        nc = 1000 if name == "imagenet" else 10
+        train = gen(_synth_size("train", name), (h, w, 3), nc, seed)
+        val = gen(_synth_size("val", name), (h, w, 3), nc, seed + 1)
+    elif image_hw is not None and tuple(train.data.shape[1:3]) != tuple(image_hw):
+        raise ValueError(
+            f"requested image_hw {image_hw} but real {name} files under "
+            f"{data_dir!r} store {tuple(train.data.shape[1:3])} images"
+        )
+    normalize = normalize_images(mean, std)
     train_tf = normalize
-    if augment:
+    if augment and name == "cifar10":
         from mgwfbp_tpu_torch.data.augment import FusedCropFlipNormalize
 
-        train_tf = FusedCropFlipNormalize(CIFAR_MEAN, CIFAR_STD, pad=4)
+        train_tf = FusedCropFlipNormalize(mean, std, pad=4)
+    elif augment:
+        from mgwfbp_tpu_torch.data.augment import chain, train_augment
+
+        train_tf = chain(train_augment(name), normalize)
     train_loader = ShardedLoader(
         train, batch_size, shard, shuffle=True, seed=seed, transform=train_tf,
     )

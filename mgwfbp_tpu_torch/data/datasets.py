@@ -1,8 +1,9 @@
-"""Image datasets (counterpart of the CIFAR part of
-``mgwfbp_tpu/data/datasets.py``): the real CIFAR-10 pickle batches when
-they are under ``data_dir``, else a deterministic synthetic twin with the
-same shapes, type and cardinality. The generators are copies of the JAX
-package's, so the same seed gives the same bytes in both packages.
+"""Image datasets (counterpart of the CIFAR and ImageNet parts of
+``mgwfbp_tpu/data/datasets.py``): the real CIFAR-10 pickle batches, or the
+ImageNet HDF5 file, when they are under ``data_dir``, else a deterministic
+synthetic twin with the same shapes, type and cardinality. The generators
+are copies of the JAX package's, so the same seed gives the same bytes in
+both packages. ``h5py`` is imported only when an ImageNet file is there.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ from mgwfbp_tpu_torch.data.loader import ArrayDataset
 
 CIFAR_MEAN = (0.4914, 0.4822, 0.4465)
 CIFAR_STD = (0.2470, 0.2435, 0.2616)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+IMAGENET_FILES = ("imagenet.hdf5", "imagenet-shuffled.hdf5")
 
 
 def synthetic_images(
@@ -116,3 +120,40 @@ def load_cifar10(data_dir: str, split: str = "train") -> Optional[ArrayDataset]:
     return ArrayDataset(
         data=np.concatenate(xs), labels=np.concatenate(ys), num_classes=10
     )
+
+
+class HDF5ImageDataset:
+    """An HDF5 file in the reference's layout (``train_img``/``train_labels``,
+    ``val_img``/``val_labels``; N x S x S x 3 uint8), read on demand.
+    The class count is inferred over both splits' labels."""
+
+    def __init__(self, path: str, split: str = "train",
+                 num_classes: Optional[int] = None):
+        import h5py
+
+        self._f = h5py.File(path, "r", libver="latest", swmr=True)
+        key = "train" if split == "train" else "val"
+        self.data = self._f[f"{key}_img"]
+        self.labels = np.asarray(self._f[f"{key}_labels"], dtype=np.int32)
+        if num_classes is None:
+            num_classes = 1
+            for k in ("train_labels", "val_labels"):
+                if k in self._f:
+                    arr = np.asarray(self._f[k])
+                    if arr.size:
+                        num_classes = max(num_classes, int(arr.max()) + 1)
+        self.num_classes = num_classes
+
+    def __len__(self) -> int:
+        return len(self.labels)
+
+
+def load_imagenet_hdf5(data_dir: str,
+                       split: str = "train") -> Optional[HDF5ImageDataset]:
+    """The ImageNet file under ``data_dir`` (``imagenet.hdf5``, else
+    ``imagenet-shuffled.hdf5``), or None when neither is there."""
+    for name in IMAGENET_FILES:
+        path = os.path.join(data_dir, name)
+        if os.path.exists(path):
+            return HDF5ImageDataset(path, split)
+    return None

@@ -89,7 +89,7 @@ class ShardedLoader:
         wants randomness gets a generator seeded by (seed, epoch, rank, b)."""
         idx = self._epoch_indices(epoch)
         sel = idx[b * self.batch_size : (b + 1) * self.batch_size]
-        x = self.dataset.data[sel]
+        x = _gather(self.dataset.data, sel)
         y = self.dataset.labels[sel]
         if self.transform is not None:
             if getattr(self.transform, "wants_rng", False):
@@ -104,6 +104,16 @@ class ShardedLoader:
     def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
         for b in range(self.num_batches):
             yield self.load_batch(self.epoch, b)
+
+
+def _gather(data, sel: np.ndarray) -> np.ndarray:
+    """``data[sel]`` for a numpy array or an h5py dataset. h5py takes only
+    strictly increasing index lists without repeats: read the sorted unique
+    set once and scatter it back."""
+    if isinstance(data, np.ndarray):
+        return data[sel]
+    usel, inverse = np.unique(sel, return_inverse=True)
+    return np.asarray(data[usel.tolist()])[inverse]
 
 
 def normalize_images(

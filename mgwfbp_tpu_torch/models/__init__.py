@@ -3,8 +3,9 @@
 ``create_model`` returns the module plus a ``ModelMeta`` describing the
 canonical input, with the same fields as the JAX registry's (the input
 dtype is a numpy dtype here; image inputs are NHWC, as the loaders hand
-them over). Ported so far: the CIFAR ResNets, the PTB LSTM and the
-transformer LM; the rest of the zoo is listed in ROADMAP.md.
+them over). Ported so far: the CIFAR ResNets, the ImageNet ResNets, the
+PTB LSTM and the transformer LM; the rest of the zoo is listed in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -101,6 +102,25 @@ def _register_preresnet(depth: int):
 
 for _d in (20, 110):
     _register_preresnet(_d)
+
+
+IMAGENET_HWC = (224, 224, 3)
+
+
+def _register_imagenet_resnet(depth: int):
+    @register(f"resnet{depth}")
+    def _factory(nc, depth=depth):
+        from mgwfbp_tpu_torch.models.resnet_imagenet import imagenet_resnet
+
+        nc = nc or 1000
+        return (
+            imagenet_resnet(depth, nc),
+            ModelMeta(f"resnet{depth}", "imagenet", nc, IMAGENET_HWC),
+        )
+
+
+for _d in (18, 34, 50, 101, 152):
+    _register_imagenet_resnet(_d)
 
 
 @register("transformer")

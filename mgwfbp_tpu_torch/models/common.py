@@ -12,7 +12,16 @@ compute, where Flax and PyTorch defaults differ:
     variance is updated with the BIASED batch variance (``nn.BatchNorm2d``
     uses the unbiased one, n/(n-1) larger).
   * initializers: He fan-out truncated normal for convs, LeCun truncated
-    normal for dense kernels (``init_weights``), from a seeded generator.
+    normal for dense kernels (``init_weights``), from a seeded generator;
+  * ``max_pool``: Flax ``padding="SAME"`` pads with -inf by ``same_pads``
+    (3x3/2 at 112: (0, 1), not the (1, 1) of ``nn.MaxPool2d(padding=1)``).
+
+Mixed precision (the JAX step's bfloat16 policy): parameters reach a
+module cast to the compute dtype while the batch-norm running statistics
+stay float32 masters. ``BatchNorm`` then reduces its statistics in
+float32 (Flax ``force_float32_reductions``), normalizes in float32 and
+returns the compute dtype, and merges its update into the master as a
+delta (see ``BatchNorm.forward``).
 
 Each module records its children's Flax names in ``FLAX_NAMES`` so that
 ``convert`` maps parameters and batch statistics leaf by leaf.
@@ -74,6 +83,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != self.running_mean.dtype:
+            return self._forward_low(x)
         if not self.training:
             return F.batch_norm(
                 x, self.running_mean, self.running_var, self.weight,
@@ -89,6 +100,57 @@ class BatchNorm(nn.Module):
         return F.batch_norm(
             x, None, None, self.weight, self.bias, True, 0.0, self.epsilon
         )
+
+    def _forward_low(self, x: torch.Tensor) -> torch.Tensor:
+        """Below float32 (a bfloat16 step): torch's mixed-type batch norm
+        (input and output in x's dtype, scale, bias and statistics in
+        float32) reduces the statistics and normalizes in float32, as Flax
+        does under ``force_float32_reductions``, without a float32 copy of
+        the activations. In training its momentum-1 running update hands
+        back the batch statistics of that same pass, which are merged into
+        the float32 masters (``_merge_quantized``)."""
+        w, b = self.weight.float(), self.bias.float()
+        if not self.training:  # the JAX eval step casts the statistics too
+            mean, var = (t.to(x.dtype).float()
+                         for t in (self.running_mean, self.running_var))
+            return F.batch_norm(x, mean, var, w, b, False, 0.0, self.epsilon)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, w, b, True, 1.0, self.epsilon)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            # torch keeps the unbiased variance; Flax the biased one
+            self._merge_quantized(x.dtype, mean, var * ((n - 1) / n))
+        return y
+
+    def _merge_quantized(self, dtype: torch.dtype, mean: torch.Tensor,
+                         var: torch.Tensor) -> None:
+        """The JAX step's update of a float32 master at a lower compute
+        dtype: Flax updates the CAST statistic q = quantize(master) as
+        ``momentum * q + (1 - momentum) * batch_stat``, where the momentum
+        takes q's type (0.9 becomes 0.8984375 in bfloat16) and the sum is
+        float32, and the step merges the delta, ``master + (new - q)``,
+        instead of copying ``new`` back (a copy would bake the quantization
+        into the accumulator every step)."""
+        m = float(torch.tensor(self.momentum, dtype=dtype))
+        for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
+            q = buf.to(dtype).float()
+            buf.add_(q * m + (1.0 - self.momentum) * stat - q)
+
+
+def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2) -> torch.Tensor:
+    """Flax ``max_pool(..., padding="SAME")`` on NCHW: -inf padding by
+    ``same_pads``, then a pool without padding."""
+    ph = same_pads(x.shape[-2], window, stride)
+    pw = same_pads(x.shape[-1], window, stride)
+    if any(ph + pw):
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, window, stride)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> NC global average pool."""
+    return x.mean(dim=(2, 3))
 
 
 class ConvBN(nn.Module):

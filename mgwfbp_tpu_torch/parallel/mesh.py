@@ -127,6 +127,21 @@ def init_distributed(
     return dev
 
 
+def start_group(device_arg, rdv_dir: str) -> tuple[torch.device, bool]:
+    """(device, started): the running world, else the launch environment's,
+    else a one-rank group of this process alone (rendezvous in
+    ``rdv_dir``), so that collectives run even at one worker; ``started``
+    says this call started it."""
+    running = dist.is_initialized()
+    device = init_distributed(device_arg)
+    if not dist.is_initialized():
+        device = init_distributed(
+            device, num_processes=1, process_id=0,
+            init_method=f"file://{os.path.join(rdv_dir, 'rendezvous')}",
+        )
+    return device, not running
+
+
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 

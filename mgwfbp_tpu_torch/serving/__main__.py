@@ -68,6 +68,9 @@ def main(argv: Optional[list] = None) -> int:
         MetricsAggregator,
         start_metrics_server,
     )
+    from mgwfbp_tpu_torch.utils.device import set_matmul_precision
+
+    set_matmul_precision(None, log=log)  # the served forward is float32
 
     replica = (
         args.replica if args.replica is not None

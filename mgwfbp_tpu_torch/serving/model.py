@@ -4,8 +4,11 @@ Counterpart of ``mgwfbp_tpu/serving/model.py``. The load path is the
 manifest-addressed ``ShardSource`` reader of the shard-native checkpoint
 format: one full leaf at a time off the memmapped shard files, whether the
 saver stored params sharded (``rs_opt_ag`` / ``rs_fwd_ag``) or replicated.
-Leaves are matched to the module's parameters by their manifest path, and
-each shape is checked, so a checkpoint of another model fails loudly.
+Leaves are matched to the module's parameters and batch statistics by
+their manifest path, and each shape is checked, so a checkpoint of another
+model fails loudly. Image requests arrive NHWC, as the JAX server takes
+them, and are permuted to NCHW on the device; token requests go as they
+are.
 
 Each ``LiveSnapshot`` owns its own copy of the module with the step's
 weights on the device; the swap is one reference store behind a lock. A
@@ -35,7 +38,12 @@ from mgwfbp_tpu_torch.checkpoint import (
     ShardSource,
     leaf_to_tensor,
 )
-from mgwfbp_tpu_torch.convert import flatten_flax, flax_path, params_from_flax, params_to_flax
+from mgwfbp_tpu_torch.convert import (
+    flatten_flax,
+    flax_path,
+    state_from_flax,
+    variables_to_flax,
+)
 from mgwfbp_tpu_torch.utils.device import resolve_device
 from mgwfbp_tpu_torch.utils.logging import get_logger
 
@@ -141,12 +149,18 @@ class ServingModel:
         self.meta = meta
         self.max_batch = int(max_batch)
         self.input_np_dtype = np.dtype(meta.input_dtype)
-        # the template every checkpoint must match: dotted Flax leaf path
-        # -> Flax-layout shape, in the order jax flattens the tree
+        # the template every checkpoint must match, per section: dotted
+        # Flax leaf path -> Flax-layout shape, in the order jax flattens
+        # the tree
         self._template = {
-            path: tuple(leaf.shape)
-            for path, leaf in flatten_flax(params_to_flax(module)).items()
+            section: {path: tuple(leaf.shape)
+                      for path, leaf in flatten_flax(tree).items()}
+            for section, tree in zip(("params", "batch_stats"),
+                                     variables_to_flax(module))
         }
+        self._has_batch_stats = bool(self._template["batch_stats"])
+        # NHWC images -> the module's NCHW (tokens stay as they are)
+        self._nchw = meta.task == "classify" and len(meta.input_shape) == 3
         self._lock = threading.Lock()
         self._live: Optional[LiveSnapshot] = None
 
@@ -162,21 +176,28 @@ class ServingModel:
     def install_source(
         self, src: ShardSource, step: int, commit_wall: float
     ) -> LiveSnapshot:
-        """Load one committed step's params off the manifest reader and
-        swap it live."""
-        bs_docs = (
+        """Load one committed step's params (and batch statistics, for a
+        model that has them) off the manifest reader and swap it live. A
+        model with batch statistics refuses a checkpoint without them, and
+        a model without them refuses a checkpoint that carries some."""
+        has_bs = src.section_kind("batch_stats") != "none" and bool(
             src.section_docs("batch_stats")
-            if src.section_kind("batch_stats") != "none" else []
         )
-        if bs_docs:
+        if has_bs != self._has_batch_stats:
             raise CheckpointRestoreError(
-                f"checkpoint step {step}: the manifest carries "
-                f"{len(bs_docs)} batch_stats leaves, model "
-                f"{self.meta.name!r} has none — saved from a different model"
+                f"checkpoint step {step}: model {self.meta.name!r} "
+                + ("has batch_stats but the manifest carries none"
+                   if self._has_batch_stats else
+                   f"has none but the manifest carries "
+                   f"{len(src.section_docs('batch_stats'))} batch_stats "
+                   "leaves")
+                + " — saved from a different model"
             )
-        state = params_from_flax(self._read_params(src))
+        params = self._read_section(src, "params")
+        bstats = self._read_section(src, "batch_stats") if has_bs else None
         module = copy.deepcopy(self.module)
-        module.load_state_dict(state, strict=True)
+        module.load_state_dict(state_from_flax(module, params, bstats),
+                               strict=True)
         module.to(self.device).eval()
         snap = LiveSnapshot(
             module=module,
@@ -192,31 +213,33 @@ class ServingModel:
         src, commit_wall = open_committed_step(directory, step)
         return self.install_source(src, step, commit_wall)
 
-    def _read_params(self, src: ShardSource) -> dict[str, torch.Tensor]:
-        docs = src.section_docs("params")
+    def _read_section(self, src: ShardSource,
+                      section: str) -> dict[str, torch.Tensor]:
+        template = self._template[section]
+        docs = src.section_docs(section)
         index = {flax_path(str(doc.get("path", ""))): j for j, doc in enumerate(docs)}
-        missing = [p for p in self._template if p not in index]
-        extra = [p for p in index if p not in self._template]
-        if len(docs) != len(self._template) or missing or extra:
+        missing = [p for p in template if p not in index]
+        extra = [p for p in index if p not in template]
+        if len(docs) != len(template) or missing or extra:
             raise CheckpointRestoreError(
-                f"checkpoint {src.step_dir!r}: params has {len(docs)} "
+                f"checkpoint {src.step_dir!r}: {section} has {len(docs)} "
                 f"leaves, model {self.meta.name!r} expects "
-                f"{len(self._template)} — saved from a different model "
+                f"{len(template)} — saved from a different model "
                 f"(missing {missing[:5]}, unexpected {extra[:5]})",
                 mismatches=missing + extra,
             )
         out = {}
-        for path, want in self._template.items():
+        for path, want in template.items():
             j = index[path]
             doc = docs[j]
             got = tuple(doc.get("shape", ()))
             if got != want:
                 raise CheckpointRestoreError(
-                    f"checkpoint {src.step_dir!r}: params leaf {j} ({path}) "
-                    f"has shape {got}, model expects {want} — saved from a "
-                    "different model"
+                    f"checkpoint {src.step_dir!r}: {section} leaf {j} "
+                    f"({path}) has shape {got}, model expects {want} — saved "
+                    "from a different model"
                 )
-            host = src.read_leaf("params", j)
+            host = src.read_leaf(section, j)
             out[path] = leaf_to_tensor(host, doc["dtype"]).to(torch.float32)
         return out
 
@@ -250,6 +273,8 @@ class ServingModel:
             x = np.concatenate([x, pad], axis=0)
         with torch.inference_mode():
             xd = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            if self._nchw:
+                xd = xd.movedim(-1, -3).contiguous()
             out = snap.module(xd)
             if isinstance(out, tuple):  # aux-logit heads (googlenet style)
                 out = out[0]

@@ -27,7 +27,18 @@ One ``TrainStep`` call is one optimizer step:
     step therefore restores from a snapshot taken before it;
   * the learning rate is set from ``lr_fn(step)`` before every update;
   * batch-norm running statistics and the metrics (mean loss, accuracy or
-    perplexity, non-finite count) are averaged across ranks.
+    perplexity, non-finite count) are averaged across ranks;
+  * ``compute_dtype`` (bfloat16): the JAX step's mixed-precision policy.
+    The forward and backward run on copies of the parameters, the input
+    and the carry cast to that dtype (``model_forward``, through
+    ``torch.func.functional_call``); logits come back to float32 before the
+    loss, and metrics are float32. The masters stay float32: gradients
+    arrive on the float32 parameters (so the reducer's hooks stay where
+    they are), the optimizer state and the carry are float32, and each
+    ``BatchNorm`` reduces its statistics in float32 and merges its update
+    into its float32 running statistics as a delta (``BatchNorm.forward``).
+    No ``torch.autocast``: it picks a dtype per op, and the JAX policy casts
+    the whole program.
 
 The model's buffers are re-seated as views of one flat tensor, so the
 snapshot, the restore and the cross-rank average are one operation each.
@@ -56,15 +67,41 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
                            labels.reshape(-1).long())
 
 
+def _cast(tree, dtype: torch.dtype):
+    """Floating tensors of a tensor or a (nested) tuple cast to dtype."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_cast(t, dtype) for t in tree)
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def model_forward(model: nn.Module, x: torch.Tensor, carry=None,
+                  compute_dtype: Optional[torch.dtype] = None):
+    """``model(x)`` (``model(x, carry)`` with a carry). At a compute dtype:
+    on the parameters, the input and the carry cast to it, with the logits
+    and the carry returned in float32; the gradients land, cast back, on
+    the float32 parameters."""
+    if compute_dtype is None:
+        return model(x) if carry is None else model(x, carry)
+    params = {name: p.to(compute_dtype)
+              for name, p in model.named_parameters()}
+    args = (_cast(x, compute_dtype),)
+    if carry is not None:
+        args += (_cast(carry, compute_dtype),)
+    out = torch.func.functional_call(model, params, args)
+    return _cast(out, torch.float32)
+
+
 def forward_loss(model: nn.Module, task: str, x: torch.Tensor,
-                 y: torch.Tensor, carry=None):
+                 y: torch.Tensor, carry=None,
+                 compute_dtype: Optional[torch.dtype] = None):
     """(loss, metric, new carry) of one batch: the metric is the accuracy
     (classify) or the perplexity (lm); a model with a BPTT carry takes and
     returns one, the others return the carry they were given (None)."""
+    out = model_forward(model, x, carry, compute_dtype)
     if carry is not None:
-        logits, carry = model(x, carry)
+        logits, carry = out
     else:
-        logits = model(x)
+        logits = out
     loss = cross_entropy(logits, y)
     with torch.no_grad():
         if task == "lm":
@@ -124,6 +161,7 @@ class TrainStep:
         grad_guard: bool = True,
         norm_clip: Optional[float] = None,
         task: str = "classify",
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         if task not in ("classify", "lm"):
             raise ValueError(f"task must be classify or lm, got {task!r}")
@@ -136,6 +174,7 @@ class TrainStep:
         self.nsteps_update = int(nsteps_update)
         self.grad_guard = grad_guard
         self.norm_clip = norm_clip
+        self.compute_dtype = compute_dtype
         self.world = world_size()
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.buffers = flatten_buffers(model)
@@ -163,7 +202,7 @@ class TrainStep:
             if reducer is not None:
                 reducer.begin(active=i == n - 1, scale=1.0 / n)
             loss, metric, carry = forward_loss(
-                model, self.task, x[i], y[i], carry
+                model, self.task, x[i], y[i], carry, self.compute_dtype
             )
             loss.backward()
             if carry is not None:
@@ -216,10 +255,12 @@ class TrainStep:
 
 
 @torch.no_grad()
-def eval_sums(model: nn.Module, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def eval_sums(model: nn.Module, x: torch.Tensor, y: torch.Tensor,
+              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """[loss, top1, top5, count] summed over one eval batch (the JAX eval
-    step's classify sums; every sample counts)."""
-    logits = model(x).float()
+    step's classify sums; every sample counts), the forward at the compute
+    dtype."""
+    logits = model_forward(model, x, None, compute_dtype).float()
     y = y.long()
     per = F.cross_entropy(logits, y, reduction="none")
     top1 = (logits.argmax(-1) == y).float()
@@ -233,14 +274,15 @@ def eval_sums(model: nn.Module, x: torch.Tensor, y: torch.Tensor) -> torch.Tenso
 
 @torch.no_grad()
 def lm_eval_sums(model: nn.Module, x: torch.Tensor, y: torch.Tensor,
-                 carry=None):
+                 carry=None, compute_dtype: Optional[torch.dtype] = None):
     """([loss, count] summed over one eval batch, new carry): each sample's
     loss is its mean token loss (the JAX eval step's lm sums); a model
     with a BPTT carry takes and returns one."""
+    out = model_forward(model, x, carry, compute_dtype)
     if carry is not None:
-        logits, carry = model(x, carry)
+        logits, carry = out
     else:
-        logits = model(x)
+        logits = out
     logits = logits.float()
     per_token = F.cross_entropy(
         logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long(),

@@ -12,7 +12,10 @@ not started. At one worker there is no reducer: no communication exists
 to schedule (the JAX trainer's single-device rule). The cost model is the
 ``--comm-profile`` resolved at the world size, else the ``connection``
 prior; the measured backward profile is written to
-``<logdir>/<tag>/tb_profile.json``. With ``telemetry`` on, each step
+``<logdir>/<tag>/tb_profile.json``. ``config.dtype`` bfloat16 runs the
+step and evaluation at that compute dtype (the JAX step's mixed-precision
+policy, ``train/step.py``); the TF32 setting comes from
+``utils.device.set_matmul_precision`` and is logged. With ``telemetry`` on, each step
 writes a ``step`` span and each epoch an ``epoch`` record (for a
 language model both also hold its ``loss`` and ``perplexity``), the
 ``overlap``
@@ -65,7 +68,7 @@ from mgwfbp_tpu_torch.train.step import (
     forward_loss,
     lm_eval_sums,
 )
-from mgwfbp_tpu_torch.utils.device import resolve_device
+from mgwfbp_tpu_torch.utils.device import resolve_device, set_matmul_precision
 from mgwfbp_tpu_torch.utils.logging import get_logger
 
 
@@ -87,6 +90,13 @@ class Trainer:
             logfile=os.path.join(config.logdir, config.tag(), "train.log")
             if config.logdir else None,
         )
+        # mixed-precision compute policy (the JAX trainer's: float32 or None
+        # means no cast)
+        self.compute_dtype = (
+            getattr(torch, config.dtype)
+            if config.dtype not in (None, "", "float32", "f32") else None
+        )
+        set_matmul_precision(self.compute_dtype, log=self.log)
         self.telemetry = self._open_telemetry()
         self._measured_group_times: Optional[list[float]] = None
         self.shard = ShardInfo(self.rank, self.world)
@@ -143,7 +153,7 @@ class Trainer:
                 scaled_clip_threshold(config.norm_clip, self.world)
                 if config.norm_clip is not None else None
             ),
-            task=self.meta.task,
+            task=self.meta.task, compute_dtype=self.compute_dtype,
         )
         self.carry = self._zero_carry()
         self.ckpt_dir = (
@@ -280,7 +290,8 @@ class Trainer:
         carry = self._zero_carry()
 
         def loss_of():
-            return forward_loss(self.model, self.meta.task, x, y, carry)[0]
+            return forward_loss(self.model, self.meta.task, x, y, carry,
+                                self.compute_dtype)[0]
 
         t0 = time.perf_counter()
         self.model.train()
@@ -442,7 +453,13 @@ class Trainer:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
-        measured = trace_group_times(run, self.reducer.num_groups, iters=iters)
+        try:
+            measured = trace_group_times(run, self.reducer.num_groups,
+                                         iters=iters)
+        except Exception as e:  # noqa: BLE001 — observability must never
+            # kill the run it observes
+            self.log.info("telemetry group trace failed (%s)", e)
+            return
         self.iteration += iters
         if measured is None:
             self.log.info("telemetry trace: no device time of a collective "
@@ -463,7 +480,7 @@ class Trainer:
         try:
             for xb, yb in self.bundle.val:
                 x, y = self._to_device(xb, yb)
-                sums += eval_sums(self.model, x, y)
+                sums += eval_sums(self.model, x, y, self.compute_dtype)
         finally:
             self.model.train()
         if self.world > 1:
@@ -492,7 +509,8 @@ class Trainer:
                     )
                     continue
                 x, y = self._to_device(xb, yb)
-                batch_sums, carry = lm_eval_sums(self.model, x, y, carry)
+                batch_sums, carry = lm_eval_sums(self.model, x, y, carry,
+                                                 self.compute_dtype)
                 sums += batch_sums
         finally:
             self.model.train()

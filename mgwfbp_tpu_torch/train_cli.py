@@ -5,6 +5,8 @@
         --device cpu --epochs 1 --num-batches-per-epoch 8
     python -m mgwfbp_tpu_torch.train_cli --dnn lstm --synthetic \\
         --device cpu --batch-size 4 --num-batches-per-epoch 4 --epochs 1
+    python -m mgwfbp_tpu_torch.train_cli --dnn resnet50 --dtype bfloat16 \\
+        --synthetic
 
 The flags are the JAX CLI's for the fields the port reads, plus
 ``--device`` (default ``cuda``; a missing card raises, ``cpu`` runs on the
@@ -66,8 +68,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="path to a calibrated alpha-beta json "
                         "(python -m mgwfbp_tpu_torch.calibrate); a family "
                         "profile resolves at the world size")
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                   help="compute dtype: float32 | bfloat16 (mixed precision;"
+                        " master weights stay float32). TF32 stays off "
+                        "either way (utils.device.set_matmul_precision)")
     p.add_argument("--comm-dtype", dest="comm_dtype", default=None,
                    help="wire dtype for the all-reduce, e.g. bfloat16")
+    p.add_argument("--norm-clip", dest="norm_clip", type=float, default=None,
+                   help="clip gradients to this global norm")
+    p.add_argument("--lr-schedule", dest="lr_schedule", default=None,
+                   choices=["auto", "step", "cosine", "ptb", "anneal", "vgg",
+                            "const"],
+                   help="learning-rate schedule (default: the preset's)")
     p.add_argument("--synthetic", action="store_true",
                    help="force synthetic data (no dataset files needed)")
     p.add_argument("--no-augment", action="store_true",
@@ -94,6 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--process-id", dest="process_id", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--print-config", action="store_true",
+                   help="print the resolved config as JSON and exit")
     return p
 
 
@@ -103,8 +117,9 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         for k in (
             "dataset", "data_dir", "batch_size", "lr", "max_epochs",
             "nsteps_update", "policy", "threshold", "connection",
-            "comm_profile", "comm_dtype", "logdir", "checkpoint_dir", "seed",
-            "num_batches_per_epoch", "telemetry_dir", "num_steps",
+            "comm_profile", "dtype", "comm_dtype", "norm_clip", "lr_schedule",
+            "logdir", "checkpoint_dir", "seed", "num_batches_per_epoch",
+            "telemetry_dir", "num_steps",
         )
         if getattr(args, k, None) is not None
     }
@@ -120,6 +135,9 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
 def main(argv: Optional[list[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    if args.print_config:
+        print(json.dumps(cfg.__dict__, indent=2, default=str))
+        return 0
     import torch.distributed as dist
 
     from mgwfbp_tpu_torch.parallel.mesh import init_distributed

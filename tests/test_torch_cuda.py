@@ -17,6 +17,7 @@ import torch
 
 from mgwfbp_tpu_torch.models.transformer import TransformerLM, init_weights
 from mgwfbp_tpu_torch.ops import flashattn as fa
+from mgwfbp_tpu_torch.utils.device import set_matmul_precision
 
 pytestmark = pytest.mark.cuda
 
@@ -25,8 +26,7 @@ pytestmark = pytest.mark.cuda
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_matmul_precision(None)  # TF32 off, as the port sets it
     return torch.device("cuda")
 
 

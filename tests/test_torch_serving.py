@@ -431,3 +431,94 @@ def test_standalone_cli_serves_predict(tmp_path, monkeypatch):
     np.testing.assert_allclose(out, want, rtol=TOL, atol=TOL)
     th.join(timeout=60)
     assert rc_box.get("rc") == 0
+
+
+# -- a classifier with batch statistics ------------------------------------
+# ResNet-20 at full width, eval-mode logits up to about 14: the bound of
+# tests/test_torch_train_model.py for that model, rtol 2e-5 / atol 2e-5
+
+RESNET_TOL = 2e-5
+
+
+def _resnet20_checkpoint(tmp_path, writer: str) -> str:
+    """A committed step of ResNet-20 with off-init batch statistics, written
+    by the port (``save_replicated_step``) or by the JAX trainer."""
+    from mgwfbp_tpu_torch.convert import flatten_flax, variables_to_flax
+    from mgwfbp_tpu_torch.models.common import init_weights as init_cnn
+
+    rs = np.random.RandomState(11)
+    perturb = {
+        "mean": lambda a: a + np.float32(0.1) * rs.randn(*a.shape).astype(np.float32),
+        "var": lambda a: a * np.float32(1.0 + 0.5 * rs.rand()),
+    }
+    if writer == "port":
+        module, _ = models.create_model("resnet20")
+        init_cnn(module, torch.Generator().manual_seed(5))
+        params, bstats = variables_to_flax(module)
+        bstats = {k: perturb[k.rsplit(".", 1)[-1]](v)
+                  for k, v in flatten_flax(bstats).items()}
+        save_replicated_step(str(tmp_path), 4, params, batch_stats=bstats)
+        return str(tmp_path)
+    cfg = make_config("resnet20", checkpoint_dir=str(tmp_path / "ckpt"),
+                      logdir=str(tmp_path), batch_size=4,
+                      num_batches_per_epoch=1)
+    jt = Trainer(cfg, mesh=make_mesh(MeshSpec(data=1),
+                                     devices=jax.devices()[:1]),
+                 profile_backward=False, synthetic_data=True)
+    try:
+        jt.state = jt.state.replace(batch_stats=jax.tree_util.tree_map_with_path(
+            lambda kp, a: perturb[str(kp[-1].key)](np.asarray(a)),
+            jt.state.batch_stats))
+        jt.save(0)
+        jt.checkpointer.wait()
+    finally:
+        jt.close()
+    return os.path.join(cfg.checkpoint_dir, cfg.tag())
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_predict_serves_a_resnet20_checkpoint_like_jax(tmp_path, writer):
+    """/predict answers NHWC images of a classifier with batch statistics
+    as the JAX server does, on a checkpoint of either package."""
+    from mgwfbp_tpu.models import create_model as jax_create_model
+
+    tag = _resnet20_checkpoint(tmp_path, writer)
+    step = committed_sharded_steps(tag)[-1]
+    jmod, jmeta = jax_create_model("resnet20")
+    jm = jax_serving.ServingModel(
+        jmod, jmeta, mesh=make_mesh(MeshSpec(data=1), devices=jax.devices()[:1]),
+        max_batch=SLOT)
+    jm.load_step(tag, step)
+    module, meta = models.create_model("resnet20")
+    agg = MetricsAggregator(run={"role": "serve"})
+    server = TelemetryServer(agg, 0)
+    plane = ServePlane(ServingModel(module, meta, device="cpu", max_batch=SLOT),
+                       tag, emit=agg.observe, server=server, poll_s=60.0)
+    plane.start()
+    try:
+        assert plane.poll_now() == step
+        x = np.random.RandomState(12).randn(3, 32, 32, 3).astype(np.float32)
+        want, jstep = jm.run_padded(x)
+        code, doc = _post(server.port, json.dumps({"inputs": x.tolist()}).encode())
+        assert code == 200 and doc["served_step"] == jstep == step
+        got = np.asarray(doc["outputs"], np.float32)
+        assert got.shape == (3, 10) and np.abs(want).max() > 1.0
+        np.testing.assert_allclose(got, want, rtol=RESNET_TOL, atol=RESNET_TOL)
+        # a request in the model's NCHW layout is refused, as JAX refuses it
+        bad = json.dumps({"inputs": x.transpose(0, 3, 1, 2).tolist()}).encode()
+        assert _post(server.port, bad)[0] == 400
+    finally:
+        plane.close()
+        server.close()
+
+
+def test_a_classifier_refuses_a_checkpoint_without_batch_statistics(tmp_path):
+    from mgwfbp_tpu_torch.convert import variables_to_flax
+
+    module, meta = models.create_model("resnet20")
+    params, _ = variables_to_flax(module)
+    save_replicated_step(str(tmp_path), 1, params)
+    pm = ServingModel(module, meta, device="cpu", max_batch=SLOT)
+    with pytest.raises(CheckpointRestoreError,
+                       match="has batch_stats but the manifest carries none"):
+        pm.load_step(str(tmp_path), 1)

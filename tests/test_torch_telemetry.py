@@ -14,11 +14,16 @@
     same model and write the same accounting; ``tb_profile.json`` loads in
     the JAX ``load_layer_profile``;
   * a one-worker trainer writes step spans and epoch records and no
-    overlap (no reducer, no communication).
+    overlap (no reducer, no communication);
+  * a startup trace (``MGWFBP_TELEMETRY_TRACE=1``) that raises is logged
+    with the JAX trainer's wording and training goes on, on the cost
+    model.
 """
 
 import importlib.util
+import logging
 import os
+import types
 import socket
 import subprocess
 import sys
@@ -135,6 +140,35 @@ def test_one_worker_writes_spans_and_no_overlap(tmp_path):
     assert all(r["dur_s"] > 0 for r in steps)
     assert jev.events_of(recs, "epoch")[0]["steps"] == 2
     assert not jev.events_of(recs, "overlap", "comm_group")
+
+
+def test_a_failing_startup_trace_leaves_training_running(tmp_path,
+                                                         monkeypatch):
+    from mgwfbp_tpu_torch.train import trainer as trainer_mod
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("profiler unavailable")
+
+    monkeypatch.setattr(trainer_mod, "trace_group_times", boom)
+    monkeypatch.setenv("MGWFBP_TELEMETRY_TRACE", "1")
+    cfg = make_config("resnet20", batch_size=4, num_batches_per_epoch=2,
+                      logdir=str(tmp_path), telemetry=True)
+    tr = Trainer(cfg, device="cpu", synthetic_data=True)
+    lines: list[str] = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: lines.append(rec.getMessage())
+    tr.log.addHandler(handler)
+    try:
+        # one worker builds no reducer; a stand-in makes fit trace
+        tr.reducer = types.SimpleNamespace(num_groups=1, detach=lambda: None)
+        metrics = tr.fit(1)
+    finally:
+        tr.log.removeHandler(handler)
+        tr.close()
+    assert "telemetry group trace failed (profiler unavailable)" in lines
+    assert tr._measured_group_times is None
+    assert len(tr.losses) == 2 and tr.iteration == 2
+    assert np.isfinite(metrics["train"]["loss"])
 
 
 def _report_module():

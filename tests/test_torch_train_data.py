@@ -56,4 +56,4 @@ def test_unaugmented_and_hard_twins_bit_identical():
     )
     assert np.array_equal(a.data, b.data) and np.array_equal(a.labels, b.labels)
     with pytest.raises(ValueError, match="not ported"):
-        data_prepare("imagenet", synthetic=True)
+        data_prepare("mnist", synthetic=True)

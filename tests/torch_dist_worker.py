@@ -11,7 +11,8 @@ Imports torch and the port only (no JAX), reads its inputs from
     that is not the last launches nothing;
   * ``train``: the port's TrainStep from the spec's initial weights over
     the spec's global batches (this rank's slice), state saved after
-    steps 1 and 5, one run per ``nsteps_update``;
+    steps 1 and 5, one run per ``nsteps_update``, at the spec's compute
+    ``dtype`` (float32 when absent);
   * ``nan``: a step whose batch holds a NaN on one rank leaves the whole
     state (parameters, batch statistics, momentum, step counter) as it was;
   * ``lm_nsteps``: the same for the small PTB LSTM and its BPTT carry
@@ -147,7 +148,9 @@ def _train(spec, arrays, rank, world, out, n: int) -> None:
     reducer = make_merged_allreduce(
         model, policy="mgwfbp", cost_model=lookup_alpha_beta("10GbE", world)
     )
-    step = TrainStep(model, opt, lr_fn, reducer=reducer, nsteps_update=n)
+    step = TrainStep(model, opt, lr_fn, reducer=reducer, nsteps_update=n,
+                     compute_dtype=getattr(torch, spec["dtype"])
+                     if spec.get("dtype") else None)
     xs, ys = arrays[f"x_n{n}"], arrays[f"y_n{n}"]
     for k in range(xs.shape[0]):
         x = _nchw(xs[k][:, rank * b:(rank + 1) * b])
