@@ -84,6 +84,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
      shares of device time in convolutions, layout transposes and
      batch-norm statistics; last, the bench grid (``mgwfbp_tpu_torch.bench``)
      at RESNET50_BENCH_ITERS iterations.
+  7. (g) resumable training on the card:
+     (g1) the full PTB LSTM (66,022,000 parameters, 20 x 35, float32)
+         through ``python -m mgwfbp_tpu_torch.train_cli`` with
+         ``--checkpoint-dir --ckpt-every-steps 5 --deterministic``
+         (``CUBLAS_WORKSPACE_CONFIG=:4096:8``), 2 epochs of 15 steps: run A
+         uninterrupted; run B with ``MGWFBP_FAULT_PLAN=preempt@step=12``
+         (rc 75 and its ``preempted`` line), relaunched with the same
+         command (a ``resume`` event with ``mid_epoch``), sent a real
+         SIGTERM after its first resumed step (rc 75 again), relaunched to
+         the end; B's committed params and carry at step 30 against A's,
+         bitwise when no op warned that it is not deterministic, else no
+         further than a second run of A. Measured: the relaunch to the
+         first resumed step (with the start-up phases from the log) and the
+         SIGTERM to the exit;
+     (g2) ResNet-50 at bfloat16, batch 128, one Trainer with
+         ``MGWFBP_FAULT_PLAN=nan@step=4,count=3`` and ``bad_step_limit`` 3:
+         a boundary checkpoint at step 2 (one synchronous save, timed, its
+         bytes), three ``bad_step`` events, one ``rollback`` to step 2, a
+         finite loss; then the interval between step starts over 20 steps
+         without checkpoints and 20 with ``--ckpt-every-steps 5`` (async),
+         and each async save's span and bytes;
+     (g3) ``python -m mgwfbp_tpu_torch.evaluate`` on run A's last epoch:
+         its perplexity against A's own evaluation (RES_EVAL_RTOL).
 
 Every phase runs with TF32 off (``utils.device.set_matmul_precision``).
 
@@ -92,14 +115,16 @@ serving forward's breakdown (host time of one flush's run_padded, device
 time by kernel from torch.profiler), the /predict latencies, the training
 phase ({"train": ...}), the calibration phase ({"calibrate": ...}), the
 language models ({"lm": ...}), the bench payload ({"bench": ...}), ResNet-50
-({"resnet50": ...}), the card's name and power limit (nvidia-smi), the kernels line ({"kernels":
-[...]}) and, last, {"ok": true, "device": {...}}.
+({"resnet50": ...}), resumable training ({"resilience": ...}), the card's
+name and power limit (nvidia-smi), the kernels line ({"kernels": [...]})
+and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1639,6 +1664,345 @@ def phase_resnet50() -> dict:
     return out
 
 
+# phase (g): resumable training
+RES_LSTM_EPOCHS, RES_LSTM_EPOCH_STEPS = 2, 15  # 30 steps of the full LSTM
+RES_PREEMPT_STEP = 12  # run B's fault plan: SIGTERM to itself after it
+RES_CKPT_EVERY = 5
+RES_EVAL_RTOL = 1e-5  # the evaluator's perplexity against the trainer's
+RES_R50_TIMED_N = 2688  # synthetic ImageNet: 21 steps (20 intervals)/epoch
+# params, momentum and batch statistics of ResNet-50 in float32: 204.6 MB
+RES_R50_MIN_SAVE_BYTES = 150e6
+RES_TIMEOUT_S = 240  # per train_cli process
+NONDETERMINISTIC = "does not have a deterministic implementation"
+
+
+def _lstm_cli(root: str) -> list[str]:
+    """The command of every (g1) run: full-width PTB LSTM (batch 20 x 35,
+    float32, TF32 off), 2 epochs of 15 steps, a mid-epoch checkpoint every
+    5 steps, torch's deterministic algorithms."""
+    return [
+        sys.executable, "-m", "mgwfbp_tpu_torch.train_cli", "--dnn", "lstm",
+        "--synthetic", "--max-epochs", str(RES_LSTM_EPOCHS),
+        "--num-batches-per-epoch", str(RES_LSTM_EPOCH_STEPS),
+        "--ckpt-every-steps", str(RES_CKPT_EVERY), "--telemetry",
+        "--deterministic", "--device", TRAIN_DEVICE,
+        "--logdir", os.path.join(root, "logs"),
+        "--checkpoint-dir", os.path.join(root, "ckpt"),
+    ]
+
+
+def _res_env(plan: str = "") -> dict:
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               MGWFBP_FAULT_PLAN=plan,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    return env
+
+
+_CHILDREN: list = []  # every train_cli / evaluate process phase (g) starts
+
+
+def _kill_children() -> None:
+    for p in _CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _start(cmd: list[str], env: dict, log: str) -> tuple:
+    f = open(log, "w")
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=f, text=True,
+                         env=env)
+    _CHILDREN.append(p)
+    return p, f, log
+
+
+def _finish(run: tuple, name: str) -> tuple[int, str, str]:
+    """(rc, last stdout line, stderr) of a started run; kills it past the
+    time limit."""
+    p, f, log = run
+    try:
+        out, _ = p.communicate(timeout=RES_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        f.close()
+        fail(f"resilience (g1): run {name} exceeded {RES_TIMEOUT_S}s")
+    f.close()
+    with open(log) as fh:
+        err = fh.read()
+    lines = out.strip().splitlines()
+    return p.returncode, (lines[-1] if lines else ""), err
+
+
+def _stream(root: str) -> str:
+    logs = os.path.join(root, "logs")
+    (tag,) = os.listdir(logs)
+    return os.path.join(logs, tag, "telemetry.jsonl")
+
+
+def _events(root: str, name: str) -> list[dict]:
+    from mgwfbp_tpu_torch.telemetry import events_of, read_events
+
+    return events_of(read_events(_stream(root)), name)
+
+
+def _committed(root: str, step: int) -> tuple[dict, list]:
+    """(params, carry leaves) of a committed step of a (g1) run."""
+    from mgwfbp_tpu_torch.checkpoint import read_step
+
+    ckpt = os.path.join(root, "ckpt")
+    (tag,) = os.listdir(ckpt)
+    params, _, _ = read_step(os.path.join(ckpt, tag), step)
+    pdir = os.path.join(ckpt, tag, "sharded", f"{step:08d}", "p00000")
+    carry = [np.load(os.path.join(pdir, f"carry.l{i}.npy")) for i in range(4)]
+    return params, carry
+
+
+def _distance(a: tuple, b: tuple) -> float:
+    pa, ca = a
+    pb, cb = b
+    if list(pa) != list(pb):
+        fail("resilience (g1): the runs committed different leaves")
+    d = max(float(np.max(np.abs(pa[k] - pb[k]))) for k in pa)
+    return max([d] + [float(np.max(np.abs(x - y))) for x, y in zip(ca, cb)])
+
+
+def _log_marks(err: str, t_launch: float) -> dict:
+    """Seconds from a relaunch to the trainer's log lines that bound its
+    start-up phases: the trainer begins (imports done), the model is on
+    the card (data and model built), the checkpoint is restored."""
+    marks = {}
+    for line in err.splitlines():
+        for key, text in (("trainer_start", "precision:"),
+                          ("model_on_card", "single device:"),
+                          ("restored", "resumed from")):
+            if key not in marks and text in line:
+                stamp, ms = line[:23].split(",")
+                wall = time.mktime(time.strptime(stamp, "%Y-%m-%d %H:%M:%S"))
+                marks[key] = wall + int(ms) / 1e3 - t_launch
+    return marks
+
+
+def resilience_lstm(work: str) -> dict:
+    """(g1) The PTB LSTM preempted and resumed through train_cli: run A
+    uninterrupted; run B preempted by its fault plan after step 12 (rc 75),
+    relaunched with the same command (it resumes mid-epoch), sent a real
+    SIGTERM once it has stepped (rc 75 again), relaunched to the end. B's
+    final committed params and carry against A's: bitwise when every op ran
+    deterministically, else no further than a second run of A. Then the
+    offline evaluator on A's last epoch against A's own evaluation."""
+    last = RES_LSTM_EPOCHS * RES_LSTM_EPOCH_STEPS
+    a, b = os.path.join(work, "a"), os.path.join(work, "b")
+    plan = f"preempt@step={RES_PREEMPT_STEP}"
+    t0 = time.perf_counter()
+    run_a = _start(_lstm_cli(a), _res_env(), os.path.join(work, "a.err"))
+    run_b1 = _start(_lstm_cli(b), _res_env(plan),
+                    os.path.join(work, "b1.err"))
+    rc_a, line_a, err_a = _finish(run_a, "A")
+    rc_b1, line_b1, err_b1 = _finish(run_b1, "B1")
+    out: dict = {"rcs": {"A": rc_a, "B1": rc_b1}}
+    if rc_a != 0:
+        fail(f"resilience (g1): run A exited {rc_a}: {err_a[-2000:]}")
+    if rc_b1 != 75:
+        fail(f"resilience (g1): run B exited {rc_b1}, not 75: "
+             f"{err_b1[-2000:]}")
+    pre = json.loads(line_b1)
+    if not (pre.get("preempted") and pre["iteration"] == RES_PREEMPT_STEP
+            and pre["signal"] == "SIGTERM"):
+        fail(f"resilience (g1): run B printed {line_b1!r}")
+    # B2: the same command; SIGTERM once it has taken a resumed step
+    stream = _stream(b)
+    seen = len(_events(b, "step"))
+    t_launch = time.time()
+    run_b2 = _start(_lstm_cli(b), _res_env(plan),
+                    os.path.join(work, "b2.err"))
+    first_wall = None
+    deadline = time.time() + RES_TIMEOUT_S
+    while time.time() < deadline and run_b2[0].poll() is None:
+        with open(stream) as fh:
+            recs = [json.loads(x) for x in fh.read().splitlines()[1:]]
+        steps = [r for r in recs if r.get("event") == "step"][seen:]
+        if steps:
+            first_wall = float(steps[0]["wall"])
+            break
+        time.sleep(0.005)
+    t_sig = time.time()
+    run_b2[0].send_signal(signal.SIGTERM)
+    rc_b2, line_b2, err_b2 = _finish(run_b2, "B2")
+    drain_s = time.time() - t_sig
+    out["rcs"]["B2"] = rc_b2
+    if rc_b2 != 75 or first_wall is None:
+        fail(f"resilience (g1): the SIGTERMed relaunch exited {rc_b2} (a "
+             f"resumed step seen: {first_wall is not None}): "
+             f"{err_b2[-2000:]}")
+    sig_step = json.loads(line_b2)["iteration"]
+    # B3 to the end, and beside it (g3) the offline evaluator on A's last
+    # epoch
+    run_b3 = _start(_lstm_cli(b), _res_env(plan),
+                    os.path.join(work, "b3.err"))
+    ckpt_a = os.path.join(a, "ckpt")
+    (tag,) = os.listdir(ckpt_a)
+    run_ev = _start(
+        [sys.executable, "-m", "mgwfbp_tpu_torch.evaluate", "--dnn", "lstm",
+         "--checkpoint-dir", os.path.join(ckpt_a, tag), "--synthetic",
+         "--device", TRAIN_DEVICE], _res_env(), os.path.join(work, "ev.err"))
+    rc_b3, line_b3, err_b3 = _finish(run_b3, "B3")
+    rc_ev, line_ev, err_ev = _finish(run_ev, "evaluate")
+    out["rcs"]["B3"] = rc_b3
+    if rc_b3 != 0:
+        fail(f"resilience (g1): the last relaunch exited {rc_b3}: "
+             f"{err_b3[-2000:]}")
+    resumes = _events(b, "resume")
+    if [(r["iteration"], r["mid_epoch"]) for r in resumes] != [
+            (RES_PREEMPT_STEP, True), (sig_step, True)]:
+        fail(f"resilience (g1): resume events {resumes}")
+    steps_b = sorted({r["step"] for r in _events(b, "step")})
+    if steps_b != list(range(1, last + 1)):
+        fail(f"resilience (g1): run B's steps {steps_b}")
+    nondet = any(NONDETERMINISTIC in e for e in (err_a, err_b1, err_b2, err_b3))
+    dist_ba = _distance(_committed(b, last), _committed(a, last))
+    out.update(
+        preempt_step=RES_PREEMPT_STEP, sigterm_step=sig_step,
+        resume_steps=[r["iteration"] for r in resumes],
+        relaunch_to_first_resumed_step_s=first_wall - t_launch,
+        relaunch_marks_s=_log_marks(err_b2, t_launch),
+        drain_s_signal_to_exit=drain_s, deterministic=not nondet,
+        max_abs_diff_b_vs_a=dist_ba,
+    )
+    if nondet:
+        run_a2 = _start(_lstm_cli(os.path.join(work, "a2")), _res_env(),
+                        os.path.join(work, "a2.err"))
+        rc_a2, _, err_a2 = _finish(run_a2, "A2")
+        if rc_a2 != 0:
+            fail(f"resilience (g1): run A2 exited {rc_a2}: {err_a2[-2000:]}")
+        dist_aa = _distance(_committed(os.path.join(work, "a2"), last),
+                            _committed(a, last))
+        out["max_abs_diff_a2_vs_a"] = dist_aa
+        if not dist_ba <= dist_aa:
+            fail(f"resilience (g1): B is {dist_ba:.3e} from A, further than "
+                 f"a second A ({dist_aa:.3e})")
+    elif dist_ba != 0.0:
+        fail(f"resilience (g1): deterministic runs differ: B is "
+             f"{dist_ba:.3e} from A")
+    if rc_ev != 0:
+        fail(f"resilience (g3): evaluate exited {rc_ev}: {err_ev[-2000:]}")
+    got = json.loads(line_ev)
+    want = json.loads(line_a)["eval"]
+    rel = abs(got["perplexity"] - want["perplexity"]) / want["perplexity"]
+    out["evaluate"] = {"perplexity": got["perplexity"],
+                       "trainer_perplexity": want["perplexity"],
+                       "rel_err": rel, "epoch": got["epoch"]}
+    if not (got["epoch"] == RES_LSTM_EPOCHS - 1 and rel <= RES_EVAL_RTOL):
+        fail(f"resilience (g3): evaluate {got} against the trainer's {want}")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def resilience_resnet50(work: str) -> dict:
+    """(g2) ResNet-50 at bfloat16, batch 128, synthetic ImageNet, one
+    trainer with MGWFBP_FAULT_PLAN=nan@step=4,count=3 and --bad-step-limit
+    3: an epoch of 2 steps commits its boundary (one synchronous save,
+    timed); the next epoch takes three bad steps, rolls back to step 2 and
+    ends with a finite loss. Then the step interval (wall time between
+    step starts, so that a save counts) over an epoch of RES_R50_TIMED_N /
+    128 steps without checkpoints and one with --ckpt-every-steps 5
+    (async)."""
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.telemetry import events_of, read_events
+    from mgwfbp_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    root = os.path.join(work, "r50")
+    cfg = make_config("resnet50", dtype="bfloat16", batch_size=RESNET50_BATCH,
+                      augment=False, telemetry=True, eval_every_epochs=1000,
+                      num_batches_per_epoch=2, bad_step_limit=3,
+                      logdir=os.path.join(root, "logs"),
+                      checkpoint_dir=os.path.join(root, "ckpt"))
+    os.environ["MGWFBP_FAULT_PLAN"] = "nan@step=4,count=3"
+    os.environ["MGWFBP_SYNTH_TRAIN_N"] = str(RES_R50_TIMED_N)
+    try:
+        tr = Trainer(cfg, device=TRAIN_DEVICE, synthetic_data=True)
+    finally:
+        del os.environ["MGWFBP_FAULT_PLAN"], os.environ["MGWFBP_SYNTH_TRAIN_N"]
+
+    def events(name: str) -> list[dict]:
+        return events_of(read_events(tr.telemetry.path), name)
+
+    tr.fit(1)  # steps 1-2 and the boundary save
+    (save,) = events("checkpoint")
+    out: dict = {"sync_save_s": save["duration_s"],
+                 "sync_save_bytes": save["bytes"],
+                 "sync_save_step": save["iteration"]}
+    if not save["bytes"] > RES_R50_MIN_SAVE_BYTES:
+        fail(f"resilience (g2): the synchronous save wrote {save['bytes']} B")
+    cfg.num_batches_per_epoch, cfg.checkpoint_every_epochs = 6, 1000
+    metrics = tr.fit(1)  # bad steps 4-6, the rollback, steps 3-8 again
+    bad, rbs = events("bad_step"), events("rollback")
+    loss = metrics["train"]["loss"]
+    out.update(bad_steps=[r["step"] for r in bad],
+               rollback_to=[r["restored_iteration"] for r in rbs],
+               final_loss=loss)
+    if ([r["step"] for r in bad] != [4, 5, 6]
+            or [r["restored_iteration"] for r in rbs] != [2]
+            or not np.isfinite(loss)):
+        fail(f"resilience (g2): bad steps {bad}, rollbacks {rbs}, loss {loss}")
+    # the cost of --ckpt-every-steps: one epoch without, one with
+    cfg.num_batches_per_epoch = None
+    timed = {}
+    for epoch, every in ((2, 0), (3, RES_CKPT_EVERY)):
+        cfg.ckpt_every_steps = every
+        tr.train_epoch(epoch)
+        tr._poll_async_ckpt(block=True)
+        starts = [r["start_s"] for r in events("step") if r["epoch"] == epoch]
+        timed[every] = [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
+    asyncs = [r for r in events("checkpoint") if r.get("async")]
+    tr.close()
+    without, with_ckpt = timed[0], timed[RES_CKPT_EVERY]
+    out.update(
+        timed_intervals=len(without),
+        step_ms_without=float(np.median(without)),
+        step_ms_mean_without=float(np.mean(without)),
+        step_ms_with_async=float(np.median(with_ckpt)),
+        step_ms_mean_with_async=float(np.mean(with_ckpt)),
+        async_saves=len(asyncs),
+        async_save_s=[r["duration_s"] for r in asyncs],
+        async_save_bytes=[r["bytes"] for r in asyncs],
+        async_commit_lag_steps=[r["commit_iteration"] - r["iteration"]
+                                for r in asyncs],
+    )
+    if len(asyncs) != (len(with_ckpt) + 1) // RES_CKPT_EVERY:
+        fail(f"resilience (g2): {len(asyncs)} async saves committed")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_resilience() -> dict:
+    """(g) Resumable training on the card: (g1) and (g3) on the PTB LSTM,
+    (g2) on ResNet-50."""
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_resilience_") as work:
+        try:
+            lstm = resilience_lstm(work)
+        finally:
+            _kill_children()  # a failed check leaves no process behind
+        print(f"resilience (g1): rcs {lstm['rcs']}, resumed at "
+              f"{lstm['resume_steps']}, B vs A {lstm['max_abs_diff_b_vs_a']}"
+              f" (deterministic {lstm['deterministic']}), relaunch to first "
+              f"step {lstm['relaunch_to_first_resumed_step_s']:.2f} s "
+              f"({lstm['relaunch_marks_s']}), drain "
+              f"{lstm['drain_s_signal_to_exit']:.2f} s, evaluate "
+              f"{lstm['evaluate']}", flush=True)
+        r50 = resilience_resnet50(work)
+        print(f"resilience (g2): sync save {r50['sync_save_s']:.3f} s for "
+              f"{r50['sync_save_bytes']} B, rollback to "
+              f"{r50['rollback_to']} after bad steps {r50['bad_steps']}, "
+              f"step ms without / with async saves "
+              f"{r50['step_ms_without']:.2f} / "
+              f"{r50['step_ms_with_async']:.2f} (means "
+              f"{r50['step_ms_mean_without']:.2f} / "
+              f"{r50['step_ms_mean_with_async']:.2f})", flush=True)
+    return {"lstm": lstm, "resnet50": r50}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -1665,13 +2029,14 @@ def main() -> int:
     calibrated = phase_calibrate(reducer_b, train["gloo"])
     lm = phase_lm()
     resnet50 = phase_resnet50()
+    resilience = phase_resilience()
 
     serve = rows[0]
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "mgwfbp_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "mgwfbp_tpu/ops/flashattn.py:107",
+        "replaces": "mgwfbp_tpu/ops/flashattn.py:115",
         "launches": launches,
         "max_abs_err": serve["max_abs_err"],
         "ms": serve["ms"],
@@ -1689,6 +2054,7 @@ def main() -> int:
     print(json.dumps({"calibrate": calibrated}))
     print(json.dumps({"lm": lm}))
     print(json.dumps({"resnet50": resnet50}))
+    print(json.dumps({"resilience": resilience}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

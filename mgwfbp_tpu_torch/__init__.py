@@ -23,9 +23,14 @@ What is ported so far:
     or bfloat16 (the mixed-precision policy of ``train.step``);
   * ``calibrate``, trace attribution and the event stream (``telemetry``);
     ``bench`` (the merge-policy grid on the card, one JSON line);
-  * ``convert`` (Flax parameter and batch-statistics trees <-> PyTorch
-    state dicts) and ``checkpoint`` (the shard-native format's reader and
-    a single-process replicated writer).
+  * ``convert`` (Flax parameter and batch-statistics trees and the
+    optimizer's momentum <-> PyTorch state dicts and ``momentum_buffer``s)
+    and ``checkpoint`` (the shard-native format: the JAX package's
+    ``Checkpointer`` with its async writer, sidecar index and GC);
+  * resumable training: resume, the SIGTERM/SIGINT drain (rc 75),
+    rollback after bad steps, ``--pretrain`` (``train``), the fault plan
+    (``utils.faults``), agreement over a gloo side group
+    (``runtime.coordination``) and the offline evaluator (``evaluate``).
 
 Entry points take an explicit ``device`` (default ``"cuda"``) and raise when
 a card is asked for and none is present; they never fall back to the CPU.

@@ -4,8 +4,9 @@ One dataclass with per-model presets, ``MGWFBP_<FIELD>`` environment
 overrides and keyword overrides, resolved by ``make_config`` exactly as the
 JAX package resolves them. Only the fields the port's training path reads
 are kept; the rest of the JAX config (lowerings other than ``all_reduce``,
-autotune, the live telemetry plane, resilience, serving) is listed in
-ROADMAP.md.
+autotune, the live telemetry plane, serving) is listed in ROADMAP.md.
+``deterministic`` is the port's own (torch's deterministic algorithms;
+the JAX package has no counterpart to switch).
 """
 
 from __future__ import annotations
@@ -55,7 +56,28 @@ class TrainConfig:
     logdir: str = "./logs"
     checkpoint_dir: Optional[str] = None
     checkpoint_every_epochs: int = 1
+    # 'sharded' (the shard-native format); 'replicated' (the JAX package's
+    # orbax escape hatch) is refused: the port has no orbax
+    ckpt_format: str = "sharded"
+    # mid-epoch saves hand their payload (host copies made at the step
+    # boundary) to a writer thread and commit at a later step; False makes
+    # every save block the step loop. Boundary and drain saves block.
+    ckpt_async: bool = True
+    # a mid-epoch checkpoint every N optimizer steps of an epoch (0: epoch
+    # boundaries only); a SIGTERM/SIGINT drain always writes one
+    ckpt_every_steps: int = 0
     grad_guard: bool = True  # drop the update on non-finite gradients
+    # consecutive non-finite steps before rolling back to the newest
+    # checkpoint (0: never; skipping still applies)
+    bad_step_limit: int = 3
+    # a run's checkpoint directory to take weights, batch statistics and
+    # counters from (the optimizer starts fresh)
+    pretrain: Optional[str] = None
+    # torch.use_deterministic_algorithms(True, warn_only=True):
+    # bitwise-repeatable steps on the card (cuBLAS also needs
+    # CUBLAS_WORKSPACE_CONFIG in the environment; an op without a
+    # deterministic implementation warns); off by default, as it costs speed
+    deterministic: bool = False
     # the event stream (telemetry/events.py): step spans, per-epoch overlap
     # accounting; written to telemetry_dir, default <logdir>/<tag>
     telemetry: bool = False

@@ -27,7 +27,12 @@ Name and layout rules (Flax -> torch):
 
 ``params_from_flax``/``torch_key`` map by name alone (the transformer's
 layout); ``state_from_flax``/``variables_to_flax`` walk the module, which
-every model's layout needs.
+every model's layout needs. ``host_leaves`` copies one collection to the
+host in Flax layout, the layout change done on the module's device;
+``momentum_to_flax``/``momentum_from_flax`` carry ``torch.optim.SGD``'s
+per-parameter ``momentum_buffer`` to and from the optax ``trace`` of the
+same leaves (zeros for a buffer torch has not made yet: optax starts its
+trace at zeros, and a zero buffer gives the same next step as a fresh one).
 """
 
 from __future__ import annotations
@@ -278,3 +283,81 @@ def state_from_flax(
         key, _, to_torch = rules[k]
         state[key] = to_torch(_to_tensor(leaf)).contiguous()
     return state
+
+
+def flax_shapes(module: nn.Module,
+                collection: str = "params") -> dict[str, tuple]:
+    """{dotted Flax path: shape in Flax layout} for every leaf of a
+    collection, in Flax's flatten order (no copy: the layout change of a
+    view)."""
+    tensors = dict(module.named_parameters())
+    tensors.update(module.named_buffers())
+    rules = {path: (key, to_flax)
+             for (coll, path), (key, to_flax, _) in _leaf_map(module).items()
+             if coll == collection}
+    return {path: tuple(rules[path][1](tensors[rules[path][0]].detach()).shape)
+            for path in flatten_flax(rules)}
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A float32 host copy of ``t`` that nothing else holds (a CPU tensor's
+    own storage would change under the caller)."""
+    host = torch.empty(t.shape, dtype=torch.float32, device="cpu")
+    host.copy_(t)
+    return host.numpy()
+
+
+def host_leaves(module: nn.Module,
+                collection: str = "params") -> dict[str, np.ndarray]:
+    """{dotted Flax path: float32 host copy in Flax layout} for every leaf of
+    a collection, in Flax's flatten order; each layout change is made on
+    the module's device before the copy."""
+    tensors = dict(module.named_parameters())
+    tensors.update(module.named_buffers())
+    rules = {path: (key, to_flax)
+             for (coll, path), (key, to_flax, _) in _leaf_map(module).items()
+             if coll == collection}
+    out = {}
+    for path in flatten_flax(rules):
+        key, to_flax = rules[path]
+        out[path] = _host_copy(to_flax(tensors[key].detach()).contiguous())
+    return out
+
+
+def _param_rules(module: nn.Module) -> dict[str, tuple]:
+    """dotted Flax path -> (parameter, torch -> Flax, Flax -> torch), in
+    Flax's flatten order."""
+    params = dict(module.named_parameters())
+    rules = {path: (params[key], to_flax, to_torch)
+             for (coll, path), (key, to_flax, to_torch)
+             in _leaf_map(module).items() if coll == "params"}
+    return {p: rules[p] for p in flatten_flax(rules)}
+
+
+@torch.no_grad()
+def momentum_to_flax(module: nn.Module,
+                     optimizer: torch.optim.Optimizer) -> dict[str, np.ndarray]:
+    """{dotted Flax path: the parameter's momentum buffer as a float32 host
+    copy in Flax layout}, zeros where torch has no buffer yet."""
+    out = {}
+    for path, (p, to_flax, _) in _param_rules(module).items():
+        buf = optimizer.state.get(p, {}).get("momentum_buffer")
+        if buf is None:
+            out[path] = np.zeros(tuple(to_flax(p.detach()).shape), np.float32)
+        else:
+            out[path] = _host_copy(to_flax(buf).contiguous())
+    return out
+
+
+@torch.no_grad()
+def momentum_from_flax(module: nn.Module, optimizer: torch.optim.Optimizer,
+                       trace: Mapping[str, Any]) -> None:
+    """Install Flax-layout momentum traces as ``momentum_buffer``s of the
+    module's parameters (every parameter must be given)."""
+    rules = _param_rules(module)
+    missing = sorted(set(rules) - set(trace))
+    if missing:
+        raise KeyError(f"momentum trace lacks leaves {missing[:8]}")
+    for path, (p, _, to_torch) in rules.items():
+        buf = to_torch(_to_tensor(trace[path])).to(p.device, p.dtype)
+        optimizer.state[p]["momentum_buffer"] = buf.contiguous().clone()

@@ -11,17 +11,45 @@ and the JAX package's optax chain apply it. The learning rate is a
 ``clip_by_global_norm_`` follows ``optax.clip_by_global_norm`` (scale by
 ``max_norm / norm`` when the norm is at least ``max_norm``), not
 ``torch.nn.utils.clip_grad_norm_``, which adds 1e-6 to the norm.
+
+Checkpoints hold the optimizer as the JAX package's optax tree
+(``mgwfbp_tpu/optim/__init__.py``: ``sgd()`` is a chain of the masked
+``add_decayed_weights``, ``trace`` and ``scale_by_learning_rate``, behind
+``clip_by_global_norm`` when a norm clip is set). ``sgd_state_layout``
+names that tree's leaves in optax's flatten order: one ``trace`` leaf per
+parameter (torch's ``momentum_buffer``, in Flax layout;
+``convert.momentum_to_flax``) and the schedule's ``count`` (the updates
+applied, ``TrainStep.step``). Weight decay and the clip hold no state.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
 
 from mgwfbp_tpu_torch.optim import schedules
 from mgwfbp_tpu_torch.optim.schedules import as_step_fn, resolve
+
+
+def sgd_state_layout(
+    param_paths: list[str], *, momentum: float, weight_decay: float,
+    norm_clip: Optional[float] = None,
+) -> tuple[list[str], str]:
+    """(the ``trace`` leaf's ``keystr`` path for each dotted Flax parameter
+    path, empty without momentum; the ``count`` leaf's path) of the optax
+    tree the JAX package's ``make_optimizer`` builds for these settings."""
+    prefix = "[1]" if norm_clip is not None else ""
+    i = 1 if weight_decay else 0
+    trace = []
+    if momentum:
+        trace = [
+            f"{prefix}[{i}].trace" + "".join(f"['{k}']" for k in p.split("."))
+            for p in param_paths
+        ]
+        i += 1
+    return trace, f"{prefix}[{i}].count"
 
 
 def scaled_clip_threshold(max_norm: float, world_size: int = 1) -> float:
@@ -54,13 +82,18 @@ def make_optimizer(
     max_epochs: int = 141,
     warmup_epochs: int = 5,
     num_batches_per_epoch: int = 1,
+    step_offset: int = 0,
+    epoch_offset: float = 0.0,
 ) -> tuple[torch.optim.SGD, Callable[[int], float], Callable[[float], float]]:
-    """(optimizer, step -> lr, epoch -> lr) for ``params``."""
+    """(optimizer, step -> lr, epoch -> lr) for ``params``. ``step_offset``
+    and ``epoch_offset`` anchor the step -> epoch conversion, so that a
+    resumed run continues its schedule (``as_step_fn``)."""
     epoch_schedule = resolve(
         lr_schedule, base_lr, dataset=dataset, max_epochs=max_epochs,
         warmup_epochs=warmup_epochs,
     )
-    step_fn = as_step_fn(epoch_schedule, num_batches_per_epoch)
+    step_fn = as_step_fn(epoch_schedule, num_batches_per_epoch,
+                         step_offset=step_offset, epoch_offset=epoch_offset)
     params = list(params)
     groups = [
         {"params": [p for p in params if p.ndim > 1],
@@ -86,4 +119,5 @@ __all__ = [
     "scaled_clip_threshold",
     "schedules",
     "set_lr",
+    "sgd_state_layout",
 ]

@@ -21,6 +21,10 @@ and pack_beta time the production path: ``MergedAllreduce`` launching
 from gradient hooks during a real backward, less the same backward with
 the hooks disarmed.
 
+The public measurement functions take ``device`` as the port's entry
+points do: None means the card (and raises without one), the CPU only
+when asked for (``utils/device.py``).
+
 Trace attribution. ``trace_group_times`` runs steps under
 ``torch.profiler`` and charges each merge group the device time of the
 kernels and copies launched inside its ``mgwfbp_groupNNNN`` range.
@@ -33,7 +37,7 @@ import json
 import logging
 import os
 import time
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -45,6 +49,7 @@ from mgwfbp_tpu_torch.parallel.costmodel import (
     check_schema_version,
     fit_alpha_beta,
 )
+from mgwfbp_tpu_torch.utils.device import resolve_device
 
 # the JAX package's sweep: 8K .. 16M float32 elements
 DEFAULT_SIZES = tuple(int(2**k) for k in range(13, 25))
@@ -298,15 +303,9 @@ def _window_s(fn: Callable[[], None], iters: int, device) -> float:
     return (time.perf_counter() - t0) / max(iters, 1)
 
 
-def _min_window_s(fn, iters: int, device, windows: int = 3) -> float:
-    """The least of ``windows`` windows: one host-load spike must not bend
-    a fitted slope (the JAX package's gamma protocol)."""
-    return min(_window_s(fn, iters, device) for _ in range(windows))
-
-
 def profile_allreduce(
     group=None,
-    device: torch.device = torch.device("cpu"),
+    device: Optional[Union[str, torch.device]] = None,
     sizes: Sequence[int] = DEFAULT_SIZES,
     warmup: int = 5,
     iters: int = 20,
@@ -315,6 +314,7 @@ def profile_allreduce(
     """One all-reduce per payload size over ``group``, synchronised after
     every call (the reference's protocol); fit t = alpha + beta * bytes.
     A one-rank group moves no bytes: its curve is the dispatch floor."""
+    device = resolve_device(device)
     times, nbytes = [], []
     itemsize = torch.empty((), dtype=dtype).element_size()
     for n in sizes:
@@ -336,7 +336,7 @@ def profile_allreduce(
 
 def profile_allgather(
     group=None,
-    device: torch.device = torch.device("cpu"),
+    device: Optional[Union[str, torch.device]] = None,
     sizes: Sequence[int] = DEFAULT_SIZES,
     warmup: int = 5,
     iters: int = 20,
@@ -345,6 +345,7 @@ def profile_allgather(
     """One all-gather per FULL payload size (each rank holds n / P
     elements and the gather reassembles n: the all-gather leg of an
     n-element ring all-reduce), for ``fit_ag_fraction``."""
+    device = resolve_device(device)
     times, nbytes = [], []
     itemsize = torch.empty((), dtype=dtype).element_size()
     world = dist.get_world_size(group)
@@ -427,24 +428,44 @@ class _HookBench:
         if armed:
             self.reducer.synchronize()
 
-    def reducer_s(self, warmup: int, iters: int, device, group) -> float:
-        """Seconds per step that the armed reducer adds to the backward
-        (least of 3 windows each), agreed across the group."""
-        for _ in range(warmup):
-            self.step(True)
-            self.step(False)
-        armed = _min_window_s(lambda: self.step(True), iters, device)
-        bare = _min_window_s(lambda: self.step(False), iters, device)
-        armed, bare = _agree_max([armed, bare], group, device)
-        return armed - bare
-
     def close(self) -> None:
         self.reducer.detach()
 
 
+def _step_s(fn: Callable[[], None], device) -> float:
+    """Seconds of one call of ``fn`` run to completion."""
+    t0 = time.perf_counter()
+    fn()
+    _sync(device)
+    return time.perf_counter() - t0
+
+
+def _reducer_s(benches: Sequence[_HookBench], warmup: int, iters: int,
+               device, group, rounds: int = 5) -> list[float]:
+    """Seconds per step that each bench's armed reducer adds to its
+    backward, agreed across the group. Every step runs to completion and
+    is timed alone; the armed and bare steps of all benches alternate, and
+    each configuration keeps the median of its ``rounds * iters`` steps. A
+    drift of host or clock speed then falls on every configuration alike,
+    and load spikes, which lengthen single steps, move no median (window
+    means of a shared host varied by more than the reducer's cost)."""
+    for _ in range(warmup):
+        for b in benches:
+            b.step(True)
+            b.step(False)
+    samples: list[list[float]] = [[] for _ in range(2 * len(benches))]
+    for _ in range(rounds * iters):
+        for i, b in enumerate(benches):
+            for j, armed in enumerate((True, False)):
+                samples[2 * i + j].append(
+                    _step_s(lambda: b.step(armed), device))
+    med = _agree_max([float(np.median(s)) for s in samples], group, device)
+    return [med[2 * i] - med[2 * i + 1] for i in range(len(benches))]
+
+
 def profile_group_overhead(
     group=None,
-    device: torch.device = torch.device("cpu"),
+    device: Optional[Union[str, torch.device]] = None,
     alpha: float = 0.0,
     total_elems: int = 1 << 22,
     group_counts: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
@@ -457,12 +478,14 @@ def profile_group_overhead(
     of the reducer's time against k is the marginal cost of a collective
     (link startup alpha plus pack, dispatch and hook work). Returns
     (max(slope - alpha, 0), [(k, seconds), ...])."""
+    device = resolve_device(device)
     times: list[tuple[int, float]] = []
     for k in group_counts:
         per = max(total_elems // k, 1)
         bench = _HookBench([per] * k, "wfbp", group, device)
         try:
-            times.append((k, bench.reducer_s(warmup, iters, device, group)))
+            times.append((k, _reducer_s([bench], warmup, iters, device,
+                                        group)[0]))
         finally:
             bench.close()
     ks = np.asarray([k for k, _ in times], np.float64)
@@ -474,7 +497,7 @@ def profile_group_overhead(
 
 def profile_pack_overhead(
     group=None,
-    device: torch.device = torch.device("cpu"),
+    device: Optional[Union[str, torch.device]] = None,
     total_elems: int = 1 << 22,
     members: int = 32,
     warmup: int = 3,
@@ -485,22 +508,24 @@ def profile_pack_overhead(
     identical total payload (per * members elements in both): one
     collective each, so the difference over the payload bytes prices what
     a multi-member bucket adds."""
+    device = resolve_device(device)
     per = max(total_elems // members, 1)
-    out = []
-    for sizes in ([per * members], [per] * members):
-        bench = _HookBench(sizes, "single", group, device)
-        try:
-            out.append(bench.reducer_s(warmup, iters, device, group))
-        finally:
+    benches = [_HookBench(sizes, "single", group, device)
+               for sizes in ([per * members], [per] * members)]
+    try:
+        # interleaved: timed one after the other, a clock or load drift
+        # between the two benches pushed the difference below zero
+        t_mono, t_packed = _reducer_s(benches, warmup, iters, device, group)
+    finally:
+        for bench in benches:
             bench.close()
-    t_mono, t_packed = out
     nbytes = float(per * members * torch.float32.itemsize)
     return max((t_packed - t_mono) / nbytes, 0.0)
 
 
 def profile_overlap_capability(
     group=None,
-    device: torch.device = torch.device("cpu"),
+    device: Optional[Union[str, torch.device]] = None,
     payload_elems: int = 1 << 22,
     warmup: int = 3,
     iters: int = 10,
@@ -510,6 +535,7 @@ def profile_overlap_capability(
     ``payload_elems``) and T (the all-reduce launched asynchronously, then
     the chain, then the wait). Returns clip((C + R - T) / min(C, R), 0, 1);
     the chain is sized so that C is about 4 R."""
+    device = resolve_device(device)
     w = torch.full((512, 512), 1e-3, device=device)
     x = torch.ones((512, 512), device=device)
     payload = torch.ones(payload_elems, device=device)
@@ -549,11 +575,12 @@ def profile_overlap_capability(
 
 def measure_step_time(
     fn: Callable, *args, warmup: int = 5, iters: int = 50,
-    device: torch.device = torch.device("cpu"),
+    device: Optional[Union[str, torch.device]] = None,
 ) -> float:
     """Seconds per call of ``fn(*args)``: ``warmup`` calls, then one
     window of ``iters`` closed by a synchronisation (the reference's 5 +
     50 protocol)."""
+    device = resolve_device(device)
     for _ in range(warmup):
         fn(*args)
     _sync(device)

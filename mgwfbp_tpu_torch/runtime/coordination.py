@@ -1,0 +1,165 @@
+"""Cross-process agreement for the training loop (counterpart of the part of
+``mgwfbp_tpu/runtime/coordination.py`` the resilience layer uses).
+
+Synchronous data-parallel SGD needs every host decision that changes what
+runs next (drain on a preemption signal, roll back after bad steps, commit
+a checkpoint) to be identical on every process, or the processes issue
+mismatched collectives and the group deadlocks:
+
+  agree_any / agree_all   boolean consensus over one flag per process
+  broadcast_flag          process ``source``'s value, everywhere
+  agree_uniform           True iff every process passed the same value
+  barrier                 named rendezvous with a real timeout
+
+Transport: a gloo side group over every rank of the running
+``torch.distributed`` world, made on first use (``dist.new_group``, which
+every rank reaches at the same program point because every call here is a
+lockstep collective). Flags travel as float64 CPU tensors. Not over the
+trainer's NCCL group on purpose: an NCCL call would enqueue on the card's
+stream among the merge groups' all-reduces and make each agreement wait
+for the step's device work; over gloo a flag never touches the card, and
+the trainer only agrees at a step boundary, after the reducer's wait, so
+no NCCL collective is in flight when it does. On the CPU the world is gloo
+already; the side group keeps its own timeout.
+
+Every primitive is a collective when ``process_count() > 1``: all
+processes call the same primitives in the same order. At one process they
+return on the host and issue nothing. Every multi-process call is bounded:
+the side group's timeout is ``MGWFBP_COORD_TIMEOUT_S`` and the barrier's
+``MGWFBP_BARRIER_TIMEOUT_S`` (600 s each by default); a miss or a transport
+error raises ``CoordinationTimeout``.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+BARRIER_TIMEOUT_ENV = "MGWFBP_BARRIER_TIMEOUT_S"
+COORD_TIMEOUT_ENV = "MGWFBP_COORD_TIMEOUT_S"
+DEFAULT_BARRIER_TIMEOUT_S = 600.0
+
+
+class CoordinationTimeout(RuntimeError):
+    """A lockstep group operation did not complete within its deadline, or
+    its transport failed: a peer process is dead or wedged, so the
+    collective can never complete. The caller must exit promptly."""
+
+    def __init__(self, op: str, timeout_s: float, detail: str = ""):
+        super().__init__(
+            f"coordination op {op!r} did not complete within "
+            f"{timeout_s:.0f}s{f' ({detail})' if detail else ''}; a peer "
+            "process is dead or wedged"
+        )
+        self.op = op
+        self.timeout_s = timeout_s
+
+
+def _env_seconds(name: str) -> float:
+    raw = (os.environ.get(name) or "").strip()
+    if not raw:
+        return DEFAULT_BARRIER_TIMEOUT_S
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not a number") from None
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def is_primary() -> bool:
+    """True on the process that owns exactly-once side effects (the
+    checkpoint manifest and its sidecar index)."""
+    return process_index() == 0
+
+
+# (default process group, its gloo side group), remade when the default
+# group is replaced (a new world)
+_side: Optional[tuple] = None
+
+
+def _group():
+    global _side
+    world = dist.distributed_c10d._get_default_group()
+    if _side is None or _side[0] is not world:
+        timeout = datetime.timedelta(seconds=_env_seconds(COORD_TIMEOUT_ENV))
+        _side = (world, dist.new_group(backend="gloo", timeout=timeout))
+    return _side[1]
+
+
+def _all_reduce(values: list[float], op, name: str) -> list[float]:
+    t = torch.tensor(values, dtype=torch.float64)
+    try:
+        dist.all_reduce(t, op=op, group=_group())
+    except Exception as e:  # noqa: BLE001 — a timeout and a lost peer are
+        # one failure: the group cannot complete this collective
+        raise CoordinationTimeout(
+            name, _env_seconds(COORD_TIMEOUT_ENV), detail=str(e)
+        ) from e
+    return t.tolist()
+
+
+def agree_any(flag: bool) -> bool:
+    """True everywhere iff ANY process passed True (one signalled process
+    drains the whole group)."""
+    if process_count() == 1:
+        return bool(flag)
+    return _all_reduce([float(bool(flag))], dist.ReduceOp.MAX,
+                       "agree_any")[0] > 0.0
+
+
+def agree_all(flag: bool) -> bool:
+    """True everywhere iff EVERY process passed True (roll back only when
+    every process can restore; promote a checkpoint only when every
+    process sees it committed)."""
+    if process_count() == 1:
+        return bool(flag)
+    return _all_reduce([float(bool(flag))], dist.ReduceOp.MIN,
+                       "agree_all")[0] > 0.0
+
+
+def broadcast_flag(value: float, source: int = 0) -> float:
+    """Process ``source``'s scalar, identical everywhere (the rollback's
+    restore step, the derived agree interval)."""
+    if process_count() == 1:
+        return float(value)
+    contrib = float(value) if process_index() == source else 0.0
+    return _all_reduce([contrib], dist.ReduceOp.SUM, "broadcast_flag")[0]
+
+
+def agree_uniform(value: float) -> bool:
+    """True iff every process passed the same scalar (the step key a
+    checkpoint commit is about to write)."""
+    if process_count() == 1:
+        return True
+    v = float(value)
+    hi, neg_lo = _all_reduce([v, -v], dist.ReduceOp.MAX, "agree_uniform")
+    return hi == -neg_lo
+
+
+def barrier(name: str, timeout_s: Optional[float] = None) -> None:
+    """Named rendezvous of every process, bounded by ``timeout_s`` (default
+    ``MGWFBP_BARRIER_TIMEOUT_S``); ``monitored_barrier`` names the ranks
+    that did not arrive."""
+    if process_count() == 1:
+        return
+    if timeout_s is None:
+        timeout_s = _env_seconds(BARRIER_TIMEOUT_ENV)
+    try:
+        dist.monitored_barrier(
+            group=_group(), timeout=datetime.timedelta(seconds=timeout_s),
+            wait_all_ranks=True,
+        )
+    except Exception as e:  # noqa: BLE001 — uniform failure surface
+        raise CoordinationTimeout(f"barrier:{name}", timeout_s,
+                                  detail=str(e)) from e

@@ -20,15 +20,38 @@ writes a ``step`` span and each epoch an ``epoch`` record (for a
 language model both also hold its ``loss`` and ``perplexity``), the
 ``overlap``
 accounting and one ``comm_group`` record per merge group
-(``telemetry/overlap.py``). Resume, preemption, rollback, autotune, the
-rest of the telemetry plane, the serving shadow and elastic resize are not
-ported (ROADMAP.md).
+(``telemetry/overlap.py``).
+
+Resilience (the JAX trainer's layer). With ``checkpoint_dir`` the trainer
+commits shard-native checkpoints through ``checkpoint.Checkpointer``: at
+epoch boundaries, every ``ckpt_every_steps`` optimizer steps (written by a
+background thread when ``ckpt_async``; the payload is a host copy made at
+the step boundary, so later in-place updates cannot reach it) and at a
+preemption drain. A step holds what the JAX trainer's manifest holds
+(params, batch statistics, the optimizer as the optax tree, the counters,
+the schedule's anchor, the LM carry of a mid-epoch save), so either
+package restores the other's; this package's generator states ride beside
+it in files the JAX reader ignores. A new trainer resumes from the newest
+step, replaying the data stream from its position (the loader is a pure
+function of seed, epoch and batch index); ``pretrain`` loads the weights
+and counters of another run and starts a fresh optimizer. SIGTERM and
+SIGINT drain at a step boundary (at several processes, at deterministic
+agreement points): a synchronous checkpoint, a ``preempt`` event, then
+``Preempted``, which ``train_cli`` turns into rc 75. ``bad_step_limit``
+consecutive non-finite steps roll back to the newest checkpoint; a second
+rollback with no finite step between aborts. ``MGWFBP_FAULT_PLAN`` injects
+NaN steps and preemptions deterministically (``utils/faults.py``).
+Elastic cross-world resume, the watchdog, autotune, the rest of the
+telemetry plane, the serving shadow and elastic resize are not ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import signal as _signal
+import threading
 import time
 from typing import Optional
 
@@ -37,12 +60,33 @@ import torch
 import torch.distributed as dist
 
 from mgwfbp_tpu_torch import models as zoo
-from mgwfbp_tpu_torch.checkpoint import save_replicated_step
+from mgwfbp_tpu_torch.checkpoint import (
+    ORBAX_REFUSAL,
+    SHARD_FORMAT_VERSION,
+    TORCH_RNG_KEY,
+    Checkpointer,
+    Snapshot,
+    TrainState,
+    shape_only,
+)
 from mgwfbp_tpu_torch.config import TrainConfig
-from mgwfbp_tpu_torch.convert import flax_leaves, keystr, variables_to_flax
+from mgwfbp_tpu_torch.convert import (
+    flax_leaves,
+    flax_shapes,
+    host_leaves,
+    keystr,
+    momentum_from_flax,
+    momentum_to_flax,
+    state_from_flax,
+)
 from mgwfbp_tpu_torch.data import ShardInfo, data_prepare
 from mgwfbp_tpu_torch.models.common import init_weights
-from mgwfbp_tpu_torch.optim import make_optimizer, scaled_clip_threshold
+from mgwfbp_tpu_torch.optim import (
+    as_step_fn,
+    make_optimizer,
+    scaled_clip_threshold,
+    sgd_state_layout,
+)
 from mgwfbp_tpu_torch.parallel.allreduce import (
     arrival_order,
     make_merged_allreduce,
@@ -54,6 +98,7 @@ from mgwfbp_tpu_torch.parallel.costmodel import (
 )
 from mgwfbp_tpu_torch.parallel.mesh import rank, world_size
 from mgwfbp_tpu_torch.parallel.solver import LayerSpec, size_prior_tb
+from mgwfbp_tpu_torch.runtime import coordination as coord
 from mgwfbp_tpu_torch.profiling import (
     TbProfile,
     benchmark_backward,
@@ -69,7 +114,43 @@ from mgwfbp_tpu_torch.train.step import (
     lm_eval_sums,
 )
 from mgwfbp_tpu_torch.utils.device import resolve_device, set_matmul_precision
+from mgwfbp_tpu_torch.utils.faults import FaultPlan, Preempted
 from mgwfbp_tpu_torch.utils.logging import get_logger
+
+
+def derive_agree_interval(step_s: float, grace_s: float = 30.0) -> int:
+    """Drain-agreement cadence from a measured step time: the group agrees
+    every N-th step, so a drain lags by at most N steps; half the
+    preemption grace goes to that lag. Clamped to [1, 1000]."""
+    if step_s <= 0.0:
+        return 1
+    return int(min(max(grace_s * 0.5 / step_s, 1.0), 1000.0))
+
+
+class _RollbackRequested(Exception):
+    """K consecutive non-finite steps: unwind ``train_epoch`` so that
+    ``_fit_epochs`` restores the newest checkpoint and continues."""
+
+    def __init__(self, bad_steps: int):
+        super().__init__(f"{bad_steps} consecutive non-finite steps")
+        self.bad_steps = bad_steps
+
+
+def _poison_batch(x: np.ndarray) -> tuple[np.ndarray, bool]:
+    """NaN-fill a floating host batch (fault injection: every gradient
+    after the reduction is then non-finite); a token batch has nothing to
+    poison."""
+    if np.issubdtype(x.dtype, np.floating):
+        return np.full_like(x, np.nan), True
+    return x, False
+
+
+def _env_interval(name: str, default: str) -> int:
+    raw = (os.environ.get(name) or "").strip()
+    try:
+        return max(int(raw or default), 1)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not an integer") from None
 
 
 class Trainer:
@@ -85,6 +166,15 @@ class Trainer:
         self.world = world_size()
         self.rank = rank()
         config.nworkers = self.world
+        # refused before anything is built: a fault this package cannot
+        # inject, a checkpoint format it cannot write
+        self._faults = FaultPlan.from_env().for_process(self.rank).check_ported()
+        if config.ckpt_format == "replicated":
+            raise ValueError(f"--ckpt-format replicated: {ORBAX_REFUSAL}")
+        if config.ckpt_format != "sharded":
+            raise ValueError(
+                f"ckpt_format {config.ckpt_format!r}: sharded or replicated"
+            )
         self.log = get_logger(
             "mgwfbp.trainer",
             logfile=os.path.join(config.logdir, config.tag(), "train.log")
@@ -97,6 +187,14 @@ class Trainer:
             if config.dtype not in (None, "", "float32", "f32") else None
         )
         set_matmul_precision(self.compute_dtype, log=self.log)
+        if config.deterministic:
+            # warn_only: an op without a deterministic implementation says
+            # so ("... does not have a deterministic implementation") and
+            # runs, rather than ending the run
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            self.log.info("deterministic algorithms on (CUBLAS_WORKSPACE_"
+                          "CONFIG=%s)",
+                          os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
         self.telemetry = self._open_telemetry()
         self._measured_group_times: Optional[list[float]] = None
         self.shard = ShardInfo(self.rank, self.world)
@@ -127,6 +225,10 @@ class Trainer:
             with torch.no_grad():
                 for t in self.model.state_dict().values():
                     dist.broadcast(t, 0)
+        # the schedule's anchor: the step -> epoch conversion continues from
+        # it (a checkpoint carries it; it moves only on elastic resizes)
+        self._sched_step_offset = 0
+        self._sched_epoch_offset = 0.0
         self.optimizer, self.lr_fn, self.epoch_schedule = make_optimizer(
             self.model.parameters(), config.lr,
             momentum=config.momentum, weight_decay=config.weight_decay,
@@ -156,13 +258,53 @@ class Trainer:
             task=self.meta.task, compute_dtype=self.compute_dtype,
         )
         self.carry = self._zero_carry()
-        self.ckpt_dir = (
-            os.path.join(config.checkpoint_dir, config.tag())
-            if config.checkpoint_dir else None
-        )
         self.start_epoch = 0
         self.iteration = 0
         self.losses: list[float] = []  # every optimizer step's mean loss
+        self._init_resilience()
+
+    # ------------------------------------------------------------------
+    def _init_resilience(self) -> None:
+        """The checkpointer, the fault plan, the drain and guard state, then
+        the resume (or ``--pretrain``) from what the checkpointer holds."""
+        cfg = self.config
+        self.ckpt_dir = (
+            os.path.join(cfg.checkpoint_dir, cfg.tag())
+            if cfg.checkpoint_dir else None
+        )
+        self.checkpointer = (
+            Checkpointer(self.ckpt_dir) if self.ckpt_dir else None
+        )
+        if self._faults:
+            self.log.warning("fault plan armed: %s", self._faults.describe())
+        self._preempt_signal: Optional[str] = None
+        self._signals_armed = False
+        self._prev_handlers: dict = {}
+        # at several processes the group agrees on a drain every N-th step
+        # (one tiny collective; the drain lags by at most N steps). Unset:
+        # derived once from the first measured step time against
+        # MGWFBP_PREEMPT_GRACE_S, process 0's choice broadcast
+        self._agree_interval = _env_interval("MGWFBP_AGREE_INTERVAL", "1")
+        self._agree_interval_auto = not (
+            os.environ.get("MGWFBP_AGREE_INTERVAL") or ""
+        ).strip()
+        raw_grace = (os.environ.get("MGWFBP_PREEMPT_GRACE_S") or "").strip()
+        try:
+            self._preempt_grace_s = float(raw_grace or "30")
+        except ValueError:
+            raise ValueError(
+                f"MGWFBP_PREEMPT_GRACE_S={raw_grace!r} is not a number"
+            ) from None
+        self._resume_epoch: Optional[int] = None  # mid-epoch resume target
+        self._resume_skip_steps = 0  # optimizer steps already done there
+        self._resume_carry = None
+        self._bad_streak = 0  # consecutive non-finite steps
+        self._warned_no_rollback = False
+        # a second rollback with no finite step since the first means the
+        # NaN source is deterministic: abort instead of looping
+        self._last_rollback_iteration: Optional[int] = None
+        self._good_step_since_rollback = True
+        self._maybe_resume()
 
     # ------------------------------------------------------------------
     def _open_telemetry(self) -> Optional[EventWriter]:
@@ -320,44 +462,90 @@ class Trainer:
         cfg = self.config
         loader = self.bundle.train
         loader.set_epoch(epoch)
-        # a fresh hidden state each epoch, carried across its steps
-        self.carry = self._zero_carry()
         n = cfg.nsteps_update
+        # a mid-epoch resume (preemption, rollback): (epoch, epoch_step)
+        # names the deterministic loader's position, so starting at batch
+        # epoch_step * nsteps_update replays the run from that step
+        skip_micro = epoch_pos = 0
+        resume_carry = None
+        if self._resume_epoch is not None and epoch == self._resume_epoch:
+            skip_micro = self._resume_skip_steps * n
+            epoch_pos = self._resume_skip_steps
+            resume_carry = self._resume_carry
+            self.log.info(
+                "epoch %d: resuming mid-epoch at step %d (skipping %d "
+                "micro-batch(es))", epoch, epoch_pos, skip_micro,
+            )
+        self._resume_epoch = None
+        self._resume_skip_steps = 0
+        self._resume_carry = None
+        # a fresh hidden state each epoch, carried across its steps, unless
+        # a mid-epoch checkpoint carried one
+        self.carry = (resume_carry if resume_carry is not None
+                      else self._zero_carry())
         micro: list = []
-        epoch_pos = 0
+        epoch_steps = window_iters = 0
         max_steps = cfg.num_batches_per_epoch or None
         log_interval = int(os.environ.get("MGWFBP_LOG_INTERVAL", "10"))
         metrics: dict = {}
         first_loss = None
         t_epoch = t_window = time.time()
-        for xb, yb in loader:
-            micro.append((xb, yb))
+        for b in range(skip_micro, loader.num_batches):
+            micro.append(loader.load_batch(epoch, b))
             if len(micro) < n:
                 continue
-            x, y = self._to_device(
-                np.stack([m[0] for m in micro]), np.stack([m[1] for m in micro])
-            )
+            xs = np.stack([m[0] for m in micro])
+            ys = np.stack([m[1] for m in micro])
             micro = []
+            if self._faults.nan_at(self.iteration + 1):
+                xs, poisoned = _poison_batch(xs)
+                self.log.warning(
+                    "fault injection: NaN batch for step %d%s",
+                    self.iteration + 1, "" if poisoned else
+                    " requested, but the batch has no floating input to "
+                    "poison",
+                )
+            x, y = self._to_device(xs, ys)
             t_step = self.telemetry.now() if self.telemetry else 0.0
             metrics = self.step_batch(x, y)
             self.iteration += 1
+            epoch_pos += 1
+            epoch_steps += 1
+            window_iters += 1
             if self.telemetry is not None:
                 self.telemetry.emit(
                     "step", step=self.iteration, epoch=int(epoch),
                     start_s=t_step, dur_s=self.telemetry.now() - t_step,
                     **self._lm_fields(metrics),
                 )
-            epoch_pos += 1
             self.losses.append(metrics["loss"])
             if first_loss is None:
                 first_loss = metrics["loss"]
-            if metrics["grads_nonfinite"]:
-                self.log.warning(
-                    "step %d: %g non-finite gradient values; update skipped",
-                    self.iteration, metrics["grads_nonfinite"],
-                )
+            # the guard: after bad_step_limit consecutive non-finite steps
+            # this raises _RollbackRequested (the count is averaged across
+            # ranks, so every rank takes the same branch)
+            if cfg.grad_guard:
+                self._check_guard_value(self.iteration, epoch,
+                                        metrics["grads_nonfinite"])
+            if (cfg.ckpt_every_steps and self.checkpointer is not None
+                    and epoch_pos % cfg.ckpt_every_steps == 0):
+                self.save_step(epoch, epoch_pos, background=cfg.ckpt_async)
+            # retire a finished async save; at several processes a group
+            # vote, so on the agreement cadence, never on local state
+            if self.checkpointer is not None and (
+                self.world == 1 or self.iteration % self._agree_interval == 0
+            ):
+                self._poll_async_ckpt()
+            sig = self._faults.preempt_signal_after(self.iteration)
+            if sig is not None:
+                self._deliver_preempt(sig)
+            if self._agreed_preempt():
+                self._graceful_drain(epoch, epoch_pos)  # raises Preempted
+            if max_steps is not None and epoch_pos >= max_steps:
+                break
             if self.iteration % log_interval == 0:
-                dt = (time.time() - t_window) / log_interval
+                dt = (time.time() - t_window) / max(window_iters, 1)
+                self._maybe_derive_agree_interval(dt)
                 metric = self.train_step.metric
                 self.log.info(
                     "epoch %d iter %d: loss %.4f, %s %.4f | %.4f "
@@ -366,8 +554,7 @@ class Trainer:
                     cfg.batch_size * self.world * n / dt,
                 )
                 t_window = time.time()
-            if max_steps is not None and epoch_pos >= max_steps:
-                break
+                window_iters = 0
         if micro:
             self.log.info(
                 "epoch %d: dropped %d trailing micro-batch(es)", epoch,
@@ -377,10 +564,10 @@ class Trainer:
         if first_loss is not None:
             out["first_loss"] = first_loss
         epoch_dur = time.time() - t_epoch
-        if self.telemetry is not None and epoch_pos > 0:
-            self.telemetry.emit("epoch", epoch=int(epoch), steps=epoch_pos,
+        if self.telemetry is not None and epoch_steps > 0:
+            self.telemetry.emit("epoch", epoch=int(epoch), steps=epoch_steps,
                                 dur_s=epoch_dur, **self._lm_fields(metrics))
-            self._emit_overlap(epoch_dur / epoch_pos, epoch)
+            self._emit_overlap(epoch_dur / epoch_steps, epoch)
         self.log.info(
             "epoch %d done in %.1f s (lr %.5f)", epoch, epoch_dur,
             self.epoch_schedule(float(epoch)),
@@ -521,44 +708,598 @@ class Trainer:
         return {"loss": loss, "count": count,
                 "perplexity": float(np.exp(loss))}
 
-    def save_step(self, epoch: int, epoch_step: int = 0) -> Optional[str]:
-        """Commit the current step (params + batch statistics, replicated,
-        written by rank 0, manifest last) under ``<checkpoint_dir>/<tag>``.
-        Returns the step directory on rank 0."""
-        if self.ckpt_dir is None:
-            return None
-        out = None
-        if self.rank == 0:
-            params, batch_stats = variables_to_flax(self.model)
-            out = save_replicated_step(
-                self.ckpt_dir, self.iteration, params,
-                batch_stats=batch_stats,
-                meta={
-                    "epoch": int(epoch),
-                    "iteration": int(self.iteration),
-                    "epoch_step": int(epoch_step),
-                    "mid_epoch": bool(epoch_step),
-                    "train_step": int(self.train_step.step),
-                    "steps_per_epoch": int(max(self._steps_per_epoch(), 1)),
-                },
-            )
-        if self.world > 1:
-            dist.barrier()
-        return out
+    # ------------------------------------------------------------------
+    # Resilience: checkpoints, the preemption drain, the guard, rollback
+    # ------------------------------------------------------------------
 
+    def _emit_event(self, event: str, **fields) -> None:
+        if self.telemetry is not None:
+            self.telemetry.emit(event, **fields)
+
+    def save(self, epoch: int) -> None:
+        """Epoch-boundary checkpoint (the step key is the iteration the
+        epoch ended on; the sidecar marks it a boundary). Synchronous."""
+        if self.checkpointer is None:
+            return
+        stats = self._save_snapshot(epoch, 0, mid_epoch=False)
+        self._emit_event("checkpoint", epoch=int(epoch),
+                         iteration=int(self.iteration), mid_epoch=False,
+                         **stats)
+
+    def save_step(self, epoch: int, epoch_step: int = 0, wait: bool = False,
+                  background: bool = False) -> Optional[str]:
+        """Commit the current step under ``<checkpoint_dir>/<tag>``: with
+        ``epoch_step`` > 0 a mid-epoch snapshot carrying the data position
+        and the BPTT carry (a restart resumes from this exact step), with 0
+        an epoch boundary. ``wait`` makes the commit durable (the drain);
+        ``background`` hands a mid-epoch payload to the async writer, which
+        commits at a later poll. Returns the step directory once the step
+        is committed, None while it is in flight or without a
+        checkpointer."""
+        if self.checkpointer is None:
+            return None
+        mid = epoch_step > 0
+        stats = self._save_snapshot(epoch, epoch_step, mid_epoch=mid,
+                                    wait=wait, background=background)
+        if stats is None:  # in flight: the event lands at its commit
+            return None
+        self._emit_event("checkpoint", epoch=int(epoch),
+                         iteration=int(self.iteration), mid_epoch=mid,
+                         epoch_step=int(epoch_step), **stats)
+        return self.checkpointer._shard_step_dir(self.iteration)
+
+    def _poll_async_ckpt(self, block: bool = False,
+                         durable: bool = False) -> None:
+        """Commit a finished async save (the collective commit runs here,
+        on the step loop's thread) and emit its ``checkpoint`` event with
+        the submit-to-commit span and the iteration it committed at."""
+        if self.checkpointer is None:
+            return
+        evt = self.checkpointer.poll_async(block=block, durable=durable)
+        if evt is None:
+            return
+        meta = evt.get("meta") or {}
+        self._emit_event(
+            "checkpoint", epoch=int(meta.get("epoch", 0)),
+            iteration=int(evt["step"]),
+            mid_epoch=bool(meta.get("mid_epoch", True)),
+            epoch_step=int(meta.get("epoch_step", 0)),
+            duration_s=float(evt["duration_s"]), bytes=int(evt["bytes"]),
+            format="sharded", commit_iteration=int(self.iteration),
+            **{"async": True},
+        )
+
+    def _save_snapshot(self, epoch: int, epoch_step: int, mid_epoch: bool,
+                       wait: bool = False,
+                       background: bool = False) -> Optional[dict]:
+        """Write one snapshot; returns the ``checkpoint`` event's fields,
+        or None when the save went to the async writer."""
+        carry = self.carry if mid_epoch and self.carry is not None else None
+        # retire an in-flight save first, so its event lands before this
+        # one's; the drain (wait) makes that commit durable too
+        self._poll_async_ckpt(block=True, durable=wait)
+        t0 = time.perf_counter()
+        manifest, files = self._shard_payload(epoch, epoch_step, mid_epoch,
+                                              carry)
+        copy_s = time.perf_counter() - t0
+        if background and mid_epoch and not wait:
+            stats = self.checkpointer.submit_sharded(manifest, files)
+            if stats is None:
+                return None
+        else:
+            stats = self.checkpointer.save_sharded(manifest, files, wait=wait)
+        return {"duration_s": float(stats["duration_s"]) + copy_s,
+                "bytes": int(stats["bytes"]), "format": "sharded"}
+
+    def _opt_layout(self) -> tuple[list[str], list[str], str]:
+        """(dotted parameter paths, their optax trace paths, the count's
+        path) of the optimizer section."""
+        cfg = self.config
+        paths = list(flax_shapes(self.model, "params"))
+        trace, count = sgd_state_layout(
+            paths, momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+            norm_clip=cfg.norm_clip,
+        )
+        return paths, trace, count
+
+    @staticmethod
+    def _tree_leaf_docs(leaves: dict) -> list[dict]:
+        """Manifest leaf docs of {keystr path: (shape, dtype name)}."""
+        return [{"path": path, "shape": [int(x) for x in shape],
+                 "dtype": dtype} for path, (shape, dtype) in leaves.items()]
+
+    def _carry_runs_by_process(self, rows: int) -> dict[int, list[list[int]]]:
+        """Each process's rows of the global carry batch, as runs: process
+        r holds [r * rows, (r + 1) * rows) (the loader lays out the carry's
+        batch per rank), the manifest's ``runs`` and the restore's slice."""
+        return {r: [[r * rows, (r + 1) * rows]] for r in range(self.world)}
+
+    def _shard_payload(self, epoch: int, epoch_step: int, mid_epoch: bool,
+                       carry) -> tuple[dict, dict]:
+        """(manifest, this process's files) for one save, as the JAX
+        trainer writes them for an ``all_reduce`` run: the replicated
+        params, optimizer (the optax tree) and batch statistics once, by
+        process 0; each process its own rows of the carry and its own
+        generator states. Every array is a fresh host copy."""
+        cfg = self.config
+        primary = self.rank == 0
+        files: dict[str, np.ndarray] = {}
+        p_shapes = flax_shapes(self.model, "params")
+        b_shapes = flax_shapes(self.model, "batch_stats")
+        paths, trace_paths, count_path = self._opt_layout()
+        opt_leaves = {tp: (p_shapes[p], "float32")
+                      for tp, p in zip(trace_paths, paths)}
+        opt_leaves[count_path] = ((), "int32")
+        step = int(self.train_step.step)
+        manifest: dict = {
+            "format_version": SHARD_FORMAT_VERSION,
+            "step": int(self.iteration),
+            "world": int(self.world),
+            "process_count": int(self.world),
+            "mesh_axes": {"data": int(self.world), "seq": 1},
+            "comm_op": "all_reduce",
+            "leaves": self._tree_leaf_docs({keystr(p): (s, "float32")
+                                  for p, s in p_shapes.items()}),
+            # the JAX reader's train-state key: PRNGKey(seed)'s raw form
+            # (the dropout streams of the two packages differ anyway; this
+            # package's own generator states ride in TORCH_RNG_KEY)
+            "rng": [0, int(cfg.seed) & 0xFFFFFFFF],
+            "meta": {
+                "epoch": int(epoch),
+                "iteration": int(self.iteration),
+                "epoch_step": int(epoch_step),
+                "mid_epoch": bool(mid_epoch),
+                "train_step": step,
+                "steps_per_epoch": int(max(self._steps_per_epoch(), 1)),
+                "sched_step_offset": int(self._sched_step_offset),
+                "sched_epoch_offset": float(self._sched_epoch_offset),
+                "opt_count": step,
+            },
+            "params": {"kind": "replicated"},
+            "opt": {
+                "kind": "replicated",
+                "leaves": self._tree_leaf_docs(opt_leaves),
+                # slot s of parameter leaf j -> flat optax leaf
+                "slot_leaf_index": (
+                    [list(range(len(trace_paths)))] if trace_paths else []
+                ),
+            },
+            "batch_stats": {
+                "kind": "replicated",
+                "leaves": self._tree_leaf_docs({keystr(p): (s, "float32")
+                                      for p, s in b_shapes.items()}),
+            },
+        }
+        if primary:
+            for j, a in enumerate(host_leaves(self.model, "params").values()):
+                files[f"params.l{j}"] = a
+            if trace_paths:
+                moms = momentum_to_flax(self.model, self.optimizer)
+                for j, p in enumerate(paths):
+                    files[f"opt.l{j}"] = moms[p]
+            files[f"opt.l{len(trace_paths)}"] = np.asarray(step, np.int32)
+            for j, a in enumerate(
+                host_leaves(self.model, "batch_stats").values()
+            ):
+                files[f"batch_stats.l{j}"] = a
+        if carry is not None:
+            leaves = [t for layer in carry for t in layer]
+            rows = int(leaves[0].shape[0])
+            manifest["carry"] = {
+                "leaves": self._tree_leaf_docs({
+                    f"[{li // 2}][{li % 2}]":
+                        ((rows * self.world,) + tuple(t.shape[1:]), "float32")
+                    for li, t in enumerate(leaves)
+                }),
+                "runs": {str(r): runs for r, runs in
+                         self._carry_runs_by_process(rows).items()},
+            }
+            for li, t in enumerate(leaves):
+                files[f"carry.l{li}"] = t.detach().to(
+                    "cpu", torch.float32, copy=True).numpy()
+        kinds = ["cpu"] + (["cuda"] if self.device.type == "cuda" else [])
+        manifest[TORCH_RNG_KEY] = {"world": int(self.world), "kinds": kinds}
+        files[f"{TORCH_RNG_KEY}.cpu"] = torch.get_rng_state().numpy().copy()
+        if self.device.type == "cuda":
+            files[f"{TORCH_RNG_KEY}.cuda"] = (
+                torch.cuda.get_rng_state(self.device).numpy().copy()
+            )
+        return manifest, files
+
+    # -- restore ------------------------------------------------------------
+    def _template(self, with_opt: bool = True) -> TrainState:
+        """The restore template of this trainer's state (zero-byte leaves
+        of the right shapes and dtypes)."""
+        params = {p: shape_only(s, np.float32)
+                  for p, s in flax_shapes(self.model, "params").items()}
+        bstats = {p: shape_only(s, np.float32)
+                  for p, s in flax_shapes(self.model, "batch_stats").items()}
+        opt = None
+        if with_opt:
+            paths, trace_paths, count_path = self._opt_layout()
+            opt = {tp: params[p] for tp, p in zip(trace_paths, paths)}
+            opt[count_path] = shape_only((), np.int32)
+        return TrainState(step=0, params=params, batch_stats=bstats,
+                          opt_state=opt)
+
+    def _carry_template(self) -> Optional[list]:
+        """The carry's leaves at this world's global batch rows."""
+        if not self.meta.has_carry:
+            return None
+        b = self.config.batch_size
+        return [shape_only((b * self.world,) + tuple(t.shape[1:]), np.float32)
+                for layer in self._zero_carry() for t in layer]
+
+    def _localize_carry(self, snap: Optional[Snapshot]) -> Optional[Snapshot]:
+        """The restored carry's rows of this process, as the tuple over
+        layers of (c, h) on the device; a carry saved at another global
+        batch re-initializes the epoch's hidden state."""
+        if snap is None or snap.carry is None or not self.meta.has_carry:
+            if snap is not None:
+                snap.carry = None
+            return snap
+        b = self.config.batch_size
+        have = int(snap.carry[0].shape[0])
+        if have != b * self.world:
+            self.log.warning(
+                "carry in checkpoint covers %d global batch rows, this run "
+                "wants %d: re-initializing the epoch's hidden state "
+                "(params and optimizer restore exactly)", have, b * self.world,
+            )
+            snap.carry = None
+            return snap
+        ((start, stop),) = self._carry_runs_by_process(b)[self.rank]
+        leaves = [torch.from_numpy(np.ascontiguousarray(a[start:stop])).to(
+            self.device) for a in snap.carry]
+        snap.carry = tuple((leaves[i], leaves[i + 1])
+                           for i in range(0, len(leaves), 2))
+        return snap
+
+    def _restore_step(self, ckpt: Checkpointer,
+                      step: Optional[int]) -> Optional[Snapshot]:
+        snap = ckpt.restore(self._template(), step=step,
+                            carry_template=self._carry_template())
+        return self._localize_carry(snap)
+
+    @torch.no_grad()
+    def _install(self, state: TrainState, optimizer: bool = True) -> None:
+        """Copy a restored state into the live modules in place (the
+        optimizer and the reducer keep their tensors): parameters, batch
+        statistics, the step counter and, with ``optimizer``, the
+        momentum buffers."""
+        self.model.load_state_dict(
+            state_from_flax(self.model, state.params, state.batch_stats),
+            strict=True,
+        )
+        self.train_step.step = int(state.step)
+        if optimizer and state.opt_state is not None:
+            paths, trace_paths, _ = self._opt_layout()
+            if trace_paths:
+                momentum_from_flax(self.model, self.optimizer, {
+                    p: state.opt_state[tp]
+                    for p, tp in zip(paths, trace_paths)
+                })
+
+    def _apply_snapshot(self, snap: Snapshot, source: str,
+                        emit_resume: bool = True) -> None:
+        """Install a restored snapshot: state, counters, the schedule's
+        anchor, the generator states and, for a mid-epoch snapshot, the
+        data position and carry that ``train_epoch`` resumes from (shared
+        by resume and rollback; a rollback emits its own event)."""
+        self._install(snap.state)
+        meta = snap.manifest_meta or {}
+        anchor = (int(meta.get("sched_step_offset", 0)),
+                  float(meta.get("sched_epoch_offset", 0.0)))
+        if anchor != (self._sched_step_offset, self._sched_epoch_offset):
+            self._sched_step_offset, self._sched_epoch_offset = anchor
+            self.lr_fn = as_step_fn(
+                self.epoch_schedule, max(self._steps_per_epoch(), 1),
+                step_offset=anchor[0], epoch_offset=anchor[1],
+            )
+            self.train_step.lr_fn = self.lr_fn
+        rng = snap.torch_rng or {}
+        if "cpu" in rng:
+            torch.set_rng_state(torch.from_numpy(rng["cpu"]))
+        if "cuda" in rng and self.device.type == "cuda":
+            torch.cuda.set_rng_state(torch.from_numpy(rng["cuda"]),
+                                     self.device)
+        self.iteration = snap.iteration
+        if snap.mid_epoch:
+            self.start_epoch = snap.epoch
+            self._resume_epoch = snap.epoch
+            self._resume_skip_steps = snap.epoch_step
+            self._resume_carry = snap.carry
+        else:
+            self.start_epoch = snap.epoch + 1
+            self._resume_epoch = None
+            self._resume_skip_steps = 0
+            self._resume_carry = None
+        if emit_resume:
+            self._emit_event("resume", epoch=int(snap.epoch),
+                             iteration=int(snap.iteration),
+                             mid_epoch=bool(snap.mid_epoch))
+        self.log.info(
+            "%s from epoch %d (iter %d%s)", source, snap.epoch,
+            snap.iteration,
+            f", mid-epoch at step {snap.epoch_step}" if snap.mid_epoch
+            else "",
+        )
+
+    def _maybe_resume(self) -> None:
+        if self.checkpointer is not None:
+            snap = self._restore_step(self.checkpointer, None)
+            if snap is not None:
+                self._apply_snapshot(snap, "resumed")
+                return
+        self._pretrain_init()
+
+    def load_checkpoint(self, directory: str,
+                        epoch: Optional[int] = None) -> Snapshot:
+        """The snapshot of a checkpoint directory (a run's tagged one): that
+        epoch's boundary, else the newest step. Raises if none exists."""
+        ckpt = Checkpointer(directory)
+        try:
+            snap = ckpt.restore(self._template(), epoch=epoch,
+                                carry_template=self._carry_template())
+        finally:
+            ckpt.close()
+        if snap is None:
+            raise FileNotFoundError(
+                f"no checkpoint found under {directory!r}"
+                + (f" at epoch {epoch}" if epoch is not None else "")
+            )
+        return self._localize_carry(snap)
+
+    def _pretrain_init(self) -> bool:
+        """``--pretrain``: weights, batch statistics and the epoch and
+        iteration counters from another run's checkpoint; the optimizer
+        starts fresh (the reference never saves it)."""
+        if not self.config.pretrain:
+            return False
+        pre = self.load_checkpoint(self.config.pretrain)
+        self._install(pre.state, optimizer=False)
+        self.start_epoch = pre.epoch + 1
+        self.iteration = pre.iteration
+        self.log.info("initialized from pretrain dir %s (epoch %d, iter %d)",
+                      self.config.pretrain, pre.epoch, pre.iteration)
+        return True
+
+    # -- the preemption drain -------------------------------------------
+    def _maybe_derive_agree_interval(self, step_s: float) -> None:
+        """One-shot MGWFBP_AGREE_INTERVAL derivation from the first
+        measured step-time window (several processes only); process 0's
+        value is broadcast, since the cadence gates a collective."""
+        if not self._agree_interval_auto or self.world == 1:
+            return
+        self._agree_interval_auto = False
+        iv = derive_agree_interval(step_s, self._preempt_grace_s)
+        self._agree_interval = max(int(coord.broadcast_flag(float(iv))), 1)
+        self.log.info(
+            "MGWFBP_AGREE_INTERVAL auto-derived: %d (measured %.4g s/step "
+            "vs %.3g s preemption grace)", self._agree_interval, step_s,
+            self._preempt_grace_s,
+        )
+
+    def _arm_signals(self) -> None:
+        """SIGTERM/SIGINT -> the graceful drain. Main thread only."""
+        if threading.current_thread() is not threading.main_thread():
+            return
+        try:
+            self._prev_handlers = {
+                s: _signal.signal(s, self._on_preempt_signal)
+                for s in (_signal.SIGTERM, _signal.SIGINT)
+            }
+        except ValueError:
+            return
+        self._signals_armed = True
+
+    def _disarm_signals(self) -> None:
+        if not self._signals_armed:
+            return
+        for s, h in self._prev_handlers.items():
+            try:
+                _signal.signal(s, h)
+            except ValueError:
+                pass
+        self._signals_armed = False
+
+    def _on_preempt_signal(self, signum, frame) -> None:
+        # signal context: set the flag; the loop drains at the next step
+        # boundary. A second signal before that escalates: disarm (a third
+        # kills outright) and interrupt now
+        name = _signal.Signals(signum).name
+        if self._preempt_signal is not None:
+            self._disarm_signals()
+            raise KeyboardInterrupt(
+                f"second {name} during preemption drain — escalating "
+                "(next signal kills outright)"
+            )
+        self._preempt_signal = name
+
+    def _deliver_preempt(self, sig: int) -> None:
+        """Fault-plan preemption: the real signal to this process when the
+        handler is armed (the production path), else the flag directly
+        (``train_epoch`` called outside ``fit``)."""
+        name = _signal.Signals(sig).name
+        if (self._signals_armed
+                and threading.current_thread() is threading.main_thread()):
+            self.log.warning("fault injection: delivering %s to self", name)
+            os.kill(os.getpid(), sig)
+        else:
+            self.log.warning("fault injection: simulating %s", name)
+            self._preempt_signal = name
+
+    def _agreed_preempt(self, at_boundary: bool = False) -> bool:
+        """Should the whole group drain now? One process: its own flag,
+        every step. Several: an ``agree_any`` over the flags at
+        deterministic points only (every agree-interval-th step, and epoch
+        boundaries), so that taking part never depends on the local flag;
+        a process drained by a peer records the signal 'PEER'."""
+        local = self._preempt_signal is not None
+        if self.world == 1:
+            return local
+        if not at_boundary and self.iteration % self._agree_interval != 0:
+            return False
+        agreed = coord.agree_any(local)
+        if agreed and not local:
+            self._preempt_signal = "PEER"
+        return agreed
+
+    def _graceful_drain(self, epoch: int, epoch_pos: int) -> None:
+        """The in-flight step is done: checkpoint the exact position and
+        unwind with Preempted (``train_cli`` exits rc 75)."""
+        name = self._preempt_signal or "SIGTERM"
+        if self.checkpointer is not None:
+            self.save_step(epoch, epoch_pos, wait=True)
+        else:
+            self.log.warning(
+                "preempted without --checkpoint-dir: progress NOT saved"
+            )
+        self._emit_event("preempt", signal=str(name), epoch=int(epoch),
+                         iteration=int(self.iteration))
+        self.log.warning(
+            "preemption (%s): drained at epoch %d step %d (iter %d); "
+            "exiting restart-friendly", name, epoch, epoch_pos,
+            self.iteration,
+        )
+        raise Preempted(name, epoch, self.iteration)
+
+    def _graceful_drain_boundary(self, epoch: int) -> None:
+        """A preemption landing between epochs (evaluation or the boundary
+        checkpoint): refresh the boundary checkpoint and unwind."""
+        name = self._preempt_signal or "SIGTERM"
+        if self.checkpointer is not None:
+            self.save(epoch)
+            self._poll_async_ckpt(block=True, durable=True)
+        self._emit_event("preempt", signal=str(name), epoch=int(epoch),
+                         iteration=int(self.iteration))
+        self.log.warning("preemption (%s): drained at epoch %d boundary "
+                         "(iter %d)", name, epoch, self.iteration)
+        raise Preempted(name, epoch, self.iteration)
+
+    # -- the guard and rollback -----------------------------------------
+    def _check_guard_value(self, it: int, epoch: int, nonfinite: float) -> None:
+        if nonfinite <= 0:
+            self._bad_streak = 0
+            self._good_step_since_rollback = True
+            return
+        self._bad_streak += 1
+        self.log.warning(
+            "non-finite gradients at iter %d (%g element(s)): update dropped "
+            "by the step guard (bad streak %d)", it, nonfinite,
+            self._bad_streak,
+        )
+        self._emit_event("bad_step", step=int(it), epoch=int(epoch),
+                         nonfinite=float(nonfinite))
+        limit = self.config.bad_step_limit
+        if not limit or self._bad_streak < limit:
+            return
+        can_rollback = (self.checkpointer is not None
+                        and self.checkpointer.latest_step() is not None)
+        if self.world > 1:
+            # whether a checkpoint exists is local file-system state: roll
+            # back only when EVERY process can
+            can_rollback = coord.agree_all(can_rollback)
+        if can_rollback:
+            raise _RollbackRequested(self._bad_streak)
+        if not self._warned_no_rollback:
+            self._warned_no_rollback = True
+            self.log.error(
+                "%d consecutive non-finite steps but no checkpoint to roll "
+                "back to (--checkpoint-dir unset or nothing saved); "
+                "continuing under the skip-step policy", self._bad_streak,
+            )
+
+    def _rollback(self, rb: _RollbackRequested) -> int:
+        """Restore the newest checkpoint after K consecutive bad steps;
+        returns the epoch to continue from."""
+        # an in-flight save snapshots the suspect regime, and its step may
+        # be re-reached after the replay: drop it uncommitted
+        dropped = self.checkpointer.abandon_async()
+        if dropped is not None:
+            self.log.warning("rollback: abandoned in-flight async checkpoint "
+                             "of step %d", dropped)
+        step = self.checkpointer.latest_step()
+        if self.world > 1:
+            # every process replays from process 0's choice
+            step = int(coord.broadcast_flag(
+                float(step if step is not None else -1)))
+            step = None if step < 0 else step
+        snap = self._restore_step(self.checkpointer, step)
+        if snap is None:
+            raise RuntimeError(
+                "rollback requested but the checkpoint vanished"
+            ) from rb
+        if self._last_rollback_iteration is not None and (
+            snap.iteration == self._last_rollback_iteration
+            or not self._good_step_since_rollback
+        ):
+            raise RuntimeError(
+                f"persistent non-finite gradients: rollback to iter "
+                f"{snap.iteration} follows a rollback to iter "
+                f"{self._last_rollback_iteration} with no finite step "
+                f"observed in between ({rb.bad_steps} consecutive bad steps "
+                "again) — the NaN source is deterministic (check lr, input "
+                "pipeline, precision config); aborting instead of looping"
+            ) from rb
+        self._last_rollback_iteration = snap.iteration
+        self._good_step_since_rollback = False
+        self._bad_streak = 0
+        self._warned_no_rollback = False
+        self._apply_snapshot(snap, "rolled back", emit_resume=False)
+        self._emit_event("rollback", bad_steps=int(rb.bad_steps),
+                         restored_iteration=int(snap.iteration),
+                         restored_epoch=int(snap.epoch))
+        self.log.warning(
+            "rollback: %d consecutive non-finite steps -> restored iter %d "
+            "(epoch %d%s)", rb.bad_steps, snap.iteration, snap.epoch,
+            f" step {snap.epoch_step}" if snap.mid_epoch else " boundary",
+        )
+        return self.start_epoch
+
+    # ------------------------------------------------------------------
     def fit(self, num_epochs: Optional[int] = None) -> dict:
+        """Run ``num_epochs`` epochs from wherever the trainer is (a resume
+        included); None runs through ``max_epochs``. SIGTERM/SIGINT drain
+        for the whole fit."""
         cfg = self.config
         end = (
             self.start_epoch + num_epochs
             if num_epochs is not None else cfg.max_epochs
         )
+        try:
+            self._arm_signals()
+            if self.telemetry is not None and self.reducer is not None and (
+                self._measured_group_times is None
+            ):
+                self._trace_group_times()
+            metrics = self._fit_epochs(self.start_epoch, end)
+        except coord.CoordinationTimeout as ct:
+            # a peer is dead or wedged: every further collective would
+            # hang, the checkpoint barrier included
+            self._emit_event("failure", **{"class": "coordination"},
+                             target=f"p{self.rank}", step=int(self.iteration),
+                             op=ct.op)
+            self.log.error("coordination timeout in %r at step %d: %s",
+                           ct.op, self.iteration, ct)
+            raise
+        finally:
+            self._disarm_signals()
+        self._poll_async_ckpt(block=True)
+        self.start_epoch = end
+        return metrics
+
+    def _fit_epochs(self, start: int, end: int) -> dict:
+        cfg = self.config
         metrics: dict = {}
-        if self.telemetry is not None and self.reducer is not None and (
-            self._measured_group_times is None
-        ):
-            self._trace_group_times()
-        for epoch in range(self.start_epoch, end):
-            metrics = {"train": self.train_epoch(epoch)}
+        epoch = start
+        while epoch < end:
+            try:
+                train_metrics = self.train_epoch(epoch)
+            except _RollbackRequested as rb:
+                epoch = self._rollback(rb)
+                continue
+            metrics = {"train": train_metrics}
             if (epoch + 1) % cfg.eval_every_epochs == 0:
                 metrics["eval"] = self.evaluate()
                 self.log.info(
@@ -566,11 +1307,27 @@ class Trainer:
                     ", ".join(f"{k} {v:.4f}" for k, v in metrics["eval"].items()),
                 )
             if (epoch + 1) % cfg.checkpoint_every_epochs == 0:
-                self.save_step(epoch)
-        self.start_epoch = end
+                self.save(epoch)
+            if self._agreed_preempt(at_boundary=True):
+                # the signal landed outside the step loop
+                self._graceful_drain_boundary(epoch)
+            epoch += 1
         return metrics
 
     def close(self) -> None:
+        if self.checkpointer is not None:
+            if self.world == 1:
+                # land the in-flight save's commit and its event before the
+                # stream closes (several processes: the checkpointer
+                # abandons it rather than risk a collective against
+                # departed peers)
+                try:
+                    self._poll_async_ckpt(block=True)
+                except RuntimeError:
+                    self.log.exception(
+                        "in-flight async checkpoint failed during close"
+                    )
+            self.checkpointer.close()
         if self.reducer is not None:
             self.reducer.detach()
         if self.telemetry is not None:

@@ -22,12 +22,22 @@ train and eval metrics). ``--comm-profile`` takes a profile written by
 stream (``MGWFBP_TELEMETRY_TRACE=1`` adds a profiler trace of two steps
 before the first epoch, whose per-group device times replace the cost
 model's in the overlap records).
+
+Resilience: with ``--checkpoint-dir`` a rerun of the same command resumes
+from the newest committed step (``--ckpt-every-steps N`` adds mid-epoch
+steps). SIGTERM or SIGINT drains at a step boundary: a checkpoint, one
+``{"preempted": true, "signal", "epoch", "iteration"}`` line and exit code
+75, so that a supervisor restarts the command. ``MGWFBP_FAULT_PLAN`` injects
+faults (``utils/faults.py``), e.g. ``nan@step=4,count=3`` or
+``preempt@step=12``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
 from typing import Optional
 
 from mgwfbp_tpu_torch.config import PRESETS, TrainConfig, make_config
@@ -89,6 +99,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-profile-backward", action="store_true",
                    help="skip the backward benchmark (volume prior)")
     p.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None)
+    p.add_argument("--ckpt-every-steps", dest="ckpt_every_steps", type=int,
+                   default=None,
+                   help="mid-epoch step-indexed checkpoint every N optimizer "
+                        "steps (a restart resumes from the exact step; 0 = "
+                        "epoch boundaries only)")
+    p.add_argument("--ckpt-format", dest="ckpt_format", default=None,
+                   choices=["sharded", "replicated"],
+                   help="checkpoint format (default sharded, the "
+                        "shard-native format both packages read); "
+                        "'replicated' (orbax) is refused by the port")
+    p.add_argument("--no-ckpt-async", action="store_true",
+                   help="make mid-epoch checkpoints block the step loop (by "
+                        "default a writer thread writes the payload and the "
+                        "commit lands at a later step)")
+    p.add_argument("--bad-step-limit", dest="bad_step_limit", type=int,
+                   default=None,
+                   help="consecutive non-finite steps before rollback to "
+                        "the newest checkpoint (0 disables rollback)")
+    p.add_argument("--pretrain", default=None,
+                   help="checkpoint directory to initialize weights from")
+    p.add_argument("--deterministic", action="store_true",
+                   help="torch.use_deterministic_algorithms(True, "
+                        "warn_only=True) (set CUBLAS_WORKSPACE_CONFIG=:4096:8 "
+                        "on the card)")
     p.add_argument("--telemetry", action="store_true",
                    help="write the event stream: step spans, and per epoch "
                         "an epoch record, the overlap accounting and one "
@@ -119,7 +153,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             "nsteps_update", "policy", "threshold", "connection",
             "comm_profile", "dtype", "comm_dtype", "norm_clip", "lr_schedule",
             "logdir", "checkpoint_dir", "seed", "num_batches_per_epoch",
-            "telemetry_dir", "num_steps",
+            "telemetry_dir", "num_steps", "ckpt_every_steps", "ckpt_format",
+            "bad_step_limit", "pretrain",
         )
         if getattr(args, k, None) is not None
     }
@@ -127,6 +162,10 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         overrides["augment"] = False
     if args.no_grad_guard:
         overrides["grad_guard"] = False
+    if args.no_ckpt_async:
+        overrides["ckpt_async"] = False
+    if args.deterministic:
+        overrides["deterministic"] = True
     if args.telemetry or args.telemetry_dir:
         overrides["telemetry"] = True
     return make_config(args.dnn, **overrides)
@@ -141,23 +180,46 @@ def main(argv: Optional[list[str]] = None) -> int:
     import torch.distributed as dist
 
     from mgwfbp_tpu_torch.parallel.mesh import init_distributed
+    from mgwfbp_tpu_torch.runtime.coordination import CoordinationTimeout
     from mgwfbp_tpu_torch.train.trainer import Trainer
+    from mgwfbp_tpu_torch.utils.faults import PREEMPT_RC, Preempted
 
     device = init_distributed(
         args.device, coordinator=args.coordinator,
         num_processes=args.num_processes, process_id=args.process_id,
     )
+    trainer = None
     try:
         trainer = Trainer(
             cfg, device=device,
             profile_backward=not args.no_profile_backward,
             synthetic_data=True if args.synthetic else None,
         )
-        try:
-            metrics = trainer.fit(args.epochs)
-        finally:
+        metrics = trainer.fit(args.epochs)
+    except Preempted as p:
+        # the drain checkpointed and emitted its event; EX_TEMPFAIL tells
+        # a supervisor "restart me to resume"
+        print(json.dumps({
+            "preempted": True, "signal": p.signal_name,
+            "epoch": p.epoch, "iteration": p.iteration,
+        }), flush=True)
+        return PREEMPT_RC
+    except CoordinationTimeout as ct:
+        # a peer died mid-collective: no barrier can complete, so leave
+        # without the process group's teardown (restart-friendly, drain-less)
+        print(json.dumps({
+            "coordination_timeout": True, "op": ct.op,
+            "timeout_s": ct.timeout_s,
+            "iteration": trainer.iteration if trainer else None,
+        }), flush=True)
+        if trainer is not None:
             trainer.close()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(PREEMPT_RC)
     finally:
+        if trainer is not None:
+            trainer.close()
         if dist.is_initialized():
             dist.destroy_process_group()
     print(json.dumps(metrics), flush=True)

@@ -231,3 +231,88 @@ def test_merged_allreduce_over_nccl_at_one_worker(card, tmp_path):
         reducer.detach()
     finally:
         dist.destroy_process_group()
+
+
+@pytest.fixture
+def narrow_resnet20(monkeypatch):
+    """The registry's resnet20 at depth 8, widths (4, 8, 16); no fault plan."""
+    from mgwfbp_tpu_torch import models
+    from mgwfbp_tpu_torch.models import ModelMeta
+    from mgwfbp_tpu_torch.models.resnet_cifar import CifarResNet
+
+    monkeypatch.setitem(models._REGISTRY, "resnet20", lambda nc: (
+        CifarResNet(depth=8, widths=(4, 8, 16), num_classes=nc or 10),
+        ModelMeta("resnet20", "cifar10", nc or 10, (32, 32, 3))))
+    monkeypatch.delenv("MGWFBP_FAULT_PLAN", raising=False)
+
+
+def _live(tr) -> dict:
+    from mgwfbp_tpu_torch.convert import (
+        flatten_flax,
+        momentum_to_flax,
+        variables_to_flax,
+    )
+
+    params, bstats = variables_to_flax(tr.model)
+    return {**{f"p/{k}": v for k, v in flatten_flax(params).items()},
+            **{f"b/{k}": v for k, v in flatten_flax(bstats).items()},
+            **{f"m/{k}": v for k, v in
+               momentum_to_flax(tr.model, tr.optimizer).items()}}
+
+
+def test_async_save_on_card_holds_its_own_steps_weights(card, tmp_path,
+                                                        narrow_resnet20):
+    """The async writer's payload is a host copy made at the step boundary:
+    steps applied on the card after the submission do not reach it."""
+    from mgwfbp_tpu_torch.checkpoint import read_step
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.convert import flatten_flax
+    from mgwfbp_tpu_torch.train import Trainer
+
+    cfg = make_config("resnet20", batch_size=8, num_batches_per_epoch=2,
+                      logdir="", checkpoint_dir=str(tmp_path))
+    tr = Trainer(cfg, device=card, synthetic_data=True)
+    tr.train_epoch(0)
+    want = _live(tr)
+    assert tr.save_step(0, 2, background=True) is None
+    x, y = tr._to_device(*tr.bundle.train.load_batch(0, 2))
+    for _ in range(3):
+        tr.step_batch(x[None], y[None])
+    tr._poll_async_ckpt(block=True)
+    params, bstats, meta = read_step(tr.ckpt_dir, 2)
+    assert meta["train_step"] == 2
+    got = {**{f"p/{k}": v for k, v in flatten_flax(params).items()},
+           **{f"b/{k}": v for k, v in flatten_flax(bstats).items()}}
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+    tr.close()
+
+
+def test_sync_save_and_resume_on_card_round_trip(card, tmp_path,
+                                                 narrow_resnet20):
+    """A synchronous mid-epoch save, restored by a new trainer on the card:
+    params, batch statistics, momentum, counters and the card's generator
+    state come back bit for bit."""
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.train import Trainer
+
+    cfg = make_config("resnet20", batch_size=8, num_batches_per_epoch=3,
+                      logdir="", checkpoint_dir=str(tmp_path))
+    tr = Trainer(cfg, device=card, synthetic_data=True)
+    tr.config.num_batches_per_epoch = 2
+    tr.train_epoch(0)
+    tr.save_step(0, 2, wait=True)
+    want, rng = _live(tr), torch.cuda.get_rng_state(card)
+    tr.close()
+    tr2 = Trainer(cfg, device=card, synthetic_data=True)
+    assert tr2.iteration == 2 and tr2.train_step.step == 2
+    assert tr2._resume_epoch == 0 and tr2._resume_skip_steps == 2
+    got = _live(tr2)
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert torch.equal(torch.cuda.get_rng_state(card), rng)
+    assert all(p.device.type == "cuda" for p in tr2.model.parameters())
+    assert all(s["momentum_buffer"].device.type == "cuda"
+               for s in tr2.optimizer.state.values())
+    tr2.close()

@@ -25,6 +25,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +44,7 @@ from mgwfbp_tpu_torch.parallel import costmodel as tcm
 from mgwfbp_tpu_torch.parallel.allreduce import make_merged_allreduce
 from mgwfbp_tpu_torch.profiling import (
     _HookBench,
+    _reducer_s,
     profile_group_overhead,
     profile_pack_overhead,
     trace_group_rows,
@@ -224,6 +226,44 @@ def test_gamma_and_pack_beta_from_the_hook_path(resnet20):
                                       total_elems=1 << 10, members=4,
                                       warmup=1, iters=2)
     assert pack_beta >= 0.0 and np.isfinite(pack_beta)
+
+
+class _SleepBench:
+    """A stand-in for a hook bench: an armed step takes ``armed_s`` more
+    than a bare one, and every ``spike_every``-th bare step stalls for
+    ``spike_s``; ``log`` records the order of the steps."""
+
+    def __init__(self, name, log, armed_s=0.0, spike_every=0, spike_s=0.0):
+        self.name, self.log = name, log
+        self.armed_s, self.spike_every, self.spike_s = (
+            armed_s, spike_every, spike_s)
+        self.bare_steps = 0
+
+    def step(self, armed):
+        self.log.append((self.name, armed))
+        if armed:
+            time.sleep(self.armed_s)
+            return
+        self.bare_steps += 1
+        if self.spike_every and self.bare_steps % self.spike_every == 0:
+            time.sleep(self.spike_s)
+
+
+def test_the_reducer_bench_alternates_its_steps_and_ignores_spikes(resnet20):
+    log = []
+    quiet = _SleepBench("quiet", log, spike_every=10, spike_s=0.02)
+    costly = _SleepBench("costly", log, armed_s=0.002)
+    got = _reducer_s([quiet, costly], warmup=1, iters=5,
+                     device=torch.device("cpu"), group=None, rounds=4)
+    cycle = [("quiet", True), ("quiet", False), ("costly", True),
+             ("costly", False)]
+    assert log == cycle * (1 + 4 * 5)
+    # five stalls of 20 ms in 20 bare steps would move a window mean by
+    # 5 ms; the medians keep the quiet bench near 0 and the costly one
+    # above its 2 ms
+    assert abs(got[0]) < 1e-3
+    assert got[1] >= 0.002 - 1e-4
+    assert got[1] - got[0] > 1e-3
 
 
 def test_the_multicard_driver_rehearses_over_gloo(tmp_path):

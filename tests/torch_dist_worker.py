@@ -21,7 +21,15 @@ Imports torch and the port only (no JAX), reads its inputs from
     (this rank's rows), parameters and carry saved after steps 1 and 3,
     one run per ``nsteps_update``; then a step whose batch holds a token
     outside the vocabulary on the last rank (a NaN embedding row) leaves
-    parameters, momentum, step counter and carry as they were.
+    parameters, momentum, step counter and carry as they were;
+  * ``drain`` (run in a world of its own, which ``train_cli.main`` starts
+    and tears down three times over file rendezvous): a narrow ResNet-20
+    through ``train_cli.main`` uninterrupted (run A), then with
+    ``MGWFBP_FAULT_PLAN=preempt@step=3,proc=0`` so that only rank 0 gets a
+    SIGTERM (run B), then the same command again (run B2, the resume);
+    each rank records the three exit codes, its printed ``preempted`` line,
+    its ``preempt`` and ``resume`` telemetry events, and the params and
+    momentum of A's and B2's last committed steps.
 """
 
 from __future__ import annotations
@@ -234,15 +242,84 @@ def _lm_train(spec, arrays, rank, world, out, n: int) -> None:
     reducer.detach()
 
 
+def _drain(spec, rank, world, out_dir, out) -> None:
+    import contextlib
+    import io
+
+    from mgwfbp_tpu_torch import models as zoo
+    from mgwfbp_tpu_torch import train_cli
+    from mgwfbp_tpu_torch.checkpoint import Checkpointer, read_step
+    from mgwfbp_tpu_torch.models import ModelMeta
+    from mgwfbp_tpu_torch.telemetry import events_of, read_events
+
+    d = spec["drain"]
+
+    def narrow(nc):
+        nc = nc or 10
+        return (CifarResNet(depth=spec["depth"], widths=tuple(spec["widths"]),
+                            num_classes=nc),
+                ModelMeta("resnet20", "cifar10", nc, (32, 32, 3)))
+
+    zoo._REGISTRY["resnet20"] = narrow
+
+    def cli(run: str, ckpt: str, plan: str = "") -> tuple[int, str]:
+        os.environ["MGWFBP_FAULT_PLAN"] = plan
+        argv = [
+            "--dnn", "resnet20", "--synthetic", "--device", "cpu",
+            "--epochs", "1", "--num-batches-per-epoch", str(d["steps"]),
+            "--batch-size", str(spec["batch"]), "--policy", "mgwfbp",
+            "--connection", "10GbE", "--no-profile-backward",
+            "--ckpt-every-steps", "2", "--telemetry",
+            "--checkpoint-dir", os.path.join(out_dir, ckpt),
+            "--logdir", os.path.join(out_dir, f"logs_{ckpt}"),
+            "--coordinator", f"file://{os.path.join(out_dir, 'rdv_' + run)}",
+            "--num-processes", str(world), "--process-id", str(rank),
+        ]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(argv)
+        return rc, buf.getvalue().strip().splitlines()[-1]
+
+    rc_a, _ = cli("a", "ckpt_a")
+    rc_b, line_b = cli("b", "ckpt_b", "preempt@step=3,proc=0")
+    rc_b2, _ = cli("b2", "ckpt_b")
+    out["drain/rcs"] = np.asarray([rc_a, rc_b, rc_b2])
+    out["drain/preempted"] = np.asarray(line_b)
+    (tag,) = os.listdir(os.path.join(out_dir, "ckpt_b"))
+    recs = read_events(os.path.join(out_dir, "logs_ckpt_b", tag,
+                                    f"telemetry.p{rank}.jsonl"))
+    out["drain/preempt_events"] = np.asarray(
+        json.dumps(events_of(recs, "preempt")))
+    out["drain/resume_events"] = np.asarray(
+        json.dumps(events_of(recs, "resume")))
+    for run in ("a", "b"):
+        ckdir = os.path.join(out_dir, f"ckpt_{run}", tag)
+        last = Checkpointer(ckdir).latest_step()
+        params, bstats, meta = read_step(ckdir, last)
+        out[f"drain/{run}/step"] = np.int64(last)
+        for k, v in {**params, **bstats}.items():
+            out[f"drain/{run}/{k}"] = v
+        p0 = os.path.join(ckdir, "sharded", f"{last:08d}", "p00000")
+        for name in os.listdir(p0):
+            if name.startswith("opt."):
+                out[f"drain/{run}/{name[:-4]}"] = np.load(
+                    os.path.join(p0, name))
+
+
 def run(rank: int, world: int, init_file: str, out_dir: str) -> None:
     torch.manual_seed(0)
     torch.set_num_threads(1)
+    with open(os.path.join(out_dir, "spec.json")) as f:
+        spec = json.load(f)
+    if "drain" in spec["tasks"]:
+        out: dict[str, np.ndarray] = {}
+        _drain(spec, rank, world, out_dir, out)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        return
     dist.init_process_group(
         "gloo", init_method=f"file://{init_file}", world_size=world, rank=rank
     )
     try:
-        with open(os.path.join(out_dir, "spec.json")) as f:
-            spec = json.load(f)
         arrays = np.load(os.path.join(out_dir, "spec.npz"))
         out: dict[str, np.ndarray] = {}
         if "merge" in spec["tasks"]:
