@@ -107,6 +107,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
          and each async save's span and bytes;
      (g3) ``python -m mgwfbp_tpu_torch.evaluate`` on run A's last epoch:
          its perplexity against A's own evaluation (RES_EVAL_RTOL).
+  8. (h) the paper's CNN zoo a user would train, each at full width with
+     its preset (ZOO): googlenet (224, aux heads), inceptionv4 (299) and
+     densenet201 (604 leaves) at batch 64 in bfloat16 on synthetic
+     ImageNet, vgg16 at batch 128 in float32 on synthetic CIFAR-10; each
+     through the Trainer with its step swapped for one carrying the mgwfbp
+     merged all-reduce over NCCL at one worker (tb from the trainer's
+     hooks, MERGING_LINK's constants): ZOO_WARMUP_STEPS steps through the
+     trainer's own loop, then ZOO_TIMED_STEPS on one device batch (CUDA
+     events, median) after 3 more, each launching num_groups all-reduces
+     with every leaf's hook firing once; torch.profiler's busy share and
+     kernels per step; the groups held back by the strict group order for
+     the merged schedule and for one leaf per group; peak memory; the
+     first and last loss, all finite; the card's float32 eval forward of
+     the trained weights against the same weights converted into a CPU
+     module (ZOO_CPU_TOL); no flash launch. One ``{"zoo": ...}`` line per
+     model.
 
 Every phase runs with TF32 off (``utils.device.set_matmul_precision``).
 
@@ -115,9 +131,10 @@ serving forward's breakdown (host time of one flush's run_padded, device
 time by kernel from torch.profiler), the /predict latencies, the training
 phase ({"train": ...}), the calibration phase ({"calibrate": ...}), the
 language models ({"lm": ...}), the bench payload ({"bench": ...}), ResNet-50
-({"resnet50": ...}), resumable training ({"resilience": ...}), the card's
-name and power limit (nvidia-smi), the kernels line ({"kernels": [...]})
-and, last, {"ok": true, "device": {...}}.
+({"resnet50": ...}), resumable training ({"resilience": ...}), the zoo's
+summary ({"zoo_summary": [...]}; each model's full line is printed as it
+finishes), the card's name and power limit (nvidia-smi), the kernels line
+({"kernels": [...]}) and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2003,6 +2020,192 @@ def phase_resilience() -> dict:
     return {"lstm": lstm, "resnet50": r50}
 
 
+# phase (h): the paper's CNN zoo at full width, each with its preset batch
+# and dtype, on the synthetic twin of its dataset
+ZOO = (("googlenet", 64, "bfloat16"), ("inceptionv4", 64, "bfloat16"),
+       ("densenet201", 64, "bfloat16"), ("vgg16", 128, "float32"))
+ZOO_WARMUP_STEPS = 3  # through the trainer's own loop
+ZOO_TIMED_STEPS = 20  # on a fixed device batch, after 3 more of warm-up
+ZOO_CPU_IMAGES = 2
+# the card's float32 eval forward of the trained weights, converted into a
+# fresh CPU module, against that module's forward: TF32 is off, and cuDNN's
+# algorithms (Winograd, FFT, implicit GEMM) sum in other orders than the
+# CPU's through 16-200 layers; the bound is relative to the largest logit
+ZOO_CPU_TOL = 1e-3
+
+
+def _zoo_cpu_check(name: str, model, x: np.ndarray) -> dict:
+    """Eval forward of the trained weights on the card (float32) against a
+    fresh CPU module that takes them through convert (variables_to_flax ->
+    state_from_flax)."""
+    from mgwfbp_tpu_torch import models
+    from mgwfbp_tpu_torch.convert import state_from_flax, variables_to_flax
+
+    params, bstats = variables_to_flax(model)
+    cpu, _ = models.create_model(name)
+    cpu.load_state_dict(state_from_flax(cpu, params, bstats or None),
+                        strict=True)
+    cpu.eval()
+    model.eval()
+    try:
+        with torch.no_grad():
+            xt = torch.from_numpy(x).movedim(-1, -3).contiguous()
+            card = model(xt.to(TRAIN_DEVICE)).float().cpu().numpy()
+            plain = cpu(xt).numpy()
+    finally:
+        model.train()
+    scale = max(1.0, float(np.abs(plain).max()))
+    err = float(np.abs(card - plain).max())
+    if card.shape != plain.shape or not np.isfinite(card).all() or (
+        err > ZOO_CPU_TOL * scale
+    ):
+        fail(f"zoo {name}: the card's forward differs from the CPU's: max "
+             f"abs {err:.3e} (largest logit {scale:.3g}, shape {card.shape})")
+    return {"max_abs_err": err, "largest_logit": scale,
+            "tolerance": f"{ZOO_CPU_TOL} x max(1, largest logit)",
+            "images": len(x)}
+
+
+def _zoo_run(name: str, batch: int, dtype: str, root: str) -> dict:
+    """One zoo model: the Trainer at its preset batch and dtype, its step
+    swapped for one with the mgwfbp merged all-reduce (hooks, NCCL at one
+    worker; tb measured by the trainer's hooks, MERGING_LINK's constants);
+    warm-up steps through the trainer's loop, then ZOO_TIMED_STEPS on one
+    device batch, a profile, held groups, peak memory and the CPU check."""
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.parallel.allreduce import make_merged_allreduce
+    from mgwfbp_tpu_torch.parallel.costmodel import lookup_alpha_beta
+    from mgwfbp_tpu_torch.train import Trainer, TrainStep
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = make_config(name, batch_size=batch, dtype=dtype, augment=False,
+                      num_batches_per_epoch=ZOO_WARMUP_STEPS,
+                      logdir=os.path.join(root, name), checkpoint_dir=None)
+    tr = Trainer(cfg, device=TRAIN_DEVICE, synthetic_data=True)
+    build_s = time.perf_counter() - t0
+    tb = tr._profile_backward()
+    _, perm, names = tr._arrival_leaves()
+    t_solve = time.perf_counter()
+    reducer = make_merged_allreduce(
+        tr.model, policy="mgwfbp", tb=tb,
+        cost_model=lookup_alpha_beta(*MERGING_LINK),
+    )
+    solve_s = time.perf_counter() - t_solve  # the solver, on the host
+    tr.train_step = TrainStep(
+        tr.model, tr.optimizer, tr.lr_fn, reducer=reducer,
+        task=tr.meta.task, compute_dtype=tr.compute_dtype,
+    )
+    tr.fit(1)
+    losses = list(tr.losses)
+    xb, yb = tr.bundle.train.load_batch(0, 0)
+    if xb.shape != (batch, *tr.meta.input_shape):
+        fail(f"zoo {name}: the loader gives {xb.shape}, the model takes "
+             f"{tr.meta.input_shape}")
+    x, y = tr._to_device(xb[None], yb[None])
+    launches, times = [], []
+    for i in range(3 + ZOO_TIMED_STEPS):
+        before = reducer.launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = tr.train_step(x, y)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(m["loss"])
+        launches.append(reducer.launches - before)
+        if i >= 3:
+            times.append(start.elapsed_time(end))
+    prof = _step_profile(lambda: tr.train_step(x, y))
+    arrivals = list(reducer.arrivals)
+    groups = [list(g) for g in reducer.schedule.groups]
+    g = reducer.num_groups
+    peak = torch.cuda.max_memory_allocated()
+    if launches != [g] * len(launches):
+        fail(f"zoo {name}: all-reduce launches per step {launches}, "
+             f"expected {g} (num_groups)")
+    if sorted(arrivals) != list(range(len(names))):
+        fail(f"zoo {name}: the hooks fired for {len(arrivals)} leaf "
+             f"arrivals, not each of {len(names)} leaves once")
+    if not np.isfinite(losses).all():
+        fail(f"zoo {name}: non-finite loss in {losses}")
+    meta = tr.meta
+    cpu = _zoo_cpu_check(name, tr.model, xb[:ZOO_CPU_IMAGES])
+    reducer.detach()
+    names_arr = [names[j] for j in perm]
+    aux = [i for i, n in enumerate(names_arr) if n.startswith("['aux")]
+    step_ms = float(np.median(times))
+    out = {
+        "model": name, "batch": batch, "dtype": dtype,
+        "input": list(meta.input_shape), "leaves": len(names),
+        "params": int(sum(p.numel() for p in tr.model.parameters())),
+        "step_ms": step_ms, "step_ms_min": float(np.min(times)),
+        "images_per_s": batch * 1e3 / step_ms,
+        "busy_share": prof["busy_share"],
+        "kernels_per_step": prof["kernels_per_step"],
+        "device_ms_per_step": prof["device_ms_per_step"],
+        "top_kernels_ms_per_step": prof["top_kernels_ms_per_step"],
+        "num_groups": g, "largest_group": max(len(gr) for gr in groups),
+        "held_groups": _held_groups(groups, arrivals),
+        "held_groups_one_leaf_per_group": _held_groups(
+            [[k] for k in range(len(names))], arrivals),
+        "cost_model": f"{MERGING_LINK[0]} at {MERGING_LINK[1]} workers",
+        "tb_total_s": float(sum(tb)), "tb_source": tb.source,
+        "reducer_build_s": solve_s,
+        "allreduce_launches_per_step": launches[0],
+        "peak_memory_bytes": int(peak),
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "steps": len(losses), "cpu_check": cpu, "build_s": build_s,
+        "wall_s": time.perf_counter() - t0,
+    }
+    if aux:
+        out["aux_leaves_in_the_permutation"] = aux
+        out["aux_leaves_measured"] = [arrivals.index(i) for i in aux]
+    tr.close()
+    return out
+
+
+def phase_zoo() -> list[dict]:
+    """(h) The zoo at full width through the Trainer with the merged
+    all-reduce over NCCL at one worker."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.ops import flash_attention
+    from mgwfbp_tpu_torch.parallel.mesh import init_distributed
+
+    dev = torch.device(TRAIN_DEVICE, 0)
+    rdv = tempfile.TemporaryDirectory(prefix="mgwfbp_zoo_nccl_")
+    init_distributed(dev, num_processes=1, process_id=0,
+                     init_method=f"file://{os.path.join(rdv.name, 'rdv')}")
+    flash_attention.launches = 0
+    rows = []
+    try:
+        with tempfile.TemporaryDirectory(prefix="mgwfbp_zoo_") as root:
+            for name, batch, dtype in ZOO:
+                r = _zoo_run(name, batch, dtype, root)
+                print(json.dumps({"zoo": r}), flush=True)
+                print(f"zoo (h): {name} batch {batch} {dtype}: step "
+                      f"{r['step_ms']:.2f} ms ({r['images_per_s']:.0f} "
+                      f"images/s), busy {r['busy_share']}, "
+                      f"{r['kernels_per_step']:.0f} kernels per step, "
+                      f"{r['num_groups']} groups ({r['held_groups']} held; "
+                      f"{r['held_groups_one_leaf_per_group']} of "
+                      f"{r['leaves']} one leaf per group), peak "
+                      f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, loss "
+                      f"{r['loss_first']:.4f} -> {r['loss_last']:.4f}, card "
+                      f"vs CPU {r['cpu_check']['max_abs_err']:.2e}, "
+                      f"{r['wall_s']:.1f} s", flush=True)
+                rows.append(r)
+    finally:
+        dist.destroy_process_group()
+        rdv.cleanup()
+    if flash_attention.launches:
+        fail(f"zoo: the path launched the flash kernel "
+             f"{flash_attention.launches} times")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -2030,6 +2233,7 @@ def main() -> int:
     lm = phase_lm()
     resnet50 = phase_resnet50()
     resilience = phase_resilience()
+    zoo = phase_zoo()
 
     serve = rows[0]
     kernels = [{
@@ -2055,6 +2259,10 @@ def main() -> int:
     print(json.dumps({"lm": lm}))
     print(json.dumps({"resnet50": resnet50}))
     print(json.dumps({"resilience": resilience}))
+    print(json.dumps({"zoo_summary": [
+        {k: r[k] for k in ("model", "step_ms", "images_per_s", "busy_share",
+                           "num_groups", "held_groups", "peak_memory_bytes")}
+        for r in zoo]}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -300,7 +300,7 @@ def _forward_main(args) -> int:
     if args.model not in zoo.model_names():
         raise SystemExit(
             f"--forward --model {args.model}: not ported yet (still to port: "
-            "lstman4 and the rest of the CNN zoo, ROADMAP.md Queue 1); the "
+            "lstman4, the audio model, ROADMAP.md Queue 1 item 3); the "
             f"port's models: {', '.join(zoo.model_names())}"
         )
     device = resolve_device(args.device)

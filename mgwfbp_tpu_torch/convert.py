@@ -7,10 +7,11 @@ leaf is addressed by the dotted form of that path (``Block_0.qkv.kernel``);
 ``flax_path`` turns either spelling into the dotted one.
 
 Name and layout rules (Flax -> torch):
-  * module ``<Type>_<i>`` inside a container -> ``<container>.<i>``
+  * module ``<Type>_<k>`` inside a container -> ``<container>.<i>``
     (``Block_3`` -> ``blocks.3``, ``BasicBlock_3`` or ``Bottleneck_3`` ->
-    ``blocks.3``,
-    ``OptimizedLSTMCell_1`` -> ``cells.1``); a
+    ``blocks.3``, ``OptimizedLSTMCell_1`` -> ``cells.1``; in a container of
+    several types k counts that type only: ``Transition_0`` after six
+    ``DenseLayer``s is ``layers.6``); a
     module's ``FLAX_NAMES`` renames its children (``ConvBN_0`` ->
     ``conv1``, ``Conv_0`` -> ``conv``, ``BatchNorm_0`` -> ``bn``); every
     other module keeps its name;
@@ -126,24 +127,40 @@ def params_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return state
 
 
+def _flax_type(mod: nn.Module) -> str:
+    """The Flax class name a torch module stands for."""
+    if isinstance(mod, nn.Linear):
+        return "Dense"
+    if isinstance(mod, nn.Conv2d):
+        return "Conv"
+    return type(mod).__name__
+
+
 def flax_module_paths(module: nn.Module) -> dict[str, str]:
     """torch submodule path -> dotted Flax module path, for every submodule.
 
     Containers (``nn.ModuleList``/``nn.Sequential``) are transparent and
-    their i-th child is named ``<TypeName>_<i>`` (Flax's auto-name: a
-    ``Block`` in ``blocks`` is ``Block_<i>``, a ``BasicBlock`` is
-    ``BasicBlock_<i>``); any other child keeps its attribute name unless
-    its parent's ``FLAX_NAMES`` renames it (``conv1`` -> ``ConvBN_0``)."""
+    their children are auto-named as Flax names them, ``<Type>_<k>`` with
+    k counting the children of that type in the parent, across all its
+    containers in registration order (a ``Block`` in ``blocks`` is
+    ``Block_<i>``; a list of ``DenseLayer``s and ``Transition``s gives
+    ``DenseLayer_0..`` and ``Transition_0..``; a conv is ``Conv_<k>``, a
+    linear layer ``Dense_<k>``); any other child keeps its attribute name
+    unless its parent's ``FLAX_NAMES`` renames it (``conv1`` ->
+    ``ConvBN_0``)."""
     out: dict[str, str] = {}
 
     def walk(mod: nn.Module, tpath: str, fpath: str) -> None:
         out[tpath] = fpath
         names = getattr(mod, "FLAX_NAMES", {})
+        counts: dict[str, int] = {}
         for name, child in mod.named_children():
             tp = f"{tpath}.{name}" if tpath else name
             if isinstance(child, (nn.ModuleList, nn.Sequential)):
                 for i, sub in child.named_children():
-                    fp = f"{type(sub).__name__}_{i}"
+                    kind = _flax_type(sub)
+                    fp = f"{kind}_{counts.get(kind, 0)}"
+                    counts[kind] = counts.get(kind, 0) + 1
                     walk(sub, f"{tp}.{i}", f"{fpath}.{fp}" if fpath else fp)
             else:
                 fp = names.get(name, name)

@@ -1,8 +1,8 @@
-"""Data subsystem (counterpart of the CIFAR-10, ImageNet and PTB branches
-of ``mgwfbp_tpu/data/__init__.py``): ``data_prepare`` resolves a dataset
-name to sharded train/val loaders, from real files when present, else from
-the synthetic twin. CIFAR-10, ImageNet and PTB are ported; the other
-datasets are listed in ROADMAP.md.
+"""Data subsystem (counterpart of the MNIST, CIFAR-10, ImageNet and PTB
+branches of ``mgwfbp_tpu/data/__init__.py``): ``data_prepare`` resolves a
+dataset name to sharded train/val loaders, from real files when present,
+else from the synthetic twin. AN4 (the audio model's data) is not ported
+(ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -16,8 +16,11 @@ from mgwfbp_tpu_torch.data.datasets import (
     CIFAR_STD,
     IMAGENET_MEAN,
     IMAGENET_STD,
+    MNIST_MEAN,
+    MNIST_STD,
     load_cifar10,
     load_imagenet_hdf5,
+    load_mnist,
     synthetic_images,
     synthetic_images_hard,
 )
@@ -38,12 +41,13 @@ from mgwfbp_tpu_torch.data.sharding import ShardInfo
 # synthetic sizes, as in the JAX package; MGWFBP_SYNTH_TRAIN_N /
 # MGWFBP_SYNTH_VAL_N override them and MGWFBP_SYNTH_MODE=hard selects the
 # held-out-generalization generator
-_SYNTH_TRAIN = {"cifar10": 4096, "imagenet": 512, "ptb": 512}
-_SYNTH_VAL = {"cifar10": 512, "imagenet": 128, "ptb": 64}
-_IMAGES = {  # name: (default H x W, mean, std, loader, val split)
-    "cifar10": ((32, 32), CIFAR_MEAN, CIFAR_STD, load_cifar10, "test"),
-    "imagenet": ((224, 224), IMAGENET_MEAN, IMAGENET_STD, load_imagenet_hdf5,
-                 "val"),
+_SYNTH_TRAIN = {"mnist": 4096, "cifar10": 4096, "imagenet": 512, "ptb": 512}
+_SYNTH_VAL = {"mnist": 512, "cifar10": 512, "imagenet": 128, "ptb": 64}
+_IMAGES = {  # name: (default H x W, channels, mean, std, loader, val split)
+    "mnist": ((28, 28), 1, MNIST_MEAN, MNIST_STD, load_mnist, "test"),
+    "cifar10": ((32, 32), 3, CIFAR_MEAN, CIFAR_STD, load_cifar10, "test"),
+    "imagenet": ((224, 224), 3, IMAGENET_MEAN, IMAGENET_STD,
+                 load_imagenet_hdf5, "val"),
 }
 
 
@@ -83,12 +87,14 @@ def data_prepare(
     if name == "ptb":
         return _ptb_prepare(data_dir, batch_size, shard, seed, synthetic,
                             num_steps)
-    if name not in _IMAGES:
+    if name == "an4":
         raise ValueError(
-            f"dataset {dataset!r} is not ported yet (cifar10, imagenet and "
-            "ptb only; see ROADMAP.md)"
+            "dataset 'an4' is not ported yet (the audio model lstman4 and its "
+            "data are ROADMAP Queue 1 item 3)"
         )
-    hw_default, mean, std, load, val_split = _IMAGES[name]
+    if name not in _IMAGES:
+        raise ValueError(f"unknown dataset {dataset!r}")
+    hw_default, c, mean, std, load, val_split = _IMAGES[name]
     h, w = image_hw or hw_default
     train = val = None
     if not synthetic:
@@ -102,8 +108,8 @@ def data_prepare(
         if os.environ.get("MGWFBP_SYNTH_MODE", "easy") == "hard":
             gen = synthetic_images_hard
         nc = 1000 if name == "imagenet" else 10
-        train = gen(_synth_size("train", name), (h, w, 3), nc, seed)
-        val = gen(_synth_size("val", name), (h, w, 3), nc, seed + 1)
+        train = gen(_synth_size("train", name), (h, w, c), nc, seed)
+        val = gen(_synth_size("val", name), (h, w, c), nc, seed + 1)
     elif image_hw is not None and tuple(train.data.shape[1:3]) != tuple(image_hw):
         raise ValueError(
             f"requested image_hw {image_hw} but real {name} files under "
@@ -115,7 +121,7 @@ def data_prepare(
         from mgwfbp_tpu_torch.data.augment import FusedCropFlipNormalize
 
         train_tf = FusedCropFlipNormalize(mean, std, pad=4)
-    elif augment:
+    elif augment and name == "imagenet":
         from mgwfbp_tpu_torch.data.augment import chain, train_augment
 
         train_tf = chain(train_augment(name), normalize)

@@ -1,15 +1,18 @@
-"""Image datasets (counterpart of the CIFAR and ImageNet parts of
-``mgwfbp_tpu/data/datasets.py``): the real CIFAR-10 pickle batches, or the
-ImageNet HDF5 file, when they are under ``data_dir``, else a deterministic
-synthetic twin with the same shapes, type and cardinality. The generators
-are copies of the JAX package's, so the same seed gives the same bytes in
-both packages. ``h5py`` is imported only when an ImageNet file is there.
+"""Image datasets (counterpart of the MNIST, CIFAR and ImageNet parts of
+``mgwfbp_tpu/data/datasets.py``): the real MNIST idx files, CIFAR-10
+pickle batches or ImageNet HDF5 file, when they are under ``data_dir``,
+else a deterministic synthetic twin with the same shapes, type and
+cardinality. The generators are copies of the JAX package's, so the same
+seed gives the same bytes in both packages. ``h5py`` is imported only
+when an ImageNet file is there. Nothing is downloaded.
 """
 
 from __future__ import annotations
 
+import gzip
 import os
 import pickle
+import struct
 from typing import Optional
 
 import numpy as np
@@ -18,6 +21,8 @@ from mgwfbp_tpu_torch.data.loader import ArrayDataset
 
 CIFAR_MEAN = (0.4914, 0.4822, 0.4465)
 CIFAR_STD = (0.2470, 0.2435, 0.2616)
+MNIST_MEAN = (0.1307,)
+MNIST_STD = (0.3081,)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 IMAGENET_FILES = ("imagenet.hdf5", "imagenet-shuffled.hdf5")
@@ -97,6 +102,32 @@ def synthetic_images_hard(
             x[i] = x[i, :, ::-1]
     data = np.clip(x, 0, 255).astype(np.uint8)
     return ArrayDataset(data=data, labels=labels, num_classes=num_classes)
+
+
+def _read_idx(path: str) -> np.ndarray:
+    """One idx-ubyte file (optionally gzipped): a big-endian magic whose low
+    byte is the rank, the dims, then uint8 data."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        ndim = magic & 0xFF
+        dims = struct.unpack(f">{ndim}I", f.read(4 * ndim))
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(dims)
+
+
+def load_mnist(data_dir: str, split: str = "train") -> Optional[ArrayDataset]:
+    """MNIST from ``{train,t10k}-{images-idx3,labels-idx1}-ubyte[.gz]``
+    under ``data_dir`` (N x 28 x 28 x 1 uint8), or None when they are not
+    there."""
+    prefix = "train" if split == "train" else "t10k"
+    for suffix in ("", ".gz"):
+        img = os.path.join(data_dir, f"{prefix}-images-idx3-ubyte{suffix}")
+        lbl = os.path.join(data_dir, f"{prefix}-labels-idx1-ubyte{suffix}")
+        if os.path.exists(img) and os.path.exists(lbl):
+            data = _read_idx(img)[..., None]
+            labels = _read_idx(lbl).astype(np.int32)
+            return ArrayDataset(data=data, labels=labels, num_classes=10)
+    return None
 
 
 def load_cifar10(data_dir: str, split: str = "train") -> Optional[ArrayDataset]:

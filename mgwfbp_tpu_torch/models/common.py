@@ -14,7 +14,17 @@ compute, where Flax and PyTorch defaults differ:
   * initializers: He fan-out truncated normal for convs, LeCun truncated
     normal for dense kernels (``init_weights``), from a seeded generator;
   * ``max_pool``: Flax ``padding="SAME"`` pads with -inf by ``same_pads``
-    (3x3/2 at 112: (0, 1), not the (1, 1) of ``nn.MaxPool2d(padding=1)``).
+    (3x3/2 at 112: (0, 1), not the (1, 1) of ``nn.MaxPool2d(padding=1)``);
+    ``avg_pool``'s ``SAME`` pads with zeros and divides by the whole window
+    (Flax's ``count_include_pad=True``);
+  * ``local_response_norm``: Flax's LRN sums over a channel window padded
+    ``(size // 2, size - 1 - size // 2)`` with k = 2 (torch's default k is
+    1 and its window is centred differently for even sizes);
+  * ``flatten``: the JAX package flattens NHWC activations, so a Dense
+    layer after a spatial map reads (h, w, c) order; ``flatten`` permutes
+    to NHWC first, and the Dense kernels convert as plain transposes;
+  * dropout is ``nn.Dropout`` (torch's global generator, which the trainer
+    seeds per rank); Flax's rate and 1 / (1 - rate) scaling are torch's.
 
 Mixed precision (the JAX step's bfloat16 policy): parameters reach a
 module cast to the compute dtype while the batch-norm running statistics
@@ -30,7 +40,7 @@ Each module records its children's Flax names in ``FLAX_NAMES`` so that
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -50,22 +60,71 @@ def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-class SameConv2d(nn.Conv2d):
-    """Bias-free convolution with Flax ``SAME`` padding."""
+Kernel = Union[int, tuple[int, int]]
+# "SAME", "VALID" or Flax's explicit ((top, bottom), (left, right))
+Padding = Union[str, tuple[tuple[int, int], tuple[int, int]]]
 
-    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
-                 stride: int = 1):
-        super().__init__(in_channels, out_channels, kernel, stride=stride,
-                         padding=0, bias=False)
+
+def _pair(v: Kernel) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _pads(x: torch.Tensor, kernel: tuple[int, int], stride: tuple[int, int],
+          padding: Padding) -> tuple[tuple[int, int], tuple[int, int]]:
+    """((top, bottom), (left, right)) padding of a Flax conv or pool."""
+    if padding == "SAME":
+        return (same_pads(x.shape[-2], kernel[0], stride[0]),
+                same_pads(x.shape[-1], kernel[1], stride[1]))
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    return tuple(padding[0]), tuple(padding[1])
+
+
+def same_out(size: int, stride: int) -> int:
+    """Output size of a ``SAME`` conv or pool."""
+    return -(-size // stride)
+
+
+def valid_out(size: int, window: int, stride: int = 1) -> int:
+    """Output size of a ``VALID`` conv or pool."""
+    return (size - window) // stride + 1
+
+
+class SameConv2d(nn.Conv2d):
+    """``flax.linen.Conv`` on NCHW: ``padding`` "SAME" (the default, Flax's
+    pads), "VALID" or explicit ``((top, bottom), (left, right))``; square or
+    rectangular kernels; ``groups`` (Flax ``feature_group_count``); no bias
+    unless asked. ``kernel_init`` names the Flax initializer ``init_weights``
+    draws from: "he" (the zoo's ``conv_kernel_init``, He fan-out) or
+    "lecun" (``nn.Conv``'s default, LeCun fan-in)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel: Kernel = 3, stride: Kernel = 1,
+                 padding: Padding = "SAME", groups: int = 1,
+                 bias: bool = False, kernel_init: str = "he"):
+        super().__init__(in_channels, out_channels, _pair(kernel),
+                         stride=_pair(stride), padding=0, groups=groups,
+                         bias=bias)
+        self.flax_padding = padding
+        self.kernel_init = kernel_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        (kh, kw), (sh, sw) = self.kernel_size, self.stride
-        ph = same_pads(x.shape[-2], kh, sh)
-        pw = same_pads(x.shape[-1], kw, sw)
+        ph, pw = _pads(x, self.kernel_size, self.stride, self.flax_padding)
         if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, self.weight, None, self.stride, (ph[0], pw[0]))
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            (ph[0], pw[0]), 1, self.groups)
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, None, self.stride)
+        return F.conv2d(x, self.weight, self.bias, self.stride, 0, 1,
+                        self.groups)
+
+
+def _train_batch_norm(x, mean, var, weight, bias, momentum: float,
+                      epsilon: float) -> torch.Tensor:
+    """Training-mode batch norm by the batch statistics. torch's op itself,
+    without ``F.batch_norm``'s refusal of one value per channel: Flax
+    normalizes that value to 0 (the V3 aux head's 1x1 map at batch 1)."""
+    return torch.batch_norm(x, weight, bias, mean, var, True, momentum,
+                            epsilon, torch.backends.cudnn.enabled)
 
 
 class BatchNorm(nn.Module):
@@ -97,9 +156,8 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(m).add_(var, alpha=1.0 - m)
         # the output normalizes by the batch statistics; no running buffers
         # are passed, so torch updates nothing behind the update above
-        return F.batch_norm(
-            x, None, None, self.weight, self.bias, True, 0.0, self.epsilon
-        )
+        return _train_batch_norm(x, None, None, self.weight, self.bias, 0.0,
+                                 self.epsilon)
 
     def _forward_low(self, x: torch.Tensor) -> torch.Tensor:
         """Below float32 (a bfloat16 step): torch's mixed-type batch norm
@@ -116,7 +174,7 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, mean, var, w, b, False, 0.0, self.epsilon)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, mean, var, w, b, True, 1.0, self.epsilon)
+        y = _train_batch_norm(x, mean, var, w, b, 1.0, self.epsilon)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             # torch keeps the unbiased variance; Flax the biased one
@@ -138,14 +196,30 @@ class BatchNorm(nn.Module):
             buf.add_(q * m + (1.0 - self.momentum) * stat - q)
 
 
-def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2) -> torch.Tensor:
-    """Flax ``max_pool(..., padding="SAME")`` on NCHW: -inf padding by
-    ``same_pads``, then a pool without padding."""
-    ph = same_pads(x.shape[-2], window, stride)
-    pw = same_pads(x.shape[-1], window, stride)
+def max_pool(x: torch.Tensor, window: Kernel = 3, stride: Kernel = 2,
+             padding: str = "SAME") -> torch.Tensor:
+    """Flax ``max_pool`` on NCHW. ``SAME`` pads with -inf by ``same_pads``,
+    then pools without padding; ``VALID`` pools as it is."""
+    window, stride = _pair(window), _pair(stride)
+    ph, pw = _pads(x, window, stride, padding)
     if any(ph + pw):
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
     return F.max_pool2d(x, window, stride)
+
+
+def avg_pool(x: torch.Tensor, window: Kernel = 2, stride: Optional[Kernel] = None,
+             padding: str = "VALID") -> torch.Tensor:
+    """Flax ``avg_pool`` on NCHW (stride defaults to the window). ``SAME``
+    pads with zeros by ``same_pads`` and divides every window by its full
+    size, pads included (Flax's ``count_include_pad=True``)."""
+    window = _pair(window)
+    stride = window if stride is None else _pair(stride)
+    ph, pw = _pads(x, window, stride, padding)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.avg_pool2d(x, window, stride, (ph[0], pw[0]),
+                            count_include_pad=True)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.avg_pool2d(x, window, stride)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
@@ -153,15 +227,45 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(2, 3))
 
 
+def local_response_norm(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
+                        beta: float = 0.75, k: float = 2.0) -> torch.Tensor:
+    """The JAX package's LRN across the channels of NCHW input:
+    ``x / (k + alpha / size * sum_window x^2) ^ beta``, the window over
+    channels padded ``(size // 2, size - 1 - size // 2)``."""
+    half = size // 2
+    sq = F.pad(x * x, (0, 0, 0, 0, half, size - 1 - half))
+    c = x.shape[1]
+    summed = sq[:, 0:c]
+    for i in range(1, size):
+        summed = summed + sq[:, i:i + c]
+    return x / torch.pow(k + (alpha / size) * summed, beta)
+
+
+def flatten(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, H * W * C) in NHWC order, the JAX package's
+    flatten of the same activations."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+def run(modules, x: torch.Tensor) -> torch.Tensor:
+    """Apply ``modules`` in order."""
+    for m in modules:
+        x = m(x)
+    return x
+
+
 class ConvBN(nn.Module):
-    """Conv (``SAME``, no bias) + BatchNorm (+ ReLU)."""
+    """Conv (no bias, He fan-out init; ``SAME`` unless ``padding`` says
+    otherwise) + BatchNorm (+ ReLU): the JAX package's ``ConvBN``."""
 
     FLAX_NAMES = {"conv": "Conv_0", "bn": "BatchNorm_0"}
 
-    def __init__(self, in_channels: int, features: int, kernel: int = 3,
-                 stride: int = 1, use_relu: bool = True):
+    def __init__(self, in_channels: int, features: int, kernel: Kernel = 3,
+                 stride: Kernel = 1, use_relu: bool = True,
+                 padding: Padding = "SAME", groups: int = 1):
         super().__init__()
-        self.conv = SameConv2d(in_channels, features, kernel, stride)
+        self.conv = SameConv2d(in_channels, features, kernel, stride,
+                               padding=padding, groups=groups)
         self.bn = BatchNorm(features)
         self.use_relu = use_relu
 
@@ -195,7 +299,8 @@ class BasicBlock(nn.Module):
 def init_weights(module: nn.Module,
                  generator: Optional[torch.Generator] = None) -> nn.Module:
     """Flax's initializers from a seeded generator: convs
-    ``variance_scaling(2, fan_out, truncated_normal)``, dense kernels
+    ``variance_scaling(2, fan_out, truncated_normal)`` (LeCun fan-in
+    truncated normal where a conv keeps Flax's default), dense kernels
     LeCun truncated normal, biases zero, embeddings normal with std
     1/sqrt(d), LayerNorm and BatchNorm scale one and bias zero, running
     mean zero and variance one; a module with its own ``init_flax_`` (the
@@ -210,8 +315,11 @@ def init_weights(module: nn.Module,
             sub.weight.fill_(1.0)
             sub.bias.zero_()
         elif isinstance(sub, nn.Conv2d):
-            o, _, kh, kw = sub.weight.shape
-            std = math.sqrt(2.0 / (kh * kw * o)) / _TRUNC_STD
+            o, i, kh, kw = sub.weight.shape
+            if getattr(sub, "kernel_init", "he") == "lecun":
+                std = math.sqrt(1.0 / (kh * kw * i)) / _TRUNC_STD
+            else:
+                std = math.sqrt(2.0 / (kh * kw * o)) / _TRUNC_STD
             nn.init.trunc_normal_(sub.weight, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
             if sub.bias is not None:

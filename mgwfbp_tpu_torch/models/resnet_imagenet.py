@@ -83,8 +83,10 @@ class ResNet(nn.Module):
         return self.fc(global_avg_pool(x))
 
 
-def imagenet_resnet(depth: int, num_classes: int = 1000) -> ResNet:
+def imagenet_resnet(depth: int, num_classes: int = 1000,
+                    in_channels: int = 3) -> ResNet:
     if depth not in _CONFIGS:
         raise ValueError(f"unsupported ImageNet ResNet depth {depth}")
     sizes, block = _CONFIGS[depth]
-    return ResNet(sizes, block, num_classes=num_classes)
+    return ResNet(sizes, block, num_classes=num_classes,
+                  in_channels=in_channels)

@@ -13,8 +13,9 @@ One ``TrainStep`` call is one optimizer step:
     all-reduced on its own after the backward; one worker reduces nothing;
   * the loss: mean softmax cross-entropy in float32, over the batch
     (classify) or over every token of the batch (lm, logits reshaped to
-    (B*T, V)); the metric beside it is the accuracy or the perplexity
-    ``exp(loss)``;
+    (B*T, V)), plus 0.3 x each aux head's for googlenet and inceptionv3;
+    the metric beside it is the accuracy (of the main logits) or the
+    perplexity ``exp(loss)``;
   * a BPTT carry (the LSTM) goes in, threads through the micro-batches in
     order, each micro-step starting from the previous one's carry
     detached, and comes out detached; a windowed LM (the transformer)
@@ -91,18 +92,29 @@ def model_forward(model: nn.Module, x: torch.Tensor, carry=None,
     return _cast(out, torch.float32)
 
 
+AUX_WEIGHT = 0.3  # the aux heads' share of the loss (JAX make_loss_fn)
+
+
 def forward_loss(model: nn.Module, task: str, x: torch.Tensor,
                  y: torch.Tensor, carry=None,
                  compute_dtype: Optional[torch.dtype] = None):
     """(loss, metric, new carry) of one batch: the metric is the accuracy
     (classify) or the perplexity (lm); a model with a BPTT carry takes and
-    returns one, the others return the carry they were given (None)."""
+    returns one, the others return the carry they were given (None). A
+    classifier with aux heads (googlenet, inceptionv3) returns ``(logits,
+    *aux)`` in training: the loss is ``CE(logits) + AUX_WEIGHT * sum
+    CE(aux)``, each in float32, and the accuracy reads the main logits."""
     out = model_forward(model, x, carry, compute_dtype)
     if carry is not None:
         logits, carry = out
     else:
         logits = out
+    aux = ()
+    if isinstance(logits, tuple):
+        logits, *aux = logits
     loss = cross_entropy(logits, y)
+    for a in aux:
+        loss = loss + AUX_WEIGHT * cross_entropy(a, y)
     with torch.no_grad():
         if task == "lm":
             metric = torch.exp(loss.detach())

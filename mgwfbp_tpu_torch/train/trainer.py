@@ -198,16 +198,21 @@ class Trainer:
         self.telemetry = self._open_telemetry()
         self._measured_group_times: Optional[list[float]] = None
         self.shard = ShardInfo(self.rank, self.world)
+        model, self.meta = zoo.create_model(config.dnn, dataset=config.dataset)
+        image_hw = None
+        if self.meta.task == "classify" and self.meta.input_shape[0] >= 256:
+            image_hw = tuple(self.meta.input_shape[:2])  # the inceptions' 299
         self.bundle = data_prepare(
             config.dataset, data_dir=config.data_dir,
             batch_size=config.batch_size, shard=self.shard, seed=config.seed,
             synthetic=synthetic_data, augment=config.augment,
-            num_steps=config.num_steps,
+            num_steps=config.num_steps, image_hw=image_hw,
         )
-        model, self.meta = zoo.create_model(
-            config.dnn, dataset=config.dataset,
-            num_classes=self.bundle.num_classes,
-        )
+        if self.bundle.num_classes != self.meta.num_classes:
+            model, self.meta = zoo.create_model(
+                config.dnn, dataset=config.dataset,
+                num_classes=self.bundle.num_classes,
+            )
         self.model = zoo.for_training(model)
         self._apply_lm_window()
         init_weights(self.model, torch.Generator().manual_seed(config.seed))

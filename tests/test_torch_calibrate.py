@@ -402,9 +402,9 @@ def test_forward_profiles_the_lstm_from_tokens_and_a_carry(tmp_path, capsys):
     assert doc["arrival_names"] == [names[j] for j in perm]
 
 
-@pytest.mark.parametrize("model", ["lstman4", "googlenet"])
+@pytest.mark.parametrize("model", ["lstman4"])
 def test_forward_refuses_a_model_still_to_port(tmp_path, model):
     with pytest.raises(SystemExit, match=f"--model {model}: not ported yet"
-                       r".*lstman4 and the rest of the CNN zoo.*Queue 1"):
+                       r".*lstman4, the audio model.*Queue 1 item 3"):
         calibrate.main(["--out", str(tmp_path / "x.json"), "--forward",
                         "--model", model, "--device", "cpu"])

@@ -55,5 +55,5 @@ def test_unaugmented_and_hard_twins_bit_identical():
         16, (32, 32, 3), 10, seed=5
     )
     assert np.array_equal(a.data, b.data) and np.array_equal(a.labels, b.labels)
-    with pytest.raises(ValueError, match="not ported"):
-        data_prepare("mnist", synthetic=True)
+    with pytest.raises(ValueError, match="not ported.*Queue 1 item 3"):
+        data_prepare("an4", synthetic=True)

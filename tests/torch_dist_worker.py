@@ -22,6 +22,11 @@ Imports torch and the port only (no JAX), reads its inputs from
     one run per ``nsteps_update``; then a step whose batch holds a token
     outside the vocabulary on the last rank (a NaN embedding row) leaves
     parameters, momentum, step counter and carry as they were;
+  * ``zoo`` (tests/test_torch_zoo_small.py): for each named registry model
+    (dropout off), the port's TrainStep with the mgwfbp merged all-reduce
+    from the spec's initial weights over the spec's global batches (this
+    rank's slice), parameters, the groups and each step's all-reduce
+    launches saved after every step;
   * ``drain`` (run in a world of its own, which ``train_cli.main`` starts
     and tears down three times over file rendezvous): a narrow ResNet-20
     through ``train_cli.main`` uninterrupted (run A), then with
@@ -242,6 +247,43 @@ def _lm_train(spec, arrays, rank, world, out, n: int) -> None:
     reducer.detach()
 
 
+def _zoo(spec, arrays, rank, world, out) -> None:
+    from mgwfbp_tpu_torch import models as zoo
+
+    z = spec["zoo"]
+    b = z["batch"]
+    rows = slice(rank * b, (rank + 1) * b)
+    for name in z["models"]:
+        model, meta = zoo.create_model(name)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        prefix = f"{name}/params/"
+        model.load_state_dict(state_from_flax(model, {
+            k[len(prefix):]: arrays[k] for k in arrays.files
+            if k.startswith(prefix)}))
+        opt, lr_fn, _ = make_optimizer(
+            model.parameters(), z["lr"], momentum=0.9, weight_decay=1e-4,
+            lr_schedule="auto", dataset=meta.dataset, max_epochs=141,
+            warmup_epochs=5, num_batches_per_epoch=z["batches_per_epoch"],
+        )
+        reducer = make_merged_allreduce(
+            model, policy="mgwfbp", cost_model=lookup_alpha_beta("10GbE", world)
+        )
+        step = TrainStep(model, opt, lr_fn, reducer=reducer)
+        out[f"{name}/groups"] = np.int64(reducer.num_groups)
+        xs, ys = arrays[f"{name}/x"], arrays[f"{name}/y"]
+        for k in range(xs.shape[0]):
+            before = reducer.launches
+            step(_nchw(xs[k][rows])[None],
+                 torch.from_numpy(ys[k][rows]).long()[None])
+            out[f"{name}/s{k + 1}/launches"] = np.int64(
+                reducer.launches - before)
+            for key, v in flatten_flax(variables_to_flax(model)[0]).items():
+                out[f"{name}/s{k + 1}/{key}"] = v
+        reducer.detach()
+
+
 def _drain(spec, rank, world, out_dir, out) -> None:
     import contextlib
     import io
@@ -328,6 +370,8 @@ def run(rank: int, world: int, init_file: str, out_dir: str) -> None:
             _train(spec, arrays, rank, world, out, n)
         for n in spec.get("lm_nsteps", ()):
             _lm_train(spec, arrays, rank, world, out, n)
+        if "zoo" in spec["tasks"]:
+            _zoo(spec, arrays, rank, world, out)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
