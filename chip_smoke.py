@@ -104,6 +104,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
          bytes), three ``bad_step`` events, one ``rollback`` to step 2, a
          finite loss; then the interval between step starts over 20 steps
          without checkpoints and 20 with ``--ckpt-every-steps 5`` (async),
+         both through the default prefetch (2 workers), and 20 without
+         checkpoints through the bare loader (``MGWFBP_DATA_WORKERS=0``),
          and each async save's span and bytes;
      (g3) ``python -m mgwfbp_tpu_torch.evaluate`` on run A's last epoch:
          its perplexity against A's own evaluation (RES_EVAL_RTOL).
@@ -123,6 +125,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the trained weights against the same weights converted into a CPU
      module (ZOO_CPU_TOL); no flash launch. One ``{"zoo": ...}`` line per
      model.
+  9. (i) the speech model a user would train: ``lstman4`` at full width
+     (DeepSpeech, hidden 800, 5 layers + Lookahead, 27,553,504
+     parameters) with its preset (batch 4, float32, TF32 off) on the real
+     AN4 utterances of data/an4_memcheck, through the Trainer (default
+     prefetch, the native host library, which must build and load) with
+     its step swapped for the mgwfbp merged all-reduce over NCCL at one
+     worker as in (h): AN4_EPOCHS epochs of 11 steps whose last 5 losses
+     fall below the first 5's; one evaluate (finite CTC loss, a WER) equal
+     to ``python -m mgwfbp_tpu_torch.evaluate`` on the committed step; the
+     commit read back equal; every val batch's card logits against a CPU
+     module (AN4_CPU_TOL) and how many utterances decode alike; no flash
+     launch; then the step time, utterances/s, busy share, kernels per
+     step, peak memory, top kernels, groups and held groups.
 
 Every phase runs with TF32 off (``utils.device.set_matmul_precision``).
 
@@ -133,7 +148,7 @@ phase ({"train": ...}), the calibration phase ({"calibrate": ...}), the
 language models ({"lm": ...}), the bench payload ({"bench": ...}), ResNet-50
 ({"resnet50": ...}), resumable training ({"resilience": ...}), the zoo's
 summary ({"zoo_summary": [...]}; each model's full line is printed as it
-finishes), the card's name and power limit (nvidia-smi), the kernels line
+finishes), the speech model ({"lstman4": ...}), the card's name and power limit (nvidia-smi), the kernels line
 ({"kernels": [...]}) and, last, {"ok": true, "device": {...}}.
 """
 
@@ -1923,7 +1938,10 @@ def resilience_resnet50(work: str) -> dict:
     ends with a finite loss. Then the step interval (wall time between
     step starts, so that a save counts) over an epoch of RES_R50_TIMED_N /
     128 steps without checkpoints and one with --ckpt-every-steps 5
-    (async)."""
+    (async), both through the default prefetch (MGWFBP_DATA_WORKERS 2),
+    and one more without checkpoints through the bare loader (what
+    MGWFBP_DATA_WORKERS=0 gives)."""
+    from mgwfbp_tpu_torch.data import PrefetchLoader
     from mgwfbp_tpu_torch.config import make_config
     from mgwfbp_tpu_torch.telemetry import events_of, read_events
     from mgwfbp_tpu_torch.train import Trainer
@@ -1963,24 +1981,35 @@ def resilience_resnet50(work: str) -> dict:
             or [r["restored_iteration"] for r in rbs] != [2]
             or not np.isfinite(loss)):
         fail(f"resilience (g2): bad steps {bad}, rollbacks {rbs}, loss {loss}")
-    # the cost of --ckpt-every-steps: one epoch without, one with
+    # the cost of --ckpt-every-steps: one epoch without, one with; then the
+    # prefetch's gain: one epoch without checkpoints through the bare loader
     cfg.num_batches_per_epoch = None
+    prefetch = tr.bundle.train
+    if not isinstance(prefetch, PrefetchLoader) or prefetch.workers != 2:
+        fail(f"resilience (g2): the train loader is {prefetch!r}, not the "
+             f"default prefetch of 2 workers")
     timed = {}
-    for epoch, every in ((2, 0), (3, RES_CKPT_EVERY)):
+    for epoch, every, loader in ((2, 0, prefetch),
+                                 (3, RES_CKPT_EVERY, prefetch),
+                                 (4, 0, prefetch.inner)):
         cfg.ckpt_every_steps = every
+        tr.bundle.train = loader
         tr.train_epoch(epoch)
         tr._poll_async_ckpt(block=True)
         starts = [r["start_s"] for r in events("step") if r["epoch"] == epoch]
-        timed[every] = [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
+        timed[epoch] = [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
     asyncs = [r for r in events("checkpoint") if r.get("async")]
     tr.close()
-    without, with_ckpt = timed[0], timed[RES_CKPT_EVERY]
+    without, with_ckpt, bare = timed[2], timed[3], timed[4]
     out.update(
         timed_intervals=len(without),
         step_ms_without=float(np.median(without)),
         step_ms_mean_without=float(np.mean(without)),
         step_ms_with_async=float(np.median(with_ckpt)),
         step_ms_mean_with_async=float(np.mean(with_ckpt)),
+        data_workers=prefetch.workers,
+        step_ms_no_prefetch=float(np.median(bare)),
+        step_ms_mean_no_prefetch=float(np.mean(bare)),
         async_saves=len(asyncs),
         async_save_s=[r["duration_s"] for r in asyncs],
         async_save_bytes=[r["bytes"] for r in asyncs],
@@ -2016,7 +2045,12 @@ def phase_resilience() -> dict:
               f"{r50['step_ms_without']:.2f} / "
               f"{r50['step_ms_with_async']:.2f} (means "
               f"{r50['step_ms_mean_without']:.2f} / "
-              f"{r50['step_ms_mean_with_async']:.2f})", flush=True)
+              f"{r50['step_ms_mean_with_async']:.2f}); prefetch of "
+              f"{r50['data_workers']} workers / none "
+              f"{r50['step_ms_without']:.2f} / "
+              f"{r50['step_ms_no_prefetch']:.2f} (means "
+              f"{r50['step_ms_mean_without']:.2f} / "
+              f"{r50['step_ms_mean_no_prefetch']:.2f})", flush=True)
     return {"lstm": lstm, "resnet50": r50}
 
 
@@ -2206,6 +2240,253 @@ def phase_zoo() -> list[dict]:
     return rows
 
 
+# phase (i): the speech model at full width on the real AN4 utterances
+AN4_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "an4_memcheck")
+AN4_EPOCHS = 4  # of 11 steps at batch 4 (45 utterances)
+AN4_TIMED_STEPS = 20  # on one device batch, after 5 of warm-up
+# the card's float32 eval logits against the same weights in a CPU module,
+# relative to max(1, the largest logit): TF32 is off, and cuDNN's LSTM and
+# convolutions sum in other orders than the CPU's through five recurrent
+# layers over up to 320 frames
+AN4_CPU_TOL = 1e-3
+
+
+def _an4_cpu_check(model, tr) -> dict:
+    """The card's eval forward on every val batch against the same weights
+    converted into a CPU module (variables_to_flax -> state_from_flax): the
+    largest logit difference, and how many utterances greedy-decode to the
+    same string on both."""
+    from mgwfbp_tpu_torch import models
+    from mgwfbp_tpu_torch.convert import state_from_flax, variables_to_flax
+    from mgwfbp_tpu_torch.data.audio import greedy_decode
+
+    params, bstats = variables_to_flax(model)
+    cpu, _ = models.create_model("lstman4")
+    cpu.load_state_dict(state_from_flax(cpu, params, bstats), strict=True)
+    cpu.eval()
+    model.eval()
+    err, scale, same, total = 0.0, 1.0, 0, 0
+    try:
+        with torch.no_grad():
+            for batch in tr.bundle.val:
+                x = torch.from_numpy(batch["x"])
+                lens = torch.from_numpy(batch["input_lengths"]).long()
+                card, olen = model(x.to(TRAIN_DEVICE), lens.to(TRAIN_DEVICE))
+                card = card.float().cpu().numpy()
+                plain, plen = cpu(x, lens)
+                plain = plain.numpy()
+                if card.shape != plain.shape or not np.isfinite(card).all() \
+                        or olen.cpu().tolist() != plen.tolist():
+                    fail(f"lstman4: the card's eval forward {card.shape} "
+                         f"differs in shape, lengths or finiteness from the "
+                         f"CPU's {plain.shape}")
+                err = max(err, float(np.abs(card - plain).max()))
+                scale = max(scale, float(np.abs(plain).max()))
+                a = greedy_decode(card, plen.numpy())
+                b = greedy_decode(plain, plen.numpy())
+                same += sum(x == y for x, y in zip(a, b))
+                total += len(a)
+    finally:
+        model.train()
+    if err > AN4_CPU_TOL * scale:
+        fail(f"lstman4: the card's eval logits differ from the CPU's by "
+             f"{err:.3e} (largest logit {scale:.3g})")
+    return {"max_abs_err": err, "largest_logit": scale,
+            "tolerance": f"{AN4_CPU_TOL} x max(1, largest logit)",
+            "utterances": total, "same_greedy_decode": same}
+
+
+def _an4_evaluator(ckpt_dir: str) -> dict:
+    """``python -m mgwfbp_tpu_torch.evaluate --dnn lstman4`` on the run's
+    newest epoch boundary, in a process of its own."""
+    run = _start([sys.executable, "-m", "mgwfbp_tpu_torch.evaluate",
+                  "--dnn", "lstman4", "--checkpoint-dir", ckpt_dir,
+                  "--data-dir", AN4_DIR, "--batch-size", "4",
+                  "--device", TRAIN_DEVICE],
+                 _res_env(), ckpt_dir + ".evaluate.err")
+    try:
+        rc, line, err = _finish(run, "lstman4 evaluate")
+    finally:
+        _kill_children()
+    if rc != 0:
+        fail(f"lstman4: evaluate exited {rc}: {err[-2000:]}")
+    return json.loads(line)
+
+
+def phase_lstman4() -> dict:
+    """(i) The speech model a user would train: lstman4 at full width
+    (hidden 800, 5 layers, unidirectional + Lookahead, 27,553,504
+    parameters) with its preset (batch 4, float32, lr 2e-4 anneal, norm
+    clip 400) on the real utterances of data/an4_memcheck, through the
+    Trainer with its step swapped for one with the mgwfbp merged all-reduce
+    (hooks, NCCL at one worker; tb from the trainer's hooks, MERGING_LINK's
+    constants), the train batches through the default prefetch and the
+    native host library: AN4_EPOCHS epochs whose last 5 losses fall below
+    the first 5's, all finite, each committed; one evaluate (finite CTC
+    loss, WER >= 0) equal to the offline evaluator's on the committed step;
+    the commit read back equal to the live parameters and batch
+    statistics; the card's eval logits against a CPU module (AN4_CPU_TOL);
+    no flash launch. Then the step on one device batch (CUDA events,
+    median of AN4_TIMED_STEPS after 5), utterances/s, the profile, peak
+    memory, the groups and the held groups, the reducer's build time."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch import native
+    from mgwfbp_tpu_torch.checkpoint import read_step
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.convert import flatten_flax, variables_to_flax
+    from mgwfbp_tpu_torch.data import PrefetchLoader
+    from mgwfbp_tpu_torch.ops import flash_attention
+    from mgwfbp_tpu_torch.parallel.allreduce import make_merged_allreduce
+    from mgwfbp_tpu_torch.parallel.costmodel import lookup_alpha_beta
+    from mgwfbp_tpu_torch.parallel.mesh import init_distributed
+    from mgwfbp_tpu_torch.train import Trainer, TrainStep
+    from mgwfbp_tpu_torch.train.trainer import batch_fields
+
+    if not native.available():
+        fail(f"lstman4: the native host library did not build or load: "
+             f"{native.build_error}")
+    dev = torch.device(TRAIN_DEVICE, 0)
+    rdv = tempfile.TemporaryDirectory(prefix="mgwfbp_an4_nccl_")
+    init_distributed(dev, num_processes=1, process_id=0,
+                     init_method=f"file://{os.path.join(rdv.name, 'rdv')}")
+    flash_attention.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    work = tempfile.TemporaryDirectory(prefix="mgwfbp_an4_")
+    try:
+        cfg = make_config("lstman4", data_dir=AN4_DIR,
+                          eval_every_epochs=1000,
+                          logdir=os.path.join(work.name, "logs"),
+                          checkpoint_dir=os.path.join(work.name, "ckpt"))
+        tr = Trainer(cfg, device=TRAIN_DEVICE)
+        build_s = time.perf_counter() - t0
+        if tr.bundle.synthetic or not isinstance(tr.bundle.train,
+                                                 PrefetchLoader):
+            fail(f"lstman4: synthetic {tr.bundle.synthetic}, train loader "
+                 f"{type(tr.bundle.train).__name__}")
+        tb = tr._profile_backward()
+        _, perm, names = tr._arrival_leaves()
+        t_solve = time.perf_counter()
+        reducer = make_merged_allreduce(
+            tr.model, policy="mgwfbp", tb=tb,
+            cost_model=lookup_alpha_beta(*MERGING_LINK),
+        )
+        solve_s = time.perf_counter() - t_solve
+        tr.train_step = TrainStep(
+            tr.model, tr.optimizer, tr.lr_fn, reducer=reducer,
+            task="ctc", norm_clip=tr.train_step.norm_clip,
+        )
+        t_fit = time.perf_counter()
+        tr.fit(AN4_EPOCHS)
+        fit_s = time.perf_counter() - t_fit
+        losses = list(tr.losses)
+        first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        if (len(losses) != 11 * AN4_EPOCHS or not np.isfinite(losses).all()
+                or not last5 < first5):
+            fail(f"lstman4: {len(losses)} steps, loss first 5 {first5:.4f}, "
+                 f"last 5 {last5:.4f} ({losses})")
+        ev = tr.evaluate()
+        if not (np.isfinite(ev["loss"]) and np.isfinite(ev["wer"])
+                and ev["wer"] >= 0.0 and ev["count"] == 44):
+            fail(f"lstman4: evaluate returned {ev}")
+        params, bstats, meta = read_step(tr.ckpt_dir, tr.iteration)
+        live_p, live_b = variables_to_flax(tr.model)
+        for live, saved in ((live_p, params), (live_b, bstats)):
+            live = flatten_flax(live)
+            if list(live) != list(saved) or not all(
+                np.array_equal(live[k], saved[k]) for k in live
+            ):
+                fail("lstman4: the committed step does not read back equal "
+                     "to the live parameters and batch statistics")
+        offline = _an4_evaluator(tr.ckpt_dir)
+        rel = abs(offline["loss"] - ev["loss"]) / abs(ev["loss"])
+        if not (offline["wer"] == ev["wer"] and rel <= RES_EVAL_RTOL
+                and offline["epoch"] == AN4_EPOCHS - 1):
+            fail(f"lstman4: the evaluator's {offline} against the trainer's "
+                 f"{ev}")
+        cpu = _an4_cpu_check(tr.model, tr)
+        # the step on one device batch
+        fields = batch_fields(tr.bundle.train.load_batch(0, 0))
+        x, y, ilen, llen = tr._to_device(*(f[None] for f in fields))
+        launches, times = [], []
+        for i in range(5 + AN4_TIMED_STEPS):
+            before = reducer.launches
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tr.train_step(x, y, lengths=(ilen, llen))
+            end.record()
+            torch.cuda.synchronize()
+            launches.append(reducer.launches - before)
+            if i >= 5:
+                times.append(start.elapsed_time(end))
+        prof = _step_profile(
+            lambda: tr.train_step(x, y, lengths=(ilen, llen)))
+        arrivals = list(reducer.arrivals)
+        groups = [list(g) for g in reducer.schedule.groups]
+        g = reducer.num_groups
+        if launches != [g] * len(launches):
+            fail(f"lstman4: all-reduce launches per step {launches}, "
+                 f"expected {g}")
+        if sorted(arrivals) != list(range(len(names))):
+            fail(f"lstman4: the hooks fired {len(arrivals)} arrivals, not "
+                 f"each of {len(names)} leaves once")
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = float(np.median(times))
+        out = {
+            "model": "lstman4", "batch": 4, "dtype": "float32",
+            "input": list(x.shape[2:]), "leaves": len(names),
+            "batch_stat_leaves": len(flatten_flax(live_b)),
+            "params": int(sum(p.numel() for p in tr.model.parameters())),
+            "steps": len(losses), "loss_first5": first5, "loss_last5": last5,
+            "fit_s": fit_s, "eval": ev, "evaluator": offline,
+            "evaluator_loss_rel_err": rel, "cpu_check": cpu,
+            "step_ms": step_ms, "step_ms_min": float(np.min(times)),
+            "utterances_per_s": 4e3 / step_ms,
+            "busy_share": prof["busy_share"],
+            "kernels_per_step": prof["kernels_per_step"],
+            "device_ms_per_step": prof["device_ms_per_step"],
+            "top_kernels_ms_per_step": prof["top_kernels_ms_per_step"],
+            "top_host_ops_ms_per_step": prof["top_host_ops_ms_per_step"],
+            "peak_memory_bytes": int(peak),
+            "num_groups": g, "largest_group": max(len(gr) for gr in groups),
+            "held_groups": _held_groups(groups, arrivals),
+            "held_groups_one_leaf_per_group": _held_groups(
+                [[k] for k in range(len(names))], arrivals),
+            "cost_model": f"{MERGING_LINK[0]} at {MERGING_LINK[1]} workers",
+            "tb_total_s": float(sum(tb)), "tb_source": tb.source,
+            "reducer_build_s": solve_s,
+            "allreduce_launches_per_step": launches[0],
+            "native_library": native.library_path(),
+            "flash_launches": flash_attention.launches,
+            "build_s": build_s, "wall_s": time.perf_counter() - t0,
+        }
+        reducer.detach()
+        tr.close()
+    finally:
+        work.cleanup()
+        dist.destroy_process_group()
+        rdv.cleanup()
+    if flash_attention.launches:
+        fail(f"lstman4: the path launched the flash kernel "
+             f"{flash_attention.launches} times")
+    print(f"lstman4 (i): {out['steps']} steps, loss {first5:.2f} -> "
+          f"{last5:.2f}, eval loss {ev['loss']:.3f} wer {ev['wer']:.4f} "
+          f"(evaluator {offline['wer']:.4f}), step {step_ms:.2f} ms "
+          f"({out['utterances_per_s']:.1f} utterances/s), busy "
+          f"{out['busy_share']}, {out['kernels_per_step']:.0f} kernels per "
+          f"step, {g} groups ({out['held_groups']} held; "
+          f"{out['held_groups_one_leaf_per_group']} of {len(names)} one leaf "
+          f"per group), peak {peak / 2**30:.2f} GiB, card vs CPU "
+          f"{cpu['max_abs_err']:.2e} ({cpu['same_greedy_decode']} of "
+          f"{cpu['utterances']} decode alike), {out['wall_s']:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -2234,6 +2515,7 @@ def main() -> int:
     resnet50 = phase_resnet50()
     resilience = phase_resilience()
     zoo = phase_zoo()
+    lstman4 = phase_lstman4()
 
     serve = rows[0]
     kernels = [{
@@ -2263,6 +2545,7 @@ def main() -> int:
         {k: r[k] for k in ("model", "step_ms", "images_per_s", "busy_share",
                            "num_groups", "held_groups", "peak_memory_bytes")}
         for r in zoo]}))
+    print(json.dumps({"lstman4": lstman4}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

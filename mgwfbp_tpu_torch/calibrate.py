@@ -299,9 +299,8 @@ def _forward_main(args) -> int:
 
     if args.model not in zoo.model_names():
         raise SystemExit(
-            f"--forward --model {args.model}: not ported yet (still to port: "
-            "lstman4, the audio model, ROADMAP.md Queue 1 item 3); the "
-            f"port's models: {', '.join(zoo.model_names())}"
+            f"--forward --model {args.model}: unknown model; the port's "
+            f"models: {', '.join(zoo.model_names())}"
         )
     device = resolve_device(args.device)
     model, meta = zoo.create_model(args.model)
@@ -310,8 +309,22 @@ def _forward_main(args) -> int:
     model.to(device).train()
     b = max(args.batch_size, 1)
     rs = np.random.RandomState(0)
-    carry = None
-    if meta.task == "lm":
+    carry = lengths = None
+    if meta.task == "ctc":
+        # a speech batch, as the JAX --forward builds it: (b, time, freq)
+        # spectrograms at full length, label ids over an eighth of the
+        # frames (at least 4)
+        t = int(meta.input_shape[0])
+        label_t = max(t // 8, 4)
+        x = torch.from_numpy(
+            rs.randn(b, *meta.input_shape).astype(np.float32)).to(device)
+        y = torch.from_numpy(
+            rs.randint(1, meta.num_classes, (b, label_t)).astype(np.int64)
+        ).to(device)
+        lengths = (torch.full((b,), t, dtype=torch.int64, device=device),
+                   torch.full((b,), label_t, dtype=torch.int64,
+                              device=device))
+    elif meta.task == "lm":
         # integer tokens and next-token targets; a BPTT model from its
         # zero carry, as an epoch starts
         x, y = (
@@ -336,7 +349,8 @@ def _forward_main(args) -> int:
     perm = arrival_order(len(names), names=names)
 
     def loss_of():
-        return forward_loss(model, meta.task, x, y, carry)[0]
+        return forward_loss(model, meta.task, x, y, carry,
+                            lengths=lengths)[0]
 
     tb = benchmark_backward(model, loss_of, params, perm,
                             warmup=args.warmup, iters=args.iters)

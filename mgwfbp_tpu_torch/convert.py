@@ -15,13 +15,15 @@ Name and layout rules (Flax -> torch):
     module's ``FLAX_NAMES`` renames its children (``ConvBN_0`` ->
     ``conv1``, ``Conv_0`` -> ``conv``, ``BatchNorm_0`` -> ``bn``); every
     other module keeps its name;
-  * ``Dense.kernel`` (in, out) -> ``Linear.weight`` (out, in), transposed;
+  * ``Dense.kernel`` (in, out) -> ``Linear.weight`` (out, in), transposed
+    (a bias-free Dense has no ``bias`` leaf);
   * ``Conv.kernel`` (H, W, I, O) -> ``Conv2d.weight`` (O, I, H, W);
   * ``LayerNorm.scale`` / ``BatchNorm.scale`` -> ``weight``;
   * ``Embed.embedding`` (num, d) -> ``Embedding.weight`` (num, d), as is;
   * ``OptimizedLSTMCell``'s gate leaves ``<gate>.kernel`` (in, H) and
     ``<gate>.bias`` (H,) -> the cell's own parameters ``<gate>_weight``
     (H, in), transposed, and ``<gate>_bias`` (one parameter per leaf);
+  * the speech model's ``Lookahead.weight`` (context + 1, H), as is;
   * ``bias`` -> ``bias``;
   * the ``batch_stats`` collection's ``mean`` / ``var`` ->
     ``running_mean`` / ``running_var``.
@@ -180,11 +182,14 @@ _ID = (lambda t: t, lambda t: t)
 
 def _leaf_rules(sub: nn.Module) -> dict[tuple[str, str], tuple]:
     from mgwfbp_tpu_torch.models.common import BatchNorm
+    from mgwfbp_tpu_torch.models.deepspeech import Lookahead
     from mgwfbp_tpu_torch.models.lstm import GATES, OptimizedLSTMCell
 
     if isinstance(sub, nn.Linear):
-        return {("params", "kernel"): ("weight", *_T),
-                ("params", "bias"): ("bias", *_ID)}
+        rules = {("params", "kernel"): ("weight", *_T)}
+        if sub.bias is not None:
+            rules[("params", "bias")] = ("bias", *_ID)
+        return rules
     if isinstance(sub, nn.Conv2d):
         rules = {("params", "kernel"): ("weight", *_CONV)}
         if sub.bias is not None:
@@ -202,6 +207,8 @@ def _leaf_rules(sub: nn.Module) -> dict[tuple[str, str], tuple]:
             rules[("params", f"h{g}.kernel")] = (f"h{g}_weight", *_T)
             rules[("params", f"h{g}.bias")] = (f"h{g}_bias", *_ID)
         return rules
+    if isinstance(sub, Lookahead):
+        return {("params", "weight"): ("weight", *_ID)}
     if isinstance(sub, BatchNorm):
         return {("params", "scale"): ("weight", *_ID),
                 ("params", "bias"): ("bias", *_ID),

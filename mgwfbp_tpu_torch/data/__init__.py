@@ -1,8 +1,8 @@
-"""Data subsystem (counterpart of the MNIST, CIFAR-10, ImageNet and PTB
-branches of ``mgwfbp_tpu/data/__init__.py``): ``data_prepare`` resolves a
-dataset name to sharded train/val loaders, from real files when present,
-else from the synthetic twin. AN4 (the audio model's data) is not ported
-(ROADMAP Queue 1 item 3).
+"""Data subsystem (counterpart of ``mgwfbp_tpu/data/__init__.py``):
+``data_prepare`` resolves a dataset name (mnist, cifar10, imagenet, ptb,
+an4) to sharded train/val loaders, from real files when present, else from
+the synthetic twin. The train loader is wrapped in ``PrefetchLoader``
+(``_wrap_prefetch``), as the JAX package wraps it.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from mgwfbp_tpu_torch.data.datasets import (
 )
 from mgwfbp_tpu_torch.data.loader import (
     ArrayDataset,
+    PrefetchLoader,
     ShardedLoader,
     normalize_images,
 )
@@ -49,6 +50,20 @@ _IMAGES = {  # name: (default H x W, channels, mean, std, loader, val split)
     "imagenet": ((224, 224), 3, IMAGENET_MEAN, IMAGENET_STD,
                  load_imagenet_hdf5, "val"),
 }
+
+
+def _wrap_prefetch(train_loader):
+    """Background prefetch of the train batches. MGWFBP_DATA_WORKERS sets
+    the pool (default 2; 0 returns the bare loader); MGWFBP_DATA_DEVICE_PUT=1
+    also pins each batch in the workers, so that its copy to the card is
+    asynchronous (opt-in, as the JAX package's device_put is)."""
+    workers = int(os.environ.get("MGWFBP_DATA_WORKERS", "2"))
+    if workers <= 0:
+        return train_loader
+    return PrefetchLoader(
+        train_loader, workers=workers,
+        pin_memory=os.environ.get("MGWFBP_DATA_DEVICE_PUT", "0") == "1",
+    )
 
 
 def _synth_size(split: str, name: str) -> int:
@@ -88,10 +103,11 @@ def data_prepare(
         return _ptb_prepare(data_dir, batch_size, shard, seed, synthetic,
                             num_steps)
     if name == "an4":
-        raise ValueError(
-            "dataset 'an4' is not ported yet (the audio model lstman4 and its "
-            "data are ROADMAP Queue 1 item 3)"
-        )
+        from mgwfbp_tpu_torch.data.audio import an4_prepare
+
+        bundle = an4_prepare(data_dir, batch_size, shard, seed, synthetic)
+        bundle.train = _wrap_prefetch(bundle.train)
+        return bundle
     if name not in _IMAGES:
         raise ValueError(f"unknown dataset {dataset!r}")
     hw_default, c, mean, std, load, val_split = _IMAGES[name]
@@ -133,7 +149,7 @@ def data_prepare(
         transform=normalize,
     )
     return DataBundle(
-        train=train_loader,
+        train=_wrap_prefetch(train_loader),
         val=val_loader,
         num_classes=train.num_classes,
         synthetic=is_synth,
@@ -172,7 +188,7 @@ def _ptb_prepare(data_dir: str, batch_size: int, shard: ShardInfo, seed: int,
     )
     train_loader = ShardedLoader(train, batch_size, shuffle=False, seed=seed)
     return DataBundle(
-        train=train_loader,
+        train=_wrap_prefetch(train_loader),
         val=ShardedLoader(val, batch_size, shuffle=False, seed=seed),
         num_classes=vocab_size,
         synthetic=is_synth,
@@ -183,6 +199,7 @@ def _ptb_prepare(data_dir: str, batch_size: int, shard: ShardInfo, seed: int,
 __all__ = [
     "ArrayDataset",
     "DataBundle",
+    "PrefetchLoader",
     "ShardInfo",
     "ShardedLoader",
     "data_prepare",

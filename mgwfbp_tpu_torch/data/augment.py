@@ -1,6 +1,6 @@
-"""Training augmentation (counterpart of the numpy path of
-``mgwfbp_tpu/data/augment.py``): for CIFAR, RandomCrop(32, padding=4) +
-horizontal flip + normalize in one transform; for ImageNet,
+"""Training augmentation (counterpart of ``mgwfbp_tpu/data/augment.py``):
+for CIFAR, RandomCrop(32, padding=4) + horizontal flip + normalize in one
+transform (the native kernel where it is loaded); for ImageNet,
 RandomResizedCrop (vectorised bilinear, float32 out) + horizontal flip,
 then normalize. Each draws its randomness in the JAX package's call order,
 so the same generator gives the same bytes."""
@@ -89,7 +89,10 @@ def crop_at_offsets(
 
 
 class FusedCropFlipNormalize:
-    """Crop + flip + normalize (``px * scale - shift`` in float32)."""
+    """Crop + flip + normalize (``px * scale - shift`` in float32): a uint8
+    batch goes through the native kernel (``mgwfbp_tpu_torch.native``) when
+    it is loaded, else the numpy path; both draw the same randomness in the
+    same order and give the same bytes."""
 
     wants_rng = True
 
@@ -104,6 +107,15 @@ class FusedCropFlipNormalize:
         ys = rng.integers(0, 2 * self.pad + 1, size=b)
         xs = rng.integers(0, 2 * self.pad + 1, size=b)
         flips = rng.random(b) < self.p_flip
+        if x.dtype == np.uint8:
+            from mgwfbp_tpu_torch import native
+
+            out = native.fused_crop_flip_normalize(
+                x, ys, xs, flips.astype(np.uint8), self.mean, self.std,
+                self.pad,
+            )
+            if out is not None:
+                return out
         x = crop_at_offsets(x, ys, xs, self.pad)
         x[flips] = x[flips, :, ::-1]
         scale = (1.0 / (255.0 * self.std)).astype(np.float32)

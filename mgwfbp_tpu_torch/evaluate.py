@@ -3,16 +3,18 @@
 
 Rebuild the trainer for a model, restore a checkpoint's weights and batch
 statistics into it and run its evaluation: loss, top-1 and top-5 for the
-classifiers, loss and perplexity for the language models. The checkpoint
+classifiers, loss and perplexity for the language models, CTC loss and the
+greedy-decoded WER for the speech model ``lstman4``. The checkpoint
 directory is the run's tagged one (``<checkpoint-dir>/<tag>``), written by
 either package. Only the weights are restored and checked against the
-model (the optimizer section is not needed to evaluate). WER for
-``lstman4`` waits for the audio model (ROADMAP Queue 1 item 3).
+model (the optimizer section is not needed to evaluate).
 
     python -m mgwfbp_tpu_torch.evaluate --dnn resnet20 \\
         --checkpoint-dir ckpts/<tag> [--epoch N | --all-epochs] [--synthetic]
     python -m mgwfbp_tpu_torch.evaluate --dnn resnet20 \\
         --average-dirs runA/<tag> runB/<tag>
+    python -m mgwfbp_tpu_torch.evaluate --dnn lstman4 \\
+        --data-dir data/an4_memcheck --checkpoint-dir ckpts/<tag> --all-epochs
 
 Evaluation runs on the card unless ``--device cpu`` asks for the CPU; each
 result is one JSON line (``--all-epochs`` adds a ``{"best": ...}`` line).
@@ -29,18 +31,9 @@ import numpy as np
 from mgwfbp_tpu_torch.config import make_config
 
 
-def _refuse_unported(dnn: str) -> None:
-    if dnn == "lstman4":
-        raise NotImplementedError(
-            "evaluate: WER evaluation of lstman4 is not ported (the audio "
-            "model and its data are ROADMAP Queue 1 item 3)"
-        )
-
-
 def _trainer(dnn: str, synthetic: Optional[bool], device, **overrides):
     from mgwfbp_tpu_torch.train.trainer import Trainer
 
-    _refuse_unported(dnn)
     # no checkpoint directory (nothing to resume) and no log directory
     # (evaluation writes nothing)
     cfg = make_config(dnn, logdir="", **overrides)
@@ -206,9 +199,10 @@ def main(argv: Optional[list[str]] = None) -> int:
             print(json.dumps(metrics), flush=True)
             if key is None:
                 # the metric is a property of the model's task
-                key, lower_better = (("perplexity", True)
-                                     if "perplexity" in metrics
-                                     else ("top1", False))
+                key, lower_better = next(
+                    ((k, lower) for k, lower in (("wer", True),
+                                                 ("perplexity", True))
+                     if k in metrics), ("top1", False))
             v = metrics.get(key)
             if v is not None and (best is None or (
                     v < best if lower_better else v > best)):

@@ -3,13 +3,13 @@
 ``create_model`` returns the module plus a ``ModelMeta`` describing the
 canonical input, with the same fields as the JAX registry's (the input
 dtype is a numpy dtype here; image inputs are NHWC, as the loaders hand
-them over). Every name of the JAX registry is here but ``lstman4`` (the
-audio model, ROADMAP Queue 1 item 3): the MNIST models (mnistnet, lenet,
-fcn5net, lr), caffe_cifar, the CIFAR ResNets (resnet20/32/44/56/110,
-preresnet20/110), vgg11/13/16/19, resnext29, densenet (BC-100-12), the
-ImageNet ResNets (resnet18/34/50/101/152), vgg16i, alexnet,
-densenet121/161/201, googlenet and inceptionv3 (with aux heads),
-inceptionv4, the PTB LSTM and the transformer LM.
+them over). Every name of the JAX registry is here: the MNIST models
+(mnistnet, lenet, fcn5net, lr), caffe_cifar, the CIFAR ResNets
+(resnet20/32/44/56/110, preresnet20/110), vgg11/13/16/19, resnext29,
+densenet (BC-100-12), the ImageNet ResNets (resnet18/34/50/101/152),
+vgg16i, alexnet, densenet121/161/201, googlenet and inceptionv3 (with aux
+heads), inceptionv4, the PTB LSTM, the transformer LM and the speech model
+lstman4 (DeepSpeech with CTC; input (time, freq) spectrograms).
 
 A factory takes the class count and, for an image model, the input
 (H, W, C): a dataset override retargets ``meta.input_shape`` (as the JAX
@@ -251,6 +251,20 @@ def _lstm(nc, hwc=None):
         ModelMeta(
             name="lstm", dataset="ptb", num_classes=nc, input_shape=(35,),
             input_dtype=np.int32, task="lm", has_carry=True,
+        ),
+    )
+
+
+@register("lstman4")
+def _lstman4(nc, hwc=None):
+    from mgwfbp_tpu_torch.models.deepspeech import DeepSpeech
+
+    nc = nc or DATASET_CLASSES["an4"]
+    return (
+        DeepSpeech(num_classes=nc),
+        ModelMeta(
+            name="lstman4", dataset="an4", num_classes=nc,
+            input_shape=(201, 161), task="ctc",  # (time, freq=161)
         ),
     )
 

@@ -128,7 +128,8 @@ def _train_batch_norm(x, mean, var, weight, bias, momentum: float,
 
 
 class BatchNorm(nn.Module):
-    """``flax.linen.BatchNorm`` over the channel dim of NCHW input."""
+    """``flax.linen.BatchNorm`` over the channel dim of NCHW input (or of
+    (N, C) rows: the speech model's sequence-wise batch norm)."""
 
     def __init__(self, num_features: int, momentum: float = BN_MOMENTUM,
                  epsilon: float = BN_EPSILON):
@@ -150,7 +151,8 @@ class BatchNorm(nn.Module):
                 self.bias, False, 0.0, self.epsilon,
             )
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            dims = (0,) + tuple(range(2, x.dim()))  # all but the channels
+            var, mean = torch.var_mean(x, dim=dims, unbiased=False)
             m = self.momentum
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
             self.running_var.mul_(m).add_(var, alpha=1.0 - m)
@@ -328,7 +330,8 @@ def init_weights(module: nn.Module,
             std = math.sqrt(1.0 / sub.in_features) / _TRUNC_STD
             nn.init.trunc_normal_(sub.weight, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
-            sub.bias.zero_()
+            if sub.bias is not None:
+                sub.bias.zero_()
         elif isinstance(sub, BatchNorm):
             sub.weight.fill_(1.0)
             sub.bias.zero_()

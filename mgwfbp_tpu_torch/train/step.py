@@ -1,6 +1,6 @@
 """The data-parallel train step with MG-WFBP merged all-reduce (counterpart
-of the ``all_reduce`` path of ``mgwfbp_tpu/train/step.py``, classify and
-lm tasks).
+of the ``all_reduce`` path of ``mgwfbp_tpu/train/step.py``, classify, lm and
+ctc tasks).
 
 One ``TrainStep`` call is one optimizer step:
 
@@ -15,7 +15,10 @@ One ``TrainStep`` call is one optimizer step:
     (classify) or over every token of the batch (lm, logits reshaped to
     (B*T, V)), plus 0.3 x each aux head's for googlenet and inceptionv3;
     the metric beside it is the accuracy (of the main logits) or the
-    perplexity ``exp(loss)``;
+    perplexity ``exp(loss)``. A ctc batch (the speech model) carries its
+    input and label lengths with the micro-batch axis, and its loss is the
+    mean over the batch of each sequence's CTC negative log-likelihood
+    (``ctc_loss``, optax's ``ctc_loss`` to the last impossible alignment);
   * a BPTT carry (the LSTM) goes in, threads through the micro-batches in
     order, each micro-step starting from the previous one's carry
     detached, and comes out detached; a windowed LM (the transformer)
@@ -77,9 +80,10 @@ def _cast(tree, dtype: torch.dtype):
 
 def model_forward(model: nn.Module, x: torch.Tensor, carry=None,
                   compute_dtype: Optional[torch.dtype] = None):
-    """``model(x)`` (``model(x, carry)`` with a carry). At a compute dtype:
-    on the parameters, the input and the carry cast to it, with the logits
-    and the carry returned in float32; the gradients land, cast back, on
+    """``model(x)`` (``model(x, carry)`` with a second input: an LM's carry,
+    a ctc model's input lengths). At a compute dtype: on the parameters,
+    the input and the carry cast to it (integer tensors stay as they are),
+    with the outputs returned in float32; the gradients land, cast back, on
     the float32 parameters."""
     if compute_dtype is None:
         return model(x) if carry is None else model(x, carry)
@@ -93,17 +97,103 @@ def model_forward(model: nn.Module, x: torch.Tensor, carry=None,
 
 
 AUX_WEIGHT = 0.3  # the aux heads' share of the loss (JAX make_loss_fn)
+CTC_LOG_EPSILON = -1e5  # optax ctc_loss's log(0)
+
+
+def ctc_impossible(labels: torch.Tensor, label_lengths: torch.Tensor,
+                   out_lengths: torch.Tensor) -> torch.Tensor:
+    """Per sequence, whether no CTC alignment exists: fewer output frames
+    than labels plus the blanks that must separate repeated labels. Host
+    tensors in, a host bool tensor out."""
+    labels = labels.long()
+    n = labels.shape[1]
+    pos = torch.arange(1, n)
+    repeat = (labels[:, 1:] == labels[:, :-1]) & (pos[None, :] < label_lengths[:, None])
+    need = label_lengths.long() + repeat.sum(1)
+    return out_lengths.long() < need
+
+
+def ctc_loss_plain(logits: torch.Tensor, out_lengths: torch.Tensor,
+                   labels: torch.Tensor, label_lengths: torch.Tensor,
+                   log_epsilon: float = CTC_LOG_EPSILON) -> torch.Tensor:
+    """optax's ``ctc_loss`` (blank 0) in plain torch, one step of its
+    forward recursion per frame: per-sequence negative log-likelihoods
+    (B,). Where no alignment exists it returns what optax returns, a large
+    finite value from ``log_epsilon`` in place of log(0), and its gradient
+    is autograd's of that value."""
+    b, t, _ = logits.shape
+    n = labels.shape[1]
+    dev = logits.device
+    kw = {"device": dev, "dtype": torch.promote_types(logits.dtype,
+                                                       torch.float32)}
+    logp = F.log_softmax(logits.to(kw["dtype"]), -1)
+    labels = labels.long().to(dev)
+    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).to(kw["dtype"]), (0, 1))
+    emit = logp.gather(2, labels[:, None, :].expand(b, t, n))  # (B, T, N)
+    pad = (torch.arange(t, device=dev)[None, :]
+           >= out_lengths.to(dev)[:, None]).to(kw["dtype"])  # (B, T)
+    phi = torch.cat([torch.zeros((b, 1), **kw),
+                     torch.full((b, n), log_epsilon, **kw)], 1)
+    em = torch.full((b, n), log_epsilon, **kw)
+
+    def add_to_phi(p, score):
+        return torch.cat([p[:, :1], torch.logaddexp(p[:, 1:], score)], 1)
+
+    for k in range(t):
+        phi_orig = phi
+        phi = add_to_phi(phi, em + log_epsilon * repeat)
+        lp_emit, lp_phi = emit[:, k], logp[:, k, :1]
+        next_em = torch.logaddexp(phi[:, :-1] + lp_emit, em + lp_emit)
+        next_phi = add_to_phi(phi + lp_phi,
+                              em + lp_phi + log_epsilon * (1.0 - repeat))
+        p = pad[:, k:k + 1]
+        em = p * em + (1.0 - p) * next_em
+        phi = p * phi_orig + (1.0 - p) * next_phi
+    phi = add_to_phi(phi, em)
+    return -phi.gather(1, label_lengths.long().to(dev)[:, None])[:, 0]
+
+
+def ctc_loss(logits: torch.Tensor, out_lengths: torch.Tensor,
+             labels: torch.Tensor, label_lengths: torch.Tensor) -> torch.Tensor:
+    """Per-sequence CTC negative log-likelihoods (B,) of logits (B, T, C),
+    blank 0, in float32 (float64 logits stay float64): the JAX step's
+    ``optax.ctc_loss``. torch's CTC
+    (``reduction="none"``; its "mean" would divide by the label lengths)
+    gives every sequence that has an alignment; where none exists torch
+    gives inf and optax a large finite value, so those sequences take
+    ``ctc_loss_plain``. The lengths and labels are read on the host (torch's
+    CTC reads the lengths there anyway)."""
+    olen, llen = out_lengths.cpu().long(), label_lengths.cpu().long()
+    logp = F.log_softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)), -1)
+    per = F.ctc_loss(logp.transpose(0, 1), labels.long(), olen, llen,
+                     blank=0, reduction="none", zero_infinity=True)
+    bad = ctc_impossible(labels.cpu(), llen, olen)
+    if bool(bad.any()):
+        idx = bad.nonzero()[:, 0].to(logits.device)
+        plain = ctc_loss_plain(logits[idx], olen[bad], labels[idx], llen[bad])
+        per = per.index_put((idx,), plain)
+    return per
 
 
 def forward_loss(model: nn.Module, task: str, x: torch.Tensor,
                  y: torch.Tensor, carry=None,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 lengths=None):
     """(loss, metric, new carry) of one batch: the metric is the accuracy
     (classify) or the perplexity (lm); a model with a BPTT carry takes and
     returns one, the others return the carry they were given (None). A
     classifier with aux heads (googlenet, inceptionv3) returns ``(logits,
     *aux)`` in training: the loss is ``CE(logits) + AUX_WEIGHT * sum
-    CE(aux)``, each in float32, and the accuracy reads the main logits."""
+    CE(aux)``, each in float32, and the accuracy reads the main logits.
+    A ctc model takes ``lengths`` = (input lengths, label lengths): its loss
+    is the batch mean of ``ctc_loss``, and it has no metric beside it (0)."""
+    if task == "ctc":
+        input_lengths, label_lengths = lengths
+        logits, out_lengths = model_forward(model, x, input_lengths,
+                                            compute_dtype)
+        loss = ctc_loss(logits, out_lengths, y, label_lengths).mean()
+        return loss, torch.zeros((), device=loss.device), carry
     out = model_forward(model, x, carry, compute_dtype)
     if carry is not None:
         logits, carry = out
@@ -156,11 +246,15 @@ def nonfinite_count(tensors) -> torch.Tensor:
 
 
 class TrainStep:
-    """``step(x, y) -> metrics`` (classify, windowed lm) and ``step(x, y,
-    carry) -> (metrics, carry)`` (an lm with a BPTT carry): x (n, B, C, H,
-    W) images and y (n, B) labels, or x and y (n, B, T) tokens, on the
+    """``step(x, y) -> metrics`` (classify, windowed lm), ``step(x, y,
+    carry) -> (metrics, carry)`` (an lm with a BPTT carry) and ``step(x, y,
+    lengths=(input_lengths, label_lengths)) -> metrics`` (ctc): x (n, B, C,
+    H, W) images and y (n, B) labels, x and y (n, B, T) tokens, or x (n, B,
+    T, F) spectrograms, y (n, B, L) labels and lengths (n, B) each, on the
     model's device, n = ``nsteps_update`` micro-batches. ``task`` is the
-    model's (``ModelMeta.task``): classify or lm."""
+    model's (``ModelMeta.task``): classify, lm or ctc."""
+
+    METRICS = {"classify": "accuracy", "lm": "perplexity", "ctc": None}
 
     def __init__(
         self,
@@ -175,11 +269,12 @@ class TrainStep:
         task: str = "classify",
         compute_dtype: Optional[torch.dtype] = None,
     ):
-        if task not in ("classify", "lm"):
-            raise ValueError(f"task must be classify or lm, got {task!r}")
+        if task not in self.METRICS:
+            raise ValueError(f"task must be one of {sorted(self.METRICS)}, "
+                             f"got {task!r}")
         self.model = model
         self.task = task
-        self.metric = "accuracy" if task == "classify" else "perplexity"
+        self.metric = self.METRICS[task]
         self.optimizer = optimizer
         self.lr_fn = lr_fn
         self.reducer = reducer
@@ -192,7 +287,11 @@ class TrainStep:
         self.buffers = flatten_buffers(model)
         self.step = 0  # optimizer updates applied: the schedule's count
 
-    def __call__(self, x: torch.Tensor, y: torch.Tensor, carry=None):
+    def __call__(self, x: torch.Tensor, y: torch.Tensor, carry=None,
+                 lengths=None):
+        if (lengths is None) != (self.task != "ctc"):
+            raise ValueError("a ctc step takes lengths=(input_lengths, "
+                             "label_lengths); the other tasks take none")
         n = self.nsteps_update
         if x.shape[0] != n or y.shape[0] != n:
             raise ValueError(
@@ -214,7 +313,9 @@ class TrainStep:
             if reducer is not None:
                 reducer.begin(active=i == n - 1, scale=1.0 / n)
             loss, metric, carry = forward_loss(
-                model, self.task, x[i], y[i], carry, self.compute_dtype
+                model, self.task, x[i], y[i], carry, self.compute_dtype,
+                lengths=None if lengths is None
+                else (lengths[0][i], lengths[1][i]),
             )
             loss.backward()
             if carry is not None:
@@ -260,7 +361,9 @@ class TrainStep:
             carry = carry_in
         for p in self.params:
             p.grad = None
-        out = {"loss": loss_v, self.metric: metric_v, "grads_nonfinite": bad}
+        out = {"loss": loss_v, "grads_nonfinite": bad}
+        if self.metric is not None:
+            out[self.metric] = metric_v
         if carry_in is None:
             return out
         return out, carry
@@ -304,3 +407,18 @@ def lm_eval_sums(model: nn.Module, x: torch.Tensor, y: torch.Tensor,
     return torch.stack([
         per.sum(), torch.tensor(float(y.shape[0]), device=logits.device),
     ]), carry
+
+
+@torch.no_grad()
+def ctc_eval_sums(model: nn.Module, x: torch.Tensor, y: torch.Tensor,
+                  input_lengths: torch.Tensor, label_lengths: torch.Tensor,
+                  compute_dtype: Optional[torch.dtype] = None):
+    """([loss, count] summed over one eval batch, float32 logits, output
+    lengths): the JAX eval step's ctc sums, with the decode inputs of the
+    same forward, so WER needs no second pass."""
+    logits, out_lengths = model_forward(model, x, input_lengths, compute_dtype)
+    logits = logits.float()
+    per = ctc_loss(logits, out_lengths, y, label_lengths)
+    return torch.stack([
+        per.sum(), torch.tensor(float(y.shape[0]), device=logits.device),
+    ]), logits, out_lengths

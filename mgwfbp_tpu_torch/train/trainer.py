@@ -1,10 +1,15 @@
 """The trainer (counterpart of the ``all_reduce`` training path of
 ``mgwfbp_tpu/train/trainer.py``): loaders, model, optimizer, the merged
 all-reduce and its backward profile, the train/eval loop and step commits,
-for classifiers and language models. A model with a BPTT carry (the LSTM)
-starts each epoch, and each evaluation, from a zero carry and threads it
-through the steps; the transformer trains through dense attention, as the
-JAX package trains it (``models.for_training``).
+for classifiers, language models and the speech model (``lstman4``, CTC).
+A model with a BPTT carry (the LSTM) starts each epoch, and each
+evaluation, from a zero carry and threads it through the steps; the
+transformer trains through dense attention, as the JAX package trains it
+(``models.for_training``). A ctc batch is a dict {x, y, input_lengths,
+label_lengths}; its evaluation adds the greedy-decoded WER, decoded from
+the logits of the loss's own forward. The train batches come through the
+loader's ``batches(epoch, start, stop)``: a ``PrefetchLoader`` (the
+default, ``data._wrap_prefetch``) assembles them ahead of the step.
 
 One process per card; the world is whatever ``torch.distributed`` was
 started with (``parallel.mesh.init_distributed``), one worker when it was
@@ -48,6 +53,7 @@ telemetry plane, the serving shadow and elastic resize are not ported
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import signal as _signal
@@ -109,6 +115,7 @@ from mgwfbp_tpu_torch.profiling import (
 from mgwfbp_tpu_torch.telemetry import EventWriter, stream_filename, summarize
 from mgwfbp_tpu_torch.train.step import (
     TrainStep,
+    ctc_eval_sums,
     eval_sums,
     forward_loss,
     lm_eval_sums,
@@ -136,13 +143,38 @@ class _RollbackRequested(Exception):
         self.bad_steps = bad_steps
 
 
-def _poison_batch(x: np.ndarray) -> tuple[np.ndarray, bool]:
+def _poison_batch(x) -> tuple:
     """NaN-fill a floating host batch (fault injection: every gradient
     after the reduction is then non-finite); a token batch has nothing to
     poison."""
+    if isinstance(x, torch.Tensor):
+        if x.is_floating_point():
+            return torch.full_like(x, float("nan")), True
+        return x, False
     if np.issubdtype(x.dtype, np.floating):
         return np.full_like(x, np.nan), True
     return x, False
+
+
+CTC_FIELDS = ("x", "y", "input_lengths", "label_lengths")
+
+
+def batch_fields(batch) -> tuple:
+    """A loader batch as a tuple of arrays: (x, y), or (x, y,
+    input_lengths, label_lengths) for a ctc batch's dict."""
+    if isinstance(batch, dict):
+        return tuple(batch[k] for k in CTC_FIELDS)
+    return tuple(batch)
+
+
+def _stack(parts: list):
+    """Micro-batches stacked on a new leading axis (one batch: a view, so
+    a pinned host tensor stays pinned)."""
+    if len(parts) == 1:
+        return parts[0][None]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.stack(parts)
+    return np.stack(parts)
 
 
 def _env_interval(name: str, default: str) -> int:
@@ -351,9 +383,12 @@ class Trainer:
             return None
         return self.model.initial_carry(self.config.batch_size, self.device)
 
-    def step_batch(self, x: torch.Tensor, y: torch.Tensor) -> dict:
+    def step_batch(self, x: torch.Tensor, y: torch.Tensor,
+                   *lengths: torch.Tensor) -> dict:
         """One optimizer step on device batches; a carry model threads
-        ``self.carry`` through it."""
+        ``self.carry`` through it, a ctc batch brings its lengths."""
+        if lengths:
+            return self.train_step(x, y, lengths=lengths)
         if self.carry is None:
             return self.train_step(x, y)
         metrics, self.carry = self.train_step(x, y, self.carry)
@@ -367,19 +402,24 @@ class Trainer:
             steps = min(steps, self.config.num_batches_per_epoch)
         return steps
 
-    def _to_device(self, x: np.ndarray, y: np.ndarray):
-        """Numpy batches (leading micro-step axis optional) -> tensors on
-        the card: NHWC images become NCHW float32, permuted there; tokens
-        stay (B, T); labels and targets become int64."""
-        xt = torch.from_numpy(np.ascontiguousarray(x)).to(
-            self.device, non_blocking=True
-        )
-        yt = torch.from_numpy(np.asarray(y, np.int64)).to(
-            self.device, non_blocking=True
-        )
-        if self.meta.task == "lm":
-            return xt, yt
-        return xt.movedim(-1, -3).contiguous(), yt
+    def _to_device(self, x, y, *lengths):
+        """Host batches (numpy, or pinned tensors from the prefetch; leading
+        micro-step axis optional) -> tensors on the card: NHWC images
+        become NCHW float32, permuted there; tokens and (B, T, F)
+        spectrograms keep their layout; labels, targets and a ctc batch's
+        lengths become int64."""
+
+        def put(a, dtype=None):
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(a))
+            t = t.to(self.device, non_blocking=True)
+            return t if dtype is None else t.to(dtype)
+
+        xt = put(x)
+        rest = tuple(put(a, torch.int64) for a in (y, *lengths))
+        if self.meta.task in ("lm", "ctc"):
+            return (xt, *rest)
+        return (xt.movedim(-1, -3).contiguous(), *rest)
 
     def _build_reducer(self, profile_backward: bool):
         cfg = self.config
@@ -431,14 +471,15 @@ class Trainer:
         per rank, so rank 0's are broadcast: every rank must solve the
         identical schedule, or the ranks' collectives mismatch. Rank 0
         writes the profile to ``<logdir>/<tag>/tb_profile.json``."""
-        x, y = self.bundle.train.load_batch(0, 0)
-        x, y = self._to_device(x, y)
+        x, y, *lengths = self._to_device(
+            *batch_fields(self.bundle.train.load_batch(0, 0)))
         params, perm, names = self._arrival_leaves()
         carry = self._zero_carry()
 
         def loss_of():
             return forward_loss(self.model, self.meta.task, x, y, carry,
-                                self.compute_dtype)[0]
+                                self.compute_dtype,
+                                lengths=tuple(lengths) or None)[0]
 
         t0 = time.perf_counter()
         self.model.train()
@@ -491,75 +532,58 @@ class Trainer:
         micro: list = []
         epoch_steps = window_iters = 0
         max_steps = cfg.num_batches_per_epoch or None
+        # the batches this epoch will use, so that a capped epoch loads
+        # (and prefetches) none it will not train on
+        stop = (None if max_steps is None
+                else skip_micro + max(max_steps - epoch_pos, 0) * n)
         log_interval = int(os.environ.get("MGWFBP_LOG_INTERVAL", "10"))
         metrics: dict = {}
         first_loss = None
         t_epoch = t_window = time.time()
-        for b in range(skip_micro, loader.num_batches):
-            micro.append(loader.load_batch(epoch, b))
-            if len(micro) < n:
-                continue
-            xs = np.stack([m[0] for m in micro])
-            ys = np.stack([m[1] for m in micro])
-            micro = []
-            if self._faults.nan_at(self.iteration + 1):
-                xs, poisoned = _poison_batch(xs)
-                self.log.warning(
-                    "fault injection: NaN batch for step %d%s",
-                    self.iteration + 1, "" if poisoned else
-                    " requested, but the batch has no floating input to "
-                    "poison",
-                )
-            x, y = self._to_device(xs, ys)
-            t_step = self.telemetry.now() if self.telemetry else 0.0
-            metrics = self.step_batch(x, y)
-            self.iteration += 1
-            epoch_pos += 1
-            epoch_steps += 1
-            window_iters += 1
-            if self.telemetry is not None:
-                self.telemetry.emit(
-                    "step", step=self.iteration, epoch=int(epoch),
-                    start_s=t_step, dur_s=self.telemetry.now() - t_step,
-                    **self._lm_fields(metrics),
-                )
-            self.losses.append(metrics["loss"])
-            if first_loss is None:
-                first_loss = metrics["loss"]
-            # the guard: after bad_step_limit consecutive non-finite steps
-            # this raises _RollbackRequested (the count is averaged across
-            # ranks, so every rank takes the same branch)
-            if cfg.grad_guard:
-                self._check_guard_value(self.iteration, epoch,
-                                        metrics["grads_nonfinite"])
-            if (cfg.ckpt_every_steps and self.checkpointer is not None
-                    and epoch_pos % cfg.ckpt_every_steps == 0):
-                self.save_step(epoch, epoch_pos, background=cfg.ckpt_async)
-            # retire a finished async save; at several processes a group
-            # vote, so on the agreement cadence, never on local state
-            if self.checkpointer is not None and (
-                self.world == 1 or self.iteration % self._agree_interval == 0
-            ):
-                self._poll_async_ckpt()
-            sig = self._faults.preempt_signal_after(self.iteration)
-            if sig is not None:
-                self._deliver_preempt(sig)
-            if self._agreed_preempt():
-                self._graceful_drain(epoch, epoch_pos)  # raises Preempted
-            if max_steps is not None and epoch_pos >= max_steps:
-                break
-            if self.iteration % log_interval == 0:
-                dt = (time.time() - t_window) / max(window_iters, 1)
-                self._maybe_derive_agree_interval(dt)
-                metric = self.train_step.metric
-                self.log.info(
-                    "epoch %d iter %d: loss %.4f, %s %.4f | %.4f "
-                    "s/iter, %.1f samples/s", epoch, self.iteration,
-                    metrics["loss"], metric, metrics[metric], dt,
-                    cfg.batch_size * self.world * n / dt,
-                )
-                t_window = time.time()
-                window_iters = 0
+        with contextlib.closing(loader.batches(epoch, skip_micro, stop)) as it:
+            for batch in it:
+                micro.append(batch_fields(batch))
+                if len(micro) < n:
+                    continue
+                fields = [_stack(list(f)) for f in zip(*micro)]
+                micro = []
+                metrics = self._train_on(epoch, fields)
+                epoch_pos += 1
+                epoch_steps += 1
+                window_iters += 1
+                if first_loss is None:
+                    first_loss = metrics["loss"]
+                if (cfg.ckpt_every_steps and self.checkpointer is not None
+                        and epoch_pos % cfg.ckpt_every_steps == 0):
+                    self.save_step(epoch, epoch_pos,
+                                   background=cfg.ckpt_async)
+                # retire a finished async save; at several processes a
+                # group vote, so on the agreement cadence, never on local
+                # state
+                if self.checkpointer is not None and (
+                    self.world == 1
+                    or self.iteration % self._agree_interval == 0
+                ):
+                    self._poll_async_ckpt()
+                sig = self._faults.preempt_signal_after(self.iteration)
+                if sig is not None:
+                    self._deliver_preempt(sig)
+                if self._agreed_preempt():
+                    self._graceful_drain(epoch, epoch_pos)  # raises Preempted
+                if max_steps is not None and epoch_pos >= max_steps:
+                    break
+                if self.iteration % log_interval == 0:
+                    dt = (time.time() - t_window) / max(window_iters, 1)
+                    self._maybe_derive_agree_interval(dt)
+                    metric = self.train_step.metric
+                    self.log.info(
+                        "epoch %d iter %d: loss %.4f%s | %.4f s/iter, %.1f "
+                        "samples/s", epoch, self.iteration, metrics["loss"],
+                        f", {metric} {metrics[metric]:.4f}" if metric else "",
+                        dt, cfg.batch_size * self.world * n / dt,
+                    )
+                    t_window = time.time()
+                    window_iters = 0
         if micro:
             self.log.info(
                 "epoch %d: dropped %d trailing micro-batch(es)", epoch,
@@ -578,6 +602,37 @@ class Trainer:
             self.epoch_schedule(float(epoch)),
         )
         return out
+
+    def _train_on(self, epoch: int, fields: list) -> dict:
+        """One optimizer step on stacked host micro-batches (x, y[,
+        lengths]): the fault plan's NaN, the copy to the card, the step,
+        its telemetry span, the loss record and the guard (which raises
+        _RollbackRequested after bad_step_limit non-finite steps)."""
+        cfg = self.config
+        if self._faults.nan_at(self.iteration + 1):
+            fields[0], poisoned = _poison_batch(fields[0])
+            self.log.warning(
+                "fault injection: NaN batch for step %d%s",
+                self.iteration + 1, "" if poisoned else
+                " requested, but the batch has no floating input to poison",
+            )
+        tensors = self._to_device(*fields)
+        t_step = self.telemetry.now() if self.telemetry else 0.0
+        metrics = self.step_batch(*tensors)
+        self.iteration += 1
+        if self.telemetry is not None:
+            self.telemetry.emit(
+                "step", step=self.iteration, epoch=int(epoch),
+                start_s=t_step, dur_s=self.telemetry.now() - t_step,
+                **self._lm_fields(metrics),
+            )
+        self.losses.append(metrics["loss"])
+        # the guard: the count is averaged across ranks, so every rank
+        # takes the same branch
+        if cfg.grad_guard:
+            self._check_guard_value(self.iteration, epoch,
+                                    metrics["grads_nonfinite"])
+        return metrics
 
     def _lm_fields(self, metrics: dict) -> dict:
         """The loss and perplexity a language model's step and epoch
@@ -633,15 +688,14 @@ class Trainer:
         if not want:
             return
         n = self.config.nsteps_update
-        batches = [self.bundle.train.load_batch(0, k) for k in range(iters * n)]
+        batches = [batch_fields(self.bundle.train.load_batch(0, k))
+                   for k in range(iters * n)]
 
         def run():
             for i in range(iters):
                 group = batches[i * n:(i + 1) * n]
                 self.step_batch(*self._to_device(
-                    np.stack([b[0] for b in group]),
-                    np.stack([b[1] for b in group]),
-                ))
+                    *(_stack(list(f)) for f in zip(*group))))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -664,9 +718,12 @@ class Trainer:
 
     def evaluate(self) -> dict:
         """Loss, top-1 and top-5 over every sample of the val loader,
-        summed across ranks (a language model: ``_evaluate_lm``)."""
+        summed across ranks (a language model: ``_evaluate_lm``; the speech
+        model: ``_evaluate_ctc``)."""
         if self.meta.task == "lm":
             return self._evaluate_lm()
+        if self.meta.task == "ctc":
+            return self._evaluate_ctc()
         self.model.eval()
         sums = torch.zeros(4, device=self.device)
         try:
@@ -712,6 +769,41 @@ class Trainer:
         loss /= max(count, 1.0)
         return {"loss": loss, "count": count,
                 "perplexity": float(np.exp(loss))}
+
+    def _evaluate_ctc(self) -> dict:
+        """CTC loss (the mean over utterances) and WER over the val loader:
+        each batch's logits and output lengths come out of the loss's own
+        forward and are greedy-decoded on the host (the JAX trainer's
+        fused WER, ``_decode_wer_batch``). At several ranks the loss, WER
+        and utterance sums are added across ranks, so the WER is the mean
+        over every rank's utterances."""
+        from mgwfbp_tpu_torch.data.audio import greedy_decode, ids_to_text, wer
+
+        self.model.eval()
+        sums = torch.zeros(2, device=self.device)
+        wer_total, wer_n = 0.0, 0
+        try:
+            for batch in self.bundle.val:
+                fields = batch_fields(batch)
+                x, y, ilen, llen = self._to_device(*fields)
+                batch_sums, logits, out_lengths = ctc_eval_sums(
+                    self.model, x, y, ilen, llen, self.compute_dtype)
+                sums += batch_sums
+                hyps = greedy_decode(logits.cpu().numpy(),
+                                     out_lengths.cpu().numpy())
+                ys, lab_lens = fields[1], fields[3]
+                for j, hyp in enumerate(hyps):
+                    wer_total += wer(hyp, ids_to_text(ys[j][:int(lab_lens[j])]))
+                    wer_n += 1
+        finally:
+            self.model.train()
+        totals = torch.cat([sums, torch.tensor(
+            [wer_total, float(wer_n)], device=self.device)])
+        if self.world > 1:
+            dist.all_reduce(totals)
+        loss, count, wer_total, wer_n = totals.tolist()
+        return {"loss": loss / max(count, 1.0), "count": count,
+                "wer": wer_total / max(wer_n, 1.0)}
 
     # ------------------------------------------------------------------
     # Resilience: checkpoints, the preemption drain, the guard, rollback

@@ -404,7 +404,16 @@ def test_forward_profiles_the_lstm_from_tokens_and_a_carry(tmp_path, capsys):
 
 @pytest.mark.parametrize("model", ["lstman4"])
 def test_forward_refuses_a_model_still_to_port(tmp_path, model):
-    with pytest.raises(SystemExit, match=f"--model {model}: not ported yet"
-                       r".*lstman4, the audio model.*Queue 1 item 3"):
-        calibrate.main(["--out", str(tmp_path / "x.json"), "--forward",
-                        "--model", model, "--device", "cpu"])
+    """The last model to port, the speech model, profiles at full width
+    (78 leaves, a ctc batch), and an unknown name is refused."""
+    out = tmp_path / "x.json"
+    assert calibrate.main(["--out", str(out), "--forward", "--model", model,
+                           "--device", "cpu", "--batch-size", "1",
+                           "--iters", "1", "--warmup", "0"]) == 0
+    doc = json.loads(out.read_text())
+    assert len(doc["tb_s"]) == len(doc["tf_s"]) == 78
+    assert doc["source"] == "hooks" and doc["meta"]["model"] == model
+    assert all(np.isfinite(doc["tb_s"])) and all(np.isfinite(doc["tf_s"]))
+    with pytest.raises(SystemExit, match="--model no_such: unknown model"):
+        calibrate.main(["--out", str(tmp_path / "y.json"), "--forward",
+                        "--model", "no_such", "--device", "cpu"])

@@ -316,3 +316,48 @@ def test_sync_save_and_resume_on_card_round_trip(card, tmp_path,
     assert all(s["momentum_buffer"].device.type == "cuda"
                for s in tr2.optimizer.state.values())
     tr2.close()
+
+
+def test_lstman4_full_width_step_on_card_matches_cpu_logits(card):
+    """One full-width lstman4 step (batch 4, float32, a real AN4 batch) on
+    the card is finite and changes the weights; the card's eval logits then
+    match the same weights in a CPU module within 1e-3 of max(1, the
+    largest logit) (cuDNN's LSTM and convolutions sum in other orders)."""
+    import os
+
+    from mgwfbp_tpu_torch import models
+    from mgwfbp_tpu_torch.convert import state_from_flax, variables_to_flax
+    from mgwfbp_tpu_torch.data import data_prepare
+    from mgwfbp_tpu_torch.models.common import init_weights
+    from mgwfbp_tpu_torch.optim import make_optimizer, scaled_clip_threshold
+    from mgwfbp_tpu_torch.train import TrainStep
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    bundle = data_prepare("an4", data_dir=os.path.join(root, "data",
+                                                       "an4_memcheck"),
+                          batch_size=4, synthetic=False)
+    batch = bundle.train.load_batch(0, 0)
+    model, _ = models.create_model("lstman4")
+    init_weights(model, torch.Generator().manual_seed(0)).to(card)
+    opt, lr_fn, _ = make_optimizer(model.parameters(), 2e-4,
+                                   lr_schedule="anneal", dataset="an4",
+                                   num_batches_per_epoch=11)
+    step = TrainStep(model, opt, lr_fn, task="ctc",
+                     norm_clip=scaled_clip_threshold(400.0, 1))
+    before = model.fc.weight.detach().clone()
+    x, y, ilen, llen = (torch.from_numpy(batch[k])[None].to(card)
+                        for k in ("x", "y", "input_lengths",
+                                  "label_lengths"))
+    m = step(x, y.long(), lengths=(ilen.long(), llen.long()))
+    assert np.isfinite(m["loss"]) and m["grads_nonfinite"] == 0
+    assert not torch.equal(model.fc.weight, before)
+    cpu, _ = models.create_model("lstman4")
+    cpu.load_state_dict(state_from_flax(cpu, *variables_to_flax(model)))
+    cpu.eval()
+    model.eval()
+    with torch.no_grad():
+        got, glen = model(x[0], ilen[0])
+        want, wlen = cpu(x[0].cpu(), ilen[0].cpu())
+    assert glen.cpu().tolist() == wlen.tolist()
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= 1e-3 * scale

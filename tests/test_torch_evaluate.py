@@ -141,5 +141,8 @@ def test_evaluate_equals_the_trainers_own_and_all_epochs(narrow, tmp_path,
 
 
 def test_wer_evaluation_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        port_evaluate.evaluate("lstman4", "/nonexistent", device="cpu")
+    """lstman4's WER evaluation is ported: the evaluator builds the speech
+    model's trainer and, with no checkpoint to read, says so."""
+    with pytest.raises(FileNotFoundError, match="no checkpoint under"):
+        port_evaluate.evaluate("lstman4", "/nonexistent", device="cpu",
+                               synthetic=True, batch_size=4)

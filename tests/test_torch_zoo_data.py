@@ -359,9 +359,16 @@ def test_calibrate_forward_profiles_zoo_models(tmp_path, model, leaves):
 
 
 def test_calibrate_forward_still_refuses_lstman4(tmp_path):
-    with pytest.raises(SystemExit, match="lstman4.*Queue 1 item 3"):
-        calibrate.main(["--out", str(tmp_path / "x.json"), "--forward",
-                        "--model", "lstman4", "--device", "cpu"])
+    """``calibrate --forward --model lstman4`` now writes the speech
+    model's layer profile: 78 leaves in the arrival permutation's order."""
+    out = tmp_path / "x.json"
+    assert calibrate.main(["--out", str(out), "--forward", "--model",
+                           "lstman4", "--device", "cpu", "--batch-size", "1",
+                           "--iters", "1", "--warmup", "0"]) == 0
+    doc = json.loads(out.read_text())
+    assert len(doc["tb_s"]) == len(doc["arrival_names"]) == 78
+    assert doc["arrival_names"][0].startswith("['rnn_4']")
+    assert all(np.isfinite(doc["tb_s"]))
 
 
 def test_the_trainer_feeds_inceptions_299_and_steps(tmp_path, monkeypatch):

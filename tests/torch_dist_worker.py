@@ -27,6 +27,11 @@ Imports torch and the port only (no JAX), reads its inputs from
     from the spec's initial weights over the spec's global batches (this
     rank's slice), parameters, the groups and each step's all-reduce
     launches saved after every step;
+  * ``an4`` (tests/test_torch_an4_train.py): the small DeepSpeech from
+    the spec's weights and batch statistics, the port's ctc TrainStep with
+    the mgwfbp merged all-reduce and the an4 preset's optimizer (anneal,
+    norm clip scaled to the world) over the spec's global ctc batches
+    (this rank's rows), the state saved after steps 1 and 3;
   * ``drain`` (run in a world of its own, which ``train_cli.main`` starts
     and tears down three times over file rendezvous): a narrow ResNet-20
     through ``train_cli.main`` uninterrupted (run A), then with
@@ -284,6 +289,40 @@ def _zoo(spec, arrays, rank, world, out) -> None:
         reducer.detach()
 
 
+def _an4(spec, arrays, rank, world, out) -> None:
+    from mgwfbp_tpu_torch.models.deepspeech import DeepSpeech
+
+    a = spec["an4"]
+    model = DeepSpeech(hidden_size=a["hidden"], num_layers=a["layers"])
+    params = {k[len("an4_params/"):]: arrays[k] for k in arrays.files
+              if k.startswith("an4_params/")}
+    bstats = {k[len("an4_bstats/"):]: arrays[k] for k in arrays.files
+              if k.startswith("an4_bstats/")}
+    model.load_state_dict(state_from_flax(model, params, bstats))
+    opt, lr_fn, _ = make_optimizer(
+        model.parameters(), a["lr"], momentum=0.9, weight_decay=1e-4,
+        lr_schedule="anneal", dataset="an4", max_epochs=100,
+        num_batches_per_epoch=a["batches_per_epoch"],
+    )
+    reducer = make_merged_allreduce(
+        model, policy="mgwfbp", cost_model=lookup_alpha_beta("10GbE", world)
+    )
+    step = TrainStep(model, opt, lr_fn, reducer=reducer, task="ctc",
+                     norm_clip=scaled_clip_threshold(a["norm_clip"], world))
+    b = a["batch"]
+    rows = slice(rank * b, (rank + 1) * b)
+    fields = [arrays[f"an4_{k}"] for k in ("x", "y", "ilen", "llen")]
+    for k in range(fields[0].shape[0]):
+        x, y, ilen, llen = (torch.from_numpy(f[k][:, rows]) for f in fields)
+        m = step(x, y.long(), lengths=(ilen.long(), llen.long()))
+        out[f"an4/metrics{k + 1}"] = np.asarray(
+            [m["loss"], m["grads_nonfinite"]])
+        if k + 1 in (1, 3):
+            for key, v in _state(model, step).items():
+                out[f"an4/s{k + 1}/{key}"] = v
+    reducer.detach()
+
+
 def _drain(spec, rank, world, out_dir, out) -> None:
     import contextlib
     import io
@@ -372,6 +411,8 @@ def run(rank: int, world: int, init_file: str, out_dir: str) -> None:
             _lm_train(spec, arrays, rank, world, out, n)
         if "zoo" in spec["tasks"]:
             _zoo(spec, arrays, rank, world, out)
+        if "an4" in spec["tasks"]:
+            _an4(spec, arrays, rank, world, out)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
