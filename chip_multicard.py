@@ -20,6 +20,20 @@ model, schedule, traced per-group device times (or why none) and last
 overlap record, and one JSON line ``{"multicard": ...}``. Every process is
 joined with a timeout and killed if it outlives it. Writes under
 ``--out-dir`` (default ``build/multicard``).
+
+With ``--heal`` the script runs another step instead of those two: a
+supervised ResNet-20
+group of N processes (``python -m mgwfbp_tpu_torch.runtime.supervise``)
+whose last process SIGKILLs itself after step 8
+(``kill@step=8,proc=N-1``). The survivors are blocked in the step's
+all-reduce, which the dead peer never joins (``MGWFBP_AGREE_INTERVAL=1000``
+keeps the gloo drain vote out of the way, so the NCCL path is the one
+measured); the collective timeout ``MGWFBP_COORD_TIMEOUT_S`` (30 s) ends
+them. The healer shrinks the group to N-1, which resumes from the last
+committed step under the n-N tag and trains to the end. Prints one JSON
+line ``{"multicard_heal": ...}``: the exit codes of each incarnation, the
+seconds from the kill to the survivors' exit, the heal, the resize and the
+final step.
 """
 
 from __future__ import annotations
@@ -83,6 +97,95 @@ def _run_group(n: int, argv: list[str], out_dir: str, name: str,
     return outs
 
 
+HEAL_COORD_TIMEOUT_S = 30
+
+
+def _stamp(line: str) -> float:
+    """Wall time of a log line (``YYYY-mm-dd HH:MM:SS,mmm ...``)."""
+    day, ms = line[:23].split(",")
+    return time.mktime(time.strptime(day, "%Y-%m-%d %H:%M:%S")) + int(ms) / 1e3
+
+
+def heal_phase(n: int, device: str, out_dir: str, batch_size: int,
+               env: dict) -> dict:
+    """The supervised group, a SIGKILL of its last process, the survivors'
+    exit through the collective timeout, the shrink to n-1 and its
+    cross-world resume."""
+    sys.path.insert(0, ROOT)
+    from mgwfbp_tpu_torch.telemetry import events_of, read_events, stream_filename
+
+    root = os.path.join(out_dir, "heal")
+    shutil.rmtree(root, ignore_errors=True)
+    log_dir = os.path.join(root, "sup")
+    os.makedirs(log_dir)
+    kill_step = 8
+    cmd = [sys.executable, "-m", "mgwfbp_tpu_torch.runtime.supervise",
+           "--processes", str(n), "--log-dir", log_dir, "--",
+           "--dnn", "resnet20", "--synthetic", "--device", device,
+           "--max-epochs", "2", "--num-batches-per-epoch", "12",
+           "--batch-size", str(batch_size), "--ckpt-every-steps", "5",
+           "--no-ckpt-async", "--telemetry",
+           "--checkpoint-dir", os.path.join(root, "ckpt"),
+           "--logdir", os.path.join(root, "logs")]
+    full_env = dict(os.environ, PYTHONPATH=ROOT, **env,
+                    MGWFBP_FAULT_PLAN=f"kill@step={kill_step},proc={n - 1}",
+                    MGWFBP_COORD_TIMEOUT_S=str(HEAL_COORD_TIMEOUT_S),
+                    MGWFBP_AGREE_INTERVAL="1000", MGWFBP_METRICS_PORT="0")
+    t0 = time.perf_counter()
+    with open(os.path.join(root, "supervise.err"), "w") as err:
+        p = subprocess.Popen(cmd, stdout=err, stderr=subprocess.STDOUT,
+                             env=full_env, cwd=out_dir)
+        try:
+            rc = p.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            rc = None
+    wall = time.perf_counter() - t0
+    with open(os.path.join(root, "supervise.err")) as f:
+        lines = f.read().splitlines()
+    if rc != 0:
+        print("chip_multicard: heal phase rc", rc, "\n" + "\n".join(lines[-20:]),
+              file=sys.stderr, flush=True)
+        raise SystemExit(1)
+    codes = [ln.split("exit codes ", 1)[1] for ln in lines
+             if "exit codes" in ln]
+    first_exit = [ln for ln in lines if "exited HARD" in ln][0]
+    all_exit = [ln for ln in lines if "incarnation 0: exit codes" in ln][0]
+    sup = read_events(os.path.join(log_dir, "telemetry.supervisor.jsonl"))
+    heal = [e for e in sup if e["event"] == "heal"]
+    if not heal or heal[0]["action"] != "shrink" or heal[0]["world"] != n - 1:
+        print(f"chip_multicard: heal events {heal}", file=sys.stderr)
+        raise SystemExit(1)
+    tags = os.listdir(os.path.join(root, "logs"))
+    (tag,) = [t for t in tags if f"-n{n - 1}-" in t]
+    recs = read_events(os.path.join(root, "logs", tag,
+                                    stream_filename(0, n - 1)))
+    resize = events_of(recs, "resize")
+    steps = events_of(recs, "step")
+    with open(os.path.join(log_dir, "p0.i0.log")) as f:
+        survivor = [ln for ln in f.read().splitlines()
+                    if "Watchdog" in ln or "timeout" in ln.lower()
+                    or "coordination" in ln][-6:]
+    out = {
+        "processes": n, "device": device, "kill_step": kill_step,
+        "coord_timeout_s": HEAL_COORD_TIMEOUT_S, "exit_codes": codes,
+        "kill_to_survivors_exit_s": _stamp(all_exit) - _stamp(first_exit),
+        "heal": heal[0], "resize": resize[0] if resize else None,
+        "final_step": steps[-1]["step"] if steps else None,
+        "survivor_log": survivor, "wall_s": wall,
+    }
+    print(f"heal: exit codes {codes}; the survivors left "
+          f"{out['kill_to_survivors_exit_s']:.2f} s after the kill "
+          f"(timeout {HEAL_COORD_TIMEOUT_S} s); {heal[0]['action']} "
+          f"{heal[0]['old_world']} -> {heal[0]['world']}; resize "
+          f"{resize[0]['old_world'] if resize else None} -> "
+          f"{resize[0]['new_world'] if resize else None} at iteration "
+          f"{resize[0]['iteration'] if resize else None}; final step "
+          f"{out['final_step']}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="chip_multicard")
     p.add_argument("--processes", type=int, default=None,
@@ -97,6 +200,8 @@ def main(argv=None) -> int:
     for flag in ("--min-log2", "--max-log2", "--iters", "--warmup",
                  "--gamma-total-log2"):
         p.add_argument(flag, default=None)
+    p.add_argument("--heal", action="store_true",
+                   help="run the supervised heal step instead")
     args = p.parse_args(argv)
     n = args.processes
     if n is None:
@@ -119,6 +224,11 @@ def main(argv=None) -> int:
                        if (1 << k) <= n)
     if str(n) not in extents.split(","):
         extents += f",{n}"
+
+    if args.heal:
+        print(json.dumps({"multicard_heal": heal_phase(
+            n, args.device, args.out_dir, args.batch_size, env)}), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     outs = _run_group(

@@ -138,6 +138,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
      module (AN4_CPU_TOL) and how many utterances decode alike; no flash
      launch; then the step time, utterances/s, busy share, kernels per
      step, peak memory, top kernels, groups and held groups.
+ 10. (j) supervision, every run launched as a user launches it, through
+     ``python -m mgwfbp_tpu_torch.runtime.supervise`` (float32, TF32 off,
+     ``--deterministic``, fresh checkpoint directories):
+     (j1) full-width ResNet-20 at its preset batch, one process on the
+         card with the live plane (``MGWFBP_METRICS_PORT=0``), healed from
+         SUP_PLAN: a preemption (rc 75, resubmitted), a SIGKILL in
+         incarnation 1 (oom_kill, relaunched at one process) and a wedge in
+         incarnation 2 (the liveness monitor's verdict after SUP_GRACE_S,
+         SIGTERM, drain, relaunch): four incarnations, the failure and
+         heal events in order in the supervisor's stream, and the final
+         commit equal bit for bit to an uninterrupted run of the same
+         command; measured: each exit to the next incarnation's first
+         step (with the relaunch's log marks) and the wedge to the verdict;
+     (j2) the same model under ``stall@secs=60,step=5`` with
+         ``MGWFBP_WATCHDOG_S`` 5 and ``MGWFBP_WATCHDOG_ABORT=1``, after
+         removing the native library (the child rebuilds it at its first
+         batch, under the first-step allowance): the stack dump in the
+         child's log, /healthz 503 before the exit, a ``watchdog_stall``
+         event, rc 86 from the child and the supervisor; measured: the
+         stall to the event and to the first 503;
+     (j3) a supervised 2-process gloo group on the CPU commits ResNet-20
+         under its n2 tag (XW_TRAIN_N images, 8 steps an epoch); a world-1
+         Trainer on the card with ``MGWFBP_ELASTIC_RESUME=1`` reads it (the
+         iteration, the parameters bit for bit, the next LR on the
+         continued schedule at 16 steps an epoch); then the same command
+         at one process on the card: a ``resize`` event 2 -> 1 and its
+         restore time, training to the end with a finite loss;
+     (j4) the transformer trained by a supervised process on the card
+         (dense attention) beside ``--serve-replicas 1``: the replica's
+         /predict through the flash kernel against a dense forward of the
+         served step (LOGITS_TOL), the replica SIGKILLed, respawned by the
+         supervisor and answering again, its flash launches in each life
+         (read from its /status);
+     (j5) ResNet-20's step with the watchdog armed and without (one device
+         batch, CUDA events, medians of 20 after 5, interleaved) and the
+         /status scrape's latency on a live trainer.
 
 Every phase runs with TF32 off (``utils.device.set_matmul_precision``).
 
@@ -148,7 +184,8 @@ phase ({"train": ...}), the calibration phase ({"calibrate": ...}), the
 language models ({"lm": ...}), the bench payload ({"bench": ...}), ResNet-50
 ({"resnet50": ...}), resumable training ({"resilience": ...}), the zoo's
 summary ({"zoo_summary": [...]}; each model's full line is printed as it
-finishes), the speech model ({"lstman4": ...}), the card's name and power limit (nvidia-smi), the kernels line
+finishes), the speech model ({"lstman4": ...}), supervision
+({"supervise": ...}), the card's name and power limit (nvidia-smi), the kernels line
 ({"kernels": [...]}) and, last, {"ok": true, "device": {...}}.
 """
 
@@ -2487,6 +2524,528 @@ def phase_lstman4() -> dict:
     return out
 
 
+# phase (j): the supervisor, the watchdog, the live plane, cross-world resume
+SUP_TIMEOUT_S = 420  # one supervised run, its relaunches included
+SUP_GRACE_S = 10.0  # MGWFBP_LIVENESS_GRACE_S of the heal run
+SUP_PLAN = "preempt@step=6;kill@step=12,inc=1;wedge@step=18,secs=600,inc=2"
+SUP_EPOCHS, SUP_EPOCH_STEPS = 2, 12  # the heal run: 24 ResNet-20 steps
+WATCHDOG_S = 5  # MGWFBP_WATCHDOG_S of the watchdog run
+WATCHDOG_PLAN = "stall@secs=60,step=5"
+XW_TRAIN_N = 512  # cross-world: 8 steps per epoch at 2 x 32, 16 at 1 x 32
+SERVE_PLAN = "stall@secs=30,step=7"  # holds the run open after a commit
+SERVE_EXAMPLES = 2
+
+
+def _sup_env(plan: str = "", **extra) -> dict:
+    return dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                MGWFBP_FAULT_PLAN=plan,
+                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+                **extra)
+
+
+def _supervise(log_dir: str, train_args: list, env: dict, processes: int = 1,
+               sup_args: tuple = ()) -> subprocess.Popen:
+    """``python -m mgwfbp_tpu_torch.runtime.supervise`` as a user runs it;
+    its own log goes to <log_dir>.err."""
+    os.makedirs(log_dir, exist_ok=True)
+    err = open(log_dir + ".err", "w")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "mgwfbp_tpu_torch.runtime.supervise",
+         "--processes", str(processes), "--log-dir", log_dir, *sup_args,
+         "--", *train_args],
+        stdout=err, stderr=subprocess.STDOUT, env=env)
+    _CHILDREN.append(p)
+    p._err_file = err  # closed by _wait_supervised
+    return p
+
+
+def _wait_supervised(p: subprocess.Popen, log_dir: str, name: str,
+                     want_rc: int = 0) -> str:
+    try:
+        p.wait(timeout=SUP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+        fail(f"supervise (j) {name}: exceeded {SUP_TIMEOUT_S}s")
+    p._err_file.close()
+    with open(log_dir + ".err") as f:
+        err = f.read()
+    if p.returncode != want_rc:
+        tail = "\n".join(err.splitlines()[-15:])
+        fail(f"supervise (j) {name}: rc {p.returncode}, wanted {want_rc}:\n"
+             f"{tail}")
+    return err
+
+
+def _tag_stream(logdir: str, world: int = 1, rank: int = 0) -> list[dict]:
+    from mgwfbp_tpu_torch.telemetry import read_events, stream_filename
+
+    (tag,) = [t for t in os.listdir(logdir) if f"-n{world}-" in t]
+    return read_events(os.path.join(logdir, tag,
+                                    stream_filename(rank, world)))
+
+
+def _last_commit(ckpt_root: str, world: int = 1) -> tuple[int, dict]:
+    from mgwfbp_tpu_torch.checkpoint import peek_steps, read_step
+
+    (tag,) = [t for t in os.listdir(ckpt_root) if f"-n{world}-" in t]
+    d = os.path.join(ckpt_root, tag)
+    step = peek_steps(d)[-1]
+    params, bstats, _ = read_step(d, step)
+    return step, {**{f"params/{k}": v for k, v in params.items()},
+                  **{f"batch_stats/{k}": v for k, v in bstats.items()}}
+
+
+def _resnet20_args(root: str, *extra: str) -> list:
+    return ["--dnn", "resnet20", "--synthetic", "--deterministic",
+            "--telemetry", "--checkpoint-dir", os.path.join(root, "ckpt"),
+            "--logdir", os.path.join(root, "logs"), *extra]
+
+
+def supervise_heal(work: str) -> dict:
+    """(j1) One supervised process on the card, healed from a preemption, a
+    SIGKILL and a wedge, against an uninterrupted run of the same command."""
+    from mgwfbp_tpu_torch.telemetry import events_of
+
+    args = ["--max-epochs", str(SUP_EPOCHS), "--num-batches-per-epoch",
+            str(SUP_EPOCH_STEPS), "--ckpt-every-steps", "5",
+            "--metrics-port", "0"]
+    env = dict(MGWFBP_METRICS_PORT="0", MGWFBP_LIVENESS_GRACE_S=str(SUP_GRACE_S))
+    ref, heal = os.path.join(work, "ref"), os.path.join(work, "heal")
+    t0 = time.perf_counter()
+    p = _supervise(ref + "/sup", _resnet20_args(ref, *args), _sup_env(**env))
+    _wait_supervised(p, ref + "/sup", "uninterrupted run")
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p = _supervise(heal + "/sup", _resnet20_args(heal, *args),
+                   _sup_env(SUP_PLAN, **env))
+    err = _wait_supervised(p, heal + "/sup", "heal run")
+    heal_s = time.perf_counter() - t0
+    codes = [line.split("exit codes ", 1)[1] for line in err.splitlines()
+             if "exit codes" in line]
+    if codes != ["[75]", "[-9]", "[75]", "[0]"]:
+        fail(f"supervise (j1): incarnations exited {codes}, wanted "
+             "[75], [-9], [75], [0]")
+    from mgwfbp_tpu_torch.telemetry import read_events
+
+    sup = read_events(os.path.join(heal, "sup", "telemetry.supervisor.jsonl"))
+    seq = [(e["event"], e.get("class"), e.get("action")) for e in sup
+           if e["event"] in ("failure", "heal")]
+    want = [("failure", "oom_kill", None), ("heal", "oom_kill", "relaunch"),
+            ("failure", "wedged", None), ("heal", "wedged", "relaunch")]
+    if seq != want:
+        fail(f"supervise (j1): supervisor events {seq}, wanted {want}")
+    step_a, a = _last_commit(os.path.join(heal, "ckpt"))
+    step_b, b = _last_commit(os.path.join(ref, "ckpt"))
+    last = SUP_EPOCHS * SUP_EPOCH_STEPS
+    if step_a != last or step_b != last or list(a) != list(b):
+        fail(f"supervise (j1): final commits {step_a} / {step_b} of {last}")
+    differ = [k for k in a if not np.array_equal(a[k], b[k])]
+    if differ:
+        fail(f"supervise (j1): healed run differs from the uninterrupted one "
+             f"in {len(differ)} leaves, e.g. {differ[:3]}")
+    # the child's stream spans the four incarnations: each life after the
+    # first starts with a resume; its first step against the previous
+    # life's exit (the drain's preempt event, or the supervisor's failure
+    # event for the SIGKILL)
+    recs = _tag_stream(os.path.join(heal, "logs"))
+    oom = [e for e in sup if e.get("class") == "oom_kill"][0]
+    wedged = [e for e in sup if e.get("class") == "wedged"][0]
+    exits, relaunch = [], []
+    preempts = iter(events_of(recs, "preempt"))
+    for k, r in enumerate(recs):
+        if r["event"] != "resume":
+            continue
+        exit_wall = oom["wall"] if len(relaunch) == 1 else next(preempts)["wall"]
+        first = next(x for x in recs[k:] if x["event"] == "step")
+        exits.append(exit_wall)
+        relaunch.append(first["wall"] - exit_wall)
+    if len(relaunch) != 3:
+        fail(f"supervise (j1): {len(relaunch)} resumes in the stream, wanted 3")
+    # where a relaunch's seconds go: the trainer's first log line (imports
+    # done), the model on the card, the restore, against the exit
+    marks = []
+    for k, exit_wall in enumerate(exits, start=1):
+        with open(os.path.join(heal, "sup", f"p0.i{k}.log")) as f:
+            marks.append(_log_marks(f.read(), exit_wall))
+    frozen = [r for r in recs if r["event"] == "step" and r["step"] == 17]
+    wedge_to_verdict = wedged["wall"] - frozen[-1]["wall"]
+    if not SUP_GRACE_S <= wedge_to_verdict <= SUP_GRACE_S + 5:
+        fail(f"supervise (j1): wedge to verdict {wedge_to_verdict:.3f} s "
+             f"against a {SUP_GRACE_S} s grace")
+    out = {"incarnations": 4, "exit_codes": [75, -9, 75, 0],
+           "bitwise_equal_to_uninterrupted": True, "final_step": last,
+           "relaunch_to_first_step_s": relaunch, "relaunch_marks_s": marks,
+           "wedge_to_verdict_s": wedge_to_verdict,
+           "liveness_grace_s": SUP_GRACE_S,
+           "uninterrupted_wall_s": ref_s, "healed_wall_s": heal_s}
+    print(f"supervise (j1): 4 incarnations {codes}, healed run equal to the "
+          f"uninterrupted one at step {last}; exit to first step "
+          f"{', '.join(f'{x:.2f}' for x in relaunch)} s; wedge to verdict "
+          f"{wedge_to_verdict:.2f} s (grace {SUP_GRACE_S} s); {heal_s:.1f} s "
+          f"healed, {ref_s:.1f} s uninterrupted", flush=True)
+    return out
+
+
+def supervise_watchdog(work: str) -> dict:
+    """(j2) A supervised process whose step loop stalls: the watchdog dumps
+    the stacks, /healthz answers 503, the child exits 86 and the supervisor
+    stops with 86. The native library is removed first, so the child's
+    first batch builds it under the first-step allowance."""
+    from mgwfbp_tpu_torch import native
+    from mgwfbp_tpu_torch.telemetry import events_of
+
+    so = native.library_path()
+    if os.path.exists(so):
+        os.unlink(so)
+    root = os.path.join(work, "watchdog")
+    log_dir = os.path.join(root, "sup")
+    env = _sup_env(WATCHDOG_PLAN, MGWFBP_METRICS_PORT="0",
+                   MGWFBP_WATCHDOG_S=str(WATCHDOG_S), MGWFBP_WATCHDOG_ABORT="1")
+    t_launch = time.time()
+    p = _supervise(log_dir, _resnet20_args(
+        root, "--epochs", "1", "--num-batches-per-epoch", "12",
+        "--metrics-port", "0"), env)
+    port_file = os.path.join(log_dir, "metrics_port.p0.json")
+    first_503, seen_ok = None, False
+    while p.poll() is None and time.time() - t_launch < SUP_TIMEOUT_S:
+        try:
+            with open(port_file) as f:
+                port = json.load(f)["port"]
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                        timeout=2) as r:
+                seen_ok = seen_ok or r.status == 200
+        except urllib.error.HTTPError as e:
+            if e.code == 503 and first_503 is None:
+                first_503 = time.time()
+        except (OSError, ValueError, KeyError):
+            pass
+        time.sleep(0.05)
+    err = _wait_supervised(p, log_dir, "watchdog run", want_rc=86)
+    if "watchdog abort (rc 86)" not in err:
+        fail("supervise (j2): the supervisor did not stop on the watchdog")
+    with open(os.path.join(log_dir, "p0.i0.log")) as f:
+        child = f.read()
+    if "all-thread traceback dump" not in child or "Thread 0x" not in child:
+        fail("supervise (j2): no stack dump in the child's log")
+    if "native host augment loaded" not in child or not os.path.exists(so):
+        fail("supervise (j2): the native library was not rebuilt")
+    if first_503 is None or not seen_ok:
+        fail(f"supervise (j2): /healthz never answered 503 (200 seen: "
+             f"{seen_ok})")
+    recs = _tag_stream(os.path.join(root, "logs"))
+    stalls = events_of(recs, "watchdog_stall")
+    steps = events_of(recs, "step")
+    if len(stalls) != 1 or not stalls[0]["abort"] or steps[-1]["step"] != 4:
+        fail(f"supervise (j2): stalls {stalls}, last step {steps[-1]}")
+    stall_start = steps[-1]["wall"]
+    out = {"rc": 86, "stack_dump": True, "healthz_503": True,
+           "stall_to_watchdog_event_s": stalls[0]["wall"] - stall_start,
+           "stall_to_first_503_s": first_503 - stall_start,
+           "watchdog_s": WATCHDOG_S, "abort_hold_s": 1.0,
+           "launch_to_first_step_s": steps[0]["wall"] - t_launch,
+           "cold_native_build": True}
+    print(f"supervise (j2): rc 86 after a stack dump; stall to the "
+          f"watchdog_stall event {out['stall_to_watchdog_event_s']:.2f} s, to "
+          f"the first 503 {out['stall_to_first_503_s']:.2f} s (timeout "
+          f"{WATCHDOG_S} s); launch to the first step "
+          f"{out['launch_to_first_step_s']:.2f} s with a cold native build",
+          flush=True)
+    return out
+
+
+def supervise_cross_world(work: str) -> dict:
+    """(j3) A supervised 2-process gloo group on the CPU commits ResNet-20
+    under its n2 tag; a world-1 trainer on the card resumes from it (checked
+    in this process: iteration, parameters bit for bit, the continued
+    schedule), then the same command at one process on the card trains to
+    the end."""
+    from mgwfbp_tpu_torch.checkpoint import peek_steps, read_step
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.convert import flatten_flax, variables_to_flax
+    from mgwfbp_tpu_torch.telemetry import events_of
+    from mgwfbp_tpu_torch.train import Trainer
+
+    root = os.path.join(work, "xw")
+    synth = dict(MGWFBP_SYNTH_TRAIN_N=str(XW_TRAIN_N), MGWFBP_SYNTH_VAL_N="128")
+    args = ["--dnn", "resnet20", "--synthetic", "--epochs", "1",
+            "--ckpt-every-steps", "3", "--no-profile-backward", "--telemetry",
+            "--checkpoint-dir", os.path.join(root, "ckpt"),
+            "--logdir", os.path.join(root, "logs")]
+    t0 = time.perf_counter()
+    p = _supervise(os.path.join(root, "sup2"), args + ["--device", "cpu"],
+                   _sup_env(OMP_NUM_THREADS="4", **synth), processes=2)
+    _wait_supervised(p, os.path.join(root, "sup2"), "n2 gloo group")
+    n2_s = time.perf_counter() - t0
+    (tag2,) = os.listdir(os.path.join(root, "ckpt"))
+    n2 = os.path.join(root, "ckpt", tag2)
+    step = peek_steps(n2)[-1]
+    params, _, meta = read_step(n2, step)
+    old_nbpe = int(meta["steps_per_epoch"])
+    anchor_epoch = float(meta["sched_epoch_offset"]) + (
+        step - int(meta["sched_step_offset"])) / old_nbpe
+    # in this process: the resume itself, checked before anything trains
+    saved = {k: os.environ.get(k) for k in (*synth, "MGWFBP_ELASTIC_RESUME")}
+    os.environ.update(synth, MGWFBP_ELASTIC_RESUME="1")
+    try:
+        cfg = make_config("resnet20", checkpoint_dir=os.path.join(root, "ckpt"),
+                          logdir="")
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, device=TRAIN_DEVICE, synthetic_data=True,
+                     profile_backward=False)
+        build_s = time.perf_counter() - t0
+        try:
+            got = flatten_flax(variables_to_flax(tr.model)[0])
+            new_nbpe = tr._steps_per_epoch()
+            lr_next = tr.lr_fn(int(tr.train_step.step) + 1)
+            want_lr = tr.epoch_schedule(anchor_epoch + 1 / new_nbpe)
+            if tr.iteration != step or list(got) != list(params) or any(
+                    not np.array_equal(got[k], params[k]) for k in params):
+                fail(f"supervise (j3): the world-1 resume at iteration "
+                     f"{tr.iteration} differs from the n2 commit of {step}")
+            if lr_next != want_lr or new_nbpe == old_nbpe:
+                fail(f"supervise (j3): next LR {lr_next} against the "
+                     f"continued schedule's {want_lr} ({old_nbpe} -> "
+                     f"{new_nbpe} steps per epoch)")
+        finally:
+            tr.close()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    t0 = time.perf_counter()
+    p = _supervise(os.path.join(root, "sup1"), args, _sup_env(**synth))
+    _wait_supervised(p, os.path.join(root, "sup1"), "world-1 resume")
+    n1_s = time.perf_counter() - t0
+    recs = _tag_stream(os.path.join(root, "logs"))
+    resize = events_of(recs, "resize")
+    if len(resize) != 1 or (resize[0]["old_world"], resize[0]["new_world"],
+                            resize[0]["iteration"]) != (2, 1, step):
+        fail(f"supervise (j3): resize events {resize}")
+    with open(os.path.join(root, "sup1", "p0.i0.log")) as f:
+        result = json.loads(f.read().strip().splitlines()[-1])
+    steps = events_of(recs, "step")
+    if not np.isfinite(result["train"]["loss"]) or steps[-1]["step"] != (
+            step + XW_TRAIN_N // 32):
+        fail(f"supervise (j3): world-1 run ended at {steps[-1]['step']} with "
+             f"{result['train']}")
+    out = {"old_world": 2, "new_world": 1, "iteration": step,
+           "params_bitwise": True, "steps_per_epoch": [old_nbpe, new_nbpe],
+           "lr_next": lr_next, "restore_s": resize[0]["restore_s"],
+           "in_process_trainer_build_s": build_s,
+           "final_step": steps[-1]["step"], "final_loss": result["train"]["loss"],
+           "n2_group_wall_s": n2_s, "n1_run_wall_s": n1_s}
+    print(f"supervise (j3): n2 (gloo, CPU) commit {step} resumed at world 1 "
+          f"on the card bit for bit, LR {lr_next:.6g} continued ({old_nbpe} -> "
+          f"{new_nbpe} steps per epoch), restore {out['restore_s']:.3f} s, "
+          f"trained to {steps[-1]['step']} (loss "
+          f"{result['train']['loss']:.4f})", flush=True)
+    return out
+
+
+def _replica(log_dir: str, old_pid=None, timeout_s: float = 180.0) -> dict:
+    """The replica's port file once it names a process other than
+    ``old_pid``."""
+    path = os.path.join(log_dir, "metrics_port.serve0.json")
+    t0 = time.time()
+    while time.time() - t0 < timeout_s:
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+            if doc["pid"] != old_pid:
+                return doc
+        except (OSError, ValueError, KeyError):
+            pass
+        time.sleep(0.2)
+    fail(f"supervise (j4): no serving replica port file after {timeout_s}s")
+
+
+def _answer(port: int, x: np.ndarray, timeout_s: float = 180.0) -> tuple:
+    t0 = time.time()
+    while time.time() - t0 < timeout_s:
+        try:
+            code, doc, dt = _post(port, x.tolist())
+        except OSError:
+            code = None
+        if code == 200:
+            return doc, dt
+        time.sleep(0.5)
+    fail(f"supervise (j4): /predict did not answer 200 within {timeout_s}s")
+
+
+def supervise_serving(work: str) -> dict:
+    """(j4) The transformer trained by a supervised process on the card
+    (dense attention) and served by a supervised replica through the flash
+    kernel: /predict against a dense forward of the served step; the
+    replica SIGKILLed once, respawned by the supervisor, answering again."""
+    from mgwfbp_tpu_torch import models
+    from mgwfbp_tpu_torch.checkpoint import read_step
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.convert import state_from_flax
+    from mgwfbp_tpu_torch.models.transformer import TransformerLM
+    from mgwfbp_tpu_torch.telemetry import read_events
+
+    root = os.path.join(work, "serve")
+    log_dir = os.path.join(root, "sup")
+    cfg = make_config("transformer")
+    cfg.nworkers = 1
+    ckdir = os.path.join(root, "ckpt", cfg.tag())
+    module, meta = models.create_model("transformer")
+    x = np.random.RandomState(1).randint(
+        0, meta.num_classes, (SERVE_EXAMPLES,) + tuple(meta.input_shape))
+
+    def dense(step: int) -> np.ndarray:
+        params, _, _ = read_step(ckdir, step)
+        ref = TransformerLM(vocab_size=meta.num_classes, attn_impl="dense")
+        ref.load_state_dict(state_from_flax(ref, params))
+        ref.to(TRAIN_DEVICE).eval()
+        with torch.inference_mode():
+            return ref(torch.from_numpy(x).to(TRAIN_DEVICE)).float().cpu().numpy()
+
+    def check(doc: dict) -> tuple[int, float]:
+        step = int(doc["served_step"])
+        out = np.asarray(doc["outputs"], np.float32)
+        want = dense(step)
+        err = float(np.abs(out - want).max())
+        if out.shape != want.shape or not np.isfinite(out).all() or (
+                err > LOGITS_TOL):
+            fail(f"supervise (j4): served step {step} differs from its dense "
+                 f"forward by {err:.3e} (shape {out.shape})")
+        return step, err
+
+    def launches(port: int) -> int:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/status",
+                                    timeout=10) as r:
+            return int(json.load(r)["kernel_launches"]["flash_attention_fwd"])
+
+    t0 = time.perf_counter()
+    p = _supervise(log_dir, [
+        "--dnn", "transformer", "--synthetic", "--epochs", "1",
+        "--num-batches-per-epoch", "12", "--ckpt-every-steps", "5",
+        # synchronous saves: step 5 is committed before the stall holds the
+        # run open (an async commit lands at a later step's poll)
+        "--no-ckpt-async",
+        "--no-profile-backward", "--telemetry", "--metrics-port", "0",
+        "--checkpoint-dir", os.path.join(root, "ckpt"),
+        "--logdir", os.path.join(root, "logs")],
+        _sup_env(SERVE_PLAN, MGWFBP_METRICS_PORT="0"),
+        sup_args=("--serve-replicas", "1", "--serve-args",
+                  f"--dnn transformer --checkpoint-dir {ckdir} --poll-s 0.5"))
+    first = _replica(log_dir)
+    doc, dt1 = _answer(first["port"], x)
+    step1, err1 = check(doc)
+    n1 = launches(first["port"])
+    os.kill(first["pid"], signal.SIGKILL)
+    t_kill = time.time()
+    second = _replica(log_dir, old_pid=first["pid"])
+    doc, dt2 = _answer(second["port"], x)
+    back_s = time.time() - t_kill
+    step2, err2 = check(doc)
+    n2 = launches(second["port"])
+    _wait_supervised(p, log_dir, "serving run")
+    sup = read_events(os.path.join(log_dir, "telemetry.supervisor.jsonl"))
+    seq = [(e["event"], e.get("class"), e.get("action"), e.get("target"))
+           for e in sup if e["event"] in ("failure", "heal")]
+    if seq != [("failure", "oom_kill", None, "serve0"),
+               ("heal", None, "respawn_serve", "serve0")]:
+        fail(f"supervise (j4): supervisor events {seq}")
+    if n1 < 1 or n2 < 1:
+        fail(f"supervise (j4): flash launches {n1} / {n2} in the two lives")
+    out = {"served_steps": [step1, step2], "max_abs_err_vs_dense": [err1, err2],
+           "tolerance": LOGITS_TOL, "predict_ms": [dt1 * 1e3, dt2 * 1e3],
+           "sigkill_to_answer_s": back_s, "respawns": 1,
+           "flash_launches": [n1, n2], "wall_s": time.perf_counter() - t0}
+    print(f"supervise (j4): replica served steps {step1} / {step2} through "
+          f"the flash kernel ({n1} / {n2} launches), within {err1:.2e} / "
+          f"{err2:.2e} of the dense forward; SIGKILL to the respawned "
+          f"replica's answer {back_s:.2f} s", flush=True)
+    return out
+
+
+def supervise_costs(work: str) -> dict:
+    """(j5) What the supervision adds to a step: ResNet-20's step with the
+    watchdog armed and without (one device batch, CUDA events, median of 20
+    after 5), and the /status scrape's latency on a live trainer's plane."""
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.train import Trainer
+    from mgwfbp_tpu_torch.utils.watchdog import ProgressWatchdog
+
+    cfg = make_config("resnet20", logdir=os.path.join(work, "costs"),
+                      metrics_port=0)
+    tr = Trainer(cfg, device=TRAIN_DEVICE, synthetic_data=True,
+                 profile_backward=False)
+    try:
+        xb, yb = tr.bundle.train.load_batch(0, 0)
+        x, y = tr._to_device(xb[None], yb[None])  # one micro-batch
+        plain, armed = [], []
+        for _ in range(2):  # interleaved: unarmed, armed, unarmed, armed
+            plain.append(float(np.median(_timed_steps(tr.train_step, x, y))))
+            with ProgressWatchdog(timeout_s=60.0) as wd:
+                def beating(xs, ys):
+                    out = tr.train_step(xs, ys)
+                    wd.beat("train epoch 0")
+                    return out
+
+                armed.append(float(np.median(_timed_steps(beating, x, y))))
+        port = tr._metrics_server.port
+        scrape = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/status",
+                                        timeout=5) as r:
+                r.read()
+            scrape.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        tr.close()
+    out = {"step_ms": plain, "step_ms_watchdog_armed": armed,
+           "status_scrape_ms_median": float(np.median(scrape)),
+           "status_scrape_ms_max": float(np.max(scrape))}
+    print(f"supervise (j5): ResNet-20 step {plain[0]:.3f} / {plain[1]:.3f} "
+          f"ms, {armed[0]:.3f} / {armed[1]:.3f} ms with the watchdog armed "
+          f"(medians of 20, interleaved); "
+          f"/status scrape {out['status_scrape_ms_median']:.3f} ms median",
+          flush=True)
+    return out
+
+
+def _log_tails(work: str, lines: int = 25) -> None:
+    """The end of every log phase (j) wrote, for a failed sub-phase."""
+    for dirpath, _, names in sorted(os.walk(work)):
+        for name in sorted(names):
+            if name.endswith((".log", ".err")):
+                path = os.path.join(dirpath, name)
+                with open(path, errors="replace") as f:
+                    tail = f.read().splitlines()[-lines:]
+                print(f"---- {os.path.relpath(path, work)}", file=sys.stderr)
+                print("\n".join(tail), file=sys.stderr, flush=True)
+
+
+SUPERVISE_PARTS = (("j1", "heal", "supervise_heal"),
+                   ("j2", "watchdog", "supervise_watchdog"),
+                   ("j3", "cross_world", "supervise_cross_world"),
+                   ("j4", "serving", "supervise_serving"),
+                   ("j5", "costs", "supervise_costs"))
+
+
+def phase_supervise(parts: tuple = ("j1", "j2", "j3", "j4", "j5")) -> dict:
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_supervise_") as work:
+        try:
+            for key, name, fn in SUPERVISE_PARTS:
+                if key in parts:
+                    out[name] = globals()[fn](work)
+        except BaseException:
+            _log_tails(work)
+            raise
+        finally:
+            _kill_children()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -2516,6 +3075,7 @@ def main() -> int:
     resilience = phase_resilience()
     zoo = phase_zoo()
     lstman4 = phase_lstman4()
+    supervise = phase_supervise()
 
     serve = rows[0]
     kernels = [{
@@ -2524,6 +3084,9 @@ def main() -> int:
         "source": "mgwfbp_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "mgwfbp_tpu/ops/flashattn.py:115",
         "launches": launches,
+        # the supervised replica's two lives (phase (j4)), read from its
+        # /status: another process, its count starts at 0 in each life
+        "launches_supervised_replica": supervise["serving"]["flash_launches"],
         "max_abs_err": serve["max_abs_err"],
         "ms": serve["ms"],
         "kernel_ms": serve["ms"],
@@ -2546,6 +3109,7 @@ def main() -> int:
                            "num_groups", "held_groups", "peak_memory_bytes")}
         for r in zoo]}))
     print(json.dumps({"lstman4": lstman4}))
+    print(json.dumps({"supervise": supervise}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

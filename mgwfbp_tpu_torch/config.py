@@ -4,7 +4,8 @@ One dataclass with per-model presets, ``MGWFBP_<FIELD>`` environment
 overrides and keyword overrides, resolved by ``make_config`` exactly as the
 JAX package resolves them. Only the fields the port's training path reads
 are kept; the rest of the JAX config (lowerings other than ``all_reduce``,
-autotune, the live telemetry plane, serving) is listed in ROADMAP.md.
+autotune, the rest of the telemetry plane, the serving shadow) is listed in
+ROADMAP.md.
 ``deterministic`` is the port's own (torch's deterministic algorithms;
 the JAX package has no counterpart to switch).
 """
@@ -82,6 +83,12 @@ class TrainConfig:
     # accounting; written to telemetry_dir, default <logdir>/<tag>
     telemetry: bool = False
     telemetry_dir: Optional[str] = None
+    # the live HTTP plane (telemetry/serve.py): /healthz (watchdog-wired
+    # liveness) and /status (step, health, run) on base + process index;
+    # None = off, 0 = an ephemeral port (written to
+    # MGWFBP_METRICS_PORT_FILE when set). Implies the event stream, which
+    # feeds it. Env: MGWFBP_METRICS_PORT
+    metrics_port: Optional[int] = None
     seed: int = 0
     num_batches_per_epoch: Optional[int] = None
     eval_every_epochs: int = 1

@@ -6,18 +6,28 @@ world from an explicit ``init_method`` or from the launcher environment
 ``MGWFBP_COORDINATOR``/``MGWFBP_NUM_PROCESSES``/``MGWFBP_PROCESS_ID``, then
 SLURM, then OpenMPI), with NCCL on the card and gloo on the CPU. A rank
 asked for "cuda" without an index is bound to its own card on the host
-(``local_device_index``).
+(``local_device_index``); a host with fewer cards than ranks is refused
+(NCCL takes one rank per card: a group of several processes on a one-card
+machine runs ``--device cpu``, over gloo). Every collective is bounded by
+``MGWFBP_COORD_TIMEOUT_S`` (600 s by default); on the card NCCL's watchdog
+ends a process whose collective timed out.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional, Union
 
 import torch
 import torch.distributed as dist
 
+from mgwfbp_tpu_torch.runtime.coordination import (
+    COORD_TIMEOUT_ENV,
+    DEFAULT_BARRIER_TIMEOUT_S,
+)
 from mgwfbp_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from mgwfbp_tpu_torch.utils.platform import env_float
 
 
 def _env_int(env, name: str) -> Optional[int]:
@@ -122,6 +132,15 @@ def init_distributed(
     dist.init_process_group(
         backend_for(dev), init_method=init_method,
         world_size=int(num_processes), rank=int(process_id),
+        # the bound on every collective of the world, the side group's
+        # too. A survivor blocked in an NCCL all-reduce whose peer died
+        # never reaches the step boundary where a SIGTERM would drain it;
+        # with this bound, NCCL's watchdog thread (torch's asynchronous
+        # error handling, on by default) ends it and the supervisor
+        # classifies the exit, instead of it hanging until it is SIGKILLed
+        # after --drain-grace
+        timeout=datetime.timedelta(seconds=env_float(
+            COORD_TIMEOUT_ENV, DEFAULT_BARRIER_TIMEOUT_S)),
         **({"device_id": dev} if dev.type == "cuda" else {}),
     )
     return dev

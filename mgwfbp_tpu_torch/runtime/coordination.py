@@ -1,5 +1,5 @@
-"""Cross-process agreement for the training loop (counterpart of the part of
-``mgwfbp_tpu/runtime/coordination.py`` the resilience layer uses).
+"""Cross-process agreement for the training loop (counterpart of
+``mgwfbp_tpu/runtime/coordination.py``).
 
 Synchronous data-parallel SGD needs every host decision that changes what
 runs next (drain on a preemption signal, roll back after bad steps, commit
@@ -9,6 +9,9 @@ mismatched collectives and the group deadlocks:
   agree_any / agree_all   boolean consensus over one flag per process
   broadcast_flag          process ``source``'s value, everywhere
   agree_uniform           True iff every process passed the same value
+  gather_values           every process's scalar, in process order
+  gather_vectors          every process's vector, in process order
+  all_argmin              the agreed argmin of per-candidate timings
   barrier                 named rendezvous with a real timeout
 
 Transport: a gloo side group over every rank of the running
@@ -33,11 +36,14 @@ error raises ``CoordinationTimeout``.
 from __future__ import annotations
 
 import datetime
-import os
-from typing import Optional
+from typing import Optional, Sequence
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
+
+from mgwfbp_tpu_torch.utils.platform import env_float
 
 BARRIER_TIMEOUT_ENV = "MGWFBP_BARRIER_TIMEOUT_S"
 COORD_TIMEOUT_ENV = "MGWFBP_COORD_TIMEOUT_S"
@@ -60,13 +66,7 @@ class CoordinationTimeout(RuntimeError):
 
 
 def _env_seconds(name: str) -> float:
-    raw = (os.environ.get(name) or "").strip()
-    if not raw:
-        return DEFAULT_BARRIER_TIMEOUT_S
-    try:
-        return float(raw)
-    except ValueError:
-        raise ValueError(f"{name}={raw!r} is not a number") from None
+    return env_float(name, DEFAULT_BARRIER_TIMEOUT_S)
 
 
 def process_count() -> int:
@@ -145,6 +145,51 @@ def agree_uniform(value: float) -> bool:
     v = float(value)
     hi, neg_lo = _all_reduce([v, -v], dist.ReduceOp.MAX, "agree_uniform")
     return hi == -neg_lo
+
+
+def gather_values(value: float) -> list[float]:
+    """Every process's scalar, in process order, identical everywhere
+    (one-hot rows summed over the same transport)."""
+    if process_count() == 1:
+        return [float(value)]
+    row = [0.0] * process_count()
+    row[process_index()] = float(value)
+    return _all_reduce(row, dist.ReduceOp.SUM, "gather_values")
+
+
+def gather_vectors(values: Sequence[float]) -> list[list[float]]:
+    """Every process's float vector, in process order, identical
+    everywhere. Every process must pass the same length (the lockstep
+    contract every primitive here carries)."""
+    row = [float(v) for v in values]
+    n = process_count()
+    if n == 1:
+        return [row]
+    k = len(row)
+    if k == 0:
+        return [[] for _ in range(n)]
+    flat = [0.0] * (n * k)
+    start = process_index() * k
+    flat[start:start + k] = row
+    reduced = _all_reduce(flat, dist.ReduceOp.SUM, "gather_vectors")
+    return [reduced[i * k:(i + 1) * k] for i in range(n)]
+
+
+def all_argmin(values: Sequence[Optional[float]]) -> tuple[int, list[float]]:
+    """Agreed argmin over per-candidate timings. ``values[i]`` is this
+    process's time for candidate i (None or non-finite: not measured
+    here). Each candidate is reduced to its maximum across processes (a
+    synchronous group runs at its straggler's pace; unmeasured anywhere
+    prices as +inf), then every process takes the same argmin (the first
+    of equal minima). Returns (winner, reduced times); reduced[winner] is
+    +inf iff no candidate was measured on every process."""
+    vals = [float("inf") if v is None or not np.isfinite(v) else float(v)
+            for v in values]
+    if not vals:
+        raise ValueError("all_argmin: empty candidate list")
+    if process_count() > 1:
+        vals = _all_reduce(vals, dist.ReduceOp.MAX, "all_argmin")
+    return int(np.argmin(vals)), vals
 
 
 def barrier(name: str, timeout_s: Optional[float] = None) -> None:

@@ -4,7 +4,9 @@ One process = one replica: builds the ServingModel for a named model on
 one device (``--device``, default ``cuda``), watches a checkpoint directory
 for committed shard-native steps (written by either package), and serves
 POST /predict plus /healthz and /status on the role-aware port
-(``base + serve offset + replica``).
+(``base + serve offset + replica``); /status also carries the replica's
+flash kernel launches (``kernel_launches``). The supervisor runs replicas
+under ``--serve-replicas`` and respawns a dead one.
 """
 
 from __future__ import annotations
@@ -89,7 +91,14 @@ def main(argv: Optional[list] = None) -> int:
         "max_batch": model.max_batch,
         "device": str(model.device),
     }
-    agg = MetricsAggregator(run=run)
+    from mgwfbp_tpu_torch.ops import flash_attention
+
+    # the replica's flash kernel launches, read per /status request (a
+    # supervised replica is another process: this is how its launches are
+    # counted)
+    agg = MetricsAggregator(run=run, extra_status=lambda: {
+        "kernel_launches": {"flash_attention_fwd": flash_attention.launches},
+    })
     base_port = (
         args.metrics_port if args.metrics_port is not None
         else (int(os.environ[METRICS_PORT_ENV])

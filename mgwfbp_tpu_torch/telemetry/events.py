@@ -10,8 +10,11 @@ a ``header`` carrying ``schema_version``, every following line one event::
 The schema, the file names and the reader are the JAX package's, so
 ``tools/telemetry_report.py`` and ``tools/telemetry_merge.py`` read the
 port's streams as they read its own. The port's trainer writes ``header``,
-``step``, ``epoch``, ``overlap`` and ``comm_group`` records; the serving
-plane feeds ``reload`` and ``serve_stats`` to its aggregator.
+``step``, ``epoch``, ``overlap``, ``comm_group``, the resilience records
+(``checkpoint``, ``preempt``, ``resume``, ``bad_step``, ``rollback``),
+``resize``, ``watchdog_stall`` and ``failure``; the supervisor writes
+``failure`` and ``heal`` to its own stream; the serving plane feeds
+``reload`` and ``serve_stats`` to its aggregator.
 
 The writer never touches the device: ``emit`` rejects any field that is not
 plain JSON data, a ``torch.Tensor`` included (serialising one would force a
@@ -133,9 +136,10 @@ class EventWriter:
     Writes the versioned header when it creates (or first appends to an
     empty) file; re-opening an existing stream appends without a second
     header, its spans still relative to the original header's wall clock.
-    Thread-safe; each record is one line-buffered write. The JAX writer's
-    size rotation and live observer are not ported: nothing in the port
-    writes streams long enough to rotate or aggregates them live.
+    Thread-safe; each record is one line-buffered write. ``observer``
+    (``observer(event, fields)``, e.g. a live ``MetricsAggregator``'s
+    ``observe``) sees every record ``emit`` writes; its failure never
+    reaches the caller. The JAX writer's size rotation is not ported.
     """
 
     def __init__(self, path: str, run: Optional[dict] = None):
@@ -155,6 +159,7 @@ class EventWriter:
                 header_wall = None
         self._f = open(path, "a", buffering=1)
         self._lock = threading.Lock()
+        self.observer = None
         self._t0 = time.perf_counter()
         self._anchor_wall = header_wall if header_wall else time.time()
         if header_wall is not None:
@@ -189,6 +194,13 @@ class EventWriter:
         for k, v in fields.items():
             _check_jsonable(v, k)
         self._emit_record(event, wall=time.time(), **fields)
+        observer = self.observer
+        if observer is not None:
+            try:
+                observer(event, fields)
+            except Exception:  # noqa: BLE001 — observability must never
+                # fail the run it observes
+                pass
 
     def _emit_record(self, event: str, wall: float, **fields) -> None:
         line = json.dumps({"event": event, "wall": round(wall, 3), **fields})

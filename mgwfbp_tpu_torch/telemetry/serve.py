@@ -1,10 +1,13 @@
-"""HTTP plane for a serving replica: POST /predict, GET /healthz, /status.
+"""The live HTTP plane of a training process or a serving replica: GET
+/healthz and /status, POST /predict.
 
-Port of the serving subset of ``mgwfbp_tpu/telemetry/serve.py``:
+Port of the training and serving subset of ``mgwfbp_tpu/telemetry/serve.py``:
 
-  * ``MetricsAggregator`` — a minimal in-memory view fed by the serving
-    plane's ``reload`` and ``serve_stats`` events, read by ``/status``'s
-    ``serving`` section;
+  * ``MetricsAggregator`` — in-memory state fed by the event stream: the
+    training step, epoch and last checkpoint, the bad-step and rollback
+    counts, the watchdog's health verdict (/healthz answers 503 while a
+    stall lasts, for good once it aborts), and the serving plane's
+    ``reload`` and ``serve_stats`` events;
   * ``TelemetryServer`` — a background ``ThreadingHTTPServer`` (loopback by
     default) whose POST ``/predict`` route is opened by
     ``attach_predict(service)``;
@@ -12,8 +15,10 @@ Port of the serving subset of ``mgwfbp_tpu/telemetry/serve.py``:
     ``start_metrics_server`` — the role-aware port convention (serving
     replicas listen on ``base + offset + replica``; base 0 is ephemeral).
 
-``/metrics``, ``/profile`` and ``/postmortems`` come with the telemetry
-slice of the port (ROADMAP.md).
+The training role listens on ``base + process_index`` and writes the port
+it bound to ``MGWFBP_METRICS_PORT_FILE`` when that is set (the supervisor
+reads it). ``/metrics``, ``/profile`` and ``/postmortems`` answer 404 with a
+body naming ROADMAP Queue 1 item 5, which ports them.
 """
 
 from __future__ import annotations
@@ -74,36 +79,90 @@ def resolve_metrics_port(
 
 
 class MetricsAggregator:
-    """In-memory serving state for one replica (thread-safe): run
-    metadata, the served step and its reload lag, the dispatcher's latest
-    stats snapshot."""
+    """In-memory live state of one process (thread-safe: the step loop, the
+    watchdog thread and the HTTP handler threads all touch it), fed by the
+    event stream's observer (``EventWriter.observer``) or by a serving
+    plane's ``emit``.
 
-    def __init__(self, run: Optional[dict] = None):
+    Training: ``step`` (current step and epoch), ``epoch``, ``checkpoint``
+    (the last commit), ``bad_step`` and ``rollback`` (counted),
+    ``watchdog_stall`` (unhealthy until the next ``step``; sticky once the
+    stall aborts with rc 86, as the process is about to exit). Serving:
+    ``reload`` (the served step and its lag) and ``serve_stats``.
+    ``extra_status`` is a callable whose dict ``status()`` merges in (a
+    replica's kernel launch counts)."""
+
+    def __init__(self, run: Optional[dict] = None, extra_status=None):
         self._lock = threading.Lock()
         self._run = dict(run or {})
         self._t0 = time.time()
         self._counts: collections.Counter = collections.Counter()
+        self._current_step: Optional[int] = None
+        self._current_epoch: Optional[int] = None
+        self._last_checkpoint: Optional[dict] = None
+        self._schedule: Optional[dict] = None
         self._serving_step: Optional[int] = None
         self._reload_lag_s: Optional[float] = None
         self._serve_stats: Optional[dict] = None
+        # None = healthy, else the reason; sticky once an abort-bound stall
+        # landed
+        self._unhealthy: Optional[str] = None
+        self._unhealthy_sticky = False
+        self._extra_status = extra_status
 
     def observe(self, event: str, fields: dict) -> None:
-        """One telemetry record (the serving plane's ``emit``)."""
+        """One validated telemetry record."""
         with self._lock:
             self._counts[event] += 1
-            if event == "reload":
+            if event == "header":
+                run = fields.get("run")
+                if isinstance(run, dict):
+                    self._run.update(run)
+            elif event == "step":
+                self._current_step = int(fields.get("step", 0))
+                self._current_epoch = int(fields.get("epoch", 0))
+                if not self._unhealthy_sticky:
+                    # the loop moved again after a non-abort stall
+                    self._unhealthy = None
+            elif event == "epoch":
+                self._current_epoch = int(fields.get("epoch", 0))
+            elif event == "checkpoint":
+                self._last_checkpoint = dict(fields)
+            elif event == "watchdog_stall":
+                abort = bool(fields.get("abort"))
+                self._unhealthy = (
+                    f"watchdog stall in {fields.get('phase')!r} after "
+                    f"{float(fields.get('idle_s', 0.0)):.0f}s"
+                    + (" — aborting (rc 86)" if abort else "")
+                )
+                if abort:
+                    self._unhealthy_sticky = True
+            elif event == "reload":
                 self._serving_step = int(fields.get("step", 0))
                 self._reload_lag_s = float(fields.get("lag_s", 0.0))
             elif event == "serve_stats":
                 self._serve_stats = dict(fields)
 
+    def set_schedule(self, comm_op: str, num_groups: int,
+                     policy_detail: str = "") -> None:
+        """The committed merge schedule (state, not an event): the trainer
+        pushes it at build and at a cross-world resume."""
+        with self._lock:
+            self._schedule = {"comm_op": str(comm_op),
+                              "num_groups": int(num_groups),
+                              "policy_detail": str(policy_detail)}
+
     def health(self) -> tuple[bool, str]:
         """(healthy?, reason) for /healthz."""
-        return True, "ok"
+        with self._lock:
+            if self._unhealthy is None:
+                return True, "ok"
+            return False, self._unhealthy
 
     def status(self) -> dict:
         """The /status JSON document."""
         with self._lock:
+            healthy = self._unhealthy is None
             serving = None
             if self._serving_step is not None or self._serve_stats is not None:
                 serving = {
@@ -115,13 +174,34 @@ class MetricsAggregator:
                         if self._serve_stats is not None else None
                     ),
                 }
-            return {
+            doc = {
                 "run": dict(self._run),
-                "healthy": True,
-                "health_reason": "ok",
+                "healthy": healthy,
+                "health_reason": "ok" if healthy else self._unhealthy,
                 "uptime_s": round(time.time() - self._t0, 3),
+                "step": self._current_step,
+                "epoch": self._current_epoch,
+                "schedule": dict(self._schedule) if self._schedule else None,
+                "last_checkpoint": (
+                    dict(self._last_checkpoint)
+                    if self._last_checkpoint is not None else None
+                ),
+                "bad_steps": int(self._counts.get("bad_step", 0)),
+                "rollbacks": int(self._counts.get("rollback", 0)),
                 "serving": serving,
             }
+        if self._extra_status is not None:
+            doc.update(self._extra_status())
+        return doc
+
+
+# routes of the JAX plane that come with the rest of the telemetry plane
+UNPORTED_ROUTES = ("/metrics", "/profile", "/postmortems")
+UNPORTED_BODY = (
+    "{path} is not ported to the PyTorch plane yet (ROADMAP Queue 1 item 5: "
+    "the rest of the telemetry plane); this process serves /healthz, "
+    "/status and POST /predict\n"
+)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -140,6 +220,10 @@ class _Handler(BaseHTTPRequestHandler):
             body = (json.dumps(agg.status(), indent=1) + "\n").encode()
             ctype = "application/json"
             code = 200
+        elif path in UNPORTED_ROUTES:
+            body = UNPORTED_BODY.format(path=path).encode()
+            ctype = "text/plain; charset=utf-8"
+            code = 404
         else:
             body = b"not found: serve /healthz, /status (POST /predict)\n"
             ctype = "text/plain; charset=utf-8"

@@ -45,9 +45,22 @@ agreement points): a synchronous checkpoint, a ``preempt`` event, then
 ``Preempted``, which ``train_cli`` turns into rc 75. ``bad_step_limit``
 consecutive non-finite steps roll back to the newest checkpoint; a second
 rollback with no finite step between aborts. ``MGWFBP_FAULT_PLAN`` injects
-NaN steps and preemptions deterministically (``utils/faults.py``).
-Elastic cross-world resume, the watchdog, autotune, the rest of the
-telemetry plane, the serving shadow and elastic resize are not ported
+NaN steps, preemptions, stalls, SIGKILLs and wedges deterministically
+(``utils/faults.py``; ``kill`` and ``wedge`` fire only in the supervisor
+incarnation they name, ``MGWFBP_INCARNATION``).
+
+Supervision (the JAX trainer's runtime layer). ``fit`` arms the progress
+watchdog (``utils/watchdog.py``, ``MGWFBP_WATCHDOG_S``): every step beats
+it, the known-long silent phases take its allowances, and a stall emits a
+``watchdog_stall`` event and turns /healthz 503 before an rc-86 abort.
+``metrics_port`` starts the live plane (``telemetry/serve.py``: /healthz
+and /status, fed by the event stream) that the supervisor's liveness
+monitor scrapes. Under ``MGWFBP_ELASTIC_RESUME=1`` (the supervisor exports
+it) a trainer that finds no checkpoint under its own tag resumes from a
+sibling tag written at another world size (``_resume_cross_world``), the
+LR schedule continuing from the manifest's anchor. ``update_nworker``
+resizes only by relaunch (``runtime.ResizeUnsupported``). Autotune, the
+rest of the telemetry plane and the serving shadow are not ported
 (ROADMAP.md).
 """
 
@@ -104,6 +117,7 @@ from mgwfbp_tpu_torch.parallel.costmodel import (
 )
 from mgwfbp_tpu_torch.parallel.mesh import rank, world_size
 from mgwfbp_tpu_torch.parallel.solver import LayerSpec, size_prior_tb
+from mgwfbp_tpu_torch.runtime import ResizeUnsupported
 from mgwfbp_tpu_torch.runtime import coordination as coord
 from mgwfbp_tpu_torch.profiling import (
     TbProfile,
@@ -123,6 +137,17 @@ from mgwfbp_tpu_torch.train.step import (
 from mgwfbp_tpu_torch.utils.device import resolve_device, set_matmul_precision
 from mgwfbp_tpu_torch.utils.faults import FaultPlan, Preempted
 from mgwfbp_tpu_torch.utils.logging import get_logger
+from mgwfbp_tpu_torch.utils.platform import env_int
+from mgwfbp_tpu_torch.utils.watchdog import (
+    CHECKPOINT_ALLOW_S,
+    COMPILE_ALLOW_S,
+    ProgressWatchdog,
+)
+
+# after an abort-bound watchdog_stall event the process waits this long
+# before the rc-86 exit, so that a /healthz prober polling faster than this
+# reads 503, not a reset connection
+WATCHDOG_ABORT_HOLD_S = 1.0
 
 
 def derive_agree_interval(step_s: float, grace_s: float = 30.0) -> int:
@@ -132,6 +157,15 @@ def derive_agree_interval(step_s: float, grace_s: float = 30.0) -> int:
     if step_s <= 0.0:
         return 1
     return int(min(max(grace_s * 0.5 / step_s, 1.0), 1000.0))
+
+
+def _elastic_resume_enabled() -> bool:
+    """True when a relaunch may resume from a sibling tag written at
+    another world size. The supervisor exports MGWFBP_ELASTIC_RESUME=1 for
+    the groups it launches (a resize-by-relaunch must find the old world's
+    checkpoints); a standalone run keeps to its own tag unless asked."""
+    raw = (os.environ.get("MGWFBP_ELASTIC_RESUME") or "").strip().lower()
+    return raw in ("1", "true", "yes")
 
 
 class _RollbackRequested(Exception):
@@ -198,9 +232,16 @@ class Trainer:
         self.world = world_size()
         self.rank = rank()
         config.nworkers = self.world
-        # refused before anything is built: a fault this package cannot
-        # inject, a checkpoint format it cannot write
-        self._faults = FaultPlan.from_env().for_process(self.rank).check_ported()
+        # this process's faults; the hard kinds (kill, wedge) only of this
+        # supervisor incarnation, so a healed relaunch, which resumes below
+        # the fault's step, does not fire again the fault it died of
+        self._faults = (
+            FaultPlan.from_env()
+            .for_process(self.rank)
+            .for_incarnation(env_int("MGWFBP_INCARNATION", 0))
+        )
+        # refused before anything is built: a checkpoint format this
+        # package cannot write
         if config.ckpt_format == "replicated":
             raise ValueError(f"--ckpt-format replicated: {ORBAX_REFUSAL}")
         if config.ckpt_format != "sharded":
@@ -227,6 +268,11 @@ class Trainer:
             self.log.info("deterministic algorithms on (CUBLAS_WORKSPACE_"
                           "CONFIG=%s)",
                           os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+        self._watchdog: Optional[ProgressWatchdog] = None
+        self._stepped = False  # a train step ran in this process
+        self._evaluated = False  # an evaluation ran in this process
+        self._metrics_agg = None
+        self._metrics_server = None
         self.telemetry = self._open_telemetry()
         self._measured_group_times: Optional[list[float]] = None
         self.shard = ShardInfo(self.rank, self.world)
@@ -285,6 +331,7 @@ class Trainer:
                 f" -> {s.policy_detail}" if s.policy_detail else "",
                 s.predicted_nonoverlap_time,
             )
+        self._sync_schedule_gauge()
         self.train_step = TrainStep(
             self.model, self.optimizer, self.lr_fn, reducer=self.reducer,
             nsteps_update=config.nsteps_update, grad_guard=config.grad_guard,
@@ -345,26 +392,54 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _open_telemetry(self) -> Optional[EventWriter]:
+        """The event stream and, with ``metrics_port``, the live plane it
+        feeds (one aggregator and server per process; the server thread
+        reads host state only, so no step syncs the card for it)."""
         cfg = self.config
+        if cfg.metrics_port is not None and not cfg.telemetry:
+            # the live plane's aggregator is fed by the event stream
+            cfg.telemetry = True
         if not cfg.telemetry:
             return None
         tel_dir = cfg.telemetry_dir or (
             os.path.join(cfg.logdir, cfg.tag()) if cfg.logdir else None
         )
+        run = {
+            "model": cfg.dnn, "dataset": cfg.dataset,
+            "world": self.world, "comm_op": "all_reduce",
+            "policy": cfg.policy, "tag": cfg.tag(),
+            "process_index": self.rank, "process_count": self.world,
+            "device": str(self.device),
+        }
+        if cfg.metrics_port is not None and self._metrics_agg is None:
+            from mgwfbp_tpu_torch.telemetry.serve import (
+                MetricsAggregator,
+                start_metrics_server,
+            )
+
+            self._metrics_agg = MetricsAggregator(run=run)
+            self._metrics_server = start_metrics_server(
+                self._metrics_agg, cfg.metrics_port, self.rank)
         if tel_dir is None:
             self.log.warning("telemetry requested but neither telemetry_dir "
                              "nor logdir is set; telemetry disabled")
             return None
-        return EventWriter(
+        writer = EventWriter(
             os.path.join(tel_dir, stream_filename(self.rank, self.world)),
-            run={
-                "model": cfg.dnn, "dataset": cfg.dataset,
-                "world": self.world, "comm_op": "all_reduce",
-                "policy": cfg.policy, "tag": cfg.tag(),
-                "process_index": self.rank, "process_count": self.world,
-                "device": str(self.device),
-            },
+            run=run,
         )
+        if self._metrics_agg is not None:
+            writer.observer = self._metrics_agg.observe
+        return writer
+
+    def _sync_schedule_gauge(self) -> None:
+        """Push the merge schedule into the /status aggregator."""
+        if self._metrics_agg is None:
+            return
+        s = self.reducer.schedule if self.reducer is not None else None
+        self._metrics_agg.set_schedule(
+            "all_reduce", s.num_groups if s is not None else 0,
+            s.policy_detail if s is not None else "")
 
     def _apply_lm_window(self) -> None:
         """Windowed-LM length override (``num_steps``): the meta the batches
@@ -539,6 +614,15 @@ class Trainer:
         log_interval = int(os.environ.get("MGWFBP_LOG_INTERVAL", "10"))
         metrics: dict = {}
         first_loss = None
+        wd_phase = f"train epoch {epoch}"
+        if self._stepped:
+            self._beat(wd_phase)
+        else:
+            # the first step of this process is a long silent phase: the
+            # loader's start-up (with the native library's g++ build at
+            # its first batch) and cuDNN's and cuBLAS's first use
+            self._beat(f"first train step (epoch {epoch})",
+                       allow_s=COMPILE_ALLOW_S)
         t_epoch = t_window = time.time()
         with contextlib.closing(loader.batches(epoch, skip_micro, stop)) as it:
             for batch in it:
@@ -548,6 +632,8 @@ class Trainer:
                 fields = [_stack(list(f)) for f in zip(*micro)]
                 micro = []
                 metrics = self._train_on(epoch, fields)
+                self._stepped = True
+                self._beat(wd_phase)
                 epoch_pos += 1
                 epoch_steps += 1
                 window_iters += 1
@@ -555,8 +641,11 @@ class Trainer:
                     first_loss = metrics["loss"]
                 if (cfg.ckpt_every_steps and self.checkpointer is not None
                         and epoch_pos % cfg.ckpt_every_steps == 0):
+                    self._beat(f"step checkpoint iter {self.iteration}",
+                               allow_s=CHECKPOINT_ALLOW_S)
                     self.save_step(epoch, epoch_pos,
                                    background=cfg.ckpt_async)
+                    self._beat(wd_phase)
                 # retire a finished async save; at several processes a
                 # group vote, so on the agreement cadence, never on local
                 # state
@@ -568,6 +657,14 @@ class Trainer:
                 sig = self._faults.preempt_signal_after(self.iteration)
                 if sig is not None:
                     self._deliver_preempt(sig)
+                if self._faults.kill_after(self.iteration):
+                    # a drain-less hard crash: no checkpoint, no flush; the
+                    # supervisor's healer recovers the group
+                    self.log.warning(
+                        "fault injection: SIGKILL self after step %d "
+                        "(drain-less hard crash)", self.iteration,
+                    )
+                    os.kill(os.getpid(), _signal.SIGKILL)
                 if self._agreed_preempt():
                     self._graceful_drain(epoch, epoch_pos)  # raises Preempted
                 if max_steps is not None and epoch_pos >= max_steps:
@@ -609,6 +706,14 @@ class Trainer:
         its telemetry span, the loss record and the guard (which raises
         _RollbackRequested after bad_step_limit non-finite steps)."""
         cfg = self.config
+        stall_s = self._faults.stall_secs("train", self.iteration + 1)
+        if stall_s > 0:
+            self.log.warning("fault injection: stalling %.3g s before step "
+                             "%d", stall_s, self.iteration + 1)
+            time.sleep(stall_s)
+        wedge_s = self._faults.wedge_secs(self.iteration + 1)
+        if wedge_s > 0:
+            self._wedge(wedge_s)
         if self._faults.nan_at(self.iteration + 1):
             fields[0], poisoned = _poison_batch(fields[0])
             self.log.warning(
@@ -699,6 +804,7 @@ class Trainer:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
+        self._beat("telemetry group trace", allow_s=COMPILE_ALLOW_S)
         try:
             measured = trace_group_times(run, self.reducer.num_groups,
                                          iters=iters)
@@ -719,17 +825,33 @@ class Trainer:
     def evaluate(self) -> dict:
         """Loss, top-1 and top-5 over every sample of the val loader,
         summed across ranks (a language model: ``_evaluate_lm``; the speech
-        model: ``_evaluate_ctc``)."""
+        model: ``_evaluate_ctc``). The fault plan's eval stall lands here;
+        the first evaluation of a process takes the watchdog's first-use
+        allowance, and every batch beats it."""
+        stall_s = self._faults.stall_secs("eval", self.iteration)
+        if stall_s > 0:
+            self.log.warning("fault injection: stalling %.3g s in eval",
+                             stall_s)
+            time.sleep(stall_s)
+        if not self._evaluated:
+            self._beat("first evaluation", allow_s=COMPILE_ALLOW_S)
         if self.meta.task == "lm":
-            return self._evaluate_lm()
-        if self.meta.task == "ctc":
-            return self._evaluate_ctc()
+            out = self._evaluate_lm()
+        elif self.meta.task == "ctc":
+            out = self._evaluate_ctc()
+        else:
+            out = self._evaluate_cls()
+        self._evaluated = True
+        return out
+
+    def _evaluate_cls(self) -> dict:
         self.model.eval()
         sums = torch.zeros(4, device=self.device)
         try:
             for xb, yb in self.bundle.val:
                 x, y = self._to_device(xb, yb)
                 sums += eval_sums(self.model, x, y, self.compute_dtype)
+                self._beat("evaluate")
         finally:
             self.model.train()
         if self.world > 1:
@@ -761,6 +883,7 @@ class Trainer:
                 batch_sums, carry = lm_eval_sums(self.model, x, y, carry,
                                                  self.compute_dtype)
                 sums += batch_sums
+                self._beat("evaluate")
         finally:
             self.model.train()
         if self.world > 1:
@@ -795,6 +918,7 @@ class Trainer:
                 for j, hyp in enumerate(hyps):
                     wer_total += wer(hyp, ids_to_text(ys[j][:int(lab_lens[j])]))
                     wer_n += 1
+                self._beat("evaluate")
         finally:
             self.model.train()
         totals = torch.cat([sums, torch.tensor(
@@ -812,6 +936,24 @@ class Trainer:
     def _emit_event(self, event: str, **fields) -> None:
         if self.telemetry is not None:
             self.telemetry.emit(event, **fields)
+
+    def _beat(self, phase: str, allow_s: float = 0.0) -> None:
+        """Progress for the watchdog (a no-op when it is not armed)."""
+        wd = self._watchdog
+        if wd is not None:
+            wd.beat(phase, allow_s=allow_s)
+
+    def _on_watchdog_stall(self, phase: str, idle_s: float, timeout_s: float,
+                           abort: bool) -> None:
+        """A stall becomes a ``watchdog_stall`` event in the run's stream,
+        which turns /healthz 503 through the aggregator; before an rc-86
+        abort the process holds WATCHDOG_ABORT_HOLD_S so a prober reads the
+        503, not a reset connection."""
+        self._emit_event("watchdog_stall", phase=str(phase),
+                         idle_s=float(idle_s), timeout_s=float(timeout_s),
+                         abort=bool(abort))
+        if abort and self._metrics_server is not None:
+            time.sleep(WATCHDOG_ABORT_HOLD_S)
 
     def save(self, epoch: int) -> None:
         """Epoch-boundary checkpoint (the step key is the iteration the
@@ -1078,15 +1220,19 @@ class Trainer:
                 })
 
     def _apply_snapshot(self, snap: Snapshot, source: str,
-                        emit_resume: bool = True) -> None:
+                        emit_resume: bool = True,
+                        anchor: Optional[tuple] = None) -> None:
         """Install a restored snapshot: state, counters, the schedule's
-        anchor, the generator states and, for a mid-epoch snapshot, the
-        data position and carry that ``train_epoch`` resumes from (shared
-        by resume and rollback; a rollback emits its own event)."""
+        anchor (the manifest's, unless a cross-world resume passes the
+        continued one), the generator states and, for a mid-epoch
+        snapshot, the data position and carry that ``train_epoch`` resumes
+        from (shared by resume and rollback; a rollback emits its own
+        event)."""
         self._install(snap.state)
         meta = snap.manifest_meta or {}
-        anchor = (int(meta.get("sched_step_offset", 0)),
-                  float(meta.get("sched_epoch_offset", 0.0)))
+        if anchor is None:
+            anchor = (int(meta.get("sched_step_offset", 0)),
+                      float(meta.get("sched_epoch_offset", 0.0)))
         if anchor != (self._sched_step_offset, self._sched_epoch_offset):
             self._sched_step_offset, self._sched_epoch_offset = anchor
             self.lr_fn = as_step_fn(
@@ -1123,12 +1269,131 @@ class Trainer:
         )
 
     def _maybe_resume(self) -> None:
+        snap = None
         if self.checkpointer is not None:
             snap = self._restore_step(self.checkpointer, None)
-            if snap is not None:
-                self._apply_snapshot(snap, "resumed")
+        # checkpoint visibility is uniform: every process reads the same
+        # shared directory, and the commit barrier published it
+        if snap is None and self.checkpointer is not None and (
+            _elastic_resume_enabled()
+        ):
+            # relaunched at another world size: the checkpoint lives under
+            # the old world's tag
+            if self._resume_cross_world():
                 return
+        if snap is not None:
+            self._apply_snapshot(snap, "resumed")
+            return
         self._pretrain_init()
+
+    # -- elastic cross-world resume ----------------------------------------
+    def _sibling_resume_candidates(self) -> list[tuple[int, int, str]]:
+        """(latest step, world, tag directory name) of every sibling tag
+        under the checkpoint root that differs from this run's tag only in
+        its worker count and holds committed steps."""
+        from mgwfbp_tpu_torch.checkpoint import peek_steps
+
+        root = self.config.checkpoint_dir
+        parts = self.config.tag().split("-")
+        try:
+            i = parts.index(f"n{self.world}")
+        except ValueError:
+            return []
+        try:
+            names = os.listdir(root)
+        except OSError:
+            return []
+        out = []
+        for name in names:
+            q = name.split("-")
+            if (len(q) != len(parts) or q[:i] != parts[:i]
+                    or q[i + 1:] != parts[i + 1:]):
+                continue
+            if not (q[i].startswith("n") and q[i][1:].isdigit()):
+                continue
+            world = int(q[i][1:])
+            if world == self.world:
+                continue
+            steps = peek_steps(os.path.join(root, name))
+            if steps:
+                out.append((steps[-1], world, name))
+        return sorted(out)
+
+    def _resume_cross_world(self) -> bool:
+        """Resume from a sibling tag written at another world size: the
+        shard-native step is read at this world (replicated params and
+        optimizer are world-independent; a carry of another global batch
+        re-initializes), the LR schedule continues from the manifest's
+        anchor, and a ``resize`` event records the transition. Returns True
+        when a sibling step was applied. The optimizer and the reducer
+        were built at the live world in ``__init__``; with an all-reduce
+        lowering neither bakes the schedule in, so the continued anchor is
+        all a new divisor changes (the step function's ``lr_fn``)."""
+        t0 = time.perf_counter()
+        best = self._sibling_resume_candidates()
+        step, old_world = (best[-1][0], best[-1][1]) if best else (-1, -1)
+        if self.world > 1:
+            # the scan is file-system state: process 0's answer is the
+            # group's
+            step = int(coord.broadcast_flag(float(step)))
+            old_world = int(coord.broadcast_flag(float(old_world)))
+        if step < 0 or old_world < 0:
+            return False
+        parts = self.config.tag().split("-")
+        parts[parts.index(f"n{self.world}")] = f"n{old_world}"
+        sibling = os.path.join(self.config.checkpoint_dir, "-".join(parts))
+        ckpt = Checkpointer(sibling)
+        try:
+            snap = self._restore_step(ckpt, step)
+        finally:
+            ckpt.close()
+        if snap is None:
+            return False
+        meta = snap.manifest_meta or {}
+        anchor = None
+        old_nbpe = int(meta.get("steps_per_epoch", 0) or 0)
+        if old_nbpe > 0:
+            anchor_step = int(meta.get("sched_step_offset", 0))
+            anchor_epoch = float(meta.get("sched_epoch_offset", 0.0))
+            step_now = int(snap.iteration)
+            new_epoch_off = anchor_epoch + (step_now - anchor_step) / old_nbpe
+            new_nbpe = max(self._steps_per_epoch(), 1)
+            if (abs(new_epoch_off - step_now / new_nbpe) > 1e-12
+                    or old_nbpe != new_nbpe):
+                anchor = (step_now, new_epoch_off)
+        self._apply_snapshot(
+            snap, f"resumed after resize ({old_world} -> {self.world})",
+            anchor=anchor,
+        )
+        restore_s = time.perf_counter() - t0
+        self._emit_event(
+            "resize", old_world=int(old_world), new_world=int(self.world),
+            schedule_source="relaunch-reshard",
+            num_groups=(self.reducer.num_groups
+                        if self.reducer is not None else 0),
+            iteration=int(snap.iteration), restore_s=float(restore_s),
+        )
+        self.log.warning(
+            "elastic resize: resumed iteration %d from %s (world %d -> %d; "
+            "read at the live world in %.3f s)", snap.iteration, sibling,
+            old_world, self.world, restore_s,
+        )
+        return True
+
+    def update_nworker(self, nworkers: int) -> None:
+        """Elastic worker-count resize (the reference's ``update_nworker``).
+        A torch process drives one card, so the in-place re-mesh over one
+        process's local devices that the JAX trainer does has no
+        counterpart here: at the running world this is a no-op, any other
+        count is resize-by-relaunch (``ResizeUnsupported`` carries the
+        recipe, as the JAX trainer's multi-process branch raises)."""
+        if nworkers == self.world:
+            return
+        raise ResizeUnsupported(
+            f"update_nworker({nworkers}): this world runs {self.world} "
+            "process(es), one card each, and cannot re-mesh in place",
+            nworkers,
+        )
 
     def load_checkpoint(self, directory: str,
                         epoch: Optional[int] = None) -> Snapshot:
@@ -1213,6 +1478,27 @@ class Trainer:
             )
         self._preempt_signal = name
 
+    def _wedge(self, secs: float) -> None:
+        """Fault injection: stop stepping for ``secs`` (the liveness
+        monitor's signature: a frozen /status step while /healthz and
+        /status keep serving from their thread). A sliced sleep, so that a
+        delivered SIGTERM (the healer's) ends the wedge and the drain
+        takes over at the step boundary; no watchdog beat, as a real wedge
+        would not beat either."""
+        self.log.warning(
+            "fault injection: wedging for %.3g s before step %d (stepping "
+            "stops; HTTP keeps serving)", secs, self.iteration + 1,
+        )
+        deadline = time.monotonic() + secs
+        while time.monotonic() < deadline:
+            if self._preempt_signal is not None:
+                self.log.warning(
+                    "wedge interrupted by %s; resuming the step loop (the "
+                    "drain takes over at the boundary)", self._preempt_signal,
+                )
+                return
+            time.sleep(min(0.2, max(deadline - time.monotonic(), 0.0)))
+
     def _deliver_preempt(self, sig: int) -> None:
         """Fault-plan preemption: the real signal to this process when the
         handler is armed (the production path), else the flag directly
@@ -1247,6 +1533,8 @@ class Trainer:
         unwind with Preempted (``train_cli`` exits rc 75)."""
         name = self._preempt_signal or "SIGTERM"
         if self.checkpointer is not None:
+            self._beat("preemption drain checkpoint",
+                       allow_s=CHECKPOINT_ALLOW_S)
             self.save_step(epoch, epoch_pos, wait=True)
         else:
             self.log.warning(
@@ -1358,19 +1646,34 @@ class Trainer:
     def fit(self, num_epochs: Optional[int] = None) -> dict:
         """Run ``num_epochs`` epochs from wherever the trainer is (a resume
         included); None runs through ``max_epochs``. SIGTERM/SIGINT drain
-        for the whole fit."""
+        and the progress watchdog (armed when ``MGWFBP_WATCHDOG_S`` is set)
+        cover the whole fit.
+
+        The silent first-use phases and the watchdog: the first NCCL
+        communicator (the parameter broadcast) and the backward profile's
+        first cuDNN calls run in ``__init__``, before the watchdog is
+        armed; the first train step of the process (the loader's start-up,
+        with the native library's g++ build at its first batch, and cuDNN's
+        and cuBLAS's first use at the training shapes), the first
+        evaluation and the telemetry trace's steps run under
+        ``COMPILE_ALLOW_S``, checkpoints under ``CHECKPOINT_ALLOW_S``. Those
+        phases happen inside ``fit``, so arming later is not an option, and
+        the allowance keeps a short per-step timeout from aborting a cold
+        machine. The flash kernel's nvcc build never runs in training
+        (both packages train the transformer through dense attention)."""
         cfg = self.config
         end = (
             self.start_epoch + num_epochs
             if num_epochs is not None else cfg.max_epochs
         )
         try:
-            self._arm_signals()
-            if self.telemetry is not None and self.reducer is not None and (
-                self._measured_group_times is None
-            ):
-                self._trace_group_times()
-            metrics = self._fit_epochs(self.start_epoch, end)
+            with ProgressWatchdog(on_stall=self._on_watchdog_stall) as wd:
+                self._watchdog = wd if wd.enabled else None
+                self._arm_signals()
+                if self.telemetry is not None and self.reducer is not None \
+                        and self._measured_group_times is None:
+                    self._trace_group_times()
+                metrics = self._fit_epochs(self.start_epoch, end)
         except coord.CoordinationTimeout as ct:
             # a peer is dead or wedged: every further collective would
             # hang, the checkpoint barrier included
@@ -1382,6 +1685,7 @@ class Trainer:
             raise
         finally:
             self._disarm_signals()
+            self._watchdog = None
         self._poll_async_ckpt(block=True)
         self.start_epoch = end
         return metrics
@@ -1404,6 +1708,8 @@ class Trainer:
                     ", ".join(f"{k} {v:.4f}" for k, v in metrics["eval"].items()),
                 )
             if (epoch + 1) % cfg.checkpoint_every_epochs == 0:
+                self._beat(f"checkpoint epoch {epoch}",
+                           allow_s=CHECKPOINT_ALLOW_S)
                 self.save(epoch)
             if self._agreed_preempt(at_boundary=True):
                 # the signal landed outside the step loop
@@ -1429,3 +1735,6 @@ class Trainer:
             self.reducer.detach()
         if self.telemetry is not None:
             self.telemetry.close()
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None

@@ -27,9 +27,15 @@ Resilience: with ``--checkpoint-dir`` a rerun of the same command resumes
 from the newest committed step (``--ckpt-every-steps N`` adds mid-epoch
 steps). SIGTERM or SIGINT drains at a step boundary: a checkpoint, one
 ``{"preempted": true, "signal", "epoch", "iteration"}`` line and exit code
-75, so that a supervisor restarts the command. ``MGWFBP_FAULT_PLAN`` injects
-faults (``utils/faults.py``), e.g. ``nan@step=4,count=3`` or
-``preempt@step=12``.
+75, so that a supervisor restarts the command
+(``python -m mgwfbp_tpu_torch.runtime.supervise``). ``MGWFBP_FAULT_PLAN``
+injects faults (``utils/faults.py``), e.g. ``nan@step=4,count=3``,
+``preempt@step=12``, ``stall@secs=60,step=5``, ``kill@step=12`` or
+``wedge@step=18,secs=600``. ``MGWFBP_WATCHDOG_S`` arms the progress
+watchdog (``MGWFBP_WATCHDOG_ABORT=1``: rc 86 after a stack dump);
+``--metrics-port`` serves /healthz and /status. A single-process launch
+first probes the card under ``MGWFBP_INIT_TIMEOUT_S``
+(``utils.platform.preflight_backend``).
 """
 
 from __future__ import annotations
@@ -131,6 +137,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--telemetry-dir", dest="telemetry_dir", default=None,
                    help="directory for the event stream (default "
                         "<logdir>/<tag>; implies --telemetry)")
+    p.add_argument("--metrics-port", dest="metrics_port", type=int,
+                   default=None,
+                   help="live HTTP plane: /healthz (200, or 503 while the "
+                        "watchdog sees a stall) and /status (step, epoch, "
+                        "health, last checkpoint, run) on this port + the "
+                        "process index; 0 = ephemeral (the bound port is "
+                        "written to MGWFBP_METRICS_PORT_FILE); implies "
+                        "--telemetry (MGWFBP_METRICS_PORT)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--logdir", default=None)
     p.add_argument("--coordinator", default=None,
@@ -154,7 +168,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             "comm_profile", "dtype", "comm_dtype", "norm_clip", "lr_schedule",
             "logdir", "checkpoint_dir", "seed", "num_batches_per_epoch",
             "telemetry_dir", "num_steps", "ckpt_every_steps", "ckpt_format",
-            "bad_step_limit", "pretrain",
+            "bad_step_limit", "pretrain", "metrics_port",
         )
         if getattr(args, k, None) is not None
     }
@@ -166,7 +180,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         overrides["ckpt_async"] = False
     if args.deterministic:
         overrides["deterministic"] = True
-    if args.telemetry or args.telemetry_dir:
+    if args.telemetry or args.telemetry_dir or args.metrics_port is not None:
         overrides["telemetry"] = True
     return make_config(args.dnn, **overrides)
 
@@ -179,11 +193,28 @@ def main(argv: Optional[list[str]] = None) -> int:
         return 0
     import torch.distributed as dist
 
-    from mgwfbp_tpu_torch.parallel.mesh import init_distributed
+    from mgwfbp_tpu_torch.parallel.mesh import (
+        init_distributed,
+        resolve_launch_env,
+    )
     from mgwfbp_tpu_torch.runtime.coordination import CoordinationTimeout
     from mgwfbp_tpu_torch.train.trainer import Trainer
     from mgwfbp_tpu_torch.utils.faults import PREEMPT_RC, Preempted
+    from mgwfbp_tpu_torch.utils.platform import preflight_backend
 
+    env_coord, env_num, env_pid = resolve_launch_env()
+    multi_process = bool(
+        (args.coordinator or env_coord) is not None
+        or (args.process_id if args.process_id is not None
+            else env_pid) is not None
+        or ((args.num_processes or env_num) or 0) > 1
+    )
+    if not multi_process:
+        # a wedged card blocks CUDA's initialisation with no error: probe
+        # it under MGWFBP_INIT_TIMEOUT_S first (--device cpu touches no
+        # CUDA). One process only: in a group the rendezvous is the first
+        # contact, and its timeout surfaces a dead peer
+        preflight_backend(device=args.device)
     device = init_distributed(
         args.device, coordinator=args.coordinator,
         num_processes=args.num_processes, process_id=args.process_id,

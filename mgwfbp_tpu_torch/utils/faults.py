@@ -29,12 +29,13 @@ not import that one)::
 Every kind takes ``proc=I`` (fire on that process only); kill and wedge
 take ``inc=K`` (supervisor incarnation).
 
-The port's trainer consumes ``nan`` and ``preempt`` (``chip_unavailable`` is
-the bench's, as in the JAX package). ``stall``, ``kill`` and ``wedge``
-parse exactly as the JAX parser parses them, but their consumers, the
-progress watchdog and the supervisor, are not ported yet:
-``FaultPlan.check_ported`` refuses them with an error naming ROADMAP Queue 1
-item 4, so a plan never silently injects nothing.
+The port's trainer consumes ``nan``, ``preempt``, ``stall`` (a sleep in
+the train or eval phase, which the progress watchdog sees), ``kill`` (SIGKILL
+of the process after the step: no drain, no flush) and ``wedge`` (the step
+loop stops while the HTTP plane keeps serving, which the supervisor's
+liveness monitor sees); ``chip_unavailable`` is the bench's, as in the JAX
+package. The trainer keeps the specs of its process and, for ``kill`` and
+``wedge``, of its supervisor incarnation (``MGWFBP_INCARNATION``).
 """
 
 from __future__ import annotations
@@ -255,20 +256,6 @@ class FaultPlan:
             if s.kind not in ("kill", "wedge")
             or s.inc == int(incarnation)
         ])
-
-    def check_ported(self) -> "FaultPlan":
-        """Refuse the kinds whose consumers this package does not have
-        yet (the progress watchdog and the supervisor's chaos faults),
-        naming the ROADMAP item; returns the plan otherwise."""
-        unported = [s.describe() for s in self.specs
-                    if s.kind in ("stall", "kill", "wedge")]
-        if unported:
-            raise NotImplementedError(
-                f"fault plan: {unported} not ported to the PyTorch trainer "
-                "(the watchdog and the supervisor are ROADMAP Queue 1 item "
-                "4); the port injects nan and preempt"
-            )
-        return self
 
     # -- queries (all deterministic in the host counters) -----------------
     def nan_at(self, step: int) -> bool:

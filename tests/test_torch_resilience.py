@@ -4,7 +4,8 @@ gloo, and the profiling functions' device default.
 
   * ``utils.faults.parse_plan`` accepts and refuses what the JAX parser
     accepts and refuses, with the same messages, and answers the same
-    queries; the kinds whose consumers are not ported are refused by name;
+    queries; the trainer consumes every kind, keeping the hard kinds of its
+    own supervisor incarnation only;
   * counterparts of ``tests/test_resilience.py``: a NaN step is skipped
     (:104), K consecutive bad steps roll back (:130), persistent NaNs
     abort (:163), without a checkpointer training keeps skipping (:323),
@@ -160,14 +161,34 @@ def test_fault_plan_refuses_what_jax_refuses(text):
 
 
 def test_unported_fault_kinds_are_refused_by_name(narrow, monkeypatch):
-    assert faults.parse_plan("nan@step=2;preempt@step=3").check_ported()
-    for text in ("stall@secs=1", "kill@step=2", "wedge@step=2,secs=1"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 4"):
-            faults.parse_plan(text).check_ported()
-    monkeypatch.setenv("MGWFBP_FAULT_PLAN", "stall@secs=4,step=3")
-    with pytest.raises(NotImplementedError, match="stall@step=3"):
-        _trainer(_cfg())
+    """The refusal this test held is gone: ``stall``, ``kill`` and
+    ``wedge`` have consumers now (the trainer, the watchdog and the
+    supervisor). The trainer builds with each plan, keeps the specs of its
+    process, and drops the hard kinds of other supervisor incarnations, as
+    the JAX trainer does."""
+    assert not hasattr(faults.FaultPlan, "check_ported")
+    plans = [  # (plan, MGWFBP_INCARNATION, the specs the trainer keeps)
+        ("stall@secs=4,step=3", "0", ["stall@step=3,secs=4,phase=train"]),
+        ("kill@step=2", "0", ["kill@step=2"]),
+        ("wedge@step=2,secs=1", "0", ["wedge@step=2,secs=1"]),
+        ("kill@step=2,inc=1;wedge@step=3,secs=5,inc=2;nan@step=1", "2",
+         ["wedge@step=3,secs=5,inc=2", "nan@step=1"]),
+        ("kill@step=2;stall@secs=1,phase=eval", "1",
+         ["stall@secs=1,phase=eval"]),
+        ("kill@step=2,proc=1;wedge@step=4,secs=2,proc=0", "0",
+         ["wedge@step=4,secs=2,proc=0"]),
+    ]
+    for text, inc, kept in plans:
+        monkeypatch.setenv("MGWFBP_FAULT_PLAN", text)
+        monkeypatch.setenv("MGWFBP_INCARNATION", inc)
+        t = _trainer(_cfg())
+        try:
+            assert [sp.describe() for sp in t._faults.specs] == kept, text
+            want = (jax_faults.parse_plan(text).for_process(0)
+                    .for_incarnation(int(inc)).describe())
+            assert t._faults.describe() == want
+        finally:
+            t.close()
     assert faults.PREEMPT_RC == jax_faults.PREEMPT_RC == 75
 
 
