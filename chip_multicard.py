@@ -21,6 +21,15 @@ overlap record, and one JSON line ``{"multicard": ...}``. Every process is
 joined with a timeout and killed if it outlives it. Writes under
 ``--out-dir`` (default ``build/multicard``).
 
+With ``--telemetry`` it runs another step instead: a supervised ResNet-20
+group of N processes (``--fleet-port 0``, the live plane on every process,
+``MGWFBP_AGREE_INTERVAL=1``) held at step 10, where ``/fleet/profile?steps=3``
+arms every process; the group agrees on the window, and each process's
+result carries every process's per-group device time
+(``per_process_device_s``); the last process then sleeps 0.5 s before each
+of steps 25-30, and every stream carries the same ``straggler`` records
+naming it. Prints one JSON line ``{"multicard_telemetry": ...}``.
+
 With ``--heal`` the script runs another step instead of those two: a
 supervised ResNet-20
 group of N processes (``python -m mgwfbp_tpu_torch.runtime.supervise``)
@@ -42,6 +51,7 @@ import argparse
 import json
 import os
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -186,6 +196,161 @@ def heal_phase(n: int, device: str, out_dir: str, batch_size: int,
     return out
 
 
+TEL_HOLD_STEP, TEL_HOLD_S = 10, 8.0  # every process holds: the arm
+TEL_PROFILE_STEPS = 3
+TEL_SLOW_STEPS, TEL_SLOW_S = range(25, 31), 0.5  # the last process lags
+
+
+def _http(port: int, path: str, timeout_s: float = 30.0) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=timeout_s) as r:
+        return json.loads(r.read().decode())
+
+
+def _poll(what: str, probe, timeout_s: float = 300.0):
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout_s:
+        try:
+            got = probe()
+        except (OSError, ValueError, KeyError):
+            got = None
+        if got:
+            return got
+        time.sleep(0.1)
+    print(f"chip_multicard: telemetry: no {what} within {timeout_s:.0f}s",
+          file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def telemetry_phase(n: int, device: str, out_dir: str, batch_size: int,
+                    env: dict) -> dict:
+    """A supervised ResNet-20 group of n processes with the live plane and
+    the fleet fan-in: /fleet/profile?steps=3 armed on every process while
+    they hold, the lockstep window's per-group device time from each
+    process (``per_process_device_s``), and a ``straggler`` alarm naming
+    the last process, which sleeps before steps 25-30."""
+    sys.path.insert(0, ROOT)
+    from mgwfbp_tpu_torch.telemetry import (
+        events_of,
+        read_event_set,
+        stream_filename,
+    )
+
+    root = os.path.join(out_dir, "telemetry")
+    shutil.rmtree(root, ignore_errors=True)
+    log_dir = os.path.join(root, "sup")
+    os.makedirs(log_dir)
+    plan = ";".join([f"stall@secs={TEL_HOLD_S},step={TEL_HOLD_STEP}"] + [
+        f"stall@secs={TEL_SLOW_S},step={s},proc={n - 1}"
+        for s in TEL_SLOW_STEPS])
+    cmd = [sys.executable, "-m", "mgwfbp_tpu_torch.runtime.supervise",
+           "--processes", str(n), "--log-dir", log_dir, "--fleet-port", "0",
+           "--", "--dnn", "resnet20", "--synthetic", "--device", device,
+           "--epochs", "1", "--num-batches-per-epoch", "40",
+           "--batch-size", str(batch_size), "--policy", "mgwfbp",
+           "--connection", "56GbIB", "--metrics-port", "0",
+           "--logdir", os.path.join(root, "logs")]
+    full_env = dict(os.environ, PYTHONPATH=ROOT, **env,
+                    MGWFBP_FAULT_PLAN=plan, MGWFBP_METRICS_PORT="0",
+                    MGWFBP_AGREE_INTERVAL="1")
+    t0 = time.perf_counter()
+    err_path = os.path.join(root, "supervise.err")
+    err = open(err_path, "w")
+    p = subprocess.Popen(cmd, stdout=err, stderr=subprocess.STDOUT,
+                         env=full_env, cwd=out_dir)
+    try:
+        def fleet_port():
+            with open(err_path) as f:
+                for line in f:
+                    if "fleet fan-in: http://" in line:
+                        return int(line.split("fleet fan-in: http://")[1]
+                                   .split()[0].rsplit(":", 1)[1])
+
+        fport = _poll("fleet fan-in", fleet_port)
+
+        def held():
+            st = _http(fport, "/fleet/status")
+            steps = [st["processes"][str(i)]["step"] or 0 for i in range(n)]
+            return st if st["reachable"] == n and min(steps) >= (
+                TEL_HOLD_STEP - 1) else None
+
+        status = _poll("group at the hold", held)
+        armed = _http(fport, f"/fleet/profile?steps={TEL_PROFILE_STEPS}")
+        if armed.get("armed") != n:
+            print(f"chip_multicard: /fleet/profile armed {armed}",
+                  file=sys.stderr, flush=True)
+            raise SystemExit(1)
+        ports = {}
+        for i in range(n):
+            with open(os.path.join(log_dir, f"metrics_port.p{i}.json")) as f:
+                ports[i] = json.load(f)["port"]
+
+        def done():
+            docs = [_http(ports[i], "/profile") for i in range(n)]
+            return docs if all(d["state"] in ("done", "failed")
+                               for d in docs) else None
+
+        results = _poll("the profile windows", done)
+        rc = p.wait(timeout=600)
+    finally:
+        if p.poll() is None:
+            # SIGTERM: the supervisor tears its children down
+            p.send_signal(signal.SIGTERM)
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        err.close()
+    wall = time.perf_counter() - t0
+    if rc != 0 or any(d["state"] != "done" for d in results):
+        with open(err_path) as f:
+            tail = f.read().splitlines()[-20:]
+        print(f"chip_multicard: telemetry rc {rc}, windows "
+              f"{[d['state'] for d in results]}\n" + "\n".join(tail),
+              file=sys.stderr, flush=True)
+        raise SystemExit(1)
+    res = [d["result"] for d in results]
+    per_proc = res[0].get("per_process_device_s") or {}
+    groups = len(res[0]["groups"])
+    if (sorted(per_proc) != [str(i) for i in range(n)]
+            or any(len(v) != groups for v in per_proc.values())
+            or any(r.get("per_process_device_s") != per_proc for r in res)):
+        print(f"chip_multicard: per_process_device_s {per_proc} "
+              f"({groups} groups)", file=sys.stderr, flush=True)
+        raise SystemExit(1)
+    (tag,) = os.listdir(os.path.join(root, "logs"))
+    streams = [read_event_set(os.path.join(root, "logs", tag,
+                                           stream_filename(i, n)))
+               for i in range(n)]
+    strag = [[{k: v for k, v in r.items() if k != "wall"}
+              for r in events_of(s, "straggler")] for s in streams]
+    if not strag[0] or any(s != strag[0] for s in strag) or (
+            strag[0][0]["slow_process"] != n - 1):
+        print(f"chip_multicard: straggler records {strag}", file=sys.stderr,
+              flush=True)
+        raise SystemExit(1)
+    out = {
+        "processes": n, "device": device, "groups": groups,
+        "attribution": [r["attribution"] for r in res],
+        "window_wall_s": [r["wall_s"] for r in res],
+        "per_process_device_s": per_proc,
+        "predicted_s": [g.get("predicted_s") for g in res[0]["groups"]],
+        "nbytes": [g["nbytes"] for g in res[0]["groups"]],
+        "straggler": strag[0],
+        "fleet_reachable_at_hold": status["reachable"],
+        "health_records": [len(events_of(s, "health")) for s in streams],
+        "wall_s": wall,
+    }
+    print(f"telemetry: {n} processes, {groups} groups, attribution "
+          f"{out['attribution']}, window {out['window_wall_s']} s; "
+          f"straggler {[(r['active'], r['slow_process'], r['step']) for r in strag[0]]}",
+          flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="chip_multicard")
     p.add_argument("--processes", type=int, default=None,
@@ -202,7 +367,11 @@ def main(argv=None) -> int:
         p.add_argument(flag, default=None)
     p.add_argument("--heal", action="store_true",
                    help="run the supervised heal step instead")
+    p.add_argument("--telemetry", action="store_true",
+                   help="run the supervised telemetry step instead")
     args = p.parse_args(argv)
+    # the children run in it: a relative path would name another place
+    args.out_dir = os.path.abspath(args.out_dir)
     n = args.processes
     if n is None:
         import torch
@@ -227,6 +396,10 @@ def main(argv=None) -> int:
 
     if args.heal:
         print(json.dumps({"multicard_heal": heal_phase(
+            n, args.device, args.out_dir, args.batch_size, env)}), flush=True)
+        return 0
+    if args.telemetry:
+        print(json.dumps({"multicard_telemetry": telemetry_phase(
             n, args.device, args.out_dir, args.batch_size, env)}), flush=True)
         return 0
 

@@ -174,6 +174,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (j5) ResNet-20's step with the watchdog armed and without (one device
          batch, CUDA events, medians of 20 after 5, interleaved) and the
          /status scrape's latency on a live trainer.
+ 11. (k) the telemetry plane on the card:
+     (k1) full-width ResNet-20 through ``supervise --processes 1
+         --fleet-port 0`` with the live plane (``--metrics-port 0``, health
+         statistics on) under ``nan@step=4`` and two stalls that hold the
+         run: /profile?steps=3 armed during the first, its result (a Chrome
+         trace on disk, the attribution); during the second, /metrics
+         parsed by the port's ``parse_metrics_text`` against the stream's
+         step records (the steps counter, the window's steps, the bad step,
+         the health gauge), /postmortems and the NaN step's bundle read
+         back; one ``health`` record per step;
+     (k2) the health statistics' cost: ResNet-20 (batch 32, float32) and
+         ResNet-50 (batch 128, bfloat16) steps with and without them
+         (medians of 20, interleaved twice), and ``cudaStreamSynchronize``
+         calls and device-to-host copies per step by torch.profiler, which
+         must be equal;
+     (k3) (in phase 3) the flash-serving process's /metrics: its reload
+         and request counters and served step;
+     (k4) ``python -m mgwfbp_tpu_torch.serving --shadow`` serving ResNet-20
+         on the card: its ``shadow_eval`` record against the CPU scorer on
+         the same weights (SHADOW_TOL), and the card scorer's time;
+     (k5) the supervisor's /fleet/status (the child reachable at the held
+         step) and /fleet/metrics (every series in the registry).
 
 Every phase runs with TF32 off (``utils.device.set_matmul_precision``).
 
@@ -185,7 +207,8 @@ language models ({"lm": ...}), the bench payload ({"bench": ...}), ResNet-50
 ({"resnet50": ...}), resumable training ({"resilience": ...}), the zoo's
 summary ({"zoo_summary": [...]}; each model's full line is printed as it
 finishes), the speech model ({"lstman4": ...}), supervision
-({"supervise": ...}), the card's name and power limit (nvidia-smi), the kernels line
+({"supervise": ...}), the telemetry plane ({"telemetry": ...}), the card's
+name and power limit (nvidia-smi), the kernels line
 ({"kernels": [...]}) and, last, {"ok": true, "device": {...}}.
 """
 
@@ -550,10 +573,33 @@ def phase_serve(gen: torch.Generator) -> tuple[int, list[dict]]:
             status = agg.status()["serving"]
             if not status or status["step"] != 2:
                 fail(f"/status serving section {status}")
+            serve_metrics(server.port)
         finally:
             plane.close()
             server.close()
     return launches, latencies
+
+
+# phase (k3), read in phase 3: the flash-serving process's /metrics
+SERVE_METRICS: dict = {}
+
+
+def serve_metrics(port: int) -> None:
+    """/metrics of the serving process: the registry's text, parsed back by
+    the port's parser, with the reload and request counters of this run."""
+    from mgwfbp_tpu_torch.telemetry.export import parse_metrics_text
+
+    code, text = _get(port, "/metrics")
+    values = parse_metrics_text(text) if code == 200 else {}
+    if (values.get("mgwfbp_serve_reloads_total") != 2
+            or not values.get("mgwfbp_serve_requests_total")
+            or values.get("mgwfbp_serve_step") != 2):
+        fail(f"serving /metrics answered {code}: {values}")
+    SERVE_METRICS.update(
+        reloads_total=values["mgwfbp_serve_reloads_total"],
+        requests_total=values["mgwfbp_serve_requests_total"],
+        served_step=values["mgwfbp_serve_step"],
+        series=len(values), scrape_ms_median=_scrape_ms(port, "/metrics"))
 
 
 def check_out_of_vocabulary(port: int, meta, clean: np.ndarray,
@@ -1717,7 +1763,8 @@ def phase_resnet50() -> dict:
     finally:
         del os.environ["MGWFBP_BENCH_ITERS"]
     print(json.dumps({"bench": payload}), flush=True)
-    if payload.get("error") or set(payload["policies"]) != set(bench.POLICIES):
+    if (payload.get("error") or payload.get("skipped")
+            or set(payload["policies"]) != set(bench.POLICIES)):
         fail(f"resnet50: the bench grid failed: {payload}")
     out["bench"] = payload
     print(f"resnet50 (f): {out['steps']} bf16 steps at batch {batch} in "
@@ -3046,6 +3093,388 @@ def phase_supervise(parts: tuple = ("j1", "j2", "j3", "j4", "j5")) -> dict:
     return out
 
 
+# phase (k): the telemetry plane on the card
+TEL_STEPS = 40  # the supervised trainer's steps (one epoch)
+TEL_NAN_STEP = 4  # nan@step: a bad_step and its postmortem bundle
+TEL_HOLD_STEP, TEL_HOLD_S = 6, 4.0  # holds the run after the NaN step: arm
+TEL_STALL_STEP, TEL_STALL_S = 30, 12.0  # holds the run open for the scrapes
+TEL_PROFILE_STEPS = 3
+TEL_TIMEOUT_S = 180  # each wait of phase (k)
+SHADOW_TOL = 1e-4  # card vs CPU shadow loss: float32 logits, TF32 off
+HEALTH_MODELS = (("resnet20", 32, None), ("resnet50", 128, "bfloat16"))
+FLEET_PORT_LINE = "fleet fan-in: http://"
+
+
+def _get(port: int, path: str, timeout_s: float = 10.0) -> tuple[int, str]:
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout_s) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _wait_for(what: str, probe, timeout_s: float = TEL_TIMEOUT_S,
+              poll_s: float = 0.2):
+    """probe()'s first truthy value within timeout_s, else fail."""
+    t0 = time.time()
+    while time.time() - t0 < timeout_s:
+        try:
+            got = probe()
+        except (OSError, ValueError, KeyError):
+            got = None
+        if got:
+            return got
+        time.sleep(poll_s)
+    fail(f"telemetry (k): {what} within {timeout_s:.0f}s")
+
+
+def _scrape_ms(port: int, path: str, n: int = 20) -> float:
+    """Median ms of n GETs of path (loopback HTTP)."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        code, _ = _get(port, path)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if code != 200:
+            fail(f"telemetry (k): {path} answered {code}")
+    return float(np.median(times))
+
+
+def _labeled_names(text: str) -> set:
+    """The metric names of a (labeled) Prometheus exposition."""
+    names = set()
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            float(value)
+            names.add(name.split("{")[0])
+    return names
+
+
+def _shadow_checkpoint(work: str) -> str:
+    """A committed step of full-width ResNet-20 at a seeded init, its batch
+    statistics moved off their init (eval mode reads them)."""
+    from mgwfbp_tpu_torch import models
+    from mgwfbp_tpu_torch.checkpoint import save_replicated_step
+    from mgwfbp_tpu_torch.convert import flatten_flax, variables_to_flax
+    from mgwfbp_tpu_torch.models.common import init_weights
+
+    module, _ = models.create_model("resnet20")
+    init_weights(module, torch.Generator().manual_seed(5))
+    params, bstats = variables_to_flax(module)
+    rs = np.random.RandomState(11)
+    bstats = {k: (v + np.float32(0.1) * rs.randn(*v.shape).astype(np.float32)
+                  if k.endswith("mean") else v * np.float32(1.3))
+              for k, v in flatten_flax(bstats).items()}
+    d = os.path.join(work, "shadow_ckpt")
+    save_replicated_step(d, 3, params, batch_stats=bstats)
+    return d
+
+
+def telemetry_shadow(work: str, replica: subprocess.Popen, ckpt: str,
+                     tel_dir: str) -> dict:
+    """(k4) The replica ``python -m mgwfbp_tpu_torch.serving --shadow`` on
+    the card scored the committed step: its ``shadow_eval`` record against
+    the CPU scorer on the same weights, and the card scorer's time."""
+    from mgwfbp_tpu_torch import models
+    from mgwfbp_tpu_torch.serving.model import ServingModel
+    from mgwfbp_tpu_torch.serving.shadow import ShadowScorer
+    from mgwfbp_tpu_torch.telemetry import events_of, read_events
+
+    path = os.path.join(tel_dir, "telemetry.jsonl")
+    rec = _wait_for("a shadow_eval record from the --shadow replica",
+                    lambda: events_of(read_events(path), "shadow_eval"))[0]
+    replica.send_signal(signal.SIGTERM)
+    try:
+        replica.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        fail("telemetry (k4): the serving replica ignored SIGTERM")
+    if replica.returncode != 0:
+        fail(f"telemetry (k4): the serving replica exited {replica.returncode}")
+    cpu_loss = None
+    card_s = []
+    for device in ("cpu", TRAIN_DEVICE):
+        module, meta = models.create_model("resnet20")
+        model = ServingModel(module, meta, device=device)
+        snap = model.load_step(ckpt, 3)
+        scorer = ShadowScorer(model)
+        loss = scorer.score(snap)
+        if device == "cpu":
+            cpu_loss = loss
+            continue
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scorer.score(snap)
+            card_s.append(time.perf_counter() - t0)
+    err = abs(float(rec["loss"]) - float(cpu_loss))
+    if rec["step"] != 3 or not np.isfinite(rec["loss"]) or err > SHADOW_TOL:
+        fail(f"telemetry (k4): shadow_eval {rec} against the CPU scorer's "
+             f"{cpu_loss} (|diff| {err:.3e} > {SHADOW_TOL})")
+    return {"model": "resnet20", "step": rec["step"], "loss": rec["loss"],
+            "cpu_loss": cpu_loss, "abs_err": err, "tolerance": SHADOW_TOL,
+            "score_s_median": float(np.median(card_s))}
+
+
+def telemetry_trainer(work: str, sup: subprocess.Popen, log_dir: str,
+                      logs: str) -> dict:
+    """(k1) + (k5) ResNet-20 on the card under ``supervise --processes 1
+    --fleet-port 0``: /metrics against the stream, a /profile window, the
+    NaN step's postmortem bundle, and the fan-in's /fleet/status and
+    /fleet/metrics."""
+    from mgwfbp_tpu_torch.telemetry import events_of, read_event_set
+    from mgwfbp_tpu_torch.telemetry.export import METRICS, parse_metrics_text
+    from mgwfbp_tpu_torch.telemetry.recorder import read_bundle
+
+    out: dict = {}
+    port_file = os.path.join(log_dir, "metrics_port.p0.json")
+    port = _wait_for("the child's port file",
+                     lambda: json.load(open(port_file))["port"])
+
+    def fleet_port():
+        with open(log_dir + ".err") as f:
+            for line in f:
+                if FLEET_PORT_LINE in line:
+                    return int(line.split(FLEET_PORT_LINE)[1]
+                               .split()[0].rsplit(":", 1)[1])
+
+    fport = _wait_for("the supervisor's fleet fan-in", fleet_port)
+
+    def step() -> int:
+        code, body = _get(port, "/status")
+        return int(json.loads(body)["step"] or 0) if code == 200 else 0
+
+    # the hold before step TEL_HOLD_STEP: the window is armed there and
+    # runs at the boundary after it
+    _wait_for("the NaN step", lambda: step() >= TEL_HOLD_STEP - 1, poll_s=0.05)
+    code, body = _get(port, f"/profile?steps={TEL_PROFILE_STEPS}")
+    if code != 200 or not json.loads(body).get("armed"):
+        fail(f"telemetry (k1): /profile?steps={TEL_PROFILE_STEPS} answered "
+             f"{code}: {body}")
+
+    def window():
+        doc = json.loads(_get(port, "/profile")[1])
+        return doc if doc["state"] in ("done", "failed") else None
+
+    prof = _wait_for("the profile window", window)
+    if prof["state"] != "done":
+        fail(f"telemetry (k1): the profile window failed: {prof}")
+    res = prof["result"]
+    traces = os.listdir(res["trace_dir"]) if res.get("trace_dir") else []
+    if res["steps"] != TEL_PROFILE_STEPS or "trace.json" not in traces:
+        fail(f"telemetry (k1): profile result {res}, trace dir {traces}")
+    with open(os.path.join(res["trace_dir"], "trace.json")) as f:
+        trace_events = len(json.load(f)["traceEvents"])
+    out["profile"] = {"steps": res["steps"], "wall_s": res["wall_s"],
+                      "attribution": res["attribution"],
+                      "trace_events": trace_events,
+                      "trace_bytes": os.path.getsize(
+                          os.path.join(res["trace_dir"], "trace.json"))}
+    # the stall holds the run at TEL_STALL_STEP - 1: nothing is written
+    _wait_for("the stall", lambda: step() >= TEL_STALL_STEP - 1)
+    (tag,) = os.listdir(logs)
+    stream = os.path.join(logs, tag, "telemetry.jsonl")
+    code, text = _get(port, "/metrics")
+    values = parse_metrics_text(text)
+    rows = read_event_set(stream)
+    steps = len(events_of(rows, "step"))
+    want = {"mgwfbp_steps_total": steps,
+            "mgwfbp_current_step": steps + TEL_PROFILE_STEPS,
+            "mgwfbp_bad_steps_total": 1,
+            "mgwfbp_profile_windows_total": 1}
+    got = {k: values.get(k) for k in want}
+    if code != 200 or got != want or steps != TEL_STALL_STEP - 1 - (
+            TEL_PROFILE_STEPS) or "mgwfbp_health_grad_norm" not in values:
+        fail(f"telemetry (k1): /metrics {got} against the stream's {want} "
+             f"({steps} step records)")
+    out["metrics"] = {"values": len(values), **got,
+                      "postmortems_total": values.get(
+                          "mgwfbp_postmortems_total"),
+                      "health_grad_norm": values["mgwfbp_health_grad_norm"],
+                      "scrape_ms_median": _scrape_ms(port, "/metrics")}
+    code, body = _get(port, "/postmortems")
+    pm = json.loads(body)
+    if code != 200 or pm["total"] < 1:
+        fail(f"telemetry (k1): /postmortems {pm}")
+    first = pm["recent"][0]
+    bundle = read_bundle(first["path"])
+    if (bundle["manifest"]["trigger"] != "bad_step"
+            or bundle["manifest"]["step"] != TEL_NAN_STEP
+            or not bundle.get("events") or "status" not in bundle):
+        fail(f"telemetry (k1): postmortem bundle {bundle.get('manifest')}")
+    out["postmortem"] = {
+        "bundles": pm["total"], "trigger": bundle["manifest"]["trigger"],
+        "step": bundle["manifest"]["step"],
+        "ring_records": bundle["manifest"]["ring_records"],
+        "bytes": sum(os.path.getsize(os.path.join(first["path"], n))
+                     for n in os.listdir(first["path"]))}
+    # (k5) the fan-in over the supervised child
+    code, body = _get(fport, "/fleet/status", timeout_s=30)
+    fs = json.loads(body)
+    if (code != 200 or fs["reachable"] != 1 or fs["unreachable"]
+            or fs["processes"]["0"]["step"] != TEL_STALL_STEP - 1):
+        fail(f"telemetry (k5): /fleet/status {code}: reachable "
+             f"{fs.get('reachable')}, unreachable {fs.get('unreachable')}")
+    code, text = _get(fport, "/fleet/metrics", timeout_s=30)
+    names = _labeled_names(text)
+    if (code != 200 or not names <= {n for n, _, _ in METRICS}
+            or 'mgwfbp_steps_total{process="0"}' not in text
+            or "mgwfbp_fleet_processes 1" not in text):
+        fail(f"telemetry (k5): /fleet/metrics {code}: {text[:400]}")
+    out["fleet"] = {"reachable": fs["reachable"],
+                    "series": len(names),
+                    "status_scrape_ms_median": _scrape_ms(fport,
+                                                          "/fleet/status", 5),
+                    "metrics_scrape_ms_median": _scrape_ms(fport,
+                                                           "/fleet/metrics", 5)}
+    _wait_supervised(sup, log_dir, "telemetry run")
+    rows = read_event_set(stream)
+    health = events_of(rows, "health")
+    kinds = {r["event"] for r in rows}
+    if len(health) != len(events_of(rows, "step")) or "bench_skip" in kinds:
+        fail(f"telemetry (k1): {len(health)} health records for "
+             f"{len(events_of(rows, 'step'))} steps; events {sorted(kinds)}")
+    out["health_records"] = len(health)
+    out["events"] = sorted(kinds)
+    return out
+
+
+def _sync_counts(fn, steps: int = 5) -> tuple[dict, float]:
+    """(cudaStreamSynchronize calls, device-to-host copies and
+    cudaMemcpyAsync calls per call of fn; kernels per call), counted by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                  for e in prof.events())
+    return {"cudaStreamSynchronize": sum(
+                n == "cudaStreamSynchronize" for n in names) / steps,
+            "memcpy_dtoh": sum("DtoH" in n for n in names) / steps,
+            "cudaMemcpyAsync": sum(
+                n == "cudaMemcpyAsync" for n in names) / steps,
+            }, kernels / steps
+
+
+def telemetry_health_cost(work: str) -> list[dict]:
+    """(k2) The in-step health statistics' cost: each model's step with them
+    and without (one device batch, CUDA events, medians of 20 after 5,
+    interleaved twice), beside the synchronisations and device-to-host
+    copies per step, which must be equal."""
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.train import Trainer
+
+    out = []
+    for name, batch, dtype in HEALTH_MODELS:
+        cfg = make_config(name, logdir=os.path.join(work, "health"),
+                          telemetry=True, batch_size=batch, dtype=dtype,
+                          augment=False)
+        tr = Trainer(cfg, device=TRAIN_DEVICE, synthetic_data=True,
+                     profile_backward=False)
+        try:
+            step = tr.train_step
+            if not step.health_stats:
+                fail(f"telemetry (k2): {name}: health statistics are off")
+            xb, yb = tr.bundle.train.load_batch(0, 0)
+            x, y = tr._to_device(xb[None], yb[None])
+            times: dict = {"off": [], "on": []}
+            for _ in range(2):
+                for mode in ("off", "on"):
+                    step.health_stats = mode == "on"
+                    times[mode].append(float(np.median(
+                        _timed_steps(step, x, y))))
+            counts, kernels = {}, {}
+            for mode in ("off", "on"):
+                step.health_stats = mode == "on"
+                step(x, y)  # the mode's read-back pattern is established
+                counts[mode], kernels[mode] = _sync_counts(
+                    lambda: step(x, y))
+            step.health_stats = True
+            health = step.take_health()
+            param_bytes = sum(p.numel() * p.element_size()
+                              for p in step.params)
+        finally:
+            tr.close()
+        del tr, step, x, y
+        torch.cuda.empty_cache()
+        if counts["on"] != counts["off"]:
+            fail(f"telemetry (k2): {name}: the health statistics change the "
+                 f"host reads per step: {counts}")
+        if not np.isfinite(list(health.values())).all():
+            fail(f"telemetry (k2): {name}: health statistics {health}")
+        row = {"model": name, "batch": batch, "dtype": dtype or "float32",
+               "step_ms_without": times["off"], "step_ms_with": times["on"],
+               "per_step_off": counts["off"], "per_step_on": counts["on"],
+               "device_ops_per_step_off": kernels["off"],
+               "device_ops_per_step_on": kernels["on"],
+               "param_snapshot_bytes": param_bytes,
+               "grad_norm": health["health/grad_norm"],
+               "update_ratio": health["health/update_ratio"]}
+        print(f"telemetry (k2): {name} b{batch} step {times['off']} ms "
+              f"without, {times['on']} ms with the health statistics; per "
+              f"step {counts['on']}, device ops {kernels['off']} -> "
+              f"{kernels['on']}", flush=True)
+        out.append(row)
+    return out
+
+
+def phase_telemetry() -> dict:
+    """(k) The telemetry plane on the card: a supervised ResNet-20 run with
+    the live plane and the fleet fan-in (k1, k5), the health statistics'
+    cost (k2), a --shadow replica (k4); (k3), the flash-serving process's
+    /metrics, is checked in phase 3."""
+    t0 = time.perf_counter()
+    out: dict = {"serve_metrics": SERVE_METRICS}
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_telemetry_") as work:
+        try:
+            ckpt = _shadow_checkpoint(work)
+            tel_dir = os.path.join(work, "shadow_tel")
+            replica = subprocess.Popen(
+                [sys.executable, "-m", "mgwfbp_tpu_torch.serving", "--dnn",
+                 "resnet20", "--checkpoint-dir", ckpt, "--shadow",
+                 "--telemetry-dir", tel_dir, "--poll-s", "0.2",
+                 "--max-seconds", str(TEL_TIMEOUT_S)],
+                stdout=subprocess.DEVNULL,
+                stderr=open(os.path.join(work, "replica.err"), "w"),
+                env=_sup_env())
+            _CHILDREN.append(replica)
+            root = os.path.join(work, "train")
+            log_dir = os.path.join(root, "sup")
+            logs = os.path.join(root, "logs")
+            sup = _supervise(log_dir, [
+                "--dnn", "resnet20", "--synthetic", "--epochs", "1",
+                "--num-batches-per-epoch", str(TEL_STEPS), "--telemetry",
+                "--metrics-port", "0", "--logdir", logs],
+                _sup_env(f"nan@step={TEL_NAN_STEP};stall@secs={TEL_HOLD_S},"
+                         f"step={TEL_HOLD_STEP};stall@secs={TEL_STALL_S},"
+                         f"step={TEL_STALL_STEP}", MGWFBP_METRICS_PORT="0"),
+                sup_args=("--fleet-port", "0"))
+            out["trainer"] = telemetry_trainer(work, sup, log_dir, logs)
+            out["shadow"] = telemetry_shadow(work, replica, ckpt, tel_dir)
+            out["health_cost"] = telemetry_health_cost(work)
+        except BaseException:
+            _log_tails(work)
+            raise
+        finally:
+            _kill_children()
+    out["wall_s"] = time.perf_counter() - t0
+    tr = out["trainer"]
+    print(f"telemetry (k): /metrics {tr['metrics']['scrape_ms_median']:.2f} "
+          f"ms, profile window {tr['profile']['wall_s']:.2f} s "
+          f"({tr['profile']['attribution']}), postmortem "
+          f"{tr['postmortem']['bytes']} B, shadow |card - cpu| "
+          f"{out['shadow']['abs_err']:.2e}, phase {out['wall_s']:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -3076,6 +3505,7 @@ def main() -> int:
     zoo = phase_zoo()
     lstman4 = phase_lstman4()
     supervise = phase_supervise()
+    telemetry = phase_telemetry()
 
     serve = rows[0]
     kernels = [{
@@ -3110,6 +3540,7 @@ def main() -> int:
         for r in zoo]}))
     print(json.dumps({"lstman4": lstman4}))
     print(json.dumps({"supervise": supervise}))
+    print(json.dumps({"telemetry": telemetry}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -30,7 +30,14 @@ What is ported so far:
   * resumable training: resume, the SIGTERM/SIGINT drain (rc 75),
     rollback after bad steps, ``--pretrain`` (``train``), the fault plan
     (``utils.faults``), agreement over a gloo side group
-    (``runtime.coordination``) and the offline evaluator (``evaluate``).
+    (``runtime.coordination``) and the offline evaluator (``evaluate``);
+  * supervision (``runtime.supervisor``, ``utils.watchdog``) and the
+    telemetry plane: /metrics, /healthz, /status, /profile and
+    /postmortems (``telemetry.serve``, ``telemetry.export``), the fleet
+    fan-in (``telemetry.fleet``), drift, straggler and health alarms
+    (``telemetry.drift``, ``telemetry.health``), the flight recorder
+    (``telemetry.recorder``), the shadow scorer (``serving.shadow``) and
+    the scalar stream (``utils.summary``).
 
 Entry points take an explicit ``device`` (default ``"cuda"``) and raise when
 a card is asked for and none is present; they never fall back to the CPU.

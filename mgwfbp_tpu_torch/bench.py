@@ -13,6 +13,16 @@ CUDA out-of-memory error reruns the WHOLE grid at batch 64, and the payload
 says so; any other failure prints an ``error`` payload (value null, no
 traceback) and exits 1.
 
+The card's outage record: CUDA's initialisation and a first kernel run
+under ``utils.platform.preflight_backend``'s deadline
+(``MGWFBP_INIT_TIMEOUT_S``), retried with backoff; when every attempt times
+out (or ``MGWFBP_FAULT_PLAN=chip_unavailable`` says so) the bench prints a
+``skipped: "chip unavailable"`` payload, appends a ``bench_skip`` event to
+``$MGWFBP_TELEMETRY_DIR/telemetry.jsonl`` when that is set, and exits 0, as
+``bench.py`` does: no card this time is not a regression. It never measures
+on the CPU instead; no card at all (``torch.cuda.is_available()`` false) is
+an ``error`` payload, rc 1.
+
 Several processes (one per card) come from the launch environment
 (``MGWFBP_COORDINATOR``/``MGWFBP_NUM_PROCESSES``/``MGWFBP_PROCESS_ID``);
 each prints its line, the value is the global images/s and MFU is per
@@ -52,6 +62,66 @@ def _progress(msg: str) -> None:
     """Phase marker on stderr (stdout carries exactly one JSON line)."""
     print(f"[bench {time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr,
           flush=True)
+
+
+class ChipUnavailable(RuntimeError):
+    """CUDA's initialisation timed out on every attempt: there is no card
+    to measure this time (a structured skip, rc 0), as opposed to a
+    failure (rc 1)."""
+
+
+# seconds slept before the k-th retry of a timed-out initialisation
+INIT_RETRY_DELAYS_S = (30.0, 60.0)
+
+
+def _devices_with_retry(device: str, timeout_attempts: int = 3,
+                        sleep=time.sleep) -> list:
+    """``preflight_backend`` with bounded retries of a timed-out
+    initialisation; ChipUnavailable once every attempt timed out. Any
+    other error (no card at all) is raised at once."""
+    from mgwfbp_tpu_torch.utils.faults import FaultPlan
+    from mgwfbp_tpu_torch.utils.platform import (
+        DeadlineExceeded,
+        preflight_backend,
+    )
+
+    if FaultPlan.from_env().chip_unavailable():
+        raise ChipUnavailable(
+            f"CUDA initialisation timed out in each of {timeout_attempts} "
+            "attempts (injected by MGWFBP_FAULT_PLAN=chip_unavailable)"
+        )
+    timeouts = 0
+    while True:
+        try:
+            return preflight_backend(device=device)
+        except DeadlineExceeded as e:
+            timeouts += 1
+            _progress(f"{e} (attempt {timeouts}/{timeout_attempts})")
+            if timeouts >= timeout_attempts:
+                raise ChipUnavailable(
+                    f"CUDA initialisation timed out in each of {timeouts} "
+                    f"attempts: {e}"
+                ) from None
+        sleep(INIT_RETRY_DELAYS_S[min(timeouts - 1,
+                                      len(INIT_RETRY_DELAYS_S) - 1)])
+
+
+def _record_bench_skip(detail: str) -> None:
+    """Append a ``bench_skip`` event to ``$MGWFBP_TELEMETRY_DIR``'s stream
+    (the event family live runs write), when that is set."""
+    d = os.environ.get("MGWFBP_TELEMETRY_DIR")
+    if not d:
+        return
+    try:
+        from mgwfbp_tpu_torch.telemetry import EventWriter
+
+        w = EventWriter(os.path.join(d, "telemetry.jsonl"),
+                        run={"source": "bench"})
+        w.emit("bench_skip", detail=detail)
+        w.close()
+    except Exception:  # noqa: BLE001 — a structured skip (rc 0) must not
+        # become a crash
+        pass
 
 
 def _is_oom(e: BaseException) -> bool:
@@ -325,7 +395,17 @@ def main(argv: Optional[list[str]] = None) -> int:
                    help="cuda (default; fails without a card) or cpu")
     args = p.parse_args(argv)
     try:
+        if args.device != "cpu":
+            _devices_with_retry(args.device)
         payload = run_bench(args.device)
+    except ChipUnavailable as e:
+        detail = f"{type(e).__name__}: {e}"
+        _record_bench_skip(detail)
+        payload = {
+            "metric": "resnet50_synthetic_imagenet_train_throughput",
+            "value": None, "unit": "images/s", "vs_baseline": None,
+            "skipped": "chip unavailable", "detail": detail,
+        }
     except Exception as e:  # noqa: BLE001 — one JSON line, never a traceback
         payload = {
             "metric": "resnet50_synthetic_imagenet_train_throughput",

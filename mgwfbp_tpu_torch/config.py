@@ -4,8 +4,7 @@ One dataclass with per-model presets, ``MGWFBP_<FIELD>`` environment
 overrides and keyword overrides, resolved by ``make_config`` exactly as the
 JAX package resolves them. Only the fields the port's training path reads
 are kept; the rest of the JAX config (lowerings other than ``all_reduce``,
-autotune, the rest of the telemetry plane, the serving shadow) is listed in
-ROADMAP.md.
+autotune, sequence parallelism) is listed in ROADMAP.md.
 ``deterministic`` is the port's own (torch's deterministic algorithms;
 the JAX package has no counterpart to switch).
 """
@@ -55,6 +54,10 @@ class TrainConfig:
 
     # io / bookkeeping
     logdir: str = "./logs"
+    # scalar stream (utils/summary.py): train/eval scalars as ``scalar``
+    # records in the telemetry stream (or events.jsonl without one),
+    # mirrored to TensorBoard when a writer package imports; process 0 only
+    tensorboard: bool = False
     checkpoint_dir: Optional[str] = None
     checkpoint_every_epochs: int = 1
     # 'sharded' (the shard-native format); 'replicated' (the JAX package's
@@ -68,6 +71,11 @@ class TrainConfig:
     # boundaries only); a SIGTERM/SIGINT drain always writes one
     ckpt_every_steps: int = 0
     grad_guard: bool = True  # drop the update on non-finite gradients
+    # in-step training-health statistics (train/step.py): the global and
+    # per-merge-group gradient L2 norms and the update/param ratio, read one
+    # step late; effective only with telemetry on (``health`` records, the
+    # detector in telemetry/health.py, the flight recorder)
+    health_stats: bool = True
     # consecutive non-finite steps before rolling back to the newest
     # checkpoint (0: never; skipping still applies)
     bad_step_limit: int = 3
@@ -92,6 +100,11 @@ class TrainConfig:
     seed: int = 0
     num_batches_per_epoch: Optional[int] = None
     eval_every_epochs: int = 1
+    # in-process serving plane: hot-reload each committed checkpoint into a
+    # ServingModel on this process's HTTP plane, score the held-out shadow
+    # stream on it and answer /predict, off the step loop's thread. One
+    # process only; needs telemetry and checkpoint_dir
+    serve_shadow: bool = False
 
     def tag(self) -> str:
         from mgwfbp_tpu_torch.utils.logging import run_tag

@@ -135,6 +135,16 @@ class MergedAllreduce:
     def num_groups(self) -> int:
         return self.layout.num_groups
 
+    @property
+    def arrival_params(self) -> list[torch.Tensor]:
+        """The parameters in arrival order (position k is ``perm[k]``)."""
+        return list(self._arr)
+
+    @property
+    def group_of(self) -> list[int]:
+        """The merge group of each arrival position."""
+        return list(self._group_of)
+
     def attach(self) -> "MergedAllreduce":
         """Register one post-accumulate-grad hook per parameter."""
         if not self._handles:

@@ -36,6 +36,7 @@ import dataclasses
 import json
 import logging
 import os
+import threading
 import time
 from typing import Callable, Optional, Sequence, Union
 
@@ -645,12 +646,24 @@ def _device_activity(event):
         yield from _device_activity(child)
 
 
-def trace_group_rows(run_steps: Callable[[], None]) -> list[tuple[str, float]]:
+# torch.profiler refuses a second active profiler in one process; every
+# window of this package takes this lock, so two never overlap (a second
+# one fails at once instead)
+_PROFILER_LOCK = threading.Lock()
+
+
+def trace_group_rows(
+    run_steps: Callable[[], None], logdir: Optional[str] = None,
+    trace_name: str = "trace.json",
+) -> list[tuple[str, float]]:
     """Run ``run_steps()`` under torch.profiler (CPU and, on a card, CUDA
     activities) and return one ("<scope> <kernel>", device µs) row for
     every kernel or copy whose launch lies inside a merge group's range.
     A host operator's own time (gloo's ``all_reduce``, whose duration is
-    its enqueue) is never counted, so a CPU run returns no rows."""
+    its enqueue) is never counted, so a CPU run returns no rows. With
+    ``logdir`` the window's Chrome trace goes to ``<logdir>/<trace_name>``.
+    A window while another of this package's is active raises
+    RuntimeError."""
     from torch.profiler import ProfilerActivity, profile
 
     from mgwfbp_tpu_torch.parallel.allreduce import GROUP_SCOPE_PREFIX
@@ -658,8 +671,17 @@ def trace_group_rows(run_steps: Callable[[], None]) -> list[tuple[str, float]]:
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        run_steps()
+    if not _PROFILER_LOCK.acquire(blocking=False):
+        raise RuntimeError("another torch.profiler window is active in "
+                           "this process")
+    try:
+        with profile(activities=activities) as prof:
+            run_steps()
+        if logdir is not None:
+            os.makedirs(logdir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(logdir, trace_name))
+    finally:
+        _PROFILER_LOCK.release()
     rows = []
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CPU
@@ -671,6 +693,7 @@ def trace_group_rows(run_steps: Callable[[], None]) -> list[tuple[str, float]]:
 
 def trace_group_times(
     run_steps: Callable[[], None], num_groups: int, iters: int = 1,
+    logdir: Optional[str] = None, trace_name: str = "trace.json",
 ) -> Optional[list[float]]:
     """Measured per-merge-group device seconds per step, from a profiler
     trace of ``run_steps()`` (which runs ``iters`` steps and synchronises):
@@ -679,6 +702,7 @@ def trace_group_times(
     some group's range holds no collective kernel: on the CPU, and where
     the collective launches none (NCCL's in-place sum over one rank). The
     JAX package's second path, a join with the compiled HLO's op metadata,
-    has no counterpart: there is no HLO here."""
-    return collective_group_times(trace_group_rows(run_steps), num_groups,
-                                  iters)
+    has no counterpart: there is no HLO here. ``logdir``, ``trace_name``:
+    as in ``trace_group_rows``."""
+    return collective_group_times(
+        trace_group_rows(run_steps, logdir, trace_name), num_groups, iters)

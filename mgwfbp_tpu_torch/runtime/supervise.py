@@ -19,8 +19,9 @@ abort) stops and names the stack dumps, hard failures heal by default
 (crashes relaunch at the same world, SIGKILLs shrink to the survivors,
 children whose /status step froze are drained and relaunched) under
 per-class budgets; ``--no-heal`` tears down and propagates.
-``MGWFBP_METRICS_PORT`` (0: ephemeral) turns on the children's /healthz
-and /status, which the liveness monitor scrapes.
+``MGWFBP_METRICS_PORT`` (0: ephemeral) turns on the children's live
+plane, which the liveness monitor scrapes; ``--fleet-port`` serves the
+fan-in over it (/fleet/metrics, /fleet/status, /fleet/profile).
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ import sys
 from typing import Optional
 
 from mgwfbp_tpu_torch.runtime.supervisor import (
-    FLEET_SERVER_REFUSAL,
     Supervisor,
     default_serve_cmd,
     default_train_cmd,
@@ -72,8 +72,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "incarnation)")
     p.add_argument("--fleet-port", dest="fleet_port", type=int,
                    default=None,
-                   help="the live fan-in server: refused, it needs the "
-                        "fleet plane (ROADMAP Queue 1 item 5)")
+                   help="serve the live fan-in (/fleet/metrics, "
+                        "/fleet/status, /fleet/profile) on this port; 0 = "
+                        "ephemeral (logged); needs MGWFBP_METRICS_PORT for "
+                        "the children")
     p.add_argument("--fleet-file", dest="fleet_file", default=None,
                    help="persist the children's bound metrics endpoints "
                         "here in Prometheus http_sd format (default: "
@@ -124,8 +126,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[list[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.fleet_port is not None:
-        parser.error(f"--fleet-port: {FLEET_SERVER_REFUSAL}")
     train_args = args.train_args
     if train_args and train_args[0] == "--":
         train_args = train_args[1:]
@@ -139,6 +139,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         drain_grace_s=args.drain_grace,
         log_dir=args.log_dir,
         port=args.port,
+        fleet_port=args.fleet_port,
         fleet_file=args.fleet_file,
         resize_to=args.resize_to,
         serve_replicas=args.serve_replicas,

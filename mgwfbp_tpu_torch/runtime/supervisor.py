@@ -46,8 +46,11 @@ Everything else (fault plans, device choices) is inherited.
 live plane on, the supervisor drains the group itself (SIGTERM once a
 child reports a step). Serving replicas (``serve_replicas``) live for the
 supervisor's whole run, hot-reload the training group's checkpoints and
-respawn under their own budget. The live fan-in server (``fleet_port``)
-needs the fleet plane of ROADMAP Queue 1 item 5 and is refused.
+respawn under their own budget. ``fleet_port`` serves the live fan-in
+(``telemetry/fleet.py``): /fleet/metrics, /fleet/status and /fleet/profile
+over every child's live plane, for the supervisor's whole run (the targets
+re-resolve per request, so a relaunched incarnation's new ports stay
+reachable through the same URL).
 
 ``python -m mgwfbp_tpu_torch.runtime.supervise --processes 2 -- <train
 args>`` is the CLI (``runtime/supervise.py``).
@@ -76,14 +79,6 @@ from mgwfbp_tpu_torch.utils.watchdog import WATCHDOG_RC
 # unreachable after it was seen) before the group is healed
 LIVENESS_GRACE_ENV = "MGWFBP_LIVENESS_GRACE_S"
 DEFAULT_LIVENESS_GRACE_S = 120.0
-
-FLEET_SERVER_REFUSAL = (
-    "the live fan-in server (--fleet-port: /fleet/metrics, /fleet/status) "
-    "needs the fleet plane, which is ROADMAP Queue 1 item 5 of the PyTorch "
-    "port; the supervisor writes <log-dir>/fleet.json (Prometheus http_sd) "
-    "with every child's bound port"
-)
-
 
 def classify_rc(rc: int) -> str:
     """One child returncode in the policy's words. Popen gives -N for a
@@ -171,26 +166,6 @@ def free_port() -> int:
     return port
 
 
-def write_fleet_sd(path: str, targets: dict, roles: Optional[dict] = None
-                   ) -> list[dict]:
-    """Write the scrape targets in Prometheus http_sd / file_sd format (one
-    target group per child with ``process`` and ``role`` labels),
-    atomically."""
-    doc = [
-        {"targets": [f"{host}:{port}"],
-         "labels": {"job": "mgwfbp", "process": str(idx),
-                    "role": str((roles or {}).get(idx, "train"))}}
-        for idx, (host, port) in sorted(targets.items(),
-                                        key=lambda kv: str(kv[0]))
-    ]
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "w") as f:
-        json.dump(doc, f, indent=1)
-    os.replace(tmp, path)
-    return doc
-
-
 @dataclasses.dataclass
 class GroupResult:
     """Outcome of one incarnation of the process group."""
@@ -255,8 +230,6 @@ class Supervisor:
                 f"serve_replicas must be >= 0, got {serve_replicas}")
         if serve_replicas and not serve_cmd:
             raise ValueError("serve_replicas > 0 needs a serve_cmd")
-        if fleet_port is not None:
-            raise NotImplementedError(FLEET_SERVER_REFUSAL)
         self.base_cmd = list(base_cmd)
         self.processes = int(processes)
         self.max_restarts = int(max_restarts)
@@ -273,6 +246,9 @@ class Supervisor:
         # the last /status of each peer still alive when an rc-86 exit was
         # first seen (None: no abort seen this incarnation)
         self._status_snapshots: Optional[dict] = None
+        # the live fan-in server's port (None: off, 0: ephemeral)
+        self.fleet_port = fleet_port
+        self.fleet_server = None
         self.fleet_file = fleet_file or (
             os.path.join(log_dir, "fleet.json") if log_dir else None)
         self._ports_dir: Optional[str] = None
@@ -395,6 +371,8 @@ class Supervisor:
         if targets == self._last_fleet_targets:
             return
         if self.fleet_file and targets:
+            from mgwfbp_tpu_torch.telemetry.fleet import write_fleet_sd
+
             try:
                 write_fleet_sd(self.fleet_file, targets, roles={
                     k: "serve" if isinstance(k, str) else "train"
@@ -409,6 +387,55 @@ class Supervisor:
                 for k, (h, p) in sorted(targets.items(),
                                         key=lambda kv: str(kv[0]))))
         self._last_fleet_targets = dict(targets)
+
+    def _fleet_meta(self) -> dict:
+        """Supervisor-level fields of /fleet/status."""
+        meta = {
+            "incarnation": len(self.results),
+            "processes_configured": self.processes,
+            "heal": {
+                "enabled": self.heal,
+                "restarts": dict(self._heal_restarts),
+                "budget": self.heal_max_restarts,
+                "liveness_grace_s": self.liveness_grace_s,
+            },
+        }
+        if self._pending_failure is not None:
+            meta["heal"]["pending_failure"] = dict(self._pending_failure)
+        if self.serve_replicas:
+            meta["serving"] = {
+                "replicas": self.serve_replicas,
+                "alive": sum(1 for p in self._serve_procs
+                             if p is not None and p.poll() is None),
+                "restarts": list(self._serve_restarts),
+                "restart_budget": self.serve_max_restarts,
+            }
+        if self.resize_to is not None:
+            meta["resize"] = {
+                "from": self._initial_processes,
+                "to": self.resize_to,
+                "state": ("done" if self.processes == self.resize_to
+                          else "pending"),
+                "triggered": bool(self._resize_signaled),
+            }
+        return meta
+
+    def _start_fleet_server(self) -> None:
+        """One fan-in server for the supervisor's lifetime; it needs the
+        children's live plane (``MGWFBP_METRICS_PORT``)."""
+        if self.fleet_port is None or self.fleet_server is not None:
+            return
+        if not self._metrics_enabled():
+            self.log.warning(
+                "fleet fan-in requested but MGWFBP_METRICS_PORT is not set "
+                "for the children; /fleet endpoints disabled")
+            return
+        from mgwfbp_tpu_torch.telemetry.fleet import start_fleet_server
+
+        self.fleet_server = start_fleet_server(
+            self._child_targets, self.fleet_port,
+            meta_provider=self._fleet_meta,
+        )
 
     def _emit(self, event: str, **fields) -> None:
         """Append one record to ``<log_dir>/telemetry.supervisor.jsonl``
@@ -641,6 +668,7 @@ class Supervisor:
                 except OSError:
                     pass
             self._last_fleet_targets = None
+            self._start_fleet_server()
         base = self._metrics_base_port()
         if base is not None:
             for i in range(self.processes):
@@ -791,6 +819,9 @@ class Supervisor:
             return self._run_policy()
         finally:
             self._stop_serve_replicas()
+            if self.fleet_server is not None:
+                self.fleet_server.close()
+                self.fleet_server = None
             if self._events is not None:
                 self._events.close()
                 self._events = None

@@ -3,10 +3,13 @@
 One process = one replica: builds the ServingModel for a named model on
 one device (``--device``, default ``cuda``), watches a checkpoint directory
 for committed shard-native steps (written by either package), and serves
-POST /predict plus /healthz and /status on the role-aware port
+POST /predict plus /metrics, /healthz and /status on the role-aware port
 (``base + serve offset + replica``); /status also carries the replica's
-flash kernel launches (``kernel_launches``). The supervisor runs replicas
-under ``--serve-replicas`` and respawns a dead one.
+flash kernel launches (``kernel_launches``). ``--shadow`` scores every
+reload on the held-out stream (``shadow_eval`` events, the
+``mgwfbp_shadow_*`` gauges; classify models only), ``--telemetry-dir``
+writes the replica's own event stream. The supervisor runs replicas under
+``--serve-replicas`` and respawns a dead one.
 """
 
 from __future__ import annotations
@@ -54,6 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default: MGWFBP_SERVE_QUEUE)")
     p.add_argument("--poll-s", type=float, default=DEFAULT_POLL_S,
                    help="checkpoint poll interval")
+    p.add_argument("--shadow", action="store_true",
+                   help="score the held-out shadow stream on every reload")
+    p.add_argument("--telemetry-dir", default=None,
+                   help="write this replica's own telemetry stream here")
     p.add_argument("--max-seconds", type=float, default=None,
                    help="exit after this long (smokes/tests; default: run "
                         "until SIGTERM/SIGINT)")
@@ -99,6 +106,21 @@ def main(argv: Optional[list] = None) -> int:
     agg = MetricsAggregator(run=run, extra_status=lambda: {
         "kernel_launches": {"flash_attention_fwd": flash_attention.launches},
     })
+    writer = None
+    if args.telemetry_dir:
+        from mgwfbp_tpu_torch.telemetry.events import EventWriter
+
+        writer = EventWriter(
+            os.path.join(args.telemetry_dir, "telemetry.jsonl"),
+            run=run, observer=agg.observe,
+        )
+
+    def emit(event: str, fields: dict) -> None:
+        if writer is not None:
+            writer.emit(event, **fields)  # tees to the aggregator
+        else:
+            agg.observe(event, fields)
+
     base_port = (
         args.metrics_port if args.metrics_port is not None
         else (int(os.environ[METRICS_PORT_ENV])
@@ -108,8 +130,9 @@ def main(argv: Optional[list] = None) -> int:
     plane = ServePlane(
         model,
         args.checkpoint_dir,
-        emit=agg.observe,
+        emit=emit,
         server=server,
+        shadow=bool(args.shadow),
         poll_s=args.poll_s,
         flush_ms=args.flush_ms,
         queue_limit=args.queue_limit,
@@ -139,6 +162,8 @@ def main(argv: Optional[list] = None) -> int:
         plane.close()
         if server is not None:
             server.close()
+        if writer is not None:
+            writer.close()
     return 0
 
 

@@ -1,5 +1,8 @@
 """Telemetry plane of the port: the event stream (``events``), overlap
-accounting (``overlap``) and the serving HTTP endpoints (``serve``)."""
+accounting (``overlap``), the metric registry and its renderers
+(``export``), the live HTTP plane (``serve``), the fleet fan-in
+(``fleet``), drift and straggler detection (``drift``), training-health
+detection (``health``) and the flight recorder (``recorder``)."""
 
 from mgwfbp_tpu_torch.telemetry.events import (
     EVENT_SCHEMA_VERSION,
@@ -7,6 +10,7 @@ from mgwfbp_tpu_torch.telemetry.events import (
     EventWriter,
     events_of,
     find_stream_paths,
+    read_event_set,
     read_events,
     stream_filename,
 )
@@ -28,6 +32,7 @@ __all__ = [
     "events_of",
     "find_stream_paths",
     "group_comm_times",
+    "read_event_set",
     "read_events",
     "stream_filename",
     "summarize",

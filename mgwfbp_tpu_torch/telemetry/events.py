@@ -12,9 +12,14 @@ The schema, the file names and the reader are the JAX package's, so
 port's streams as they read its own. The port's trainer writes ``header``,
 ``step``, ``epoch``, ``overlap``, ``comm_group``, the resilience records
 (``checkpoint``, ``preempt``, ``resume``, ``bad_step``, ``rollback``),
-``resize``, ``watchdog_stall`` and ``failure``; the supervisor writes
-``failure`` and ``heal`` to its own stream; the serving plane feeds
-``reload`` and ``serve_stats`` to its aggregator.
+``resize``, ``watchdog_stall``, ``failure``, the live plane's
+``drift_alarm``, ``straggler`` and ``profile``, the health records
+(``health``, ``health_alarm``), the flight recorder's ``postmortem`` and
+the ``scalar`` view; the supervisor writes ``failure`` and ``heal`` to its
+own stream; the serving plane writes ``reload``, ``serve_stats`` and
+``shadow_eval``; the bench writes ``bench_skip``. Of the JAX kinds only
+``autotune_race`` and ``autotune_commit`` have no writer yet (ROADMAP
+Queue 1 item 8).
 
 The writer never touches the device: ``emit`` rejects any field that is not
 plain JSON data, a ``torch.Tensor`` included (serialising one would force a
@@ -130,6 +135,37 @@ def _check_jsonable(value, key: str) -> None:
     )
 
 
+def _rotated_segments(path: str) -> list[str]:
+    """Rotated sibling files of an active stream, oldest first. Rotation
+    renames the active file to ``<path>.NNNN``; they sort by that integer,
+    not lexically."""
+    d = os.path.dirname(path) or "."
+    base = os.path.basename(path)
+    out = []
+    try:
+        names = os.listdir(d)
+    except OSError:
+        return []
+    for name in names:
+        if not name.startswith(base + "."):
+            continue
+        suffix = name[len(base) + 1:]
+        if suffix.isdigit():
+            out.append((int(suffix), os.path.join(d, name)))
+    return [p for _, p in sorted(out)]
+
+
+def _next_segment_index(path: str) -> int:
+    """The index the active stream at ``path`` rotates into next: one past
+    the highest existing segment (not the count, which would clobber the
+    newest surviving segment after older ones were deleted)."""
+    segs = _rotated_segments(path)
+    if not segs:
+        return 0
+    last = os.path.basename(segs[-1])
+    return int(last.rsplit(".", 1)[1]) + 1
+
+
 class EventWriter:
     """Append-only JSONL event stream of one process.
 
@@ -138,14 +174,28 @@ class EventWriter:
     header, its spans still relative to the original header's wall clock.
     Thread-safe; each record is one line-buffered write. ``observer``
     (``observer(event, fields)``, e.g. a live ``MetricsAggregator``'s
-    ``observe``) sees every record ``emit`` writes; its failure never
-    reaches the caller. The JAX writer's size rotation is not ported.
+    ``observe``, or ``recorder.tee_observers`` of several) sees every
+    record ``emit`` validates, before it is written; an observer that
+    raises is logged and detached, never fatal.
+
+    Size rotation: once the active file exceeds ``max_bytes`` (default
+    from ``MGWFBP_TELEMETRY_MAX_MB``; unset or 0 never rotates) it is
+    renamed to ``<path>.NNNN`` and a fresh segment opens. Every segment
+    starts with its own header carrying the set's original wall anchor and
+    a ``segment`` index, so ``read_event_set`` reassembles one timeline.
     """
 
-    def __init__(self, path: str, run: Optional[dict] = None):
+    def __init__(self, path: str, run: Optional[dict] = None,
+                 max_bytes: Optional[int] = None, observer=None):
+        self.observer = observer
         self.path = path
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        if max_bytes is None:
+            mb = os.environ.get("MGWFBP_TELEMETRY_MAX_MB", "").strip()
+            max_bytes = int(float(mb) * 1024 * 1024) if mb else 0
+        self.max_bytes = max(int(max_bytes), 0)
         self._run = dict(run or {})
+        self._segment = _next_segment_index(path)
         fresh = not (os.path.exists(path) and os.path.getsize(path) > 0)
         header_wall = None
         if not fresh:
@@ -158,8 +208,8 @@ class EventWriter:
             except (OSError, ValueError):
                 header_wall = None
         self._f = open(path, "a", buffering=1)
+        self._bytes = 0 if fresh else os.path.getsize(path)
         self._lock = threading.Lock()
-        self.observer = None
         self._t0 = time.perf_counter()
         self._anchor_wall = header_wall if header_wall else time.time()
         if header_wall is not None:
@@ -170,6 +220,7 @@ class EventWriter:
                 wall=self._anchor_wall,
                 schema_version=EVENT_SCHEMA_VERSION,
                 run=self._run,
+                segment=self._segment,
             )
 
     def now(self) -> float:
@@ -193,14 +244,19 @@ class EventWriter:
             )
         for k, v in fields.items():
             _check_jsonable(v, k)
-        self._emit_record(event, wall=time.time(), **fields)
         observer = self.observer
         if observer is not None:
             try:
                 observer(event, fields)
             except Exception:  # noqa: BLE001 — observability must never
-                # fail the run it observes
-                pass
+                # fail the run it observes; from here on the live surfaces
+                # freeze while the file keeps advancing, so say so
+                import logging
+
+                logging.getLogger("mgwfbp.telemetry").exception(
+                    "telemetry observer failed on %r; detaching it", event)
+                self.observer = None
+        self._emit_record(event, wall=time.time(), **fields)
 
     def _emit_record(self, event: str, wall: float, **fields) -> None:
         line = json.dumps({"event": event, "wall": round(wall, 3), **fields})
@@ -209,6 +265,35 @@ class EventWriter:
             if self._f.closed:
                 return
             self._f.write(line)
+            self._bytes += len(line)
+            if (self.max_bytes and self._bytes > self.max_bytes
+                    and event != "header"):
+                self._rotate_locked()
+
+    def _rotate_locked(self) -> None:
+        """Roll the active file to the next ``<path>.NNNN`` segment and
+        start a fresh one (the caller holds the lock). A failed rename
+        disables rotation rather than failing the run."""
+        self._f.close()
+        target = f"{self.path}.{self._segment:04d}"
+        try:
+            os.replace(self.path, target)
+        except OSError:
+            self.max_bytes = 0
+            self._f = open(self.path, "a", buffering=1)
+            return
+        self._segment += 1
+        self._f = open(self.path, "a", buffering=1)
+        self._bytes = 0
+        line = json.dumps({
+            "event": "header",
+            "wall": round(self._anchor_wall, 3),
+            "schema_version": EVENT_SCHEMA_VERSION,
+            "run": self._run,
+            "segment": self._segment,
+        }) + "\n"
+        self._f.write(line)
+        self._bytes += len(line)
 
     def close(self) -> None:
         with self._lock:
@@ -249,6 +334,25 @@ def read_events(path: str) -> list[dict]:
         "run": {"migrated_from": _LEGACY_SCALAR_VERSION},
     }
     return [header] + migrated
+
+
+def read_event_set(path: str) -> list[dict]:
+    """Load a possibly rotated stream: every ``<path>.NNNN`` segment in
+    order, then the active file, each checked by ``read_events``; the first
+    header is kept and the segments' continuation headers dropped, so the
+    result reads as if rotation had never happened."""
+    parts = _rotated_segments(path)
+    if os.path.exists(path):
+        parts = parts + [path]
+    if not parts:
+        raise FileNotFoundError(path)
+    out: list[dict] = []
+    for p in parts:
+        for r in read_events(p):
+            if r.get("event") == "header" and out:
+                continue
+            out.append(r)
+    return out
 
 
 def events_of(records: list[dict], *names: str) -> list[dict]:

@@ -1,0 +1,445 @@
+"""Render a telemetry event stream for external viewers (a copy of
+``mgwfbp_tpu/telemetry/export.py``; both packages write one schema, so
+either package's exporter reads either package's streams and renders the
+same text).
+
+  * **Chrome trace** (``chrome://tracing`` / Perfetto): the run's step
+    timeline as complete ("ph": "X") events: a ``steps`` track of step
+    spans, a ``backward`` track, one track per merge group's collective
+    and an ``optimizer`` track, the intra-step structure being the
+    overlap snapshot's replayed timeline (``telemetry.overlap``) scaled
+    into each step span. ``otherData.source`` keeps the schema's name,
+    ``mgwfbp_tpu.telemetry``, so one viewer setup reads both packages.
+  * **Prometheus text exposition**: the ``METRICS`` registry, the single
+    statement of every metric's name, kind and help text. The live
+    /metrics endpoint (``telemetry.serve``), the file dump
+    (``prometheus_text``, a replay into the same aggregator) and the
+    fleet fan-in (``render_labeled_metrics``) all render it.
+
+Pure functions of already-written records; no device access.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Optional
+
+from mgwfbp_tpu_torch.telemetry.events import events_of
+
+# fixed track (tid) layout; merge-group tracks follow from _TID_GROUP0
+_TID_STEPS = 0
+_TID_BACKWARD = 1
+_TID_OPTIMIZER = 2
+_TID_FORWARD = 3  # cross-step (rs_fwd_ag) regimes only
+_TID_GROUP0 = 10
+_PID = 1
+
+
+def _meta(name: str, pid: int, tid: Optional[int] = None, *,
+          kind: str) -> dict:
+    e: dict = {"ph": "M", "pid": pid, "name": kind,
+               "args": {"name": name}}
+    if tid is not None:
+        e["tid"] = tid
+    return e
+
+
+def _span(name: str, tid: int, ts_us: float, dur_us: float,
+          args: Optional[dict] = None) -> dict:
+    e = {"ph": "X", "pid": _PID, "tid": tid, "name": name,
+         "ts": round(ts_us, 3), "dur": round(max(dur_us, 0.0), 3),
+         "cat": "mgwfbp"}
+    if args:
+        e["args"] = args
+    return e
+
+
+def latest_snapshot(records: list[dict]) -> tuple[Optional[dict], list[dict]]:
+    """(last overlap record, its comm_group rows) — the schedule regime the
+    intra-step render uses. comm_group rows are matched by the snapshot's
+    step id, so a mid-run reschedule (autotune/resize) renders with the
+    regime that was actually live last. Shared by this exporter and the
+    report CLI so the table and the trace can never disagree on which
+    regime they show."""
+    overlaps = events_of(records, "overlap")
+    if not overlaps:
+        return None, []
+    snap = overlaps[-1]
+    rows = [
+        r for r in events_of(records, "comm_group")
+        if r.get("step") == snap.get("step")
+    ]
+    rows.sort(key=lambda r: r.get("group", 0))
+    return snap, rows
+
+
+def chrome_trace(records: list[dict]) -> dict:
+    """Chrome-trace JSON object for a telemetry record list."""
+    trace: list[dict] = [
+        _meta("mgwfbp run", _PID, kind="process_name"),
+        _meta("steps", _PID, _TID_STEPS, kind="thread_name"),
+        _meta("backward", _PID, _TID_BACKWARD, kind="thread_name"),
+        _meta("optimizer", _PID, _TID_OPTIMIZER, kind="thread_name"),
+    ]
+    snap, group_rows = latest_snapshot(records)
+    cross_step = snap is not None and float(snap.get("tf_total_s", 0.0)) > 0.0
+    if cross_step:
+        trace.append(_meta(
+            "forward", _PID, _TID_FORWARD, kind="thread_name",
+        ))
+    for r in group_rows:
+        gi = int(r["group"])
+        trace.append(_meta(
+            f"comm group {gi:04d}", _PID, _TID_GROUP0 + gi,
+            kind="thread_name",
+        ))
+    for s in events_of(records, "step"):
+        ts = float(s["start_s"]) * 1e6
+        dur = float(s["dur_s"]) * 1e6
+        trace.append(_span(
+            f"step {int(s['step'])}", _TID_STEPS, ts, dur,
+            args={"epoch": s.get("epoch")},
+        ))
+        if snap is None:
+            continue
+        # scale the replayed model timeline (backward + comm + optimizer
+        # tail) into this step's real span, so sub-spans nest inside it.
+        # Cross-step regimes replay STEP-anchored (forward first, then
+        # backward; the deferred-AG legs render on the forward region —
+        # in steady state every step's opening forward IS the previous
+        # step's "next forward"); in-step regimes stay backward-anchored.
+        step_model_s = max(float(snap.get("step_s", 0.0)), 1e-12)
+        scale = (dur / 1e6) / step_model_s
+        tb_total = float(snap.get("tb_total_s", 0.0))
+        # the backward anchors where the replayed forward REGION ends —
+        # fwd_end_s includes AG-deadline stalls, so group RS spans (whose
+        # starts were computed against that backward window) stay in sync
+        # with the drawn backward even when a deferred gather stalled the
+        # forward; the forward span covers the whole region incl. stalls
+        fwd_end = 0.0
+        if cross_step:
+            fwd_end = max(
+                float(snap.get("fwd_end_s", 0.0)),
+                float(snap.get("tf_total_s", 0.0)),
+            )
+            trace.append(_span(
+                "forward", _TID_FORWARD, ts, fwd_end * scale * 1e6,
+            ))
+        trace.append(_span(
+            "backward", _TID_BACKWARD, ts + fwd_end * scale * 1e6,
+            tb_total * scale * 1e6,
+        ))
+        for r in group_rows:
+            gi = int(r["group"])
+            ag_s = float(r.get("ag_s", 0.0))
+            label = f"group {gi:04d} ({r.get('attribution', '?')})"
+            if ag_s > 0.0:
+                # the RS leg (start_s is already step-anchored) ...
+                trace.append(_span(
+                    f"{label} RS", _TID_GROUP0 + gi,
+                    ts + float(r["start_s"]) * scale * 1e6,
+                    (float(r["comm_s"]) - ag_s) * scale * 1e6,
+                    args={
+                        "nbytes": r.get("nbytes"),
+                        "hidden_s": r.get("hidden_s"),
+                        "exposed_s": r.get("exposed_s"),
+                    },
+                ))
+                # ... and the deferred AG leg on the forward region
+                trace.append(_span(
+                    f"{label} deferred AG (prev step's gather)",
+                    _TID_GROUP0 + gi,
+                    ts + float(r.get("ag_start_s", 0.0)) * scale * 1e6,
+                    ag_s * scale * 1e6,
+                    args={"nbytes": r.get("nbytes")},
+                ))
+                continue
+            trace.append(_span(
+                label,
+                _TID_GROUP0 + gi,
+                ts + float(r["start_s"]) * scale * 1e6,
+                float(r["comm_s"]) * scale * 1e6,
+                args={
+                    "nbytes": r.get("nbytes"),
+                    "hidden_s": r.get("hidden_s"),
+                    "exposed_s": r.get("exposed_s"),
+                },
+            ))
+        timeline_end = float(snap.get("timeline_end_s", tb_total))
+        opt_s = max(step_model_s - timeline_end, 0.0)
+        if opt_s > 0.0:
+            trace.append(_span(
+                "optimizer/update", _TID_OPTIMIZER,
+                ts + timeline_end * scale * 1e6, opt_s * scale * 1e6,
+            ))
+    header = next(iter(events_of(records, "header")), {})
+    return {
+        "traceEvents": trace,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "source": "mgwfbp_tpu.telemetry",
+            "schema_version": header.get("schema_version"),
+            "run": header.get("run", {}),
+        },
+    }
+
+
+def write_chrome_trace(path: str, records: list[dict]) -> dict:
+    doc = chrome_trace(records)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return doc
+
+
+# ---------------------------------------------------------------------------
+# Metric registry: THE single statement of every Prometheus metric this
+# framework exposes — names, kinds, help text. Both renderers read it:
+# the post-hoc file dump (`prometheus_text`, below) and the live /metrics
+# endpoint (`telemetry.serve.TelemetryServer`) render the SAME registry
+# from the SAME aggregator (`serve.MetricsAggregator`), so the two
+# surfaces cannot drift apart.
+# ---------------------------------------------------------------------------
+
+# (name, kind, help). Order is the exposition order; values absent from
+# the aggregator (e.g. no overlap snapshot yet) are simply not rendered.
+METRICS: tuple[tuple[str, str, str], ...] = (
+    ("mgwfbp_steps_total", "counter",
+     "optimizer steps recorded in the telemetry stream"),
+    ("mgwfbp_step_seconds", "gauge",
+     "mean seconds per step over the last spans"),
+    ("mgwfbp_current_step", "gauge",
+     "latest optimizer step (host iteration counter)"),
+    ("mgwfbp_current_epoch", "gauge", "latest epoch seen in the stream"),
+    ("mgwfbp_overlap_efficiency", "gauge",
+     "hidden / total communication time (latest snapshot)"),
+    ("mgwfbp_comm_hidden_seconds", "gauge",
+     "per-step communication hidden behind backward (latest)"),
+    ("mgwfbp_comm_exposed_seconds", "gauge",
+     "per-step communication on the critical path (latest)"),
+    ("mgwfbp_resizes_total", "counter", "elastic worker-count resizes"),
+    ("mgwfbp_checkpoints_total", "counter", "checkpoint saves"),
+    ("mgwfbp_last_checkpoint_iteration", "gauge",
+     "iteration of the most recent checkpoint save"),
+    ("mgwfbp_watchdog_stalls_total", "counter",
+     "watchdog stall detections"),
+    ("mgwfbp_autotune_races_total", "counter",
+     "autotune candidates raced"),
+    ("mgwfbp_autotune_commits_total", "counter",
+     "autotune schedule commits (race or cache)"),
+    ("mgwfbp_bench_skips_total", "counter",
+     "bench runs skipped (chip unavailable)"),
+    ("mgwfbp_bad_steps_total", "counter",
+     "steps dropped by the non-finite-gradient guard"),
+    ("mgwfbp_rollbacks_total", "counter",
+     "bad-step rollbacks to the last checkpoint"),
+    ("mgwfbp_preempts_total", "counter", "graceful preemption drains"),
+    ("mgwfbp_resumes_total", "counter", "restarts from a saved snapshot"),
+    # self-healing supervisor
+    ("mgwfbp_failures_total", "counter",
+     "hard failures observed (crash/oom_kill/wedged/unreachable/"
+     "coordination)"),
+    ("mgwfbp_heals_total", "counter",
+     "healing actions applied (relaunch/shrink/respawn_serve/stop)"),
+    ("mgwfbp_drift_alarms_total", "counter",
+     "cost-model drift alarms raised (telemetry.drift)"),
+    ("mgwfbp_drift_residual", "gauge",
+     "latest drift residual (predicted/measured comm ratio, or "
+     "step-trend excess fraction)"),
+    ("mgwfbp_straggler_alarms_total", "counter",
+     "live straggler alarms raised (multi-host probe)"),
+    ("mgwfbp_straggler_excess_seconds", "gauge",
+     "latest straggler probe: slowest minus fastest process window "
+     "step seconds"),
+    ("mgwfbp_active_alarms", "gauge",
+     "currently-active drift/straggler/health alarms"),
+    ("mgwfbp_profile_windows_total", "counter",
+     "on-demand /profile trace windows completed"),
+    # training-health telemetry + flight recorder
+    ("mgwfbp_health_loss", "gauge",
+     "latest step loss from the in-jit health statistics"),
+    ("mgwfbp_health_grad_norm", "gauge",
+     "latest global gradient L2 norm (health statistics)"),
+    ("mgwfbp_health_update_ratio", "gauge",
+     "latest update/param L2-norm ratio (health statistics)"),
+    ("mgwfbp_health_compression_error", "gauge",
+     "latest worst per-group relative top-k compression error"),
+    ("mgwfbp_health_alarms_total", "counter",
+     "training-health alarms raised (telemetry.health)"),
+    ("mgwfbp_postmortems_total", "counter",
+     "flight-recorder postmortem bundles written"),
+    # serving plane: request plane + hot-reload + shadow-eval
+    ("mgwfbp_serve_requests_total", "counter",
+     "predict requests served (cumulative, from serve_stats snapshots)"),
+    ("mgwfbp_serve_reloads_total", "counter",
+     "serving hot-reloads of a committed checkpoint"),
+    ("mgwfbp_shadow_evals_total", "counter",
+     "shadow-eval scores against freshly served checkpoints"),
+    ("mgwfbp_serve_step", "gauge",
+     "train step of the currently served checkpoint"),
+    ("mgwfbp_serve_reload_lag_seconds", "gauge",
+     "latest commit-to-served hot-reload lag"),
+    ("mgwfbp_serve_queue_depth", "gauge",
+     "predict request queue depth (latest dispatcher snapshot)"),
+    ("mgwfbp_serve_batch_fill", "gauge",
+     "mean fill ratio of flushed predict batch slots (latest snapshot)"),
+    ("mgwfbp_serve_latency_p50_seconds", "gauge",
+     "predict request latency p50 over the recent-request window"),
+    ("mgwfbp_serve_latency_p95_seconds", "gauge",
+     "predict request latency p95 over the recent-request window"),
+    ("mgwfbp_serve_latency_p99_seconds", "gauge",
+     "predict request latency p99 over the recent-request window"),
+    ("mgwfbp_shadow_eval_loss", "gauge",
+     "latest shadow-eval loss on the held-out stream"),
+    ("mgwfbp_shadow_eval_delta", "gauge",
+     "latest shadow-eval loss minus training loss (served-vs-training)"),
+    # fleet fan-in synthesis (rendered only by telemetry/fleet.py's
+    # /fleet/metrics, never by a per-process endpoint — registered here
+    # so the fleet exposition flows through the same single registry)
+    ("mgwfbp_fleet_processes", "gauge",
+     "child processes answering the fleet fan-in scrape"),
+    ("mgwfbp_fleet_unreachable", "gauge",
+     "child processes that failed the fleet fan-in scrape"),
+    ("mgwfbp_fleet_straggler_excess_seconds", "gauge",
+     "slowest minus fastest process mean step seconds (live fan-in)"),
+)
+
+# event type -> counter metric (shared by the aggregator's incremental
+# counting and anyone asking which events are counted at all)
+EVENT_COUNTERS: dict[str, str] = {
+    "step": "mgwfbp_steps_total",
+    "resize": "mgwfbp_resizes_total",
+    "checkpoint": "mgwfbp_checkpoints_total",
+    "watchdog_stall": "mgwfbp_watchdog_stalls_total",
+    "autotune_race": "mgwfbp_autotune_races_total",
+    "autotune_commit": "mgwfbp_autotune_commits_total",
+    "bench_skip": "mgwfbp_bench_skips_total",
+    "bad_step": "mgwfbp_bad_steps_total",
+    "rollback": "mgwfbp_rollbacks_total",
+    "preempt": "mgwfbp_preempts_total",
+    "resume": "mgwfbp_resumes_total",
+    "failure": "mgwfbp_failures_total",
+    "heal": "mgwfbp_heals_total",
+    "profile": "mgwfbp_profile_windows_total",
+    "postmortem": "mgwfbp_postmortems_total",
+    "reload": "mgwfbp_serve_reloads_total",
+    "shadow_eval": "mgwfbp_shadow_evals_total",
+}
+
+
+def render_metrics(values: dict) -> str:
+    """Prometheus text exposition of a metric-value dict, in registry
+    order. `values` maps registry names to numbers (int -> rendered as an
+    integer, float -> %g); names missing from the dict are skipped, names
+    outside the registry are rejected — an unregistered metric is exactly
+    the file-dump-vs-live-endpoint drift this registry exists to stop."""
+    known = {name for name, _, _ in METRICS}
+    stray = set(values) - known
+    if stray:
+        raise ValueError(
+            f"metrics {sorted(stray)} are not in telemetry.export.METRICS; "
+            "register them there so every exposition surface shows them"
+        )
+    lines: list[str] = []
+    for name, kind, help_ in METRICS:
+        if name not in values:
+            continue
+        v = values[name]
+        lines.append(f"# HELP {name} {help_}")
+        lines.append(f"# TYPE {name} {kind}")
+        lines.append(f"{name} {v:g}" if isinstance(v, float)
+                     else f"{name} {v}")
+    return "\n".join(lines) + "\n"
+
+
+def render_labeled_metrics(
+    series: dict[str, dict],
+    label: str = "process",
+    extra: Optional[dict] = None,
+) -> str:
+    """Prometheus text exposition of SEVERAL processes' metric values
+    merged under one label (the fleet fan-in's /fleet/metrics): for each
+    registry metric, HELP/TYPE once, then one ``name{label="key"} value``
+    line per series that carries it. ``extra`` holds unlabeled fleet-level
+    values (the mgwfbp_fleet_* gauges). Same registry, same stray-name
+    rejection as `render_metrics` — the fleet render and the per-process
+    render flow through ONE metric statement and cannot drift."""
+    known = {name for name, _, _ in METRICS}
+    stray = set(extra or {}) - known
+    for key, values in series.items():
+        stray |= set(values) - known
+    if stray:
+        raise ValueError(
+            f"metrics {sorted(stray)} are not in telemetry.export.METRICS; "
+            "register them there so every exposition surface shows them"
+        )
+    extra = extra or {}
+    lines: list[str] = []
+    for name, kind, help_ in METRICS:
+        rows: list[str] = []
+        for key in sorted(series, key=str):
+            values = series[key]
+            if name not in values:
+                continue
+            v = values[name]
+            val = f"{v:g}" if isinstance(v, float) else str(v)
+            rows.append(f'{name}{{{label}="{key}"}} {val}')
+        if name in extra:
+            v = extra[name]
+            val = f"{v:g}" if isinstance(v, float) else str(v)
+            rows.append(f"{name} {val}")
+        if not rows:
+            continue
+        lines.append(f"# HELP {name} {help_}")
+        lines.append(f"# TYPE {name} {kind}")
+        lines.extend(rows)
+    return "\n".join(lines) + "\n"
+
+
+def parse_metrics_text(text: str) -> dict:
+    """`render_metrics`'s inverse: registry-named values from one
+    process's Prometheus text exposition (the fleet fan-in scrapes child
+    /metrics endpoints and re-renders them labeled). Unregistered names
+    raise — a child exposing metrics this build's registry does not know
+    means mismatched versions, which the operator should see, not a
+    silently dropped series."""
+    known = {name for name, _, _ in METRICS}
+    out: dict = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        parts = line.split()
+        if len(parts) != 2:
+            raise ValueError(f"unparseable metrics line: {line!r}")
+        name, raw = parts
+        if name not in known:
+            raise ValueError(
+                f"metric {name!r} is not in telemetry.export.METRICS "
+                "(scraped child runs a different registry version?)"
+            )
+        try:
+            out[name] = int(raw)
+        except ValueError:
+            out[name] = float(raw)
+    return out
+
+
+def prometheus_text(records: list[dict]) -> str:
+    """Prometheus text-exposition dump of the stream's counters/gauges.
+
+    Implemented by replaying the records through the SAME aggregator the
+    live /metrics endpoint serves from (`serve.MetricsAggregator`), so
+    the file dump and the endpoint render identical values through one
+    registry by construction."""
+    from mgwfbp_tpu_torch.telemetry.serve import MetricsAggregator
+
+    agg = MetricsAggregator()
+    agg.replay(records)
+    return render_metrics(agg.values())
+
+
+def write_prometheus(path: str, records: list[dict]) -> str:
+    text = prometheus_text(records)
+    with open(path, "w") as f:
+        f.write(text)
+    return text

@@ -1,13 +1,20 @@
-"""The live HTTP plane of a training process or a serving replica: GET
-/healthz and /status, POST /predict.
+"""The live HTTP plane of a training process or a serving replica (port of
+``mgwfbp_tpu/telemetry/serve.py``): GET /metrics, /healthz, /status,
+/profile and /postmortems, POST /predict.
 
-Port of the training and serving subset of ``mgwfbp_tpu/telemetry/serve.py``:
-
-  * ``MetricsAggregator`` — in-memory state fed by the event stream: the
-    training step, epoch and last checkpoint, the bad-step and rollback
-    counts, the watchdog's health verdict (/healthz answers 503 while a
-    stall lasts, for good once it aborts), and the serving plane's
-    ``reload`` and ``serve_stats`` events;
+  * ``MetricsAggregator`` — in-memory state fed by the validated event
+    stream (``EventWriter.observer``, or ``replay`` of a written stream):
+    the registry's counters and gauges (``telemetry/export.py``), the
+    training step, epoch and last checkpoint, the active drift, straggler
+    and health alarms, the latest ``health`` record, the flight
+    recorder's bundle index, the serving plane's reload, stats and shadow
+    score, and the watchdog's health verdict (/healthz answers 503 while a
+    stall lasts, for good once it aborts). Host data only: nothing here
+    touches a tensor.
+  * The /profile state machine: the HTTP handler only arms a request
+    (``arm_profile``); the trainer's step loop takes it at a step boundary
+    (``take_profile_request``), runs a bounded ``torch.profiler`` window
+    on its own thread and posts the result (``set_profile_result``).
   * ``TelemetryServer`` — a background ``ThreadingHTTPServer`` (loopback by
     default) whose POST ``/predict`` route is opened by
     ``attach_predict(service)``;
@@ -15,10 +22,12 @@ Port of the training and serving subset of ``mgwfbp_tpu/telemetry/serve.py``:
     ``start_metrics_server`` — the role-aware port convention (serving
     replicas listen on ``base + offset + replica``; base 0 is ephemeral).
 
-The training role listens on ``base + process_index`` and writes the port
-it bound to ``MGWFBP_METRICS_PORT_FILE`` when that is set (the supervisor
-reads it). ``/metrics``, ``/profile`` and ``/postmortems`` answer 404 with a
-body naming ROADMAP Queue 1 item 5, which ports them.
+/metrics renders the registry through ``export.render_metrics``, the same
+function the file dump (``export.prometheus_text``) and the fleet fan-in
+use, so the text is the JAX plane's, name for name and line for line. The
+training role listens on ``base + process_index`` and writes the port it
+bound to ``MGWFBP_METRICS_PORT_FILE`` when that is set (the supervisor
+reads it).
 """
 
 from __future__ import annotations
@@ -41,6 +50,14 @@ METRICS_PORT_FILE_ENV = "MGWFBP_METRICS_PORT_FILE"
 # this offset (train: base + index; serve: base + offset + index)
 SERVE_PORT_OFFSET_ENV = "MGWFBP_SERVE_PORT_OFFSET"
 DEFAULT_SERVE_PORT_OFFSET = 100
+
+# hard ceiling on one /profile window: the endpoint is unauthenticated on
+# loopback and the window synchronises the card, so a request may never
+# arm an unbounded trace
+PROFILE_MAX_STEPS = 50
+
+# rolling window for the mean-step gauge (mean over the last <= 20 spans)
+_STEP_WINDOW = 20
 
 
 def serve_port_offset() -> int:
@@ -79,78 +96,350 @@ def resolve_metrics_port(
 
 
 class MetricsAggregator:
-    """In-memory live state of one process (thread-safe: the step loop, the
-    watchdog thread and the HTTP handler threads all touch it), fed by the
-    event stream's observer (``EventWriter.observer``) or by a serving
-    plane's ``emit``.
+    """In-memory metric/health/status state for one process's run.
 
-    Training: ``step`` (current step and epoch), ``epoch``, ``checkpoint``
-    (the last commit), ``bad_step`` and ``rollback`` (counted),
-    ``watchdog_stall`` (unhealthy until the next ``step``; sticky once the
-    stall aborts with rc 86, as the process is about to exit). Serving:
-    ``reload`` (the served step and its lag) and ``serve_stats``.
-    ``extra_status`` is a callable whose dict ``status()`` merges in (a
-    replica's kernel launch counts)."""
+    Fed two ways, both host-only:
+      * ``observe(event, fields)`` — the EventWriter tee (live runs) or
+        ``replay(records)`` over an already-written stream (file dump,
+        supervisor post-mortems); rotated-segment continuation headers
+        and per-process streams replay cleanly (headers only refresh run
+        metadata).
+      * explicit setters (``set_schedule``) for facts that are not
+        events.
+
+    Thread-safe: the step loop, the watchdog thread, and HTTP handler
+    threads all touch it. ``extra_status`` is a callable whose dict
+    ``status()`` merges in (a serving replica's kernel launch counts).
+    """
 
     def __init__(self, run: Optional[dict] = None, extra_status=None):
         self._lock = threading.Lock()
         self._run = dict(run or {})
         self._t0 = time.time()
         self._counts: collections.Counter = collections.Counter()
+        self._step_durs: collections.deque = collections.deque(
+            maxlen=_STEP_WINDOW
+        )
         self._current_step: Optional[int] = None
         self._current_epoch: Optional[int] = None
+        self._overlap: Optional[dict] = None
         self._last_checkpoint: Optional[dict] = None
         self._schedule: Optional[dict] = None
+        self._last_drift_residual: Optional[float] = None
+        self._last_straggler_excess: Optional[float] = None
+        # training-health telemetry: the latest per-step
+        # `health` record, and the flight recorder's recent bundle
+        # manifests (fed by `postmortem` events — live tee or replay)
+        self._health: Optional[dict] = None
+        self._postmortems: collections.deque = collections.deque(maxlen=20)
+        # serving plane: latest hot-reload / dispatcher
+        # snapshot / shadow-eval facts, fed by the same validated stream
+        # (`reload`, `serve_stats`, `shadow_eval` events)
         self._serving_step: Optional[int] = None
         self._reload_lag_s: Optional[float] = None
         self._serve_stats: Optional[dict] = None
-        # None = healthy, else the reason; sticky once an abort-bound stall
-        # landed
+        self._shadow: Optional[dict] = None
+        # (kind, group/slow_process) -> alarm fields, kept while active
+        self._active_alarms: dict = {}
+        # health: None = healthy; else the reason string. Sticky once an
+        # abort-bound stall landed (the process is about to os._exit(86))
         self._unhealthy: Optional[str] = None
         self._unhealthy_sticky = False
+        # on-demand deep profiling (/profile?steps=N): the HTTP handler
+        # only ARMS a request here; the trainer's step loop consumes it
+        # at the next (group-agreed, on multi-host) step boundary and
+        # posts the result back — the handler thread itself never touches
+        # torch. `_profile_supported` flips True when a live trainer
+        # attaches; a replay-only aggregator rejects arming.
+        self._profile_supported = False
+        self._profile_state = "idle"  # idle|armed|running|done|failed
+        self._profile_steps: Optional[int] = None
+        self._profile_result: Optional[dict] = None
+        self._profile_error: Optional[str] = None
         self._extra_status = extra_status
 
+    # -- feeding -----------------------------------------------------------
     def observe(self, event: str, fields: dict) -> None:
-        """One validated telemetry record."""
+        """One validated telemetry record (the EventWriter tee)."""
         with self._lock:
-            self._counts[event] += 1
-            if event == "header":
-                run = fields.get("run")
-                if isinstance(run, dict):
-                    self._run.update(run)
-            elif event == "step":
-                self._current_step = int(fields.get("step", 0))
-                self._current_epoch = int(fields.get("epoch", 0))
-                if not self._unhealthy_sticky:
-                    # the loop moved again after a non-abort stall
-                    self._unhealthy = None
-            elif event == "epoch":
-                self._current_epoch = int(fields.get("epoch", 0))
-            elif event == "checkpoint":
-                self._last_checkpoint = dict(fields)
-            elif event == "watchdog_stall":
-                abort = bool(fields.get("abort"))
-                self._unhealthy = (
-                    f"watchdog stall in {fields.get('phase')!r} after "
-                    f"{float(fields.get('idle_s', 0.0)):.0f}s"
-                    + (" — aborting (rc 86)" if abort else "")
-                )
-                if abort:
-                    self._unhealthy_sticky = True
-            elif event == "reload":
-                self._serving_step = int(fields.get("step", 0))
-                self._reload_lag_s = float(fields.get("lag_s", 0.0))
-            elif event == "serve_stats":
-                self._serve_stats = dict(fields)
+            self._observe_locked(event, fields)
 
-    def set_schedule(self, comm_op: str, num_groups: int,
-                     policy_detail: str = "") -> None:
-        """The committed merge schedule (state, not an event): the trainer
-        pushes it at build and at a cross-world resume."""
+    def replay(self, records) -> None:
+        """Feed an already-written stream (rotated sets and per-process
+        streams read by `events.read_event_set` replay as-is)."""
         with self._lock:
-            self._schedule = {"comm_op": str(comm_op),
-                              "num_groups": int(num_groups),
-                              "policy_detail": str(policy_detail)}
+            for rec in records:
+                ev = rec.get("event")
+                if not ev:
+                    continue
+                self._observe_locked(
+                    ev, {k: v for k, v in rec.items() if k != "event"}
+                )
+
+    def _observe_locked(self, event: str, fields: dict) -> None:
+        from mgwfbp_tpu_torch.telemetry.export import EVENT_COUNTERS
+
+        counter = EVENT_COUNTERS.get(event)
+        if counter:
+            self._counts[counter] += 1
+        if event == "header":
+            run = fields.get("run")
+            if isinstance(run, dict):
+                self._run.update(run)
+        elif event == "step":
+            self._step_durs.append(float(fields.get("dur_s", 0.0)))
+            self._current_step = int(fields.get("step", 0))
+            self._current_epoch = int(fields.get("epoch", 0))
+            if not self._unhealthy_sticky:
+                # progress after a non-abort stall: the step loop moved
+                # again, so liveness recovers
+                self._unhealthy = None
+        elif event == "epoch":
+            self._current_epoch = int(fields.get("epoch", 0))
+        elif event == "overlap":
+            self._overlap = dict(fields)
+        elif event == "checkpoint":
+            self._last_checkpoint = dict(fields)
+        elif event == "watchdog_stall":
+            abort = bool(fields.get("abort"))
+            self._unhealthy = (
+                f"watchdog stall in {fields.get('phase')!r} after "
+                f"{float(fields.get('idle_s', 0.0)):.0f}s"
+                + (" — aborting (rc 86)" if abort else "")
+            )
+            if abort:
+                self._unhealthy_sticky = True
+        elif event == "drift_alarm":
+            key = ("drift", fields.get("kind"), fields.get("group", -1))
+            if fields.get("active"):
+                self._counts["mgwfbp_drift_alarms_total"] += 1
+                self._active_alarms[key] = dict(fields, alarm="drift")
+            else:
+                self._active_alarms.pop(key, None)
+            self._last_drift_residual = float(fields.get("residual", 0.0))
+        elif event == "straggler":
+            key = ("straggler",)
+            if fields.get("active"):
+                self._counts["mgwfbp_straggler_alarms_total"] += 1
+                self._active_alarms[key] = dict(fields, alarm="straggler")
+            else:
+                self._active_alarms.pop(key, None)
+            self._last_straggler_excess = float(
+                fields.get("excess_s", 0.0)
+            )
+        elif event == "health":
+            self._health = dict(fields)
+        elif event == "health_alarm":
+            key = ("health", fields.get("kind"), fields.get("group", -1))
+            if fields.get("active"):
+                self._counts["mgwfbp_health_alarms_total"] += 1
+                self._active_alarms[key] = dict(fields, alarm="health")
+            else:
+                self._active_alarms.pop(key, None)
+        elif event == "postmortem":
+            self._postmortems.append(dict(fields))
+        elif event == "reload":
+            self._serving_step = int(fields.get("step", 0))
+            self._reload_lag_s = float(fields.get("lag_s", 0.0))
+        elif event == "serve_stats":
+            self._serve_stats = dict(fields)
+        elif event == "shadow_eval":
+            self._shadow = dict(fields)
+
+    def set_schedule(
+        self, comm_op: str, num_groups: int, policy_detail: str = "",
+        predicted_nonoverlap_s: Optional[float] = None,
+    ) -> None:
+        """The committed merge schedule (trainer pushes this at build,
+        autotune commit, and elastic resize — it is state, not an
+        event)."""
+        with self._lock:
+            self._schedule = {
+                "comm_op": str(comm_op),
+                "num_groups": int(num_groups),
+                "policy_detail": str(policy_detail),
+            }
+            if predicted_nonoverlap_s is not None:
+                self._schedule["predicted_nonoverlap_s"] = float(
+                    predicted_nonoverlap_s
+                )
+
+    # -- on-demand deep profiling (/profile) -------------------------------
+    def enable_profile(self) -> None:
+        """A live trainer attached: /profile?steps=N requests now have a
+        consumer (the step loop polls `take_profile_request`)."""
+        with self._lock:
+            self._profile_supported = True
+
+    def arm_profile(self, steps) -> tuple[int, dict]:
+        """Arm a bounded trace window for the next `steps` live steps
+        (the HTTP handler's side). Returns (http status, response doc)."""
+        with self._lock:
+            if not self._profile_supported:
+                return 409, {
+                    "error": "no live trainer attached to this endpoint "
+                             "(replay-only aggregator cannot profile)",
+                }
+            try:
+                n = int(steps)
+            except (TypeError, ValueError):
+                return 400, {"error": f"steps={steps!r} is not an integer"}
+            if n < 1:
+                return 400, {"error": f"steps must be >= 1, got {n}"}
+            if self._profile_state in ("armed", "running"):
+                return 409, {
+                    "error": f"a profile window is already "
+                             f"{self._profile_state}",
+                    "state": self._profile_state,
+                }
+            n = min(n, PROFILE_MAX_STEPS)
+            self._profile_state = "armed"
+            self._profile_steps = n
+            self._profile_error = None
+            return 200, {
+                "armed": True, "steps": n,
+                "max_steps": PROFILE_MAX_STEPS,
+            }
+
+    def take_profile_request(self) -> Optional[int]:
+        """Consume an armed request (the trainer's step loop; host-only,
+        one lock acquire — the disarmed path stays zero-sync)."""
+        with self._lock:
+            if self._profile_state != "armed":
+                return None
+            self._profile_state = "running"
+            return self._profile_steps
+
+    def set_profile_result(self, result: dict) -> None:
+        with self._lock:
+            self._profile_state = "done"
+            self._profile_result = dict(result)
+            self._profile_error = None
+
+    def fail_profile(self, reason: str) -> None:
+        with self._lock:
+            self._profile_state = "failed"
+            self._profile_error = str(reason)
+
+    def profile_status(self) -> dict:
+        """The /profile GET document (no query = status/result)."""
+        with self._lock:
+            return self._profile_status_locked()
+
+    def _profile_status_locked(self) -> dict:
+        out: dict = {
+            "supported": self._profile_supported,
+            "state": self._profile_state,
+            "max_steps": PROFILE_MAX_STEPS,
+        }
+        if self._profile_state in ("armed", "running"):
+            out["steps"] = self._profile_steps
+        if self._profile_result is not None:
+            out["result"] = dict(self._profile_result)
+        if self._profile_error is not None:
+            out["error"] = self._profile_error
+        return out
+
+    # -- reading -----------------------------------------------------------
+    def values(self) -> dict:
+        """Registry-named metric values (export.render_metrics renders
+        them; export.prometheus_text replays a stream into one of these,
+        so the file dump equals the live endpoint by construction)."""
+        from mgwfbp_tpu_torch.telemetry.export import EVENT_COUNTERS
+
+        with self._lock:
+            out: dict = {
+                name: 0 for name in EVENT_COUNTERS.values()
+            }
+            out["mgwfbp_drift_alarms_total"] = 0
+            out["mgwfbp_straggler_alarms_total"] = 0
+            out["mgwfbp_health_alarms_total"] = 0
+            out.update(self._counts)
+            if self._step_durs:
+                out["mgwfbp_step_seconds"] = (
+                    sum(self._step_durs) / len(self._step_durs)
+                )
+            if self._current_step is not None:
+                out["mgwfbp_current_step"] = int(self._current_step)
+            if self._current_epoch is not None:
+                out["mgwfbp_current_epoch"] = int(self._current_epoch)
+            if self._overlap is not None:
+                out["mgwfbp_overlap_efficiency"] = float(
+                    self._overlap.get("efficiency", 0.0)
+                )
+                out["mgwfbp_comm_hidden_seconds"] = float(
+                    self._overlap.get("hidden_s", 0.0)
+                )
+                out["mgwfbp_comm_exposed_seconds"] = float(
+                    self._overlap.get("exposed_s", 0.0)
+                )
+            if self._last_checkpoint is not None:
+                out["mgwfbp_last_checkpoint_iteration"] = int(
+                    self._last_checkpoint.get("iteration", 0)
+                )
+            if self._last_drift_residual is not None:
+                out["mgwfbp_drift_residual"] = float(
+                    self._last_drift_residual
+                )
+            if self._last_straggler_excess is not None:
+                out["mgwfbp_straggler_excess_seconds"] = float(
+                    self._last_straggler_excess
+                )
+            if self._health is not None:
+                for key, name in (
+                    ("loss", "mgwfbp_health_loss"),
+                    ("grad_norm", "mgwfbp_health_grad_norm"),
+                    ("update_ratio", "mgwfbp_health_update_ratio"),
+                ):
+                    v = self._health.get(key)
+                    if v is not None:
+                        out[name] = float(v)
+                comp = self._health.get("compression_error") or []
+                if comp:
+                    out["mgwfbp_health_compression_error"] = max(
+                        float(e) for e in comp
+                    )
+            if self._serving_step is not None:
+                out["mgwfbp_serve_step"] = int(self._serving_step)
+            if self._reload_lag_s is not None:
+                out["mgwfbp_serve_reload_lag_seconds"] = float(
+                    self._reload_lag_s
+                )
+            if self._serve_stats is not None:
+                s = self._serve_stats
+                out["mgwfbp_serve_requests_total"] = int(
+                    s.get("requests", 0)
+                )
+                out["mgwfbp_serve_queue_depth"] = int(
+                    s.get("queue_depth", 0)
+                )
+                out["mgwfbp_serve_batch_fill"] = float(
+                    s.get("batch_fill", 0.0)
+                )
+                for key, name in (
+                    ("latency_p50_s", "mgwfbp_serve_latency_p50_seconds"),
+                    ("latency_p95_s", "mgwfbp_serve_latency_p95_seconds"),
+                    ("latency_p99_s", "mgwfbp_serve_latency_p99_seconds"),
+                ):
+                    v = s.get(key)
+                    if v is not None:
+                        out[name] = float(v)
+            if self._shadow is not None:
+                out["mgwfbp_shadow_eval_loss"] = float(
+                    self._shadow.get("loss", 0.0)
+                )
+                # served-vs-training loss gauge: the shadow event carries
+                # train_loss when the emitter knows it (in-process mode);
+                # a standalone replica falls back to the health stream
+                train_loss = self._shadow.get("train_loss")
+                if train_loss is None and self._health is not None:
+                    train_loss = self._health.get("loss")
+                if train_loss is not None:
+                    out["mgwfbp_shadow_eval_delta"] = float(
+                        self._shadow.get("loss", 0.0)
+                    ) - float(train_loss)
+            out["mgwfbp_active_alarms"] = len(self._active_alarms)
+            return out
 
     def health(self) -> tuple[bool, str]:
         """(healthy?, reason) for /healthz."""
@@ -163,17 +452,6 @@ class MetricsAggregator:
         """The /status JSON document."""
         with self._lock:
             healthy = self._unhealthy is None
-            serving = None
-            if self._serving_step is not None or self._serve_stats is not None:
-                serving = {
-                    "step": self._serving_step,
-                    "reload_lag_s": self._reload_lag_s,
-                    "reloads": int(self._counts.get("reload", 0)),
-                    "stats": (
-                        dict(self._serve_stats)
-                        if self._serve_stats is not None else None
-                    ),
-                }
             doc = {
                 "run": dict(self._run),
                 "healthy": healthy,
@@ -182,50 +460,124 @@ class MetricsAggregator:
                 "step": self._current_step,
                 "epoch": self._current_epoch,
                 "schedule": dict(self._schedule) if self._schedule else None,
+                "overlap_efficiency": (
+                    float(self._overlap.get("efficiency", 0.0))
+                    if self._overlap is not None else None
+                ),
                 "last_checkpoint": (
                     dict(self._last_checkpoint)
                     if self._last_checkpoint is not None else None
                 ),
-                "bad_steps": int(self._counts.get("bad_step", 0)),
-                "rollbacks": int(self._counts.get("rollback", 0)),
-                "serving": serving,
+                "bad_steps": int(
+                    self._counts.get("mgwfbp_bad_steps_total", 0)
+                ),
+                "rollbacks": int(
+                    self._counts.get("mgwfbp_rollbacks_total", 0)
+                ),
+                "drift_alarms": int(
+                    self._counts.get("mgwfbp_drift_alarms_total", 0)
+                ),
+                "straggler_alarms": int(
+                    self._counts.get("mgwfbp_straggler_alarms_total", 0)
+                ),
+                "health_alarms": int(
+                    self._counts.get("mgwfbp_health_alarms_total", 0)
+                ),
+                "health": (
+                    dict(self._health) if self._health is not None else None
+                ),
+                "postmortems": self._postmortems_locked(),
+                "active_alarms": [
+                    dict(a) for a in self._active_alarms.values()
+                ],
+                "profile": self._profile_status_locked(),
+                "serving": self._serving_locked(),
             }
         if self._extra_status is not None:
             doc.update(self._extra_status())
         return doc
 
+    def _serving_locked(self) -> Optional[dict]:
+        if (self._serving_step is None and self._serve_stats is None
+                and self._shadow is None):
+            return None
+        return {
+            "step": self._serving_step,
+            "reload_lag_s": self._reload_lag_s,
+            "reloads": int(
+                self._counts.get("mgwfbp_serve_reloads_total", 0)
+            ),
+            "stats": (
+                dict(self._serve_stats)
+                if self._serve_stats is not None else None
+            ),
+            "shadow": (
+                dict(self._shadow) if self._shadow is not None else None
+            ),
+        }
 
-# routes of the JAX plane that come with the rest of the telemetry plane
-UNPORTED_ROUTES = ("/metrics", "/profile", "/postmortems")
-UNPORTED_BODY = (
-    "{path} is not ported to the PyTorch plane yet (ROADMAP Queue 1 item 5: "
-    "the rest of the telemetry plane); this process serves /healthz, "
-    "/status and POST /predict\n"
-)
+    def _postmortems_locked(self) -> dict:
+        return {
+            "total": int(
+                self._counts.get("mgwfbp_postmortems_total", 0)
+            ),
+            "recent": [dict(b) for b in self._postmortems],
+        }
+
+    def postmortems(self) -> dict:
+        """The /postmortems JSON document: bundle count + the recent
+        manifests fed by `postmortem` events (the flight recorder's tee —
+        live runs and replayed streams list identically)."""
+        with self._lock:
+            return self._postmortems_locked()
 
 
 class _Handler(BaseHTTPRequestHandler):
     # the aggregator is attached to the server instance by TelemetryServer
     def do_GET(self):  # noqa: N802 — BaseHTTPRequestHandler contract
-        from urllib.parse import urlsplit
+        from urllib.parse import parse_qs, urlsplit
 
         agg: MetricsAggregator = self.server.aggregator  # type: ignore
-        path = urlsplit(self.path).path.rstrip("/") or "/"
-        if path == "/healthz":
+        split = urlsplit(self.path)
+        path = split.path.rstrip("/") or "/"
+        if path == "/metrics":
+            from mgwfbp_tpu_torch.telemetry.export import render_metrics
+
+            body = render_metrics(agg.values()).encode()
+            ctype = "text/plain; version=0.0.4; charset=utf-8"
+            code = 200
+        elif path == "/healthz":
             healthy, reason = agg.health()
             body = (reason + "\n").encode()
             ctype = "text/plain; charset=utf-8"
             code = 200 if healthy else 503
+        elif path == "/profile":
+            # ?steps=N arms a bounded trace window on the live trainer
+            # (taken at the next step boundary, the next agree-interval
+            # boundary in a group); no query answers the state and result
+            query = parse_qs(split.query)
+            if "steps" in query:
+                code, doc = agg.arm_profile(query["steps"][-1])
+            else:
+                code, doc = 200, agg.profile_status()
+            body = (json.dumps(doc, indent=1) + "\n").encode()
+            ctype = "application/json"
+        elif path == "/postmortems":
+            # the flight recorder's bundle index, fed by `postmortem` events
+            body = (
+                json.dumps(agg.postmortems(), indent=1) + "\n"
+            ).encode()
+            ctype = "application/json"
+            code = 200
         elif path in ("/status", "/"):
             body = (json.dumps(agg.status(), indent=1) + "\n").encode()
             ctype = "application/json"
             code = 200
-        elif path in UNPORTED_ROUTES:
-            body = UNPORTED_BODY.format(path=path).encode()
-            ctype = "text/plain; charset=utf-8"
-            code = 404
         else:
-            body = b"not found: serve /healthz, /status (POST /predict)\n"
+            body = (
+                b"not found: serve /metrics, /healthz, /status, /profile, "
+                b"/postmortems (POST /predict)\n"
+            )
             ctype = "text/plain; charset=utf-8"
             code = 404
         self._respond(code, ctype, body)
@@ -391,7 +743,8 @@ def start_metrics_server(
             log.warning("could not write metrics port file %s: %s",
                         port_file, e)
     log.info(
-        "metrics server: http://%s:%d (/healthz /status POST /predict)",
+        "metrics server: http://%s:%d "
+        "(/metrics /healthz /status /profile /postmortems)",
         server.host, server.port,
     )
     return server

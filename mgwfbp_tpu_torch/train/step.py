@@ -44,6 +44,21 @@ One ``TrainStep`` call is one optimizer step:
     No ``torch.autocast``: it picks a dtype per op, and the JAX policy casts
     the whole program.
 
+  * ``health_stats`` (the JAX step's ``_health_stat_entries``): the L2
+    norm of the post-reduction gradients (before clipping), one norm per
+    merge group in the reducer's arrival permutation, and the update ratio
+    ||new - old params|| / max(||old params||, 1e-12) (NaN on a skipped
+    step, as the JAX step's update of non-finite gradients gives). Each
+    leaf's norm is taken once, accumulated in float32 (float64 leaves in
+    float64), by the multi-tensor ``torch._foreach_norm``; the old
+    parameters are copied into a preallocated snapshot each step. The
+    statistics stay on the device as one float32 vector; the NEXT step
+    appends it to its own metrics read-back (one concatenation, the same
+    single device-to-host copy and synchronisation as without them) and
+    returns the host values under ``health/`` keys, describing the
+    previous step. ``take_health`` reads the last step's vector (at an
+    epoch's end); ``discard_health`` drops it (a rollback).
+
 The model's buffers are re-seated as views of one flat tensor, so the
 snapshot, the restore and the cross-rank average are one operation each.
 """
@@ -235,6 +250,33 @@ def flatten_buffers(module: nn.Module) -> Optional[torch.Tensor]:
     return flat
 
 
+# the trainer recognises (and strips) the health statistics in a step's
+# metrics by this prefix, as the JAX trainer does
+HEALTH_PREFIX = "health/"
+
+
+def health_keys(num_groups: int) -> list[str]:
+    """The metric names of a health vector, in its order: the global norm,
+    one norm per merge group, the update ratio."""
+    return ([f"{HEALTH_PREFIX}grad_norm"]
+            + [f"{HEALTH_PREFIX}gnorm_g{gi:04d}" for gi in range(num_groups)]
+            + [f"{HEALTH_PREFIX}update_ratio"])
+
+
+def leaf_norms(tensors) -> torch.Tensor:
+    """Each tensor's L2 norm as one float32 vector, accumulated in float32
+    (float64 tensors in float64): the multi-tensor kernel, not a handful
+    of launches per leaf. The ``dtype`` argument is passed only for 16-bit
+    tensors: with it, float32 lists leave the fused path for one
+    reduction per tensor."""
+    tensors = list(tensors)
+    if all(t.dtype in (torch.float32, torch.float64) for t in tensors):
+        norms = torch._foreach_norm(tensors, 2)
+    else:
+        norms = torch._foreach_norm(tensors, 2, dtype=torch.float32)
+    return torch.stack(norms).float()
+
+
 def nonfinite_count(tensors) -> torch.Tensor:
     """Number of non-finite elements over ``tensors``, as a float32 scalar
     (one concatenation and one count, not a handful of kernels per leaf)."""
@@ -268,6 +310,7 @@ class TrainStep:
         norm_clip: Optional[float] = None,
         task: str = "classify",
         compute_dtype: Optional[torch.dtype] = None,
+        health_stats: bool = False,
     ):
         if task not in self.METRICS:
             raise ValueError(f"task must be one of {sorted(self.METRICS)}, "
@@ -286,6 +329,12 @@ class TrainStep:
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.buffers = flatten_buffers(model)
         self.step = 0  # optimizer updates applied: the schedule's count
+        self.health_stats = bool(health_stats)
+        self.health_keys = health_keys(
+            reducer.num_groups if reducer is not None else 0)
+        self._health_dev: Optional[torch.Tensor] = None  # the last step's
+        self._old_params: Optional[list[torch.Tensor]] = None
+        self._group_matrix: Optional[torch.Tensor] = None
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor, carry=None,
                  lengths=None):
@@ -307,6 +356,8 @@ class TrainStep:
         carry_in = carry
         for p in self.params:
             p.grad = None
+        if self.health_stats:
+            self._snapshot_params()
         loss_sum = torch.zeros((), device=x.device)
         metric_sum = torch.zeros((), device=x.device)
         for i in range(n):
@@ -342,7 +393,17 @@ class TrainStep:
         if self.world > 1:
             dist.all_reduce(metrics)
             metrics.div_(self.world)
-        loss_v, metric_v, bad = metrics.tolist()
+        grad_sq = self._grad_sumsq() if self.health_stats else None
+        prev = self._health_dev
+        self._health_dev = None
+        if prev is not None:
+            # the previous step's statistics ride this step's read-back
+            host = torch.cat([metrics.float(), prev]).tolist()
+            loss_v, metric_v, bad = host[:3]
+            prev_health = dict(zip(self.health_keys, host[3:]))
+        else:
+            loss_v, metric_v, bad = metrics.tolist()
+            prev_health = {}
         if bad == 0.0:
             if self.norm_clip is not None:
                 clip_by_global_norm_([p.grad for p in self.params],
@@ -359,14 +420,71 @@ class TrainStep:
             if snapshot is not None:
                 self.buffers.copy_(snapshot)
             carry = carry_in
+        if grad_sq is not None:
+            self._health_dev = self._health_vector(grad_sq, bad == 0.0)
         for p in self.params:
             p.grad = None
-        out = {"loss": loss_v, "grads_nonfinite": bad}
+        out = {"loss": loss_v, "grads_nonfinite": bad, **prev_health}
         if self.metric is not None:
             out[self.metric] = metric_v
         if carry_in is None:
             return out
         return out, carry
+
+
+    # -- health statistics ---------------------------------------------
+    def _snapshot_params(self) -> None:
+        """Copy the parameters into the preallocated snapshot (the update
+        ratio's old side)."""
+        with torch.no_grad():
+            if self._old_params is None:
+                self._old_params = [torch.empty_like(p) for p in self.params]
+            torch._foreach_copy_(self._old_params, self.params)
+
+    def _grad_sumsq(self) -> torch.Tensor:
+        """[global, per group...] sums of squares of the reduced gradients
+        (float32, on the device)."""
+        with torch.no_grad():
+            reducer = self.reducer
+            if reducer is None:
+                sq = leaf_norms([p.grad for p in self.params]).square()
+                return sq.sum().reshape(1)
+            arr = reducer.arrival_params
+            sq = leaf_norms([p.grad for p in arr]).square()
+            if self._group_matrix is None:
+                # (groups, leaves) membership: one deterministic product
+                # sums every group (index_add_ has no deterministic CUDA
+                # kernel)
+                m = torch.zeros(reducer.num_groups, len(arr))
+                m[reducer.group_of, range(len(arr))] = 1.0
+                self._group_matrix = m.to(sq.device)
+            return torch.cat([sq.sum().reshape(1), self._group_matrix @ sq])
+
+    def _health_vector(self, grad_sq: torch.Tensor,
+                       applied: bool) -> torch.Tensor:
+        """[grad_norm, group norms..., update_ratio] of this step."""
+        with torch.no_grad():
+            if applied:
+                pnorm = leaf_norms(self._old_params).square().sum().sqrt()
+                torch._foreach_sub_(self._old_params, self.params)
+                unorm = leaf_norms(self._old_params).square().sum().sqrt()
+                ratio = (unorm / pnorm.clamp_min(1e-12)).reshape(1)
+            else:
+                ratio = torch.full((1,), float("nan"),
+                                   device=grad_sq.device)
+            return torch.cat([grad_sq.sqrt(), ratio])
+
+    def take_health(self) -> dict:
+        """The last step's health statistics on the host (one read), and
+        forget them; {} when there are none."""
+        prev, self._health_dev = self._health_dev, None
+        if prev is None:
+            return {}
+        return dict(zip(self.health_keys, prev.tolist()))
+
+    def discard_health(self) -> None:
+        """Drop the last step's statistics unread (a rollback)."""
+        self._health_dev = None
 
 
 @torch.no_grad()

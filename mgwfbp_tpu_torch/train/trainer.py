@@ -53,15 +53,43 @@ Supervision (the JAX trainer's runtime layer). ``fit`` arms the progress
 watchdog (``utils/watchdog.py``, ``MGWFBP_WATCHDOG_S``): every step beats
 it, the known-long silent phases take its allowances, and a stall emits a
 ``watchdog_stall`` event and turns /healthz 503 before an rc-86 abort.
-``metrics_port`` starts the live plane (``telemetry/serve.py``: /healthz
-and /status, fed by the event stream) that the supervisor's liveness
-monitor scrapes. Under ``MGWFBP_ELASTIC_RESUME=1`` (the supervisor exports
-it) a trainer that finds no checkpoint under its own tag resumes from a
-sibling tag written at another world size (``_resume_cross_world``), the
-LR schedule continuing from the manifest's anchor. ``update_nworker``
-resizes only by relaunch (``runtime.ResizeUnsupported``). Autotune, the
-rest of the telemetry plane and the serving shadow are not ported
-(ROADMAP.md).
+``metrics_port`` starts the live plane (``telemetry/serve.py``: /metrics,
+/healthz, /status, /profile, /postmortems, fed by the event stream) that
+the supervisor's liveness monitor and fleet fan-in scrape. Under
+``MGWFBP_ELASTIC_RESUME=1`` (the supervisor exports it) a trainer that
+finds no checkpoint under its own tag resumes from a sibling tag written
+at another world size (``_resume_cross_world``), the LR schedule
+continuing from the manifest's anchor. ``update_nworker`` resizes only by
+relaunch (``runtime.ResizeUnsupported``).
+
+The telemetry plane (the JAX trainer's, with telemetry on):
+  * health: ``TrainStep(health_stats=...)`` (``config.health_stats``)
+    computes the gradient norms and the update ratio on the device; the
+    next step's read-back carries them, so a ``health`` record lands one
+    step late with no added synchronisation, and feeds the health
+    detector (``telemetry/health.py``), whose edges are ``health_alarm``
+    records;
+  * drift and stragglers (``telemetry/drift.py``): each log window's step
+    time, and the per-group comm against the cost model (absolute once a
+    /profile window measured per-group device time), give ``drift_alarm``
+    edges; at several processes every agree-interval step gathers each
+    process's local busy seconds (``coordination.gather_values``) for the
+    ``straggler`` probe. ``MGWFBP_DRIFT_REAUTOTUNE=1`` is refused (ROADMAP
+    Queue 1 item 8);
+  * the flight recorder (``telemetry/recorder.py``), teed with the
+    aggregator off the event stream: an alarm, a bad step or a stall writes
+    a postmortem bundle under ``<tag dir>/postmortems``;
+  * /profile?steps=N: the step loop takes the request at a step boundary
+    (at several processes, agreed by ``gather_values`` at the agree
+    interval) and runs N genuine steps under ``torch.profiler``
+    (``_run_profile_window``): a Chrome trace under
+    ``<logdir>/<tag>/profile/iterNNNNNNNN``, per-group device time from
+    ``profiling.trace_group_times`` (``attribution: "none"`` where no
+    group's range holds a collective kernel: the CPU, and one card, where
+    no reducer exists), ``per_process_device_s`` gathered across ranks;
+  * ``tensorboard``: the scalar stream (``utils/summary.py``);
+  * ``serve_shadow``: the in-process serving plane with the shadow scorer.
+Autotune (with the drift re-race) is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -127,7 +155,19 @@ from mgwfbp_tpu_torch.profiling import (
     trace_group_times,
 )
 from mgwfbp_tpu_torch.telemetry import EventWriter, stream_filename, summarize
+from mgwfbp_tpu_torch.telemetry.drift import (
+    DriftConfig,
+    DriftDetector,
+    StragglerDetector,
+    refuse_reautotune,
+)
+from mgwfbp_tpu_torch.telemetry.health import (
+    HealthConfig,
+    HealthDetector,
+    health_enabled,
+)
 from mgwfbp_tpu_torch.train.step import (
+    HEALTH_PREFIX,
     TrainStep,
     ctc_eval_sums,
     eval_sums,
@@ -271,9 +311,44 @@ class Trainer:
         self._watchdog: Optional[ProgressWatchdog] = None
         self._stepped = False  # a train step ran in this process
         self._evaluated = False  # an evaluation ran in this process
+        # the drift re-race is autotune's (ROADMAP Queue 1 item 8)
+        refuse_reautotune()
         self._metrics_agg = None
         self._metrics_server = None
+        self._recorder = None
+        self.writer = None
+        self._serve_plane = None
         self.telemetry = self._open_telemetry()
+        # drift, stragglers and health (telemetry/{drift,health}.py): host
+        # arithmetic at the logging cadence; the straggler probe is a
+        # collective, so its gate reads group-uniform state only
+        self._drift_cfg = DriftConfig.from_env()
+        self._drift_detector = (
+            DriftDetector(self._drift_cfg) if config.telemetry else None
+        )
+        self._drift_window_seen = False
+        self._straggler_detector = StragglerDetector(
+            self._drift_cfg.straggler_band, self._drift_cfg.hysteresis,
+            self._drift_cfg.straggler_min_excess_s,
+        )
+        self._straggler_enabled = (
+            bool(config.telemetry) and self._drift_cfg.straggler_band > 0
+        )
+        self._health_on = bool(config.telemetry and config.health_stats)
+        self._health_detector = (
+            HealthDetector(HealthConfig.from_env())
+            if self._health_on and health_enabled() else None
+        )
+        # (iteration, epoch, loss) of the step whose health statistics the
+        # next step's read-back carries
+        self._health_pending: Optional[tuple[int, int, float]] = None
+        # the straggler probe's signal: each process's LOCAL busy seconds
+        # (loader wait, batch preparation, injected stalls; up to the
+        # step's launch), which synchronous SGD does not equalise
+        self._local_busy_s = 0.0
+        self._t_anchor = time.perf_counter()
+        self._probe_iter = 0
+        self._probe_busy = 0.0
         self._measured_group_times: Optional[list[float]] = None
         self.shard = ShardInfo(self.rank, self.world)
         model, self.meta = zoo.create_model(config.dnn, dataset=config.dataset)
@@ -340,6 +415,7 @@ class Trainer:
                 if config.norm_clip is not None else None
             ),
             task=self.meta.task, compute_dtype=self.compute_dtype,
+            health_stats=self._health_on,
         )
         self.carry = self._zero_carry()
         self.start_epoch = 0
@@ -428,9 +504,66 @@ class Trainer:
             os.path.join(tel_dir, stream_filename(self.rank, self.world)),
             run=run,
         )
-        if self._metrics_agg is not None:
-            writer.observer = self._metrics_agg.observe
+        agg = self._metrics_agg
+        from mgwfbp_tpu_torch.telemetry.recorder import (
+            FlightRecorder,
+            recorder_enabled,
+            tee_observers,
+        )
+
+        if recorder_enabled():
+            # an alarm, a bad step or a stall dumps the ring with /status
+            # and the schedule; several processes share the tag dir, so
+            # their bundles carry a .pN suffix
+            self._recorder = FlightRecorder(
+                tel_dir,
+                status_provider=agg.status if agg is not None else None,
+                schedule_provider=self._schedule_state_doc,
+                profile_armer=agg.arm_profile if agg is not None else None,
+                event_sink=writer.emit,
+                suffix=f".p{self.rank}" if self.world > 1 else "",
+            )
+        if agg is not None or self._recorder is not None:
+            writer.observer = tee_observers(
+                agg.observe if agg is not None else None,
+                self._recorder.observe if self._recorder is not None
+                else None,
+            )
+        if agg is not None:
+            # a live trainer consumes /profile?steps=N requests
+            agg.enable_profile()
+        if cfg.tensorboard and cfg.logdir and self.rank == 0:
+            from mgwfbp_tpu_torch.utils.summary import ScalarWriter
+
+            self.writer = ScalarWriter(
+                os.path.join(cfg.logdir, cfg.tag()), stream=writer)
         return writer
+
+    def _schedule_state_doc(self) -> dict:
+        """The committed schedule and cost model, JSON data (every
+        postmortem bundle's ``schedule.json``)."""
+        doc: dict = {"iteration": int(self.iteration)}
+        reducer = getattr(self, "reducer", None)
+        if reducer is not None:
+            s = reducer.schedule
+            doc["schedule"] = {
+                "comm_op": "all_reduce",
+                "num_groups": int(reducer.num_groups),
+                "groups": [list(g) for g in reducer.layout.groups],
+                "policy_detail": str(s.policy_detail or self.config.policy),
+                "predicted_nonoverlap_s": float(s.predicted_nonoverlap_time),
+            }
+        cm = getattr(self, "cost_model", None)
+        if cm is not None:
+            doc["cost_model"] = {
+                "kind": type(cm).__name__,
+                **{k: float(getattr(cm, k)) for k in
+                   ("alpha", "beta", "gamma", "overlap") if hasattr(cm, k)},
+            }
+        measured = getattr(self, "_measured_group_times", None)
+        if measured is not None:
+            doc["measured_group_times"] = [float(t) for t in measured]
+        return doc
 
     def _sync_schedule_gauge(self) -> None:
         """Push the merge schedule into the /status aggregator."""
@@ -439,7 +572,8 @@ class Trainer:
         s = self.reducer.schedule if self.reducer is not None else None
         self._metrics_agg.set_schedule(
             "all_reduce", s.num_groups if s is not None else 0,
-            s.policy_detail if s is not None else "")
+            s.policy_detail if s is not None else "",
+            float(s.predicted_nonoverlap_time) if s is not None else None)
 
     def _apply_lm_window(self) -> None:
         """Windowed-LM length override (``num_steps``): the meta the batches
@@ -624,6 +758,7 @@ class Trainer:
             self._beat(f"first train step (epoch {epoch})",
                        allow_s=COMPILE_ALLOW_S)
         t_epoch = t_window = time.time()
+        self._t_anchor = time.perf_counter()
         with contextlib.closing(loader.batches(epoch, skip_micro, stop)) as it:
             for batch in it:
                 micro.append(batch_fields(batch))
@@ -667,25 +802,44 @@ class Trainer:
                     os.kill(os.getpid(), _signal.SIGKILL)
                 if self._agreed_preempt():
                     self._graceful_drain(epoch, epoch_pos)  # raises Preempted
+                # the live plane, at group-uniform steps: the straggler
+                # probe, then an armed /profile window
+                self._maybe_straggler_probe()
+                self._maybe_profile_window(epoch)
                 if max_steps is not None and epoch_pos >= max_steps:
                     break
                 if self.iteration % log_interval == 0:
                     dt = (time.time() - t_window) / max(window_iters, 1)
                     self._maybe_derive_agree_interval(dt)
+                    self._observe_drift_window(dt)
                     metric = self.train_step.metric
+                    samples_s = cfg.batch_size * self.world * n / dt
                     self.log.info(
                         "epoch %d iter %d: loss %.4f%s | %.4f s/iter, %.1f "
                         "samples/s", epoch, self.iteration, metrics["loss"],
                         f", {metric} {metrics[metric]:.4f}" if metric else "",
-                        dt, cfg.batch_size * self.world * n / dt,
+                        dt, samples_s,
                     )
+                    if self.writer is not None:
+                        self.writer.add_scalars("train", {
+                            k: v for k, v in metrics.items()
+                            if k != "grads_nonfinite"}, self.iteration)
+                        self.writer.add_scalar("train/sec_per_iter", dt,
+                                               self.iteration)
+                        self.writer.add_scalar("train/samples_per_sec",
+                                               samples_s, self.iteration)
                     t_window = time.time()
                     window_iters = 0
+                # what follows the step until the next batch is
+                # group-coupled and stays out of the straggler signal
+                self._t_anchor = time.perf_counter()
         if micro:
             self.log.info(
                 "epoch %d: dropped %d trailing micro-batch(es)", epoch,
                 len(micro),
             )
+        # the last step's health statistics: one read at the epoch's end
+        self._drain_health()
         out = {k: v for k, v in metrics.items() if k != "grads_nonfinite"}
         if first_loss is not None:
             out["first_loss"] = first_loss
@@ -722,8 +876,10 @@ class Trainer:
                 " requested, but the batch has no floating input to poison",
             )
         tensors = self._to_device(*fields)
+        self._local_busy_s += time.perf_counter() - self._t_anchor
         t_step = self.telemetry.now() if self.telemetry else 0.0
         metrics = self.step_batch(*tensors)
+        self._note_health(metrics, epoch)
         self.iteration += 1
         if self.telemetry is not None:
             self.telemetry.emit(
@@ -821,6 +977,360 @@ class Trainer:
             self._measured_group_times = measured
             self.log.info("telemetry trace: %d group comm time(s) measured",
                           len(measured))
+
+    # ------------------------------------------------------------------
+    # The telemetry plane: health, drift, stragglers, /profile windows.
+    # Every emission is host arithmetic over host data; the only device
+    # reads are the step's own read-back (which carries the previous
+    # step's health), the epoch's last health read and the windows.
+    # ------------------------------------------------------------------
+
+    def _note_health(self, metrics: dict, epoch: int) -> None:
+        """Strip the previous step's ``health/`` values from this step's
+        metrics, emit them as its ``health`` record, and remember this
+        step's (iteration, epoch, loss) for the next read-back."""
+        vals = {k: metrics.pop(k) for k in
+                [k for k in metrics if k.startswith(HEALTH_PREFIX)]}
+        if not self._health_on:
+            return
+        if vals and self._health_pending is not None:
+            self._emit_health(self._health_pending, vals)
+        self._health_pending = (self.iteration + 1, int(epoch),
+                                float(metrics["loss"]))
+
+    def _drain_health(self) -> None:
+        """Read and emit the last step's health statistics (one read, at
+        an epoch's end or before a profile window)."""
+        if not self._health_on:
+            return
+        vals = self.train_step.take_health()
+        pending, self._health_pending = self._health_pending, None
+        if vals and pending is not None:
+            self._emit_health(pending, vals)
+
+    def _emit_health(self, pending: tuple, vals: dict) -> None:
+        it, ep, loss = pending
+        g_prefix = f"{HEALTH_PREFIX}gnorm_g"
+        group_norms = [vals[k] for k in sorted(vals) if k.startswith(g_prefix)]
+        fields = {
+            "step": int(it), "epoch": int(ep), "loss": float(loss),
+            "grad_norm": float(vals.get(f"{HEALTH_PREFIX}grad_norm",
+                                        float("nan"))),
+            "update_ratio": float(vals.get(f"{HEALTH_PREFIX}update_ratio",
+                                           float("nan"))),
+        }
+        if group_norms:
+            fields["group_norms"] = [float(v) for v in group_norms]
+        self._emit_event("health", **fields)
+        det = self._health_detector
+        if det is None:
+            return
+        for a in det.observe(loss=fields["loss"],
+                             grad_norm=fields["grad_norm"]):
+            self.log.warning(
+                "health %s: %s alarm (value %.3g vs band %.3g) at iter %d",
+                "RAISED" if a.active else "cleared", a.kind, a.value,
+                a.band, it,
+            )
+            self._emit_event("health_alarm", kind=a.kind, step=int(it),
+                             value=float(a.value), band=float(a.band),
+                             active=bool(a.active), group=int(a.group))
+
+    def _reset_health_detector(self) -> None:
+        """After a rollback: drop the unread statistics, resolve raised
+        alarms and forget the baselines (they describe a model that is
+        gone)."""
+        self.train_step.discard_health()
+        self._health_pending = None
+        det = self._health_detector
+        if det is None:
+            return
+        for a in det.clear_alarms():
+            self._emit_event("health_alarm", kind=a.kind,
+                             step=int(self.iteration), value=float(a.value),
+                             band=float(a.band), active=False,
+                             group=int(a.group))
+        det.reset()
+
+    def _observe_drift_window(self, step_s: float) -> None:
+        """One log window's step time into the drift detector, and the
+        per-group comm against the cost model: absolute against measured
+        group times once a trace gave them, else baseline-relative against
+        the step's non-backward share (measured tb only). Alarm edges
+        become ``drift_alarm`` records."""
+        det = self._drift_detector
+        if det is None or step_s <= 0.0:
+            return
+        if not self._drift_window_seen:
+            # the first window holds the first step's one-off start-up
+            self._drift_window_seen = True
+            return
+        alarms = list(det.observe_step_window(step_s))
+        if self.reducer is not None and self.cost_model is not None:
+            from mgwfbp_tpu_torch.telemetry import group_comm_times
+
+            predicted, _, _ = group_comm_times(self.reducer, self.cost_model)
+            measured = self._measured_group_times
+            if measured is not None and len(measured) == len(predicted):
+                alarms += det.observe_comm(predicted, measured_s=measured)
+            elif self.tb is not None:
+                measured_total = step_s - float(sum(self.tb))
+                if measured_total > 0.0:
+                    alarms += det.observe_comm(
+                        predicted, measured_total_s=measured_total)
+        for a in alarms:
+            self.log.warning(
+                "drift %s: %s alarm (residual %.3g vs band %.3g%s)",
+                "RAISED" if a.active else "cleared", a.kind, a.residual,
+                a.band, f", group {a.group}" if a.group >= 0 else "",
+            )
+            self._emit_event("drift_alarm", kind=a.kind,
+                             step=int(self.iteration),
+                             residual=float(a.residual), band=float(a.band),
+                             active=bool(a.active), group=int(a.group))
+
+    def _maybe_straggler_probe(self) -> None:
+        """At every agree-interval step of a group, gather each process's
+        local busy seconds per step since the last probe
+        (``coordination.gather_values``, a collective every process
+        reaches) and name a process consistently slower than the fastest
+        (``straggler`` records, identical on every process)."""
+        if not self._straggler_enabled or self.world == 1:
+            return
+        if self.iteration % self._agree_interval != 0:
+            return
+        steps = self.iteration - self._probe_iter
+        if steps <= 0:
+            return
+        local = (self._local_busy_s - self._probe_busy) / steps
+        self._probe_iter = self.iteration
+        self._probe_busy = self._local_busy_s
+        alarm = self._straggler_detector.observe(coord.gather_values(local))
+        if alarm is None:
+            return
+        self.log.warning(
+            "straggler %s: process %d is %.4g s/step slower than the "
+            "fastest (%.4g vs %.4g)",
+            "RAISED" if alarm.active else "cleared", alarm.slow_process,
+            alarm.excess_s, alarm.step_s_max, alarm.step_s_min,
+        )
+        self._emit_event(
+            "straggler", step=int(self.iteration),
+            slow_process=int(alarm.slow_process),
+            excess_s=float(alarm.excess_s),
+            step_s_max=float(alarm.step_s_max),
+            step_s_min=float(alarm.step_s_min), active=bool(alarm.active),
+        )
+
+    def _maybe_profile_window(self, epoch: int) -> None:
+        """Take an armed /profile request at this step boundary. One
+        process: every step. Several: the window's steps are collective
+        steps every process must enter together, so at every
+        agree-interval step the group gathers its locally armed step
+        counts (the gate reads group-uniform state only) and runs the
+        agreed maximum. The HTTP handler never runs the window."""
+        if self.config.metrics_port is None:
+            return
+        agg = self._metrics_agg
+        if self.world == 1:
+            req = agg.take_profile_request() if agg is not None else None
+            if req:
+                self._run_profile_window(int(req), epoch)
+            return
+        if self.iteration % self._agree_interval != 0:
+            return
+        local = float((agg.take_profile_request() or 0)
+                      if agg is not None else 0)
+        steps = int(max(coord.gather_values(local)))
+        if steps > 0:
+            self._run_profile_window(steps, epoch)
+
+    def _window_batches(self):
+        """Endless stacked train batches for a profile window, from a
+        reserved epoch range far above any training epoch: the window's
+        steps are extra genuine steps, not a replay of the epoch's
+        stream (which ``load_batch`` reads as a pure function of the
+        epoch and the batch index)."""
+        n = self.config.nsteps_update
+        per_epoch = max(self.bundle.num_batches_per_epoch, 1)
+        k = getattr(self, "_window_batch_index", 0)
+        while True:
+            micro = []
+            for _ in range(n):
+                micro.append(batch_fields(self.bundle.train.load_batch(
+                    (1 << 20) + k // per_epoch, k % per_epoch)))
+                k += 1
+            self._window_batch_index = k
+            yield [_stack(list(f)) for f in zip(*micro)]
+
+    def _run_profile_window(self, steps: int, epoch: int) -> None:
+        """Trace ``steps`` genuine optimizer steps under torch.profiler,
+        write the Chrome trace under ``<logdir>/<tag>/profile/iterNNNNNNNN``
+        (``trace.json``; ``trace.pN.json`` for process N of a group),
+        attribute per-group device time (``profiling.trace_group_times``),
+        gather it across processes (a zero row where a process attributed
+        nothing: the lockstep shape), hand the result to the aggregator
+        and emit a ``profile`` record. The window synchronises the card;
+        it runs on demand only, under the watchdog's compile allowance.
+        The JAX trainer's join with the compiled step's HLO text has no
+        counterpart (there is no HLO here)."""
+        from mgwfbp_tpu_torch.telemetry.serve import PROFILE_MAX_STEPS
+
+        steps = max(1, min(int(steps), PROFILE_MAX_STEPS))
+        agg = self._metrics_agg
+        num_groups = self.reducer.num_groups if self.reducer is not None else 0
+        trace_dir = None
+        if self.config.logdir:
+            trace_dir = os.path.join(self.config.logdir, self.config.tag(),
+                                     "profile", f"iter{self.iteration:08d}")
+            try:
+                os.makedirs(trace_dir, exist_ok=True)
+            except OSError as e:
+                self.log.warning("profile: cannot create %s (%s); the trace "
+                                 "will not be kept", trace_dir, e)
+                trace_dir = None
+        self.log.info("profile window: tracing %d live step(s) at iter %d%s",
+                      steps, self.iteration,
+                      f" -> {trace_dir}" if trace_dir else "")
+        self._beat(f"profile window ({steps} steps)",
+                   allow_s=COMPILE_ALLOW_S)
+        # the last normal step's health first: the window's own
+        # statistics are not a step of the loop's and are dropped
+        self._drain_health()
+        batches = self._window_batches()
+
+        def run():
+            for _ in range(steps):
+                self.step_batch(*self._to_device(*next(batches)))
+                # each window step is a genuine optimizer step
+                self.iteration += 1
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        from mgwfbp_tpu_torch.profiling import trace_group_rows, trace_group_times
+
+        # every process of a group writes its own trace into the window's
+        # directory
+        trace_name = (f"trace.p{self.rank}.json" if self.world > 1
+                      else "trace.json")
+        t0 = time.perf_counter()
+        try:
+            if num_groups:
+                measured = trace_group_times(run, num_groups, iters=steps,
+                                             logdir=trace_dir,
+                                             trace_name=trace_name)
+            else:
+                trace_group_rows(run, logdir=trace_dir, trace_name=trace_name)
+                measured = None
+        except Exception as e:  # noqa: BLE001 — observability must never
+            # kill the run it observes
+            self.log.warning("profile window failed (%s)", e)
+            if agg is not None:
+                agg.fail_profile(str(e))
+            return
+        finally:
+            self.train_step.discard_health()
+            self._beat("profile window done")
+        wall_s = time.perf_counter() - t0
+        attribution = "trace" if measured is not None else "none"
+        groups_doc: list[dict] = []
+        if self.reducer is not None:
+            from mgwfbp_tpu_torch.telemetry import group_comm_times
+
+            predicted = nbytes = None
+            if self.cost_model is not None:
+                predicted, nbytes, _ = group_comm_times(self.reducer,
+                                                        self.cost_model)
+            layout = self.reducer.layout
+            for gi in range(num_groups):
+                row = {"group": gi,
+                       "nbytes": int(layout.group_sizes[gi])
+                       * int(layout.dtypes[gi].itemsize)}
+                if predicted is not None:
+                    row["predicted_s"] = float(predicted[gi])
+                if measured is not None:
+                    row["device_s"] = float(measured[gi])
+                groups_doc.append(row)
+        per_process = None
+        if self.world > 1 and num_groups:
+            row = ([float(t) for t in measured]
+                   if measured is not None and len(measured) == num_groups
+                   else [0.0] * num_groups)
+            per_process = coord.gather_vectors(row)
+        if measured is not None and len(measured) == num_groups:
+            # the drift detector's comm channel turns absolute
+            self._measured_group_times = [float(t) for t in measured]
+        result = {
+            "steps": int(steps),
+            "iteration": int(self.iteration),
+            "wall_s": float(wall_s),
+            "attribution": attribution,
+            "trace_dir": trace_dir,
+            "groups": groups_doc,
+        }
+        if per_process is not None:
+            result["per_process_device_s"] = {
+                str(pi): [float(t) for t in vec]
+                for pi, vec in enumerate(per_process)
+            }
+        if agg is not None:
+            agg.set_profile_result(result)
+        self._emit_event(
+            "profile", step=int(self.iteration), steps=int(steps),
+            attribution=attribution,
+            device_s=[float(t) for t in measured] if measured is not None
+            else [], trace_dir=trace_dir or "",
+        )
+        self.log.info("profile window done: %d step(s) in %.3g s, "
+                      "attribution=%s", steps, wall_s, attribution)
+
+    def _start_serve_plane(self) -> None:
+        """The in-process serving plane (``serve_shadow``): a ServingModel,
+        the reload watcher, the /predict dispatcher and the shadow scorer
+        on this process's HTTP plane, hot-reloading the run's committed
+        checkpoints on their own threads. One process only (a group serves
+        from standalone replicas, ``supervise --serve-replicas``); needs a
+        checkpoint directory and the event stream."""
+        if not self.config.serve_shadow or self._serve_plane is not None:
+            return
+        if self.world != 1:
+            self.log.warning("--serve-shadow is single-process only "
+                             "(standalone replicas serve a group); serving "
+                             "disabled")
+            return
+        if self.checkpointer is None or self.telemetry is None:
+            self.log.warning("--serve-shadow needs --checkpoint-dir and "
+                             "telemetry; serving disabled")
+            return
+        from mgwfbp_tpu_torch.serving.model import ServingModel
+        from mgwfbp_tpu_torch.serving.plane import ServePlane
+
+        module, meta = zoo.create_model(self.config.dnn,
+                                        dataset=self.config.dataset)
+        try:
+            serving_model = ServingModel(module, meta, device=self.device)
+        except ValueError as e:
+            self.log.warning("--serve-shadow: %s; serving disabled", e)
+            return
+        agg = self._metrics_agg
+        train_loss_fn = None
+        if agg is not None:
+            def train_loss_fn():
+                v = agg.values().get("mgwfbp_health_loss")
+                return float(v) if v is not None else None
+        self._serve_plane = ServePlane(
+            serving_model, self.ckpt_dir,
+            emit=lambda ev, f: self._emit_event(ev, **f),
+            server=self._metrics_server, shadow=True,
+            train_loss_fn=train_loss_fn,
+        )
+        self._serve_plane.start()
+        self.log.info(
+            "serving plane up: hot-reloading committed checkpoints, "
+            "shadow-eval on, /predict %s (slot %d)",
+            "attached" if self._metrics_server is not None
+            else "unattached (no metrics port)", serving_model.max_batch,
+        )
 
     def evaluate(self) -> dict:
         """Loss, top-1 and top-5 over every sample of the val loader,
@@ -1632,6 +2142,7 @@ class Trainer:
         self._bad_streak = 0
         self._warned_no_rollback = False
         self._apply_snapshot(snap, "rolled back", emit_resume=False)
+        self._reset_health_detector()
         self._emit_event("rollback", bad_steps=int(rb.bad_steps),
                          restored_iteration=int(snap.iteration),
                          restored_epoch=int(snap.epoch))
@@ -1670,6 +2181,7 @@ class Trainer:
             with ProgressWatchdog(on_stall=self._on_watchdog_stall) as wd:
                 self._watchdog = wd if wd.enabled else None
                 self._arm_signals()
+                self._start_serve_plane()
                 if self.telemetry is not None and self.reducer is not None \
                         and self._measured_group_times is None:
                     self._trace_group_times()
@@ -1701,12 +2213,19 @@ class Trainer:
                 epoch = self._rollback(rb)
                 continue
             metrics = {"train": train_metrics}
+            if self.writer is not None:
+                self.writer.add_scalars("epoch", train_metrics, epoch)
+                self.writer.add_scalar(
+                    "epoch/lr", float(self.epoch_schedule(float(epoch))),
+                    epoch)
             if (epoch + 1) % cfg.eval_every_epochs == 0:
                 metrics["eval"] = self.evaluate()
                 self.log.info(
                     "epoch %d eval: %s", epoch,
                     ", ".join(f"{k} {v:.4f}" for k, v in metrics["eval"].items()),
                 )
+                if self.writer is not None:
+                    self.writer.add_scalars("eval", metrics["eval"], epoch)
             if (epoch + 1) % cfg.checkpoint_every_epochs == 0:
                 self._beat(f"checkpoint epoch {epoch}",
                            allow_s=CHECKPOINT_ALLOW_S)
@@ -1718,6 +2237,9 @@ class Trainer:
         return metrics
 
     def close(self) -> None:
+        if self._serve_plane is not None:
+            self._serve_plane.close()
+            self._serve_plane = None
         if self.checkpointer is not None:
             if self.world == 1:
                 # land the in-flight save's commit and its event before the
@@ -1733,6 +2255,13 @@ class Trainer:
             self.checkpointer.close()
         if self.reducer is not None:
             self.reducer.detach()
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
+        if self._recorder is not None:
+            # a bundle's deferred `postmortem` record lands before the
+            # stream closes
+            self._recorder.flush_events()
         if self.telemetry is not None:
             self.telemetry.close()
         if self._metrics_server is not None:

@@ -33,7 +33,11 @@ injects faults (``utils/faults.py``), e.g. ``nan@step=4,count=3``,
 ``preempt@step=12``, ``stall@secs=60,step=5``, ``kill@step=12`` or
 ``wedge@step=18,secs=600``. ``MGWFBP_WATCHDOG_S`` arms the progress
 watchdog (``MGWFBP_WATCHDOG_ABORT=1``: rc 86 after a stack dump);
-``--metrics-port`` serves /healthz and /status. A single-process launch
+``--metrics-port`` serves /metrics, /healthz, /status, /profile?steps=N
+(a ``torch.profiler`` window over N live steps) and /postmortems (the flight
+recorder's bundles); ``--no-health-stats`` turns off the in-step health
+statistics, ``--tensorboard`` streams scalars, ``--serve-shadow`` serves
+and shadow-scores the run's checkpoints in-process. A single-process launch
 first probes the card under ``MGWFBP_INIT_TIMEOUT_S``
 (``utils.platform.preflight_backend``).
 """
@@ -129,6 +133,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch.use_deterministic_algorithms(True, "
                         "warn_only=True) (set CUBLAS_WORKSPACE_CONFIG=:4096:8 "
                         "on the card)")
+    p.add_argument("--no-health-stats", action="store_true",
+                   help="disable the in-step training-health statistics "
+                        "(global and per-group gradient norms, the "
+                        "update/param ratio) and with them the health "
+                        "detector's alarms")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="stream train/eval scalars (scalar records in the "
+                        "event stream, else <logdir>/<tag>/events.jsonl; "
+                        "mirrored into TensorBoard files when a writer "
+                        "package imports)")
     p.add_argument("--telemetry", action="store_true",
                    help="write the event stream: step spans, and per epoch "
                         "an epoch record, the overlap accounting and one "
@@ -145,6 +159,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "process index; 0 = ephemeral (the bound port is "
                         "written to MGWFBP_METRICS_PORT_FILE); implies "
                         "--telemetry (MGWFBP_METRICS_PORT)")
+    p.add_argument("--serve-shadow", action="store_true",
+                   help="in-process serving plane: hot-reload every "
+                        "committed checkpoint into a ServingModel, score the "
+                        "held-out shadow stream on it (shadow_eval events, "
+                        "served-vs-training loss gauge) and answer POST "
+                        "/predict on the metrics port; one process only, "
+                        "needs --checkpoint-dir and telemetry")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--logdir", default=None)
     p.add_argument("--coordinator", default=None,
@@ -180,6 +201,15 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         overrides["ckpt_async"] = False
     if args.deterministic:
         overrides["deterministic"] = True
+    if args.no_health_stats:
+        overrides["health_stats"] = False
+    if args.tensorboard:
+        overrides["tensorboard"] = True
+    if args.serve_shadow:
+        # the plane's reload, shadow_eval and serve_stats events ride the
+        # event stream, so serving implies it
+        overrides["serve_shadow"] = True
+        overrides["telemetry"] = True
     if args.telemetry or args.telemetry_dir or args.metrics_port is not None:
         overrides["telemetry"] = True
     return make_config(args.dnn, **overrides)

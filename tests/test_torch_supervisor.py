@@ -32,7 +32,7 @@ import pytest
 
 from mgwfbp_tpu.runtime import supervisor as jax_sup
 from mgwfbp_tpu_torch.runtime import supervisor as sup_mod
-from mgwfbp_tpu_torch.runtime.supervise import build_parser, main
+from mgwfbp_tpu_torch.runtime.supervise import build_parser
 from mgwfbp_tpu_torch.runtime.supervisor import (
     Supervisor,
     _LivenessTracker,
@@ -125,11 +125,14 @@ def test_cli_defaults_match_jax_and_fleet_server_is_refused(capsys):
     ours = vars(build_parser().parse_args(["--processes", "2"]))
     theirs = vars(jax_parser().parse_args(["--processes", "2"]))
     assert ours == theirs
-    with pytest.raises(SystemExit):
-        main(["--processes", "1", "--fleet-port", "0", "--", "--dnn", "lenet"])
-    assert "ROADMAP Queue 1 item 5" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        _stub("raise SystemExit(0)", fleet_port=0)
+    # the fan-in is served now (tests/test_torch_fleet.py drives it): the
+    # flag parses as in JAX and a supervisor takes it
+    argv = ["--processes", "1", "--fleet-port", "0", "--fleet-file", "f.json"]
+    assert vars(build_parser().parse_args(argv)) == vars(
+        jax_parser().parse_args(argv))
+    sup = _stub("raise SystemExit(0)", fleet_port=0)
+    assert sup.fleet_port == 0 and sup.fleet_server is None
+    assert "item 5" not in capsys.readouterr().err
     assert default_train_cmd(["--dnn", "x"])[1:] == [
         "-m", "mgwfbp_tpu_torch.train_cli", "--dnn", "x"]
 

@@ -12,14 +12,18 @@ package where the two can run side by side.
     there is none raises; a hang raises ``DeadlineExceeded``);
   * ``runtime.coordination``'s ``gather_values``, ``gather_vectors`` and
     ``all_argmin`` at 1 and 2 gloo ranks equal the JAX functions' answers
-    on the same values (ties and None included);
+    on the same values (ties and None included); the two ranks run with an
+    explicit environment, are drained together and bounded, and a failing
+    rank's stderr is in the assertion; the module drops its process groups
+    before interpreter shutdown;
   * the training ``/status`` and ``/healthz`` of a real port ``Trainer``:
     the step advances with the run, and the same events fed to the JAX
     package's ``MetricsAggregator`` give the same health, step and counts
     (a ``bad_step`` is counted, a ``watchdog_stall`` is unhealthy until the
     next step, and for good once it aborts); the port writes its bound
     port to ``MGWFBP_METRICS_PORT_FILE``; ``/metrics``, ``/profile`` and
-    ``/postmortems`` answer 404 naming ROADMAP Queue 1 item 5.
+    ``/postmortems`` answer what the JAX plane answers for the same
+    stream.
 """
 
 import json
@@ -27,6 +31,7 @@ import logging
 import os
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -36,6 +41,7 @@ import pytest
 import torch
 
 from mgwfbp_tpu.runtime import coordination as jax_coord
+from mgwfbp_tpu.telemetry.export import render_metrics
 from mgwfbp_tpu.telemetry.serve import MetricsAggregator as JaxAggregator
 from mgwfbp_tpu.utils import platform as jax_platform
 from mgwfbp_tpu_torch.config import make_config
@@ -233,19 +239,72 @@ def _norm(answer) -> str:
 
 
 _COORD_CHILD = r"""
-import json, sys
+import datetime, json, sys
 import torch.distributed as dist
 from mgwfbp_tpu_torch.runtime import coordination as coord
 rank, world, rdv, values = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                             json.loads(sys.argv[4]))
 dist.init_process_group("gloo", init_method=f"file://{rdv}",
-                        world_size=world, rank=rank)
+                        world_size=world, rank=rank,
+                        timeout=datetime.timedelta(seconds=180))
 s, v, c = values[rank]
 out = [coord.gather_values(s), coord.gather_vectors(v),
        list(coord.all_argmin([None if x is None else float(x) for x in c]))]
 print(json.dumps(out))
 dist.destroy_process_group()
 """
+
+
+# what a child needs of the environment; nothing else of the test worker's
+# (whose variables earlier tests in the same process may have set) leaks in
+_CHILD_ENV_KEYS = ("PATH", "HOME", "TMPDIR", "LANG", "LC_ALL",
+                   "LD_LIBRARY_PATH")
+
+
+def _run_children(argvs: list, timeout_s: float = 240.0,
+                  script: str = _COORD_CHILD,
+                  extra_env: dict = None) -> list:
+    """Run one ``script`` (``_COORD_CHILD``) per argv with an explicit
+    environment (plus ``extra_env``),
+    drain every child's pipes at once (a child blocked on a full pipe
+    while the parent waits on its sibling would hold the group's
+    collective), and return each child's last stdout line as JSON. A
+    child that fails, or a group that outlives ``timeout_s`` (every child
+    is then killed), fails the test with every child's stderr."""
+    env = {k: os.environ[k] for k in _CHILD_ENV_KEYS if k in os.environ}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1", **(extra_env or {}))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, *argv], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env) for argv in argvs]
+    outs: list = [None] * len(procs)
+
+    def drain(i: int) -> None:
+        outs[i] = procs[i].communicate()
+
+    threads = [threading.Thread(target=drain, args=(i,), daemon=True)
+               for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + timeout_s
+    for t in threads:
+        t.join(max(deadline - time.monotonic(), 0.0))
+    hung = [i for i, t in enumerate(threads) if t.is_alive()]
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    for t in threads:
+        t.join(10)
+
+    def report() -> str:
+        return "\n".join(
+            f"rank {i}: rc {p.returncode}, stderr:\n"
+            f"{(outs[i] or ('', ''))[1][-3000:]}"
+            for i, p in enumerate(procs))
+
+    assert not hung, f"rank(s) {hung} still running after {timeout_s:.0f}" \
+        f" s; killed\n{report()}"
+    assert [p.returncode for p in procs] == [0] * len(procs), report()
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
 
 
 @pytest.mark.parametrize("world", [1, 2])
@@ -258,21 +317,36 @@ def test_gather_primitives_match_jax(world, tmp_path):
                       coord.all_argmin(c)))]
     else:
         doc = json.dumps(values)  # NaN travels as the JSON token NaN
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", _COORD_CHILD, str(r), str(world),
-             str(tmp_path / "rdv"), doc], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True,
-            env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"))
-            for r in range(world)]
-        got = []
-        for p in procs:
-            out, err = p.communicate(timeout=120)
-            assert p.returncode == 0, err
-            gv, gw, am = json.loads(out.strip().splitlines()[-1])
-            got.append(_norm((gv, gw, tuple(am))))
+        got = [_norm((gv, gw, tuple(am))) for gv, gw, am in _run_children(
+            [[str(r), str(world), str(tmp_path / "rdv"), doc]
+             for r in range(world)])]
     assert got == want
     # every rank agrees
     assert len(set(got)) == 1
+
+
+_RELEASE_CHILD = r"""
+import sys
+from mgwfbp_tpu_torch.runtime import coordination as coord
+class Probe:
+    def __del__(self):
+        print("finalizing" if sys.is_finalizing() else "released", flush=True)
+coord._side = (Probe(), Probe())
+"""
+
+
+def test_coordination_drops_its_groups_before_interpreter_shutdown():
+    """The side group (and the world it belongs to) must be destroyed while
+    the interpreter still runs: destroyed during its finalisation, gloo's
+    teardown aborted one child in ten of a loaded two-rank run of the test
+    above (rc -6, "terminate called without an active exception", after
+    its answer was printed)."""
+    env = {k: os.environ[k] for k in _CHILD_ENV_KEYS if k in os.environ}
+    env.update(PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", _RELEASE_CHILD], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["released", "released"]
 
 
 def test_all_argmin_refuses_an_empty_list():
@@ -328,15 +402,24 @@ def test_trainer_status_and_healthz_match_the_jax_aggregator(
         assert st["healthy"] and st["run"]["model"] == "lenet"
         assert st["schedule"]["comm_op"] == "all_reduce"
         assert _get(port, "/healthz") == (200, "ok\n")
-        for path in ("/metrics", "/profile", "/postmortems"):
-            code, body = _get(port, path)
-            assert code == 404 and "ROADMAP Queue 1 item 5" in body
         # the same stream through the JAX aggregator
         recs = read_events(os.path.join(str(tmp_path), cfg.tag(),
                                         "telemetry.jsonl"))
         jagg = JaxAggregator()
         jagg.replay(recs)
         assert _health_view(jagg) == _health_view(t._metrics_agg)
+        # the rest of the plane answers as the JAX plane does
+        code, body = _get(port, "/metrics")
+        assert code == 200 and body == render_metrics(jagg.values())
+        code, body = _get(port, "/profile")
+        assert code == 200 and json.loads(body) == dict(
+            jagg.profile_status(), supported=True)
+        code, body = _get(port, "/postmortems")
+        want = jagg.postmortems()  # a replay keeps each record's wall
+        want["recent"] = [{k: v for k, v in r.items() if k != "wall"}
+                          for r in want["recent"]]
+        assert code == 200 and json.loads(body) == want
+        assert want["total"] == 1  # the NaN step's bundle
         # a stall that does not abort: 503 until the loop steps again
         t._on_watchdog_stall("train epoch 1", 7.0, 5.0, False)
         jagg.observe("watchdog_stall", {"phase": "train epoch 1",
