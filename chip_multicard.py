@@ -43,6 +43,23 @@ committed step under the n-N tag and trains to the end. Prints one JSON
 line ``{"multicard_heal": ...}``: the exit codes of each incarnation, the
 seconds from the kill to the survivors' exit, the heal, the resize and the
 final step.
+
+With ``--lowerings`` it runs another step instead: N processes (one per
+card, NCCL) train ResNet-50 (``--model``) at bfloat16 (``--dtype``) at
+``--batch-size`` 128 per card on synthetic ImageNet-shaped batches drawn on
+the card, LOWERINGS_STEPS steps each of the merged collectives lowered as
+``all_reduce``, ``rs_ag``, ``rs_opt_ag`` (the sharded optimizer) and
+``all_reduce`` with the top-k compressor at density 0.01, every run from
+the same initialisation on the same batches (policy mgwfbp on the 10GbE
+constants at N, SGD momentum 0.9), each lowering in processes of its own.
+Prints one JSON line ``{"multicard_lowerings": ...}``: per lowering the
+median step time, the peak memory, the optimizer-state bytes per card,
+whether every rank holds the same parameters after the last step, the
+parameters' relative distance to the all_reduce run's (a reading: each
+run's own forward amplifies a rounding difference), and each process's
+device timeline of one more, profiled step (``step_breakdown``). ``--device cpu --processes 4
+--lowerings --model resnet20 --dtype float32 --batch-size 4`` rehearses it
+over gloo.
 """
 
 from __future__ import annotations
@@ -105,6 +122,270 @@ def _run_group(n: int, argv: list[str], out_dir: str, name: str,
               f"{out_dir})", file=sys.stderr, flush=True)
         raise SystemExit(1)
     return outs
+
+
+LOWERINGS_STEPS = 10
+LOWERINGS = (("all_reduce", "all_reduce", None),
+             ("rs_ag", "rs_ag", None),
+             ("rs_opt_ag", "rs_opt_ag", None),
+             ("topk", "all_reduce", 0.01))
+
+
+def _union(intervals) -> list:
+    """Sorted, merged (start, end) intervals."""
+    out: list = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _length(intervals) -> float:
+    return sum(b - a for a, b in intervals)
+
+
+def _uncovered(intervals, cover) -> float:
+    """The length of ``intervals`` (merged) that ``cover`` (merged) does
+    not overlap."""
+    covered = 0.0
+    for a, b in intervals:
+        for c, d in cover:
+            covered += max(0.0, min(b, d) - max(a, c))
+    return _length(intervals) - covered
+
+
+def step_breakdown(prof) -> dict:
+    """The device timeline of one profiled step, in ms: its span (first
+    device activity to last), the time anything ran, the compute (every
+    kernel and copy but NCCL's) and the collectives (NCCL's kernels), the
+    collectives' time that no compute overlaps, each collective kind's
+    count and time, and the same after the metrics' device-to-host copy
+    (the optimizer update and what it launches)."""
+    from torch.autograd import DeviceType
+
+    sys.path.insert(0, ROOT)
+    from mgwfbp_tpu_torch.parallel.allreduce import (
+        CLIP_NORM_SCOPE,
+        GROUP_SCOPE_PREFIX,
+    )
+
+    # kernels, copies and sets only: the device-side ranges of
+    # record_function annotations (NCCL's "nccl:*", the group scopes)
+    # repeat or span them
+    ev = [(e.time_range.start, e.time_range.end, e.name)
+          for e in prof.events() if e.device_type == DeviceType.CUDA
+          and not getattr(e, "is_user_annotation", False)
+          and not e.name.startswith(("nccl:", GROUP_SCOPE_PREFIX,
+                                     CLIP_NORM_SCOPE))]
+    if not ev:
+        return {"reason": "no device activity in the trace"}
+
+    def part(events) -> dict:
+        comm = _union((a, b) for a, b, n in events if "nccl" in n.lower())
+        comp = _union((a, b) for a, b, n in events if "nccl" not in n.lower())
+        span = (max(b for _, b, _ in events) - min(a for a, _, _ in events)
+                if events else 0.0)
+        busy = _length(_union((a, b) for a, b, _ in events))
+        return {"span_ms": span / 1e3, "busy_ms": busy / 1e3,
+                "idle_share": 1.0 - busy / span if span > 0 else None,
+                "compute_ms": _length(comp) / 1e3,
+                "collective_ms": _length(comm) / 1e3,
+                "collective_exposed_ms": _uncovered(comm, comp) / 1e3}
+
+    out = part(ev)
+    kinds: dict = {}
+    for a, b, n in ev:
+        if "nccl" not in n.lower():
+            continue
+        kind = next((k for k in ("ReduceScatter", "AllGather", "AllReduce",
+                                 "Broadcast") if k in n), "other")
+        d = kinds.setdefault(kind, {"count": 0, "ms": 0.0})
+        d["count"] += 1
+        d["ms"] += (b - a) / 1e3
+    out["collectives"] = kinds
+    d2h = [b for _, b, n in ev if "DtoH" in n]
+    if d2h:
+        t = min(d2h)
+        out["after_metrics_read"] = part([e for e in ev if e[0] >= t])
+    return out
+
+
+def lowerings_rank(label: str, model_name: str, dtype: str, batch_size: int,
+                   device: str) -> dict:
+    """One rank of one lowering of the --lowerings step (its world from the
+    launch environment): LOWERINGS_STEPS timed steps from one
+    initialisation on the same batches, then one profiled step. Process 0
+    writes the parameters after the timed steps to
+    ``lowerings_final_<label>.npy`` in the working directory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from mgwfbp_tpu_torch.models import create_model
+    from mgwfbp_tpu_torch.models.common import init_weights
+    from mgwfbp_tpu_torch.optim import make_optimizer
+    from mgwfbp_tpu_torch.parallel.allreduce import make_merged_allreduce
+    from mgwfbp_tpu_torch.parallel.compression import TopKCompressor
+    from mgwfbp_tpu_torch.parallel.costmodel import lookup_alpha_beta
+    from mgwfbp_tpu_torch.parallel.mesh import init_distributed
+    from mgwfbp_tpu_torch.train import TrainStep
+    from mgwfbp_tpu_torch.utils.device import set_matmul_precision
+
+    op, density = {lab: (o, d) for lab, o, d in LOWERINGS}[label]
+    compute = None if dtype == "float32" else getattr(torch, dtype)
+    set_matmul_precision(compute)
+    dev = init_distributed(device)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    cuda = dev.type == "cuda"
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out: dict = {"world": world, "model": model_name, "dtype": dtype,
+                 "batch_per_card": batch_size}
+    try:
+        model, meta = create_model(model_name)
+        init_weights(model, torch.Generator().manual_seed(5)).to(dev)
+        opt, lr_fn, _, spec = make_optimizer(
+            model.parameters(), 0.1, num_batches_per_epoch=100,
+            world_size=world, return_spec=True)
+        reducer = make_merged_allreduce(
+            model, policy="mgwfbp",
+            cost_model=lookup_alpha_beta("10GbE", world), comm_op=op,
+            compressor=TopKCompressor(density) if density else None,
+            optim_spec=spec if op == "rs_opt_ag" else None,
+            world_size=world)
+        step = TrainStep(model, opt, lr_fn, reducer=reducer,
+                         compute_dtype=compute)
+        hw = meta.input_shape[:2]
+        gen = torch.Generator(device=dev)
+
+        def batch(k):
+            gen.manual_seed(1000 * k + rank)
+            x = torch.randn((1, batch_size, 3, *hw), generator=gen,
+                            device=dev)
+            y = torch.randint(0, meta.num_classes, (1, batch_size),
+                              generator=gen, device=dev)
+            return x, y
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        times, losses = [], []
+        for k in range(LOWERINGS_STEPS):
+            x, y = batch(k)
+            t0 = time.perf_counter()
+            m = step(x, y)  # ends in the metrics' host read
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+        launches = reducer.launches
+        flat = torch.cat([p.detach().reshape(-1).float()
+                          for p in model.parameters()])
+        gathered = [torch.empty_like(flat) for _ in range(world)]
+        dist.all_gather(gathered, flat)
+        same = all(torch.equal(t, gathered[0]) for t in gathered)
+        if rank == 0:
+            np.save(f"lowerings_final_{label}.npy", flat.cpu().numpy())
+        del gathered, flat
+        if op == "rs_opt_ag":
+            opt_bytes = reducer.optim.state_bytes_per_device()
+        else:
+            opt_bytes = sum(
+                s["momentum_buffer"].numel()
+                * s["momentum_buffer"].element_size()
+                for s in opt.state.values() if "momentum_buffer" in s)
+        breakdown = None
+        if cuda:
+            from torch.profiler import ProfilerActivity, profile
+
+            x, y = batch(LOWERINGS_STEPS)
+            torch.cuda.synchronize(dev)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(x, y)
+                torch.cuda.synchronize(dev)
+                traced_ms = (time.perf_counter() - t0) * 1e3
+            breakdown = {"host_step_ms": traced_ms, **step_breakdown(prof)}
+        out.update({
+            "comm_op": reducer.comm_op, "density": density,
+            "num_groups": reducer.num_groups,
+            "collectives_per_step": launches / LOWERINGS_STEPS,
+            "step_ms_median": float(np.median(times[2:])) * 1e3,
+            "step_ms": [t * 1e3 for t in times],
+            "peak_memory_bytes": peak if cuda else "not measured (CPU)",
+            "opt_state_bytes_per_card": int(opt_bytes),
+            "params_equal_across_ranks": bool(same),
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "traced_step": breakdown if cuda else "not measured (CPU)",
+            "device_kind": (torch.cuda.get_device_name(dev) if cuda
+                            else "cpu"),
+        })
+        reducer.detach()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def lowerings_phase(n: int, device: str, out_dir: str, batch_size: int,
+                    model: str, dtype: str, env: dict) -> dict:
+    """The --lowerings step: each lowering in its own N processes (so that
+    each peak memory is its own); fails when the ranks' parameters differ
+    after a run."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    res: dict = {"runs": {}}
+    finals = {}
+    for label, _, _ in LOWERINGS:
+        outs = _run_group(
+            n, ["chip_multicard", "--lowerings-rank", label, "--model", model,
+                "--dtype", dtype, "--batch-size", str(batch_size),
+                "--device", device], out_dir, f"lowerings_{label}", 900, env)
+        docs = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+        if not all(d["params_equal_across_ranks"] for d in docs):
+            print(f"chip_multicard: lowerings {label}: the ranks' "
+                  "parameters differ", file=sys.stderr, flush=True)
+            raise SystemExit(1)
+        r = docs[0]
+        for key in ("world", "model", "dtype", "batch_per_card",
+                    "device_kind"):
+            res[key] = r.pop(key)
+        # each process's own profiled step: a collective's kernel on the
+        # process that reaches it first also waits for the others
+        r["traced_step_by_rank"] = [d.pop("traced_step") for d in docs]
+        res["runs"][label] = r
+        path = os.path.join(out_dir, f"lowerings_final_{label}.npy")
+        finals[label] = np.load(path).astype(np.float64)
+        os.remove(path)
+    base = finals["all_reduce"]
+    for label, r in res["runs"].items():
+        r["rel_l2_to_all_reduce"] = float(
+            np.linalg.norm(finals[label] - base) / np.linalg.norm(base))
+        tr = r["traced_step_by_rank"][0]
+        traced = (f"; traced step {tr['host_step_ms']:.3f} ms host, device "
+                  f"span {tr['span_ms']:.3f} ms, collectives "
+                  f"{tr['collective_ms']:.3f} ms ({tr['collective_exposed_ms']:.3f}"
+                  " exposed)" if isinstance(tr, dict) and "span_ms" in tr
+                  else "")
+        print(f"lowerings {label}: {r['num_groups']} groups, "
+              f"{r['collectives_per_step']:g} collectives per step, step "
+              f"{r['step_ms_median']:.3f} ms (median of steps 3-"
+              f"{LOWERINGS_STEPS}), peak memory {r['peak_memory_bytes']}, "
+              f"opt-state {r['opt_state_bytes_per_card']} B per card, "
+              f"parameters equal across {n} ranks, "
+              f"{r['rel_l2_to_all_reduce']:.3g} from all_reduce{traced}",
+              flush=True)
+    res["seconds"] = time.perf_counter() - t0
+    if device != "cpu":
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        res["cards"] = smi.stdout.strip().splitlines()
+        print("\n".join(res["cards"]), flush=True)
+    return res
 
 
 HEAL_COORD_TIMEOUT_S = 30
@@ -361,7 +642,8 @@ def main(argv=None) -> int:
     p.add_argument("--epochs", type=int, default=2)
     p.add_argument("--batches", type=int, default=20,
                    help="optimizer steps per epoch")
-    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="per-card batch (default 32; 128 with --lowerings)")
     for flag in ("--min-log2", "--max-log2", "--iters", "--warmup",
                  "--gamma-total-log2"):
         p.add_argument(flag, default=None)
@@ -369,9 +651,24 @@ def main(argv=None) -> int:
                    help="run the supervised heal step instead")
     p.add_argument("--telemetry", action="store_true",
                    help="run the supervised telemetry step instead")
+    p.add_argument("--lowerings", action="store_true",
+                   help="run the lowerings step instead (--batch-size "
+                        "defaults to 128 there)")
+    p.add_argument("--lowerings-rank", default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--model", default="resnet50")
+    p.add_argument("--dtype", default="bfloat16")
     args = p.parse_args(argv)
+    if args.lowerings_rank:
+        print(json.dumps(lowerings_rank(args.lowerings_rank, args.model,
+                                        args.dtype, args.batch_size,
+                                        args.device)),
+              flush=True)
+        return 0
     # the children run in it: a relative path would name another place
     args.out_dir = os.path.abspath(args.out_dir)
+    if args.batch_size is None:
+        args.batch_size = 128 if args.lowerings else 32
     n = args.processes
     if n is None:
         import torch
@@ -401,6 +698,11 @@ def main(argv=None) -> int:
     if args.telemetry:
         print(json.dumps({"multicard_telemetry": telemetry_phase(
             n, args.device, args.out_dir, args.batch_size, env)}), flush=True)
+        return 0
+    if args.lowerings:
+        print(json.dumps({"multicard_lowerings": lowerings_phase(
+            n, args.device, args.out_dir, args.batch_size, args.model,
+            args.dtype, env)}), flush=True)
         return 0
 
     t0 = time.perf_counter()

@@ -196,6 +196,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
          the same weights (SHADOW_TOL), and the card scorer's time;
      (k5) the supervisor's /fleet/status (the child reachable at the held
          step) and /fleet/metrics (every series in the registry).
+ 12. (l) the single-level lowerings of the merged collectives on the card
+     (full-width ResNet-20, batch 32, float32, policy mgwfbp on the 10GbE
+     constants at 2 workers: 7 groups; cuDNN's deterministic algorithms):
+     (l1) one rank over NCCL (set up as (b)), LOWER_STEPS steps of each of
+         all_reduce, rs_ag, rs_opt_ag (SGD momentum 0.9, weight decay
+         1e-4), both again with the norm clip, and top-k at density 0.01,
+         through ``make_merged_allreduce`` and ``TrainStep``: rs_ag's
+         reduced gradients equal the all_reduce of the same gradients bit
+         for bit; rs_opt_ag's own trajectory through ``TrainStep`` ends
+         within LOWER_RTOL of the replicated ``torch.optim.SGD``
+         parameters, and with the clip so does rs_opt_ag on the
+         replicated run's recorded gradients (each trajectory's forward
+         amplifies the clip's one-rounding difference: the clipped
+         trajectories are read); top-k's dense result equals
+         the plain CPU top-k of the same buckets; each run's collectives
+         per step, step time (median) and per-group device time
+         (``trace_group_times`` over 2 traced steps), the optimizer-state
+         bytes, and ``profile_update_beta`` on the card;
+     (l2) two processes on the card over gloo (the card's gloo takes CUDA
+         tensors for reduce-scatter and all-gather), LOWER_GLOO_STEPS
+         steps of each lowering: both ranks' parameters bit-identical after
+         every step, rs_opt_ag within LOWER_RTOL of all_reduce + SGD, its
+         optimizer state per rank half the replicated bytes plus the pad;
+     (l3) ``python -m mgwfbp_tpu_torch.train_cli --dnn resnet20 --comm-op
+         rs_opt_ag`` for LOWER_CLI_STEPS steps: the world-1 fallback (the
+         replicated optimizer) logged and the loss falling; then
+         ``--compressor topk --density 0``: no density is chosen at one
+         worker (no reducer, the JAX trainer's rule), and what the chooser
+         picks for ResNet-20 on two links is printed.
 
 Every phase runs with TF32 off (``utils.device.set_matmul_precision``).
 
@@ -207,8 +236,9 @@ language models ({"lm": ...}), the bench payload ({"bench": ...}), ResNet-50
 ({"resnet50": ...}), resumable training ({"resilience": ...}), the zoo's
 summary ({"zoo_summary": [...]}; each model's full line is printed as it
 finishes), the speech model ({"lstman4": ...}), supervision
-({"supervise": ...}), the telemetry plane ({"telemetry": ...}), the card's
-name and power limit (nvidia-smi), the kernels line
+({"supervise": ...}), the telemetry plane ({"telemetry": ...}), the
+lowerings ({"lowerings": ...}), the card's name and power limit
+(nvidia-smi), the kernels line
 ({"kernels": [...]}) and, last, {"ok": true, "device": {...}}.
 """
 
@@ -3475,6 +3505,514 @@ def phase_telemetry() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (l) The single-level lowerings: rs_ag, rs_opt_ag (the sharded optimizer)
+# and top-k compression
+# ---------------------------------------------------------------------------
+
+LOWER_STEPS = 10  # (l1): checked steps of each lowering
+LOWER_TIMED_STEPS = 10  # (l1): steps timed after the checks (3 of warm-up)
+LOWER_GLOO_STEPS = 5  # (l2): checked steps of each lowering at 2 ranks
+LOWER_CLIP = 0.5  # the clipped runs' norm clip (unscaled)
+LOWER_DENSITY = 0.01
+LOWER_RTOL = 1e-6  # rs_opt_ag against the replicated SGD: relative L2
+LOWER_CLI_STEPS = 20  # (l3): the CLI's steps with --comm-op rs_opt_ag
+LOWER_CLI_TOPK_STEPS = 8  # (l3): with --compressor topk --density 0
+LOWER_TIMEOUT_S = 240  # each CLI run of (l3)
+LOWER_LINK = ("10GbE", 2)  # mgwfbp's constants: 7 groups of ResNet-20
+# (l1)'s runs: (label, lowering, norm clip, the replicated run whose
+# parameters it must match: its own trajectory without the clip, a replay
+# of the replicated run's gradients with it)
+LOWER_RUNS = (("all_reduce", "all_reduce", None, None),
+              ("rs_ag", "rs_ag", None, None),
+              ("rs_opt_ag", "rs_opt_ag", None, "all_reduce"),
+              ("all_reduce_clip", "all_reduce", LOWER_CLIP, None),
+              ("rs_opt_ag_clip", "rs_opt_ag", LOWER_CLIP, "all_reduce_clip"),
+              ("topk", "topk", None, None))
+LOWER_REFERENCES = {against for _, _, clip, against in LOWER_RUNS
+                    if against and clip is not None}
+
+
+class _DeterministicCudnn:
+    """cuDNN's deterministic algorithms for the phase: two runs from one
+    initialisation on the same batches then differ only where their
+    optimizers' arithmetic does."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.saved
+
+
+def _lowering_step(dev, op: str, clip, world: int, steps: int):
+    """A fresh full-width ResNet-20 (seed 3) on ``dev`` with its merged
+    collectives lowered as ``op`` (``topk``: all_reduce with the top-k
+    compressor at LOWER_DENSITY), policy mgwfbp on LOWER_LINK's
+    constants (several groups of several leaves, some of odd length),
+    SGD momentum 0.9 and weight decay 1e-4 (the rs_opt_ag
+    reducer runs them on its shards), and its TrainStep."""
+    from mgwfbp_tpu_torch.models import create_model
+    from mgwfbp_tpu_torch.models.common import init_weights
+    from mgwfbp_tpu_torch.optim import make_optimizer
+    from mgwfbp_tpu_torch.parallel.allreduce import make_merged_allreduce
+    from mgwfbp_tpu_torch.parallel.compression import TopKCompressor
+    from mgwfbp_tpu_torch.parallel.costmodel import lookup_alpha_beta
+    from mgwfbp_tpu_torch.train import TrainStep
+
+    model, _ = create_model("resnet20")
+    init_weights(model, torch.Generator().manual_seed(3)).to(dev)
+    opt, lr_fn, _, spec = make_optimizer(
+        model.parameters(), 0.1, num_batches_per_epoch=steps, norm_clip=clip,
+        world_size=world, return_spec=True)
+    reducer = make_merged_allreduce(
+        model, policy="mgwfbp", cost_model=lookup_alpha_beta(*LOWER_LINK),
+        comm_op="all_reduce" if op == "topk" else op,
+        compressor=TopKCompressor(LOWER_DENSITY) if op == "topk" else None,
+        optim_spec=spec if op == "rs_opt_ag" else None, world_size=world)
+    step = TrainStep(model, opt, lr_fn, reducer=reducer,
+                     norm_clip=spec.norm_clip)
+    return model, reducer, step
+
+
+def _flat_params(model) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _plain_topk_matches(reducer, copies: dict, params) -> dict:
+    """Each group's reduced bucket on the card (one rank: the top-k
+    entries of the local bucket, the rest zero) against the plain top-k of
+    the same bucket on the CPU (numpy, stable by magnitude). Where the
+    k-th and (k+1)-th magnitudes tie, the k-set is not unique: the kept
+    energy is compared there instead."""
+    leaf = {id(p): j for j, p in enumerate(params)}
+    arr = reducer.arrival_params
+    exact, ties = True, 0
+    for members in reducer.layout.groups:
+        local = torch.cat([copies[leaf[id(arr[k])]].reshape(-1)
+                           for k in members]).cpu().numpy()
+        got = torch.cat([arr[k].grad.reshape(-1)
+                         for k in members]).cpu().numpy()
+        n = local.shape[0]
+        k = reducer.compressor.k_for(n)
+        if k >= n:
+            exact = exact and np.array_equal(got, local)
+            continue
+        mag = np.abs(local)
+        order = np.argsort(-mag, kind="stable")
+        plain = np.zeros_like(local)
+        plain[order[:k]] = local[order[:k]]
+        if mag[order[k - 1]] == mag[order[k]]:
+            ties += 1
+            exact = exact and np.float64(np.square(got, dtype=np.float64)
+                                         .sum()) == np.float64(
+                np.square(plain, dtype=np.float64).sum())
+        else:
+            exact = exact and np.array_equal(got, plain)
+    return {"equal": bool(exact), "groups_with_a_tie_at_k": ties}
+
+
+def _lowering_replay(dev, clip, grads: list, ref: torch.Tensor) -> dict:
+    """rs_opt_ag on a reference run's local gradients: from the same
+    initialisation, each step's gradients planted by a backward of
+    sum(p * g) (the hooks launch the reduce-scatters), then
+    ``reduce_and_update`` at the step's learning rate; the parameters
+    after the LOWER_STEPS steps against the reference's, which differ only
+    by the optimizer's arithmetic (each trajectory's own forward would
+    amplify a one-rounding difference: the run's reading beside it)."""
+    from mgwfbp_tpu_torch.convert import flax_leaves
+
+    model, reducer, step = _lowering_step(dev, "rs_opt_ag", clip, 1,
+                                          LOWER_STEPS)
+    params = [t for _, t in flax_leaves(model)]
+    for k, gk in enumerate(grads):
+        for p in params:
+            p.grad = None
+        reducer.begin()
+        sum((p * g).sum() for p, g in zip(params, gk)).backward()
+        reducer.reduce_and_update(lr=step.lr_fn(k))
+    reducer.detach()
+    got = _flat_params(model)
+    return {"rel_l2": _rel(got, ref),
+            "max_abs_diff": float((got - ref).abs().max()),
+            "bitwise": bool(torch.equal(got, ref))}
+
+
+def _lowering_one_rank(dev, bundle, label: str, op: str, clip,
+                       record: bool) -> tuple[dict, torch.Tensor, list]:
+    """(l1) One run: LOWER_STEPS checked steps (with ``record``, each
+    step's local gradients kept), then the timing and the trace."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.convert import flax_leaves
+
+    model, reducer, step = _lowering_step(dev, op, clip, 1, LOWER_STEPS)
+    params = [t for _, t in flax_leaves(model)]
+    copies, hooks = _grad_copies(params)
+    checks = {"bitwise": True, "topk": []}
+    sync = reducer.synchronize
+    recorded = []
+
+    def checked_sync():
+        if record:
+            recorded.append([copies[j].clone() for j in range(len(params))])
+        out = sync()
+        if op == "topk":
+            checks["topk"].append(_plain_topk_matches(reducer, copies, params))
+            return out
+        for j, p in enumerate(params):
+            leafwise = copies[j].clone()
+            dist.all_reduce(leafwise)
+            if not torch.equal(p.grad, leafwise):
+                checks["bitwise"] = False
+        return out
+
+    if op != "rs_opt_ag":
+        reducer.synchronize = checked_sync
+    launches = []
+    for k in range(LOWER_STEPS):
+        xb, yb = bundle.train.load_batch(0, k)
+        x = torch.from_numpy(xb).to(dev).movedim(-1, -3).contiguous()
+        y = torch.from_numpy(yb.astype(np.int64)).to(dev)
+        before = reducer.launches
+        m = step(x[None], y[None])
+        launches.append(reducer.launches - before)
+        if not np.isfinite(m["loss"]):
+            fail(f"lowerings (l1) {label}: non-finite loss at step {k}")
+    for h in hooks:
+        h.remove()
+    reducer.synchronize = sync
+    params_after = _flat_params(model).clone()
+    xb, yb = bundle.train.load_batch(0, LOWER_STEPS)
+    x = torch.from_numpy(xb).to(dev).movedim(-1, -3).contiguous()[None]
+    y = torch.from_numpy(yb.astype(np.int64)).to(dev)[None]
+    times = _timed_steps(step, x, y, n=LOWER_TIMED_STEPS, warmup=3)
+    traced = _trace_reducer(step, reducer, bundle, dev)
+    out = {
+        "comm_op": reducer.comm_op, "norm_clip": clip,
+        "num_groups": reducer.num_groups,
+        "launches_per_step": launches,
+        "step_ms_median": float(np.median(times)),
+        "step_ms_range": [float(min(times)), float(max(times))],
+        "group_device_s": traced["group_times_s"],
+        "group_range_device_s": traced["range_device_s"],
+        "trace_kernels": sorted({k.split("(")[0].split("<")[0][-48:]
+                                 for k in traced["kernels"]}),
+    }
+    if "reason" in traced:
+        out["group_device_s_reason"] = traced["reason"]
+    if op in ("all_reduce", "rs_ag"):
+        if not checks["bitwise"]:
+            fail(f"lowerings (l1) {label}: reduced gradients differ from "
+                 "the all_reduce of the same gradients")
+        out["reduced_equals_all_reduce_bitwise"] = True
+    if op == "topk":
+        if not all(c["equal"] for c in checks["topk"]):
+            fail(f"lowerings (l1) topk: the card's dense result differs "
+                 f"from the plain CPU top-k: {checks['topk']}")
+        out["dense_equals_plain_cpu_topk"] = True
+        out["groups_with_a_tie_at_k"] = sum(
+            c["groups_with_a_tie_at_k"] for c in checks["topk"])
+        out["density"] = LOWER_DENSITY
+    if op == "rs_opt_ag":
+        optim = reducer.optim
+        out["opt_state_bytes"] = optim.state_bytes_per_device()
+        out["replicated_opt_state_bytes"] = optim.replicated_state_bytes()
+    reducer.detach()
+    return out, params_after, recorded
+
+
+def lowerings_one_rank() -> dict:
+    """(l1) One rank over NCCL on the card (set up as (b)): each of
+    LOWER_RUNS for LOWER_STEPS steps from one initialisation on the same
+    batches; rs_ag's reduced gradients equal the all_reduce of the same
+    gradients bit for bit; rs_opt_ag's own trajectory through TrainStep
+    comes within LOWER_RTOL of the replicated torch.optim.SGD run's
+    parameters, and with the clip so does rs_opt_ag on the replicated
+    run's gradients (the clipped trajectories are read); top-k's dense
+    result equals the plain CPU top-k of the same bucket; then each run's
+    step time, launches and traced group times, and
+    ``profile_update_beta`` on the card."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.data import data_prepare
+    from mgwfbp_tpu_torch.parallel.mesh import init_distributed
+    from mgwfbp_tpu_torch.profiling import profile_update_beta
+
+    dev = torch.device("cuda", 0)
+    rdv = tempfile.TemporaryDirectory(prefix="mgwfbp_lower_")
+    init_distributed(dev, num_processes=1, process_id=0,
+                     init_method=f"file://{os.path.join(rdv.name, 'rdv')}")
+    runs, finals, grads = {}, {}, {}
+    try:
+        bundle = data_prepare("cifar10", batch_size=32, seed=1,
+                              synthetic=True)
+        with _DeterministicCudnn():
+            for label, op, clip, against in LOWER_RUNS:
+                runs[label], finals[label], grads[label] = (
+                    _lowering_one_rank(dev, bundle, label, op, clip,
+                                       label in LOWER_REFERENCES))
+                if against is not None and clip is not None:
+                    runs[label]["on_" + against + "_gradients"] = (
+                        _lowering_replay(dev, clip, grads[against],
+                                         finals[against]))
+        t0 = time.perf_counter()
+        update_beta = profile_update_beta(None, dev)
+        update_beta_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        rdv.cleanup()
+    for label, _, clip, against in LOWER_RUNS:
+        if against is None:
+            continue
+        # the two trajectories, each through its own forward
+        traj = _rel(finals[label], finals[against])
+        runs[label]["trajectory_rel_l2_to_" + against] = traj
+        runs[label]["trajectory_bitwise_to_" + against] = bool(
+            torch.equal(finals[label], finals[against]))
+        if clip is None:
+            if not traj <= LOWER_RTOL:
+                fail(f"lowerings (l1) {label}: parameters {traj:.3g} "
+                     f"(relative L2) from {against}'s after {LOWER_STEPS} "
+                     f"steps through TrainStep, bound {LOWER_RTOL}")
+            continue
+        replay = runs[label]["on_" + against + "_gradients"]
+        if not replay["rel_l2"] <= LOWER_RTOL:
+            fail(f"lowerings (l1) {label}: on {against}'s gradients, "
+                 f"parameters {replay['rel_l2']:.3g} (relative L2) from "
+                 f"{against}'s after {LOWER_STEPS} steps, bound {LOWER_RTOL}")
+    for label, r in runs.items():
+        print(f"lowerings (l1): {label}: {r['num_groups']} groups, "
+              f"{r['launches_per_step'][0]} collectives per step, step "
+              f"{r['step_ms_median']:.3f} ms (median of "
+              f"{LOWER_TIMED_STEPS}), traced group times "
+              + (f"sum {sum(r['group_device_s']) * 1e3:.4f} ms"
+                 if r["group_device_s"] is not None else "None")
+              + "".join(f", on {k[3:-10]}'s gradients {v['rel_l2']:.3g} "
+                        f"(bitwise {v['bitwise']})" for k, v in r.items()
+                        if k.endswith("_gradients"))
+              + "".join(f", trajectory {v:.3g} from {k[21:]}"
+                        for k, v in r.items()
+                        if k.startswith("trajectory_rel_l2_to_"))
+              + (f", opt-state {r['opt_state_bytes']} B vs "
+                 f"{r['replicated_opt_state_bytes']} B replicated"
+                 if "opt_state_bytes" in r else ""), flush=True)
+    print(f"lowerings (l1): update_beta {update_beta:.4g} s/B on the card at "
+          f"one rank ({update_beta_s:.1f} s)", flush=True)
+    return {"runs": runs, "update_beta_s_per_byte": update_beta,
+            "update_beta_probe_s": update_beta_s}
+
+
+def _lowering_gloo_rank(rank: int, world: int, rdv: str, out_path: str) -> None:
+    """(l2) One of two processes on the one card over gloo: LOWER_GLOO_STEPS
+    steps of each lowering; after every step both ranks' parameters are
+    gathered and compared."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.data import ShardInfo, data_prepare
+    from mgwfbp_tpu_torch.utils.device import set_matmul_precision
+
+    set_matmul_precision(None)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                            world_size=world, rank=rank)
+    results: dict = {}
+    try:
+        bundle = data_prepare("cifar10", batch_size=32,
+                              shard=ShardInfo(rank, world), seed=2,
+                              synthetic=True)
+        with _DeterministicCudnn():
+            for op in ("all_reduce", "rs_ag", "rs_opt_ag", "topk"):
+                model, reducer, step = _lowering_step(
+                    dev, op, None, world, LOWER_GLOO_STEPS)
+                r = {"identical": True, "launches": 0}
+                for k in range(LOWER_GLOO_STEPS):
+                    xb, yb = bundle.train.load_batch(0, k)
+                    x = torch.from_numpy(xb).to(dev).movedim(-1, -3)
+                    y = torch.from_numpy(yb.astype(np.int64)).to(dev)
+                    m = step(x.contiguous()[None], y[None])
+                    if not np.isfinite(m["loss"]):
+                        r["identical"] = False
+                    flat = _flat_params(model).cpu()
+                    gathered = [torch.empty_like(flat) for _ in range(world)]
+                    dist.all_gather(gathered, flat)
+                    r["identical"] &= all(torch.equal(t, gathered[0])
+                                          for t in gathered)
+                r["launches"] = reducer.launches
+                r["num_groups"] = reducer.num_groups
+                r["params"] = _flat_params(model).cpu()
+                if op == "rs_opt_ag":
+                    optim = reducer.optim
+                    r["opt_state_bytes"] = optim.state_bytes_per_device()
+                    r["replicated_opt_state_bytes"] = (
+                        optim.replicated_state_bytes())
+                    r["live_opt_state_bytes"] = sum(
+                        t.numel() * t.element_size()
+                        for slot in reducer.opt_state.slots for t in slot)
+                    r["half_plus_pad_bytes"] = sum(
+                        -(-n // world) * 4 for n in reducer.layout.group_sizes)
+                results[op] = r
+                reducer.detach()
+        base = results["all_reduce"]["params"]
+        for op, r in results.items():
+            r["rel_l2_to_all_reduce"] = _rel(r.pop("params"), base)
+    finally:
+        dist.destroy_process_group()
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+
+
+def lowerings_gloo() -> dict:
+    """(l2) Two processes on the one card over gloo (CUDA tensors: the
+    card's gloo takes them for reduce-scatter and all-gather):
+    LOWER_GLOO_STEPS steps of all_reduce, rs_ag, rs_opt_ag and top-k (no
+    clip: the clip's norm is summed in another order on the two paths,
+    and each trajectory's own forward amplifies that rounding); both
+    ranks' parameters bit-identical after every step, rs_opt_ag within
+    LOWER_RTOL of all_reduce + SGD, its optimizer state per rank half the
+    replicated bytes plus the pad."""
+    import torch.multiprocessing as mp
+
+    world = 2
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_lower_gloo_") as d:
+        ctx = mp.get_context("spawn")
+        outs = [os.path.join(d, f"rank{r}.json") for r in range(world)]
+        procs = [ctx.Process(target=_lowering_gloo_rank,
+                             args=(r, world, os.path.join(d, "rdv"), outs[r]))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(300)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in procs]
+        results = []
+        for path in outs:
+            if os.path.exists(path):
+                with open(path) as f:
+                    results.append(json.load(f))
+    if codes != [0] * world or len(results) != world:
+        fail(f"lowerings (l2): ranks exited {codes}")
+    for res in results:
+        for op, r in res.items():
+            if not r["identical"]:
+                fail(f"lowerings (l2) {op}: the ranks' parameters differ or "
+                     "a loss was not finite")
+        sh = res["rs_opt_ag"]
+        if not sh["rel_l2_to_all_reduce"] <= LOWER_RTOL:
+            fail(f"lowerings (l2) rs_opt_ag: {sh['rel_l2_to_all_reduce']:.3g}"
+                 f" from all_reduce after {LOWER_GLOO_STEPS} steps")
+        if not (sh["opt_state_bytes"] - 4 == sh["live_opt_state_bytes"]
+                == sh["half_plus_pad_bytes"]):
+            fail(f"lowerings (l2) rs_opt_ag: opt-state bytes {sh}")
+    for op, r in results[0].items():
+        print(f"lowerings (l2): 2 ranks over gloo, {op}: {r['num_groups']} "
+              f"groups, {r['launches'] // LOWER_GLOO_STEPS} collectives per "
+              f"step, parameters bit-identical across the ranks after every "
+              f"step, {r['rel_l2_to_all_reduce']:.3g} from all_reduce"
+              + (f", opt-state {r['opt_state_bytes']} B per rank vs "
+                 f"{r['replicated_opt_state_bytes']} B replicated"
+                 if "opt_state_bytes" in r else ""), flush=True)
+    return {"world": world, "steps": LOWER_GLOO_STEPS,
+            "ranks_identical_every_step": True, "runs": results[0]}
+
+
+def _cli(work: str, name: str, steps: int,
+         *flags: str) -> tuple[str, list, float]:
+    """``python -m mgwfbp_tpu_torch.train_cli --dnn resnet20`` on the card
+    with the given flags for ``steps`` steps (telemetry on): its stderr,
+    its ``health`` records (each step's loss) and its seconds."""
+    logdir = os.path.join(work, name)
+    cmd = [sys.executable, "-m", "mgwfbp_tpu_torch.train_cli", "--dnn",
+           "resnet20", "--synthetic", "--epochs", "1",
+           "--num-batches-per-epoch", str(steps), "--telemetry",
+           "--logdir", logdir, *flags]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)), MGWFBP_FAULT_PLAN="")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=LOWER_TIMEOUT_S)
+    if res.returncode != 0:
+        fail(f"lowerings (l3) {name}: rc {res.returncode}:\n"
+             + "\n".join(res.stderr.splitlines()[-15:]))
+    health = [e for e in _tag_stream(logdir) if e.get("event") == "health"]
+    return res.stderr, health, time.perf_counter() - t0
+
+
+def lowerings_cli(work: str) -> dict:
+    """(l3) ``train_cli --comm-op rs_opt_ag`` at one worker on the card:
+    the world-1 fallback (the replicated optimizer) logged, and the loss
+    of the last 5 steps below the first 5's; then ``--compressor topk
+    --density 0``: no reducer at one worker, so the chooser picks no
+    density (the JAX trainer's rule); what the chooser picks for
+    ResNet-20 on LOWER_LINK and on the 1GbE table at 16 workers is
+    printed beside it."""
+    from mgwfbp_tpu_torch.parallel.costmodel import (
+        choose_density,
+        lookup_alpha_beta,
+    )
+
+    err, health, secs = _cli(work, "rs_opt_ag", LOWER_CLI_STEPS,
+                             "--comm-op", "rs_opt_ag")
+    if "--comm-op rs_opt_ag runs the replicated optimizer" not in err:
+        fail("lowerings (l3): the world-1 fallback was not logged")
+    losses = [float(h["loss"]) for h in health]
+    if len(losses) < LOWER_CLI_STEPS - 1 or not all(
+            np.isfinite(losses)) or not (
+            np.mean(losses[-5:]) < np.mean(losses[:5])):
+        fail(f"lowerings (l3): losses {losses} do not fall")
+    err2, health2, secs2 = _cli(work, "topk", LOWER_CLI_TOPK_STEPS,
+                                "--compressor", "topk", "--density", "0")
+    if "--compressor topk unused, no density chosen" not in err2:
+        fail("lowerings (l3): the compressor at one worker was not logged "
+             "as unused")
+    n_params = 272474  # ResNet-20
+    chosen = {f"{c} at {n}": choose_density(n_params, n,
+                                            lookup_alpha_beta(c, n))
+              for c, n in (LOWER_LINK, ("1GbE-large", 16))}
+    print(f"lowerings (l3): train_cli --comm-op rs_opt_ag: replicated "
+          f"optimizer at one worker, loss {np.mean(losses[:5]):.4f} -> "
+          f"{np.mean(losses[-5:]):.4f} (first and last 5 of "
+          f"{len(losses)}), {secs:.1f} s; --compressor topk --density 0: "
+          f"no density chosen at one worker ({len(health2)} steps, "
+          f"{secs2:.1f} s); the chooser picks {chosen} for ResNet-20",
+          flush=True)
+    return {"rs_opt_ag": {"first5_loss": float(np.mean(losses[:5])),
+                          "last5_loss": float(np.mean(losses[-5:])),
+                          "steps": len(losses), "seconds": secs,
+                          "world_1_fallback_logged": True},
+            "topk_density_0": {"density_chosen": "none at one worker",
+                               "steps": len(health2), "seconds": secs2,
+                               "chooser_for_resnet20": chosen}}
+
+
+def phase_lowerings() -> dict:
+    """(l) The single-level lowerings on the card: (l1), (l2), (l3)."""
+    t0 = time.perf_counter()
+    one = lowerings_one_rank()
+    gloo = lowerings_gloo()
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_lower_cli_") as work:
+        cli = lowerings_cli(work)
+    secs = time.perf_counter() - t0
+    print(f"lowerings (l): {secs:.1f} s", flush=True)
+    return {"one_rank_nccl": one, "two_ranks_gloo": gloo, "cli": cli,
+            "seconds": secs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -3506,6 +4044,7 @@ def main() -> int:
     lstman4 = phase_lstman4()
     supervise = phase_supervise()
     telemetry = phase_telemetry()
+    lowerings = phase_lowerings()
 
     serve = rows[0]
     kernels = [{
@@ -3541,6 +4080,7 @@ def main() -> int:
     print(json.dumps({"lstman4": lstman4}))
     print(json.dumps({"supervise": supervise}))
     print(json.dumps({"telemetry": telemetry}))
+    print(json.dumps({"lowerings": lowerings}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -27,9 +27,9 @@ card, and rank 0 writes the profile. Modes:
     random tokens (the LSTM from a zero carry, the transformer through
     dense attention, as both train).
 
-Not measured here: ``update_beta`` (written as 0.0 and named in ``meta``;
-it needs the sharded lowering) and ``--two-level``, both ROADMAP.md
-Queue 1 item 7.
+``update_beta`` (the rs_opt_ag shard update's cost per bucket byte) is
+measured with the bucket-path benchmarks (``--no-gamma`` saves it as 0.0).
+Not measured here: ``--two-level`` (ROADMAP.md Queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ import os
 import tempfile
 from typing import Optional
 
-NOT_PORTED = "ROADMAP.md Queue 1 item 7"
+NOT_PORTED = "ROADMAP.md Queue 1 item 7b"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,8 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--warmup", type=int, default=5)
     p.add_argument("--no-gamma", action="store_true",
-                   help="skip the bucket-path benchmarks (gamma, pack_beta): "
-                        "both save as 0.0")
+                   help="skip the bucket-path benchmarks (gamma, pack_beta, "
+                        "update_beta): all save as 0.0")
     p.add_argument("--no-overlap", action="store_true",
                    help="skip the comm/compute overlap probe (saves 1.0)")
     p.add_argument("--allgather", action="store_true",
@@ -120,18 +120,20 @@ def _calibrate_group(args, group, device):
         profile_group_overhead,
         profile_overlap_capability,
         profile_pack_overhead,
+        profile_update_beta,
     )
 
     sizes = tuple(2**k for k in range(args.min_log2, args.max_log2 + 1))
     prof = profile_allreduce(group, device, sizes=sizes, warmup=args.warmup,
                              iters=args.iters)
-    gamma, gsamples, pack_beta = 0.0, None, 0.0
-    if not args.no_gamma:
+    gamma, gsamples, pack_beta, update_beta = 0.0, None, 0.0, 0.0
+    if not args.no_gamma:  # the bucket-path benchmarks
         gamma, gsamples = profile_group_overhead(
             group, device, alpha=prof.model.alpha,
             total_elems=2**args.gamma_total_log2,
         )
         pack_beta = profile_pack_overhead(group, device)
+        update_beta = profile_update_beta(group, device)
     overlap = 1.0
     if not args.no_overlap:
         overlap = profile_overlap_capability(group, device)
@@ -147,7 +149,7 @@ def _calibrate_group(args, group, device):
         gamma=gamma,
         overlap=overlap,
         pack_beta=pack_beta,
-        update_beta=0.0,
+        update_beta=update_beta,
         ag_fraction=ag_fraction,
     )
     return model, prof, gsamples
@@ -192,10 +194,6 @@ def _comm_main(args) -> int:
             ),
             "payload_log2_range": [args.min_log2, args.max_log2],
             "iters": args.iters,
-            "not_measured": {
-                "update_beta": f"saved as 0.0: needs the sharded lowering "
-                               f"({NOT_PORTED})",
-            },
         }
         if world == 1:
             meta["note"] = (

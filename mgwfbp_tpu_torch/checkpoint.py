@@ -18,12 +18,17 @@ multi-process group (``runtime.coordination``), class-aware garbage
 collection that keeps epoch boundaries, the listings (``latest_step``,
 ``latest_epoch``, ``all_epochs``) and ``restore`` into a template, which
 diffs every saved leaf against it and names the offending leaf on a
-mismatch (config drift). What the port cannot read it refuses by name: the
-orbax ("replicated", legacy epoch-keyed) format, which needs orbax
-(ROADMAP Queue 1 item 2 keeps it refused), and sharded optimizer or
-parameter sections (``rs_opt_ag`` / ``rs_fwd_ag``, ROADMAP Queue 1 item 7).
-A restore hands back a ``Snapshot`` whose ``TrainState`` holds host numpy
-arrays in Flax form; the trainer installs them on its modules.
+mismatch (config drift). A sharded optimizer section (each rank's rows of
+``opt.s{slot}.g{gi}`` under the manifest's ``layout``, written by an
+``rs_opt_ag`` run of either package) restores like a replicated one: each
+parameter leaf of each slot is re-sliced out of the shard rows through
+``ShardSource.leaf_slice_reader``, whatever the world and the merge
+schedule that wrote them, so either lowering restores the other's steps.
+What the port cannot read it refuses by name: the orbax ("replicated",
+legacy epoch-keyed) format, which needs orbax (ROADMAP Queue 1 item 2 keeps
+it refused), and sharded parameter sections (``rs_fwd_ag``, ROADMAP Queue 1
+item 7b). A restore hands back a ``Snapshot`` whose ``TrainState`` holds
+host numpy arrays in Flax form; the trainer installs them on its modules.
 
 ``ShardSource`` is a copy of the JAX package's reader: it reads replicated
 and sharded sections alike, one leaf or one element range at a time off
@@ -662,9 +667,8 @@ ORBAX_REFUSAL = (
     "1 item 2: the orbax format stays refused)"
 )
 SHARDED_REFUSAL = (
-    "sharded optimizer or parameter sections (written by --comm-op "
-    "rs_opt_ag / rs_fwd_ag) are not restored by the PyTorch port yet "
-    "(ROADMAP Queue 1 item 7)"
+    "sharded parameter sections (written by --comm-op rs_fwd_ag) are not "
+    "restored by the PyTorch port yet (ROADMAP Queue 1 item 7b)"
 )
 
 
@@ -1137,8 +1141,7 @@ class Checkpointer:
         and checked against ``template`` (params, batch statistics, the
         optimizer section where the template has one, the carry)."""
         src = self.open_sharded(step)
-        if (src.section_kind("params") == "sharded"
-                or src.section_kind("opt") == "sharded"):
+        if src.section_kind("params") == "sharded":
             raise CheckpointRestoreError(
                 f"checkpoint step {step} in {self._dir!r}: {SHARDED_REFUSAL}"
             )
@@ -1166,6 +1169,9 @@ class Checkpointer:
                 o_docs, template.opt_state, "opt_state"))
             opt_state = {d["path"]: np.asarray(src.read_leaf("opt", j))
                          for j, d in enumerate(o_docs)}
+        elif template.opt_state is not None and src.section_kind("opt") == \
+                "sharded":
+            opt_state = self._read_sharded_opt(step, src, template.opt_state)
         rng = src.manifest.get("rng")
         state = TrainState(
             step=int(meta.get("train_step", meta.get("iteration", step))),
@@ -1207,6 +1213,42 @@ class Checkpointer:
             manifest_meta=meta,
             torch_rng=_read_torch_rng(src),
         )
+
+    def _read_sharded_opt(self, step: int, src: "ShardSource",
+                          template: Mapping[str, Any]) -> dict:
+        """The replicated optimizer tree of a sharded ``opt`` section, keyed
+        like ``template`` (the optax leaves in flatten order): its integer
+        scalars take the manifest's ``opt_count``, and its other leaves, in
+        order, are slot 0's parameter leaves, then slot 1's, each re-sliced
+        out of the saved shard rows."""
+        counts = [k for k, a in template.items()
+                  if np.ndim(a) == 0 and np.issubdtype(
+                      np.asarray(a).dtype, np.integer)]
+        slot_keys = [k for k in template if k not in counts]
+        n_leaves = len(src.leaves)
+        want = len(slot_keys) // max(n_leaves, 1)
+        if src.opt_slots() != want or len(slot_keys) != want * n_leaves:
+            raise CheckpointRestoreError(
+                f"cannot restore checkpoint step {step} from {self._dir!r}: "
+                f"it carries {src.opt_slots()} sharded optimizer slot(s) "
+                f"but the current optimizer uses {want} — optimizer config "
+                "drift (momentum/adam changed between the saving and "
+                "restoring run)")
+        out: dict = {}
+        for s in range(want):
+            for j in range(n_leaves):
+                key = slot_keys[s * n_leaves + j]
+                leaf = np.asarray(src.read_leaf("opt", j, slot=s))
+                if not _doc_matches(_leaf_doc(key, leaf), template[key]):
+                    self._check(step, [
+                        f"opt_state{key}: checkpoint slot {s} leaf {j} has "
+                        f"{leaf.dtype}{leaf.shape}, current structure "
+                        f"wants {_leaf_desc(template[key])}"])
+                out[key] = leaf
+        count = int(src.meta.get("opt_count", src.meta.get("train_step", 0)))
+        for k in counts:
+            out[k] = np.asarray(count, np.asarray(template[k]).dtype)
+        return out
 
     def close(self) -> None:
         slot = self._async

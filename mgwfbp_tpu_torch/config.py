@@ -3,8 +3,9 @@
 One dataclass with per-model presets, ``MGWFBP_<FIELD>`` environment
 overrides and keyword overrides, resolved by ``make_config`` exactly as the
 JAX package resolves them. Only the fields the port's training path reads
-are kept; the rest of the JAX config (lowerings other than ``all_reduce``,
-autotune, sequence parallelism) is listed in ROADMAP.md.
+are kept; the rest of the JAX config (the ``rs_fwd_ag`` and ``hier``
+lowerings, ``dcn_slices``, autotune, sequence parallelism) is listed in
+ROADMAP.md.
 ``deterministic`` is the port's own (torch's deterministic algorithms;
 the JAX package has no counterpart to switch).
 """
@@ -37,6 +38,14 @@ class TrainConfig:
     threshold: int = 0  # elements, for policy='threshold'
     connection: str = "ici"  # cost-model link class
     comm_profile: Optional[str] = None  # path to a calibrated alpha-beta json
+    # the merged collectives' lowering: all_reduce | rs_ag (reduce-scatter +
+    # all-gather per bucket) | rs_opt_ag (the sharded optimizer between the
+    # two: 1/world optimizer state per rank; needs a merge policy, takes no
+    # compressor). rs_fwd_ag and hier are ROADMAP.md Queue 1 item 7b
+    comm_op: str = "all_reduce"
+    # gradient compression (the reference's --compressor/--density)
+    compressor: str = "none"  # none | topk
+    density: float = 1.0  # kept fraction; 0 = the cost model's choice
 
     # numerics
     # compute dtype: None/'float32', or 'bfloat16' (mixed precision: the

@@ -8,6 +8,14 @@ gradient before the momentum trace, which is how both ``torch.optim.SGD``
 and the JAX package's optax chain apply it. The learning rate is a
 ``step -> lr`` function the train step evaluates before every update.
 
+``OptimSpec`` is the transparent twin of that optimizer: the same fields
+(SGD with momentum, Nesterov and coupled decay, or Adam/AdamW, the
+``ndim > 1`` decay mask, the norm clip already scaled to the world, the
+``count -> lr`` function) that ``parallel.allreduce.ShardedOptimStep``
+re-runs on the flat 1/world bucket shards of the ``rs_opt_ag`` lowering.
+``make_optimizer(..., return_spec=True)`` builds it from the same locals
+as the ``torch.optim.SGD``, so the two cannot drift.
+
 ``clip_by_global_norm_`` follows ``optax.clip_by_global_norm`` (scale by
 ``max_norm / norm`` when the norm is at least ``max_norm``), not
 ``torch.nn.utils.clip_grad_norm_``, which adds 1e-6 to the norm.
@@ -24,13 +32,62 @@ applied, ``TrainStep.step``). Weight decay and the clip hold no state.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, Optional, Union
 
 import torch
 
 from mgwfbp_tpu_torch.optim import schedules
 from mgwfbp_tpu_torch.optim.schedules import as_step_fn, resolve
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimSpec:
+    """An elementwise optimizer chain, field for field the JAX package's
+    ``OptimSpec``:
+
+      * kind 'sgd': optional coupled weight decay (added to the gradient
+        before the momentum trace), the momentum trace (optionally
+        Nesterov), the learning rate;
+      * kind 'adam': Adam's moments with bias correction by count and,
+        with ``decoupled_wd``, decay added after the preconditioner
+        (AdamW);
+      * ``mask_ndim_gt1``: weight decay only on parameters with ndim > 1;
+      * ``norm_clip``: the global-norm clip threshold, already scaled by
+        sqrt(1/P) when distributed (``scaled_clip_threshold``);
+      * ``lr``: a float or a ``count -> lr`` function, ``count`` being the
+        optimizer updates completed before this one."""
+
+    lr: Union[float, Callable[[int], float]]
+    kind: str = "sgd"  # sgd | adam
+    momentum: float = 0.0
+    nesterov: bool = False
+    weight_decay: float = 0.0
+    decoupled_wd: bool = False  # adamw: decay after the preconditioner
+    mask_ndim_gt1: bool = True
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    norm_clip: Optional[float] = None
+
+    def __post_init__(self):
+        if self.kind not in ("sgd", "adam"):
+            raise ValueError(f"unknown OptimSpec.kind {self.kind!r}")
+        if self.kind == "sgd" and self.decoupled_wd:
+            raise ValueError("decoupled weight decay requires kind='adam'")
+
+    def learning_rate(self, count: int) -> float:
+        """The learning rate of the update after ``count`` completed ones."""
+        return self.lr(count) if callable(self.lr) else self.lr
+
+    @property
+    def num_slots(self) -> int:
+        """Parameter-shaped state buffers: the momentum trace (sgd with
+        momentum), the first and second moments (adam)."""
+        if self.kind == "adam":
+            return 2
+        return 1 if self.momentum else 0
 
 
 def sgd_state_layout(
@@ -84,10 +141,17 @@ def make_optimizer(
     num_batches_per_epoch: int = 1,
     step_offset: int = 0,
     epoch_offset: float = 0.0,
-) -> tuple[torch.optim.SGD, Callable[[int], float], Callable[[float], float]]:
-    """(optimizer, step -> lr, epoch -> lr) for ``params``. ``step_offset``
-    and ``epoch_offset`` anchor the step -> epoch conversion, so that a
-    resumed run continues its schedule (``as_step_fn``)."""
+    norm_clip: Optional[float] = None,
+    world_size: int = 1,
+    return_spec: bool = False,
+):
+    """(optimizer, step -> lr, epoch -> lr) for ``params``, and with
+    ``return_spec`` the ``OptimSpec`` of the same optimizer appended.
+    ``step_offset`` and ``epoch_offset`` anchor the step -> epoch
+    conversion, so that a resumed run continues its schedule
+    (``as_step_fn``). ``norm_clip`` is the unscaled clip threshold; the
+    spec holds it scaled to ``world_size`` (the step clips, not the
+    ``torch.optim.SGD``)."""
     epoch_schedule = resolve(
         lr_schedule, base_lr, dataset=dataset, max_epochs=max_epochs,
         warmup_epochs=warmup_epochs,
@@ -103,7 +167,14 @@ def make_optimizer(
     opt = torch.optim.SGD(
         [g for g in groups if g["params"]], lr=step_fn(0), momentum=momentum,
     )
-    return opt, step_fn, epoch_schedule
+    if not return_spec:
+        return opt, step_fn, epoch_schedule
+    spec = OptimSpec(
+        lr=step_fn, kind="sgd", momentum=momentum, weight_decay=weight_decay,
+        norm_clip=(scaled_clip_threshold(norm_clip, world_size)
+                   if norm_clip is not None else None),
+    )
+    return opt, step_fn, epoch_schedule, spec
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
@@ -112,6 +183,7 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 
 __all__ = [
+    "OptimSpec",
     "as_step_fn",
     "clip_by_global_norm_",
     "make_optimizer",

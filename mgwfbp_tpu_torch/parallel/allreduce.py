@@ -1,20 +1,47 @@
-"""Merged-gradient all-reduce launched from gradient hooks (counterpart of
-the ``all_reduce`` lowering of ``mgwfbp_tpu/parallel/allreduce.py``).
+"""Merged-gradient collectives launched from gradient hooks (counterpart of
+the single-level lowerings of ``mgwfbp_tpu/parallel/allreduce.py``).
 
 The MG-WFBP design of the original reference: every parameter carries a
 post-accumulate-grad hook; when the last member of a merge group has its
 gradient, the hook packs the group's flat bucket on the current stream and
-launches ``dist.all_reduce(bucket, SUM, async_op=True)`` while the backward
-pass goes on computing earlier layers' gradients. ``synchronize`` waits on
-every group, divides by the world size (``lax.pmean`` semantics) and
-unpacks the buckets into ``.grad`` before the optimizer step.
+launches the group's collective asynchronously while the backward pass
+goes on computing earlier layers' gradients. What the hook launches is the
+lowering (``comm_op``):
+
+  * ``all_reduce``: ``dist.all_reduce(bucket, SUM)``; ``synchronize``
+    waits, divides by the world size (``lax.pmean`` semantics) and unpacks
+    the buckets into ``.grad`` before the optimizer step;
+  * ``rs_ag`` (the DeAR decomposition): the bucket padded to a multiple of
+    the world (``buckets.padded_group_size``), ``reduce_scatter_tensor``
+    into this rank's shard, then ``all_gather_into_tensor`` of the shard
+    back into the padded bucket; ``synchronize`` waits, divides, trims the
+    pad and unpacks. Over NCCL one process group runs its collectives in
+    issue order on one stream, so the gather follows the scatter at once;
+    gloo runs asynchronous work on a thread pool where the gather could
+    overtake the scatter it reads, so there the hook waits for the
+    scatter first;
+  * a sparsifying compressor (``parallel.compression``, top-k, with
+    ``all_reduce``): the hook selects each bucket's top k and launches the
+    all-gathers of the values and the int32 indices; ``synchronize`` waits
+    and scatter-adds the P rows into a dense bucket, one source rank at a
+    time in rank order;
+  * ``rs_opt_ag`` (the sharded optimizer, ZeRO-1): the hooks launch only
+    the reduce-scatters, and ``reduce_and_update()`` replaces
+    ``synchronize()`` and ``optimizer.step()``: it waits, takes the mean,
+    computes the global clip norm by one all-reduce of the shards' squared
+    sums (``sharded_clip_norm``) when the optimizer clips, runs the
+    optimizer (``ShardedOptimStep.update_shard``) on this rank's 1/world
+    shard of each group's parameters against its shard of the optimizer
+    state, all-gathers the updated parameters and unpacks them into the
+    parameters' data. The optimizer state lives only as this rank's shard
+    (``ShardedOptState``); the reduced gradients never materialize.
 
 Three rules hold the collectives to the schedule:
 
   * groups launch strictly in group-index order: group k goes once it is
     complete AND groups 0..k-1 have launched, so every rank issues the
     same sequence of collectives (NCCL needs it; it is also the JAX
-    lowering's "sequential" token chain);
+    lowering's "sequential" token chain and the solver's serial link);
   * a micro-step that is not the last of an accumulation launches nothing
     (``begin(active=False)``);
   * ``policy="none"`` builds no reducer (the train step reduces leaf by
@@ -25,30 +52,36 @@ The permutation from leaves to arrival order is the JAX package's
 solve identical schedules. The order in which hooks actually fire is
 recorded in ``arrivals``.
 
-While ``torch.profiler`` records, each group's pack and collective run
-inside a ``record_function`` range named ``group_scope_name(gi)`` (the JAX
-package's ``mgwfbp_groupNNNN`` scope), which ``profiling.trace_group_times``
-attributes device time by; an untraced step launches exactly the same
-work with no annotation.
+While ``torch.profiler`` records, each group's pack, collectives, update
+and unpack run inside a ``record_function`` range named
+``group_scope_name(gi)`` (the JAX package's ``mgwfbp_groupNNNN`` scope),
+which ``profiling.trace_group_times`` attributes device time by, and the
+clip's all-reduce inside ``CLIP_NORM_SCOPE``; an untraced step launches
+exactly the same work with no annotation.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 from typing import Any, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from mgwfbp_tpu_torch.optim import OptimSpec
 from mgwfbp_tpu_torch.parallel import buckets as buckets_lib
 from mgwfbp_tpu_torch.parallel.buckets import BucketLayout, build_layout
 from mgwfbp_tpu_torch.parallel.solver import (
     LayerSpec,
     MergeSchedule,
     build_schedule,
+    check_comm_op,
     check_unique,
+    effective_cost_fn,
     predict_group_times,
     simulate_groups,
     size_prior_tb,
@@ -56,13 +89,32 @@ from mgwfbp_tpu_torch.parallel.solver import (
 
 _DIGITS = re.compile(r"(\d+)")
 
+# torch 2.13 renames the flat collectives; older releases have only the
+# *_tensor names
+reduce_scatter_single = getattr(dist, "reduce_scatter_single",
+                                dist.reduce_scatter_tensor)
+all_gather_single = getattr(dist, "all_gather_single",
+                            dist.all_gather_into_tensor)
+
 GROUP_SCOPE_PREFIX = "mgwfbp_group"
+
+# the one extra collective of the rs_opt_ag lowering: the global clip norm,
+# an all-reduce of the shards' squared sums (the JAX package's scope name)
+CLIP_NORM_SCOPE = "sharded_clip_norm"
 
 
 def group_scope_name(gi: int) -> str:
     """Profiler-range label of merge group ``gi`` (the JAX package's
     name-scope label)."""
     return f"{GROUP_SCOPE_PREFIX}{gi:04d}"
+
+
+def _scope(name: str):
+    """A profiler range named ``name`` while torch.profiler records, else
+    nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def _natural_key(name: str) -> tuple:
@@ -85,16 +137,276 @@ def arrival_order(
     return list(reversed(range(num_leaves)))
 
 
+# ---------------------------------------------------------------------------
+# The sharded optimizer (comm_op='rs_opt_ag')
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ShardedOptState:
+    """This rank's optimizer state on the rs_opt_ag path: ``slots[s][gi]``
+    is slot s (the momentum trace; Adam's two moments) of merge group gi,
+    a flat tensor of ``shard_size(gi)`` elements, and ``count`` the
+    optimizer updates completed (the learning-rate schedule and Adam's
+    bias correction read it). The JAX package holds the same buffers as
+    global (world, shard) arrays; here each rank holds its own row."""
+
+    count: int
+    slots: list[list[torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedOptimStep:
+    """(layout, the optimizer on flat buffers) of the rs_opt_ag lowering:
+    the JAX package's ``ShardedOptimStep``. It interprets an
+    ``optim.OptimSpec`` on the 1/world shards the reduce-scatter leaves.
+    The per-leaf weight-decay mask becomes a per-element vector over the
+    padded bucket (``buckets.group_mask_vector``) sliced to the shard, so
+    shard boundaries may cut leaves anywhere."""
+
+    spec: OptimSpec
+    layout: BucketLayout
+    shapes: tuple[tuple[int, ...], ...]  # leaf shapes, arrival order
+    perm: tuple[int, ...]  # arrival position -> tree (leaf) index
+    world: int
+
+    @property
+    def num_slots(self) -> int:
+        return self.spec.num_slots
+
+    def shard_size(self, gi: int) -> int:
+        return buckets_lib.shard_size(self.layout, gi, self.world)
+
+    def padded_size(self, gi: int) -> int:
+        return buckets_lib.padded_group_size(self.layout, gi, self.world)
+
+    def decay_mask_vec(self, gi: int) -> Optional[np.ndarray]:
+        """Padded per-element decay mask of group gi (None: no decay)."""
+        if not self.spec.weight_decay:
+            return None
+        flags = [(len(s) > 1) if self.spec.mask_ndim_gt1 else True
+                 for s in self.shapes]
+        return buckets_lib.group_mask_vector(
+            self.layout, gi, flags, self.shapes, self.world)
+
+    def _mask_shard(self, gi: int, rank: int, like: torch.Tensor
+                    ) -> torch.Tensor:
+        """This rank's slice of the decay mask, as ``like``'s dtype and
+        device (made once per group, dtype and device)."""
+        cache = self.__dict__.setdefault("_masks", {})
+        key = (gi, rank, like.dtype, like.device)
+        if key not in cache:
+            n = self.shard_size(gi)
+            vec = self.decay_mask_vec(gi)[rank * n:(rank + 1) * n]
+            cache[key] = torch.from_numpy(vec).to(like.device, like.dtype)
+        return cache[key]
+
+    # -- state and its accounting -----------------------------------------
+    def init(self, device=None) -> ShardedOptState:
+        """Fresh (zero) state of one rank."""
+        return ShardedOptState(count=0, slots=[
+            [torch.zeros(self.shard_size(gi), dtype=self.layout.dtypes[gi],
+                         device=device)
+             for gi in range(self.layout.num_groups)]
+            for _ in range(self.num_slots)
+        ])
+
+    def state_bytes_per_device(self) -> int:
+        """Optimizer-state bytes each rank holds on the sharded path (the
+        count as 4 bytes, as the JAX package counts its int32)."""
+        per_slot = sum(
+            self.shard_size(gi) * self.layout.dtypes[gi].itemsize
+            for gi in range(self.layout.num_groups))
+        return self.num_slots * per_slot + 4
+
+    def replicated_state_bytes(self) -> int:
+        """Bytes of the parameter-shaped state every rank holds on the
+        replicated path (the 1/world comparison's baseline)."""
+        per_slot = sum(
+            self.layout.group_sizes[gi] * self.layout.dtypes[gi].itemsize
+            for gi in range(self.layout.num_groups))
+        return self.num_slots * per_slot
+
+    # -- interchange with the replicated (per-leaf) form -------------------
+    def pack_slot(self, tree_leaves: Sequence[np.ndarray]
+                  ) -> list[np.ndarray]:
+        """Per-leaf arrays in TREE order -> one slot's (world, shard)
+        numpy buffers, one per group."""
+        arr = [np.asarray(tree_leaves[j]) for j in self.perm]
+        return [
+            buckets_lib.pack_group_host(arr, self.layout, gi, self.world)
+            .reshape(self.world, self.shard_size(gi))
+            for gi in range(self.layout.num_groups)
+        ]
+
+    def unpack_slot(self, slot_bufs: Sequence[np.ndarray]) -> list[np.ndarray]:
+        """One slot's (world, shard) buffers -> per-leaf arrays in TREE
+        order."""
+        arr: list[Any] = [None] * len(self.shapes)
+        for gi in range(self.layout.num_groups):
+            flat = np.asarray(slot_bufs[gi]).reshape(-1)
+            for i, a in buckets_lib.unpack_group_host(
+                    flat, self.layout, gi, self.shapes).items():
+                arr[i] = a
+        out: list[Any] = [None] * len(arr)
+        for k, j in enumerate(self.perm):
+            out[j] = arr[k]
+        return out
+
+    def scatter(self, slot_leaves: Sequence[Sequence[np.ndarray]], count: int,
+                rank: int, device=None) -> ShardedOptState:
+        """Replicated state (per slot, per-leaf arrays in tree order) ->
+        this rank's ``ShardedOptState``."""
+        if len(slot_leaves) != self.num_slots:
+            raise ValueError(
+                f"the optimizer state carries {len(slot_leaves)} "
+                f"parameter-shaped slot(s), the spec expects "
+                f"{self.num_slots} (kind={self.spec.kind!r}, momentum="
+                f"{self.spec.momentum})")
+        slots = []
+        for leaves in slot_leaves:
+            slots.append([
+                torch.from_numpy(np.ascontiguousarray(buf[rank])).to(
+                    device, self.layout.dtypes[gi])
+                for gi, buf in enumerate(self.pack_slot(leaves))
+            ])
+        return ShardedOptState(count=int(count), slots=slots)
+
+    def gather(self, state: ShardedOptState, group=None) -> list[list[np.ndarray]]:
+        """Every rank's shards all-gathered (a collective when the world
+        is larger than one) -> per slot, the per-leaf arrays in tree order
+        that the replicated optimizer would hold after the same updates."""
+        out = []
+        for slot in state.slots:
+            bufs = []
+            for gi, shard in enumerate(slot):
+                full = torch.empty(self.padded_size(gi), dtype=shard.dtype,
+                                   device=shard.device)
+                if self.world > 1:
+                    all_gather_single(full, shard.contiguous(),
+                                                group=group)
+                else:
+                    full.copy_(shard)
+                bufs.append(full.cpu().numpy())
+            out.append(self.unpack_slot(bufs))
+        return out
+
+    def manifest_layout(self) -> dict:
+        """The shard layout a checkpoint manifest records: for every
+        parameter leaf (tree order), the group and offset its elements
+        pack into, and each group's shard size and dtype."""
+        arrival_slot: dict[int, tuple[int, int]] = {}
+        for gi, (members, offsets) in enumerate(
+                zip(self.layout.groups, self.layout.offsets)):
+            for k, off in zip(members, offsets):
+                arrival_slot[int(k)] = (gi, int(off))
+        tree_slot: list[Optional[tuple[int, int]]] = [None] * len(self.perm)
+        for k, j in enumerate(self.perm):
+            tree_slot[int(j)] = arrival_slot[int(k)]
+        return {
+            "world": int(self.world),
+            "shard_sizes": [int(self.shard_size(gi))
+                            for gi in range(self.layout.num_groups)],
+            "group_dtypes": [str(d).replace("torch.", "")
+                             for d in self.layout.dtypes],
+            "leaf_slots": [list(s) for s in tree_slot],
+        }
+
+    # -- the shard update -------------------------------------------------
+    def update_shard(
+        self,
+        gi: int,
+        grad: torch.Tensor,
+        param: torch.Tensor,
+        slots_in: Sequence[torch.Tensor],
+        count: int,
+        clip_scale: Optional[tuple[torch.Tensor, torch.Tensor]],
+        rank: int,
+        lr: Optional[float] = None,
+    ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+        """One group's optimizer step on its shard, term for term the JAX
+        package's (optax's trace / scale_by_adam / add_decayed_weights /
+        scale_by_learning_rate): ``count`` is the number of COMPLETED
+        updates (the learning rate reads it before the increment, Adam's
+        bias correction after). ``clip_scale`` is (global norm, threshold)
+        as scalar tensors, applied as optax's ``select(norm < max, g,
+        g / norm * max)``. ``lr`` overrides ``spec.learning_rate(count)``.
+
+        The terms a + c * b are rounded as ``torch.optim.SGD`` rounds them
+        (``torch.add(a, b, alpha=c)``, one rounding where the kernel fuses
+        the product), so that on the same gradients a sharded SGD step
+        gives the replicated one's parameters bit for bit; optax rounds
+        the product and the sum apart, a difference of one rounding."""
+        spec = self.spec
+        g = grad
+        if clip_scale is not None:
+            g_norm, max_norm = clip_scale
+            g = torch.where(g_norm < max_norm, g,
+                            (g / g_norm.to(g.dtype)) * max_norm.to(g.dtype))
+        mask = None
+        if spec.weight_decay:
+            mask = self._mask_shard(gi, rank, g)
+        if lr is None:
+            lr = spec.learning_rate(count)
+        if spec.kind == "sgd":
+            if spec.weight_decay:
+                g = torch.add(g, param * mask, alpha=spec.weight_decay)
+            if spec.momentum:
+                mu = g + spec.momentum * slots_in[0]
+                u = (torch.add(g, mu, alpha=spec.momentum) if spec.nesterov
+                     else mu)
+                new_slots: tuple[torch.Tensor, ...] = (mu,)
+            else:
+                u, new_slots = g, ()
+        else:  # adam / adamw
+            mu = spec.b1 * slots_in[0] + (1.0 - spec.b1) * g
+            nu = spec.b2 * slots_in[1] + (1.0 - spec.b2) * g * g
+            # optax computes the corrections in the update's dtype
+            c = torch.full((), count + 1, dtype=g.dtype, device=g.device)
+            mu_hat = mu / (1.0 - spec.b1 ** c)
+            nu_hat = nu / (1.0 - spec.b2 ** c)
+            u = mu_hat / (torch.sqrt(nu_hat) + spec.eps)
+            if spec.weight_decay:  # decoupled: after the preconditioner
+                u = torch.add(u, param * mask, alpha=spec.weight_decay)
+            new_slots = (mu, nu)
+        return torch.add(param, u, alpha=-float(lr)), new_slots
+
+
+# ---------------------------------------------------------------------------
+# The reducer
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """One launched group: its collectives' works and the tensors they
+    fill (``out``; the top-k path adds the indices and the bucket size)."""
+
+    gi: int
+    works: list
+    out: torch.Tensor
+    idx: Optional[torch.Tensor] = None
+    n: int = 0
+
+
 class MergedAllreduce:
-    """Schedule, bucket layout and hooks of one model's merged all-reduce.
+    """Schedule, bucket layout and hooks of one model's merged collectives.
 
     ``params`` are the model's parameters in leaf (tree) order and ``perm``
     maps arrival position k to leaf index ``perm[k]``; layout groups hold
     arrival positions. ``launches`` counts collectives launched (the chip
-    smoke's launch counter); ``launch_log`` and ``arrivals`` record the
-    group indices launched and the arrival positions whose hooks fired,
-    in order, since the last ``begin``. Collectives run over ``group``
-    (the default process group when None)."""
+    smoke's launch counter: two per group for rs_ag and top-k, one
+    reduce-scatter and one all-gather per group plus the clip's all-reduce
+    for rs_opt_ag); ``launch_log`` and ``arrivals`` record the group
+    indices launched and the arrival positions whose hooks fired, in
+    order, since the last ``begin``. Collectives run over ``group`` (the
+    default process group when None). ``comm_op``, ``compressor`` and
+    ``optim`` (rs_opt_ag) select the lowering (module docstring);
+    ``opt_state`` is this rank's sharded optimizer state on rs_opt_ag.
+    With ``track_compression_error`` set, the top-k hooks keep each
+    group's relative compression error ||g - topk(g)|| / ||g|| of the
+    LOCAL bucket at the wire dtype (``compression_errors``, one float32
+    device scalar per group, 0 where k >= n)."""
 
     def __init__(
         self,
@@ -106,7 +418,19 @@ class MergedAllreduce:
         mean: bool = True,
         comm_dtype: Optional[torch.dtype] = None,
         group: Optional[dist.ProcessGroup] = None,
+        comm_op: str = "all_reduce",
+        compressor: Any = None,
+        optim: Optional[ShardedOptimStep] = None,
     ):
+        check_comm_op(comm_op)
+        if compressor is not None and comm_op != "all_reduce":
+            raise ValueError(
+                f"comm_op={comm_op!r} cannot combine with a sparsifying "
+                "compressor (the compressor replaces the bucket collective)")
+        if (comm_op == "rs_opt_ag") != (optim is not None):
+            raise ValueError(
+                "comm_op='rs_opt_ag' and a ShardedOptimStep go together "
+                "(make_merged_allreduce(..., optim_spec=, world_size=))")
         self.schedule = schedule
         self.layout = layout
         self.perm = tuple(perm)
@@ -114,13 +438,29 @@ class MergedAllreduce:
         self.mean = mean
         self.comm_dtype = comm_dtype
         self.group = group
+        self.comm_op = comm_op
+        self.compressor = compressor
+        self.optim = optim
         self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        if optim is not None and optim.world != self.world:
+            raise ValueError(
+                f"rs_opt_ag: the process group has {self.world} ranks, the "
+                f"ShardedOptimStep was built for {optim.world}; rebuild the "
+                "reducer for this world")
+        # over NCCL one group's collectives run in issue order on one
+        # stream; gloo's asynchronous work may run out of order
+        self._ordered = dist.get_backend(group) == "nccl"
         self._arr = [self.params[j] for j in self.perm]
         self._shapes = [tuple(p.shape) for p in self._arr]
         self._group_of = [0] * len(self._arr)
         for gi, members in enumerate(layout.groups):
             for k in members:
                 self._group_of[k] = gi
+        self.opt_state: Optional[ShardedOptState] = (
+            optim.init(self._arr[0].device) if optim is not None else None)
+        self.track_compression_error = False
+        self.compression_errors: list[torch.Tensor] = []
         self.launches = 0
         self.launch_log: list[int] = []
         self.arrivals: list[int] = []
@@ -128,7 +468,7 @@ class MergedAllreduce:
         self._scale = 1.0
         self._pending: list[int] = []
         self._next = 0
-        self._inflight: list[tuple[torch.Tensor, Any]] = []
+        self._inflight: list[_Inflight] = []
         self._handles: list[Any] = []
 
     @property
@@ -144,6 +484,11 @@ class MergedAllreduce:
     def group_of(self) -> list[int]:
         """The merge group of each arrival position."""
         return list(self._group_of)
+
+    @property
+    def sparse(self) -> bool:
+        """Whether a sparsifying compressor replaces the collectives."""
+        return self.compressor is not None and self.compressor.sparse()
 
     def attach(self) -> "MergedAllreduce":
         """Register one post-accumulate-grad hook per parameter."""
@@ -173,6 +518,8 @@ class MergedAllreduce:
         self._next = 0
         self.launch_log = []
         self.arrivals = []
+        if self.track_compression_error:
+            self.compression_errors = []
 
     def _on_grad(self, k: int) -> None:
         if not self._active:
@@ -180,37 +527,92 @@ class MergedAllreduce:
         self.arrivals.append(k)
         self._pending[self._group_of[k]] -= 1
         while self._next < self.num_groups and self._pending[self._next] == 0:
-            self._launch(self._next)
+            with _scope(group_scope_name(self._next)):
+                self._pack_and_launch(self._next)
             self._next += 1
 
-    def _launch(self, gi: int) -> None:
-        if torch.autograd._profiler_enabled():
-            with torch.profiler.record_function(group_scope_name(gi)):
-                self._pack_and_reduce(gi)
-        else:
-            self._pack_and_reduce(gi)
-
-    def _pack_and_reduce(self, gi: int) -> None:
+    def _pack_and_launch(self, gi: int) -> None:
+        rs = self.comm_op in ("rs_ag", "rs_opt_ag")
         buf = buckets_lib.pack_group(
-            [p.grad for p in self._arr], self.layout, gi
+            [p.grad for p in self._arr], self.layout, gi,
+            buckets_lib.padded_group_size(self.layout, gi, self.world)
+            if rs else None,
         )
         if self._scale != 1.0:
             buf.mul_(self._scale)
         if self.comm_dtype is not None and buf.dtype != self.comm_dtype:
             buf = buf.to(self.comm_dtype)
+        if self.sparse and buf.is_floating_point():
+            self._launch_topk(gi, buf)
+        elif rs:
+            self._launch_rs(gi, buf)
+        else:
+            self._launch_all_reduce(gi, buf)
+            if self.track_compression_error:
+                self.compression_errors.append(
+                    torch.zeros((), device=buf.device))
+        self.launch_log.append(gi)
+
+    def _launch_all_reduce(self, gi: int, buf: torch.Tensor) -> None:
         work = dist.all_reduce(
             buf, op=dist.ReduceOp.SUM, group=self.group, async_op=True
         )
-        self._inflight.append((buf, work))
+        self._inflight.append(_Inflight(gi, [work], buf))
         self.launches += 1
-        self.launch_log.append(gi)
 
-    def synchronize(self) -> list[torch.Tensor]:
-        """Wait for every group's collective, take the mean and write the
-        reduced gradients into ``.grad``. Returns the reduced buckets in
-        the parameters' dtype."""
+    def _launch_rs(self, gi: int, buf: torch.Tensor) -> None:
+        """The reduce-scatter of a padded bucket and, for rs_ag, the
+        all-gather of the summed shard back into the same bucket (the
+        reduce-scatter has read it by then: the next collective on NCCL's
+        one stream, a wait on gloo)."""
+        shard = buf.new_empty(buf.shape[0] // self.world)
+        work = reduce_scatter_single(
+            shard, buf, op=dist.ReduceOp.SUM, group=self.group, async_op=True
+        )
+        self.launches += 1
+        if self.comm_op == "rs_opt_ag":
+            self._inflight.append(_Inflight(gi, [work], shard))
+            return
+        if not self._ordered:
+            work.wait()
+        gather = all_gather_single(
+            buf, shard, group=self.group, async_op=True
+        )
+        self.launches += 1
+        self._inflight.append(_Inflight(gi, [work, gather], buf))
+
+    def _launch_topk(self, gi: int, buf: torch.Tensor) -> None:
+        n = buf.shape[0]
+        k = self.compressor.k_for(n)
+        if k >= n:
+            self._launch_all_reduce(gi, buf)
+            if self.track_compression_error:
+                self.compression_errors.append(
+                    torch.zeros((), device=buf.device))
+            return
+        vals, idx = self.compressor.select(buf, k)
+        if self.track_compression_error:
+            # top-k keeps entries and zeroes the rest: the dropped energy
+            # is ||g||^2 - ||topk(g)||^2, accumulated in float32
+            total = torch.sum(torch.square(buf.float()))
+            kept = torch.sum(torch.square(vals.float()))
+            self.compression_errors.append(torch.sqrt(
+                torch.clamp_min(total - kept, 0.0)
+                / torch.clamp_min(total, 1e-30)))
+        g_vals = vals.new_empty(self.world * k)
+        g_idx = idx.new_empty(self.world * k)
+        works = [
+            all_gather_single(g_vals, vals, group=self.group,
+                                        async_op=True),
+            all_gather_single(g_idx, idx, group=self.group,
+                                        async_op=True),
+        ]
+        self.launches += 2
+        self._inflight.append(_Inflight(gi, works, g_vals, g_idx, n))
+
+    def _check_complete(self, what: str) -> None:
         if not self._active:
-            raise RuntimeError("synchronize() without an active begin()")
+            raise RuntimeError(f"{what}() without an active begin()")
         if self._next != self.num_groups:
             missing = [gi for gi in range(self.num_groups)
                        if self._pending[gi] != 0]
@@ -218,42 +620,153 @@ class MergedAllreduce:
                 f"merge groups {missing[:8]} never completed: some "
                 "parameters received no gradient in this backward"
             )
+
+    def _reduced_bucket(self, f: _Inflight) -> torch.Tensor:
+        """A waited group's summed bucket at the wire dtype, unpadded."""
+        if f.idx is not None:
+            k = f.out.shape[0] // self.world
+            return self.compressor.densify(
+                f.out.view(self.world, k), f.idx.view(self.world, k), f.n)
+        return f.out[:self.layout.group_sizes[f.gi]]
+
+    def synchronize(self) -> list[torch.Tensor]:
+        """Wait for every group's collectives, take the mean and write the
+        reduced gradients into ``.grad``. Returns the reduced buckets in
+        the parameters' dtype."""
+        if self.comm_op == "rs_opt_ag":
+            raise RuntimeError(
+                "comm_op='rs_opt_ag' folds the optimizer into the "
+                "collective: call reduce_and_update() instead of "
+                "synchronize() and optimizer.step()")
+        self._check_complete("synchronize")
         out = []
         try:
-            for gi, (buf, work) in enumerate(self._inflight):
-                work.wait()
-                if self.mean:
-                    buf.div_(self.world)
-                if buf.dtype != self.layout.dtypes[gi]:
-                    buf = buf.to(self.layout.dtypes[gi])
-                for k, view in buckets_lib.unpack_group(
-                    buf, self.layout, gi, self._shapes
-                ).items():
-                    self._arr[k].grad = view
+            for f in self._inflight:
+                with _scope(group_scope_name(f.gi)):
+                    for work in f.works:
+                        work.wait()
+                    buf = self._reduced_bucket(f)
+                    if self.mean:
+                        buf.div_(self.world)
+                    if buf.dtype != self.layout.dtypes[f.gi]:
+                        buf = buf.to(self.layout.dtypes[f.gi])
+                    for k, view in buckets_lib.unpack_group(
+                        buf, self.layout, f.gi, self._shapes
+                    ).items():
+                        self._arr[k].grad = view
                 out.append(buf)
         finally:
             self._inflight = []
             self._active = False
         return out
 
+    def discard(self) -> None:
+        """Wait for the launched collectives and drop their results (a
+        step whose update is skipped); the optimizer state is untouched."""
+        try:
+            for f in self._inflight:
+                for work in f.works:
+                    work.wait()
+        finally:
+            self._inflight = []
+            self._active = False
 
-def make_merged_allreduce(
+    @torch.no_grad()
+    def reduce_and_update(self, lr: Optional[float] = None) -> None:
+        """The rs_opt_ag step: wait for the reduce-scatters, take the mean
+        (each shard cast back to its group's dtype first), clip by the
+        global norm when the optimizer does (one all-reduce), update this
+        rank's shard of every group's parameters and optimizer state,
+        all-gather the updated parameters and unpack them into the
+        parameters' data. ``lr`` overrides ``spec.learning_rate(count)``;
+        the state's count advances by one."""
+        if self.comm_op != "rs_opt_ag":
+            raise RuntimeError(
+                "reduce_and_update() requires comm_op='rs_opt_ag' (built "
+                "by make_merged_allreduce(..., optim_spec=, world_size=))")
+        self._check_complete("reduce_and_update")
+        optim, state = self.optim, self.opt_state
+        try:
+            g_shards = []
+            for f in self._inflight:
+                with _scope(group_scope_name(f.gi)):
+                    f.works[0].wait()
+                    shard = f.out
+                    if shard.dtype != self.layout.dtypes[f.gi]:
+                        shard = shard.to(self.layout.dtypes[f.gi])
+                    if self.mean:
+                        shard = shard / self.world
+                    g_shards.append(shard)
+        finally:
+            self._inflight = []
+            self._active = False
+        clip_scale = None
+        if optim.spec.norm_clip is not None:
+            # the shards' squares summed in float32 (float64 shards in
+            # float64), all-reduced once
+            acc = torch.promote_types(g_shards[0].dtype, torch.float32)
+            with _scope(CLIP_NORM_SCOPE):
+                local = torch.zeros((), dtype=acc, device=g_shards[0].device)
+                for s in g_shards:
+                    local = local + torch.sum(s.to(acc) ** 2)
+                if self.world > 1:
+                    dist.all_reduce(local, group=self.group)
+                    self.launches += 1
+                clip_scale = (torch.sqrt(local),
+                              torch.tensor(optim.spec.norm_clip, dtype=acc,
+                                           device=local.device))
+        count = state.count
+        if lr is None:
+            lr = optim.spec.learning_rate(count)
+        gathers = []
+        for gi in range(self.num_groups):
+            with _scope(group_scope_name(gi)):
+                n = optim.shard_size(gi)
+                p_shard = buckets_lib.pack_shard(
+                    self._arr, self.layout, gi, self.rank * n,
+                    (self.rank + 1) * n)
+                new_p, slots_out = optim.update_shard(
+                    gi, g_shards[gi], p_shard,
+                    [state.slots[s][gi] for s in range(optim.num_slots)],
+                    count, clip_scale, self.rank, lr=lr,
+                )
+                g_shards[gi] = None
+                for s in range(optim.num_slots):
+                    state.slots[s][gi] = slots_out[s]
+                full = new_p.new_empty(optim.padded_size(gi))
+                work = all_gather_single(
+                    full, new_p.contiguous(), group=self.group,
+                    async_op=True)
+                self.launches += 1
+                gathers.append((gi, work, full))
+        for gi, work, full in gathers:
+            with _scope(group_scope_name(gi)):
+                work.wait()
+                views = buckets_lib.unpack_group(
+                    full, self.layout, gi, self._shapes)
+                torch._foreach_copy_(
+                    [self._arr[k] for k in views],
+                    [views[k] for k in views])
+        state.count = count + 1
+
+
+def plan_merged_allreduce(
     module: nn.Module,
     *,
     policy: str = "mgwfbp",
     tb: Optional[Sequence[float]] = None,
     cost_model: Any = None,
     threshold: int = 0,
-    mean: bool = True,
-    comm_dtype: Optional[torch.dtype] = None,
-) -> MergedAllreduce:
-    """Solve the merge schedule for ``module``'s parameters and return the
-    reducer with its hooks attached.
+    comm_op: str = "all_reduce",
+) -> tuple[MergeSchedule, BucketLayout, list[int], list[torch.Tensor]]:
+    """(schedule, bucket layout, arrival permutation, parameters in leaf
+    order) of ``module``'s merged collectives, solved as
+    ``make_merged_allreduce`` solves them, with no process group: the
+    layout the sharded optimizer is built on at any world size.
 
     ``tb`` is the per-arrival backward seconds (``profiling.
     benchmark_backward``); absent, 'mgwfbp'/'auto' fall back to the
-    volume prior (``size_prior_tb``). Collectives run on the default
-    process group."""
+    volume prior (``size_prior_tb``)."""
     from mgwfbp_tpu_torch.convert import flax_leaves, keystr
 
     leaves = flax_leaves(module)
@@ -271,15 +784,17 @@ def make_merged_allreduce(
         tb = size_prior_tb(specs, cost_model)
     schedule = build_schedule(
         specs, tb, policy=policy, cost_model=cost_model, threshold=threshold,
+        comm_op=comm_op,
     )
     layout = build_layout(arr, schedule.groups)
     if layout.groups != schedule.groups:
         # a dtype split adds real collectives: predict what is issued
         schedule = dataclasses.replace(schedule, groups=layout.groups)
         if tb is not None and cost_model is not None:
+            cost_fn = effective_cost_fn(cost_model, comm_op)
             sizes_b = [s.nbytes for s in specs]
             total, nonoverlap, comm = simulate_groups(
-                layout.groups, sizes_b, tb, cost_model.predict,
+                layout.groups, sizes_b, tb, cost_fn,
                 float(getattr(cost_model, "gamma", 0.0)),
                 float(getattr(cost_model, "overlap", 1.0)),
                 float(getattr(cost_model, "pack_beta", 0.0)),
@@ -290,9 +805,54 @@ def make_merged_allreduce(
                 predicted_nonoverlap_time=nonoverlap,
                 predicted_comm_time=comm,
                 predicted_group_times=predict_group_times(
-                    layout.groups, sizes_b, cost_model.predict
+                    layout.groups, sizes_b, cost_fn
                 ),
             )
+    return schedule, layout, p, params
+
+
+def sharded_optim_step(spec: OptimSpec, layout: BucketLayout,
+                       perm: Sequence[int], params: Sequence[torch.Tensor],
+                       world: int) -> ShardedOptimStep:
+    """The ``ShardedOptimStep`` of a planned layout at ``world`` ranks."""
+    return ShardedOptimStep(
+        spec=spec, layout=layout,
+        shapes=tuple(tuple(int(d) for d in params[j].shape) for j in perm),
+        perm=tuple(perm), world=int(world),
+    )
+
+
+def make_merged_allreduce(
+    module: nn.Module,
+    *,
+    policy: str = "mgwfbp",
+    tb: Optional[Sequence[float]] = None,
+    cost_model: Any = None,
+    threshold: int = 0,
+    mean: bool = True,
+    comm_dtype: Optional[torch.dtype] = None,
+    comm_op: str = "all_reduce",
+    compressor: Any = None,
+    optim_spec: Optional[OptimSpec] = None,
+    world_size: Optional[int] = None,
+) -> MergedAllreduce:
+    """Solve the merge schedule for ``module``'s parameters
+    (``plan_merged_allreduce``) and return the reducer with its hooks
+    attached. ``comm_op`` 'rs_opt_ag' also needs ``optim_spec`` (the
+    optimizer run on the shards, ``optim.OptimSpec``) and ``world_size``
+    (the shard layout's world, which must be the process group's) and
+    takes no compressor. Collectives run on the default process group."""
+    if comm_op == "rs_opt_ag" and (optim_spec is None or world_size is None):
+        raise ValueError(
+            f"comm_op={comm_op!r} requires optim_spec and world_size")
+    schedule, layout, p, params = plan_merged_allreduce(
+        module, policy=policy, tb=tb, cost_model=cost_model,
+        threshold=threshold, comm_op=comm_op,
+    )
+    optim = None
+    if comm_op == "rs_opt_ag":
+        optim = sharded_optim_step(optim_spec, layout, p, params, world_size)
     return MergedAllreduce(
         schedule, layout, p, params, mean=mean, comm_dtype=comm_dtype,
+        comm_op=comm_op, compressor=compressor, optim=optim,
     ).attach()

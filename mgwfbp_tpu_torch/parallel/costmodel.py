@@ -10,7 +10,11 @@ mgwfbp_tpu_torch.calibrate`` measures the card's constants and writes a
 profile that ``--comm-profile`` loads. Profiles are read and written in
 the JAX package's JSON schema, so either package loads the other's:
 flat, sampled and per-world-size ``family`` profiles; two-level profiles
-are refused (ROADMAP.md Queue 1 item 7).
+are refused (ROADMAP.md Queue 1 item 7b). ``update_beta`` prices the
+``rs_opt_ag`` lowering's shard update (``solver.effective_cost_fn``;
+``profiling.profile_update_beta`` measures it). The sparsification models
+at the end (``topk_time``, ``sparse_allgather_time``, ``choose_density``)
+price the top-k compressor against the dense all-reduce.
 """
 
 from __future__ import annotations
@@ -34,8 +38,10 @@ class AlphaBeta:
         dispatch), on the critical path once per group.
     overlap: fraction of collective time the platform hides behind compute.
     pack_beta: per-byte cost of packing a multi-member group.
-    update_beta, ag_fraction: read by the JAX package's sharded and
-        cross-step lowerings; carried here so profiles round-trip.
+    update_beta: per-bucket-byte cost of the rs_opt_ag shard update, which
+        sits between the reduce-scatter and the all-gather.
+    ag_fraction: read by the JAX package's cross-step lowering; carried
+        here so profiles round-trip.
     """
 
     alpha: float
@@ -381,13 +387,87 @@ def load_profile(path: str) -> "AlphaBeta | SampledCost | ProfileFamily":
     if kind not in ("flat", "sampled"):
         raise ValueError(
             f"{path}: {kind!r} profiles are not ported (flat, sampled and "
-            "family only; two-level is ROADMAP.md Queue 1 item 7)"
+            "family only; two-level is ROADMAP.md Queue 1 item 7b)"
         )
     return _model_from_dict(d)
 
 
+# ---------------------------------------------------------------------------
+# Sparsification cost models (the JAX package's, from the reference's
+# utils.py:95-149): the top-k select and the sparse all-gather, so that a
+# policy can choose dense or sparse. TOPK_MACHINE_CONST is the reference's
+# P102-100 constant; no card has refitted it.
+# ---------------------------------------------------------------------------
+
+TOPK_MACHINE_CONST = 2.18896957e-10
+
+
+def topk_time(nelems: float, s: float = TOPK_MACHINE_CONST) -> float:
+    """t = s * n * log2(n): the top-k selection cost."""
+    n = max(float(nelems), 2.0)
+    return s * n * float(np.log2(n))
+
+
+def sparse_allgather_time(
+    alpha: float, beta: float, nelems: float, nworkers: int,
+    density: float, itemsize: int = 4,
+) -> float:
+    """t = 2 * (alpha + beta * n * P * itemsize * density): all-gathering
+    (values, indices) of a density-sparsified n-element tensor over P
+    workers (the factor 2 covers the two payloads)."""
+    return 2.0 * (
+        alpha + beta * float(nelems) * nworkers * itemsize * density
+    )
+
+
+def sparse_allgather_time_ethernet(
+    nelems: float, nworkers: int, density: float, itemsize: int = 4,
+) -> float:
+    """The reference's sparse-allgather predictor: the 1GbE SMALL table
+    below 1 MB of payload (n * P * itemsize * density), the LARGE table at
+    or above it, doubled for the (values, indices) pair."""
+    if nelems == 0:
+        return 0.0
+    size = float(nelems) * nworkers * itemsize * density
+    connection = "1GbE-large" if size >= 1024 * 1024 else "1GbE-small"
+    ab = lookup_alpha_beta(connection, nworkers)
+    return sparse_allgather_time(
+        ab.alpha, ab.beta, nelems, nworkers, density, itemsize
+    )
+
+
+def choose_density(
+    nelems: float,
+    nworkers: int,
+    cost_model,
+    candidates: Sequence[float] = (0.25, 0.05, 0.01, 0.001),
+    itemsize: int = 4,
+    topk_const: float = TOPK_MACHINE_CONST,
+) -> float:
+    """The density whose predicted top-k select plus sparse all-gather is
+    cheapest, or 1.0 when the dense all-reduce wins. The (values, indices)
+    payload is priced through the active all-reduce cost model, which
+    overestimates an all-gather and so errs toward dense."""
+    if nelems <= 0:
+        return 1.0
+    best_density = 1.0
+    best_t = cost_model.predict(float(nelems) * itemsize)
+    select = topk_time(nelems, topk_const)
+    for d in candidates:
+        payload = float(nelems) * nworkers * itemsize * d
+        t = select + 2.0 * cost_model.predict(payload)
+        if t < best_t:
+            best_t, best_density = t, d
+    return best_density
+
+
 __all__ = [
     "AlphaBeta",
+    "TOPK_MACHINE_CONST",
+    "choose_density",
+    "sparse_allgather_time",
+    "sparse_allgather_time_ethernet",
+    "topk_time",
     "ProfileFamily",
     "SampledCost",
     "committed_profile_or_prior",

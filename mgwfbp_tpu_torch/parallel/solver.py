@@ -15,8 +15,10 @@ The merge rule: scanning arrivals with an open group whose collective would
 start at ``start`` and occupy the link for ``comm``, the next gradient
 (ready at ``r``) joins the group when (a) ``start > r`` (merging adds no
 wait) or (b) ``r - start < alpha`` (the wait is cheaper than another
-startup). The two-level, cross-step and ``hier`` schedules of the JAX
-package are not ported (ROADMAP.md).
+startup). The single-level lowerings all solve here (``all_reduce``,
+``rs_ag``, ``rs_opt_ag``, whose shard update ``effective_cost_fn``
+prices); the two-level and cross-step schedules of the JAX package
+(``hier``, ``rs_fwd_ag``) are not ported (ROADMAP.md Queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -29,17 +31,35 @@ import numpy as np
 CostFn = Callable[[float], float]  # bytes -> seconds
 
 
-def effective_cost_fn(cost_model, comm_op: str = "all_reduce") -> CostFn:
-    """Per-bucket link-occupancy predictor for a lowering: for the
-    ``all_reduce`` lowering, ``cost_model.predict``. The sharded lowerings
-    (which add the shard update's ``update_beta`` term) are not ported
-    (ROADMAP.md Queue 1 item 7)."""
-    if comm_op != "all_reduce":
+SINGLE_LEVEL_OPS = ("all_reduce", "rs_ag", "rs_opt_ag")
+
+
+def check_comm_op(comm_op: str) -> None:
+    """Raise for a lowering the port does not have: the cross-step and
+    two-level ones (``rs_fwd_ag``, ``hier``) are ROADMAP.md Queue 1 item
+    7b."""
+    if comm_op not in SINGLE_LEVEL_OPS:
         raise ValueError(
-            f"comm_op {comm_op!r} is not ported: the port lowers all_reduce "
-            "only (the sharded lowerings are ROADMAP.md Queue 1 item 7)"
+            f"comm_op {comm_op!r} is not ported: the port lowers "
+            f"{', '.join(SINGLE_LEVEL_OPS)} (rs_fwd_ag and hier are "
+            "ROADMAP.md Queue 1 item 7b)"
         )
-    return cost_model.predict
+
+
+def effective_cost_fn(cost_model, comm_op: str = "all_reduce") -> CostFn:
+    """Per-bucket link-occupancy predictor for a lowering:
+    ``cost_model.predict`` for ``all_reduce`` and ``rs_ag``. ``rs_opt_ag``
+    runs the shard update between the reduce-scatter and the all-gather,
+    and the gather cannot start before it ends, so the update's
+    ``update_beta * bucket_bytes`` rides the same serial timeline and is
+    added here. The cross-step and two-level lowerings (``rs_fwd_ag``,
+    ``hier``) are not ported (ROADMAP.md Queue 1 item 7b)."""
+    check_comm_op(comm_op)
+    ub = float(getattr(cost_model, "update_beta", 0.0))
+    if comm_op != "rs_opt_ag" or ub == 0.0:
+        return cost_model.predict
+    base = cost_model.predict
+    return lambda nbytes: base(nbytes) + ub * nbytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -415,6 +435,7 @@ def build_schedule(
     policy: str = "mgwfbp",
     cost_model=None,
     threshold: int = 0,
+    comm_op: str = "all_reduce",
     groups: Optional[Sequence[Sequence[int]]] = None,
     policy_detail: Optional[str] = None,
 ) -> MergeSchedule:
@@ -422,13 +443,15 @@ def build_schedule(
 
     policy: 'mgwfbp' (the adaptive scan; needs tb and cost_model), 'auto'
     (simulate-and-argmin over every candidate schedule; needs tb and
-    cost_model), 'threshold', 'single', or 'wfbp' (no merging). ``groups``
-    is an explicit grouping that bypasses the policy (labelled by
-    ``policy_detail``); predictions are simulated either way."""
+    cost_model), 'threshold', 'single', or 'wfbp' (no merging). ``comm_op``
+    is the lowering the schedule is issued as: every per-bucket cost goes
+    through ``effective_cost_fn``. ``groups`` is an explicit grouping that
+    bypasses the policy (labelled by ``policy_detail``); predictions are
+    simulated either way."""
     sizes = [l.size for l in layers]
     names = tuple(l.name for l in layers)
     nbytes = [l.nbytes for l in layers]
-    cost_fn = cost_model.predict if cost_model else None
+    cost_fn = effective_cost_fn(cost_model, comm_op) if cost_model else None
     gamma = float(getattr(cost_model, "gamma", 0.0)) if cost_model else 0.0
     overlap = (
         float(getattr(cost_model, "overlap", 1.0)) if cost_model else 1.0

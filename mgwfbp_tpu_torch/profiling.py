@@ -19,7 +19,8 @@ calls, then timed calls, each window closed by a synchronisation (a
 agreed to the group's maximum, so all ranks fit the same constants. gamma
 and pack_beta time the production path: ``MergedAllreduce`` launching
 from gradient hooks during a real backward, less the same backward with
-the hooks disarmed.
+the hooks disarmed. update_beta times two single-group reducers of the
+same collectives, rs_ag against rs_opt_ag (``profile_update_beta``).
 
 The public measurement functions take ``device`` as the port's entry
 points do: None means the card (and raises without one), the CPU only
@@ -392,15 +393,19 @@ def fit_ag_fraction(
 
 class _HookBench:
     """The production bucket path on flat parameters of the given sizes:
-    ``MergedAllreduce`` under ``policy`` over ``group``, launched by its
-    gradient hooks during a backward of ``sum(p.sum())``. ``step(armed)``
-    runs one backward with the reducer armed (and synchronised) or
+    ``MergedAllreduce`` under ``policy`` and ``comm_op`` over ``group``,
+    launched by its gradient hooks during a backward of ``sum(p.sum())``.
+    ``step(armed)`` runs one backward with the reducer armed (and
+    synchronised, or, on rs_opt_ag, updated: SGD with momentum 0.9) or
     disarmed (the same backward and hook calls, no collective)."""
 
     def __init__(self, sizes: Sequence[int], policy: str, group, device,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 comm_op: str = "all_reduce"):
+        from mgwfbp_tpu_torch.optim import OptimSpec
         from mgwfbp_tpu_torch.parallel.allreduce import (
             MergedAllreduce,
+            ShardedOptimStep,
             arrival_order,
         )
         from mgwfbp_tpu_torch.parallel.buckets import build_layout
@@ -416,9 +421,16 @@ class _HookBench:
         specs = [LayerSpec(f"g{k:04d}", t.numel(), t.element_size())
                  for k, t in enumerate(arr)]
         schedule = build_schedule(specs, policy=policy)
+        layout = build_layout(arr, schedule.groups)
+        optim = None
+        if comm_op == "rs_opt_ag":
+            optim = ShardedOptimStep(
+                OptimSpec(lr=1e-3, kind="sgd", momentum=0.9), layout,
+                tuple(tuple(t.shape) for t in arr), tuple(perm),
+                dist.get_world_size(group))
         self.reducer = MergedAllreduce(
-            schedule, build_layout(arr, schedule.groups), perm, self.params,
-            group=group,
+            schedule, layout, perm, self.params, group=group,
+            comm_op=comm_op, optim=optim,
         ).attach()
 
     def step(self, armed: bool) -> None:
@@ -426,7 +438,9 @@ class _HookBench:
             p.grad = None
         self.reducer.begin(active=armed)
         sum(p.sum() for p in self.params).backward()
-        if armed:
+        if armed and self.reducer.comm_op == "rs_opt_ag":
+            self.reducer.reduce_and_update()
+        elif armed:
             self.reducer.synchronize()
 
     def close(self) -> None:
@@ -522,6 +536,44 @@ def profile_pack_overhead(
             bench.close()
     nbytes = float(per * members * torch.float32.itemsize)
     return max((t_packed - t_mono) / nbytes, 0.0)
+
+
+def profile_update_beta(
+    group=None,
+    device: Optional[Union[str, torch.device]] = None,
+    total_elems: int = 1 << 22,
+    warmup: int = 3,
+    iters: int = 10,
+    dtype: torch.dtype = torch.float32,
+) -> float:
+    """update_beta: the per-BUCKET-byte cost of the shard optimizer update
+    the rs_opt_ag lowering runs between the reduce-scatter and the
+    all-gather (``costmodel.AlphaBeta.update_beta``). Two single-group
+    reducers of ``total_elems`` elements with the same collectives, rs_ag
+    and rs_opt_ag with SGD momentum, each the minimum over 3 windows of
+    ``iters`` steps (their windows alternate, each closed by a
+    synchronisation); the difference over the bucket bytes is update_beta,
+    with the 1/world factor folded in as the solver charges it (the update
+    touches the shard, the divisor is the bucket)."""
+    device = resolve_device(device)
+    benches = [_HookBench([total_elems], "single", group, device, dtype,
+                          comm_op=op) for op in ("rs_ag", "rs_opt_ag")]
+    try:
+        for _ in range(warmup):
+            for b in benches:
+                b.step(True)
+        best = [float("inf")] * len(benches)
+        for _ in range(3):
+            for i, b in enumerate(benches):
+                _sync(device)
+                best[i] = min(best[i],
+                              _window_s(lambda: b.step(True), iters, device))
+        t_rs, t_opt = _agree_max(best, group, device)
+    finally:
+        for b in benches:
+            b.close()
+    nbytes = float(total_elems * torch.empty((), dtype=dtype).element_size())
+    return max((t_opt - t_rs) / nbytes, 0.0)
 
 
 def profile_overlap_capability(

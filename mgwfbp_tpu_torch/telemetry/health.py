@@ -4,8 +4,9 @@
 
 It consumes the per-step ``health`` statistics that ``TrainStep`` computes
 (``train/step.py``: the post-reduction gradient norm, one norm per merge
-group, the update/param norm ratio), which the trainer reads one step
-late, and raises ``health_alarm`` edges:
+group, the update/param norm ratio and, with a top-k compressor, each
+group's compression error), which the trainer reads one step late, and
+raises ``health_alarm`` edges:
 
   * **loss spike** (``kind='loss_spike'``): the step loss versus its own
     EWMA; a non-finite loss always counts as exceeded;
@@ -15,10 +16,10 @@ late, and raises ``health_alarm`` edges:
   * **plateau** (``kind='plateau'``): no relative loss improvement better
     than ``plateau_delta`` for ``plateau_window`` observations;
   * **compression error** (``kind='compression_error'``): the worst
-    per-group relative top-k error versus its frozen baseline. The port
-    has no sparsifying compressor yet (ROADMAP Queue 1 item 7 ports top-k),
-    so nothing feeds this channel: ``observe`` is never given
-    ``compression_errors`` and the channel stays silent until then.
+    per-group relative top-k error versus its frozen baseline, fed by the
+    step's ``comp_err_gNNNN`` values when a sparsifying compressor runs
+    (silent otherwise: ``observe`` is then given no
+    ``compression_errors``).
 
 Every channel sits behind the two-edge ``Hysteresis`` of the drift
 detector. All inputs are plain host floats; nothing here touches a
@@ -313,8 +314,8 @@ class HealthDetector:
     def _observe_compression(self, err: float) -> list[HealthAlarm]:
         """Worst per-group relative top-k error vs its frozen baseline —
         a drifting error means the sparsifier is discarding a growing
-        gradient share and convergence is at risk. Not fed in the port
-        until top-k lands (ROADMAP Queue 1 item 7)."""
+        gradient share and convergence is at risk. Fed by the trainer
+        from the step's ``comp_err_gNNNN`` values."""
         c = self.config
         if c.compression_band <= 0 or not _finite(err):
             return []

@@ -1,5 +1,5 @@
 """Overlap accounting: exposed against hidden communication (a copy of the
-flat ``all_reduce`` part of ``mgwfbp_tpu/telemetry/overlap.py``).
+single-level part of ``mgwfbp_tpu/telemetry/overlap.py``).
 
 MG-WFBP's headline quantity: how much all-reduce time hides behind the
 backward pass. ``attribute_overlap`` replays the timeline the solver
@@ -15,9 +15,11 @@ cost model (``solver.effective_cost_fn``: "cost-model"). Starts are always
 replayed from tb in the arrival permutation's order, which for ResNet-20
 places the stem among the first arrivals although its hooks fire last
 (ROADMAP.md Queue 3): the replayed hidden share can overstate what the
-strict launch order allows. The cross-step and two-level replays are
-ROADMAP.md Queue 1 item 7. Everything here is host arithmetic on host
-data: no device synchronisation.
+strict launch order allows. The reducer's ``comm_op`` prices each group
+(``all_reduce`` and ``rs_ag`` by the collective, ``rs_opt_ag`` with its
+shard update's ``update_beta`` term). The cross-step and two-level replays
+are ROADMAP.md Queue 1 item 7b. Everything here is host arithmetic on
+host data: no device synchronisation.
 """
 
 from __future__ import annotations

@@ -44,9 +44,20 @@ One ``TrainStep`` call is one optimizer step:
     No ``torch.autocast``: it picks a dtype per op, and the JAX policy casts
     the whole program.
 
+  * a reducer built with ``comm_op='rs_opt_ag'`` (the sharded optimizer)
+    changes the optimizer contract, as in the JAX step: the reduced
+    gradients never materialize, the step does not call
+    ``optimizer.step()`` (the reducer's ``reduce_and_update`` updates the
+    parameters from its own sharded state, and its ``OptimSpec`` clips),
+    and the non-finite count, like the health statistics below, is taken
+    on the LOCAL pre-reduction gradients and averaged over the ranks: a
+    non-finite value survives the reduce-scatter, so the count is non-zero
+    exactly when the update would consume one;
+
   * ``health_stats`` (the JAX step's ``_health_stat_entries``): the L2
-    norm of the post-reduction gradients (before clipping), one norm per
-    merge group in the reducer's arrival permutation, and the update ratio
+    norm of the post-reduction gradients (before clipping; the local ones,
+    averaged over the ranks, on ``rs_opt_ag``), one norm per merge group
+    in the reducer's arrival permutation, the update ratio
     ||new - old params|| / max(||old params||, 1e-12) (NaN on a skipped
     step, as the JAX step's update of non-finite gradients gives). Each
     leaf's norm is taken once, accumulated in float32 (float64 leaves in
@@ -56,8 +67,12 @@ One ``TrainStep`` call is one optimizer step:
     appends it to its own metrics read-back (one concatenation, the same
     single device-to-host copy and synchronisation as without them) and
     returns the host values under ``health/`` keys, describing the
-    previous step. ``take_health`` reads the last step's vector (at an
-    epoch's end); ``discard_health`` drops it (a rollback).
+    previous step. With a sparsifying compressor they also hold each merge
+    group's relative top-k compression error on the local bucket at the
+    wire dtype (the JAX step's ``_compression_error_entries``, which the
+    reducer's hooks measure as they select), averaged over the ranks.
+    ``take_health`` reads the last step's vector (at an epoch's end);
+    ``discard_health`` drops it (a rollback).
 
 The model's buffers are re-seated as views of one flat tensor, so the
 snapshot, the restore and the cross-rank average are one operation each.
@@ -255,12 +270,15 @@ def flatten_buffers(module: nn.Module) -> Optional[torch.Tensor]:
 HEALTH_PREFIX = "health/"
 
 
-def health_keys(num_groups: int) -> list[str]:
+def health_keys(num_groups: int, compression: bool = False) -> list[str]:
     """The metric names of a health vector, in its order: the global norm,
-    one norm per merge group, the update ratio."""
+    one norm per merge group, the update ratio and, with a sparsifying
+    compressor, one compression error per merge group."""
     return ([f"{HEALTH_PREFIX}grad_norm"]
             + [f"{HEALTH_PREFIX}gnorm_g{gi:04d}" for gi in range(num_groups)]
-            + [f"{HEALTH_PREFIX}update_ratio"])
+            + [f"{HEALTH_PREFIX}update_ratio"]
+            + ([f"{HEALTH_PREFIX}comp_err_g{gi:04d}"
+                for gi in range(num_groups)] if compression else []))
 
 
 def leaf_norms(tensors) -> torch.Tensor:
@@ -329,9 +347,16 @@ class TrainStep:
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.buffers = flatten_buffers(model)
         self.step = 0  # optimizer updates applied: the schedule's count
+        # rs_opt_ag: the reducer runs the optimizer on its shards
+        self.sharded = reducer is not None and reducer.comm_op == "rs_opt_ag"
         self.health_stats = bool(health_stats)
+        self._compression = (self.health_stats and reducer is not None
+                             and reducer.sparse)
+        if self._compression:
+            reducer.track_compression_error = True
         self.health_keys = health_keys(
-            reducer.num_groups if reducer is not None else 0)
+            reducer.num_groups if reducer is not None else 0,
+            self._compression)
         self._health_dev: Optional[torch.Tensor] = None  # the last step's
         self._old_params: Optional[list[torch.Tensor]] = None
         self._group_matrix: Optional[torch.Tensor] = None
@@ -374,7 +399,9 @@ class TrainStep:
             with torch.no_grad():
                 loss_sum += loss.detach()
                 metric_sum += metric
-        if reducer is not None:
+        if self.sharded:
+            reduced = [p.grad for p in self.params]  # local, never reduced
+        elif reducer is not None:
             reduced = reducer.synchronize()
         else:
             grads = [p.grad for p in self.params]
@@ -390,10 +417,28 @@ class TrainStep:
             nonfinite_count(reduced) if self.grad_guard
             else torch.zeros((), device=x.device),
         ])
+        # health values that differ per rank ride the metrics' mean: the
+        # local gradient norms of the sharded path, the compression errors
+        local = []
+        if self.health_stats and self.sharded:
+            # .grad holds the micro-steps' sum; the statistics describe
+            # their mean, as the reduced path's do
+            local.append(self._grad_norms() / n)
+        if self._compression:
+            local.append(torch.stack(reducer.compression_errors).float())
+        if local:
+            metrics = torch.cat([metrics, *(t.to(metrics.dtype) for t in local)])
         if self.world > 1:
             dist.all_reduce(metrics)
             metrics.div_(self.world)
-        grad_sq = self._grad_sumsq() if self.health_stats else None
+        norms = comp = None
+        if self.health_stats:
+            ng = 1 + (self.reducer.num_groups if self.reducer is not None
+                      else 0)  # the global norm and one per group
+            norms = metrics[3:3 + ng] if self.sharded else self._grad_norms()
+            if self._compression:
+                comp = metrics[metrics.shape[0] - self.reducer.num_groups:]
+        metrics = metrics[:3]
         prev = self._health_dev
         self._health_dev = None
         if prev is not None:
@@ -405,11 +450,14 @@ class TrainStep:
             loss_v, metric_v, bad = metrics.tolist()
             prev_health = {}
         if bad == 0.0:
-            if self.norm_clip is not None:
-                clip_by_global_norm_([p.grad for p in self.params],
-                                     self.norm_clip)
-            set_lr(self.optimizer, self.lr_fn(self.step))
-            self.optimizer.step()
+            if self.sharded:
+                reducer.reduce_and_update(lr=self.lr_fn(self.step))
+            else:
+                if self.norm_clip is not None:
+                    clip_by_global_norm_([p.grad for p in self.params],
+                                         self.norm_clip)
+                set_lr(self.optimizer, self.lr_fn(self.step))
+                self.optimizer.step()
             self.step += 1
             if self.world > 1 and self.buffers is not None:
                 dist.all_reduce(self.buffers)
@@ -417,11 +465,13 @@ class TrainStep:
         else:
             # a skipped step never happened: the forward's running
             # statistics and the carry go back too
+            if self.sharded:
+                reducer.discard()
             if snapshot is not None:
                 self.buffers.copy_(snapshot)
             carry = carry_in
-        if grad_sq is not None:
-            self._health_dev = self._health_vector(grad_sq, bad == 0.0)
+        if norms is not None:
+            self._health_dev = self._health_vector(norms, bad == 0.0, comp)
         for p in self.params:
             p.grad = None
         out = {"loss": loss_v, "grads_nonfinite": bad, **prev_health}
@@ -441,14 +491,15 @@ class TrainStep:
                 self._old_params = [torch.empty_like(p) for p in self.params]
             torch._foreach_copy_(self._old_params, self.params)
 
-    def _grad_sumsq(self) -> torch.Tensor:
-        """[global, per group...] sums of squares of the reduced gradients
-        (float32, on the device)."""
+    def _grad_norms(self) -> torch.Tensor:
+        """[global, per group...] L2 norms of the gradients in ``.grad``
+        (float32, on the device): the reduced ones, or the local ones on
+        the sharded path."""
         with torch.no_grad():
             reducer = self.reducer
             if reducer is None:
                 sq = leaf_norms([p.grad for p in self.params]).square()
-                return sq.sum().reshape(1)
+                return sq.sum().reshape(1).sqrt()
             arr = reducer.arrival_params
             sq = leaf_norms([p.grad for p in arr]).square()
             if self._group_matrix is None:
@@ -458,11 +509,13 @@ class TrainStep:
                 m = torch.zeros(reducer.num_groups, len(arr))
                 m[reducer.group_of, range(len(arr))] = 1.0
                 self._group_matrix = m.to(sq.device)
-            return torch.cat([sq.sum().reshape(1), self._group_matrix @ sq])
+            return torch.cat([sq.sum().reshape(1),
+                              self._group_matrix @ sq]).sqrt()
 
-    def _health_vector(self, grad_sq: torch.Tensor,
-                       applied: bool) -> torch.Tensor:
-        """[grad_norm, group norms..., update_ratio] of this step."""
+    def _health_vector(self, norms: torch.Tensor, applied: bool,
+                       comp: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[grad_norm, group norms..., update_ratio, compression errors...]
+        of this step."""
         with torch.no_grad():
             if applied:
                 pnorm = leaf_norms(self._old_params).square().sum().sqrt()
@@ -471,8 +524,9 @@ class TrainStep:
                 ratio = (unorm / pnorm.clamp_min(1e-12)).reshape(1)
             else:
                 ratio = torch.full((1,), float("nan"),
-                                   device=grad_sq.device)
-            return torch.cat([grad_sq.sqrt(), ratio])
+                                   device=norms.device)
+            return torch.cat([norms, ratio]
+                             + ([comp] if comp is not None else []))
 
     def take_health(self) -> dict:
         """The last step's health statistics on the host (one read), and

@@ -14,7 +14,17 @@ default, ``data._wrap_prefetch``) assembles them ahead of the step.
 One process per card; the world is whatever ``torch.distributed`` was
 started with (``parallel.mesh.init_distributed``), one worker when it was
 not started. At one worker there is no reducer: no communication exists
-to schedule (the JAX trainer's single-device rule). The cost model is the
+to schedule (the JAX trainer's single-device rule; ``--comm-op rs_opt_ag``
+then runs the replicated optimizer, since a one-rank shard is the whole
+state). ``config.comm_op`` picks the lowering of the merged collectives
+(``all_reduce``, ``rs_ag``, ``rs_opt_ag``), ``config.compressor`` and
+``config.density`` a top-k compressor (``--density 0``: the cost model's
+choice, ``costmodel.choose_density``, which may fall back to dense). On
+``rs_opt_ag`` the optimizer state lives as this rank's 1/world shards in
+the reducer (``opt_state``): a checkpoint gathers it into the Flax layout
+and writes each rank's rows of the sharded ``opt`` section; a restore
+(resume, rollback, cross-world) scatters the replicated form, whoever wrote
+it, onto this rank's shards. The cost model is the
 ``--comm-profile`` resolved at the world size, else the ``connection``
 prior; the measured backward profile is written to
 ``<logdir>/<tag>/tb_profile.json``. ``config.dtype`` bfloat16 runs the
@@ -118,6 +128,7 @@ from mgwfbp_tpu_torch.checkpoint import (
 )
 from mgwfbp_tpu_torch.config import TrainConfig
 from mgwfbp_tpu_torch.convert import (
+    _param_rules,
     flax_leaves,
     flax_shapes,
     host_leaves,
@@ -138,13 +149,19 @@ from mgwfbp_tpu_torch.parallel.allreduce import (
     arrival_order,
     make_merged_allreduce,
 )
+from mgwfbp_tpu_torch.parallel.compression import make_compressor
 from mgwfbp_tpu_torch.parallel.costmodel import (
+    choose_density,
     load_profile,
     lookup_alpha_beta,
     resolve_profile,
 )
 from mgwfbp_tpu_torch.parallel.mesh import rank, world_size
-from mgwfbp_tpu_torch.parallel.solver import LayerSpec, size_prior_tb
+from mgwfbp_tpu_torch.parallel.solver import (
+    LayerSpec,
+    check_comm_op,
+    size_prior_tb,
+)
 from mgwfbp_tpu_torch.runtime import ResizeUnsupported
 from mgwfbp_tpu_torch.runtime import coordination as coord
 from mgwfbp_tpu_torch.profiling import (
@@ -318,6 +335,9 @@ class Trainer:
         self._recorder = None
         self.writer = None
         self._serve_plane = None
+        # the lowering of the run's collectives, decided once (None: no
+        # reducer is built and the step takes its own mean)
+        self._reducer_op = self._resolve_comm_op()
         self.telemetry = self._open_telemetry()
         # drift, stragglers and health (telemetry/{drift,health}.py): host
         # arithmetic at the logging cadence; the straggler probe is a
@@ -387,12 +407,15 @@ class Trainer:
         # it (a checkpoint carries it; it moves only on elastic resizes)
         self._sched_step_offset = 0
         self._sched_epoch_offset = 0.0
-        self.optimizer, self.lr_fn, self.epoch_schedule = make_optimizer(
+        (self.optimizer, self.lr_fn, self.epoch_schedule,
+         self.optim_spec) = make_optimizer(
             self.model.parameters(), config.lr,
             momentum=config.momentum, weight_decay=config.weight_decay,
             lr_schedule=config.lr_schedule, dataset=config.dataset,
             max_epochs=config.max_epochs, warmup_epochs=config.warmup_epochs,
             num_batches_per_epoch=max(self._steps_per_epoch(), 1),
+            norm_clip=config.norm_clip, world_size=self.world,
+            return_spec=True,
         )
         self.cost_model = None
         self.tb: Optional[TbProfile] = None
@@ -405,6 +428,16 @@ class Trainer:
                 len(s.layer_names), config.policy,
                 f" -> {s.policy_detail}" if s.policy_detail else "",
                 s.predicted_nonoverlap_time,
+            )
+        if self._sharded_opt:
+            optim = self.reducer.optim
+            self.log.info(
+                "sharded optimizer (%s): opt-state %d B/device vs %d B "
+                "replicated (%.2fx reduction over %d workers)",
+                self.reducer.comm_op, optim.state_bytes_per_device(),
+                optim.replicated_state_bytes(),
+                optim.replicated_state_bytes()
+                / max(optim.state_bytes_per_device(), 1), optim.world,
             )
         self._sync_schedule_gauge()
         self.train_step = TrainStep(
@@ -467,6 +500,19 @@ class Trainer:
         self._maybe_resume()
 
     # ------------------------------------------------------------------
+    @property
+    def _sharded_opt(self) -> bool:
+        """True when the optimizer state is sharded over the ranks
+        (rs_opt_ag)."""
+        return self._reducer_op == "rs_opt_ag"
+
+    @property
+    def comm_op(self) -> str:
+        """The lowering the run's collectives take (all_reduce where no
+        reducer is built: one worker, or policy none)."""
+        return self._reducer_op or "all_reduce"
+
+    # ------------------------------------------------------------------
     def _open_telemetry(self) -> Optional[EventWriter]:
         """The event stream and, with ``metrics_port``, the live plane it
         feeds (one aggregator and server per process; the server thread
@@ -482,7 +528,7 @@ class Trainer:
         )
         run = {
             "model": cfg.dnn, "dataset": cfg.dataset,
-            "world": self.world, "comm_op": "all_reduce",
+            "world": self.world, "comm_op": self.comm_op,
             "policy": cfg.policy, "tag": cfg.tag(),
             "process_index": self.rank, "process_count": self.world,
             "device": str(self.device),
@@ -547,7 +593,7 @@ class Trainer:
         if reducer is not None:
             s = reducer.schedule
             doc["schedule"] = {
-                "comm_op": "all_reduce",
+                "comm_op": reducer.comm_op,
                 "num_groups": int(reducer.num_groups),
                 "groups": [list(g) for g in reducer.layout.groups],
                 "policy_detail": str(s.policy_detail or self.config.policy),
@@ -571,7 +617,7 @@ class Trainer:
             return
         s = self.reducer.schedule if self.reducer is not None else None
         self._metrics_agg.set_schedule(
-            "all_reduce", s.num_groups if s is not None else 0,
+            self.comm_op, s.num_groups if s is not None else 0,
             s.policy_detail if s is not None else "",
             float(s.predicted_nonoverlap_time) if s is not None else None)
 
@@ -630,18 +676,48 @@ class Trainer:
             return (xt, *rest)
         return (xt.movedim(-1, -3).contiguous(), *rest)
 
-    def _build_reducer(self, profile_backward: bool):
+    def _resolve_comm_op(self) -> Optional[str]:
+        """The lowering the reducer will take, None where none is built
+        (the JAX trainer's rules): none under policy none, which refuses
+        rs_opt_ag (the sharded optimizer needs the buckets); none at one
+        worker, where rs_opt_ag runs the replicated optimizer; rs_opt_ag
+        takes no compressor."""
         cfg = self.config
+        check_comm_op(cfg.comm_op)
+        sparse = cfg.compressor not in (None, "", "none")
         if cfg.policy in ("none", "xla"):
+            if cfg.comm_op == "rs_opt_ag":
+                raise ValueError(
+                    f"--comm-op {cfg.comm_op} requires a merge policy "
+                    "(mgwfbp/auto/threshold/single/wfbp); policy "
+                    f"{cfg.policy!r} issues no bucket collectives")
             return None  # one mean per leaf, no hooks
         if self.world == 1:
             self.log.info(
                 "single device: skipping merged-allreduce scheduling "
-                "(policy %s inert%s)", cfg.policy,
+                "(policy %s inert%s%s%s)", cfg.policy,
                 f"; --comm-profile {cfg.comm_profile} unused"
                 if cfg.comm_profile else "",
+                "; --comm-op rs_opt_ag runs the replicated optimizer"
+                if cfg.comm_op == "rs_opt_ag" else "",
+                f"; --compressor {cfg.compressor} unused, no density chosen"
+                if sparse else "",
             )
             return None
+        if cfg.comm_op == "rs_opt_ag" and sparse:
+            raise ValueError(
+                f"--comm-op {cfg.comm_op} cannot combine with --compressor "
+                "(the shard update needs the dense reduction)")
+        return cfg.comm_op
+
+    def _build_reducer(self, profile_backward: bool):
+        """The merged collectives of ``_resolve_comm_op``'s lowering (None
+        where it builds none); ``--density 0`` asks ``choose_density`` and
+        drops to dense when it says 1.0."""
+        cfg = self.config
+        if self._reducer_op is None:
+            return None
+        sparse = cfg.compressor not in (None, "", "none")
         if cfg.comm_profile:
             self.cost_model = resolve_profile(
                 load_profile(cfg.comm_profile), self.world
@@ -662,10 +738,30 @@ class Trainer:
             )
         if cfg.policy in ("mgwfbp", "auto") and profile_backward:
             self.tb = self._profile_backward()
+        compressor = None
+        if sparse:
+            density = cfg.density
+            if density <= 0:
+                n_elems = sum(p.numel() for p in self.model.parameters())
+                density = choose_density(n_elems, self.world, self.cost_model)
+                self.log.info("auto density: %g for %d params over %d "
+                              "workers", density, n_elems, self.world)
+                if density >= 1.0:
+                    self.log.info(
+                        "auto density: dense all-reduce predicted cheaper "
+                        "than top-k + allgather on this link; compression "
+                        "disabled")
+            if density < 1.0:
+                compressor = make_compressor(cfg.compressor, density)
+                self.log.info("gradient compression: %s density=%g",
+                              cfg.compressor, density)
         return make_merged_allreduce(
             self.model, policy=cfg.policy, tb=self.tb,
             cost_model=self.cost_model, threshold=cfg.threshold,
             comm_dtype=getattr(torch, cfg.comm_dtype) if cfg.comm_dtype else None,
+            comm_op=self._reducer_op, compressor=compressor,
+            optim_spec=self.optim_spec if self._sharded_opt else None,
+            world_size=self.world,
         )
 
     def _arrival_leaves(self) -> tuple[list, list[int], list[str]]:
@@ -1011,7 +1107,9 @@ class Trainer:
     def _emit_health(self, pending: tuple, vals: dict) -> None:
         it, ep, loss = pending
         g_prefix = f"{HEALTH_PREFIX}gnorm_g"
+        c_prefix = f"{HEALTH_PREFIX}comp_err_g"
         group_norms = [vals[k] for k in sorted(vals) if k.startswith(g_prefix)]
+        comp = [vals[k] for k in sorted(vals) if k.startswith(c_prefix)]
         fields = {
             "step": int(it), "epoch": int(ep), "loss": float(loss),
             "grad_norm": float(vals.get(f"{HEALTH_PREFIX}grad_norm",
@@ -1021,12 +1119,15 @@ class Trainer:
         }
         if group_norms:
             fields["group_norms"] = [float(v) for v in group_norms]
+        if comp:
+            fields["compression_error"] = [float(v) for v in comp]
         self._emit_event("health", **fields)
         det = self._health_detector
         if det is None:
             return
         for a in det.observe(loss=fields["loss"],
-                             grad_norm=fields["grad_norm"]):
+                             grad_norm=fields["grad_norm"],
+                             compression_errors=comp or None):
             self.log.warning(
                 "health %s: %s alarm (value %.3g vs band %.3g) at iter %d",
                 "RAISED" if a.active else "cleared", a.kind, a.value,
@@ -1586,7 +1687,7 @@ class Trainer:
             "world": int(self.world),
             "process_count": int(self.world),
             "mesh_axes": {"data": int(self.world), "seq": 1},
-            "comm_op": "all_reduce",
+            "comm_op": self.comm_op,
             "leaves": self._tree_leaf_docs({keystr(p): (s, "float32")
                                   for p, s in p_shapes.items()}),
             # the JAX reader's train-state key: PRNGKey(seed)'s raw form
@@ -1619,18 +1720,21 @@ class Trainer:
                                       for p, s in b_shapes.items()}),
             },
         }
+        if self._sharded_opt:
+            self._sharded_opt_payload(manifest, files)
         if primary:
             for j, a in enumerate(host_leaves(self.model, "params").values()):
                 files[f"params.l{j}"] = a
+            for j, a in enumerate(
+                host_leaves(self.model, "batch_stats").values()
+            ):
+                files[f"batch_stats.l{j}"] = a
+        if primary and not self._sharded_opt:
             if trace_paths:
                 moms = momentum_to_flax(self.model, self.optimizer)
                 for j, p in enumerate(paths):
                     files[f"opt.l{j}"] = moms[p]
             files[f"opt.l{len(trace_paths)}"] = np.asarray(step, np.int32)
-            for j, a in enumerate(
-                host_leaves(self.model, "batch_stats").values()
-            ):
-                files[f"batch_stats.l{j}"] = a
         if carry is not None:
             leaves = [t for layer in carry for t in layer]
             rows = int(leaves[0].shape[0])
@@ -1654,6 +1758,28 @@ class Trainer:
                 torch.cuda.get_rng_state(self.device).numpy().copy()
             )
         return manifest, files
+
+    def _sharded_opt_payload(self, manifest: dict, files: dict) -> None:
+        """The sharded ``opt`` section of an rs_opt_ag run, as the JAX
+        trainer writes it: the slots gathered (one all-gather per group
+        and slot), each leaf turned to its Flax layout, re-packed onto this
+        run's bucket layout, and this rank's row of every group written;
+        the manifest gets the layout and each process's rows."""
+        reducer = self.reducer
+        optim, state = reducer.optim, reducer.opt_state
+        to_flax = [rule[1] for rule in _param_rules(self.model).values()]
+        for s, leaves in enumerate(optim.gather(state)):
+            flax = [f(torch.from_numpy(a)).contiguous().numpy()
+                    for f, a in zip(to_flax, leaves)]
+            for gi, buf in enumerate(optim.pack_slot(flax)):
+                files[f"opt.s{s}.g{gi}"] = np.ascontiguousarray(
+                    buf[self.rank:self.rank + 1])
+        manifest["world"] = int(optim.world)
+        manifest["layout"] = optim.manifest_layout()
+        manifest["processes"] = {str(r): {"rows": [r]}
+                                 for r in range(optim.world)}
+        manifest["opt"] = {"kind": "sharded", "slots": int(optim.num_slots)}
+        manifest["meta"]["opt_count"] = int(state.count)
 
     # -- restore ------------------------------------------------------------
     def _template(self, with_opt: bool = True) -> TrainState:
@@ -1721,13 +1847,37 @@ class Trainer:
             strict=True,
         )
         self.train_step.step = int(state.step)
-        if optimizer and state.opt_state is not None:
+        if self._sharded_opt:
+            self._install_sharded_opt(
+                state if optimizer and state.opt_state is not None else None,
+                int(state.step))
+        elif optimizer and state.opt_state is not None:
             paths, trace_paths, _ = self._opt_layout()
             if trace_paths:
                 momentum_from_flax(self.model, self.optimizer, {
                     p: state.opt_state[tp]
                     for p, tp in zip(paths, trace_paths)
                 })
+
+    def _install_sharded_opt(self, state: Optional[TrainState],
+                             step: int) -> None:
+        """Scatter a restored optimizer (the optax tree in Flax layout) onto
+        this rank's shards; without one (``--pretrain``, a weights-only
+        step) the shards stay as they are and the count takes the
+        restored step."""
+        reducer = self.reducer
+        optim = reducer.optim
+        if state is None:
+            reducer.opt_state.count = step
+            return
+        paths, trace_paths, count_path = self._opt_layout()
+        rules = _param_rules(self.model)
+        slots = [[rules[p][2](torch.from_numpy(np.asarray(
+            state.opt_state[tp], np.float32))).contiguous().numpy()
+                  for p, tp in zip(paths, trace_paths)]] if trace_paths else []
+        count = int(np.asarray(state.opt_state.get(count_path, step)))
+        reducer.opt_state = optim.scatter(slots, count, self.rank,
+                                          self.device)
 
     def _apply_snapshot(self, snap: Snapshot, source: str,
                         emit_resume: bool = True,

@@ -37,8 +37,12 @@ watchdog (``MGWFBP_WATCHDOG_ABORT=1``: rc 86 after a stack dump);
 (a ``torch.profiler`` window over N live steps) and /postmortems (the flight
 recorder's bundles); ``--no-health-stats`` turns off the in-step health
 statistics, ``--tensorboard`` streams scalars, ``--serve-shadow`` serves
-and shadow-scores the run's checkpoints in-process. A single-process launch
-first probes the card under ``MGWFBP_INIT_TIMEOUT_S``
+and shadow-scores the run's checkpoints in-process. ``--comm-op`` picks the
+lowering of the merged collectives (``all_reduce``, ``rs_ag``,
+``rs_opt_ag``: the sharded optimizer), ``--compressor topk --density D``
+the top-k compressor (``--density 0``: the cost model's choice); the
+JAX CLI's ``hier`` and ``rs_fwd_ag`` exit with an argparse error. A
+single-process launch first probes the card under ``MGWFBP_INIT_TIMEOUT_S``
 (``utils.platform.preflight_backend``).
 """
 
@@ -94,6 +98,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "either way (utils.device.set_matmul_precision)")
     p.add_argument("--comm-dtype", dest="comm_dtype", default=None,
                    help="wire dtype for the all-reduce, e.g. bfloat16")
+    p.add_argument("--compressor", default=None, choices=["none", "topk"],
+                   help="gradient compressor (reference --compressor)")
+    p.add_argument("--density", type=float, default=None,
+                   help="kept fraction for sparsifying compressors; 0 = "
+                        "auto (cost-model chooser, may fall back to dense)")
+    p.add_argument("--comm-op", dest="comm_op", default=None,
+                   choices=["all_reduce", "rs_ag", "hier", "rs_opt_ag",
+                            "rs_fwd_ag"],
+                   help="bucket collective: monolithic all-reduce, "
+                        "reduce-scatter + all-gather (DeAR-style), or "
+                        "reduce-scatter + SHARDED optimizer update + param "
+                        "all-gather (ZeRO-1-style 1/world optimizer state; "
+                        "same wire bytes as rs_ag). hier and rs_fwd_ag are "
+                        "not ported (ROADMAP.md Queue 1 item 7b)")
     p.add_argument("--norm-clip", dest="norm_clip", type=float, default=None,
                    help="clip gradients to this global norm")
     p.add_argument("--lr-schedule", dest="lr_schedule", default=None,
@@ -189,7 +207,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             "comm_profile", "dtype", "comm_dtype", "norm_clip", "lr_schedule",
             "logdir", "checkpoint_dir", "seed", "num_batches_per_epoch",
             "telemetry_dir", "num_steps", "ckpt_every_steps", "ckpt_format",
-            "bad_step_limit", "pretrain", "metrics_port",
+            "bad_step_limit", "pretrain", "metrics_port", "compressor",
+            "density", "comm_op",
         )
         if getattr(args, k, None) is not None
     }
@@ -215,8 +234,16 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     return make_config(args.dnn, **overrides)
 
 
+UNPORTED_COMM_OPS = ("hier", "rs_fwd_ag")
+
+
 def main(argv: Optional[list[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.comm_op in UNPORTED_COMM_OPS:
+        parser.error(f"--comm-op {args.comm_op} is not ported yet (ROADMAP.md "
+                     "Queue 1 item 7b: the cross-step and two-level "
+                     "lowerings)")
     cfg = config_from_args(args)
     if args.print_config:
         print(json.dumps(cfg.__dict__, indent=2, default=str))

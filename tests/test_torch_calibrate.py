@@ -178,14 +178,26 @@ def test_two_level_profiles_are_refused_naming_the_roadmap(tmp_path):
 
 
 def test_effective_cost_fn_equals_jax():
+    """all_reduce, rs_ag and rs_opt_ag price as the JAX package prices them
+    (rs_opt_ag adds update_beta per bucket byte, so both update_beta 0 and
+    a measured one are held); rs_fwd_ag stays refused, naming item 7b."""
+    import dataclasses
+
     ours, theirs = _families(7)
     for n in (2, 4):
-        got = effective_cost_fn(ours.at(n), "all_reduce")
-        want = jax_effective_cost(theirs.at(n), "all_reduce")
-        for nbytes in (1.0, 4e3, 1e7):
-            assert got(nbytes) == want(nbytes)
-    for op in ("rs_ag", "rs_opt_ag", "rs_fwd_ag"):
-        with pytest.raises(ValueError, match="Queue 1 item 7"):
+        for ub in (0.0, 3e-12):
+            mo = dataclasses.replace(ours.at(n), update_beta=ub)
+            mt = dataclasses.replace(theirs.at(n), update_beta=ub)
+            for op in ("all_reduce", "rs_ag", "rs_opt_ag"):
+                got = effective_cost_fn(mo, op)
+                want = jax_effective_cost(mt, op)
+                for nbytes in (1.0, 4e3, 1e7):
+                    assert got(nbytes) == want(nbytes), (n, ub, op, nbytes)
+    assert effective_cost_fn(
+        dataclasses.replace(ours.at(4), update_beta=3e-12), "rs_opt_ag"
+    )(1e7) > effective_cost_fn(ours.at(4), "rs_opt_ag")(1e7)
+    for op in ("rs_fwd_ag", "hier"):
+        with pytest.raises(ValueError, match="Queue 1 item 7b"):
             effective_cost_fn(ours.at(2), op)
 
 
@@ -277,13 +289,16 @@ def test_default_mode_round_trips_a_sampled_profile(tmp_path, capsys):
         assert m.alpha == pytest.approx(report["alpha_s"])
         assert m.beta == pytest.approx(report["beta_s_per_byte"])
         assert m.gamma >= 0.0 and m.pack_beta >= 0.0
-        assert 0.0 <= m.overlap <= 1.0 and m.update_beta == 0.0
+        assert 0.0 <= m.overlap <= 1.0
+        # measured (profile_update_beta), not written as a placeholder
+        assert m.update_beta == pytest.approx(
+            report["update_beta_s_per_byte"]) and m.update_beta >= 0.0
     doc = json.load(open(out))
     assert doc["schema_version"] == tcm.PROFILE_SCHEMA_VERSION
     meta = doc["meta"]
     assert meta["n_devices"] == 1 and meta["backend"] == "gloo"
     assert meta["device_kind"].startswith("cpu")
-    assert "Queue 1 item 7" in meta["not_measured"]["update_beta"]
+    assert "update_beta" not in meta.get("not_measured", {})
     assert [k for k, _ in meta["gamma_samples_s"]] == [1, 2, 4, 8, 16, 32, 64]
 
 

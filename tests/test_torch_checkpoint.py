@@ -17,7 +17,8 @@
   * an async save owns its payload: steps applied in place after the
     submission do not reach the committed step;
   * what the port cannot read it refuses by name: ``--ckpt-format
-    replicated``, an orbax step, a sharded optimizer section;
+    replicated``, an orbax step, a sharded parameter section; a sharded
+    optimizer section restores;
   * the serving hot reload reads a step the new ``Checkpointer`` wrote.
 
 Narrow models come from patching both registries (the JAX tests' idiom):
@@ -427,16 +428,48 @@ def test_replicated_format_and_orbax_entries_are_refused(narrow, tmp_path):
 
 
 def test_sharded_optimizer_section_is_refused(tmp_path):
+    """A sharded optimizer section (rs_opt_ag) restores: its rows, written
+    by two processes, re-sliced into the replicated trace and the count;
+    a sharded parameter section (rs_fwd_ag) is still refused, naming item
+    7b."""
     manifest, files = _payload(3, 0, 3)
     manifest["opt"] = {"kind": "sharded", "slots": 1}
-    manifest["layout"] = {"shard_sizes": [4], "group_dtypes": ["float32"],
+    manifest["layout"] = {"world": 2, "shard_sizes": [2],
+                          "group_dtypes": ["float32"],
                           "leaf_slots": [[0, 0]]}
     manifest["processes"] = {"0": {"rows": [0]}}
-    files["opt.s0.g0"] = np.zeros((1, 4), np.float32)
-    ck = Checkpointer(str(tmp_path))
+    manifest["meta"]["opt_count"] = 3
+    files["opt.s0.g0"] = np.asarray([[1.0, 2.0]], np.float32)
+    ck = Checkpointer(str(tmp_path / "opt"))
+    ck.save_sharded(manifest, files)
+    # the second process's row, as its own process subtree
+    manifest["processes"]["1"] = {"rows": [1]}
+    p1 = os.path.join(ck._shard_step_dir(3), "p00001")
+    os.makedirs(p1)
+    np.save(os.path.join(p1, "opt.s0.g0.npy"),
+            np.asarray([[3.0, 4.0]], np.float32))
+    import json
+
+    with open(os.path.join(ck._shard_step_dir(3), "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    template = _template()
+    template.opt_state = {"[0].trace['w']": shape_only((4,), np.float32),
+                          "[1].count": shape_only((), np.int32)}
+    snap = Checkpointer(str(tmp_path / "opt")).restore(template)
+    np.testing.assert_array_equal(snap.state.opt_state["[0].trace['w']"],
+                                  [1.0, 2.0, 3.0, 4.0])
+    assert int(snap.state.opt_state["[1].count"]) == 3
+    manifest, files = _payload(3, 0, 3)
+    manifest["params"] = {"kind": "sharded"}
+    manifest["layout"] = {"world": 1, "shard_sizes": [4],
+                          "group_dtypes": ["float32"],
+                          "leaf_slots": [[0, 0]]}
+    manifest["processes"] = {"0": {"rows": [0]}}
+    files = {"params.g0": np.zeros((1, 4), np.float32)}
+    ck = Checkpointer(str(tmp_path / "params"))
     ck.save_sharded(manifest, files)
     with pytest.raises(CheckpointRestoreError,
-                       match="ROADMAP Queue 1 item 7"):
+                       match="ROADMAP Queue 1 item 7b"):
         ck.restore(_template())
 
 
