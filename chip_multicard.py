@@ -48,10 +48,18 @@ With ``--lowerings`` it runs another step instead: N processes (one per
 card, NCCL) train ResNet-50 (``--model``) at bfloat16 (``--dtype``) at
 ``--batch-size`` 128 per card on synthetic ImageNet-shaped batches drawn on
 the card, LOWERINGS_STEPS steps each of the merged collectives lowered as
-``all_reduce``, ``rs_ag``, ``rs_opt_ag`` (the sharded optimizer) and
-``all_reduce`` with the top-k compressor at density 0.01, every run from
-the same initialisation on the same batches (policy mgwfbp on the 10GbE
-constants at N, SGD momentum 0.9), each lowering in processes of its own.
+``all_reduce``, ``rs_ag``, ``rs_opt_ag`` (the sharded optimizer),
+``all_reduce`` with the top-k compressor at density 0.01, ``rs_fwd_ag``
+(the sharded optimizer with each all-gather deferred into the next step's
+forward; at bfloat16 the forward waits for every gather before its cast)
+and ``hier`` (``LOWERINGS_DCN`` slices of N / LOWERINGS_DCN cards, both
+levels NVLink on one host: it checks the mechanism, not a slower link),
+every run from the same initialisation on the same batches (policy mgwfbp
+on the 10GbE constants at N, SGD momentum 0.9), each lowering in
+processes of its own. Then ``calibrate --two-level --dcn LOWERINGS_DCN
+--allgather`` over the N cards, and ``train_cli --dnn resnet20
+--synthetic`` for LOWERINGS_CLI_STEPS steps with ``--comm-op rs_fwd_ag``
+and with ``--comm-op hier --dcn-slices LOWERINGS_DCN``.
 Prints one JSON line ``{"multicard_lowerings": ...}``: per lowering the
 median step time, the peak memory, the optimizer-state bytes per card,
 whether every rank holds the same parameters after the last step, the
@@ -128,7 +136,11 @@ LOWERINGS_STEPS = 10
 LOWERINGS = (("all_reduce", "all_reduce", None),
              ("rs_ag", "rs_ag", None),
              ("rs_opt_ag", "rs_opt_ag", None),
-             ("topk", "all_reduce", 0.01))
+             ("topk", "all_reduce", 0.01),
+             ("rs_fwd_ag", "rs_fwd_ag", None),
+             ("hier", "hier", None))
+LOWERINGS_DCN = 2  # hier's slices (and calibrate --two-level's)
+LOWERINGS_CLI_STEPS = 10  # each train_cli run of the --lowerings step
 
 
 def _union(intervals) -> list:
@@ -216,8 +228,8 @@ def lowerings_rank(label: str, model_name: str, dtype: str, batch_size: int,
                    device: str) -> dict:
     """One rank of one lowering of the --lowerings step (its world from the
     launch environment): LOWERINGS_STEPS timed steps from one
-    initialisation on the same batches, then one profiled step. Process 0
-    writes the parameters after the timed steps to
+    initialisation on the same batches, then one profiled step (on the
+    card). Process 0 writes the parameters after them to
     ``lowerings_final_<label>.npy`` in the working directory."""
     import numpy as np
     import torch
@@ -230,7 +242,7 @@ def lowerings_rank(label: str, model_name: str, dtype: str, batch_size: int,
     from mgwfbp_tpu_torch.parallel.allreduce import make_merged_allreduce
     from mgwfbp_tpu_torch.parallel.compression import TopKCompressor
     from mgwfbp_tpu_torch.parallel.costmodel import lookup_alpha_beta
-    from mgwfbp_tpu_torch.parallel.mesh import init_distributed
+    from mgwfbp_tpu_torch.parallel.mesh import init_distributed, two_level_groups
     from mgwfbp_tpu_torch.train import TrainStep
     from mgwfbp_tpu_torch.utils.device import set_matmul_precision
 
@@ -254,8 +266,9 @@ def lowerings_rank(label: str, model_name: str, dtype: str, batch_size: int,
             model, policy="mgwfbp",
             cost_model=lookup_alpha_beta("10GbE", world), comm_op=op,
             compressor=TopKCompressor(density) if density else None,
-            optim_spec=spec if op == "rs_opt_ag" else None,
-            world_size=world)
+            optim_spec=spec if op in ("rs_opt_ag", "rs_fwd_ag") else None,
+            world_size=world,
+            levels=two_level_groups(LOWERINGS_DCN) if op == "hier" else None)
         step = TrainStep(model, opt, lr_fn, reducer=reducer,
                          compute_dtype=compute)
         hw = meta.input_shape[:2]
@@ -280,23 +293,10 @@ def lowerings_rank(label: str, model_name: str, dtype: str, batch_size: int,
             losses.append(m["loss"])
         peak = torch.cuda.max_memory_allocated(dev) if cuda else None
         launches = reducer.launches
-        flat = torch.cat([p.detach().reshape(-1).float()
-                          for p in model.parameters()])
-        gathered = [torch.empty_like(flat) for _ in range(world)]
-        dist.all_gather(gathered, flat)
-        same = all(torch.equal(t, gathered[0]) for t in gathered)
-        if rank == 0:
-            np.save(f"lowerings_final_{label}.npy", flat.cpu().numpy())
-        del gathered, flat
-        if op == "rs_opt_ag":
-            opt_bytes = reducer.optim.state_bytes_per_device()
-        else:
-            opt_bytes = sum(
-                s["momentum_buffer"].numel()
-                * s["momentum_buffer"].element_size()
-                for s in opt.state.values() if "momentum_buffer" in s)
         breakdown = None
         if cuda:
+            # before the parameters are read: rs_fwd_ag's profiled step
+            # then gathers the last timed update in its forward
             from torch.profiler import ProfilerActivity, profile
 
             x, y = batch(LOWERINGS_STEPS)
@@ -308,9 +308,26 @@ def lowerings_rank(label: str, model_name: str, dtype: str, batch_size: int,
                 torch.cuda.synchronize(dev)
                 traced_ms = (time.perf_counter() - t0) * 1e3
             breakdown = {"host_step_ms": traced_ms, **step_breakdown(prof)}
+        reducer.materialize()  # rs_fwd_ag: the last update's gathers
+        flat = torch.cat([p.detach().reshape(-1).float()
+                          for p in model.parameters()])
+        gathered = [torch.empty_like(flat) for _ in range(world)]
+        dist.all_gather(gathered, flat)
+        same = all(torch.equal(t, gathered[0]) for t in gathered)
+        if rank == 0:
+            np.save(f"lowerings_final_{label}.npy", flat.cpu().numpy())
+        del gathered, flat
+        if op in ("rs_opt_ag", "rs_fwd_ag"):
+            opt_bytes = reducer.optim.state_bytes_per_device()
+        else:
+            opt_bytes = sum(
+                s["momentum_buffer"].numel()
+                * s["momentum_buffer"].element_size()
+                for s in opt.state.values() if "momentum_buffer" in s)
         out.update({
             "comm_op": reducer.comm_op, "density": density,
             "num_groups": reducer.num_groups,
+            "dcn_groups": len(reducer.dcn_groups),
             "collectives_per_step": launches / LOWERINGS_STEPS,
             "step_ms_median": float(np.median(times[2:])) * 1e3,
             "step_ms": [t * 1e3 for t in times],
@@ -328,8 +345,55 @@ def lowerings_rank(label: str, model_name: str, dtype: str, batch_size: int,
     return out
 
 
+def _two_level_calibration(n: int, device: str, out_dir: str, sweep: list,
+                           env: dict) -> dict:
+    """``calibrate --two-level --dcn LOWERINGS_DCN --allgather`` over the N
+    processes: each link's alpha, beta and the inner link's ag_fraction
+    (both links NVLink on one host)."""
+    out = os.path.join(out_dir, "two_level.json")
+    t0 = time.perf_counter()
+    outs = _run_group(
+        n, ["mgwfbp_tpu_torch.calibrate", "--out", out, "--two-level",
+            "--dcn", str(LOWERINGS_DCN), "--allgather", "--device", device,
+            *sweep], out_dir, "calibrate_two_level", 900, env)
+    report = json.loads(outs[0].strip().splitlines()[-1])
+    report["seconds"] = time.perf_counter() - t0
+    print(f"calibrate --two-level: ici alpha {report['ici']['alpha_s']:.4g} s"
+          f", beta {report['ici']['beta_s_per_byte']:.4g} s/B, ag_fraction "
+          f"{report['ici']['ag_fraction']:.4g}; dcn alpha "
+          f"{report['dcn']['alpha_s']:.4g} s, beta "
+          f"{report['dcn']['beta_s_per_byte']:.4g} s/B ({report['mesh']})",
+          flush=True)
+    return report
+
+
+def _cli_run(n: int, device: str, out_dir: str, label: str, flags: list,
+             env: dict) -> dict:
+    """``train_cli --dnn resnet20 --synthetic`` at N processes for
+    LOWERINGS_CLI_STEPS steps with ``flags``: the processes' result lines
+    (which must agree) and the seconds."""
+    t0 = time.perf_counter()
+    outs = _run_group(
+        n, ["mgwfbp_tpu_torch.train_cli", "--dnn", "resnet20", "--synthetic",
+            "--device", device, "--epochs", "1", "--num-batches-per-epoch",
+            str(LOWERINGS_CLI_STEPS), "--policy", "mgwfbp", "--logdir",
+            os.path.join(out_dir, f"cli_{label}"), *flags],
+        out_dir, f"cli_{label}", 900, env)
+    docs = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    if not all(d == docs[0] for d in docs):
+        print(f"chip_multicard: train_cli {label}: the processes' results "
+              "differ", file=sys.stderr, flush=True)
+        raise SystemExit(1)
+    secs = time.perf_counter() - t0
+    print(f"train_cli {' '.join(flags)}: {n} processes, "
+          f"{LOWERINGS_CLI_STEPS} steps, train {docs[0]['train']}, eval "
+          f"{docs[0].get('eval')} ({secs:.1f} s)", flush=True)
+    return {"result": docs[0], "seconds": secs}
+
+
 def lowerings_phase(n: int, device: str, out_dir: str, batch_size: int,
-                    model: str, dtype: str, env: dict) -> dict:
+                    model: str, dtype: str, env: dict,
+                    sweep: list = ()) -> dict:
     """The --lowerings step: each lowering in its own N processes (so that
     each peak memory is its own); fails when the ranks' parameters differ
     after a run."""
@@ -369,7 +433,9 @@ def lowerings_phase(n: int, device: str, out_dir: str, batch_size: int,
                   f"{tr['collective_ms']:.3f} ms ({tr['collective_exposed_ms']:.3f}"
                   " exposed)" if isinstance(tr, dict) and "span_ms" in tr
                   else "")
-        print(f"lowerings {label}: {r['num_groups']} groups, "
+        print(f"lowerings {label}: {r['num_groups']} groups"
+              + (f" ({r['dcn_groups']} DCN groups)" if r["dcn_groups"]
+                 else "") + ", "
               f"{r['collectives_per_step']:g} collectives per step, step "
               f"{r['step_ms_median']:.3f} ms (median of steps 3-"
               f"{LOWERINGS_STEPS}), peak memory {r['peak_memory_bytes']}, "
@@ -377,6 +443,14 @@ def lowerings_phase(n: int, device: str, out_dir: str, batch_size: int,
               f"parameters equal across {n} ranks, "
               f"{r['rel_l2_to_all_reduce']:.3g} from all_reduce{traced}",
               flush=True)
+    res["calibrate_two_level"] = _two_level_calibration(n, device, out_dir,
+                                                        sweep, env)
+    res["cli"] = {
+        label: _cli_run(n, device, out_dir, label, flags, env)
+        for label, flags in (
+            ("rs_fwd_ag", ["--comm-op", "rs_fwd_ag"]),
+            ("hier", ["--comm-op", "hier", "--dcn-slices",
+                      str(LOWERINGS_DCN)]))}
     res["seconds"] = time.perf_counter() - t0
     if device != "cpu":
         smi = subprocess.run(
@@ -702,7 +776,7 @@ def main(argv=None) -> int:
     if args.lowerings:
         print(json.dumps({"multicard_lowerings": lowerings_phase(
             n, args.device, args.out_dir, args.batch_size, args.model,
-            args.dtype, env)}), flush=True)
+            args.dtype, env, sweep)}), flush=True)
         return 0
 
     t0 = time.perf_counter()

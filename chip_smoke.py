@@ -3549,13 +3549,15 @@ class _DeterministicCudnn:
          torch.backends.cudnn.benchmark) = self.saved
 
 
-def _lowering_step(dev, op: str, clip, world: int, steps: int):
+def _lowering_step(dev, op: str, clip, world: int, steps: int,
+                   levels=None, dtype=torch.float32):
     """A fresh full-width ResNet-20 (seed 3) on ``dev`` with its merged
     collectives lowered as ``op`` (``topk``: all_reduce with the top-k
-    compressor at LOWER_DENSITY), policy mgwfbp on LOWER_LINK's
-    constants (several groups of several leaves, some of odd length),
-    SGD momentum 0.9 and weight decay 1e-4 (the rs_opt_ag
-    reducer runs them on its shards), and its TrainStep."""
+    compressor at LOWER_DENSITY; ``hier`` over ``levels``), policy mgwfbp
+    on LOWER_LINK's constants (several groups of several leaves, some of
+    odd length), SGD momentum 0.9 and weight decay 1e-4 (the rs_opt_ag
+    and rs_fwd_ag reducers run them on their shards), and its
+    TrainStep."""
     from mgwfbp_tpu_torch.models import create_model
     from mgwfbp_tpu_torch.models.common import init_weights
     from mgwfbp_tpu_torch.optim import make_optimizer
@@ -3565,7 +3567,7 @@ def _lowering_step(dev, op: str, clip, world: int, steps: int):
     from mgwfbp_tpu_torch.train import TrainStep
 
     model, _ = create_model("resnet20")
-    init_weights(model, torch.Generator().manual_seed(3)).to(dev)
+    init_weights(model, torch.Generator().manual_seed(3)).to(dev, dtype)
     opt, lr_fn, _, spec = make_optimizer(
         model.parameters(), 0.1, num_batches_per_epoch=steps, norm_clip=clip,
         world_size=world, return_spec=True)
@@ -3573,7 +3575,8 @@ def _lowering_step(dev, op: str, clip, world: int, steps: int):
         model, policy="mgwfbp", cost_model=lookup_alpha_beta(*LOWER_LINK),
         comm_op="all_reduce" if op == "topk" else op,
         compressor=TopKCompressor(LOWER_DENSITY) if op == "topk" else None,
-        optim_spec=spec if op == "rs_opt_ag" else None, world_size=world)
+        optim_spec=spec if op in ("rs_opt_ag", "rs_fwd_ag") else None,
+        world_size=world, levels=levels)
     step = TrainStep(model, opt, lr_fn, reducer=reducer,
                      norm_clip=spec.norm_clip)
     return model, reducer, step
@@ -4013,6 +4016,420 @@ def phase_lowerings() -> dict:
             "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# phase (m): the cross-step and two-level lowerings
+# ---------------------------------------------------------------------------
+
+XSTEP_STEPS = 10  # (m1): checked steps of rs_fwd_ag against rs_opt_ag
+XSTEP_TIMED_STEPS = 10  # (m1): steps timed after the checks (3 of warm-up)
+HIER_WORLD, HIER_DCN = 4, 2  # (m2): 2 slices of 2 ranks over gloo
+HIER_STEPS = 5  # (m2): checked steps of hier and all_reduce
+HIER_RTOL = 1e-6  # (m2): hier against all_reduce, relative L2
+XSTEP_CLI_STEPS = 20  # (m3): the CLI's steps with --comm-op rs_fwd_ag
+XSTEP_TRACED_STEPS = 5  # (m1): steps traced one at a time per lowering
+
+
+def _carried_flat(reducer) -> torch.Tensor:
+    """The parameters rs_fwd_ag's carried shards hold (all-gathered,
+    unpacked into leaf order, flattened as ``_flat_params`` flattens the
+    module): what the next forward gathers."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.parallel import buckets
+
+    arr: list = [None] * len(reducer.perm)
+    for gi, shard in enumerate(reducer.param_shards):
+        full = shard.new_empty(reducer.optim.padded_size(gi))
+        dist.all_gather_into_tensor(full, shard, group=reducer.group)
+        for k, v in buckets.unpack_group(full, reducer.layout, gi,
+                                         reducer._shapes).items():
+            arr[k] = v
+    by_id = {id(reducer.params[j]): arr[k]
+             for k, j in enumerate(reducer.perm)}
+    return torch.cat([by_id[id(p)].reshape(-1)
+                      for p in reducer.module.parameters()])
+
+
+def _forward_window(step, x, y) -> dict:
+    """One traced step: the host span of its forward (its first module's
+    pre-hook, or its first convolution, to the backward's first autograd
+    node), the group ranges launched before it (rs_fwd_ag's all-gathers,
+    each group's first range) and those inside it (the pre-hooks waiting
+    for a group's gather and copying it into the parameters, each group's
+    second range), with their host time and the device time of what they
+    launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mgwfbp_tpu_torch.parallel.allreduce import GROUP_SCOPE_PREFIX
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(x, y)
+        torch.cuda.synchronize()
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    b0 = min(e.time_range.start for e in cpu
+             if e.name.startswith("autograd::engine::evaluate_function"))
+    launched, waited, seen = [], [], set()
+    for e in sorted((e for e in cpu if e.name.startswith(GROUP_SCOPE_PREFIX)
+                     and e.time_range.start < b0),
+                    key=lambda e: e.time_range.start):
+        (waited if e.name in seen else launched).append(e)
+        seen.add(e.name)
+    f0 = min([e.time_range.start for e in cpu if e.name == "aten::conv2d"]
+             + [e.time_range.start for e in waited])
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and e.name.startswith(GROUP_SCOPE_PREFIX)
+           and f0 <= e.time_range.start < b0]
+    return {"forward_host_ms": (b0 - f0) / 1e3,
+            "group_ranges_before_forward": len(launched),
+            "group_ranges_in_forward": len(waited),
+            "in_forward_host_ms": sum(e.time_range.elapsed_us()
+                                      for e in waited) / 1e3,
+            "in_forward_order": [e.name for e in waited],
+            "group_range_device_ms": sum(e.time_range.elapsed_us()
+                                         for e in dev) / 1e3}
+
+
+def xstep_one_rank() -> dict:
+    """(m1) One rank over NCCL on the card (set up as (l1)): XSTEP_STEPS
+    steps of rs_opt_ag and rs_fwd_ag from one initialisation on the same
+    batches, the parameters bit for bit after every step (rs_fwd_ag's
+    from its carried shards, which the next forward gathers), the
+    collectives per step; then the step time of all_reduce, rs_opt_ag and
+    rs_fwd_ag (CUDA events, median of XSTEP_TIMED_STEPS) and one traced
+    step of each: rs_fwd_ag's all-gathers are waited for inside the
+    forward, by the pre-hooks of the modules that first use each group."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.data import data_prepare
+    from mgwfbp_tpu_torch.parallel.mesh import init_distributed
+
+    dev = torch.device("cuda", 0)
+    rdv = tempfile.TemporaryDirectory(prefix="mgwfbp_xstep_")
+    init_distributed(dev, num_processes=1, process_id=0,
+                     init_method=f"file://{os.path.join(rdv.name, 'rdv')}")
+    runs: dict = {}
+    try:
+        bundle = data_prepare("cifar10", batch_size=32, seed=1,
+                              synthetic=True)
+
+        def batch(k):
+            xb, yb = bundle.train.load_batch(0, k)
+            x = torch.from_numpy(xb).to(dev).movedim(-1, -3).contiguous()
+            return x[None], torch.from_numpy(yb.astype(np.int64)).to(dev)[None]
+
+        with _DeterministicCudnn():
+            live = {op: _lowering_step(dev, op, None, 1, XSTEP_STEPS)
+                    for op in ("rs_opt_ag", "rs_fwd_ag")}
+            per = {op: [] for op in live}
+            for k in range(XSTEP_STEPS):
+                x, y = batch(k)
+                flats = {}
+                for op, (model, reducer, step) in live.items():
+                    before = reducer.launches
+                    m = step(x, y)
+                    per[op].append(reducer.launches - before)
+                    if not np.isfinite(m["loss"]):
+                        fail(f"cross-step (m1) {op}: non-finite loss at "
+                             f"step {k}")
+                    flats[op] = (_carried_flat(reducer) if op == "rs_fwd_ag"
+                                 else _flat_params(model))
+                if not torch.equal(flats["rs_fwd_ag"], flats["rs_opt_ag"]):
+                    fail(f"cross-step (m1): rs_fwd_ag's parameters differ "
+                         f"from rs_opt_ag's after step {k + 1}: "
+                         f"{_rel(flats['rs_fwd_ag'], flats['rs_opt_ag']):.3g}"
+                         " relative L2")
+            model, fwd, _ = live["rs_fwd_ag"]
+            if not fwd.stale:
+                fail("cross-step (m1): rs_fwd_ag's module is not one update "
+                     "stale between steps")
+            fwd.materialize()
+            if not torch.equal(_flat_params(model),
+                               _flat_params(live["rs_opt_ag"][0])):
+                fail("cross-step (m1): the materialized module differs from "
+                     "rs_opt_ag's")
+            for op, (_, reducer, _) in live.items():
+                runs[op] = {"num_groups": reducer.num_groups,
+                            "collectives_per_step": per[op]}
+                reducer.detach()
+            del live
+            x, y = batch(XSTEP_STEPS)
+            for op in ("all_reduce", "rs_opt_ag", "rs_fwd_ag"):
+                model, reducer, step = _lowering_step(dev, op, None, 1,
+                                                      XSTEP_STEPS)
+                times = _timed_steps(step, x, y, n=XSTEP_TIMED_STEPS,
+                                     warmup=3)
+                r = runs.setdefault(op, {"num_groups": reducer.num_groups})
+                r["step_ms_median"] = float(np.median(times))
+                r["step_ms_range"] = [float(min(times)), float(max(times))]
+                traced = [_forward_window(step, x, y)
+                          for _ in range(XSTEP_TRACED_STEPS)]
+                r["traced_step"] = traced[0]
+                r["forward_host_ms_median"] = float(np.median(
+                    [t["forward_host_ms"] for t in traced]))
+                reducer.detach()
+    finally:
+        dist.destroy_process_group()
+        rdv.cleanup()
+    tr = runs["rs_fwd_ag"]["traced_step"]
+    g = runs["rs_fwd_ag"]["num_groups"]
+    if not (tr["group_ranges_before_forward"] == tr[
+            "group_ranges_in_forward"] == g):
+        fail(f"cross-step (m1): the traced rs_fwd_ag step launched "
+             f"{tr['group_ranges_before_forward']} gathers before its "
+             f"forward and waited {tr['group_ranges_in_forward']} inside it "
+             f"({g} groups)")
+    stall = (runs["rs_fwd_ag"]["forward_host_ms_median"]
+             - runs["rs_opt_ag"]["forward_host_ms_median"])
+    for op, r in runs.items():
+        t = r["traced_step"]
+        print(f"cross-step (m1): {op}: {r['num_groups']} groups, "
+              + (f"collectives per step {r['collectives_per_step']}, "
+                 if "collectives_per_step" in r else "")
+              + f"step {r['step_ms_median']:.3f} ms (median of "
+              f"{XSTEP_TIMED_STEPS}), traced forward "
+              f"{r['forward_host_ms_median']:.3f} ms host (median of "
+              f"{XSTEP_TRACED_STEPS}); one traced step: "
+              f"{t['group_ranges_in_forward']} group range(s) "
+              f"inside ({t['in_forward_host_ms']:.3f} ms host, "
+              f"{t['group_range_device_ms']:.4f} ms device)", flush=True)
+    print(f"cross-step (m1): rs_fwd_ag equals rs_opt_ag bit for bit after "
+          f"each of {XSTEP_STEPS} steps; forward stall against rs_opt_ag "
+          f"{stall:.3f} ms (medians of the traced host forwards)", flush=True)
+    return {"runs": runs, "steps": XSTEP_STEPS, "bitwise_every_step": True,
+            "forward_stall_host_ms": stall}
+
+
+def _hier_gloo_rank(rank: int, world: int, rdv: str, out_path: str) -> None:
+    """(m2) One of HIER_WORLD processes on the one card over gloo (2 slices
+    of 2): HIER_STEPS steps of all_reduce and of hier from one
+    initialisation, in float32 and in float64 (after every step all ranks'
+    parameters gathered and compared); then, each step, seeded float32
+    gradients planted on the float32 model and reduced by both lowerings,
+    beside their float64 mean."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.data import ShardInfo, data_prepare
+    from mgwfbp_tpu_torch.parallel.mesh import two_level_groups
+    from mgwfbp_tpu_torch.utils.device import set_matmul_precision
+
+    set_matmul_precision(None)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                            world_size=world, rank=rank)
+    results: dict = {}
+    try:
+        levels = two_level_groups(HIER_DCN)
+        bundle = data_prepare("cifar10", batch_size=32,
+                              shard=ShardInfo(rank, world), seed=2,
+                              synthetic=True)
+        finals = {}
+        with _DeterministicCudnn():
+            for dtype in (torch.float32, torch.float64):
+                for op in ("all_reduce", "hier"):
+                    model, reducer, step = _lowering_step(
+                        dev, op, None, world, HIER_STEPS,
+                        levels=levels if op == "hier" else None, dtype=dtype)
+                    r = {"identical": True, "launches": []}
+                    for k in range(HIER_STEPS):
+                        xb, yb = bundle.train.load_batch(0, k)
+                        x = torch.from_numpy(xb).to(dev, dtype).movedim(-1, -3)
+                        y = torch.from_numpy(yb.astype(np.int64)).to(dev)
+                        before = reducer.launches
+                        m = step(x.contiguous()[None], y[None])
+                        r["launches"].append(reducer.launches - before)
+                        r["identical"] &= bool(np.isfinite(m["loss"]))
+                        flat = _flat_params(model).cpu()
+                        gathered = [torch.empty_like(flat)
+                                    for _ in range(world)]
+                        dist.all_gather(gathered, flat)
+                        r["identical"] &= all(torch.equal(t, gathered[0])
+                                              for t in gathered)
+                    r["num_groups"] = reducer.num_groups
+                    r["dcn_groups"] = len(reducer.dcn_groups)
+                    name = f"{op}_{str(dtype)[6:]}"
+                    finals[name] = _flat_params(model).cpu()
+                    results[name] = r
+                    reducer.detach()
+            for bits in ("float32", "float64"):
+                results[f"hier_{bits}"]["rel_l2_to_all_reduce"] = _rel(
+                    finals[f"hier_{bits}"], finals[f"all_reduce_{bits}"])
+            # the reductions themselves, float32, against float64
+            from mgwfbp_tpu_torch.parallel.allreduce import (
+                make_merged_allreduce,
+            )
+            from mgwfbp_tpu_torch.parallel.costmodel import lookup_alpha_beta
+
+            model, hier, _ = _lowering_step(dev, "hier", None, world, 1,
+                                            levels=levels)
+            hier.detach()
+            plain = make_merged_allreduce(
+                model, policy="mgwfbp",
+                cost_model=lookup_alpha_beta(*LOWER_LINK))
+            plain.detach()
+            params = list(model.parameters())
+            gen = torch.Generator(device=dev)
+            worst = {"hier_vs_float64": 0.0, "hier_vs_all_reduce": 0.0,
+                     "all_reduce_vs_float64": 0.0}
+            for k in range(HIER_STEPS):
+                gen.manual_seed(100 * k + rank)
+                local = [torch.randn(p.shape, generator=gen, device=dev)
+                         for p in params]
+                flat64 = torch.cat([g.reshape(-1) for g in local]).double()
+                every = [torch.empty_like(flat64) for _ in range(world)]
+                dist.all_gather(every, flat64)
+                exact = torch.stack(every).mean(0)
+                got = {}
+                for name, red in (("hier", hier), ("all_reduce", plain)):
+                    red.attach()
+                    for p in params:
+                        p.grad = None
+                    red.begin()
+                    sum((p * g).sum() for p, g in zip(params, local)).backward()
+                    red.synchronize()
+                    red.detach()
+                    got[name] = torch.cat([p.grad.reshape(-1)
+                                           for p in params]).double()
+                for key, a, b in (("hier_vs_float64", got["hier"], exact),
+                                  ("hier_vs_all_reduce", got["hier"],
+                                   got["all_reduce"]),
+                                  ("all_reduce_vs_float64", got["all_reduce"],
+                                   exact)):
+                    worst[key] = max(worst[key], _rel(a, b))
+            results["reduction_rel_l2"] = worst
+    finally:
+        dist.destroy_process_group()
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+
+
+def hier_gloo() -> dict:
+    """(m2) hier at HIER_WORLD gloo ranks on the one card, 2 slices of 2
+    (CUDA tensors; gloo takes them for every collective hier issues):
+    every rank's parameters identical after every step; the float64
+    trajectory within HIER_RTOL of all_reduce's after HIER_STEPS steps
+    (float32's is a reading: each trajectory's forward amplifies a
+    rounding difference); each step's float32 reduction within HIER_RTOL
+    of the float64 mean and of all_reduce's; G + D + G collectives per
+    step."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_hier_gloo_") as d:
+        ctx = mp.get_context("spawn")
+        outs = [os.path.join(d, f"rank{r}.json") for r in range(HIER_WORLD)]
+        procs = [ctx.Process(target=_hier_gloo_rank,
+                             args=(r, HIER_WORLD, os.path.join(d, "rdv"),
+                                   outs[r]))
+                 for r in range(HIER_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(300)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in procs]
+        results = []
+        for path in outs:
+            if os.path.exists(path):
+                with open(path) as f:
+                    results.append(json.load(f))
+    if codes != [0] * HIER_WORLD or len(results) != HIER_WORLD:
+        fail(f"cross-step (m2): ranks exited {codes}")
+    for res in results:
+        for name, r in res.items():
+            if name != "reduction_rel_l2" and not r["identical"]:
+                fail(f"cross-step (m2) {name}: the ranks' parameters differ "
+                     "or a loss was not finite")
+        h = res["hier_float64"]
+        if not h["rel_l2_to_all_reduce"] <= HIER_RTOL:
+            fail(f"cross-step (m2): float64 hier {h['rel_l2_to_all_reduce']:.3g}"
+                 f" from all_reduce after {HIER_STEPS} steps, bound "
+                 f"{HIER_RTOL}")
+        for key, v in res["reduction_rel_l2"].items():
+            if not v <= HIER_RTOL:
+                fail(f"cross-step (m2): reduction {key} {v:.3g}, bound "
+                     f"{HIER_RTOL}")
+        want = 2 * h["num_groups"] + h["dcn_groups"]
+        if h["launches"] != [want] * HIER_STEPS:
+            fail(f"cross-step (m2): hier launched {h['launches']} collectives "
+                 f"per step, want {want}")
+    r = results[0]
+    h = r["hier_float32"]
+    print(f"cross-step (m2): hier over {HIER_WORLD} gloo ranks ({HIER_DCN} "
+          f"slices): {h['num_groups']} groups, {h['dcn_groups']} DCN groups, "
+          f"{h['launches'][0]} collectives per step, parameters identical "
+          f"across the ranks after every step; after {HIER_STEPS} steps "
+          f"{r['hier_float64']['rel_l2_to_all_reduce']:.3g} (float64) and "
+          f"{h['rel_l2_to_all_reduce']:.3g} (float32, a reading) from "
+          f"all_reduce; worst reduction {r['reduction_rel_l2']}", flush=True)
+    return {"world": HIER_WORLD, "dcn": HIER_DCN, "steps": HIER_STEPS,
+            "runs": r}
+
+
+def xstep_cli(work: str) -> dict:
+    """(m3) ``train_cli --comm-op rs_fwd_ag`` for XSTEP_CLI_STEPS steps on
+    the card with a checkpoint: at one worker the world-1 fallback (the
+    replicated optimizer) logged and the loss falling; then an
+    ``--comm-op all_reduce`` run of the same tag restores its step and
+    trains the next epoch (the same epoch length: the schedule's anchor
+    is the checkpoint's)."""
+    ck = os.path.join(work, "ck")
+    err, health, secs = _cli(work, "rs_fwd_ag", XSTEP_CLI_STEPS,
+                             "--comm-op", "rs_fwd_ag", "--checkpoint-dir", ck)
+    if "--comm-op rs_fwd_ag runs the replicated optimizer" not in err:
+        fail("cross-step (m3): the world-1 fallback was not logged")
+    losses = [float(h["loss"]) for h in health]
+    if len(losses) < XSTEP_CLI_STEPS - 1 or not all(
+            np.isfinite(losses)) or not (
+            np.mean(losses[-5:]) < np.mean(losses[:5])):
+        fail(f"cross-step (m3): losses {losses} do not fall")
+    err2, health2, secs2 = _cli(work, "restore", XSTEP_CLI_STEPS,
+                                "--comm-op", "all_reduce",
+                                "--checkpoint-dir", ck)
+    mark = f"resumed from epoch 0 (iter {XSTEP_CLI_STEPS})"
+    if mark not in err2:
+        fail(f"cross-step (m3): the all_reduce run did not log {mark!r}")
+    after = [float(h["loss"]) for h in health2]
+    if not after or not all(np.isfinite(after)) or not (
+            np.mean(after[-5:]) < np.mean(losses[:5])):
+        fail(f"cross-step (m3): the restored run's losses {after} do not "
+             f"end below the first run's first five {losses[:5]}")
+    print(f"cross-step (m3): train_cli --comm-op rs_fwd_ag: replicated "
+          f"optimizer at one worker, loss {np.mean(losses[:5]):.4f} -> "
+          f"{np.mean(losses[-5:]):.4f} ({len(losses)} steps, {secs:.1f} s); "
+          f"an all_reduce run restored iter {XSTEP_CLI_STEPS} and trained "
+          f"{len(after)} steps, loss {after[0]:.4f} -> "
+          f"{np.mean(after[-5:]):.4f} ({secs2:.1f} s)",
+          flush=True)
+    return {"rs_fwd_ag": {"first5_loss": float(np.mean(losses[:5])),
+                          "last5_loss": float(np.mean(losses[-5:])),
+                          "steps": len(losses), "seconds": secs,
+                          "world_1_fallback_logged": True},
+            "all_reduce_restore": {"restored_iteration": XSTEP_CLI_STEPS,
+                                   "losses": after, "seconds": secs2}}
+
+
+def phase_cross_step() -> dict:
+    """(m) The cross-step and two-level lowerings on the card: (m1), (m2),
+    (m3)."""
+    t0 = time.perf_counter()
+    one = xstep_one_rank()
+    hier = hier_gloo()
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_xstep_cli_") as work:
+        cli = xstep_cli(work)
+    secs = time.perf_counter() - t0
+    print(f"cross-step (m): {secs:.1f} s", flush=True)
+    return {"one_rank_nccl": one, "hier_gloo": hier, "cli": cli,
+            "seconds": secs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -4045,6 +4462,7 @@ def main() -> int:
     supervise = phase_supervise()
     telemetry = phase_telemetry()
     lowerings = phase_lowerings()
+    cross_step = phase_cross_step()
 
     serve = rows[0]
     kernels = [{
@@ -4081,6 +4499,7 @@ def main() -> int:
     print(json.dumps({"supervise": supervise}))
     print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"lowerings": lowerings}))
+    print(json.dumps({"cross_step": cross_step}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

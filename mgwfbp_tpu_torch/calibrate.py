@@ -25,11 +25,17 @@ card, and rank 0 writes the profile. Modes:
   * ``--forward --model M``: a layer profile (tb and tf from hooks,
     schema 2) of a classifier on random images or of a language model on
     random tokens (the LSTM from a zero carry, the transformer through
-    dense attention, as both train).
+    dense attention, as both train);
+  * ``--two-level --dcn D [--ici I]``: the world split into D slices of I
+    ranks (``parallel.mesh.two_level_groups``; I * D must be the world),
+    an all-reduce sweep over only the inner groups and over only the outer
+    groups, each link fit on its own (``--allgather`` adds the inner
+    link's ag_fraction), written as a ``two_level`` profile of measured
+    curves that both packages' ``load_profile`` read and ``--comm-op
+    hier`` schedules on.
 
 ``update_beta`` (the rs_opt_ag shard update's cost per bucket byte) is
 measured with the bucket-path benchmarks (``--no-gamma`` saves it as 0.0).
-Not measured here: ``--two-level`` (ROADMAP.md Queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -39,9 +45,6 @@ import json
 import os
 import tempfile
 from typing import Optional
-
-NOT_PORTED = "ROADMAP.md Queue 1 item 7b"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mgwfbp-calibrate-torch")
@@ -73,7 +76,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prior-world-sizes", default="2,4,8,16",
                    help="extents for the prior-extended entries")
     p.add_argument("--two-level", dest="two_level", action="store_true",
-                   help=f"per-link calibration (not ported: {NOT_PORTED})")
+                   help="per-link calibration of an (ici x dcn) world "
+                        "(needs --dcn > 1): an all-reduce sweep over only "
+                        "the inner groups and only the outer groups, each "
+                        "link fit on its own, written as a two-level "
+                        "profile of measured curves (kind 'two_level'); "
+                        "--allgather adds the inner link's RS/AG split")
+    p.add_argument("--ici", type=int, default=None,
+                   help="ranks per slice for --two-level (default: world "
+                        "/ dcn)")
+    p.add_argument("--dcn", type=int, default=2,
+                   help="slices for --two-level")
     p.add_argument("--forward", action="store_true",
                    help="layer-profile mode (needs --model): per-layer "
                         "backward AND forward seconds from hooks, written as "
@@ -96,9 +109,11 @@ def main(argv: Optional[list[str]] = None) -> int:
                 "rest, the latter measures each listed extent")
     if args.forward and not args.model:
         p.error("--forward needs --model (the layer profile is per-model)")
-    if args.two_level:
-        p.error(f"--two-level is not ported ({NOT_PORTED}: the two-level "
-                "cost model and its hierarchical lowering)")
+    if args.two_level and (
+        args.world_sizes or args.prior_extend or args.forward
+    ):
+        p.error("--two-level is its own calibration mode; it does not "
+                "combine with --world-sizes/--prior-extend/--forward")
     from mgwfbp_tpu_torch.utils.device import set_matmul_precision
     from mgwfbp_tpu_torch.utils.logging import get_logger
 
@@ -106,6 +121,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     set_matmul_precision(None, log=get_logger("mgwfbp.calibrate"))
     if args.forward:
         return _forward_main(args)
+    if args.two_level:
+        return _two_level_main(args)
     return _comm_main(args)
 
 
@@ -269,6 +286,73 @@ def _comm_main(args) -> int:
             os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
             save_profile(args.out, out_model, meta=meta)
             print(json.dumps(report), flush=True)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+        rdv.cleanup()
+    return 0
+
+
+def _two_level_main(args) -> int:
+    """--two-level: the per-link sweeps over a two-level split of the
+    world (``profiling.profile_two_level``) -> a two_level profile, written
+    and reported by rank 0."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.parallel.costmodel import save_profile
+    from mgwfbp_tpu_torch.parallel.mesh import start_group, two_level_groups
+    from mgwfbp_tpu_torch.profiling import profile_two_level
+    from mgwfbp_tpu_torch.utils.device import device_kind
+
+    dcn = int(args.dcn)
+    if dcn <= 1:
+        raise SystemExit("--two-level needs --dcn > 1")
+    rdv = tempfile.TemporaryDirectory(prefix="mgwfbp_calibrate_")
+    device, started = start_group(args.device, rdv.name)
+    try:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        ici = int(args.ici) if args.ici else world // dcn
+        if ici < 1 or ici * dcn != world:
+            raise SystemExit(
+                f"--two-level: {ici} x {dcn} does not make the world of "
+                f"{world} rank(s) (one process per device)")
+        levels = two_level_groups(dcn)
+        sizes = tuple(2**k for k in range(args.min_log2, args.max_log2 + 1))
+        model, raw = profile_two_level(
+            levels, device, sizes=sizes, warmup=args.warmup,
+            iters=args.iters, allgather=args.allgather,
+        )
+        backend = dist.get_backend()
+        meta = {
+            "device_kind": device_kind(device),
+            "backend": backend,
+            "link": (
+                "nccl" if backend == "nccl"
+                else "gloo through host memory (not a card's link)"
+            ),
+            "mesh": {"ici": ici, "dcn": dcn},
+            "payload_log2_range": [args.min_log2, args.max_log2],
+            "iters": args.iters,
+            "fit": raw["fit"],
+            "ag_fraction": raw["ag_fraction"],
+        }
+        if rank == 0:
+            os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+            save_profile(args.out, model, meta=meta)
+            print(json.dumps({
+                "ici": {
+                    "alpha_s": model.ici.alpha,
+                    "beta_s_per_byte": model.ici.beta,
+                    "ag_fraction": raw["ag_fraction"],
+                },
+                "dcn": {
+                    "alpha_s": model.dcn.alpha,
+                    "beta_s_per_byte": model.dcn.beta,
+                },
+                "mesh": {"ici": ici, "dcn": dcn},
+                "samples": len(raw["sizes_bytes"]),
+                "out": args.out,
+            }), flush=True)
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()

@@ -20,14 +20,15 @@ collection that keeps epoch boundaries, the listings (``latest_step``,
 diffs every saved leaf against it and names the offending leaf on a
 mismatch (config drift). A sharded optimizer section (each rank's rows of
 ``opt.s{slot}.g{gi}`` under the manifest's ``layout``, written by an
-``rs_opt_ag`` run of either package) restores like a replicated one: each
-parameter leaf of each slot is re-sliced out of the shard rows through
-``ShardSource.leaf_slice_reader``, whatever the world and the merge
-schedule that wrote them, so either lowering restores the other's steps.
+``rs_opt_ag`` or ``rs_fwd_ag`` run of either package) and a sharded
+parameter section (each rank's rows of ``params.g{gi}``, the ``rs_fwd_ag``
+carry) restore like replicated ones: each leaf is re-sliced out of the
+shard rows through ``ShardSource.leaf_slice_reader``, whatever the world
+and the merge schedule that wrote them, so every lowering restores every
+other's steps (the trainer re-scatters the result onto its own layout).
 What the port cannot read it refuses by name: the orbax ("replicated",
 legacy epoch-keyed) format, which needs orbax (ROADMAP Queue 1 item 2 keeps
-it refused), and sharded parameter sections (``rs_fwd_ag``, ROADMAP Queue 1
-item 7b). A restore hands back a ``Snapshot`` whose ``TrainState`` holds
+it refused). A restore hands back a ``Snapshot`` whose ``TrainState`` holds
 host numpy arrays in Flax form; the trainer installs them on its modules.
 
 ``ShardSource`` is a copy of the JAX package's reader: it reads replicated
@@ -666,10 +667,6 @@ ORBAX_REFUSAL = (
     "use; it reads and writes the shard-native format only (ROADMAP Queue "
     "1 item 2: the orbax format stays refused)"
 )
-SHARDED_REFUSAL = (
-    "sharded parameter sections (written by --comm-op rs_fwd_ag) are not "
-    "restored by the PyTorch port yet (ROADMAP Queue 1 item 7b)"
-)
 
 
 class _AsyncShardSave:
@@ -1138,13 +1135,10 @@ class Checkpointer:
     def _restore_sharded(self, step: int, template: TrainState,
                          carry_template: Optional[list]) -> Snapshot:
         """The replicated form of a shard-native step, read leaf by leaf
-        and checked against ``template`` (params, batch statistics, the
-        optimizer section where the template has one, the carry)."""
+        and checked against ``template`` (params, replicated or sharded,
+        batch statistics, the optimizer section where the template has
+        one, the carry)."""
         src = self.open_sharded(step)
-        if src.section_kind("params") == "sharded":
-            raise CheckpointRestoreError(
-                f"checkpoint step {step} in {self._dir!r}: {SHARDED_REFUSAL}"
-            )
         meta = src.meta
 
         def keyed(tree: Mapping[str, Any]) -> dict:

@@ -3,9 +3,8 @@
 One dataclass with per-model presets, ``MGWFBP_<FIELD>`` environment
 overrides and keyword overrides, resolved by ``make_config`` exactly as the
 JAX package resolves them. Only the fields the port's training path reads
-are kept; the rest of the JAX config (the ``rs_fwd_ag`` and ``hier``
-lowerings, ``dcn_slices``, autotune, sequence parallelism) is listed in
-ROADMAP.md.
+are kept; the rest of the JAX config (autotune and the schedule cache,
+sequence parallelism) is listed in ROADMAP.md.
 ``deterministic`` is the port's own (torch's deterministic algorithms;
 the JAX package has no counterpart to switch).
 """
@@ -32,6 +31,11 @@ class TrainConfig:
 
     # distributed: the number of data-parallel workers (one per card)
     nworkers: int = 1
+    # slices of a multi-slice deployment: the outer data-parallel level
+    # whose collectives cross the slower link (the two-level cost model;
+    # --comm-op hier lowers the hierarchy explicitly). Slice s holds ranks
+    # [s * ici, (s + 1) * ici), ici = nworkers / dcn_slices
+    dcn_slices: int = 1
 
     # MG-WFBP scheduler
     policy: str = "auto"  # auto | mgwfbp | threshold | single | wfbp | none
@@ -39,9 +43,14 @@ class TrainConfig:
     connection: str = "ici"  # cost-model link class
     comm_profile: Optional[str] = None  # path to a calibrated alpha-beta json
     # the merged collectives' lowering: all_reduce | rs_ag (reduce-scatter +
-    # all-gather per bucket) | rs_opt_ag (the sharded optimizer between the
-    # two: 1/world optimizer state per rank; needs a merge policy, takes no
-    # compressor). rs_fwd_ag and hier are ROADMAP.md Queue 1 item 7b
+    # all-gather per bucket) | hier (two-level: reduce-scatter inside a
+    # slice, all-reduce of the shard across slices, all-gather inside the
+    # slice; needs dcn_slices > 1) | rs_opt_ag (the sharded optimizer
+    # between the two: 1/world optimizer state per rank; needs a merge
+    # policy, takes no compressor) | rs_fwd_ag (the cross-step pipeline:
+    # rs_opt_ag whose all-gather is deferred into the next step's forward;
+    # parameters carried as 1/world shards between steps; the same
+    # constraints as rs_opt_ag)
     comm_op: str = "all_reduce"
     # gradient compression (the reference's --compressor/--density)
     compressor: str = "none"  # none | topk
@@ -174,6 +183,16 @@ def make_config(dnn: str, **overrides) -> TrainConfig:
     for k, v in _DATASET_SGD.get(base.get("dataset", "cifar10"), {}).items():
         base.setdefault(k, v)
     return TrainConfig(**base)
+
+
+def check_hier(comm_op: str, dcn_slices: int) -> None:
+    """Raise (the JAX trainer's message) for ``hier`` without a multi-slice
+    world; the port has no sequence parallelism, so seq is 1."""
+    if comm_op == "hier" and int(dcn_slices) <= 1:
+        raise ValueError(
+            "--comm-op hier needs a multi-slice mesh (--dcn-slices > 1) and "
+            f"no sequence parallelism; got dcn={int(dcn_slices)}, seq=1"
+        )
 
 
 def _coerce(value: str, typ) -> object:

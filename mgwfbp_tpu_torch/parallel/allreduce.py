@@ -1,5 +1,5 @@
 """Merged-gradient collectives launched from gradient hooks (counterpart of
-the single-level lowerings of ``mgwfbp_tpu/parallel/allreduce.py``).
+``mgwfbp_tpu/parallel/allreduce.py``).
 
 The MG-WFBP design of the original reference: every parameter carries a
 post-accumulate-grad hook; when the last member of a merge group has its
@@ -34,7 +34,34 @@ lowering (``comm_op``):
     shard of each group's parameters against its shard of the optimizer
     state, all-gathers the updated parameters and unpacks them into the
     parameters' data. The optimizer state lives only as this rank's shard
-    (``ShardedOptState``); the reduced gradients never materialize.
+    (``ShardedOptState``); the reduced gradients never materialize;
+  * ``rs_fwd_ag`` (the cross-step pipeline, DeAR): the hooks launch the
+    reduce-scatters, and ``reduce_and_defer()`` waits, clips and updates
+    this rank's shard as ``reduce_and_update`` does, but keeps the updated
+    shards (``param_shards``, the JAX package's ``ShardedParams``) and
+    gathers nothing. The module's parameters are then one update stale.
+    The next step's forward starts with ``gather_params()``, which
+    launches every group's all-gather in reverse group order (the
+    forward-consumption order), and a forward pre-hook on every module
+    that owns parameters waits for its parameters' groups and copies them
+    into the parameters' storage (``torch._foreach_copy_``; ``.data`` is
+    never rebound, since cuDNN's LSTM keeps views of its flat weights).
+    The wait is by actual first use, so a group whose layers run first
+    but whose gather was issued late stalls the forward
+    (ROADMAP.md Queue 3). Any other reader of the parameters calls
+    ``materialize()`` first; a forward that finds the parameters stale with
+    no gather in flight raises;
+  * ``hier`` (two-level, over ``parallel.mesh.two_level_groups``): each
+    hook reduce-scatters its bucket, padded to a multiple of the slice
+    size, over the inner group; once every member of a DCN group has been
+    scattered, one all-reduce over the outer group sums the members'
+    concatenated shards across slices (``dcn_groups``, the schedule's
+    outer partition; never two wire dtypes in one); ``synchronize`` then
+    divides each shard by the world, all-gathers it over the inner group,
+    trims the pad and unpacks. On the card the cross-slice all-reduce
+    runs from a side stream that waits for its members' reduce-scatters
+    (the backward's stream never waits); over gloo the hook waits for
+    them on the host, and each all-gather waits for its all-reduce.
 
 Three rules hold the collectives to the schedule:
 
@@ -55,8 +82,10 @@ recorded in ``arrivals``.
 While ``torch.profiler`` records, each group's pack, collectives, update
 and unpack run inside a ``record_function`` range named
 ``group_scope_name(gi)`` (the JAX package's ``mgwfbp_groupNNNN`` scope),
-which ``profiling.trace_group_times`` attributes device time by, and the
-clip's all-reduce inside ``CLIP_NORM_SCOPE``; an untraced step launches
+which ``profiling.trace_group_times`` attributes device time by, each
+cross-slice all-reduce inside ``dcn_group_scope_name(di)``
+(``mgwfbp_dcngroupNNNN``, beside the group ranges, never inside them), and
+the clip's all-reduce inside ``CLIP_NORM_SCOPE``; an untraced step launches
 exactly the same work with no annotation.
 """
 
@@ -78,13 +107,23 @@ from mgwfbp_tpu_torch.parallel.buckets import BucketLayout, build_layout
 from mgwfbp_tpu_torch.parallel.solver import (
     LayerSpec,
     MergeSchedule,
+    align_dcn_groups,
     build_schedule,
     check_comm_op,
+    check_dcn_partition,
     check_unique,
+    cross_step_phase_costs,
     effective_cost_fn,
+    forward_prior_tf,
+    is_two_level,
     predict_group_times,
+    remap_dcn_groups,
+    simulate_cross_step,
     simulate_groups,
+    simulate_groups_two_level,
+    singleton_dcn_groups,
     size_prior_tb,
+    two_level_leg_costs,
 )
 
 _DIGITS = re.compile(r"(\d+)")
@@ -97,6 +136,11 @@ all_gather_single = getattr(dist, "all_gather_single",
                             dist.all_gather_into_tensor)
 
 GROUP_SCOPE_PREFIX = "mgwfbp_group"
+# the hier lowering's cross-slice all-reduces, one range per DCN group
+DCN_GROUP_SCOPE_PREFIX = "mgwfbp_dcngroup"
+
+# the lowerings whose optimizer runs on the reduce-scatter's shards
+SHARDED_OPS = ("rs_opt_ag", "rs_fwd_ag")
 
 # the one extra collective of the rs_opt_ag lowering: the global clip norm,
 # an all-reduce of the shards' squared sums (the JAX package's scope name)
@@ -107,6 +151,11 @@ def group_scope_name(gi: int) -> str:
     """Profiler-range label of merge group ``gi`` (the JAX package's
     name-scope label)."""
     return f"{GROUP_SCOPE_PREFIX}{gi:04d}"
+
+
+def dcn_group_scope_name(di: int) -> str:
+    """Profiler-range label of DCN group ``di`` (hier lowering)."""
+    return f"{DCN_GROUP_SCOPE_PREFIX}{di:04d}"
 
 
 def _scope(name: str):
@@ -397,15 +446,21 @@ class MergedAllreduce:
     arrival positions. ``launches`` counts collectives launched (the chip
     smoke's launch counter: two per group for rs_ag and top-k, one
     reduce-scatter and one all-gather per group plus the clip's all-reduce
-    for rs_opt_ag); ``launch_log`` and ``arrivals`` record the group
-    indices launched and the arrival positions whose hooks fired, in
-    order, since the last ``begin``. Collectives run over ``group`` (the
-    default process group when None). ``comm_op``, ``compressor`` and
-    ``optim`` (rs_opt_ag) select the lowering (module docstring);
-    ``opt_state`` is this rank's sharded optimizer state on rs_opt_ag.
-    With ``track_compression_error`` set, the top-k hooks keep each
-    group's relative compression error ||g - topk(g)|| / ||g|| of the
-    LOCAL bucket at the wire dtype (``compression_errors``, one float32
+    for rs_opt_ag and rs_fwd_ag, one reduce-scatter and one all-gather per
+    group plus one all-reduce per DCN group for hier); ``launch_log`` and
+    ``arrivals`` record the group indices launched and the arrival
+    positions whose hooks fired, in order, since the last ``begin``.
+    Collectives run over ``group`` (the default process group when None),
+    hier's over ``levels`` (``parallel.mesh.TwoLevelGroups``) with the
+    schedule's outer partition as ``dcn_groups`` (one DCN group per group
+    when it has none). ``comm_op``, ``compressor`` and
+    ``optim`` (rs_opt_ag, rs_fwd_ag) select the lowering (module
+    docstring); ``opt_state`` is this rank's sharded optimizer state and,
+    on rs_fwd_ag, ``param_shards`` this rank's shard of each group's
+    parameters; rs_fwd_ag's forward pre-hooks go on ``module``'s
+    submodules. With ``track_compression_error`` set, the top-k hooks keep
+    each group's relative compression error ||g - topk(g)|| / ||g|| of
+    the LOCAL bucket at the wire dtype (``compression_errors``, one float32
     device scalar per group, 0 where k >= n)."""
 
     def __init__(
@@ -421,16 +476,23 @@ class MergedAllreduce:
         comm_op: str = "all_reduce",
         compressor: Any = None,
         optim: Optional[ShardedOptimStep] = None,
+        levels: Any = None,
+        module: Optional[nn.Module] = None,
     ):
         check_comm_op(comm_op)
         if compressor is not None and comm_op != "all_reduce":
             raise ValueError(
                 f"comm_op={comm_op!r} cannot combine with a sparsifying "
                 "compressor (the compressor replaces the bucket collective)")
-        if (comm_op == "rs_opt_ag") != (optim is not None):
+        if (comm_op in SHARDED_OPS) != (optim is not None):
             raise ValueError(
-                "comm_op='rs_opt_ag' and a ShardedOptimStep go together "
-                "(make_merged_allreduce(..., optim_spec=, world_size=))")
+                f"comm_op={comm_op!r}: rs_opt_ag and rs_fwd_ag go together "
+                "with a ShardedOptimStep (make_merged_allreduce(..., "
+                "optim_spec=, world_size=))")
+        if (comm_op == "hier") != (levels is not None):
+            raise ValueError(
+                "comm_op='hier' and the two-level process groups go "
+                "together (parallel.mesh.two_level_groups)")
         self.schedule = schedule
         self.layout = layout
         self.perm = tuple(perm)
@@ -441,13 +503,18 @@ class MergedAllreduce:
         self.comm_op = comm_op
         self.compressor = compressor
         self.optim = optim
+        self.levels = levels
         self.world = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         if optim is not None and optim.world != self.world:
             raise ValueError(
-                f"rs_opt_ag: the process group has {self.world} ranks, the "
+                f"{comm_op}: the process group has {self.world} ranks, the "
                 f"ShardedOptimStep was built for {optim.world}; rebuild the "
                 "reducer for this world")
+        if levels is not None and levels.ici * levels.dcn != self.world:
+            raise ValueError(
+                f"hier: {levels.dcn} slices of {levels.ici} ranks do not "
+                f"make the world of {self.world}")
         # over NCCL one group's collectives run in issue order on one
         # stream; gloo's asynchronous work may run out of order
         self._ordered = dist.get_backend(group) == "nccl"
@@ -459,6 +526,18 @@ class MergedAllreduce:
                 self._group_of[k] = gi
         self.opt_state: Optional[ShardedOptState] = (
             optim.init(self._arr[0].device) if optim is not None else None)
+        self.dcn_groups: list[list[int]] = []
+        self._dcn_of: list[int] = []
+        if comm_op == "hier":
+            self.dcn_groups = [list(int(i) for i in d)
+                               for d in schedule.dcn_groups] or (
+                singleton_dcn_groups(layout.num_groups))
+            check_dcn_partition(self.dcn_groups, layout.num_groups)
+            self._dcn_of = [0] * layout.num_groups
+            for di, d in enumerate(self.dcn_groups):
+                for gi in d:
+                    self._dcn_of[gi] = di
+        self._side_stream = None  # hier's cross-slice stream on the card
         self.track_compression_error = False
         self.compression_errors: list[torch.Tensor] = []
         self.launches = 0
@@ -470,6 +549,22 @@ class MergedAllreduce:
         self._next = 0
         self._inflight: list[_Inflight] = []
         self._handles: list[Any] = []
+        # hier: each group's (shard, reduce-scatter work) and the launched
+        # cross-slice all-reduces (DCN group, work, concatenated shards)
+        self._hier_shard: dict[int, tuple] = {}
+        self._dcn_pending: list[int] = []
+        self._dcn_next = 0
+        self._dcn_inflight: list[tuple] = []
+        # rs_fwd_ag: the carried shards, the gathers in flight (group ->
+        # (work, padded bucket)) and whether the module's parameters lag
+        # the shards by one update
+        self.module = module
+        self.param_shards: Optional[list[torch.Tensor]] = None
+        self._gathers: dict[int, tuple] = {}
+        self._stale = False
+        self._fwd_handles: list[Any] = []
+        if comm_op == "rs_fwd_ag":
+            self.scatter_params()
 
     @property
     def num_groups(self) -> int:
@@ -490,19 +585,38 @@ class MergedAllreduce:
         """Whether a sparsifying compressor replaces the collectives."""
         return self.compressor is not None and self.compressor.sparse()
 
+    @property
+    def stale(self) -> bool:
+        """rs_fwd_ag: the module's parameters lag the carried shards by one
+        update (no gather launched yet)."""
+        return self._stale
+
     def attach(self) -> "MergedAllreduce":
-        """Register one post-accumulate-grad hook per parameter."""
+        """Register one post-accumulate-grad hook per parameter and, on
+        rs_fwd_ag, one forward pre-hook per submodule of ``module`` that
+        owns parameters."""
         if not self._handles:
             for k, p in enumerate(self._arr):
                 self._handles.append(p.register_post_accumulate_grad_hook(
                     lambda _p, k=k: self._on_grad(k)
                 ))
+        if (self.comm_op == "rs_fwd_ag" and self.module is not None
+                and not self._fwd_handles):
+            pos = {id(p): k for k, p in enumerate(self._arr)}
+            for m in self.module.modules():
+                gs = sorted({self._group_of[pos[id(p)]]
+                             for p in m.parameters(recurse=False)
+                             if id(p) in pos})
+                if gs:
+                    self._fwd_handles.append(m.register_forward_pre_hook(
+                        lambda _m, _a, gs=tuple(gs): self._need(gs)))
         return self
 
     def detach(self) -> None:
-        for h in self._handles:
+        for h in self._handles + self._fwd_handles:
             h.remove()
         self._handles = []
+        self._fwd_handles = []
 
     def begin(self, active: bool = True, scale: float = 1.0) -> None:
         """Arm (or, for a micro-step that is not the last, disarm) the hooks
@@ -518,6 +632,10 @@ class MergedAllreduce:
         self._next = 0
         self.launch_log = []
         self.arrivals = []
+        self._hier_shard = {}
+        self._dcn_pending = [len(d) for d in self.dcn_groups]
+        self._dcn_next = 0
+        self._dcn_inflight = []
         if self.track_compression_error:
             self.compression_errors = []
 
@@ -530,21 +648,32 @@ class MergedAllreduce:
             with _scope(group_scope_name(self._next)):
                 self._pack_and_launch(self._next)
             self._next += 1
+            if self.comm_op == "hier":
+                # beside the group ranges, not inside them
+                self._launch_ready_dcn()
+
+    def _bucket_size(self, gi: int) -> Optional[int]:
+        """The packed bucket's element count: padded to the world (the
+        reduce-scatter lowerings) or to the slice (hier), else None."""
+        if self.comm_op == "hier":
+            n = self.layout.group_sizes[gi]
+            return n + (-n) % self.levels.ici
+        if self.comm_op in ("rs_ag",) + SHARDED_OPS:
+            return buckets_lib.padded_group_size(self.layout, gi, self.world)
+        return None
 
     def _pack_and_launch(self, gi: int) -> None:
-        rs = self.comm_op in ("rs_ag", "rs_opt_ag")
         buf = buckets_lib.pack_group(
-            [p.grad for p in self._arr], self.layout, gi,
-            buckets_lib.padded_group_size(self.layout, gi, self.world)
-            if rs else None,
-        )
+            [p.grad for p in self._arr], self.layout, gi, self._bucket_size(gi))
         if self._scale != 1.0:
             buf.mul_(self._scale)
         if self.comm_dtype is not None and buf.dtype != self.comm_dtype:
             buf = buf.to(self.comm_dtype)
         if self.sparse and buf.is_floating_point():
             self._launch_topk(gi, buf)
-        elif rs:
+        elif self.comm_op == "hier":
+            self._launch_hier_rs(gi, buf)
+        elif self.comm_op in ("rs_ag",) + SHARDED_OPS:
             self._launch_rs(gi, buf)
         else:
             self._launch_all_reduce(gi, buf)
@@ -570,7 +699,7 @@ class MergedAllreduce:
             shard, buf, op=dist.ReduceOp.SUM, group=self.group, async_op=True
         )
         self.launches += 1
-        if self.comm_op == "rs_opt_ag":
+        if self.comm_op in SHARDED_OPS:
             self._inflight.append(_Inflight(gi, [work], shard))
             return
         if not self._ordered:
@@ -580,6 +709,83 @@ class MergedAllreduce:
         )
         self.launches += 1
         self._inflight.append(_Inflight(gi, [work, gather], buf))
+
+    # -- hier -------------------------------------------------------------
+    def _side(self, like: torch.Tensor):
+        """The context hier's cross-slice work runs in: a side stream on
+        the card over NCCL (its waits on the reduce-scatters are then
+        device-side, and the backward's stream never waits), else none
+        (gloo waits on the host)."""
+        if not (self._ordered and like.is_cuda):
+            return contextlib.nullcontext()
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(device=like.device)
+        return torch.cuda.stream(self._side_stream)
+
+    def _launch_hier_rs(self, gi: int, buf: torch.Tensor) -> None:
+        """The reduce-scatter of a bucket padded to the slice size over
+        the inner group."""
+        shard = buf.new_empty(buf.shape[0] // self.levels.ici)
+        work = reduce_scatter_single(
+            shard, buf, op=dist.ReduceOp.SUM, group=self.levels.inner,
+            async_op=True)
+        self.launches += 1
+        self._inflight.append(_Inflight(gi, [work], buf))
+        self._hier_shard[gi] = (shard, work)
+        self._dcn_pending[self._dcn_of[gi]] -= 1
+
+    def _launch_ready_dcn(self) -> None:
+        """Launch, in DCN-group order, every cross-slice all-reduce whose
+        members have all been scattered."""
+        while (self._dcn_next < len(self.dcn_groups)
+               and self._dcn_pending[self._dcn_next] == 0):
+            di = self._dcn_next
+            members = self.dcn_groups[di]
+            shards = [self._hier_shard[gi][0] for gi in members]
+            if len({t.dtype for t in shards}) > 1:
+                raise ValueError(
+                    f"hier dcn group {di} mixes bucket dtypes "
+                    f"{[str(t.dtype) for t in shards]}; split it at dtype "
+                    "boundaries (solver.align_dcn_groups)")
+            with _scope(dcn_group_scope_name(di)), self._side(shards[0]):
+                for gi in members:
+                    # on the side stream: a device-side wait; gloo: the
+                    # all-reduce must not read an unfinished shard
+                    self._hier_shard[gi][1].wait()
+                cat = shards[0] if len(shards) == 1 else torch.cat(shards)
+                work = dist.all_reduce(cat, op=dist.ReduceOp.SUM,
+                                       group=self.levels.outer,
+                                       async_op=True)
+            self.launches += 1
+            self._dcn_inflight.append((di, work, cat))
+            self._dcn_next += 1
+
+    def _hier_gather(self) -> list[tuple[int, Any, torch.Tensor]]:
+        """The all-gather phase of hier, in group order: each group's
+        summed shard (a view of its DCN group's reduced buffer) divided by
+        the world and all-gathered over the inner group into its bucket,
+        once that DCN group's all-reduce has completed."""
+        reduced: dict[int, torch.Tensor] = {}
+        for di, work, cat in self._dcn_inflight:
+            with self._side(cat):
+                work.wait()
+            off = 0
+            for gi in self.dcn_groups[di]:
+                n = self._hier_shard[gi][0].shape[0]
+                reduced[gi] = cat[off:off + n]
+                off += n
+        out = []
+        for f in self._inflight:
+            shard = reduced[f.gi]
+            with _scope(group_scope_name(f.gi)), self._side(shard):
+                if self.mean:
+                    shard.div_(self.world)
+                work = all_gather_single(f.out, shard,
+                                         group=self.levels.inner,
+                                         async_op=True)
+            self.launches += 1
+            out.append((f.gi, work, f.out))
+        return out
 
     def _launch_topk(self, gi: int, buf: torch.Tensor) -> None:
         n = buf.shape[0]
@@ -632,60 +838,74 @@ class MergedAllreduce:
     def synchronize(self) -> list[torch.Tensor]:
         """Wait for every group's collectives, take the mean and write the
         reduced gradients into ``.grad``. Returns the reduced buckets in
-        the parameters' dtype."""
-        if self.comm_op == "rs_opt_ag":
+        the parameters' dtype. On hier this launches the all-gathers
+        first (already divided by the world)."""
+        if self.comm_op in SHARDED_OPS:
             raise RuntimeError(
-                "comm_op='rs_opt_ag' folds the optimizer into the "
-                "collective: call reduce_and_update() instead of "
-                "synchronize() and optimizer.step()")
+                f"comm_op={self.comm_op!r} folds the optimizer into the "
+                "collective: call reduce_and_update() (rs_opt_ag) or "
+                "reduce_and_defer() (rs_fwd_ag) instead of synchronize() "
+                "and optimizer.step()")
         self._check_complete("synchronize")
         out = []
         try:
-            for f in self._inflight:
-                with _scope(group_scope_name(f.gi)):
-                    for work in f.works:
+            if self.comm_op == "hier":
+                waits = [(gi, [work], buf)
+                         for gi, work, buf in self._hier_gather()]
+                divided = True
+            else:
+                waits = [(f.gi, f.works, f) for f in self._inflight]
+                divided = False
+            for gi, works, what in waits:
+                with _scope(group_scope_name(gi)):
+                    for work in works:
                         work.wait()
-                    buf = self._reduced_bucket(f)
-                    if self.mean:
-                        buf.div_(self.world)
-                    if buf.dtype != self.layout.dtypes[f.gi]:
-                        buf = buf.to(self.layout.dtypes[f.gi])
+                    if divided:
+                        buf = what[:self.layout.group_sizes[gi]]
+                    else:
+                        buf = self._reduced_bucket(what)
+                        if self.mean:
+                            buf.div_(self.world)
+                    if buf.dtype != self.layout.dtypes[gi]:
+                        buf = buf.to(self.layout.dtypes[gi])
                     for k, view in buckets_lib.unpack_group(
-                        buf, self.layout, f.gi, self._shapes
+                        buf, self.layout, gi, self._shapes
                     ).items():
                         self._arr[k].grad = view
                 out.append(buf)
         finally:
             self._inflight = []
+            self._dcn_inflight = []
+            self._hier_shard = {}
             self._active = False
         return out
 
     def discard(self) -> None:
         """Wait for the launched collectives and drop their results (a
-        step whose update is skipped); the optimizer state is untouched."""
+        step whose update is skipped); the optimizer state and the carried
+        shards are untouched."""
         try:
             for f in self._inflight:
                 for work in f.works:
                     work.wait()
+            for _, work, _ in self._dcn_inflight:
+                work.wait()
         finally:
             self._inflight = []
+            self._dcn_inflight = []
+            self._hier_shard = {}
             self._active = False
 
-    @torch.no_grad()
-    def reduce_and_update(self, lr: Optional[float] = None) -> None:
-        """The rs_opt_ag step: wait for the reduce-scatters, take the mean
-        (each shard cast back to its group's dtype first), clip by the
-        global norm when the optimizer does (one all-reduce), update this
-        rank's shard of every group's parameters and optimizer state,
-        all-gather the updated parameters and unpack them into the
-        parameters' data. ``lr`` overrides ``spec.learning_rate(count)``;
-        the state's count advances by one."""
-        if self.comm_op != "rs_opt_ag":
+    # -- the sharded optimizer (rs_opt_ag, rs_fwd_ag) ----------------------
+    def _reduced_shards(self, what: str) -> list[torch.Tensor]:
+        """Wait for the reduce-scatters and return each group's mean shard
+        in the group's dtype."""
+        if self.comm_op not in SHARDED_OPS:
             raise RuntimeError(
-                "reduce_and_update() requires comm_op='rs_opt_ag' (built "
-                "by make_merged_allreduce(..., optim_spec=, world_size=))")
-        self._check_complete("reduce_and_update")
-        optim, state = self.optim, self.opt_state
+                f"{what}() requires comm_op='rs_opt_ag' or 'rs_fwd_ag' "
+                "(built by make_merged_allreduce(..., optim_spec=, "
+                "world_size=))")
+        self._check_complete(what)
         try:
             g_shards = []
             for f in self._inflight:
@@ -700,54 +920,168 @@ class MergedAllreduce:
         finally:
             self._inflight = []
             self._active = False
-        clip_scale = None
-        if optim.spec.norm_clip is not None:
-            # the shards' squares summed in float32 (float64 shards in
-            # float64), all-reduced once
-            acc = torch.promote_types(g_shards[0].dtype, torch.float32)
-            with _scope(CLIP_NORM_SCOPE):
-                local = torch.zeros((), dtype=acc, device=g_shards[0].device)
-                for s in g_shards:
-                    local = local + torch.sum(s.to(acc) ** 2)
-                if self.world > 1:
-                    dist.all_reduce(local, group=self.group)
-                    self.launches += 1
-                clip_scale = (torch.sqrt(local),
-                              torch.tensor(optim.spec.norm_clip, dtype=acc,
-                                           device=local.device))
+        return g_shards
+
+    def _clip_scale(self, g_shards: list[torch.Tensor]):
+        """(global norm, threshold) when the optimizer clips: the shards'
+        squares summed in float32 (float64 shards in float64), all-reduced
+        once."""
+        if self.optim.spec.norm_clip is None:
+            return None
+        acc = torch.promote_types(g_shards[0].dtype, torch.float32)
+        with _scope(CLIP_NORM_SCOPE):
+            local = torch.zeros((), dtype=acc, device=g_shards[0].device)
+            for s in g_shards:
+                local = local + torch.sum(s.to(acc) ** 2)
+            if self.world > 1:
+                dist.all_reduce(local, group=self.group)
+                self.launches += 1
+            return (torch.sqrt(local),
+                    torch.tensor(self.optim.spec.norm_clip, dtype=acc,
+                                 device=local.device))
+
+    def _update_shards(self, g_shards: list[torch.Tensor], p_shard,
+                       lr: Optional[float], after) -> None:
+        """Run the optimizer on every group's shard: ``p_shard(gi)`` gives
+        the parameter shard, ``after(gi, new shard)`` takes the result; the
+        state's count advances by one."""
+        optim, state = self.optim, self.opt_state
+        clip_scale = self._clip_scale(g_shards)
         count = state.count
         if lr is None:
             lr = optim.spec.learning_rate(count)
-        gathers = []
         for gi in range(self.num_groups):
             with _scope(group_scope_name(gi)):
-                n = optim.shard_size(gi)
-                p_shard = buckets_lib.pack_shard(
-                    self._arr, self.layout, gi, self.rank * n,
-                    (self.rank + 1) * n)
                 new_p, slots_out = optim.update_shard(
-                    gi, g_shards[gi], p_shard,
+                    gi, g_shards[gi], p_shard(gi),
                     [state.slots[s][gi] for s in range(optim.num_slots)],
                     count, clip_scale, self.rank, lr=lr,
                 )
                 g_shards[gi] = None
                 for s in range(optim.num_slots):
                     state.slots[s][gi] = slots_out[s]
-                full = new_p.new_empty(optim.padded_size(gi))
-                work = all_gather_single(
-                    full, new_p.contiguous(), group=self.group,
-                    async_op=True)
-                self.launches += 1
-                gathers.append((gi, work, full))
-        for gi, work, full in gathers:
-            with _scope(group_scope_name(gi)):
-                work.wait()
-                views = buckets_lib.unpack_group(
-                    full, self.layout, gi, self._shapes)
+                after(gi, new_p)
+        state.count = count + 1
+
+    def _own_shard(self, gi: int) -> torch.Tensor:
+        """This rank's slice of group gi's padded parameter bucket."""
+        n = self.optim.shard_size(gi)
+        return buckets_lib.pack_shard(
+            self._arr, self.layout, gi, self.rank * n, (self.rank + 1) * n)
+
+    def _launch_gather(self, gi: int, shard: torch.Tensor
+                       ) -> tuple[Any, torch.Tensor]:
+        full = shard.new_empty(self.optim.padded_size(gi))
+        work = all_gather_single(full, shard.contiguous(), group=self.group,
+                                 async_op=True)
+        self.launches += 1
+        return work, full
+
+    def _unpack_params(self, gi: int, work, full: torch.Tensor) -> None:
+        """Wait for group gi's all-gather and copy it into the parameters'
+        storage."""
+        with _scope(group_scope_name(gi)):
+            work.wait()
+            views = buckets_lib.unpack_group(
+                full, self.layout, gi, self._shapes)
+            with torch.no_grad():
                 torch._foreach_copy_(
                     [self._arr[k] for k in views],
                     [views[k] for k in views])
-        state.count = count + 1
+
+    @torch.no_grad()
+    def reduce_and_update(self, lr: Optional[float] = None) -> None:
+        """The rs_opt_ag step: wait for the reduce-scatters, take the mean
+        (each shard cast back to its group's dtype first), clip by the
+        global norm when the optimizer does (one all-reduce), update this
+        rank's shard of every group's parameters and optimizer state,
+        all-gather the updated parameters and unpack them into the
+        parameters' data. ``lr`` overrides ``spec.learning_rate(count)``;
+        the state's count advances by one."""
+        if self.comm_op != "rs_opt_ag":
+            raise RuntimeError(
+                "reduce_and_update() requires comm_op='rs_opt_ag' (built "
+                "by make_merged_allreduce(..., optim_spec=, world_size=))")
+        g_shards = self._reduced_shards("reduce_and_update")
+        gathers = []
+        self._update_shards(
+            g_shards, self._own_shard, lr,
+            lambda gi, new_p: gathers.append(
+                (gi, *self._launch_gather(gi, new_p))))
+        for gi, work, full in gathers:
+            self._unpack_params(gi, work, full)
+
+    # -- the cross-step pipeline (rs_fwd_ag) ------------------------------
+    @torch.no_grad()
+    def reduce_and_defer(self, lr: Optional[float] = None) -> None:
+        """The rs_fwd_ag step's backward half (the JAX package's
+        ``merged_rs_defer``): wait for the reduce-scatters, take the mean,
+        clip, update the carried parameter shards and optimizer state as
+        ``reduce_and_update`` does, and gather nothing. The module's
+        parameters are one update stale until the next forward (or
+        ``materialize``) gathers them."""
+        if self.comm_op != "rs_fwd_ag":
+            raise RuntimeError(
+                "reduce_and_defer() requires comm_op='rs_fwd_ag' (built by "
+                "make_merged_allreduce(..., optim_spec=, world_size=))")
+        g_shards = self._reduced_shards("reduce_and_defer")
+        shards = self.param_shards
+
+        def keep(gi, new_p):
+            shards[gi] = new_p
+
+        self._update_shards(g_shards, lambda gi: shards[gi], lr, keep)
+        self._stale = True
+
+    def scatter_params(self) -> None:
+        """The carry from the module's current parameters: this rank's
+        shard of every group's padded bucket (after a restore or any other
+        write to the parameters)."""
+        self._gathers = {}
+        self._stale = False
+        self.param_shards = [self._own_shard(gi).clone()
+                             for gi in range(self.num_groups)]
+
+    def gather_params(self) -> None:
+        """The rs_fwd_ag step's forward half (the JAX package's
+        ``merged_fwd_allgather``): launch every group's all-gather of its
+        carried shard, in reverse group order (group G-1 holds the first
+        forward layers). The forward pre-hooks wait for them; nothing is
+        launched when the parameters are current."""
+        if not self._stale:
+            return
+        for gi in reversed(range(self.num_groups)):
+            with _scope(group_scope_name(gi)):
+                self._gathers[gi] = self._launch_gather(
+                    gi, self.param_shards[gi])
+        self._stale = False
+
+    def finish_gather(self) -> None:
+        """Wait for every gather still in flight and unpack it."""
+        for gi in sorted(self._gathers, reverse=True):
+            self._unpack_params(gi, *self._gathers.pop(gi))
+
+    def materialize(self) -> None:
+        """Bring the module's parameters up to the carried shards (a
+        collective when they are stale): every reader of the parameters
+        between rs_fwd_ag steps calls this first."""
+        if self.comm_op != "rs_fwd_ag":
+            return
+        self.gather_params()
+        self.finish_gather()
+
+    def _need(self, gs: tuple) -> None:
+        """A module's forward pre-hook: wait for its parameters' groups."""
+        if not self._gathers:
+            if self._stale:
+                raise RuntimeError(
+                    "rs_fwd_ag: a forward read parameters that are one "
+                    "update stale; call gather_params() (the train step) "
+                    "or materialize() (any other reader) first")
+            return
+        for gi in gs:
+            if gi in self._gathers:
+                self._unpack_params(gi, *self._gathers.pop(gi))
 
 
 def plan_merged_allreduce(
@@ -755,9 +1089,13 @@ def plan_merged_allreduce(
     *,
     policy: str = "mgwfbp",
     tb: Optional[Sequence[float]] = None,
+    tf: Optional[Sequence[float]] = None,
     cost_model: Any = None,
     threshold: int = 0,
     comm_op: str = "all_reduce",
+    comm_dtype: Optional[torch.dtype] = None,
+    groups: Optional[Sequence[Sequence[int]]] = None,
+    dcn_groups: Optional[Sequence[Sequence[int]]] = None,
 ) -> tuple[MergeSchedule, BucketLayout, list[int], list[torch.Tensor]]:
     """(schedule, bucket layout, arrival permutation, parameters in leaf
     order) of ``module``'s merged collectives, solved as
@@ -766,7 +1104,13 @@ def plan_merged_allreduce(
 
     ``tb`` is the per-arrival backward seconds (``profiling.
     benchmark_backward``); absent, 'mgwfbp'/'auto' fall back to the
-    volume prior (``size_prior_tb``)."""
+    volume prior (``size_prior_tb``). ``tf`` is the per-arrival forward
+    seconds that rs_fwd_ag prices its deferred all-gathers against
+    (``solver.forward_prior_tf(tb)`` when absent). ``groups`` (and, for
+    hier, ``dcn_groups``) are an explicit grouping that bypasses the
+    policy. On hier the outer partition is carried across any dtype split
+    of the groups and, without a wire dtype, split at dtype boundaries
+    (``remap_dcn_groups``, ``align_dcn_groups``)."""
     from mgwfbp_tpu_torch.convert import flax_leaves, keystr
 
     leaves = flax_leaves(module)
@@ -782,23 +1126,61 @@ def plan_merged_allreduce(
     ]
     if policy in ("mgwfbp", "auto") and tb is None:
         tb = size_prior_tb(specs, cost_model)
+    if comm_op == "rs_fwd_ag" and tb is not None and tf is None:
+        tf = forward_prior_tf(tb)
     schedule = build_schedule(
-        specs, tb, policy=policy, cost_model=cost_model, threshold=threshold,
-        comm_op=comm_op,
+        specs, tb, tf=tf, policy=policy, cost_model=cost_model,
+        threshold=threshold, comm_op=comm_op, groups=groups,
+        dcn_groups=dcn_groups,
     )
     layout = build_layout(arr, schedule.groups)
-    if layout.groups != schedule.groups:
+    dcn_part = None
+    if comm_op == "hier":
+        # the outer partition must describe the groups actually issued
+        dcn_part = [list(d) for d in schedule.dcn_groups] or (
+            singleton_dcn_groups(len(schedule.groups)))
+        if layout.groups != schedule.groups:
+            dcn_part = remap_dcn_groups(schedule.groups, layout.groups,
+                                        dcn_part)
+        if comm_dtype is None:
+            # a wire cast unifies the shards' dtype; without one each
+            # cross-slice buffer must hold one dtype
+            dcn_part = align_dcn_groups(dcn_part, layout.dtypes)
+    dcn_changed = comm_op == "hier" and tuple(
+        tuple(d) for d in dcn_part) != schedule.dcn_groups
+    if layout.groups != schedule.groups or dcn_changed:
         # a dtype split adds real collectives: predict what is issued
-        schedule = dataclasses.replace(schedule, groups=layout.groups)
+        schedule = dataclasses.replace(
+            schedule, groups=layout.groups,
+            dcn_groups=(tuple(tuple(int(i) for i in d) for d in dcn_part)
+                        if dcn_part is not None else schedule.dcn_groups))
         if tb is not None and cost_model is not None:
             cost_fn = effective_cost_fn(cost_model, comm_op)
             sizes_b = [s.nbytes for s in specs]
-            total, nonoverlap, comm = simulate_groups(
-                layout.groups, sizes_b, tb, cost_fn,
-                float(getattr(cost_model, "gamma", 0.0)),
-                float(getattr(cost_model, "overlap", 1.0)),
-                float(getattr(cost_model, "pack_beta", 0.0)),
-            )
+            if comm_op == "rs_fwd_ag":
+                rs_cost, ag_cost = cross_step_phase_costs(cost_model)
+                total, nonoverlap, comm = simulate_cross_step(
+                    layout.groups, sizes_b, tb, tf, rs_cost, ag_cost,
+                    float(getattr(cost_model, "gamma", 0.0)),
+                    float(getattr(cost_model, "overlap", 1.0)),
+                    float(getattr(cost_model, "pack_beta", 0.0)),
+                )
+            elif comm_op == "hier" and is_two_level(cost_model):
+                rs_c, dcn_c, ag_c = two_level_leg_costs(cost_model)
+                total, nonoverlap, comm = simulate_groups_two_level(
+                    layout.groups, dcn_part, sizes_b, tb, rs_c, dcn_c, ag_c,
+                    gamma=float(getattr(cost_model.ici, "gamma", 0.0)),
+                    dcn_gamma=float(getattr(cost_model.dcn, "gamma", 0.0)),
+                    overlap=float(getattr(cost_model, "overlap", 1.0)),
+                    pack_beta=float(getattr(cost_model, "pack_beta", 0.0)),
+                )
+            else:
+                total, nonoverlap, comm = simulate_groups(
+                    layout.groups, sizes_b, tb, cost_fn,
+                    float(getattr(cost_model, "gamma", 0.0)),
+                    float(getattr(cost_model, "overlap", 1.0)),
+                    float(getattr(cost_model, "pack_beta", 0.0)),
+                )
             schedule = dataclasses.replace(
                 schedule,
                 predicted_total_time=total,
@@ -827,6 +1209,7 @@ def make_merged_allreduce(
     *,
     policy: str = "mgwfbp",
     tb: Optional[Sequence[float]] = None,
+    tf: Optional[Sequence[float]] = None,
     cost_model: Any = None,
     threshold: int = 0,
     mean: bool = True,
@@ -835,24 +1218,28 @@ def make_merged_allreduce(
     compressor: Any = None,
     optim_spec: Optional[OptimSpec] = None,
     world_size: Optional[int] = None,
+    levels: Any = None,
 ) -> MergedAllreduce:
     """Solve the merge schedule for ``module``'s parameters
     (``plan_merged_allreduce``) and return the reducer with its hooks
-    attached. ``comm_op`` 'rs_opt_ag' also needs ``optim_spec`` (the
-    optimizer run on the shards, ``optim.OptimSpec``) and ``world_size``
-    (the shard layout's world, which must be the process group's) and
-    takes no compressor. Collectives run on the default process group."""
-    if comm_op == "rs_opt_ag" and (optim_spec is None or world_size is None):
+    attached. ``comm_op`` 'rs_opt_ag' and 'rs_fwd_ag' also need
+    ``optim_spec`` (the optimizer run on the shards, ``optim.OptimSpec``)
+    and ``world_size`` (the shard layout's world, which must be the
+    process group's) and take no compressor; 'rs_fwd_ag' prices its
+    schedule on ``tf`` too; 'hier' needs ``levels`` (``parallel.mesh.
+    two_level_groups``). Collectives run on the default process group."""
+    if comm_op in SHARDED_OPS and (optim_spec is None or world_size is None):
         raise ValueError(
             f"comm_op={comm_op!r} requires optim_spec and world_size")
     schedule, layout, p, params = plan_merged_allreduce(
-        module, policy=policy, tb=tb, cost_model=cost_model,
-        threshold=threshold, comm_op=comm_op,
+        module, policy=policy, tb=tb, tf=tf, cost_model=cost_model,
+        threshold=threshold, comm_op=comm_op, comm_dtype=comm_dtype,
     )
     optim = None
-    if comm_op == "rs_opt_ag":
+    if comm_op in SHARDED_OPS:
         optim = sharded_optim_step(optim_spec, layout, p, params, world_size)
     return MergedAllreduce(
         schedule, layout, p, params, mean=mean, comm_dtype=comm_dtype,
-        comm_op=comm_op, compressor=compressor, optim=optim,
+        comm_op=comm_op, compressor=compressor, optim=optim, levels=levels,
+        module=module,
     ).attach()

@@ -9,10 +9,13 @@ schedules. None of them describes a GPU: ``python -m
 mgwfbp_tpu_torch.calibrate`` measures the card's constants and writes a
 profile that ``--comm-profile`` loads. Profiles are read and written in
 the JAX package's JSON schema, so either package loads the other's:
-flat, sampled and per-world-size ``family`` profiles; two-level profiles
-are refused (ROADMAP.md Queue 1 item 7b). ``update_beta`` prices the
-``rs_opt_ag`` lowering's shard update (``solver.effective_cost_fn``;
-``profiling.profile_update_beta`` measures it). The sparsification models
+flat, sampled, per-world-size ``family`` and ``two_level`` profiles.
+``TwoLevelAlphaBeta`` prices the ``hier`` lowering's two links (inside a
+slice and across slices; ``calibrate --two-level`` measures both), and
+``refit_two_level_from_observations`` refits it from live measurements.
+``update_beta`` prices the ``rs_opt_ag`` lowering's shard update
+(``solver.effective_cost_fn``; ``profiling.profile_update_beta`` measures
+it). The sparsification models
 at the end (``topk_time``, ``sparse_allgather_time``, ``choose_density``)
 price the top-k compressor against the dense all-reduce.
 """
@@ -305,6 +308,155 @@ def resolve_profile(
     return model
 
 
+@dataclasses.dataclass(frozen=True)
+class TwoLevelAlphaBeta:
+    """Two-level cost model: the link inside a slice (``ici``) and the link
+    across slices (``dcn``). A hierarchical all-reduce is reduce-scatter
+    inside the slice, all-reduce of the shard across slices, all-gather
+    inside the slice; its cost is the inner link's on the full payload plus
+    the outer link's on the 1/ici_size shard."""
+
+    ici: "AlphaBeta | SampledCost"
+    dcn: "AlphaBeta | SampledCost"
+    ici_size: int  # ranks per slice
+    dcn_size: int  # number of slices
+
+    def predict(self, nbytes) -> float:
+        if self.dcn_size <= 1:
+            return self.ici.predict(nbytes)
+        return self.ici.predict(nbytes) + self.dcn_shard_predict(nbytes)
+
+    def ici_predict(self, nbytes) -> float:
+        """Full inner-link cost of one bucket (reduce-scatter and
+        all-gather together)."""
+        return float(self.ici.predict(nbytes))
+
+    def dcn_shard_predict(self, nbytes) -> float:
+        """Outer-link cost of one bucket: the cross-slice all-reduce moves
+        the 1/ici_size shard; ``nbytes`` is the full bucket payload."""
+        if self.dcn_size <= 1:
+            return 0.0
+        return float(self.dcn.predict(nbytes / max(self.ici_size, 1)))
+
+    @property
+    def alpha(self) -> float:
+        # one merged collective pays one launch on each level
+        if self.dcn_size <= 1:
+            return self.ici.alpha
+        return self.ici.alpha + self.dcn.alpha
+
+    @property
+    def gamma(self) -> float:
+        if self.dcn_size <= 1:
+            return self.ici.gamma
+        return self.ici.gamma + self.dcn.gamma
+
+    @property
+    def overlap(self) -> float:
+        # hidden only as well as the worse level
+        if self.dcn_size <= 1:
+            return self.ici.overlap
+        return min(self.ici.overlap, self.dcn.overlap)
+
+    @property
+    def pack_beta(self) -> float:
+        return self.ici.pack_beta  # each bucket is packed once, inside
+
+    @property
+    def update_beta(self) -> float:
+        return self.ici.update_beta  # the shard update runs on the inner shard
+
+    @property
+    def ag_fraction(self) -> float:
+        return self.ici.ag_fraction  # the deferred gather is the inner one
+
+
+def refit_two_level_from_observations(
+    model: TwoLevelAlphaBeta,
+    observations: Sequence[tuple[float, float]],
+    ici_observations: Optional[Sequence[tuple[float, float]]] = None,
+    dcn_observations: Optional[Sequence[tuple[float, float]]] = None,
+) -> TwoLevelAlphaBeta:
+    """Refit a two-level model from live measurements, per link when the
+    attribution separates them (the JAX package's function).
+
+    ``ici_observations`` / ``dcn_observations`` are per-leg (bytes,
+    seconds) samples: the ``mgwfbp_groupNNNN`` ranges time a bucket's inner
+    legs (full bucket bytes), the ``mgwfbp_dcngroupNNNN`` ranges its
+    cross-slice collective (shard bytes). A link with at least two samples
+    refits its own alpha-beta (gamma taken off the intercept); a link
+    without keeps its constants. Without per-link samples,
+    ``observations`` (whole-collective) rescale both links by one common
+    factor, the median of measured over predicted time, which keeps the
+    links' measured proportions."""
+
+    def _refit_link(link, obs) -> AlphaBeta:
+        ab = fit_alpha_beta([b for b, _ in obs], [t for _, t in obs])
+        gamma = float(getattr(link, "gamma", 0.0))
+        return AlphaBeta(
+            alpha=max(ab.alpha - gamma, 0.0),
+            beta=ab.beta,
+            gamma=gamma,
+            overlap=float(getattr(link, "overlap", 1.0)),
+            pack_beta=float(getattr(link, "pack_beta", 0.0)),
+            update_beta=float(getattr(link, "update_beta", 0.0)),
+            ag_fraction=float(getattr(link, "ag_fraction", 0.5)),
+        )
+
+    ici, dcn = model.ici, model.dcn
+    per_link = False
+    if ici_observations is not None and len(ici_observations) >= 2:
+        ici = _refit_link(ici, ici_observations)
+        per_link = True
+    if dcn_observations is not None and len(dcn_observations) >= 2:
+        dcn = _refit_link(dcn, dcn_observations)
+        per_link = True
+    if not per_link:
+        obs = [(float(b), float(t)) for b, t in observations or []]
+        if len(obs) < 2:
+            raise ValueError(
+                "need at least two (bytes, seconds) observations "
+                "(per-link or whole-collective)"
+            )
+        gamma = float(model.gamma)
+        ratios = [
+            (t - gamma) / model.predict(b)
+            for b, t in obs
+            if model.predict(b) > 0.0 and t > gamma
+        ]
+        if not ratios:
+            raise ValueError("observations do not constrain the model")
+        k = float(np.median(ratios))
+
+        def _scale(link):
+            if isinstance(link, SampledCost):
+                # a measured curve stays a curve
+                return SampledCost(
+                    sizes_bytes=link.sizes_bytes,
+                    times_s=tuple(float(t) * k for t in link.times_s),
+                    ab=AlphaBeta(link.ab.alpha * k, link.ab.beta * k),
+                    gamma=link.gamma,
+                    overlap=link.overlap,
+                    pack_beta=link.pack_beta,
+                    update_beta=link.update_beta,
+                    ag_fraction=link.ag_fraction,
+                )
+            return AlphaBeta(
+                alpha=float(getattr(link, "alpha", 0.0)) * k,
+                beta=float(getattr(link, "beta", 0.0)) * k,
+                gamma=float(getattr(link, "gamma", 0.0)),
+                overlap=float(getattr(link, "overlap", 1.0)),
+                pack_beta=float(getattr(link, "pack_beta", 0.0)),
+                update_beta=float(getattr(link, "update_beta", 0.0)),
+                ag_fraction=float(getattr(link, "ag_fraction", 0.5)),
+            )
+
+        ici, dcn = _scale(ici), _scale(dcn)
+    return TwoLevelAlphaBeta(
+        ici=ici, dcn=dcn, ici_size=model.ici_size, dcn_size=model.dcn_size,
+    )
+
+
 def committed_profile_or_prior(path, connection: str, nworkers: int):
     """(cost model, source): the profile at ``path`` resolved at
     ``nworkers`` when the file exists (source = the path), else the
@@ -347,12 +499,12 @@ def _model_from_dict(d: dict) -> "AlphaBeta | SampledCost":
 
 def save_profile(
     path: str,
-    model: "AlphaBeta | SampledCost | ProfileFamily",
+    model: "AlphaBeta | SampledCost | TwoLevelAlphaBeta | ProfileFamily",
     meta: Optional[dict] = None,
 ) -> None:
-    """Persist a flat, sampled or family model, stamped with the schema
-    version; ``meta`` (device, backend, what was measured) is carried for
-    provenance and ignored on load."""
+    """Persist a flat, sampled, two-level or family model, stamped with
+    the schema version; ``meta`` (device, backend, what was measured) is
+    carried for provenance and ignored on load."""
     if isinstance(model, ProfileFamily):
         doc = {
             "kind": "family",
@@ -362,6 +514,15 @@ def save_profile(
         }
     elif isinstance(model, SampledCost):
         doc = _model_dict(model)
+    elif isinstance(model, TwoLevelAlphaBeta):
+        # each link may be a measured curve (calibrate --two-level)
+        doc = {
+            "kind": "two_level",
+            "ici": _model_dict(model.ici),
+            "dcn": _model_dict(model.dcn),
+            "ici_size": model.ici_size,
+            "dcn_size": model.dcn_size,
+        }
     else:
         doc = {"kind": "flat", **dataclasses.asdict(model)}
     doc["schema_version"] = PROFILE_SCHEMA_VERSION
@@ -371,24 +532,28 @@ def save_profile(
         json.dump(doc, f)
 
 
-def load_profile(path: str) -> "AlphaBeta | SampledCost | ProfileFamily":
-    """Load a flat, sampled or family profile written by either package
-    (resolve a family with ``resolve_profile(model, nworkers)``)."""
+def load_profile(
+    path: str,
+) -> "AlphaBeta | SampledCost | TwoLevelAlphaBeta | ProfileFamily":
+    """Load a flat, sampled, two-level or family profile written by either
+    package (resolve a family with ``resolve_profile(model, nworkers)``)."""
     with open(path) as f:
         d = json.load(f)
     check_schema_version(d, path=path)
     d.pop("schema_version", None)
     d.pop("meta", None)
     kind = d.get("kind", "flat")
+    if kind == "two_level":
+        return TwoLevelAlphaBeta(
+            ici=_model_from_dict(d["ici"]),
+            dcn=_model_from_dict(d["dcn"]),
+            ici_size=d["ici_size"],
+            dcn_size=d["dcn_size"],
+        )
     if kind == "family":
         return ProfileFamily(entries={
             int(k): _model_from_dict(v) for k, v in d["entries"].items()
         })
-    if kind not in ("flat", "sampled"):
-        raise ValueError(
-            f"{path}: {kind!r} profiles are not ported (flat, sampled and "
-            "family only; two-level is ROADMAP.md Queue 1 item 7b)"
-        )
     return _model_from_dict(d)
 
 
@@ -470,11 +635,13 @@ __all__ = [
     "topk_time",
     "ProfileFamily",
     "SampledCost",
+    "TwoLevelAlphaBeta",
     "committed_profile_or_prior",
     "fit_alpha_beta",
     "interp_alpha_beta",
     "load_profile",
     "lookup_alpha_beta",
+    "refit_two_level_from_observations",
     "resolve_profile",
     "save_profile",
 ]

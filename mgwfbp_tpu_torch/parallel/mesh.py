@@ -11,10 +11,21 @@ asked for "cuda" without an index is bound to its own card on the host
 machine runs ``--device cpu``, over gloo). Every collective is bounded by
 ``MGWFBP_COORD_TIMEOUT_S`` (600 s by default); on the card NCCL's watchdog
 ends a process whose collective timed out.
+
+``two_level_groups`` splits the world into the two levels of the ``hier``
+lowering, laid out as the JAX package's ``make_mesh`` lays a multi-slice
+mesh (the slice axis leading): slice s is ranks [s * ici, (s + 1) * ici),
+each rank's inner group is its slice and its outer group the ranks of every
+slice at its own inner index. Every rank creates every subgroup, in one
+order (``dist.new_group`` is collective over the world; on the card the
+world is bound to its device, so NCCL may split the communicators), and
+``runtime.coordination.release`` destroys them before the interpreter
+finalizes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 from typing import Optional, Union
@@ -22,6 +33,7 @@ from typing import Optional, Union
 import torch
 import torch.distributed as dist
 
+from mgwfbp_tpu_torch.runtime import coordination
 from mgwfbp_tpu_torch.runtime.coordination import (
     COORD_TIMEOUT_ENV,
     DEFAULT_BARRIER_TIMEOUT_S,
@@ -167,3 +179,47 @@ def world_size() -> int:
 
 def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TwoLevelGroups:
+    """This rank's two process groups of an (ici x dcn) world: ``inner``
+    holds its slice (``ici`` ranks), ``outer`` the ``dcn`` ranks that share
+    its inner index, one in each slice."""
+
+    inner: dist.ProcessGroup
+    outer: dist.ProcessGroup
+    ici: int
+    dcn: int
+
+
+def two_level_groups(dcn: int) -> TwoLevelGroups:
+    """Split the running world into ``dcn`` slices of ``world / dcn``
+    consecutive ranks (a collective: every rank calls it at the same
+    point). The subgroups take the world's backend and collective timeout
+    and are registered with ``coordination.register_subgroups``."""
+    world, me = dist.get_world_size(), dist.get_rank()
+    dcn = int(dcn)
+    if dcn < 1 or world % dcn:
+        raise ValueError(
+            f"--dcn-slices {dcn} does not divide the world of {world} "
+            "rank(s)")
+    ici = world // dcn
+    timeout = datetime.timedelta(seconds=env_float(
+        COORD_TIMEOUT_ENV, DEFAULT_BARRIER_TIMEOUT_S))
+    inner = outer = None
+    mine = []
+    for s in range(dcn):
+        ranks = list(range(s * ici, (s + 1) * ici))
+        g = dist.new_group(ranks, timeout=timeout)
+        if me in ranks:
+            inner = g
+            mine.append(g)
+    for i in range(ici):
+        ranks = [s * ici + i for s in range(dcn)]
+        g = dist.new_group(ranks, timeout=timeout)
+        if me in ranks:
+            outer = g
+            mine.append(g)
+    coordination.register_subgroups(mine)
+    return TwoLevelGroups(inner=inner, outer=outer, ici=ici, dcn=dcn)

@@ -1,5 +1,5 @@
-"""MG-WFBP merge-group solver (a copy of the flat part of
-``mgwfbp_tpu/parallel/solver.py``).
+"""MG-WFBP merge-group solver (a copy of ``mgwfbp_tpu/parallel/solver.py``
+without the autotuner's ``schedule_frontier``).
 
 Decides which per-layer gradients to fuse into one all-reduce so that
 communication overlaps the backward pass while amortizing the startup
@@ -15,10 +15,14 @@ The merge rule: scanning arrivals with an open group whose collective would
 start at ``start`` and occupy the link for ``comm``, the next gradient
 (ready at ``r``) joins the group when (a) ``start > r`` (merging adds no
 wait) or (b) ``r - start < alpha`` (the wait is cheaper than another
-startup). The single-level lowerings all solve here (``all_reduce``,
-``rs_ag``, ``rs_opt_ag``, whose shard update ``effective_cost_fn``
-prices); the two-level and cross-step schedules of the JAX package
-(``hier``, ``rs_fwd_ag``) are not ported (ROADMAP.md Queue 1 item 7b).
+startup). Every lowering solves here: the single-level ones
+(``all_reduce``, ``rs_ag``, ``rs_opt_ag``, whose shard update
+``effective_cost_fn`` prices), the cross-step ``rs_fwd_ag`` (its deferred
+all-gathers priced against the next step's forward,
+``simulate_cross_step``) and the two-level ``hier`` (a nested pair of
+partitions, inner groups and the cross-slice groups of them, priced on two
+links, ``simulate_groups_two_level``). The autotuner's race roster
+(``schedule_frontier``) is ROADMAP.md Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -31,35 +35,517 @@ import numpy as np
 CostFn = Callable[[float], float]  # bytes -> seconds
 
 
-SINGLE_LEVEL_OPS = ("all_reduce", "rs_ag", "rs_opt_ag")
+COMM_OPS = ("all_reduce", "rs_ag", "hier", "rs_opt_ag", "rs_fwd_ag")
 
 
 def check_comm_op(comm_op: str) -> None:
-    """Raise for a lowering the port does not have: the cross-step and
-    two-level ones (``rs_fwd_ag``, ``hier``) are ROADMAP.md Queue 1 item
-    7b."""
-    if comm_op not in SINGLE_LEVEL_OPS:
+    """Raise for a lowering neither package has."""
+    if comm_op not in COMM_OPS:
         raise ValueError(
-            f"comm_op {comm_op!r} is not ported: the port lowers "
-            f"{', '.join(SINGLE_LEVEL_OPS)} (rs_fwd_ag and hier are "
-            "ROADMAP.md Queue 1 item 7b)"
+            f"unknown comm_op {comm_op!r}; expected one of "
+            f"{', '.join(COMM_OPS)}"
         )
 
 
 def effective_cost_fn(cost_model, comm_op: str = "all_reduce") -> CostFn:
-    """Per-bucket link-occupancy predictor for a lowering:
-    ``cost_model.predict`` for ``all_reduce`` and ``rs_ag``. ``rs_opt_ag``
-    runs the shard update between the reduce-scatter and the all-gather,
-    and the gather cannot start before it ends, so the update's
-    ``update_beta * bucket_bytes`` rides the same serial timeline and is
-    added here. The cross-step and two-level lowerings (``rs_fwd_ag``,
-    ``hier``) are not ported (ROADMAP.md Queue 1 item 7b)."""
-    check_comm_op(comm_op)
+    """Per-bucket link-occupancy predictor for a lowering.
+
+    For the plain collectives this is `cost_model.predict`. The rs_opt_ag
+    lowering inserts the fused shard optimizer update BETWEEN the
+    reduce-scatter and the param all-gather — the gather cannot start
+    before the update finishes, so the update's duration
+    (`update_beta * bucket_bytes`, see costmodel.AlphaBeta.update_beta)
+    rides the same serial timeline the merge rule and the simulator reason
+    about. Keeping the term inside the cost function means every consumer
+    (the mgwfbp scan, auto's argmin, predicted_group_times) prices the
+    update-in-the-middle consistently without growing their signatures.
+    The cross-step rs_fwd_ag lowering pays the same update between its RS
+    and the (next-step) AG, so its per-group TOTAL is priced identically;
+    the per-phase split lives in `cross_step_phase_costs`.
+    """
     ub = float(getattr(cost_model, "update_beta", 0.0))
-    if comm_op != "rs_opt_ag" or ub == 0.0:
+    if comm_op not in ("rs_opt_ag", "rs_fwd_ag") or ub == 0.0:
         return cost_model.predict
     base = cost_model.predict
     return lambda nbytes: base(nbytes) + ub * nbytes
+
+
+# A ring all-reduce is reduce-scatter + all-gather, each moving (P-1)/P of
+# the payload: absent a measurement, the calibrated full-collective
+# predictor splits evenly between the two phases for the cross-step
+# timeline. This is only the DEFAULT prior — a `calibrate --allgather`
+# sweep measures the link's real split and persists it as the profile's
+# `ag_fraction` (costmodel, schema v3), which `cross_step_phase_costs`
+# prefers; the split is clamped to [MIN_AG_FRACTION, 1-MIN_AG_FRACTION]
+# so a degenerate calibration can never zero out a whole phase.
+CROSS_STEP_RS_FRACTION = 0.5
+MIN_AG_FRACTION = 0.05
+
+
+def cross_step_phase_costs(cost_model) -> tuple[CostFn, CostFn]:
+    """(rs_cost, ag_cost) per bucket for the rs_fwd_ag lowering.
+
+    The reduce-scatter leg rides the BACKWARD-side link timeline and also
+    carries the shard optimizer update (update_beta — the carried shard is
+    not ready to gather until the update lands); the deferred all-gather
+    leg rides the NEXT step's forward-side timeline. The two sum to
+    `effective_cost_fn(cost_model, 'rs_fwd_ag')` by construction, so
+    per-group totals (predict_group_times, overlap accounting) and the
+    two-phase simulate can never disagree on a bucket's wire time.
+
+    The RS/AG split comes from the cost model's measured ``ag_fraction``
+    when a `calibrate --allgather` sweep fit one; models without it (v1/v2
+    profiles, built-in tables) keep the historical halved split
+    (`CROSS_STEP_RS_FRACTION`)."""
+    base = cost_model.predict
+    ub = float(getattr(cost_model, "update_beta", 0.0))
+    ag_frac = float(getattr(
+        cost_model, "ag_fraction", 1.0 - CROSS_STEP_RS_FRACTION
+    ))
+    ag_frac = min(max(ag_frac, MIN_AG_FRACTION), 1.0 - MIN_AG_FRACTION)
+    rs_frac = 1.0 - ag_frac
+
+    def rs_cost(nbytes: float) -> float:
+        return rs_frac * base(nbytes) + ub * nbytes
+
+    def ag_cost(nbytes: float) -> float:
+        return ag_frac * base(nbytes)
+
+    return rs_cost, ag_cost
+
+
+def forward_prior_tf(tb: Sequence[float]) -> list[float]:
+    """Fallback per-layer FORWARD durations when no measured forward
+    profile exists: backward is ~2x forward FLOPs for conv/dense layers
+    (grad-of-input + grad-of-weights vs one matmul), so tf = tb/2 keeps
+    the measured backward profile's shape at a defensible scale. A
+    measured profile (`profiling.benchmark_trainer_forward`) always takes
+    precedence."""
+    return [0.5 * float(t) for t in tb]
+
+
+def simulate_cross_step(
+    groups: Sequence[Sequence[int]],
+    sizes_bytes: Sequence[int],
+    tb: Sequence[float],
+    tf: Sequence[float],
+    rs_cost: CostFn,
+    ag_cost: CostFn,
+    gamma: float = 0.0,
+    overlap: float = 1.0,
+    pack_beta: float = 0.0,
+) -> tuple[float, float, float]:
+    """Steady-state step timeline of the cross-step (rs_fwd_ag) pipeline.
+
+    Returns (total, nonoverlap, comm_time) where `total` is COMPARABLE to
+    `simulate_groups`' total for the in-step lowerings: both measure the
+    step's critical path from the moment the backward could begin on an
+    idle link — i.e. the cross-step total EXCLUDES the forward-compute
+    floor sum(tf) that every lowering pays identically, and counts only
+    the forward STALL the deferred gathers add on top of it. Concretely::
+
+        total = (fwd_end - sum(tf))          # forward stall from late AGs
+              + overlap-blended backward/RS timeline
+              + per-group overheads (gamma, pack_beta)
+
+    Two phases share one serial link:
+
+      * forward: groups gather in REVERSE arrival order (group G-1 holds
+        the first forward layers). Group g's AG must land before the
+        forward reaches its first consuming layer — arrival index max(g),
+        whose forward block starts after all later-arrival groups' blocks
+        — or the forward stalls for the difference. This is the
+        AG-before-first-use deadline.
+      * backward: the solver's taoc recurrence (`simulate_groups`) over
+        the RS legs, with grad-ready times offset by the forward stall and
+        the link initially busy until the last AG finished.
+
+    `nonoverlap` = total - sum(tb): comm time (and stall) not hidden
+    behind compute, the same convention as `simulate_groups`.
+    """
+    groups = list(groups)
+    n_layers = len(sizes_bytes)
+    if len(tb) != n_layers or len(tf) != n_layers:
+        raise ValueError(
+            f"tb ({len(tb)}) / tf ({len(tf)}) / sizes ({n_layers}) "
+            "length mismatch"
+        )
+    tf_total = float(np.sum(np.asarray(tf, np.float64))) if n_layers else 0.0
+    tb_total = float(np.sum(np.asarray(tb, np.float64))) if n_layers else 0.0
+
+    # ---- forward phase: AG deadlines vs forward compute ----
+    link = 0.0  # serial comm link, busy-until
+    fwd = 0.0  # forward compute, busy-until
+    comm_sum = 0.0
+    pack_bytes = 0.0
+    for g in reversed(groups):  # forward-consumption order
+        gbytes = float(sum(sizes_bytes[i] for i in g))
+        t_ag = ag_cost(gbytes)
+        link += t_ag  # shards are ready at step start; AGs queue serially
+        comm_sum += t_ag
+        if len(g) > 1:
+            pack_bytes += gbytes
+        # the group's layers cannot start their forward before its gather
+        fwd = max(fwd, link) + float(sum(tf[i] for i in g))
+    fwd_end = fwd
+    fwd_stall = max(fwd_end - tf_total, 0.0)
+
+    # ---- backward phase: the taoc recurrence over the RS legs ----
+    # Anchor at the backward start (like simulate_groups): grads become
+    # ready along the backward, delayed by any forward stall already on
+    # the critical path; the link is free once the last AG drained (the
+    # forward ran at least as long, so only a comm-bound tail carries over)
+    ready = fwd_stall + np.cumsum(np.asarray(tb, dtype=np.float64))
+    bwd_end = fwd_stall + tb_total
+    link_free = max(link - tf_total, 0.0)
+    n_groups = 0
+    for g in groups:
+        gbytes = float(sum(sizes_bytes[i] for i in g))
+        t_rs = rs_cost(gbytes)
+        start = max(link_free, float(ready[max(g)]))
+        link_free = start + t_rs
+        comm_sum += t_rs
+        n_groups += 1
+    overhead = gamma * n_groups + pack_beta * pack_bytes
+    total_hidden = max(bwd_end, link_free)
+    total_serial = tb_total + comm_sum  # fully serialized regime
+    ov = min(max(overlap, 0.0), 1.0)
+    total = ov * total_hidden + (1.0 - ov) * total_serial + overhead
+    return total, total - tb_total, comm_sum
+
+
+# ---------------------------------------------------------------------------
+# Two-link (ICI + DCN) scheduling: the hierarchical lowering's timeline.
+#
+# A multi-slice pod has TWO interconnects at once — fast ICI inside a slice,
+# slow DCN across slices — and the paper's own result (the 10GbE and IB
+# clusters of arXiv:1912.09268 solve to different groupings) says the merge
+# schedule is a function of the link. So a hier schedule is a PAIR of nested
+# partitions: the inner (ICI) grouping of layers, plus an outer (DCN)
+# grouping of those inner groups — small buckets may merge on the
+# high-latency DCN link while staying split on ICI (amortizing the DCN
+# alpha without giving up ICI-side overlap granularity).
+# ---------------------------------------------------------------------------
+
+
+def is_two_level(cost_model) -> bool:
+    """Duck-typed: does this model price two link classes separately?"""
+    return (
+        cost_model is not None
+        and hasattr(cost_model, "ici")
+        and hasattr(cost_model, "dcn")
+        and int(getattr(cost_model, "dcn_size", 1)) > 1
+    )
+
+
+def two_level_leg_costs(cost_model) -> tuple[CostFn, CostFn, CostFn]:
+    """(rs_cost, dcn_cost, ag_cost) per bucket for the hier lowering.
+
+    All three take the FULL bucket payload in bytes. The ICI side splits
+    into its RS and AG legs by the INNER link's measured ag_fraction
+    (calibrate --allgather; 0.5 prior); the DCN leg is the outer-link
+    all-reduce of the 1/ici_size shard (`TwoLevelAlphaBeta.
+    dcn_shard_predict` owns the shard division). The three sum to
+    `cost_model.predict` by construction, so per-group totals and the
+    two-link simulate can never disagree on a bucket's wire time."""
+    ici = cost_model.ici
+    af = float(getattr(ici, "ag_fraction", 0.5))
+    af = min(max(af, MIN_AG_FRACTION), 1.0 - MIN_AG_FRACTION)
+
+    def rs_cost(nbytes: float) -> float:
+        return (1.0 - af) * float(ici.predict(nbytes))
+
+    def ag_cost(nbytes: float) -> float:
+        return af * float(ici.predict(nbytes))
+
+    return rs_cost, cost_model.dcn_shard_predict, ag_cost
+
+
+def singleton_dcn_groups(num_groups: int) -> list[list[int]]:
+    """One DCN collective per inner group — the pre-nesting hier shape
+    (and the default for explicit/non-auto schedules)."""
+    return [[gi] for gi in range(num_groups)]
+
+
+def check_dcn_partition(
+    dcn_groups: Sequence[Sequence[int]], num_groups: int
+) -> None:
+    """A DCN partition must cover every inner-group index exactly once
+    (a gap means a bucket whose cross-slice reduction never happens —
+    silently wrong gradients)."""
+    flat = sorted(i for d in dcn_groups for i in d)
+    if flat != list(range(num_groups)):
+        raise ValueError(
+            f"dcn_groups must cover every inner-group index exactly once "
+            f"(got {num_groups} groups, partition {list(dcn_groups)})"
+        )
+
+
+def simulate_groups_two_level(
+    groups: Sequence[Sequence[int]],
+    dcn_groups: Sequence[Sequence[int]],
+    sizes_bytes: Sequence[int],
+    tb: Sequence[float],
+    rs_cost: CostFn,
+    dcn_cost: CostFn,
+    ag_cost: CostFn,
+    gamma: float = 0.0,
+    dcn_gamma: float = 0.0,
+    overlap: float = 1.0,
+    pack_beta: float = 0.0,
+) -> tuple[float, float, float]:
+    """Two-link timeline of the hierarchical lowering for a nested
+    schedule. Returns (total, nonoverlap, comm_time), comparable with
+    `simulate_groups` (both are backward-anchored).
+
+    Two serial links race the backward pass:
+
+      * ICI link: each inner group's reduce-scatter starts when its last
+        gradient is ready and the link is free (the taoc recurrence);
+        after the RS phase the same link carries the all-gathers, each
+        gated on its DCN group's cross-slice reduction landing — the
+        phase order the lowering's token chain realizes.
+      * DCN link: one all-reduce per DCN group over the concatenated
+        member shards (payload = the members' 1/ici_size shards), issued
+        when the group's LAST member's reduce-scatter completes.
+
+    `gamma` is the per-inner-group fixed overhead (pack/dispatch on the
+    ICI side), `dcn_gamma` the per-DCN-collective one — nesting exists
+    exactly to trade the latter against DCN-link wait. `pack_beta`
+    charges the bucketization copy per byte of multi-member inner groups
+    plus the shard concat of multi-member DCN groups."""
+    groups = list(groups)
+    dcn_groups = [list(d) for d in dcn_groups]
+    check_dcn_partition(dcn_groups, len(groups))
+    ready = np.cumsum(np.asarray(tb, dtype=np.float64))
+    bwd_end = float(ready[-1]) if len(ready) else 0.0
+    gbytes = [float(sum(sizes_bytes[i] for i in g)) for g in groups]
+
+    # ---- ICI link, RS phase ----
+    ici_free = 0.0
+    comm_sum = 0.0
+    pack_bytes = 0.0
+    rs_done = [0.0] * len(groups)
+    for gi, g in enumerate(groups):
+        t = rs_cost(gbytes[gi])
+        start = max(ici_free, float(ready[max(g)]) if len(g) else 0.0)
+        ici_free = start + t
+        rs_done[gi] = ici_free
+        comm_sum += t
+        if len(g) > 1:
+            pack_bytes += gbytes[gi]
+
+    # ---- DCN link: one cross-slice all-reduce per DCN group ----
+    dcn_free = 0.0
+    dcn_done = [0.0] * len(groups)
+    for d in dcn_groups:
+        dbytes = float(sum(gbytes[gi] for gi in d))
+        t = dcn_cost(dbytes)
+        start = max(dcn_free, max(rs_done[gi] for gi in d))
+        dcn_free = start + t
+        for gi in d:
+            dcn_done[gi] = dcn_free
+        comm_sum += t
+        # multi-member DCN groups concat/split their members' SHARD
+        # buffers (1/ici_size of the bucket each) — a copy so small next
+        # to the inner-side bucket pack that charging it would only add
+        # an ici_size knob to every caller; left unpriced by design
+
+    # ---- ICI link, AG phase (after the RS queue; gated per DCN group) ----
+    for gi in range(len(groups)):
+        t = ag_cost(gbytes[gi])
+        start = max(ici_free, dcn_done[gi])
+        ici_free = start + t
+        comm_sum += t
+
+    overhead = (
+        gamma * len(groups) + dcn_gamma * len(dcn_groups)
+        + pack_beta * pack_bytes
+    )
+    total_hidden = max(bwd_end, ici_free, dcn_free)
+    total_serial = bwd_end + comm_sum
+    ov = min(max(overlap, 0.0), 1.0)
+    total = ov * total_hidden + (1.0 - ov) * total_serial + overhead
+    return total, total - bwd_end, comm_sum
+
+
+def dcn_partition_candidates(
+    groups: Sequence[Sequence[int]],
+    sizes_bytes: Sequence[int],
+    tb: Sequence[float],
+    rs_cost: CostFn,
+    dcn_cost: CostFn,
+    dcn_alpha: float,
+    dcn_gamma: float = 0.0,
+) -> list[tuple[str, list[list[int]]]]:
+    """Candidate DCN partitions for a FIXED inner grouping, deduped.
+
+    The outer link sees each inner group as one "layer": its payload is
+    the group's (full-bucket) bytes and its arrival time the completion
+    of its reduce-scatter on the ICI link. Candidates: one collective per
+    group (the pre-nesting shape), everything in one, and the mgwfbp scan
+    re-run ON THE DCN LINK — the per-link merge decision this module
+    exists for (small groups merge on DCN but stay split on ICI when the
+    DCN alpha dominates their shard payloads)."""
+    ready = np.cumsum(np.asarray(tb, dtype=np.float64))
+    gbytes = [int(sum(sizes_bytes[i] for i in g)) for g in groups]
+    ici_free = 0.0
+    rs_done = []
+    for gi, g in enumerate(groups):
+        start = max(ici_free, float(ready[max(g)]) if len(g) else 0.0)
+        ici_free = start + rs_cost(float(gbytes[gi]))
+        rs_done.append(ici_free)
+    # per-"layer" time deltas whose cumsum reproduces the arrival times
+    tb_dcn = [rs_done[0]] + [
+        rs_done[i] - rs_done[i - 1] for i in range(1, len(rs_done))
+    ]
+    n = len(groups)
+    out: list[tuple[str, list[list[int]]]] = [
+        ("per-group", singleton_dcn_groups(n)),
+        ("single", [list(range(n))] if n else []),
+    ]
+    if n:
+        out.append((
+            "scan",
+            mgwfbp_groups(
+                gbytes, tb_dcn, alpha=dcn_alpha, cost=dcn_cost,
+                itemsize=1, gamma=dcn_gamma,
+            ),
+        ))
+    seen: set = set()
+    deduped = []
+    for detail, part in out:
+        key = tuple(map(tuple, part))
+        if key in seen:
+            continue
+        seen.add(key)
+        deduped.append((detail, part))
+    return deduped
+
+
+def two_level_frontier(
+    sizes: Sequence[int],
+    tb: Sequence[float],
+    cost_model,
+    itemsize: int | Sequence[int] = 4,
+    max_candidates: int = 6,
+) -> list[tuple[str, list[list[int]], list[list[int]], float]]:
+    """Ranked nested schedules for the hier lowering: (detail, groups,
+    dcn_groups, predicted_total_s), cheapest first.
+
+    Inner candidates come from `candidate_groupings` priced on the ICI
+    link (its RS+AG legs are what occupy that link; the DCN hop rides a
+    different wire and must not distort the inner merge rule); each inner
+    candidate is then nested under every `dcn_partition_candidates` pick
+    and the pair scored by the two-link simulate. This IS the per-link
+    merge decision: the argmin is free to keep buckets split on ICI while
+    merging their cross-slice reductions on DCN."""
+    L = len(sizes)
+    if L == 0:
+        return []
+    if not is_two_level(cost_model):
+        raise ValueError(
+            "two_level_frontier needs a TwoLevelAlphaBeta-shaped cost "
+            f"model (got {type(cost_model).__name__})"
+        )
+    itemsizes = [itemsize] * L if isinstance(itemsize, int) else list(itemsize)
+    nbytes = [int(s) * it for s, it in zip(sizes, itemsizes)]
+    rs_cost, dcn_cost, ag_cost = two_level_leg_costs(cost_model)
+    ici = cost_model.ici
+    dcn = cost_model.dcn
+    gamma = float(getattr(ici, "gamma", 0.0))
+    dcn_gamma = float(getattr(dcn, "gamma", 0.0))
+    overlap = float(getattr(cost_model, "overlap", 1.0))
+    pack_beta = float(getattr(cost_model, "pack_beta", 0.0))
+    ici_cost = ici.predict
+    scored: list[tuple[str, list[list[int]], list[list[int]], float]] = []
+    seen: set = set()
+    for inner_detail, groups in candidate_groupings(
+        sizes, tb, float(getattr(ici, "alpha", 0.0)), ici_cost, itemsizes,
+        gamma=gamma, pack_beta=pack_beta,
+    ):
+        for dcn_detail, part in dcn_partition_candidates(
+            groups, nbytes, tb, rs_cost, dcn_cost,
+            dcn_alpha=float(getattr(dcn, "alpha", 0.0)),
+            dcn_gamma=dcn_gamma,
+        ):
+            key = (tuple(map(tuple, groups)), tuple(map(tuple, part)))
+            if key in seen:
+                continue
+            seen.add(key)
+            total, _, _ = simulate_groups_two_level(
+                groups, part, nbytes, tb, rs_cost, dcn_cost, ag_cost,
+                gamma=gamma, dcn_gamma=dcn_gamma, overlap=overlap,
+                pack_beta=pack_beta,
+            )
+            scored.append((
+                f"{inner_detail}/dcn-{dcn_detail}", groups, part,
+                float(total),
+            ))
+    scored.sort(key=lambda c: c[3])
+    return scored[: max(max_candidates, 1)]
+
+
+def remap_dcn_groups(
+    old_groups: Sequence[Sequence[int]],
+    new_groups: Sequence[Sequence[int]],
+    dcn_groups: Sequence[Sequence[int]],
+) -> list[list[int]]:
+    """Carry a DCN partition across a refinement of the inner grouping
+    (`buckets.build_layout` splits dtype-mixed groups): every new group
+    descends from exactly one old group, and inherits its DCN membership.
+    Order within each DCN group follows the new (arrival) indices."""
+    member_to_old: dict[int, int] = {}
+    for oi, g in enumerate(old_groups):
+        for i in g:
+            member_to_old[i] = oi
+    new_owner = [member_to_old[g[0]] for g in new_groups]
+    out: list[list[int]] = []
+    for d in dcn_groups:
+        want = set(int(i) for i in d)
+        members = [ni for ni, oi in enumerate(new_owner) if oi in want]
+        if members:
+            out.append(members)
+    return out
+
+
+def align_dcn_groups(
+    dcn_groups: Sequence[Sequence[int]], dtypes: Sequence
+) -> list[list[int]]:
+    """Split DCN groups at bucket-dtype boundaries: one DCN collective
+    concatenates its members' shards into ONE buffer, which only exists
+    for a homogeneous dtype. Each split adds a real cross-slice
+    collective (and its DCN alpha), so callers re-simulate predictions
+    on the partition actually issued."""
+    out: list[list[int]] = []
+    for d in dcn_groups:
+        run: list[int] = []
+        for gi in d:
+            if run and dtypes[gi] != dtypes[run[-1]]:
+                out.append(run)
+                run = []
+            run.append(int(gi))
+        if run:
+            out.append(run)
+    return out
+
+
+def auto_groups_two_level(
+    sizes: Sequence[int],
+    tb: Sequence[float],
+    cost_model,
+    itemsize: int | Sequence[int] = 4,
+) -> tuple[list[list[int]], list[list[int]], str]:
+    """`auto_groups` for the hierarchical lowering: argmin over the
+    two-level frontier. Returns (groups, dcn_groups, detail) — a PAIR of
+    nested partitions, the schedule shape a two-interconnect topology
+    actually calls for."""
+    if len(sizes) == 0:
+        return [], [], "empty"
+    best = two_level_frontier(
+        sizes, tb, cost_model, itemsize, max_candidates=1
+    )[0]
+    return best[1], best[2], best[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,10 +578,20 @@ class MergeSchedule:
     # which candidate won when policy='auto' ('mgwfbp', 'wfbp', 'single',
     # or 'threshold:<elems>'); empty for direct policies
     policy_detail: str = ""
+    # hier (two-level) only: the OUTER (DCN) partition — groups of
+    # inner-group indices, arrival order; each DCN group issues ONE
+    # cross-slice collective over its members' concatenated shards. Empty
+    # for flat lowerings (and treated as one-DCN-collective-per-group by
+    # the hier lowering when a two-level solve never ran).
+    dcn_groups: tuple[tuple[int, ...], ...] = ()
 
     @property
     def num_groups(self) -> int:
         return len(self.groups)
+
+    @property
+    def num_dcn_groups(self) -> int:
+        return len(self.dcn_groups) if self.dcn_groups else len(self.groups)
 
     def named_groups(self) -> list[list[str]]:
         return [[self.layer_names[i] for i in g] for g in self.groups]
@@ -352,6 +848,43 @@ def auto_groups(
 
 
 
+def auto_groups_cross_step(
+    sizes: Sequence[int],
+    tb: Sequence[float],
+    tf: Sequence[float],
+    cost_model,
+    itemsize: int | Sequence[int] = 4,
+) -> tuple[list[list[int]], str]:
+    """`auto_groups` for the cross-step (rs_fwd_ag) lowering: the same
+    candidate set, scored by the TWO-phase simulate — the deferred
+    all-gather against the forward timeline, the reduce-scatter against
+    the backward — instead of the in-step backward-only recurrence. The
+    candidate scan itself runs on the RS leg's cost (the link the merge
+    rule reasons about at backward time)."""
+    L = len(sizes)
+    if L == 0:
+        return [], "empty"
+    itemsizes = [itemsize] * L if isinstance(itemsize, int) else list(itemsize)
+    nbytes = [int(s) * it for s, it in zip(sizes, itemsizes)]
+    gamma = float(getattr(cost_model, "gamma", 0.0))
+    overlap = float(getattr(cost_model, "overlap", 1.0))
+    pack_beta = float(getattr(cost_model, "pack_beta", 0.0))
+    rs_cost, ag_cost = cross_step_phase_costs(cost_model)
+    candidates = candidate_groupings(
+        sizes, tb, cost_model.alpha, rs_cost, itemsizes, gamma=gamma,
+        pack_beta=pack_beta,
+    )
+    best = None
+    for detail, groups in candidates:
+        total, _, _ = simulate_cross_step(
+            groups, nbytes, tb, tf, rs_cost, ag_cost, gamma, overlap,
+            pack_beta,
+        )
+        if best is None or total < best[0]:
+            best = (total, groups, detail)
+    return best[1], best[2]
+
+
 def candidate_groupings(
     sizes: Sequence[int],
     tb: Sequence[float],
@@ -432,22 +965,46 @@ def build_schedule(
     layers: Sequence[LayerSpec],
     tb: Optional[Sequence[float]] = None,
     *,
+    tf: Optional[Sequence[float]] = None,
     policy: str = "mgwfbp",
     cost_model=None,
     threshold: int = 0,
     comm_op: str = "all_reduce",
     groups: Optional[Sequence[Sequence[int]]] = None,
+    dcn_groups: Optional[Sequence[Sequence[int]]] = None,
     policy_detail: Optional[str] = None,
 ) -> MergeSchedule:
-    """A MergeSchedule for gradient tensors in arrival order.
+    """Build a MergeSchedule for gradient tensors in arrival order.
 
-    policy: 'mgwfbp' (the adaptive scan; needs tb and cost_model), 'auto'
-    (simulate-and-argmin over every candidate schedule; needs tb and
-    cost_model), 'threshold', 'single', or 'wfbp' (no merging). ``comm_op``
-    is the lowering the schedule is issued as: every per-bucket cost goes
-    through ``effective_cost_fn``. ``groups`` is an explicit grouping that
-    bypasses the policy (labelled by ``policy_detail``); predictions are
-    simulated either way."""
+    policy: 'mgwfbp' (adaptive; needs tb and cost_model), 'auto'
+    (simulate-and-argmin over all candidate schedules; needs tb and
+    cost_model), 'threshold', 'single', or 'wfbp' (no merging). Mirrors the
+    reference's policy dispatch (distributed_optimizer.py:263-270: adaptive
+    iff ADAPTIVE_MERGE and layerwise_times available, else threshold).
+
+    comm_op: the lowering the schedule will be issued as; 'rs_opt_ag' adds
+    the update-in-the-middle term to every per-bucket cost prediction
+    (`effective_cost_fn`) so the schedule still describes the wire.
+    'rs_fwd_ag' (cross-step) additionally needs `tf`, the arrival-ordered
+    per-layer FORWARD profile (defaults to `forward_prior_tf(tb)`): its
+    predictions come from `simulate_cross_step`, which prices each group's
+    deferred all-gather against its first-consuming-layer deadline in the
+    next step's forward. The mgwfbp scan then runs on the reduce-scatter
+    leg's cost only (the backward-side link the merge rule reasons about).
+
+    groups: an EXPLICIT grouping (arrival-order index groups) that bypasses
+    the policy solve — the autotuner's raced candidates and cache hits
+    enter here. Must cover every layer index exactly once; predictions are
+    still simulated under the cost model so the schedule stays comparable
+    to solved ones. `policy_detail` labels its provenance.
+
+    comm_op='hier' with a two-level cost model schedules BOTH links: the
+    'auto' policy argmins over the nested frontier
+    (`auto_groups_two_level`), an explicit `dcn_groups` partition rides
+    through (cache hits / raced candidates), and every other policy keeps
+    one DCN collective per inner group; predictions come from the
+    two-link simulator either way.
+    """
     sizes = [l.size for l in layers]
     names = tuple(l.name for l in layers)
     nbytes = [l.nbytes for l in layers]
@@ -459,7 +1016,22 @@ def build_schedule(
     pack_beta = (
         float(getattr(cost_model, "pack_beta", 0.0)) if cost_model else 0.0
     )
+    cross_step = comm_op == "rs_fwd_ag"
+    if cross_step and tb is not None and tf is None:
+        tf = forward_prior_tf(tb)
+    two_level = comm_op == "hier" and is_two_level(cost_model)
+    scan_cost = cost_fn
+    if cross_step and cost_model is not None:
+        # the merge rule scans BACKWARD arrivals against the link — on the
+        # cross-step lowering only the reduce-scatter leg occupies it there
+        scan_cost, _ = cross_step_phase_costs(cost_model)
+
     detail = ""
+    dcn_part: Optional[list[list[int]]] = (
+        [list(int(i) for i in d) for d in dcn_groups]
+        if dcn_groups is not None
+        else None
+    )
     if groups is not None:
         fixed = [list(int(i) for i in g) for g in groups]
         if sorted(i for g in fixed for i in g) != list(range(len(layers))):
@@ -473,17 +1045,40 @@ def build_schedule(
         if tb is None or cost_model is None:
             raise ValueError("policy 'mgwfbp' requires tb and cost_model")
         groups = mgwfbp_groups(
-            sizes, tb, alpha=cost_model.alpha, cost=cost_fn,
-            itemsize=[l.itemsize for l in layers], gamma=gamma,
+            sizes,
+            tb,
+            alpha=cost_model.alpha,
+            cost=scan_cost,
+            itemsize=[l.itemsize for l in layers],
+            gamma=gamma,
         )
     elif policy == "auto":
         if tb is None or cost_model is None:
             raise ValueError("policy 'auto' requires tb and cost_model")
-        groups, detail = auto_groups(
-            sizes, tb, alpha=cost_model.alpha, cost=cost_fn,
-            itemsize=[l.itemsize for l in layers], gamma=gamma,
-            overlap=overlap, pack_beta=pack_beta,
-        )
+        if two_level:
+            groups, dcn_part, detail = auto_groups_two_level(
+                sizes, tb, cost_model,
+                itemsize=[l.itemsize for l in layers],
+            )
+        elif cross_step:
+            groups, detail = auto_groups_cross_step(
+                sizes,
+                tb,
+                tf,
+                cost_model,
+                itemsize=[l.itemsize for l in layers],
+            )
+        else:
+            groups, detail = auto_groups(
+                sizes,
+                tb,
+                alpha=cost_model.alpha,
+                cost=cost_fn,
+                itemsize=[l.itemsize for l in layers],
+                gamma=gamma,
+                overlap=overlap,
+                pack_beta=pack_beta,
+            )
     elif policy == "threshold":
         groups = threshold_groups(sizes, threshold)
     elif policy == "single":
@@ -492,10 +1087,33 @@ def build_schedule(
         groups = threshold_groups(sizes, 0)
     else:
         raise ValueError(f"unknown policy {policy!r}")
+
+    if comm_op == "hier":
+        if dcn_part is None:
+            dcn_part = singleton_dcn_groups(len(groups))
+        check_dcn_partition(dcn_part, len(groups))
+    else:
+        dcn_part = None
+
     if tb is not None and cost_model is not None and len(layers):
-        total, nonoverlap, comm = simulate_groups(
-            groups, nbytes, tb, cost_fn, gamma, overlap, pack_beta
-        )
+        if two_level:
+            rs_c, dcn_c, ag_c = two_level_leg_costs(cost_model)
+            total, nonoverlap, comm = simulate_groups_two_level(
+                groups, dcn_part, nbytes, tb, rs_c, dcn_c, ag_c,
+                gamma=float(getattr(cost_model.ici, "gamma", 0.0)),
+                dcn_gamma=float(getattr(cost_model.dcn, "gamma", 0.0)),
+                overlap=overlap, pack_beta=pack_beta,
+            )
+        elif cross_step:
+            rs_c, ag_c = cross_step_phase_costs(cost_model)
+            total, nonoverlap, comm = simulate_cross_step(
+                groups, nbytes, tb, tf, rs_c, ag_c, gamma, overlap,
+                pack_beta,
+            )
+        else:
+            total, nonoverlap, comm = simulate_groups(
+                groups, nbytes, tb, cost_fn, gamma, overlap, pack_beta
+            )
         group_times = predict_group_times(groups, nbytes, cost_fn)
     else:
         total = nonoverlap = comm = float("nan")
@@ -508,8 +1126,12 @@ def build_schedule(
         predicted_comm_time=comm,
         predicted_group_times=group_times,
         policy_detail=detail,
+        dcn_groups=(
+            tuple(tuple(int(i) for i in d) for d in dcn_part)
+            if dcn_part is not None
+            else ()
+        ),
     )
-
 
 def check_unique(names: Sequence[str]) -> None:
     """Raise on duplicate layer names (reference utils.py:160-167, called from

@@ -13,7 +13,8 @@ hooks on the modules that own parameters. The JAX package attributes a
 profiler trace instead, which XLA's fused program needs.
 
 Communication sweeps. Each runs over a ``torch.distributed`` group (NCCL
-on the card, gloo on the CPU) with the JAX package's protocols: warm-up
+on the card, gloo on the CPU; ``profile_two_level`` over the inner and the
+outer groups of a two-level world) with the JAX package's protocols: warm-up
 calls, then timed calls, each window closed by a synchronisation (a
 ``torch.cuda.synchronize`` on the card); every rank's window time is
 agreed to the group's maximum, so all ranks fit the same constants. gamma
@@ -389,6 +390,73 @@ def fit_ag_fraction(
         )
         return 0.5
     return float(min(max(float(np.median(ratios)), lo), hi))
+
+
+def profile_two_level(
+    levels,
+    device: Optional[Union[str, torch.device]] = None,
+    sizes: Sequence[int] = DEFAULT_SIZES,
+    warmup: int = 5,
+    iters: int = 20,
+    allgather: bool = False,
+    dtype: torch.dtype = torch.float32,
+):
+    """Per-link calibration of an (ici x dcn) world split by
+    ``parallel.mesh.two_level_groups`` (the JAX package's
+    ``profile_two_level``, the ``calibrate --two-level`` engine): an
+    all-reduce over only the inner groups (every slice at once) and over
+    only the outer groups at every payload size, each rank's times agreed
+    to the world's maximum, each link fit on its own; with ``allgather``
+    an inner all-gather sweep fits the inner link's ``ag_fraction``.
+
+    Returns (model, raw): a ``TwoLevelAlphaBeta`` whose links are the
+    measured curves (``SampledCost``), and the payload sizes, the inner
+    link's ag_fraction and each link's fit. Where both levels share one
+    fabric (the cards of one host, or gloo through host memory), the two
+    links differ only by group size and contention: the calibration
+    checks the composition, not a slower link."""
+    from mgwfbp_tpu_torch.parallel.costmodel import (
+        SampledCost,
+        TwoLevelAlphaBeta,
+    )
+
+    if levels.dcn <= 1:
+        raise ValueError(f"--two-level needs dcn > 1 (got {levels.dcn})")
+    device = resolve_device(device)
+    ici = profile_allreduce(levels.inner, device, sizes=sizes, warmup=warmup,
+                            iters=iters, dtype=dtype)
+    dcn = profile_allreduce(levels.outer, device, sizes=sizes, warmup=warmup,
+                            iters=iters, dtype=dtype)
+    n = len(ici.times_s)
+    agreed = _agree_max(list(ici.times_s) + list(dcn.times_s), None, device)
+    t_ici, t_dcn = agreed[:n], agreed[n:]
+    nbytes = list(ici.sizes_bytes)
+    ab_ici = fit_alpha_beta(nbytes, t_ici)
+    ab_dcn = fit_alpha_beta(nbytes, t_dcn)
+    ag_fraction = 0.5
+    if allgather:
+        ag = profile_allgather(levels.inner, device, sizes=sizes,
+                               warmup=warmup, iters=iters, dtype=dtype)
+        ag_t = _agree_max(ag.times_s, None, device)
+        ag_fraction = fit_ag_fraction(
+            CommProfile(nbytes, t_ici, ab_ici),
+            CommProfile(ag.sizes_bytes, ag_t, ag.model))
+    model = TwoLevelAlphaBeta(
+        ici=SampledCost(sizes_bytes=tuple(nbytes), times_s=tuple(t_ici),
+                        ab=ab_ici, ag_fraction=ag_fraction),
+        dcn=SampledCost(sizes_bytes=tuple(nbytes), times_s=tuple(t_dcn),
+                        ab=ab_dcn),
+        ici_size=int(levels.ici), dcn_size=int(levels.dcn),
+    )
+    raw = {
+        "sizes_bytes": nbytes,
+        "ag_fraction": ag_fraction,
+        "fit": {
+            "ici": {"alpha": ab_ici.alpha, "beta": ab_ici.beta},
+            "dcn": {"alpha": ab_dcn.alpha, "beta": ab_dcn.beta},
+        },
+    }
+    return model, raw
 
 
 class _HookBench:

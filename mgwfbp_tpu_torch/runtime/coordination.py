@@ -91,14 +91,28 @@ def is_primary() -> bool:
 # its work (SIGABRT, "terminate called without an active exception"; one
 # child in ten of a loaded two-rank run)
 _side: Optional[tuple] = None
+# the subgroups of a two-level world (``parallel.mesh.two_level_groups``):
+# destroyed, and dropped, by ``release`` for the same reason
+_subgroups: list = []
+
+
+def register_subgroups(groups: Sequence) -> None:
+    """Hand subgroups of the world to ``release``, which destroys them."""
+    _subgroups.extend(groups)
 
 
 def release() -> None:
-    """Drop this module's references to the process groups, so that they
-    are destroyed with ``destroy_process_group``, not during interpreter
-    shutdown. Registered with ``atexit``."""
+    """Destroy the registered subgroups that are still live and drop this
+    module's references to every process group, so that they are
+    destroyed now or with ``destroy_process_group``, not during
+    interpreter shutdown. Registered with ``atexit``."""
     global _side
     _side = None
+    live = dist.distributed_c10d._world.pg_map if dist.is_available() else {}
+    while _subgroups:
+        g = _subgroups.pop()
+        if dist.is_initialized() and g in live:
+            dist.destroy_process_group(g)
 
 
 atexit.register(release)

@@ -1,5 +1,5 @@
-"""Overlap accounting: exposed against hidden communication (a copy of the
-single-level part of ``mgwfbp_tpu/telemetry/overlap.py``).
+"""Overlap accounting: exposed against hidden communication (a copy of
+``mgwfbp_tpu/telemetry/overlap.py``).
 
 MG-WFBP's headline quantity: how much all-reduce time hides behind the
 backward pass. ``attribute_overlap`` replays the timeline the solver
@@ -17,8 +17,12 @@ places the stem among the first arrivals although its hooks fire last
 (ROADMAP.md Queue 3): the replayed hidden share can overstate what the
 strict launch order allows. The reducer's ``comm_op`` prices each group
 (``all_reduce`` and ``rs_ag`` by the collective, ``rs_opt_ag`` with its
-shard update's ``update_beta`` term). The cross-step and two-level replays
-are ROADMAP.md Queue 1 item 7b. Everything here is host arithmetic on
+shard update's ``update_beta`` term). ``rs_fwd_ag`` replays two phases
+(``attribute_overlap_cross_step``): each group's deferred all-gather
+against the next step's forward (``tf``), its reduce-scatter against the
+backward; ``hier`` replays two links (``attribute_overlap_two_level``),
+and each row and the summary split the time into ``ici_s`` and ``dcn_s``
+and name the ``bottleneck_link``. Everything here is host arithmetic on
 host data: no device synchronisation.
 """
 
@@ -34,25 +38,43 @@ import numpy as np
 class GroupOverlap:
     """One merge group's share of the replayed step timeline."""
 
-    group: int  # group index (launch order)
-    nbytes: int  # bucket payload
-    start_s: float  # replayed start: max(link free, ready[last member])
-    comm_s: float  # collective duration (traced or predicted)
-    hidden_s: float  # the part that overlaps the backward
-    exposed_s: float  # the part on the critical path
+    group: int  # arrival-order group index
+    nbytes: int  # bucket payload on the wire
+    start_s: float  # link-timeline start (ready[max member], link free)
+    comm_s: float  # collective duration (measured or predicted)
+    hidden_s: float  # portion overlapping compute (backward; + forward
+    # for the cross-step deferred-AG leg)
+    exposed_s: float  # portion on the critical path
+    # cross-step (rs_fwd_ag) only: the deferred all-gather leg, which
+    # executes during the NEXT step's forward. ag_start_s is anchored at
+    # that step's start; comm_s above is the rs+ag TOTAL and start_s the
+    # reduce-scatter leg's (step-anchored) start. Zero on in-step rows.
+    ag_start_s: float = 0.0
+    ag_s: float = 0.0
+    # hierarchical (hier) only: the group's comm split by LINK — ici_s is
+    # the inner reduce-scatter + all-gather legs, dcn_s this group's share
+    # of its DCN group's cross-slice collective. comm_s = ici_s + dcn_s;
+    # the split is what tells an operator WHICH interconnect is the
+    # bottleneck. Zero on flat rows.
+    ici_s: float = 0.0
+    dcn_s: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
 class OverlapSummary:
-    """Per-step overlap accounting for one schedule."""
+    """Per-step overlap accounting for one schedule regime."""
 
     step_s: float  # measured seconds per optimizer step
-    tb_total_s: float  # backward compute (sum of tb)
+    tb_total_s: float  # backward compute total (sum of tb)
     groups: tuple[GroupOverlap, ...]
     attribution: str  # 'trace' | 'cost-model'
-    # the cross-step regime's forward fields; 0 in the flat regime, kept
-    # so the records carry the JAX package's keys
+    # forward compute total — nonzero only for the cross-step (rs_fwd_ag)
+    # regime, whose replayed timeline starts at the FORWARD (deferred AGs
+    # hide behind it); in-step regimes replay backward-anchored as before
     tf_total_s: float = 0.0
+    # where the replayed forward REGION ends (tf_total_s + AG-deadline
+    # stalls) = where the backward begins; renderers anchor on this so a
+    # stalled forward never desynchronizes the backward vs the RS spans
     fwd_end_s: float = 0.0
 
     @property
@@ -69,8 +91,7 @@ class OverlapSummary:
 
     @property
     def efficiency(self) -> float:
-        """hidden / total comm; a step without communication is fully
-        hidden."""
+        """hidden / total comm; a comm-free step is perfectly hidden."""
         total = self.comm_s
         if total <= 0.0:
             return 1.0
@@ -78,15 +99,37 @@ class OverlapSummary:
 
     @property
     def timeline_end_s(self) -> float:
-        """End of the replayed compute + comm timeline."""
-        last_comm = max((g.start_s + g.comm_s for g in self.groups),
-                        default=0.0)
+        """End of the replayed compute+comm timeline (export's render
+        span). Cross-step rows count only their RS leg here (comm_s -
+        ag_s): the AG leg lives at the timeline's start."""
+        last_comm = max(
+            (g.start_s + (g.comm_s - g.ag_s) for g in self.groups),
+            default=0.0,
+        )
         fwd = max(self.fwd_end_s, self.tf_total_s)
         return max(fwd + self.tb_total_s, last_comm)
 
+    @property
+    def ici_s(self) -> float:
+        return sum(g.ici_s for g in self.groups)
+
+    @property
+    def dcn_s(self) -> float:
+        return sum(g.dcn_s for g in self.groups)
+
+    @property
+    def bottleneck_link(self) -> Optional[str]:
+        """'ici' or 'dcn' — the link carrying the larger comm share of a
+        hierarchical regime (None on flat regimes, where only one link
+        exists). The drift detector and the fleet console read this to
+        name WHICH wire to blame before anyone re-autotunes."""
+        if self.dcn_s <= 0.0:
+            return None
+        return "dcn" if self.dcn_s >= self.ici_s else "ici"
+
     def to_event_fields(self) -> dict:
-        """The ``overlap`` telemetry record's payload."""
-        return {
+        """The aggregate `overlap` telemetry record's payload."""
+        out = {
             "step_s": float(self.step_s),
             "tb_total_s": float(self.tb_total_s),
             "tf_total_s": float(self.tf_total_s),
@@ -99,19 +142,35 @@ class OverlapSummary:
             "timeline_end_s": float(self.timeline_end_s),
             "num_groups": len(self.groups),
         }
+        if self.dcn_s > 0.0:
+            out["ici_s"] = float(self.ici_s)
+            out["dcn_s"] = float(self.dcn_s)
+            out["bottleneck_link"] = self.bottleneck_link
+        return out
 
     def group_event_fields(self, step: int) -> list[dict]:
-        """One ``comm_group`` record payload per merge group."""
-        return [{
-            "step": int(step),
-            "group": g.group,
-            "nbytes": int(g.nbytes),
-            "comm_s": float(g.comm_s),
-            "start_s": float(g.start_s),
-            "hidden_s": float(g.hidden_s),
-            "exposed_s": float(g.exposed_s),
-            "attribution": self.attribution,
-        } for g in self.groups]
+        """One `comm_group` telemetry record payload per merge group
+        (cross-step rows add the deferred-AG leg's span fields)."""
+        out = []
+        for g in self.groups:
+            fields = {
+                "step": int(step),
+                "group": g.group,
+                "nbytes": int(g.nbytes),
+                "comm_s": float(g.comm_s),
+                "start_s": float(g.start_s),
+                "hidden_s": float(g.hidden_s),
+                "exposed_s": float(g.exposed_s),
+                "attribution": self.attribution,
+            }
+            if g.ag_s > 0.0:
+                fields["ag_start_s"] = float(g.ag_start_s)
+                fields["ag_s"] = float(g.ag_s)
+            if g.dcn_s > 0.0:
+                fields["ici_s"] = float(g.ici_s)
+                fields["dcn_s"] = float(g.dcn_s)
+            out.append(fields)
+        return out
 
 
 def attribute_overlap(
@@ -120,10 +179,16 @@ def attribute_overlap(
     comm_s: Sequence[float],
     nbytes: Sequence[int],
 ) -> list[GroupOverlap]:
-    """Replay the backward/comm timeline (the solver's recurrence, as in
-    ``solver.simulate_groups``): group g starts at max(link free,
-    ready[max(g)]); the part of [start, start + comm) before the backward
-    ends is hidden, the rest exposed."""
+    """Replay the backward/comm timeline and split each group's comm time.
+
+    The recurrence is the solver's (`solver.simulate_groups`, itself the
+    reference's taoc recurrence, distributed_optimizer.py:187-192): group
+    g's collective starts at max(link free, ready[max(g)]) where ready is
+    the cumulative backward profile; the part of [start, start + comm)
+    before the backward end is hidden, the rest exposed. Durations may be
+    measured (trace) or predicted (cost model); starts are always
+    model-replayed — a trace yields per-scope totals, not start offsets.
+    """
     if len(groups) != len(comm_s) or len(groups) != len(nbytes):
         raise ValueError(
             f"groups/comm_s/nbytes disagree: {len(groups)}/"
@@ -139,10 +204,167 @@ def attribute_overlap(
         start = max(link_free, ready_at)
         hidden = min(max(bwd_end - start, 0.0), t)
         out.append(GroupOverlap(
-            group=gi, nbytes=int(nbytes[gi]), start_s=start, comm_s=t,
-            hidden_s=hidden, exposed_s=t - hidden,
+            group=gi,
+            nbytes=int(nbytes[gi]),
+            start_s=start,
+            comm_s=t,
+            hidden_s=hidden,
+            exposed_s=t - hidden,
         ))
         link_free = start + t
+    return out
+
+
+def attribute_overlap_cross_step(
+    groups: Sequence[Sequence[int]],
+    tb: Sequence[float],
+    tf: Sequence[float],
+    rs_s: Sequence[float],
+    ag_s: Sequence[float],
+    nbytes: Sequence[int],
+) -> tuple[list[GroupOverlap], float]:
+    """The cross-step (rs_fwd_ag) replay: each group's comm splits into a
+    deferred all-gather leg racing the FORWARD timeline (issued in
+    forward-consumption order — reverse arrival — each gated by its first
+    consuming layer's AG deadline) and a reduce-scatter leg racing the
+    BACKWARD (the solver's taoc recurrence, offset to the forward's end).
+    hidden = AG time inside the forward window + RS time inside the
+    backward window; everything else is exposed — the overlap-efficiency
+    headline stays honest about which side hid what. All times are
+    step-anchored (0 = forward begin), unlike the in-step replay's
+    backward anchor; `OverlapSummary.tf_total_s` marks the regime.
+
+    Returns (rows, fwd_end_s): fwd_end_s is where the forward REGION
+    actually ends — sum(tf) plus any AG-deadline stall — i.e. where the
+    backward the RS starts were computed against begins; renderers must
+    anchor the backward there, not at sum(tf)."""
+    n = len(groups)
+    if any(len(x) != n for x in (rs_s, ag_s, nbytes)):
+        raise ValueError(
+            f"groups/rs_s/ag_s/nbytes disagree: {n}/{len(rs_s)}/"
+            f"{len(ag_s)}/{len(nbytes)}"
+        )
+    tf_total = float(np.sum(np.asarray(tf, np.float64))) if len(tf) else 0.0
+    # forward phase replay (simulate_cross_step's recurrence)
+    link = 0.0
+    fwd = 0.0
+    ag_starts = [0.0] * n
+    for gi in reversed(range(n)):
+        ag_starts[gi] = link
+        link += float(ag_s[gi])
+        fwd = max(fwd, link) + float(
+            sum(tf[i] for i in groups[gi]) if len(tf) else 0.0
+        )
+    fwd_end = max(fwd, tf_total)
+    # backward phase replay, offset to the forward's end; the RS link
+    # opens once the AG queue drained (a comm-bound tail can outlive the
+    # forward compute)
+    ready = fwd_end + np.cumsum(np.asarray(tb, dtype=np.float64))
+    bwd_end = float(ready[-1]) if len(ready) else fwd_end
+    link_free = max(link, fwd_end)
+    out: list[GroupOverlap] = []
+    for gi, g in enumerate(groups):
+        t_ag = float(ag_s[gi])
+        t_rs = float(rs_s[gi])
+        hidden_ag = min(max(fwd_end - ag_starts[gi], 0.0), t_ag)
+        ready_at = float(ready[max(g)]) if len(g) and len(ready) else fwd_end
+        rs_start = max(link_free, ready_at)
+        hidden_rs = min(max(bwd_end - rs_start, 0.0), t_rs)
+        out.append(GroupOverlap(
+            group=gi,
+            nbytes=int(nbytes[gi]),
+            start_s=rs_start,
+            comm_s=t_rs + t_ag,
+            hidden_s=hidden_rs + hidden_ag,
+            exposed_s=(t_rs - hidden_rs) + (t_ag - hidden_ag),
+            ag_start_s=ag_starts[gi],
+            ag_s=t_ag,
+        ))
+        link_free = rs_start + t_rs
+    return out, fwd_end
+
+
+def attribute_overlap_two_level(
+    groups: Sequence[Sequence[int]],
+    dcn_groups: Sequence[Sequence[int]],
+    tb: Sequence[float],
+    rs_s: Sequence[float],
+    dcn_s: Sequence[float],
+    ag_s: Sequence[float],
+    nbytes: Sequence[int],
+) -> list[GroupOverlap]:
+    """The hierarchical (hier) replay: two serial links race the backward
+    (`solver.simulate_groups_two_level`'s recurrence). Per inner group the
+    ICI link carries its reduce-scatter (taoc recurrence) and — after the
+    RS queue drains and its DCN group's cross-slice collective lands —
+    its all-gather; the DCN link carries one collective per DCN group
+    (`dcn_s`, one entry per DCN group), whose time and hidden share are
+    apportioned to member groups by payload. hidden = time inside the
+    backward window on EITHER link; the per-row ici_s/dcn_s split is what
+    names the bottleneck link."""
+    n = len(groups)
+    if any(len(x) != n for x in (rs_s, ag_s, nbytes)):
+        raise ValueError(
+            f"groups/rs_s/ag_s/nbytes disagree: {n}/{len(rs_s)}/"
+            f"{len(ag_s)}/{len(nbytes)}"
+        )
+    if len(dcn_s) != len(dcn_groups):
+        raise ValueError(
+            f"dcn_groups/dcn_s disagree: {len(dcn_groups)}/{len(dcn_s)}"
+        )
+    ready = np.cumsum(np.asarray(tb, dtype=np.float64))
+    bwd_end = float(ready[-1]) if len(ready) else 0.0
+
+    def hidden_in_bwd(start: float, dur: float) -> float:
+        return min(max(bwd_end - start, 0.0), dur)
+
+    # ICI link, RS phase
+    ici_free = 0.0
+    rs_start = [0.0] * n
+    rs_done = [0.0] * n
+    for gi, g in enumerate(groups):
+        start = max(ici_free, float(ready[max(g)]) if len(g) else 0.0)
+        rs_start[gi] = start
+        ici_free = start + float(rs_s[gi])
+        rs_done[gi] = ici_free
+    # DCN link: apportion each DCN collective to its members by payload
+    dcn_free = 0.0
+    dcn_done = [0.0] * n
+    g_dcn = [0.0] * n
+    g_dcn_hidden = [0.0] * n
+    for di, d in enumerate(dcn_groups):
+        t = float(dcn_s[di])
+        start = max(dcn_free, max(rs_done[gi] for gi in d))
+        dcn_free = start + t
+        hidden = hidden_in_bwd(start, t)
+        total_b = float(sum(nbytes[gi] for gi in d)) or 1.0
+        for gi in d:
+            share = float(nbytes[gi]) / total_b
+            dcn_done[gi] = dcn_free
+            g_dcn[gi] = t * share
+            g_dcn_hidden[gi] = hidden * share
+    # ICI link, AG phase
+    out: list[GroupOverlap] = []
+    for gi in range(n):
+        start = max(ici_free, dcn_done[gi])
+        t_ag = float(ag_s[gi])
+        ici_free = start + t_ag
+        hidden = (
+            hidden_in_bwd(rs_start[gi], float(rs_s[gi]))
+            + g_dcn_hidden[gi]
+            + hidden_in_bwd(start, t_ag)
+        )
+        comm = float(rs_s[gi]) + g_dcn[gi] + t_ag
+        out.append(GroupOverlap(
+            group=gi,
+            nbytes=int(nbytes[gi]),
+            start_s=rs_start[gi],
+            comm_s=comm,
+            hidden_s=hidden,
+            exposed_s=comm - hidden,
+            ici_s=float(rs_s[gi]) + t_ag,
+            dcn_s=g_dcn[gi],
+        ))
     return out
 
 
@@ -175,11 +397,101 @@ def summarize(
     tb: Sequence[float],
     step_s: float,
     measured: Optional[Sequence[float]] = None,
+    tf: Optional[Sequence[float]] = None,
 ) -> OverlapSummary:
-    """Overlap accounting for a live reducer: tb is the arrival-ordered
-    backward profile the schedule was solved on, ``step_s`` the measured
-    seconds per optimizer step."""
-    comm, nbytes, attribution = group_comm_times(reducer, cost_model, measured)
+    """Full overlap accounting for one live schedule regime.
+
+    tb is the arrival-ordered per-layer backward profile (measured, or the
+    size prior the solver fell back to); step_s the measured seconds per
+    optimizer step the snapshot describes. For a cross-step (rs_fwd_ag)
+    reducer, `tf` is the forward profile its deferred-AG legs race
+    (defaults to `solver.forward_prior_tf(tb)`); per-group comm — trace
+    totals cover BOTH legs of a group's scope — splits between the legs in
+    the cost model's phase proportions (`solver.cross_step_phase_costs`).
+    """
+    comm, nbytes, attribution = group_comm_times(
+        reducer, cost_model, measured
+    )
+    comm_op = getattr(reducer, "comm_op", "all_reduce")
+    if comm_op == "hier":
+        from mgwfbp_tpu_torch.parallel.solver import (
+            is_two_level,
+            singleton_dcn_groups,
+            two_level_leg_costs,
+        )
+
+        dcn_part = [
+            list(d) for d in getattr(reducer.schedule, "dcn_groups", ())
+        ] or singleton_dcn_groups(len(nbytes))
+        if is_two_level(cost_model):
+            rs_c, dcn_c, ag_c = two_level_leg_costs(cost_model)
+        else:
+            # a flat model cannot split the links; put everything on the
+            # ICI side so the replay still runs (dcn_s = 0 marks the
+            # split as unavailable rather than inventing one)
+            rs_c = lambda b: 0.5 * float(cost_model.predict(b))  # noqa: E731
+            ag_c = lambda b: 0.5 * float(cost_model.predict(b))  # noqa: E731
+            dcn_c = lambda b: 0.0  # noqa: E731
+        # Per-link pricing. The DCN link runs ONE collective per DCN
+        # group over the members' concatenated shards — its cost is
+        # dcn_c(sum of member bytes), exactly once (summing per-member
+        # predictions would charge the DCN alpha per member, the very
+        # overhead merging on DCN exists to avoid — and precisely in the
+        # merged regime this accounting describes). ICI legs: TRACE
+        # totals sum the mgwfbp_groupNNNN scopes only — the ICI legs
+        # (the DCN collectives live under their own mgwfbp_dcngroupNNNN
+        # scopes, which per-group attribution does not yet collect) — so
+        # a measured t splits across the ICI legs and the DCN leg stays
+        # model-priced; without a trace the leg costs price directly.
+        dcn_s = [
+            float(dcn_c(float(sum(nbytes[gi] for gi in d))))
+            for d in dcn_part
+        ]
+        rs_s, ag_s = [], []
+        for t, b in zip(comm, nbytes):
+            r, a = rs_c(b), ag_c(b)
+            if attribution == "trace":
+                tot = max(r + a, 1e-30)
+                rs_s.append(t * r / tot)
+                ag_s.append(t * a / tot)
+            else:
+                rs_s.append(float(r))
+                ag_s.append(float(a))
+        rows = attribute_overlap_two_level(
+            reducer.layout.groups, dcn_part, tb, rs_s, dcn_s, ag_s, nbytes
+        )
+        return OverlapSummary(
+            step_s=float(step_s),
+            tb_total_s=float(sum(float(t) for t in tb)),
+            groups=tuple(rows),
+            attribution=attribution,
+        )
+    if comm_op == "rs_fwd_ag":
+        from mgwfbp_tpu_torch.parallel.solver import (
+            cross_step_phase_costs,
+            forward_prior_tf,
+        )
+
+        if tf is None:
+            tf = forward_prior_tf(tb)
+        rs_c, ag_c = cross_step_phase_costs(cost_model)
+        rs_s, ag_s = [], []
+        for t, b in zip(comm, nbytes):
+            r, a = rs_c(b), ag_c(b)
+            frac = r / max(r + a, 1e-30)
+            rs_s.append(t * frac)
+            ag_s.append(t * (1.0 - frac))
+        rows, fwd_end = attribute_overlap_cross_step(
+            reducer.layout.groups, tb, tf, rs_s, ag_s, nbytes
+        )
+        return OverlapSummary(
+            step_s=float(step_s),
+            tb_total_s=float(sum(float(t) for t in tb)),
+            tf_total_s=float(sum(float(t) for t in tf)),
+            fwd_end_s=float(fwd_end),
+            groups=tuple(rows),
+            attribution=attribution,
+        )
     rows = attribute_overlap(reducer.layout.groups, tb, comm, nbytes)
     return OverlapSummary(
         step_s=float(step_s),

@@ -53,10 +53,23 @@ One ``TrainStep`` call is one optimizer step:
     on the LOCAL pre-reduction gradients and averaged over the ranks: a
     non-finite value survives the reduce-scatter, so the count is non-zero
     exactly when the update would consume one;
+  * a reducer built with ``comm_op='rs_fwd_ag'`` (the cross-step pipeline)
+    keeps that contract with the all-gather moved into the next step: the
+    step starts with the reducer's ``gather_params()`` (the all-gathers of
+    the previous update, which the forward's pre-hooks wait for; at a
+    compute dtype every gather is waited for before the forward's cast,
+    which reads all the parameters at once) and ends with
+    ``reduce_and_defer`` (the module's parameters stay one update stale
+    until the next step's forward). A skipped step keeps the pre-step
+    shards and count. The update ratio is then taken on the shards
+    (old and new, every rank's summed by one two-element all-reduce);
+  * a reducer built with ``comm_op='hier'`` reduces through
+    ``synchronize`` like the single-level lowerings;
 
   * ``health_stats`` (the JAX step's ``_health_stat_entries``): the L2
     norm of the post-reduction gradients (before clipping; the local ones,
-    averaged over the ranks, on ``rs_opt_ag``), one norm per merge group
+    averaged over the ranks, on ``rs_opt_ag`` and ``rs_fwd_ag``), one norm
+    per merge group
     in the reducer's arrival permutation, the update ratio
     ||new - old params|| / max(||old params||, 1e-12) (NaN on a skipped
     step, as the JAX step's update of non-finite gradients gives). Each
@@ -89,7 +102,7 @@ from torch import nn
 
 from mgwfbp_tpu_torch.models.lstm import repackage_carry
 from mgwfbp_tpu_torch.optim import clip_by_global_norm_, set_lr
-from mgwfbp_tpu_torch.parallel.allreduce import MergedAllreduce
+from mgwfbp_tpu_torch.parallel.allreduce import SHARDED_OPS, MergedAllreduce
 from mgwfbp_tpu_torch.parallel.mesh import world_size
 
 
@@ -347,8 +360,11 @@ class TrainStep:
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.buffers = flatten_buffers(model)
         self.step = 0  # optimizer updates applied: the schedule's count
-        # rs_opt_ag: the reducer runs the optimizer on its shards
-        self.sharded = reducer is not None and reducer.comm_op == "rs_opt_ag"
+        # rs_opt_ag, rs_fwd_ag: the reducer runs the optimizer on its
+        # shards; rs_fwd_ag carries the parameters as shards between steps
+        self.sharded = reducer is not None and reducer.comm_op in SHARDED_OPS
+        self.cross_step = (reducer is not None
+                           and reducer.comm_op == "rs_fwd_ag")
         self.health_stats = bool(health_stats)
         self._compression = (self.health_stats and reducer is not None
                              and reducer.sparse)
@@ -381,7 +397,11 @@ class TrainStep:
         carry_in = carry
         for p in self.params:
             p.grad = None
-        if self.health_stats:
+        if self.cross_step:
+            reducer.gather_params()
+            if self.compute_dtype is not None:
+                reducer.finish_gather()
+        elif self.health_stats:
             self._snapshot_params()
         loss_sum = torch.zeros((), device=x.device)
         metric_sum = torch.zeros((), device=x.device)
@@ -393,6 +413,9 @@ class TrainStep:
                 lengths=None if lengths is None
                 else (lengths[0][i], lengths[1][i]),
             )
+            if self.cross_step:
+                # a group no module's pre-hook consumed lands here
+                reducer.finish_gather()
             loss.backward()
             if carry is not None:
                 carry = repackage_carry(carry)
@@ -449,8 +472,12 @@ class TrainStep:
         else:
             loss_v, metric_v, bad = metrics.tolist()
             prev_health = {}
+        old_shards = None
         if bad == 0.0:
-            if self.sharded:
+            if self.cross_step:
+                old_shards = list(reducer.param_shards)
+                reducer.reduce_and_defer(lr=self.lr_fn(self.step))
+            elif self.sharded:
                 reducer.reduce_and_update(lr=self.lr_fn(self.step))
             else:
                 if self.norm_clip is not None:
@@ -471,7 +498,8 @@ class TrainStep:
                 self.buffers.copy_(snapshot)
             carry = carry_in
         if norms is not None:
-            self._health_dev = self._health_vector(norms, bad == 0.0, comp)
+            self._health_dev = self._health_vector(norms, bad == 0.0, comp,
+                                                   old_shards)
         for p in self.params:
             p.grad = None
         out = {"loss": loss_v, "grads_nonfinite": bad, **prev_health}
@@ -513,11 +541,23 @@ class TrainStep:
                               self._group_matrix @ sq]).sqrt()
 
     def _health_vector(self, norms: torch.Tensor, applied: bool,
-                       comp: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       comp: Optional[torch.Tensor] = None,
+                       old_shards: Optional[list] = None) -> torch.Tensor:
         """[grad_norm, group norms..., update_ratio, compression errors...]
-        of this step."""
+        of this step (on rs_fwd_ag the ratio from ``old_shards`` and the
+        carried ones)."""
         with torch.no_grad():
-            if applied:
+            if applied and old_shards is not None:
+                new = self.reducer.param_shards
+                sq = torch.stack([
+                    leaf_norms(old_shards).square().sum(),
+                    leaf_norms(torch._foreach_sub(new, old_shards))
+                    .square().sum()])
+                if self.world > 1:
+                    dist.all_reduce(sq, group=self.reducer.group)
+                pnorm, unorm = sq.sqrt().unbind()
+                ratio = (unorm / pnorm.clamp_min(1e-12)).reshape(1)
+            elif applied:
                 pnorm = leaf_norms(self._old_params).square().sum().sqrt()
                 torch._foreach_sub_(self._old_params, self.params)
                 unorm = leaf_norms(self._old_params).square().sum().sqrt()

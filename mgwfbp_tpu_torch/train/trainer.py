@@ -15,19 +15,35 @@ One process per card; the world is whatever ``torch.distributed`` was
 started with (``parallel.mesh.init_distributed``), one worker when it was
 not started. At one worker there is no reducer: no communication exists
 to schedule (the JAX trainer's single-device rule; ``--comm-op rs_opt_ag``
-then runs the replicated optimizer, since a one-rank shard is the whole
-state). ``config.comm_op`` picks the lowering of the merged collectives
-(``all_reduce``, ``rs_ag``, ``rs_opt_ag``), ``config.compressor`` and
+and ``rs_fwd_ag`` then run the replicated optimizer, since a one-rank
+shard is the whole state). ``config.comm_op`` picks the lowering of the
+merged collectives (``all_reduce``, ``rs_ag``, ``hier``, ``rs_opt_ag``,
+``rs_fwd_ag``), ``config.compressor`` and
 ``config.density`` a top-k compressor (``--density 0``: the cost model's
 choice, ``costmodel.choose_density``, which may fall back to dense). On
 ``rs_opt_ag`` the optimizer state lives as this rank's 1/world shards in
 the reducer (``opt_state``): a checkpoint gathers it into the Flax layout
 and writes each rank's rows of the sharded ``opt`` section; a restore
 (resume, rollback, cross-world) scatters the replicated form, whoever wrote
-it, onto this rank's shards. The cost model is the
-``--comm-profile`` resolved at the world size, else the ``connection``
-prior; the measured backward profile is written to
-``<logdir>/<tag>/tb_profile.json``. ``config.dtype`` bfloat16 runs the
+it, onto this rank's shards. On ``rs_fwd_ag`` the parameters too live as
+the reducer's shards between steps (``param_shards``): the module's
+parameters are one update stale until the next step's forward gathers
+them, so every other reader (evaluation, the checkpoint save and with it
+the drain, the end of ``fit``) first calls ``_materialize``, and every
+write of the parameters (resume, rollback, ``--pretrain``, a cross-world
+resume) re-scatters the shards from them; a save writes each rank's rows
+of a sharded ``params`` section, as the JAX trainer does. ``config.
+dcn_slices`` splits the world into slices for ``hier``
+(``parallel.mesh.two_level_groups``; ``update_nworker`` refuses a
+multi-slice run) and prices a schedule on two links
+(``TwoLevelAlphaBeta``: the profile's, else the ``ici`` and ``dcn``
+priors); the drift detector and the /profile window compare a hier
+group's range against its inner legs only (``_scope_comparable_
+predictions``), since the cross-slice all-reduces have ranges of their
+own. The cost model is the ``--comm-profile`` resolved at the world
+size, else the ``connection`` prior; the measured backward profile (and,
+on ``rs_fwd_ag``, the forward profile the cross-step schedule is priced
+on, ``_tf_cache``) is written to ``<logdir>/<tag>/tb_profile.json``. ``config.dtype`` bfloat16 runs the
 step and evaluation at that compute dtype (the JAX step's mixed-precision
 policy, ``train/step.py``); the TF32 setting comes from
 ``utils.device.set_matmul_precision`` and is logged. With ``telemetry`` on, each step
@@ -126,7 +142,7 @@ from mgwfbp_tpu_torch.checkpoint import (
     TrainState,
     shape_only,
 )
-from mgwfbp_tpu_torch.config import TrainConfig
+from mgwfbp_tpu_torch.config import TrainConfig, check_hier
 from mgwfbp_tpu_torch.convert import (
     _param_rules,
     flax_leaves,
@@ -146,27 +162,32 @@ from mgwfbp_tpu_torch.optim import (
     sgd_state_layout,
 )
 from mgwfbp_tpu_torch.parallel.allreduce import (
+    SHARDED_OPS,
     arrival_order,
     make_merged_allreduce,
 )
 from mgwfbp_tpu_torch.parallel.compression import make_compressor
 from mgwfbp_tpu_torch.parallel.costmodel import (
+    TwoLevelAlphaBeta,
     choose_density,
     load_profile,
     lookup_alpha_beta,
     resolve_profile,
 )
-from mgwfbp_tpu_torch.parallel.mesh import rank, world_size
+from mgwfbp_tpu_torch.parallel.mesh import rank, two_level_groups, world_size
 from mgwfbp_tpu_torch.parallel.solver import (
     LayerSpec,
     check_comm_op,
+    is_two_level,
     size_prior_tb,
+    two_level_leg_costs,
 )
 from mgwfbp_tpu_torch.runtime import ResizeUnsupported
 from mgwfbp_tpu_torch.runtime import coordination as coord
 from mgwfbp_tpu_torch.profiling import (
     TbProfile,
     benchmark_backward,
+    benchmark_forward,
     layer_profile_doc,
     save_layer_profile,
     trace_group_times,
@@ -419,6 +440,9 @@ class Trainer:
         )
         self.cost_model = None
         self.tb: Optional[TbProfile] = None
+        # the measured forward profile (rs_fwd_ag's schedule is priced on
+        # it; None: the solver's tb/2 prior)
+        self._tf_cache: Optional[TbProfile] = None
         self.reducer = self._build_reducer(profile_backward)
         if self.reducer is not None:
             s = self.reducer.schedule
@@ -438,6 +462,12 @@ class Trainer:
                 optim.replicated_state_bytes(),
                 optim.replicated_state_bytes()
                 / max(optim.state_bytes_per_device(), 1), optim.world,
+            )
+        if self._cross_step:
+            self.log.info(
+                "cross-step pipelining (rs_fwd_ag): %d group gather(s) "
+                "deferred into the next step's forward",
+                self.reducer.num_groups,
             )
         self._sync_schedule_gauge()
         self.train_step = TrainStep(
@@ -503,8 +533,21 @@ class Trainer:
     @property
     def _sharded_opt(self) -> bool:
         """True when the optimizer state is sharded over the ranks
-        (rs_opt_ag)."""
-        return self._reducer_op == "rs_opt_ag"
+        (rs_opt_ag, rs_fwd_ag)."""
+        return self._reducer_op in SHARDED_OPS
+
+    @property
+    def _cross_step(self) -> bool:
+        """True when the parameters, too, are carried as shards between
+        steps (rs_fwd_ag)."""
+        return self._reducer_op == "rs_fwd_ag"
+
+    def _materialize(self) -> None:
+        """Bring the module's parameters up to the carried shards before a
+        reader sees them (rs_fwd_ag; a collective when they are stale,
+        which every rank is at the same step)."""
+        if self._cross_step:
+            self.reducer.materialize()
 
     @property
     def comm_op(self) -> str:
@@ -684,9 +727,15 @@ class Trainer:
         takes no compressor."""
         cfg = self.config
         check_comm_op(cfg.comm_op)
+        # fail fast: config and world alone decide these
+        check_hier(cfg.comm_op, cfg.dcn_slices)
+        if cfg.dcn_slices < 1 or self.world % cfg.dcn_slices:
+            raise ValueError(
+                f"--dcn-slices {cfg.dcn_slices} does not divide the world "
+                f"of {self.world} rank(s)")
         sparse = cfg.compressor not in (None, "", "none")
         if cfg.policy in ("none", "xla"):
-            if cfg.comm_op == "rs_opt_ag":
+            if cfg.comm_op in SHARDED_OPS:
                 raise ValueError(
                     f"--comm-op {cfg.comm_op} requires a merge policy "
                     "(mgwfbp/auto/threshold/single/wfbp); policy "
@@ -698,13 +747,13 @@ class Trainer:
                 "(policy %s inert%s%s%s)", cfg.policy,
                 f"; --comm-profile {cfg.comm_profile} unused"
                 if cfg.comm_profile else "",
-                "; --comm-op rs_opt_ag runs the replicated optimizer"
-                if cfg.comm_op == "rs_opt_ag" else "",
+                f"; --comm-op {cfg.comm_op} runs the replicated optimizer"
+                if cfg.comm_op in SHARDED_OPS else "",
                 f"; --compressor {cfg.compressor} unused, no density chosen"
                 if sparse else "",
             )
             return None
-        if cfg.comm_op == "rs_opt_ag" and sparse:
+        if cfg.comm_op in SHARDED_OPS and sparse:
             raise ValueError(
                 f"--comm-op {cfg.comm_op} cannot combine with --compressor "
                 "(the shard update needs the dense reduction)")
@@ -718,6 +767,8 @@ class Trainer:
         if self._reducer_op is None:
             return None
         sparse = cfg.compressor not in (None, "", "none")
+        dcn = int(cfg.dcn_slices)
+        ici = self.world // dcn
         if cfg.comm_profile:
             self.cost_model = resolve_profile(
                 load_profile(cfg.comm_profile), self.world
@@ -727,8 +778,28 @@ class Trainer:
                 "beta %.4g s/B, gamma %.4g s, overlap %.3g)",
                 cfg.comm_profile, self.world,
                 type(self.cost_model).__name__, self.cost_model.alpha,
-                self.cost_model.beta, self.cost_model.gamma,
-                self.cost_model.overlap,
+                # a two-level model has a beta per link, none overall
+                getattr(self.cost_model, "beta", float("nan")),
+                self.cost_model.gamma, self.cost_model.overlap,
+            )
+            if dcn > 1 and not isinstance(self.cost_model, TwoLevelAlphaBeta):
+                self.log.warning(
+                    "--comm-profile %s is a FLAT alpha-beta model but the "
+                    "world is multi-slice (dcn=%d): the profile prices the "
+                    "cross-slice hop as the inner link. Calibrate a "
+                    "two-level profile (calibrate --two-level) for "
+                    "trustworthy merge schedules.", cfg.comm_profile, dcn,
+                )
+        elif dcn > 1:
+            # multi-slice: the inner link within a slice, the outer across
+            self.cost_model = TwoLevelAlphaBeta(
+                ici=lookup_alpha_beta("ici", ici),
+                dcn=lookup_alpha_beta("dcn", dcn),
+                ici_size=ici, dcn_size=dcn,
+            )
+            self.log.info(
+                "cost model: the two-level ici/dcn priors at %d slice(s) of "
+                "%d (no --comm-profile)", dcn, ici,
             )
         else:
             self.cost_model = lookup_alpha_beta(cfg.connection, self.world)
@@ -738,6 +809,10 @@ class Trainer:
             )
         if cfg.policy in ("mgwfbp", "auto") and profile_backward:
             self.tb = self._profile_backward()
+            if self._reducer_op == "rs_fwd_ag":
+                # only the cross-step schedule reads the forward profile
+                if self._tf_cache is None:
+                    self._tf_cache = self._profile_forward()
         compressor = None
         if sparse:
             density = cfg.density
@@ -755,13 +830,18 @@ class Trainer:
                 compressor = make_compressor(cfg.compressor, density)
                 self.log.info("gradient compression: %s density=%g",
                               cfg.compressor, density)
+        levels = None
+        if self._reducer_op == "hier":
+            levels = two_level_groups(dcn)
+            self.log.info("two-level groups: %d slice(s) of %d rank(s)",
+                          dcn, ici)
         return make_merged_allreduce(
-            self.model, policy=cfg.policy, tb=self.tb,
+            self.model, policy=cfg.policy, tb=self.tb, tf=self._tf_cache,
             cost_model=self.cost_model, threshold=cfg.threshold,
             comm_dtype=getattr(torch, cfg.comm_dtype) if cfg.comm_dtype else None,
             comm_op=self._reducer_op, compressor=compressor,
             optim_spec=self.optim_spec if self._sharded_opt else None,
-            world_size=self.world,
+            world_size=self.world, levels=levels,
         )
 
     def _arrival_leaves(self) -> tuple[list, list[int], list[str]]:
@@ -807,6 +887,46 @@ class Trainer:
             time.perf_counter() - t0,
         )
         return tb
+
+    def _profile_forward(self) -> TbProfile:
+        """The forward's seconds per leaf in arrival order
+        (``profiling.benchmark_forward``) at the per-worker batch, rank 0's
+        broadcast as tb is; rank 0 rewrites ``tb_profile.json`` with them
+        (schema 2, ``tf_s``). Without one (no backward profile either:
+        ``profile_backward`` off, or a policy that takes none) the
+        cross-step schedule takes ``solver.forward_prior_tf(tb)``, as the
+        JAX trainer does."""
+        x, y, *lengths = self._to_device(
+            *batch_fields(self.bundle.train.load_batch(0, 0)))
+        params, perm, names = self._arrival_leaves()
+        carry = self._zero_carry()
+
+        def loss_of():
+            return forward_loss(self.model, self.meta.task, x, y, carry,
+                                self.compute_dtype,
+                                lengths=tuple(lengths) or None)[0]
+
+        t0 = time.perf_counter()
+        self.model.train()
+        tf = benchmark_forward(self.model, loss_of, params, perm,
+                               warmup=2, iters=10)
+        if self.world > 1:
+            vals = torch.tensor(list(tf), dtype=torch.float64,
+                                device=self.device)
+            dist.broadcast(vals, 0)
+            tf = TbProfile(vals.tolist(), source=tf.source)
+        if self.rank == 0 and self.config.logdir and self.tb is not None:
+            save_layer_profile(
+                os.path.join(self.config.logdir, self.config.tag(),
+                             "tb_profile.json"),
+                layer_profile_doc(self.tb, [names[j] for j in perm], tf=tf),
+            )
+        self.log.info(
+            "forward benchmark: %.3g s total over %d tensors, per-layer "
+            "source=%s (%.1f s)", sum(tf), len(tf), tf.source,
+            time.perf_counter() - t0,
+        )
+        return tf
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int) -> dict:
@@ -1017,7 +1137,7 @@ class Trainer:
             return
         summary = summarize(
             self.reducer, self.cost_model, self._overlap_tb(), step_s,
-            measured=self._measured_group_times,
+            measured=self._measured_group_times, tf=self._tf_cache,
         )
         self.telemetry.emit("overlap", step=self.iteration, epoch=int(epoch),
                             **summary.to_event_fields())
@@ -1153,6 +1273,23 @@ class Trainer:
                              group=int(a.group))
         det.reset()
 
+    def _scope_comparable_predictions(self) -> tuple[list, list]:
+        """(predicted seconds, bytes) per group, comparable with the time
+        a trace attributes to the group's ``mgwfbp_groupNNNN`` range. On
+        hier the cross-slice all-reduces have ranges of their own
+        (``mgwfbp_dcngroupNNNN``), so a group's range holds its inner
+        legs only and its prediction is theirs (a whole-collective one
+        would read as drift on a perfectly calibrated model); on every
+        other lowering the range covers the whole collective."""
+        from mgwfbp_tpu_torch.telemetry import group_comm_times
+
+        predicted, nbytes, _ = group_comm_times(self.reducer,
+                                                self.cost_model)
+        if self.reducer.comm_op == "hier" and is_two_level(self.cost_model):
+            rs_c, _, ag_c = two_level_leg_costs(self.cost_model)
+            predicted = [rs_c(b) + ag_c(b) for b in nbytes]
+        return predicted, nbytes
+
     def _observe_drift_window(self, step_s: float) -> None:
         """One log window's step time into the drift detector, and the
         per-group comm against the cost model: absolute against measured
@@ -1168,9 +1305,7 @@ class Trainer:
             return
         alarms = list(det.observe_step_window(step_s))
         if self.reducer is not None and self.cost_model is not None:
-            from mgwfbp_tpu_torch.telemetry import group_comm_times
-
-            predicted, _, _ = group_comm_times(self.reducer, self.cost_model)
+            predicted, _ = self._scope_comparable_predictions()
             measured = self._measured_group_times
             if measured is not None and len(measured) == len(predicted):
                 alarms += det.observe_comm(predicted, measured_s=measured)
@@ -1336,12 +1471,9 @@ class Trainer:
         attribution = "trace" if measured is not None else "none"
         groups_doc: list[dict] = []
         if self.reducer is not None:
-            from mgwfbp_tpu_torch.telemetry import group_comm_times
-
             predicted = nbytes = None
             if self.cost_model is not None:
-                predicted, nbytes, _ = group_comm_times(self.reducer,
-                                                        self.cost_model)
+                predicted, nbytes = self._scope_comparable_predictions()
             layout = self.reducer.layout
             for gi in range(num_groups):
                 row = {"group": gi,
@@ -1446,6 +1578,7 @@ class Trainer:
             time.sleep(stall_s)
         if not self._evaluated:
             self._beat("first evaluation", allow_s=COMPILE_ALLOW_S)
+        self._materialize()
         if self.meta.task == "lm":
             out = self._evaluate_lm()
         elif self.meta.task == "ctc":
@@ -1674,6 +1807,7 @@ class Trainer:
         cfg = self.config
         primary = self.rank == 0
         files: dict[str, np.ndarray] = {}
+        self._materialize()
         p_shapes = flax_shapes(self.model, "params")
         b_shapes = flax_shapes(self.model, "batch_stats")
         paths, trace_paths, count_path = self._opt_layout()
@@ -1722,9 +1856,12 @@ class Trainer:
         }
         if self._sharded_opt:
             self._sharded_opt_payload(manifest, files)
-        if primary:
+        if self._cross_step:
+            self._sharded_params_payload(manifest, files)
+        elif primary:
             for j, a in enumerate(host_leaves(self.model, "params").values()):
                 files[f"params.l{j}"] = a
+        if primary:
             for j, a in enumerate(
                 host_leaves(self.model, "batch_stats").values()
             ):
@@ -1780,6 +1917,19 @@ class Trainer:
                                  for r in range(optim.world)}
         manifest["opt"] = {"kind": "sharded", "slots": int(optim.num_slots)}
         manifest["meta"]["opt_count"] = int(state.count)
+
+    def _sharded_params_payload(self, manifest: dict, files: dict) -> None:
+        """The sharded ``params`` section of an rs_fwd_ag run, as the JAX
+        trainer writes its carry: the (materialized) parameters in Flax
+        layout packed onto this run's bucket layout, and this rank's row
+        of every group (``_sharded_opt_payload`` wrote the layout and the
+        rows' owners)."""
+        optim = self.reducer.optim
+        leaves = list(host_leaves(self.model, "params").values())
+        for gi, buf in enumerate(optim.pack_slot(leaves)):
+            files[f"params.g{gi}"] = np.ascontiguousarray(
+                buf[self.rank:self.rank + 1])
+        manifest["params"] = {"kind": "sharded"}
 
     # -- restore ------------------------------------------------------------
     def _template(self, with_opt: bool = True) -> TrainState:
@@ -1847,6 +1997,9 @@ class Trainer:
             strict=True,
         )
         self.train_step.step = int(state.step)
+        if self._cross_step:
+            # the carry re-scattered onto this run's layout and world
+            self.reducer.scatter_params()
         if self._sharded_opt:
             self._install_sharded_opt(
                 state if optimizer and state.opt_state is not None else None,
@@ -2049,6 +2202,12 @@ class Trainer:
         recipe, as the JAX trainer's multi-process branch raises)."""
         if nworkers == self.world:
             return
+        if self.config.dcn_slices > 1:
+            raise ResizeUnsupported(
+                "update_nworker cannot re-mesh a multi-slice (dcn) run in "
+                "place; relaunch with new --dcn-slices",
+                nworkers,
+            )
         raise ResizeUnsupported(
             f"update_nworker({nworkers}): this world runs {self.world} "
             "process(es), one card each, and cannot re-mesh in place",
@@ -2336,6 +2495,8 @@ class Trainer:
                         and self._measured_group_times is None:
                     self._trace_group_times()
                 metrics = self._fit_epochs(self.start_epoch, end)
+                # whoever reads the model after training reads it current
+                self._materialize()
         except coord.CoordinationTimeout as ct:
             # a peer is dead or wedged: every further collective would
             # hang, the checkpoint barrier included

@@ -39,11 +39,18 @@ recorder's bundles); ``--no-health-stats`` turns off the in-step health
 statistics, ``--tensorboard`` streams scalars, ``--serve-shadow`` serves
 and shadow-scores the run's checkpoints in-process. ``--comm-op`` picks the
 lowering of the merged collectives (``all_reduce``, ``rs_ag``,
-``rs_opt_ag``: the sharded optimizer), ``--compressor topk --density D``
-the top-k compressor (``--density 0``: the cost model's choice); the
-JAX CLI's ``hier`` and ``rs_fwd_ag`` exit with an argparse error. A
-single-process launch first probes the card under ``MGWFBP_INIT_TIMEOUT_S``
+``rs_opt_ag``: the sharded optimizer, ``rs_fwd_ag``: the sharded optimizer
+with each all-gather deferred into the next step's forward, ``hier``: the
+two-level lowering over ``--dcn-slices`` slices, which it needs to be more
+than 1), ``--compressor topk --density D`` the top-k compressor
+(``--density 0``: the cost model's choice). A single-process launch first
+probes the card under ``MGWFBP_INIT_TIMEOUT_S``
 (``utils.platform.preflight_backend``).
+
+    python -m mgwfbp_tpu_torch.train_cli --dnn resnet20 --synthetic \\
+        --comm-op rs_fwd_ag                # with 2 or more processes
+    python -m mgwfbp_tpu_torch.train_cli --dnn resnet20 --synthetic \\
+        --comm-op hier --dcn-slices 2      # with 4 processes: 2 x 2
 """
 
 from __future__ import annotations
@@ -54,7 +61,12 @@ import os
 import sys
 from typing import Optional
 
-from mgwfbp_tpu_torch.config import PRESETS, TrainConfig, make_config
+from mgwfbp_tpu_torch.config import (
+    PRESETS,
+    TrainConfig,
+    check_hier,
+    make_config,
+)
 from mgwfbp_tpu_torch.models import model_names
 
 
@@ -107,11 +119,20 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["all_reduce", "rs_ag", "hier", "rs_opt_ag",
                             "rs_fwd_ag"],
                    help="bucket collective: monolithic all-reduce, "
-                        "reduce-scatter + all-gather (DeAR-style), or "
-                        "reduce-scatter + SHARDED optimizer update + param "
-                        "all-gather (ZeRO-1-style 1/world optimizer state; "
-                        "same wire bytes as rs_ag). hier and rs_fwd_ag are "
-                        "not ported (ROADMAP.md Queue 1 item 7b)")
+                        "reduce-scatter + all-gather (DeAR-style), the "
+                        "hierarchical two-level lowering (requires "
+                        "--dcn-slices > 1), reduce-scatter + SHARDED "
+                        "optimizer update + param all-gather (ZeRO-1-style "
+                        "1/world optimizer state; same wire bytes as "
+                        "rs_ag), or rs_fwd_ag, the CROSS-STEP pipeline: "
+                        "rs_opt_ag whose param all-gather is deferred into "
+                        "the next step's forward (params carried as "
+                        "1/world shards between steps)")
+    p.add_argument("--dcn-slices", dest="dcn_slices", type=int, default=None,
+                   help="slices of a multi-slice world: slice s is ranks "
+                        "[s * n / D, (s + 1) * n / D); the outer "
+                        "data-parallel level of the two-level cost model "
+                        "and of --comm-op hier")
     p.add_argument("--norm-clip", dest="norm_clip", type=float, default=None,
                    help="clip gradients to this global norm")
     p.add_argument("--lr-schedule", dest="lr_schedule", default=None,
@@ -208,7 +229,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             "logdir", "checkpoint_dir", "seed", "num_batches_per_epoch",
             "telemetry_dir", "num_steps", "ckpt_every_steps", "ckpt_format",
             "bad_step_limit", "pretrain", "metrics_port", "compressor",
-            "density", "comm_op",
+            "density", "comm_op", "dcn_slices",
         )
         if getattr(args, k, None) is not None
     }
@@ -234,17 +255,14 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     return make_config(args.dnn, **overrides)
 
 
-UNPORTED_COMM_OPS = ("hier", "rs_fwd_ag")
-
-
 def main(argv: Optional[list[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.comm_op in UNPORTED_COMM_OPS:
-        parser.error(f"--comm-op {args.comm_op} is not ported yet (ROADMAP.md "
-                     "Queue 1 item 7b: the cross-step and two-level "
-                     "lowerings)")
     cfg = config_from_args(args)
+    try:
+        check_hier(cfg.comm_op, cfg.dcn_slices)
+    except ValueError as e:
+        parser.error(str(e))
     if args.print_config:
         print(json.dumps(cfg.__dict__, indent=2, default=str))
         return 0

@@ -7,17 +7,17 @@ their mgwfbp_tpu counterparts).
     ``committed_profile_or_prior`` equal the JAX functions within 1e-12 on
     seeded samples; the JAX package's committed profiles load in the port
     with equal fields, and a family the port writes loads and resolves
-    equal in the JAX package; two-level profiles are refused naming
-    ROADMAP.md Queue 1 item 7;
-  * ``effective_cost_fn`` for all_reduce equals the JAX function, and the
-    sharded lowerings raise naming item 7;
+    equal in the JAX package; a JAX two-level profile loads in the port
+    with equal predictions (tests/test_torch_two_level.py holds the rest);
+  * ``effective_cost_fn`` equals the JAX function for every lowering;
   * the row-to-group trace arithmetic equals ``_group_times_from_scopes``,
     the None for a missing group included, and a group is charged only
     when its range holds a collective kernel (copies alone give None);
   * the CLI, as tests/test_calibrate_cli.py holds the JAX one: usage
     errors, a clean exit for --world-sizes beyond the world, a sampled
     profile from the default mode, a family over two gloo processes,
-    --prior-extend's measured and prior fields, --two-level refused, and
+    --prior-extend's measured and prior fields, --two-level's usage
+    errors (its run is in tests/test_torch_two_level.py), and
     --forward's schema-2 layer profile read by the JAX reader, for
     ResNet-20 and for the full-width PTB LSTM at batch 1 (integer tokens,
     a zero carry); --forward for a model still to port names it and the
@@ -168,19 +168,25 @@ def test_a_family_the_port_writes_resolves_equal_in_jax(tmp_path):
 
 
 def test_two_level_profiles_are_refused_naming_the_roadmap(tmp_path):
+    """A JAX two-level profile loads (item 7b ported it): the same kind,
+    sizes and predictions."""
     path = str(tmp_path / "two.json")
-    jcm.save_profile(path, jcm.TwoLevelAlphaBeta(
+    theirs = jcm.TwoLevelAlphaBeta(
         ici=jcm.AlphaBeta(1e-5, 1e-11), dcn=jcm.AlphaBeta(1e-4, 1e-10),
         ici_size=4, dcn_size=2,
-    ))
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        tcm.load_profile(path)
+    )
+    jcm.save_profile(path, theirs)
+    ours = tcm.load_profile(path)
+    assert isinstance(ours, tcm.TwoLevelAlphaBeta)
+    assert (ours.ici_size, ours.dcn_size) == (4, 2)
+    for nbytes in (1.0, 4e3, 1e7):
+        assert ours.predict(nbytes) == theirs.predict(nbytes)
 
 
 def test_effective_cost_fn_equals_jax():
-    """all_reduce, rs_ag and rs_opt_ag price as the JAX package prices them
-    (rs_opt_ag adds update_beta per bucket byte, so both update_beta 0 and
-    a measured one are held); rs_fwd_ag stays refused, naming item 7b."""
+    """Every lowering prices as the JAX package prices it (rs_opt_ag and
+    rs_fwd_ag add update_beta per bucket byte, so both update_beta 0 and a
+    measured one are held)."""
     import dataclasses
 
     ours, theirs = _families(7)
@@ -188,7 +194,8 @@ def test_effective_cost_fn_equals_jax():
         for ub in (0.0, 3e-12):
             mo = dataclasses.replace(ours.at(n), update_beta=ub)
             mt = dataclasses.replace(theirs.at(n), update_beta=ub)
-            for op in ("all_reduce", "rs_ag", "rs_opt_ag"):
+            for op in ("all_reduce", "rs_ag", "rs_opt_ag", "rs_fwd_ag",
+                       "hier"):
                 got = effective_cost_fn(mo, op)
                 want = jax_effective_cost(mt, op)
                 for nbytes in (1.0, 4e3, 1e7):
@@ -196,9 +203,6 @@ def test_effective_cost_fn_equals_jax():
     assert effective_cost_fn(
         dataclasses.replace(ours.at(4), update_beta=3e-12), "rs_opt_ag"
     )(1e7) > effective_cost_fn(ours.at(4), "rs_opt_ag")(1e7)
-    for op in ("rs_fwd_ag", "hier"):
-        with pytest.raises(ValueError, match="Queue 1 item 7b"):
-            effective_cost_fn(ours.at(2), op)
 
 
 @pytest.mark.parametrize("missing", [None, 0, 2])
@@ -253,11 +257,21 @@ def test_prior_extend_and_world_sizes_mutually_exclusive(tmp_path, capsys):
 
 
 def test_two_level_is_refused_naming_the_roadmap(tmp_path, capsys):
+    """--two-level is its own mode (the JAX CLI's usage error), needs more
+    than one slice, and a split that does not make the world exits before
+    it measures."""
     out = tmp_path / "p.json"
     with pytest.raises(SystemExit) as ei:
-        calibrate.main(["--out", str(out), "--two-level", *TINY])
+        calibrate.main(["--out", str(out), "--two-level", "--forward",
+                        "--model", "lenet", *TINY])
     assert ei.value.code == 2
-    assert "Queue 1 item 7" in capsys.readouterr().err
+    assert "its own calibration mode" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="needs --dcn > 1"):
+        calibrate.main(["--out", str(out), "--two-level", "--dcn", "1",
+                        *TINY])
+    with pytest.raises(SystemExit, match="does not make the world of 1"):
+        calibrate.main(["--out", str(out), "--two-level", "--dcn", "2",
+                        *TINY])
     assert not out.exists()
 
 

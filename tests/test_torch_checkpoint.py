@@ -430,8 +430,8 @@ def test_replicated_format_and_orbax_entries_are_refused(narrow, tmp_path):
 def test_sharded_optimizer_section_is_refused(tmp_path):
     """A sharded optimizer section (rs_opt_ag) restores: its rows, written
     by two processes, re-sliced into the replicated trace and the count;
-    a sharded parameter section (rs_fwd_ag) is still refused, naming item
-    7b."""
+    so does a sharded parameter section (rs_fwd_ag's carry): one process's
+    row, re-sliced into the leaf."""
     manifest, files = _payload(3, 0, 3)
     manifest["opt"] = {"kind": "sharded", "slots": 1}
     manifest["layout"] = {"world": 2, "shard_sizes": [2],
@@ -465,12 +465,11 @@ def test_sharded_optimizer_section_is_refused(tmp_path):
                           "group_dtypes": ["float32"],
                           "leaf_slots": [[0, 0]]}
     manifest["processes"] = {"0": {"rows": [0]}}
-    files = {"params.g0": np.zeros((1, 4), np.float32)}
+    files = {"params.g0": np.asarray([[5.0, 6.0, 7.0, 8.0]], np.float32)}
     ck = Checkpointer(str(tmp_path / "params"))
     ck.save_sharded(manifest, files)
-    with pytest.raises(CheckpointRestoreError,
-                       match="ROADMAP Queue 1 item 7b"):
-        ck.restore(_template())
+    snap = ck.restore(_template())
+    np.testing.assert_array_equal(snap.state.params["w"], [5.0, 6.0, 7.0, 8.0])
 
 
 # -- serving reads the new Checkpointer's steps --------------------------

@@ -433,9 +433,23 @@ def test_construction_errors(one_rank_group):
     with pytest.raises(ValueError, match="cannot combine with a sparsifying"):
         make_merged_allreduce(model, policy="single", comm_op="rs_ag",
                               compressor=TopKCompressor(0.01))
-    for op in ("rs_fwd_ag", "hier"):
-        with pytest.raises(ValueError, match="Queue 1 item 7b"):
-            make_merged_allreduce(model, policy="single", comm_op=op)
+    # the cross-step and two-level lowerings are accepted with what they
+    # need (an OptimSpec, the two-level groups) and refused without it
+    with pytest.raises(ValueError, match="requires optim_spec and world_size"):
+        make_merged_allreduce(model, policy="single", comm_op="rs_fwd_ag")
+    with pytest.raises(ValueError, match="two-level process groups"):
+        make_merged_allreduce(model, policy="single", comm_op="hier")
+    fwd = make_merged_allreduce(model, policy="single", comm_op="rs_fwd_ag",
+                                optim_spec=spec, world_size=1)
+    fwd.begin()
+    sum(p.sum() for p in model.parameters()).backward()
+    fwd.reduce_and_defer()
+    assert fwd.stale and fwd.opt_state.count == 1
+    fwd.materialize()
+    assert not fwd.stale
+    fwd.detach()
+    for p in model.parameters():
+        p.grad = None
     with pytest.raises(ValueError, match="rebuild the reducer"):
         make_merged_allreduce(model, policy="single", comm_op="rs_opt_ag",
                               optim_spec=spec, world_size=2)
