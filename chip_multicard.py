@@ -68,6 +68,18 @@ run's own forward amplifies a rounding difference), and each process's
 device timeline of one more, profiled step (``step_breakdown``). ``--device cpu --processes 4
 --lowerings --model resnet20 --dtype float32 --batch-size 4`` rehearses it
 over gloo.
+
+With ``--autotune`` it runs another step instead: N processes (one per
+card, NCCL) of ``train_cli --autotune --autotune-steps 3 --no-augment``
+on ResNet-50 (``--model``) at bfloat16 (``--dtype``), ``--batch-size`` 128
+per card, the 10GbE constants at N: configured for all_reduce (racing all_reduce
+and rs_ag), then for rs_fwd_ag (racing all three), then the all_reduce
+command again, which must load the committed winner from the schedule
+cache without racing. Prints each candidate's measured and predicted step
+and each winner against the configured lowering's solved schedule, and
+one JSON line ``{"multicard_autotune": ...}``. ``--device cpu --processes
+2 --autotune --model resnet20 --dtype float32 --batch-size 4`` rehearses it
+over gloo.
 """
 
 from __future__ import annotations
@@ -462,6 +474,105 @@ def lowerings_phase(n: int, device: str, out_dir: str, batch_size: int,
     return res
 
 
+AUTOTUNE_EPOCH_STEPS = 10  # each --autotune run's epoch after its race
+AUTOTUNE_BASES = ("all_reduce", "rs_fwd_ag")  # the configured lowerings
+
+
+def _race_table(entry: dict) -> list:
+    return [{"label": e["label"], "comm_op": e["comm_op"],
+             "num_groups": e["num_groups"], "verified": e["verified"],
+             "measured_ms": None if e["measured_step_s"] is None
+             else e["measured_step_s"] * 1e3,
+             "predicted_ms": None if e["predicted_total_s"] is None
+             else e["predicted_total_s"] * 1e3}
+            for e in entry["race"]]
+
+
+def autotune_phase(n: int, device: str, out_dir: str, batch_size: int,
+                   model: str, dtype: str, env: dict) -> dict:
+    """The --autotune step: ``train_cli --autotune --autotune-steps 3`` at
+    N processes (one per card, NCCL) on ``--model`` at ``--dtype`` and
+    ``--batch-size`` per card without augmentation (the host's augment of
+    224 x 224 batches, 1.5 s a batch of 128, would set every step), the
+    10GbE constants at N, configured for
+    each of AUTOTUNE_BASES (all_reduce races all_reduce and rs_ag;
+    rs_fwd_ag races all three), then the all_reduce command again (a cache
+    hit). Fails when a run's processes disagree, an entry was not
+    verified, or the second run raced; prints each candidate's step and
+    the winner against all_reduce's solved schedule (the incumbent)."""
+    t0 = time.perf_counter()
+    cache = os.path.join(out_dir, "schedule_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    res: dict = {"model": model, "dtype": dtype, "batch_per_card": batch_size,
+                 "world": n, "runs": {}}
+    for label, base in [(b, b) for b in AUTOTUNE_BASES] + [
+            ("cache_hit", "all_reduce")]:
+        t1 = time.perf_counter()
+        outs = _run_group(
+            n, ["mgwfbp_tpu_torch.train_cli", "--dnn", model, "--synthetic",
+                "--no-augment", "--device", device, "--dtype", dtype,
+                "--batch-size", str(batch_size), "--connection", "10GbE",
+                "--comm-op", base,
+                "--autotune", "--autotune-steps", "3", "--schedule-cache",
+                cache, "--epochs", "1", "--num-batches-per-epoch",
+                str(AUTOTUNE_EPOCH_STEPS), "--logdir",
+                os.path.join(out_dir, f"autotune_{label}")],
+            out_dir, f"autotune_{label}", 900, env)
+        docs = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+        if not all(d == docs[0] for d in docs):
+            print(f"chip_multicard: autotune {label}: the processes' "
+                  "results differ", file=sys.stderr, flush=True)
+            raise SystemExit(1)
+        with open(os.path.join(out_dir, f"autotune_{label}.rank0.err")) as f:
+            log = f.read()
+        (path,) = [os.path.join(cache, name) for name in os.listdir(cache)
+                   if f"_{base}_" in name]
+        with open(path) as f:
+            entry = json.load(f)
+        run = {"result": docs[0], "seconds": time.perf_counter() - t1,
+               "winner": entry["winner"], "comm_op": entry["comm_op"],
+               "num_groups": len(entry["groups"]),
+               "winner_ms": entry["measured_step_s"] * 1e3}
+        if label == "cache_hit":
+            if "race skipped" not in log:
+                print("chip_multicard: autotune: the second run raced",
+                      file=sys.stderr, flush=True)
+                raise SystemExit(1)
+            run["cache_hit"] = True
+            print(f"autotune cache hit: {entry['winner']} loaded, race "
+                  f"skipped ({run['seconds']:.1f} s)", flush=True)
+        else:
+            table = _race_table(entry)
+            if not all(r["verified"] for r in table):
+                print(f"chip_multicard: autotune {label}: an entry was not "
+                      "verified", file=sys.stderr, flush=True)
+                raise SystemExit(1)
+            run["race"] = table
+            run["refit"] = entry.get("refit")
+            fixed = next((r for r in table if r["comm_op"] == base), None)
+            run["incumbent_ms"] = fixed["measured_ms"] if fixed else None
+            for r in table:
+                print(f"autotune {label}: {r['label']}: {r['num_groups']} "
+                      f"groups, {r['measured_ms']:.3f} ms/step (predicted "
+                      f"{(r['predicted_ms'] or float('nan')):.3f} ms)",
+                      flush=True)
+            print(f"autotune {label}: committed {entry['winner']} "
+                  f"({run['num_groups']} groups, {entry['comm_op']}) at "
+                  f"{run['winner_ms']:.3f} ms/step against {base}'s solved "
+                  f"schedule's {run['incumbent_ms']} ms "
+                  f"({run['seconds']:.1f} s)", flush=True)
+        res["runs"][label] = run
+    res["seconds"] = time.perf_counter() - t0
+    if device != "cpu":
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        res["cards"] = smi.stdout.strip().splitlines()
+        print("\n".join(res["cards"]), flush=True)
+    return res
+
+
 HEAL_COORD_TIMEOUT_S = 30
 
 
@@ -728,6 +839,9 @@ def main(argv=None) -> int:
     p.add_argument("--lowerings", action="store_true",
                    help="run the lowerings step instead (--batch-size "
                         "defaults to 128 there)")
+    p.add_argument("--autotune", action="store_true",
+                   help="run the autotune step instead (--batch-size "
+                        "defaults to 128 there)")
     p.add_argument("--lowerings-rank", default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--model", default="resnet50")
@@ -742,7 +856,7 @@ def main(argv=None) -> int:
     # the children run in it: a relative path would name another place
     args.out_dir = os.path.abspath(args.out_dir)
     if args.batch_size is None:
-        args.batch_size = 128 if args.lowerings else 32
+        args.batch_size = 128 if args.lowerings or args.autotune else 32
     n = args.processes
     if n is None:
         import torch
@@ -772,6 +886,11 @@ def main(argv=None) -> int:
     if args.telemetry:
         print(json.dumps({"multicard_telemetry": telemetry_phase(
             n, args.device, args.out_dir, args.batch_size, env)}), flush=True)
+        return 0
+    if args.autotune:
+        print(json.dumps({"multicard_autotune": autotune_phase(
+            n, args.device, args.out_dir, args.batch_size, args.model,
+            args.dtype, env)}), flush=True)
         return 0
     if args.lowerings:
         print(json.dumps({"multicard_lowerings": lowerings_phase(

@@ -225,6 +225,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
          ``--compressor topk --density 0``: no density is chosen at one
          worker (no reducer, the JAX trainer's rule), and what the chooser
          picks for ResNet-20 on two links is printed.
+ 13. (m) the cross-step and two-level lowerings: rs_fwd_ag against
+     rs_opt_ag at one rank over NCCL, hier at HIER_WORLD gloo ranks on the
+     card, ``train_cli --comm-op rs_fwd_ag`` and an all_reduce restore of
+     its step (``phase_cross_step``).
+ 14. (n) closed-loop schedule autotuning, ``train_cli --dnn resnet20
+     --synthetic --autotune --autotune-steps 3`` at full width (float32,
+     batch 32, the 10GbE constants at 2 workers) in AT_WORLD gloo
+     processes sharing the card (NCCL takes one rank a card):
+     (n1) the race: the schedule verifier counts every collective of each
+         candidate's observed step, the incumbent's included (the hooks
+         run on autograd's device thread), every raced entry is verified,
+         both ranks commit the same winner and end with the same
+         parameters, and the race's loss falls; each candidate's measured
+         and predicted step, the refit and the race's seconds printed;
+     (n2) the same command again: a cache hit of (n1)'s winner, no race;
+         the seconds to the first step against (n1)'s printed;
+     (n3) a profile whose alpha and beta are AT_MISCALIBRATION times
+         (d)'s: the race's winner against the schedule solved on (d)'s
+         constants in interleaved windows (a reading, not a check);
+     no flash launch in any run.
 
 Every phase runs with TF32 off (``utils.device.set_matmul_precision``).
 
@@ -237,13 +257,16 @@ language models ({"lm": ...}), the bench payload ({"bench": ...}), ResNet-50
 summary ({"zoo_summary": [...]}; each model's full line is printed as it
 finishes), the speech model ({"lstman4": ...}), supervision
 ({"supervise": ...}), the telemetry plane ({"telemetry": ...}), the
-lowerings ({"lowerings": ...}), the card's name and power limit
+lowerings ({"lowerings": ...}), the cross-step and two-level lowerings
+({"cross_step": ...}), autotuning ({"autotune": ...}), the card's name
+and power limit
 (nvidia-smi), the kernels line
 ({"kernels": [...]}) and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import signal
@@ -4430,6 +4453,268 @@ def phase_cross_step() -> dict:
             "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# phase (n): closed-loop schedule autotuning
+# ---------------------------------------------------------------------------
+
+AT_WORLD = 2  # two gloo ranks on the one card (NCCL takes one rank a card)
+AT_EPOCH_STEPS = 10  # the epoch each run trains after its race
+AT_WINDOWS, AT_WINDOW_STEPS = 3, 5  # (n3): interleaved windows per schedule
+AT_MISCALIBRATION = 10.0  # (n3): alpha and beta of (d) times this
+
+
+def _at_argv(work: str, cache: str, *extra: str) -> list[str]:
+    """(n)'s train_cli command: full-width ResNet-20, float32, batch 32, the
+    10GbE constants at 2 workers, the race with 3 timed steps each."""
+    return ["--dnn", "resnet20", "--synthetic", "--autotune",
+            "--autotune-steps", "3", "--connection", "10GbE",
+            "--batch-size", "32", "--epochs", "1",
+            "--num-batches-per-epoch", str(AT_EPOCH_STEPS),
+            "--schedule-cache", cache, "--logdir",
+            os.path.join(work, "logs"), *extra]
+
+
+def _at_run(argv: list, dev: torch.device, truth=None) -> dict:
+    """One ``train_cli`` run of (n) in this rank (the CLI's parser and
+    config, then ``Trainer.fit`` in the running gloo world): the autotune
+    report, the seconds from the trainer's construction to the epoch's
+    first step, a digest of the final parameters, the epoch's metrics and
+    the flash kernel's launches (none: not on this path). With ``truth``
+    (a cost model), the committed winner and the schedule solved on
+    ``truth`` are timed in AT_WINDOWS interleaved windows."""
+    import hashlib
+
+    from mgwfbp_tpu_torch import train_cli
+    from mgwfbp_tpu_torch.convert import flax_leaves
+    from mgwfbp_tpu_torch.ops import flash_attention
+    from mgwfbp_tpu_torch.parallel.solver import build_schedule
+    from mgwfbp_tpu_torch.profiling import time_carried_steps
+    from mgwfbp_tpu_torch.train import Trainer
+
+    args = train_cli.build_parser().parse_args(argv)
+    cfg = train_cli.config_from_args(args)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device=dev, synthetic_data=True)
+    first: dict = {}
+    train_on = tr._train_on
+
+    def first_step(epoch, fields):
+        out = train_on(epoch, fields)
+        first.setdefault("s", time.perf_counter() - t0)
+        return out
+
+    tr._train_on = first_step
+    try:
+        flash_attention.launches = 0  # this path's run starts here
+        metrics = tr.fit(args.epochs)
+        flash = flash_attention.launches  # ... and ends here
+        flat = torch.cat([t.detach().reshape(-1).cpu()
+                          for _, t in flax_leaves(tr.model)])
+        res = {"report": tr.autotune_report, "first_step_s": first.get("s"),
+               "params_sha256": hashlib.sha256(
+                   flat.numpy().tobytes()).hexdigest(),
+               "train": metrics.get("train"), "flash_launches": flash,
+               "live_groups": [list(g) for g in tr.reducer.layout.groups],
+               "live_comm_op": tr.comm_op}
+        if truth is not None:
+            solved = build_schedule(tr._layer_specs(), list(tr.tb),
+                                    policy="auto", cost_model=truth,
+                                    comm_op=cfg.comm_op)
+            arms = {"winner": (tuple(map(tuple, tr.reducer.layout.groups)),
+                               tr.comm_op),
+                    "truth_solved": (tuple(map(tuple, solved.groups)),
+                                     cfg.comm_op)}
+            res["truth_groups"] = len(solved.groups)
+            res["winner_groups"] = len(arms["winner"][0])
+            times: dict = {k: [] for k in arms}
+            if arms["winner"] != arms["truth_solved"]:
+                batches = tr._autotune_batches()
+
+                def step_once(state):
+                    tr._apply_train_step(next(batches))
+                    return state
+
+                for _ in range(AT_WINDOWS):
+                    for name, (groups, op) in arms.items():
+                        if not tr._reducer_is_live(groups, op):
+                            tr._swap_reducer(tr._reducer_for(
+                                groups, op, detail=f"reading:{name}"))
+                        _, dt = time_carried_steps(
+                            step_once, None, AT_WINDOW_STEPS, warmup=1,
+                            device=dev)
+                        times[name].append(dt * 1e3)
+            res["window_ms"] = times
+        return res
+    finally:
+        tr.close()
+
+
+def _autotune_gloo_rank(rank: int, world: int, rdv: str, work: str,
+                        consts: dict, out_path: str, device: str) -> None:
+    """(n) One of AT_WORLD processes on the one card over gloo: (n1) the
+    race, (n2) the same command again, (n3) the race on a profile whose
+    alpha and beta are AT_MISCALIBRATION times (d)'s, then the winner
+    against the schedule solved on (d)'s constants."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.parallel.costmodel import AlphaBeta, save_profile
+    from mgwfbp_tpu_torch.utils.device import set_matmul_precision
+
+    set_matmul_precision(None)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                            world_size=world, rank=rank)
+    results: dict = {}
+    try:
+        cache = os.path.join(work, "cache")
+        results["n1"] = _at_run(_at_argv(work, cache), dev)
+        results["n2"] = _at_run(_at_argv(work, cache), dev)
+        truth = AlphaBeta(alpha=consts["alpha_s"],
+                          beta=consts["beta_s_per_byte"],
+                          gamma=consts["gamma_s"],
+                          overlap=consts["overlap"],
+                          pack_beta=consts["pack_beta_s_per_byte"])
+        mis = dataclasses.replace(truth, alpha=truth.alpha * AT_MISCALIBRATION,
+                                  beta=truth.beta * AT_MISCALIBRATION)
+        profile = os.path.join(work, f"miscalibrated.p{rank}.json")
+        save_profile(profile, mis)
+        results["n3"] = _at_run(
+            _at_argv(work, os.path.join(work, "cache_mis"),
+                     "--comm-profile", profile), dev, truth=truth)
+        results["n3"]["miscalibrated"] = {"alpha": mis.alpha,
+                                          "beta": mis.beta}
+    finally:
+        dist.destroy_process_group()
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+
+
+def _gate_contract(entry: dict) -> bool:
+    """A clean gate entry counted every collective of its lowering: per
+    group one all-reduce (all_reduce) or one reduce-scatter and one
+    all-gather (rs_ag), beside the step's two all-reduces (metrics, batch
+    statistics)."""
+    g, kinds = entry["num_groups"], entry["kinds"]
+    want = ({"all_reduce": g + 2} if entry["comm_op"] == "all_reduce" else
+            {"reduce_scatter": g, "all_gather": g, "all_reduce": 2})
+    return entry["rules"] == [] and kinds == want
+
+
+def phase_autotune(consts: dict, device: str = "cuda:0") -> dict:
+    """(n) Closed-loop schedule autotuning: ``train_cli --dnn resnet20
+    --synthetic --autotune --autotune-steps 3`` at full width, float32,
+    batch 32, on the 10GbE constants at AT_WORLD gloo ranks sharing the
+    card (as (m2)).
+    (n1) the race: the gate counts every collective of each candidate's
+        observed step, the incumbent's included (the hooks run on the
+        card's autograd thread), every raced entry is verified, both ranks
+        commit the same winner and end with the same parameters, and the
+        race's loss falls; printed: each candidate's measured and
+        predicted s/step, the refit before and after, the race's seconds;
+    (n2) the same command again: a cache hit, no race, the same groups;
+        printed: the seconds to the first step against (n1)'s;
+    (n3) a profile whose alpha and beta are AT_MISCALIBRATION times (d)'s:
+        the race's winner against the schedule solved on (d)'s constants,
+        in AT_WINDOWS interleaved windows of AT_WINDOW_STEPS steps (a
+        reading: the host moves ResNet-20's step between runs).
+    ``device`` "cpu" rehearses the phase without a card."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_autotune_") as work:
+        ctx = mp.get_context("spawn")
+        outs = [os.path.join(work, f"rank{r}.json") for r in range(AT_WORLD)]
+        procs = [ctx.Process(target=_autotune_gloo_rank,
+                             args=(r, AT_WORLD, os.path.join(work, "rdv"),
+                                   work, consts, outs[r], device))
+                 for r in range(AT_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(300)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in procs]
+        results = []
+        for path in outs:
+            if os.path.exists(path):
+                with open(path) as f:
+                    results.append(json.load(f))
+    secs = time.perf_counter() - t0
+    if codes != [0] * AT_WORLD or len(results) != AT_WORLD or not all(
+            "n3" in r for r in results):
+        fail(f"autotune (n): ranks exited {codes}")
+    n1 = [r["n1"] for r in results]
+    reps = [r["report"] for r in n1]
+    for rep in reps:
+        if rep is None or rep.get("source") != "race":
+            fail(f"autotune (n1): no race ran: {rep}")
+        if not rep["race"] or not all(e["verified"] for e in rep["race"]):
+            fail(f"autotune (n1): an entry was not verified: {rep['race']}")
+        bad = [g for g in rep["gate"] if not _gate_contract(g)]
+        if bad:
+            fail(f"autotune (n1): the gate did not count the lowering's "
+                 f"collectives: {bad}")
+        losses = rep["losses"]
+        if not (np.isfinite(losses).all()
+                and np.mean(losses[-5:]) < np.mean(losses[:5])):
+            fail(f"autotune (n1): the race's losses {losses} do not fall")
+    if len({(r["winner"], json.dumps(r["groups"])) for r in reps}) != 1:
+        fail(f"autotune (n1): the ranks committed different winners "
+             f"{[r['winner'] for r in reps]}")
+    if len({r["params_sha256"] for r in n1}) != 1:
+        fail("autotune (n1): the ranks' parameters differ")
+    n2 = [r["n2"] for r in results]
+    for r in n2:
+        rep = r["report"]
+        if rep.get("source") != "cache" or rep["groups"] != reps[0]["groups"]:
+            fail(f"autotune (n2): not a cache hit of (n1)'s winner: {rep}")
+        if r["live_groups"] != reps[0]["groups"]:
+            fail("autotune (n2): the live groups are not the winner's")
+    if len({r["params_sha256"] for r in n2}) != 1:
+        fail("autotune (n2): the ranks' parameters differ")
+    if any(r[k]["flash_launches"] for r in results for k in ("n1", "n2",
+                                                               "n3")):
+        fail("autotune (n): the flash kernel launched while training")
+    rep = reps[0]
+    for e in rep["race"]:
+        print(f"autotune (n1): {e['label']}: {e['num_groups']} groups, "
+              f"measured {e['measured_step_s'] * 1e3:.3f} ms/step, predicted "
+              f"{(e['predicted_total_s'] or float('nan')) * 1e3:.3f} ms",
+              flush=True)
+    gate = rep["gate"][0]
+    print(f"autotune (n1): the gate counted {gate['collectives']} "
+          f"collectives of the incumbent's step ({gate['kinds']}) on threads "
+          f"{gate['threads']}; committed {rep['winner']} "
+          f"({len(rep['groups'])} groups, {rep['comm_op']}); refit "
+          f"{(rep.get('refit') or {}).get('before')} -> "
+          f"{(rep.get('refit') or {}).get('after')}; race "
+          f"{rep['race_s']:.2f} s, loss {np.mean(rep['losses'][:5]):.4f} -> "
+          f"{np.mean(rep['losses'][-5:]):.4f}", flush=True)
+    print(f"autotune (n2): cache hit, {len(n2[0]['live_groups'])} groups; "
+          f"first step {n2[0]['first_step_s']:.2f} s after the trainer's "
+          f"construction against (n1)'s {n1[0]['first_step_s']:.2f} s",
+          flush=True)
+    n3 = [r["n3"] for r in results]
+    w = n3[0]["window_ms"]
+    print(f"autotune (n3): alpha and beta x{AT_MISCALIBRATION:g}: committed "
+          f"{n3[0]['report'].get('winner')} ({n3[0]['winner_groups']} "
+          f"groups) against the schedule solved on (d)'s constants "
+          f"({n3[0]['truth_groups']} groups): "
+          + (f"winner {w['winner']} ms, truth-solved {w['truth_solved']} ms "
+             "per step (rank 0, interleaved windows)" if w["winner"] else
+             "the same schedule"), flush=True)
+    print(f"autotune (n): {secs:.1f} s", flush=True)
+    return {"world": AT_WORLD, "seconds": secs,
+            "n1": {"ranks": n1}, "n2": {"ranks": n2}, "n3": {"ranks": n3}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -4463,6 +4748,7 @@ def main() -> int:
     telemetry = phase_telemetry()
     lowerings = phase_lowerings()
     cross_step = phase_cross_step()
+    autotune = phase_autotune(calibrated)
 
     serve = rows[0]
     kernels = [{
@@ -4500,6 +4786,7 @@ def main() -> int:
     print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"lowerings": lowerings}))
     print(json.dumps({"cross_step": cross_step}))
+    print(json.dumps({"autotune": autotune}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

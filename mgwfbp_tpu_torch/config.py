@@ -3,8 +3,8 @@
 One dataclass with per-model presets, ``MGWFBP_<FIELD>`` environment
 overrides and keyword overrides, resolved by ``make_config`` exactly as the
 JAX package resolves them. Only the fields the port's training path reads
-are kept; the rest of the JAX config (autotune and the schedule cache,
-sequence parallelism) is listed in ROADMAP.md.
+are kept; the rest of the JAX config (sequence parallelism) is listed in
+ROADMAP.md.
 ``deterministic`` is the port's own (torch's deterministic algorithms;
 the JAX package has no counterpart to switch).
 """
@@ -42,6 +42,16 @@ class TrainConfig:
     threshold: int = 0  # elements, for policy='threshold'
     connection: str = "ici"  # cost-model link class
     comm_profile: Optional[str] = None  # path to a calibrated alpha-beta json
+
+    # closed-loop schedule autotuner (parallel/autotune.py): race verified
+    # candidate schedules for warmup + k real training steps each on the
+    # live job, refit the cost model from the measurements, commit the
+    # measured argmin and keep it in the schedule cache
+    autotune: bool = False
+    autotune_steps: int = 3  # timed steps per candidate (k; +1 warmup)
+    autotune_candidates: int = 6  # frontier cap (the incumbent races too)
+    schedule_cache: Optional[str] = None  # cache dir; default
+    # profiles/schedule_cache (keyed by parallel.autotune.cache_key)
     # the merged collectives' lowering: all_reduce | rs_ag (reduce-scatter +
     # all-gather per bucket) | hier (two-level: reduce-scatter inside a
     # slice, all-reduce of the shard across slices, all-gather inside the

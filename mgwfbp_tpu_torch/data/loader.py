@@ -60,8 +60,10 @@ class ShardedLoader:
         self.drop_last = drop_last
         self.transform = transform
         self.epoch = 0
-        self._idx_epoch: Optional[int] = None
-        self._idx = np.empty((0,), np.int64)
+        # (epoch, this rank's indices), replaced whole: prefetch threads of
+        # one epoch may read it while another thread loads another epoch's
+        # batches (a /profile window's, the autotuner's)
+        self._idx_cache: tuple = (None, np.empty((0,), np.int64))
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -77,13 +79,14 @@ class ShardedLoader:
         return self.num_batches
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
-        if self._idx_epoch != epoch:
-            self._idx = shard_indices(
+        cached = self._idx_cache
+        if cached[0] != epoch:
+            cached = (epoch, shard_indices(
                 len(self.dataset), self.shard, epoch, self.shuffle,
                 self.seed, self.drop_last,
-            )
-            self._idx_epoch = epoch
-        return self._idx
+            ))
+            self._idx_cache = cached
+        return cached[1]
 
     def prime_epoch(self, epoch: int) -> None:
         """Compute and cache ``epoch``'s indices on this thread, so that

@@ -86,7 +86,15 @@ which ``profiling.trace_group_times`` attributes device time by, each
 cross-slice all-reduce inside ``dcn_group_scope_name(di)``
 (``mgwfbp_dcngroupNNNN``, beside the group ranges, never inside them), and
 the clip's all-reduce inside ``CLIP_NORM_SCOPE``; an untraced step launches
-exactly the same work with no annotation.
+exactly the same work with no annotation. While a schedule observer
+watches (``watch_scopes``, armed by ``analysis.schedule_check``), the same
+ranges are kept per thread (``open_scopes``), so that every collective of
+a step is attributed to the range it was issued in.
+
+``make_merged_allreduce`` solves the schedule by ``policy`` or takes an
+explicit grouping (``groups``, and hier's ``dcn_groups``): the autotuner's
+raced candidates and cache hits. ``detach`` removes every hook, so a
+reducer can be swapped for another on the same module.
 """
 
 from __future__ import annotations
@@ -94,6 +102,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import re
+import threading
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -158,12 +167,66 @@ def dcn_group_scope_name(di: int) -> str:
     return f"{DCN_GROUP_SCOPE_PREFIX}{di:04d}"
 
 
-def _scope(name: str):
-    """A profiler range named ``name`` while torch.profiler records, else
-    nothing."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+# the open ranges of each thread, kept while a schedule observer is armed
+# (``watch_scopes``): the collectives of a step are attributed to the range
+# they were issued in, on whatever thread issued them (the card's autograd
+# thread runs the gradient hooks)
+_SCOPE_TLS = threading.local()
+_scope_watchers = 0
+_scope_watch_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def watch_scopes():
+    """Keep every thread's open ``collective_scope`` ranges while inside
+    (``open_scopes``; ``analysis.schedule_check`` arms it)."""
+    global _scope_watchers
+    with _scope_watch_lock:
+        _scope_watchers += 1
+    try:
+        yield
+    finally:
+        with _scope_watch_lock:
+            _scope_watchers -= 1
+
+
+def open_scopes() -> tuple[str, ...]:
+    """The ``collective_scope`` ranges open on the calling thread,
+    outermost first (empty unless ``watch_scopes`` is armed)."""
+    return tuple(getattr(_SCOPE_TLS, "stack", ()))
+
+
+class _Scope:
+    def __init__(self, name: str, watched: bool, profiled: bool):
+        self.name = name
+        self.watched = watched
+        self.range = (torch.profiler.record_function(name) if profiled
+                      else None)
+
+    def __enter__(self):
+        if self.watched:
+            _SCOPE_TLS.stack = open_scopes() + (self.name,)
+        if self.range is not None:
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        if self.watched:
+            _SCOPE_TLS.stack = open_scopes()[:-1]
+        return False
+
+
+def collective_scope(name: str):
+    """A range named ``name``: a profiler range while torch.profiler
+    records, and an entry of the thread's ``open_scopes`` while a schedule
+    observer watches; else nothing."""
+    profiled = torch.autograd._profiler_enabled()
+    watched = _scope_watchers > 0
+    if not (profiled or watched):
+        return contextlib.nullcontext()
+    return _Scope(name, watched, profiled)
 
 
 def _natural_key(name: str) -> tuple:
@@ -613,6 +676,9 @@ class MergedAllreduce:
         return self
 
     def detach(self) -> None:
+        """Remove every hook ``attach`` registered (the gradient hooks and
+        rs_fwd_ag's forward pre-hooks): the module keeps none of this
+        reducer's, so another reducer can be attached to it."""
         for h in self._handles + self._fwd_handles:
             h.remove()
         self._handles = []
@@ -645,7 +711,7 @@ class MergedAllreduce:
         self.arrivals.append(k)
         self._pending[self._group_of[k]] -= 1
         while self._next < self.num_groups and self._pending[self._next] == 0:
-            with _scope(group_scope_name(self._next)):
+            with collective_scope(group_scope_name(self._next)):
                 self._pack_and_launch(self._next)
             self._next += 1
             if self.comm_op == "hier":
@@ -747,7 +813,7 @@ class MergedAllreduce:
                     f"hier dcn group {di} mixes bucket dtypes "
                     f"{[str(t.dtype) for t in shards]}; split it at dtype "
                     "boundaries (solver.align_dcn_groups)")
-            with _scope(dcn_group_scope_name(di)), self._side(shards[0]):
+            with collective_scope(dcn_group_scope_name(di)), self._side(shards[0]):
                 for gi in members:
                     # on the side stream: a device-side wait; gloo: the
                     # all-reduce must not read an unfinished shard
@@ -777,7 +843,7 @@ class MergedAllreduce:
         out = []
         for f in self._inflight:
             shard = reduced[f.gi]
-            with _scope(group_scope_name(f.gi)), self._side(shard):
+            with collective_scope(group_scope_name(f.gi)), self._side(shard):
                 if self.mean:
                     shard.div_(self.world)
                 work = all_gather_single(f.out, shard,
@@ -857,7 +923,7 @@ class MergedAllreduce:
                 waits = [(f.gi, f.works, f) for f in self._inflight]
                 divided = False
             for gi, works, what in waits:
-                with _scope(group_scope_name(gi)):
+                with collective_scope(group_scope_name(gi)):
                     for work in works:
                         work.wait()
                     if divided:
@@ -909,7 +975,7 @@ class MergedAllreduce:
         try:
             g_shards = []
             for f in self._inflight:
-                with _scope(group_scope_name(f.gi)):
+                with collective_scope(group_scope_name(f.gi)):
                     f.works[0].wait()
                     shard = f.out
                     if shard.dtype != self.layout.dtypes[f.gi]:
@@ -929,7 +995,7 @@ class MergedAllreduce:
         if self.optim.spec.norm_clip is None:
             return None
         acc = torch.promote_types(g_shards[0].dtype, torch.float32)
-        with _scope(CLIP_NORM_SCOPE):
+        with collective_scope(CLIP_NORM_SCOPE):
             local = torch.zeros((), dtype=acc, device=g_shards[0].device)
             for s in g_shards:
                 local = local + torch.sum(s.to(acc) ** 2)
@@ -951,7 +1017,7 @@ class MergedAllreduce:
         if lr is None:
             lr = optim.spec.learning_rate(count)
         for gi in range(self.num_groups):
-            with _scope(group_scope_name(gi)):
+            with collective_scope(group_scope_name(gi)):
                 new_p, slots_out = optim.update_shard(
                     gi, g_shards[gi], p_shard(gi),
                     [state.slots[s][gi] for s in range(optim.num_slots)],
@@ -980,7 +1046,7 @@ class MergedAllreduce:
     def _unpack_params(self, gi: int, work, full: torch.Tensor) -> None:
         """Wait for group gi's all-gather and copy it into the parameters'
         storage."""
-        with _scope(group_scope_name(gi)):
+        with collective_scope(group_scope_name(gi)):
             work.wait()
             views = buckets_lib.unpack_group(
                 full, self.layout, gi, self._shapes)
@@ -1051,7 +1117,7 @@ class MergedAllreduce:
         if not self._stale:
             return
         for gi in reversed(range(self.num_groups)):
-            with _scope(group_scope_name(gi)):
+            with collective_scope(group_scope_name(gi)):
                 self._gathers[gi] = self._launch_gather(
                     gi, self.param_shards[gi])
         self._stale = False
@@ -1096,6 +1162,7 @@ def plan_merged_allreduce(
     comm_dtype: Optional[torch.dtype] = None,
     groups: Optional[Sequence[Sequence[int]]] = None,
     dcn_groups: Optional[Sequence[Sequence[int]]] = None,
+    policy_detail: Optional[str] = None,
 ) -> tuple[MergeSchedule, BucketLayout, list[int], list[torch.Tensor]]:
     """(schedule, bucket layout, arrival permutation, parameters in leaf
     order) of ``module``'s merged collectives, solved as
@@ -1108,7 +1175,8 @@ def plan_merged_allreduce(
     seconds that rs_fwd_ag prices its deferred all-gathers against
     (``solver.forward_prior_tf(tb)`` when absent). ``groups`` (and, for
     hier, ``dcn_groups``) are an explicit grouping that bypasses the
-    policy. On hier the outer partition is carried across any dtype split
+    policy (``policy_detail`` labels its provenance). On hier the outer
+    partition is carried across any dtype split
     of the groups and, without a wire dtype, split at dtype boundaries
     (``remap_dcn_groups``, ``align_dcn_groups``)."""
     from mgwfbp_tpu_torch.convert import flax_leaves, keystr
@@ -1131,7 +1199,7 @@ def plan_merged_allreduce(
     schedule = build_schedule(
         specs, tb, tf=tf, policy=policy, cost_model=cost_model,
         threshold=threshold, comm_op=comm_op, groups=groups,
-        dcn_groups=dcn_groups,
+        dcn_groups=dcn_groups, policy_detail=policy_detail,
     )
     layout = build_layout(arr, schedule.groups)
     dcn_part = None
@@ -1219,6 +1287,9 @@ def make_merged_allreduce(
     optim_spec: Optional[OptimSpec] = None,
     world_size: Optional[int] = None,
     levels: Any = None,
+    groups: Optional[Sequence[Sequence[int]]] = None,
+    dcn_groups: Optional[Sequence[Sequence[int]]] = None,
+    policy_detail: Optional[str] = None,
 ) -> MergedAllreduce:
     """Solve the merge schedule for ``module``'s parameters
     (``plan_merged_allreduce``) and return the reducer with its hooks
@@ -1227,13 +1298,17 @@ def make_merged_allreduce(
     and ``world_size`` (the shard layout's world, which must be the
     process group's) and take no compressor; 'rs_fwd_ag' prices its
     schedule on ``tf`` too; 'hier' needs ``levels`` (``parallel.mesh.
-    two_level_groups``). Collectives run on the default process group."""
+    two_level_groups``). ``groups`` (arrival-order index groups covering
+    every leaf once) and, for hier, ``dcn_groups`` bypass the policy, as in
+    ``solver.build_schedule``; ``policy_detail`` labels the schedule.
+    Collectives run on the default process group."""
     if comm_op in SHARDED_OPS and (optim_spec is None or world_size is None):
         raise ValueError(
             f"comm_op={comm_op!r} requires optim_spec and world_size")
     schedule, layout, p, params = plan_merged_allreduce(
         module, policy=policy, tb=tb, tf=tf, cost_model=cost_model,
         threshold=threshold, comm_op=comm_op, comm_dtype=comm_dtype,
+        groups=groups, dcn_groups=dcn_groups, policy_detail=policy_detail,
     )
     optim = None
     if comm_op in SHARDED_OPS:

@@ -11,8 +11,10 @@ profile that ``--comm-profile`` loads. Profiles are read and written in
 the JAX package's JSON schema, so either package loads the other's:
 flat, sampled, per-world-size ``family`` and ``two_level`` profiles.
 ``TwoLevelAlphaBeta`` prices the ``hier`` lowering's two links (inside a
-slice and across slices; ``calibrate --two-level`` measures both), and
-``refit_two_level_from_observations`` refits it from live measurements.
+slice and across slices; ``calibrate --two-level`` measures both).
+``refit_from_observations`` and ``refit_two_level_from_observations``
+refit a model from live measurements (the autotuner's correction,
+``parallel.autotune``).
 ``update_beta`` prices the ``rs_opt_ag`` lowering's shard update
 (``solver.effective_cost_fn``; ``profiling.profile_update_beta`` measures
 it). The sparsification models
@@ -369,6 +371,50 @@ class TwoLevelAlphaBeta:
     @property
     def ag_fraction(self) -> float:
         return self.ici.ag_fraction  # the deferred gather is the inner one
+
+
+def refit_from_observations(
+    model,
+    observations: Sequence[tuple[float, float]],
+    comm_op: str = "all_reduce",
+) -> AlphaBeta:
+    """Refit alpha/beta (and update_beta on the rs_opt_ag lowering) from
+    measured per-collective (bucket bytes, seconds) observations: the
+    autotuner's cost-model correction (the JAX package's function).
+
+    The observations are what the live job measured for its merge-group
+    collectives (trace group times, or the step-delta pseudo observations
+    of ``autotune.step_delta_observations``), so the fitted line is the
+    effective per-collective cost. ``model``'s gamma is charged separately
+    by the solver's simulation, so it is taken off the fitted intercept
+    (floored at 0); on rs_opt_ag the fitted per-byte rate covers beta and
+    update_beta together (the shard update rides the same serial
+    timeline), so it is split between them in the old model's proportions.
+    gamma, overlap, pack_beta and ag_fraction carry over: dedicated
+    measurements fit them, not these residuals."""
+    obs = [(float(b), float(t)) for b, t in observations]
+    if len(obs) < 2:
+        raise ValueError("need at least two (bytes, seconds) observations")
+    ab = fit_alpha_beta([b for b, _ in obs], [t for _, t in obs])
+    gamma = float(getattr(model, "gamma", 0.0))
+    alpha = max(ab.alpha - gamma, 0.0)
+    rate = ab.beta
+    beta = rate
+    update_beta = float(getattr(model, "update_beta", 0.0))
+    if comm_op == "rs_opt_ag" and update_beta > 0.0:
+        old_beta = float(getattr(model, "beta", 0.0))
+        share = update_beta / max(old_beta + update_beta, 1e-30)
+        update_beta = rate * share
+        beta = rate - update_beta
+    return AlphaBeta(
+        alpha=alpha,
+        beta=beta,
+        gamma=gamma,
+        overlap=float(getattr(model, "overlap", 1.0)),
+        pack_beta=float(getattr(model, "pack_beta", 0.0)),
+        update_beta=update_beta,
+        ag_fraction=float(getattr(model, "ag_fraction", 0.5)),
+    )
 
 
 def refit_two_level_from_observations(

@@ -1,5 +1,4 @@
-"""MG-WFBP merge-group solver (a copy of ``mgwfbp_tpu/parallel/solver.py``
-without the autotuner's ``schedule_frontier``).
+"""MG-WFBP merge-group solver (a copy of ``mgwfbp_tpu/parallel/solver.py``).
 
 Decides which per-layer gradients to fuse into one all-reduce so that
 communication overlaps the backward pass while amortizing the startup
@@ -21,8 +20,9 @@ startup). Every lowering solves here: the single-level ones
 all-gathers priced against the next step's forward,
 ``simulate_cross_step``) and the two-level ``hier`` (a nested pair of
 partitions, inner groups and the cross-slice groups of them, priced on two
-links, ``simulate_groups_two_level``). The autotuner's race roster
-(``schedule_frontier``) is ROADMAP.md Queue 1 item 8.
+links, ``simulate_groups_two_level``). ``schedule_frontier`` is the
+autotuner's race roster (``parallel.autotune``): the solved schedule's
+neighbourhood, ranked by predicted step time.
 """
 
 from __future__ import annotations
@@ -939,6 +939,71 @@ def candidate_groupings(
             bb <<= 1
     return candidates
 
+
+
+def schedule_frontier(
+    sizes: Sequence[int],
+    tb: Sequence[float],
+    alpha: float,
+    cost: CostFn,
+    itemsize: int | Sequence[int] = 4,
+    *,
+    gamma: float = 0.0,
+    overlap: float = 1.0,
+    pack_beta: float = 0.0,
+    max_candidates: int = 6,
+    cross_step: Optional[tuple[Sequence[float], CostFn, CostFn]] = None,
+) -> list[tuple[str, list[list[int]], float]]:
+    """The argmin's neighbourhood: candidate schedules ranked by predicted
+    total step time, for the in-situ autotuner to RACE on the live job
+    (`parallel.autotune`).
+
+    Returns up to `max_candidates` (detail, groups, predicted_total_s)
+    tuples, cheapest predicted first. The single-group schedule is always
+    kept in the roster even when its prediction ranks it out: under a
+    mis-calibrated cost model the prediction order is exactly what cannot
+    be trusted, and `single` is the structural extreme the prediction most
+    often mis-ranks (VERDICT r3 Weak #1: single beat mgwfbp on 2 of 3
+    measured grids while the model said otherwise).
+
+    cross_step: (tf, rs_cost, ag_cost) prices the frontier for the
+    rs_fwd_ag lowering instead — candidates score under
+    `simulate_cross_step`, whose totals are backward-anchored and thus
+    DIRECTLY comparable with the in-step lowerings' (both exclude the
+    sum(tf) compute floor every lowering pays); `cost` should then be the
+    RS leg (the scan's link cost at backward time).
+    """
+    L = len(sizes)
+    if L == 0:
+        return []
+    itemsizes = [itemsize] * L if isinstance(itemsize, int) else list(itemsize)
+    nbytes = [int(s) * it for s, it in zip(sizes, itemsizes)]
+    scored: list[tuple[str, list[list[int]], float]] = []
+    for detail, groups in candidate_groupings(
+        sizes, tb, alpha, cost, itemsizes, gamma=gamma, pack_beta=pack_beta
+    ):
+        if cross_step is not None:
+            tf, rs_cost, ag_cost = cross_step
+            total, _, _ = simulate_cross_step(
+                groups, nbytes, tb, tf, rs_cost, ag_cost, gamma, overlap,
+                pack_beta,
+            )
+        else:
+            total, _, _ = simulate_groups(
+                groups, nbytes, tb, cost, gamma, overlap, pack_beta
+            )
+        scored.append((detail, groups, float(total)))
+    scored.sort(key=lambda c: c[2])
+    out = scored[: max(max_candidates, 1)]
+    if not any(len(g) == 1 and len(g[0]) == L for _, g, _ in out):
+        fallback = next(
+            (c for c in scored if len(c[1]) == 1 and len(c[1][0]) == L), None
+        )
+        if fallback is not None:
+            out = out[:-1] + [fallback] if len(out) >= max_candidates else (
+                out + [fallback]
+            )
+    return out
 
 
 def size_prior_tb(

@@ -29,7 +29,10 @@ when asked for (``utils/device.py``).
 
 Trace attribution. ``trace_group_times`` runs steps under
 ``torch.profiler`` and charges each merge group the device time of the
-kernels and copies launched inside its ``mgwfbp_groupNNNN`` range.
+kernels and copies launched inside its ``mgwfbp_groupNNNN`` range;
+``trace_two_level_group_times`` adds hier's ``mgwfbp_dcngroupNNNN`` ranges
+(the outer link), whose payloads ``dcn_shard_nbytes`` gives.
+``time_carried_steps`` times live steps for the autotuner's race.
 """
 
 from __future__ import annotations
@@ -694,6 +697,32 @@ def profile_overlap_capability(
     return float(min(max((c + r - t) / denom, 0.0), 1.0))
 
 
+def time_carried_steps(
+    step_once: Callable, state, iters: int, warmup: int = 1,
+    device: Optional[Union[str, torch.device]] = None,
+) -> tuple:
+    """``measure_step_time`` for live training (the JAX package's
+    function): real steps timed while the state is carried through, so
+    every timed call is a genuine optimizer step on a fresh batch and
+    nothing is replayed (the autotuner's race protocol). ``step_once(state)
+    -> new state`` takes its own batch (the state may be None where the
+    step keeps it in place, as the port's ``TrainStep`` does); ``warmup``
+    steps run untimed, then one window of ``iters`` closed by a
+    synchronisation of ``device`` (``torch.cuda.synchronize`` on the card,
+    nothing on the CPU, the default). Returns (final state, seconds per
+    step)."""
+    device = torch.device(device if device is not None else "cpu")
+    for _ in range(max(warmup, 0)):
+        state = step_once(state)
+    _sync(device)
+    t0 = time.perf_counter()
+    n = max(iters, 1)
+    for _ in range(n):
+        state = step_once(state)
+    _sync(device)
+    return state, (time.perf_counter() - t0) / n
+
+
 def measure_step_time(
     fn: Callable, *args, warmup: int = 5, iters: int = 50,
     device: Optional[Union[str, torch.device]] = None,
@@ -715,16 +744,19 @@ def measure_step_time(
 
 def group_times_from_rows(
     rows: Sequence[tuple[str, float]], num_groups: int, iters: int,
+    scope_name: Optional[Callable[[int], str]] = None,
 ) -> Optional[list[float]]:
     """Seconds per step of each merge group from (identifier, duration in
     µs) rows: the sum of the durations whose identifier carries the
-    group's scope, averaged over ``iters`` traced steps. None when any
-    group attributes nothing: partial attribution is worse than none."""
+    group's scope (``scope_name``, default ``group_scope_name``), averaged
+    over ``iters`` traced steps. None when any group attributes nothing:
+    partial attribution is worse than none."""
     from mgwfbp_tpu_torch.parallel.allreduce import group_scope_name
 
+    scope_name = scope_name or group_scope_name
     out: list[float] = []
     for gi in range(num_groups):
-        tag = group_scope_name(gi)
+        tag = scope_name(gi)
         dur_us = sum(dur for ident, dur in rows if tag in ident)
         if dur_us <= 0.0:
             return None
@@ -741,20 +773,23 @@ def is_collective_kernel(name: str) -> bool:
 
 def collective_group_times(
     rows: Sequence[tuple[str, float]], num_groups: int, iters: int,
+    scope_name: Optional[Callable[[int], str]] = None,
 ) -> Optional[list[float]]:
     """``group_times_from_rows`` over ``trace_group_rows``' rows, charged
     only when every group's range holds a collective kernel. A range of
     copies alone (NCCL's in-place sum over one rank launches no kernel)
-    measured the pack, not the all-reduce: None, as for a missing group."""
+    measured the pack, not the all-reduce: None, as for a missing group.
+    ``scope_name``: as in ``group_times_from_rows``."""
     from mgwfbp_tpu_torch.parallel.allreduce import group_scope_name
 
+    scope_name = scope_name or group_scope_name
     for gi in range(num_groups):
-        tag = group_scope_name(gi) + " "
+        tag = scope_name(gi) + " "
         if not any(ident.startswith(tag)
                    and is_collective_kernel(ident[len(tag):])
                    for ident, _ in rows):
             return None
-    return group_times_from_rows(rows, num_groups, iters)
+    return group_times_from_rows(rows, num_groups, iters, scope_name)
 
 
 def _device_activity(event):
@@ -778,7 +813,8 @@ def trace_group_rows(
 ) -> list[tuple[str, float]]:
     """Run ``run_steps()`` under torch.profiler (CPU and, on a card, CUDA
     activities) and return one ("<scope> <kernel>", device µs) row for
-    every kernel or copy whose launch lies inside a merge group's range.
+    every kernel or copy whose launch lies inside a merge group's range
+    (``mgwfbp_groupNNNN``, and hier's ``mgwfbp_dcngroupNNNN``).
     A host operator's own time (gloo's ``all_reduce``, whose duration is
     its enqueue) is never counted, so a CPU run returns no rows. With
     ``logdir`` the window's Chrome trace goes to ``<logdir>/<trace_name>``.
@@ -786,7 +822,10 @@ def trace_group_rows(
     RuntimeError."""
     from torch.profiler import ProfilerActivity, profile
 
-    from mgwfbp_tpu_torch.parallel.allreduce import GROUP_SCOPE_PREFIX
+    from mgwfbp_tpu_torch.parallel.allreduce import (
+        DCN_GROUP_SCOPE_PREFIX,
+        GROUP_SCOPE_PREFIX,
+    )
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -805,7 +844,8 @@ def trace_group_rows(
     rows = []
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CPU
-                and e.name.startswith(GROUP_SCOPE_PREFIX)):
+                and e.name.startswith((GROUP_SCOPE_PREFIX,
+                                       DCN_GROUP_SCOPE_PREFIX))):
             rows.extend((f"{e.name} {k.name}", float(k.duration))
                         for k in _device_activity(e))
     return rows
@@ -826,3 +866,53 @@ def trace_group_times(
     as in ``trace_group_rows``."""
     return collective_group_times(
         trace_group_rows(run_steps, logdir, trace_name), num_groups, iters)
+
+
+def trace_two_level_group_times(
+    run_steps: Callable[[], None], num_groups: int, num_dcn_groups: int,
+    iters: int = 1, logdir: Optional[str] = None,
+    trace_name: str = "trace.json",
+) -> tuple[Optional[list[float]], Optional[list[float]]]:
+    """Per-link trace attribution of a hier schedule (the JAX package's
+    function): one trace of ``run_steps()``, split two ways. The
+    ``mgwfbp_groupNNNN`` ranges time each bucket's inner legs (the
+    reduce-scatter and the all-gather), the ``mgwfbp_dcngroupNNNN`` ranges
+    its cross-slice all-reduce. Returns ``(inner_times, dcn_times)`` in
+    group and DCN-group order (seconds per step), either None when its
+    ranges hold no collective kernel (``collective_group_times``): the
+    autotuner then refits from step deltas. The DCN samples let
+    ``costmodel.refit_two_level_from_observations`` refit the outer link
+    from its own observations."""
+    from mgwfbp_tpu_torch.parallel.allreduce import dcn_group_scope_name
+
+    rows = trace_group_rows(run_steps, logdir, trace_name)
+    return (collective_group_times(rows, num_groups, iters),
+            collective_group_times(rows, num_dcn_groups, iters,
+                                   dcn_group_scope_name))
+
+
+def _itemsize(dtype) -> int:
+    """Bytes per element of a torch or numpy dtype."""
+    size = getattr(dtype, "itemsize", None)
+    return int(size) if isinstance(size, int) else np.dtype(dtype).itemsize
+
+
+def dcn_shard_nbytes(layout, dcn_groups: Sequence[Sequence[int]],
+                     ici_size: int, comm_dtype=None) -> list[int]:
+    """Each DCN group's outer-wire payload in bytes (the JAX package's
+    function): the sum of its members' 1/ici_size shards of their buckets
+    padded to a multiple of ``ici_size``, at the wire dtype (else each
+    bucket's). That is what hier's one cross-slice all-reduce moves, and
+    the byte convention of ``refit_two_level_from_observations``'
+    ``dcn_observations``."""
+    ici = max(int(ici_size), 1)
+    out: list[int] = []
+    for members in dcn_groups:
+        total = 0
+        for gi in members:
+            n = int(layout.group_sizes[gi])
+            padded = n + ((-n) % ici)
+            total += (padded // ici) * _itemsize(
+                comm_dtype if comm_dtype is not None else layout.dtypes[gi])
+        out.append(total)
+    return out

@@ -18,11 +18,10 @@ Two live signals, pure host arithmetic, no device synchronisation:
 Alarms carry hysteresis on both edges: ``hysteresis`` consecutive
 out-of-band observations raise, the same count in-band clears.
 
-The trainer turns each ``DriftAlarm`` into a ``drift_alarm`` event. The
-JAX trainer can also re-race its schedule on a raised alarm
-(``MGWFBP_DRIFT_REAUTOTUNE=1``); that race is autotune's, which the port
-does not have yet, so ``refuse_reautotune`` rejects the variable naming
-ROADMAP Queue 1 item 8 rather than ignoring it.
+The trainer turns each ``DriftAlarm`` into a ``drift_alarm`` event. With
+``MGWFBP_DRIFT_REAUTOTUNE=1`` (``reautotune_enabled``) a raised alarm also
+arms a forced re-race of the schedule at the next agreed step boundary
+(``Trainer.autotune(force=True)``), after which the detector resets.
 
 ``StragglerDetector`` is the multi-process sibling: at every agree
 interval the group gathers each process's local busy seconds per step
@@ -104,21 +103,6 @@ class DriftConfig:
 
 def reautotune_enabled(environ=None) -> bool:
     return (environ or os.environ).get(_ENV_REAUTOTUNE) == "1"
-
-
-REAUTOTUNE_REFUSAL = (
-    "MGWFBP_DRIFT_REAUTOTUNE=1 asks for a schedule re-race on a drift "
-    "alarm; the race is autotune's, which the PyTorch port does not have "
-    "yet (ROADMAP Queue 1 item 8). Unset it: drift alarms are still "
-    "raised and recorded"
-)
-
-
-def refuse_reautotune(environ=None) -> None:
-    """Raise ValueError when ``MGWFBP_DRIFT_REAUTOTUNE=1`` asks for what
-    the port cannot do (ROADMAP Queue 1 item 8)."""
-    if reautotune_enabled(environ):
-        raise ValueError(REAUTOTUNE_REFUSAL)
 
 
 @dataclasses.dataclass(frozen=True)

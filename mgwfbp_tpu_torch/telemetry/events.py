@@ -15,11 +15,11 @@ port's streams as they read its own. The port's trainer writes ``header``,
 ``resize``, ``watchdog_stall``, ``failure``, the live plane's
 ``drift_alarm``, ``straggler`` and ``profile``, the health records
 (``health``, ``health_alarm``), the flight recorder's ``postmortem`` and
-the ``scalar`` view; the supervisor writes ``failure`` and ``heal`` to its
-own stream; the serving plane writes ``reload``, ``serve_stats`` and
-``shadow_eval``; the bench writes ``bench_skip``. Of the JAX kinds only
-``autotune_race`` and ``autotune_commit`` have no writer yet (ROADMAP
-Queue 1 item 8).
+the ``scalar`` view, and the autotuner's ``autotune_race`` (one per raced
+candidate) and ``autotune_commit``; the supervisor writes ``failure`` and
+``heal`` to its own stream; the serving plane writes ``reload``,
+``serve_stats`` and ``shadow_eval``; the bench writes ``bench_skip``. Every
+JAX kind has a writer.
 
 The writer never touches the device: ``emit`` rejects any field that is not
 plain JSON data, a ``torch.Tensor`` included (serialising one would force a

@@ -89,6 +89,10 @@ One ``TrainStep`` call is one optimizer step:
 
 The model's buffers are re-seated as views of one flat tensor, so the
 snapshot, the restore and the cross-rank average are one operation each.
+The step's own collectives run in the ranges the JAX step declares for
+them (``metrics_reduce``, ``bstats_reduce``, ``flat_grad_reduce``;
+``parallel.allreduce.collective_scope``), which the schedule verifier
+(``analysis.schedule_check``) tells from a merge group's.
 """
 
 from __future__ import annotations
@@ -102,7 +106,11 @@ from torch import nn
 
 from mgwfbp_tpu_torch.models.lstm import repackage_carry
 from mgwfbp_tpu_torch.optim import clip_by_global_norm_, set_lr
-from mgwfbp_tpu_torch.parallel.allreduce import SHARDED_OPS, MergedAllreduce
+from mgwfbp_tpu_torch.parallel.allreduce import (
+    SHARDED_OPS,
+    MergedAllreduce,
+    collective_scope,
+)
 from mgwfbp_tpu_torch.parallel.mesh import world_size
 
 
@@ -431,9 +439,10 @@ class TrainStep:
             if n > 1:
                 torch._foreach_mul_(grads, 1.0 / n)
             if self.world > 1:
-                for g in grads:  # one flat mean per leaf, no hooks
-                    dist.all_reduce(g)
-                    g.div_(self.world)
+                with collective_scope("flat_grad_reduce"):
+                    for g in grads:  # one flat mean per leaf, no hooks
+                        dist.all_reduce(g)
+                        g.div_(self.world)
             reduced = grads
         metrics = torch.stack([
             loss_sum / n, metric_sum / n,
@@ -452,7 +461,8 @@ class TrainStep:
         if local:
             metrics = torch.cat([metrics, *(t.to(metrics.dtype) for t in local)])
         if self.world > 1:
-            dist.all_reduce(metrics)
+            with collective_scope("metrics_reduce"):
+                dist.all_reduce(metrics)
             metrics.div_(self.world)
         norms = comp = None
         if self.health_stats:
@@ -487,7 +497,8 @@ class TrainStep:
                 self.optimizer.step()
             self.step += 1
             if self.world > 1 and self.buffers is not None:
-                dist.all_reduce(self.buffers)
+                with collective_scope("bstats_reduce"):
+                    dist.all_reduce(self.buffers)
                 self.buffers.div_(self.world)
         else:
             # a skipped step never happened: the forward's running
@@ -554,7 +565,8 @@ class TrainStep:
                     leaf_norms(torch._foreach_sub(new, old_shards))
                     .square().sum()])
                 if self.world > 1:
-                    dist.all_reduce(sq, group=self.reducer.group)
+                    with collective_scope("metrics_reduce"):
+                        dist.all_reduce(sq, group=self.reducer.group)
                 pnorm, unorm = sq.sqrt().unbind()
                 ratio = (unorm / pnorm.clamp_min(1e-12)).reshape(1)
             elif applied:

@@ -100,8 +100,9 @@ The telemetry plane (the JAX trainer's, with telemetry on):
     /profile window measured per-group device time), give ``drift_alarm``
     edges; at several processes every agree-interval step gathers each
     process's local busy seconds (``coordination.gather_values``) for the
-    ``straggler`` probe. ``MGWFBP_DRIFT_REAUTOTUNE=1`` is refused (ROADMAP
-    Queue 1 item 8);
+    ``straggler`` probe. With ``MGWFBP_DRIFT_REAUTOTUNE=1`` a raised alarm
+    arms a forced re-race of the schedule (``autotune(force=True)``) at the
+    next agreed step boundary, after which the detector resets;
   * the flight recorder (``telemetry/recorder.py``), teed with the
     aggregator off the event stream: an alarm, a bad step or a stall writes
     a postmortem bundle under ``<tag dir>/postmortems``;
@@ -115,7 +116,33 @@ The telemetry plane (the JAX trainer's, with telemetry on):
     no reducer exists), ``per_process_device_s`` gathered across ranks;
   * ``tensorboard``: the scalar stream (``utils/summary.py``);
   * ``serve_shadow``: the in-process serving plane with the shadow scorer.
-Autotune (with the drift re-race) is not ported (ROADMAP.md).
+
+Autotune (the JAX trainer's closed loop; ``parallel/autotune.py``).
+``config.autotune`` makes ``fit`` call ``autotune()`` before the first
+epoch: a cache hit (``parallel.autotune.cache_key``, every process
+agreeing) installs the committed schedule; otherwise two burn-in steps,
+then each candidate of ``build_candidates`` (the incumbent included) is
+swapped in, its first step observed and checked by the schedule verifier
+(``analysis.schedule_check``; a rejected candidate's step is undone and it
+takes no other), and the verified ones take warmup + ``autotune_steps``
+timed steps (``profiling.time_carried_steps``). The timings are agreed
+across processes (each candidate at its slowest, ``coordination.
+all_argmin``), the cost model is refitted from step-time deltas
+(``costmodel.refit_from_observations``; per-group trace times on one
+process, which has no reducer in this package), the re-solved schedule
+races too, and the measured argmin is installed and written to the cache
+by process 0, with ``autotune_race`` and ``autotune_commit`` records. A
+swap (``_swap_reducer``) carries the live state across reducers in the
+checkpoints' interchange form (``_interchange_state``: Flax layout, the
+sharded optimizer gathered, rs_fwd_ag's parameters materialized), removes
+the old reducer's hooks, attaches the new one's, builds a ``TrainStep``
+over it and installs the state (re-scattering shards and the carry); a
+failed install puts the old reducer back. ``config.comm_op`` stays the
+configured lowering (the cache key reads it) while ``comm_op`` and the
+sharded-optimizer and cross-step paths follow the live reducer, so a
+checkpoint written after a swap describes the lowering that wrote it. A
+race's steps are genuine optimizer steps (the iteration advances) on
+batches of a reserved epoch range; their health statistics are dropped.
 """
 
 from __future__ import annotations
@@ -179,6 +206,7 @@ from mgwfbp_tpu_torch.parallel.solver import (
     LayerSpec,
     check_comm_op,
     is_two_level,
+    singleton_dcn_groups,
     size_prior_tb,
     two_level_leg_costs,
 )
@@ -197,7 +225,7 @@ from mgwfbp_tpu_torch.telemetry.drift import (
     DriftConfig,
     DriftDetector,
     StragglerDetector,
-    refuse_reautotune,
+    reautotune_enabled,
 )
 from mgwfbp_tpu_torch.telemetry.health import (
     HealthConfig,
@@ -349,8 +377,15 @@ class Trainer:
         self._watchdog: Optional[ProgressWatchdog] = None
         self._stepped = False  # a train step ran in this process
         self._evaluated = False  # an evaluation ran in this process
-        # the drift re-race is autotune's (ROADMAP Queue 1 item 8)
-        refuse_reautotune()
+        # MGWFBP_DRIFT_REAUTOTUNE=1: a raised drift alarm arms a forced
+        # re-race at the next agreed step boundary
+        self._drift_reautotune_enabled = reautotune_enabled()
+        self._drift_reautotune_pending = False
+        self.autotune_report: Optional[dict] = None
+        # the race's losses and the gate's per-candidate observations
+        # (autotune)
+        self._race_losses: Optional[list[float]] = None
+        self._gate_log: list[dict] = []
         self._metrics_agg = None
         self._metrics_server = None
         self._recorder = None
@@ -443,6 +478,10 @@ class Trainer:
         # the measured forward profile (rs_fwd_ag's schedule is priced on
         # it; None: the solver's tb/2 prior)
         self._tf_cache: Optional[TbProfile] = None
+        # the top-k compressor and hier's process groups, made once and
+        # shared by every reducer the autotuner builds
+        self._compressor = None
+        self._levels = None
         self.reducer = self._build_reducer(profile_backward)
         if self.reducer is not None:
             s = self.reducer.schedule
@@ -470,16 +509,7 @@ class Trainer:
                 self.reducer.num_groups,
             )
         self._sync_schedule_gauge()
-        self.train_step = TrainStep(
-            self.model, self.optimizer, self.lr_fn, reducer=self.reducer,
-            nsteps_update=config.nsteps_update, grad_guard=config.grad_guard,
-            norm_clip=(
-                scaled_clip_threshold(config.norm_clip, self.world)
-                if config.norm_clip is not None else None
-            ),
-            task=self.meta.task, compute_dtype=self.compute_dtype,
-            health_stats=self._health_on,
-        )
+        self.train_step = self._make_train_step()
         self.carry = self._zero_carry()
         self.start_epoch = 0
         self.iteration = 0
@@ -630,25 +660,25 @@ class Trainer:
 
     def _schedule_state_doc(self) -> dict:
         """The committed schedule and cost model, JSON data (every
-        postmortem bundle's ``schedule.json``)."""
+        postmortem bundle's ``schedule.json``), in the JAX trainer's
+        shape."""
+        from mgwfbp_tpu_torch.parallel import autotune as at
+
         doc: dict = {"iteration": int(self.iteration)}
         reducer = getattr(self, "reducer", None)
         if reducer is not None:
             s = reducer.schedule
             doc["schedule"] = {
-                "comm_op": reducer.comm_op,
-                "num_groups": int(reducer.num_groups),
+                "comm_op": str(reducer.comm_op),
+                "num_groups": int(reducer.layout.num_groups),
                 "groups": [list(g) for g in reducer.layout.groups],
+                "dcn_groups": [list(d) for d in s.dcn_groups],
                 "policy_detail": str(s.policy_detail or self.config.policy),
                 "predicted_nonoverlap_s": float(s.predicted_nonoverlap_time),
             }
         cm = getattr(self, "cost_model", None)
         if cm is not None:
-            doc["cost_model"] = {
-                "kind": type(cm).__name__,
-                **{k: float(getattr(cm, k)) for k in
-                   ("alpha", "beta", "gamma", "overlap") if hasattr(cm, k)},
-            }
+            doc["cost_model"] = at.model_summary(cm)
         measured = getattr(self, "_measured_group_times", None)
         if measured is not None:
             doc["measured_group_times"] = [float(t) for t in measured]
@@ -663,6 +693,21 @@ class Trainer:
             self.comm_op, s.num_groups if s is not None else 0,
             s.policy_detail if s is not None else "",
             float(s.predicted_nonoverlap_time) if s is not None else None)
+
+    def _make_train_step(self) -> TrainStep:
+        """The train step over the live reducer (a schedule swap builds a
+        new one; ``_install`` then sets its step counter)."""
+        cfg = self.config
+        return TrainStep(
+            self.model, self.optimizer, self.lr_fn, reducer=self.reducer,
+            nsteps_update=cfg.nsteps_update, grad_guard=cfg.grad_guard,
+            norm_clip=(
+                scaled_clip_threshold(cfg.norm_clip, self.world)
+                if cfg.norm_clip is not None else None
+            ),
+            task=self.meta.task, compute_dtype=self.compute_dtype,
+            health_stats=self._health_on,
+        )
 
     def _apply_lm_window(self) -> None:
         """Windowed-LM length override (``num_steps``): the meta the batches
@@ -827,14 +872,13 @@ class Trainer:
                         "than top-k + allgather on this link; compression "
                         "disabled")
             if density < 1.0:
-                compressor = make_compressor(cfg.compressor, density)
+                compressor = self._compressor = make_compressor(
+                    cfg.compressor, density)
                 self.log.info("gradient compression: %s density=%g",
                               cfg.compressor, density)
         levels = None
         if self._reducer_op == "hier":
-            levels = two_level_groups(dcn)
-            self.log.info("two-level groups: %d slice(s) of %d rank(s)",
-                          dcn, ici)
+            levels = self._two_level()
         return make_merged_allreduce(
             self.model, policy=cfg.policy, tb=self.tb, tf=self._tf_cache,
             cost_model=self.cost_model, threshold=cfg.threshold,
@@ -843,6 +887,23 @@ class Trainer:
             optim_spec=self.optim_spec if self._sharded_opt else None,
             world_size=self.world, levels=levels,
         )
+
+    def _two_level(self):
+        """The world's two-level process groups (``parallel.mesh.
+        two_level_groups``), made at the first hier reducer: every rank
+        reaches it at the same point."""
+        if self._levels is None:
+            dcn = int(self.config.dcn_slices)
+            self._levels = two_level_groups(dcn)
+            self.log.info("two-level groups: %d slice(s) of %d rank(s)",
+                          dcn, self.world // dcn)
+        return self._levels
+
+    def _layer_specs(self) -> list[LayerSpec]:
+        """The solver's layer specs of the model, in arrival order."""
+        params, perm, names = self._arrival_leaves()
+        return [LayerSpec(names[j], params[j].numel(),
+                          params[j].element_size()) for j in perm]
 
     def _arrival_leaves(self) -> tuple[list, list[int], list[str]]:
         """(leaf tensors, arrival permutation, leaf names), as the reducer
@@ -1019,8 +1080,10 @@ class Trainer:
                 if self._agreed_preempt():
                     self._graceful_drain(epoch, epoch_pos)  # raises Preempted
                 # the live plane, at group-uniform steps: the straggler
-                # probe, then an armed /profile window
+                # probe, an armed drift re-race, then an armed /profile
+                # window
                 self._maybe_straggler_probe()
+                self._maybe_drift_reautotune()
                 self._maybe_profile_window(epoch)
                 if max_steps is not None and epoch_pos >= max_steps:
                     break
@@ -1123,12 +1186,7 @@ class Trainer:
         prior the solver fell back to."""
         if self.tb is not None:
             return list(self.tb)
-        params, perm, names = self._arrival_leaves()
-        return size_prior_tb(
-            [LayerSpec(names[j], params[j].numel(), params[j].element_size())
-             for j in perm],
-            self.cost_model,
-        )
+        return size_prior_tb(self._layer_specs(), self.cost_model)
 
     def _emit_overlap(self, step_s: float, epoch: int) -> None:
         """One ``overlap`` record and one ``comm_group`` record per merge
@@ -1324,6 +1382,8 @@ class Trainer:
                              step=int(self.iteration),
                              residual=float(a.residual), band=float(a.band),
                              active=bool(a.active), group=int(a.group))
+            if a.active and self._drift_reautotune_enabled:
+                self._drift_reautotune_pending = True
 
     def _maybe_straggler_probe(self) -> None:
         """At every agree-interval step of a group, gather each process's
@@ -1516,6 +1576,766 @@ class Trainer:
         )
         self.log.info("profile window done: %d step(s) in %.3g s, "
                       "attribution=%s", steps, wall_s, attribution)
+
+    # ------------------------------------------------------------------
+    # Closed-loop schedule autotuning (the JAX trainer's): the verified
+    # race on the live job, the refit, the commit and the schedule cache,
+    # the hot swap through the checkpoints' interchange form, and drift's
+    # forced re-race.
+    # ------------------------------------------------------------------
+
+    def autotune(self, steps_per_candidate: Optional[int] = None,
+                 force: bool = False) -> Optional[dict]:
+        """Close the solver's loop on the live job (the JAX trainer's
+        ``autotune``): race verified candidate schedules for warmup + k
+        real training steps each (no step is paused or lost), refit the
+        cost model from the measurements, re-solve once, and commit the
+        measured argmin, persisting it in the schedule cache under
+        ``parallel.autotune.cache_key``. A later run with the same key
+        installs the committed schedule and skips the race.
+
+        Returns the report (also ``self.autotune_report``), or None when
+        there is nothing to tune (no reducer: one process, or policy none).
+        ``force=True`` re-races even on a cache hit (drift's re-race: the
+        entry describes a model the detector just called stale) and the
+        winner overwrites the entry; it must be group-uniform, as the drift
+        trigger's agree_any makes it. Every process of the group runs the
+        same sequence of candidates in lockstep: the candidates derive from
+        identical inputs (tb and tf are process 0's, the cost model is
+        resolved alike), and only the wall-clock timings are per process,
+        reduced to one agreed vector before anything reads them."""
+        from mgwfbp_tpu_torch.parallel import autotune as at
+        from mgwfbp_tpu_torch.parallel.costmodel import (
+            refit_from_observations,
+            refit_two_level_from_observations,
+        )
+        from mgwfbp_tpu_torch.parallel.solver import build_schedule
+
+        cfg = self.config
+        if self.reducer is None:
+            self.log.info(
+                "autotune: nothing to tune (no merged reducer: policy %r or "
+                "single device)", cfg.policy,
+            )
+            return None
+        if self.world > 1:
+            self.log.info(
+                "autotune: multi-process race — per-candidate timings will "
+                "be reduced to a cross-process argmin before commit"
+            )
+        key, path = self._schedule_cache_path()
+        entry = at.load_cache_entry(path)
+        names_now = list(self.reducer.schedule.layer_names)
+        cache_hit = (not force and entry is not None
+                     and entry.get("layer_names") == names_now)
+        if self.world > 1:
+            # the cache is file-system state: a hit counts only when every
+            # process has it, else all race together
+            cache_hit = coord.agree_all(cache_hit)
+        if cache_hit:
+            groups, entry_dcn = self._install_entry(entry, "autotune-cache")
+            self.log.info(
+                "autotune: cache hit %s — committed schedule loaded (%d "
+                "groups, comm_op=%s), race skipped", path, len(groups),
+                entry["comm_op"],
+            )
+            mgt = entry.get("measured_group_times")
+            if mgt:
+                # the entry's trace-attributed group times describe the
+                # schedule just installed
+                self._measured_group_times = [float(t) for t in mgt]
+            self._emit_event(
+                "autotune_commit", winner=str(entry.get("winner")),
+                comm_op=str(entry["comm_op"]), num_groups=len(groups),
+                source="cache",
+            )
+            self.autotune_report = {
+                "source": "cache", "cache_path": path,
+                "comm_op": entry["comm_op"],
+                "groups": [list(g) for g in groups],
+                "dcn_groups": [list(d) for d in entry_dcn or ()],
+                "winner": entry.get("winner"),
+            }
+            return self.autotune_report
+        if entry is not None:
+            if force:
+                self.log.info("autotune: forced re-race — committed entry "
+                              "%s will be overwritten by the new winner",
+                              path)
+            else:
+                self.log.warning("autotune: cache entry %s was tuned for a "
+                                 "different parameter set; re-tuning", path)
+
+        # ---- frontier ------------------------------------------------
+        specs = self._layer_specs()
+        cost_model = self.cost_model
+        tb = (list(self.tb) if self.tb is not None
+              else size_prior_tb(specs, cost_model))
+        tf = list(self._tf_cache) if self._tf_cache is not None else None
+        # a sparsifying compressor replaces the bucket collective: only
+        # the configured all_reduce path races under it
+        comm_ops = (
+            ("all_reduce",) if self._compressor is not None
+            else at.allowed_comm_ops(cfg.comm_op,
+                                     multi_slice=cfg.dcn_slices > 1)
+        )
+        candidates = at.build_candidates(
+            specs, tb, cost_model, comm_ops, tf=tf,
+            max_candidates=max(int(cfg.autotune_candidates), 1),
+            incumbent=(self.reducer.schedule.groups, cfg.comm_op,
+                       self.reducer.schedule.dcn_groups),
+        )
+        steps = max(int(steps_per_candidate if steps_per_candidate
+                        is not None else cfg.autotune_steps), 1)
+        self.log.info(
+            "autotune: racing %d candidate(s), %d timed step(s) each "
+            "(cache key %s)", len(candidates), steps, key,
+        )
+        # the last loop step's health statistics first; the race's own are
+        # dropped (its steps are not the loop's)
+        self._drain_health()
+        t_race = time.perf_counter()
+        self._race_losses = []
+        self._gate_log = []
+        original = self.reducer
+        batch_iter = self._autotune_batches()
+        try:
+            # burn-in on the incumbent: the process's first real steps carry
+            # one-off host warm-up that would bias whichever candidate races
+            # first; they are genuine training steps all the same
+            for _ in range(2):
+                self._apply_train_step(next(batch_iter))
+            entries = []
+            raced_shapes: set = set()
+            for c in candidates:
+                e = self._race_candidate(c, batch_iter, steps)
+                entries.append(e)
+                # both the requested and the issued (post-layout) shape: the
+                # refit re-solve emits pre-layout groups
+                raced_shapes.add((c.comm_op, tuple(map(tuple, c.groups)),
+                                  tuple(map(tuple, c.dcn_groups))))
+                raced_shapes.add((e.comm_op, tuple(map(tuple, e.groups)),
+                                  tuple(map(tuple, e.dcn_groups))))
+            # every process reads the same agreed times from here on
+            self._sync_entry_times(entries)
+
+            # ---- refit from observations + one re-solve ------------------
+            refit_info = None
+            measured_groups = None
+            traced_schedule = None
+            timed = [e for e in entries if e.measured_step_s is not None]
+            if timed and cost_model is not None:
+                best = min(timed, key=lambda e: e.measured_step_s)
+                if not self._reducer_is_live(best.groups, best.comm_op,
+                                             best.dcn_groups or None):
+                    self._swap_reducer(self._reducer_for(
+                        best.groups, best.comm_op,
+                        detail=f"autotune:{best.label}",
+                        dcn_groups=best.dcn_groups or None,
+                    ))
+                total_bytes = float(sum(s.nbytes for s in specs))
+                obs, obs_source, measured_groups, dcn_obs = (
+                    self._group_observations(batch_iter, entries, total_bytes,
+                                             float(sum(tb))))
+                # whose groups a trace's per-group seconds belong to
+                traced_schedule = (
+                    self.reducer.comm_op,
+                    tuple(map(tuple, self.reducer.layout.groups)),
+                    tuple(map(tuple, self.reducer.schedule.dcn_groups)),
+                )
+                if len(obs) >= 2:
+                    try:
+                        if is_two_level(cost_model):
+                            # a two-level model stays two-level: the hier
+                            # lowering's group ranges time the inner legs
+                            # alone (trace, with the DCN ranges' own samples);
+                            # step deltas and a flat lowering's ranges are
+                            # whole-collective and rescale both links
+                            if (obs_source == "trace"
+                                    and self.reducer.comm_op == "hier"):
+                                new_model = refit_two_level_from_observations(
+                                    cost_model, [], ici_observations=obs,
+                                    dcn_observations=dcn_obs,
+                                )
+                            else:
+                                new_model = refit_two_level_from_observations(
+                                    cost_model, obs)
+                        else:
+                            new_model = refit_from_observations(
+                                cost_model, obs, cfg.comm_op)
+                    except ValueError as e:
+                        self.log.info("autotune: refit skipped (%s)", e)
+                    else:
+                        refit_info = {
+                            "before": at.model_summary(cost_model),
+                            "after": at.model_summary(new_model),
+                            "source": obs_source,
+                            "observations": [[float(b), float(t)]
+                                             for b, t in obs],
+                        }
+                        self.cost_model = new_model
+                        resolved = build_schedule(
+                            specs, tb, tf=tf, policy="auto",
+                            cost_model=new_model, comm_op=cfg.comm_op,
+                        )
+                        shape = tuple(tuple(g) for g in resolved.groups)
+                        dcn_shape = tuple(
+                            tuple(d) for d in resolved.dcn_groups)
+                        if (cfg.comm_op, shape, dcn_shape) not in raced_shapes:
+                            cand = at.Candidate(
+                                label=(f"{cfg.comm_op}:refit->"
+                                       f"{resolved.policy_detail or 'auto'}"),
+                                groups=shape, comm_op=cfg.comm_op,
+                                predicted_total_s=float(
+                                    resolved.predicted_total_time),
+                                dcn_groups=dcn_shape,
+                            )
+                            entries.append(self._race_candidate(
+                                cand, batch_iter, steps))
+        finally:
+            batch_iter.close()  # stops its prefetch
+        # the re-solve may have raced one more candidate (idempotent for
+        # the entries already agreed)
+        self._sync_entry_times(entries)
+        timed = [e for e in entries if e.measured_step_s is not None]
+        self.train_step.discard_health()
+        race_s = time.perf_counter() - t_race
+        losses, self._race_losses = self._race_losses, None
+
+        # ---- commit the measured argmin + persist --------------------
+        if not timed:
+            self.log.warning("autotune: no candidate survived verification/"
+                             "racing; keeping the solved schedule")
+            if self.reducer is not original:
+                self._swap_reducer(original)
+            for e in entries:
+                self._emit_event("autotune_race", **e.to_json())
+            self.autotune_report = {
+                "source": "race", "cache_path": None,
+                "race": [e.to_json() for e in entries],
+                "gate": self._gate_log, "race_s": race_s,
+                "losses": losses,
+            }
+            return self.autotune_report
+        winner = min(timed, key=lambda e: e.measured_step_s)
+        if measured_groups is not None and traced_schedule != (
+            winner.comm_op, tuple(map(tuple, winner.groups)),
+            tuple(map(tuple, winner.dcn_groups)),
+        ):
+            measured_groups = None  # traced another schedule's groups
+        if not self._reducer_is_live(winner.groups, winner.comm_op,
+                                     winner.dcn_groups or None):
+            self._swap_reducer(self._reducer_for(
+                winner.groups, winner.comm_op,
+                detail=f"autotune:{winner.label}",
+                dcn_groups=winner.dcn_groups or None,
+            ))
+        cache_entry = {
+            "key": key,
+            "model": cfg.dnn,
+            "world": self.world,
+            "comm_op": winner.comm_op,
+            "dtype": cfg.dtype,
+            "layer_names": names_now,
+            "winner": winner.label,
+            "groups": [list(g) for g in winner.groups],
+            "dcn_groups": [list(d) for d in winner.dcn_groups],
+            "measured_step_s": winner.measured_step_s,
+            "tb_source": (getattr(self.tb, "source", "volume-prior")
+                          if self.tb is not None else "size-prior"),
+            "race": [e.to_json() for e in entries],
+            "refit": refit_info,
+            "solved_group_times": [
+                [int(b), float(t)]
+                for b, t in self.reducer.schedule.predicted_group_times
+            ],
+            "measured_group_times": measured_groups,
+        }
+        if self.rank == 0:
+            # one writer: the cache file is shared state (a miss re-races,
+            # and a hit needs every process's agreement)
+            at.save_cache_entry(path, cache_entry)
+        self._measured_group_times = (
+            [float(t) for t in measured_groups]
+            if measured_groups is not None else None)
+        for e in entries:
+            self._emit_event("autotune_race", **e.to_json())
+        self._emit_event("autotune_commit", winner=winner.label,
+                         comm_op=winner.comm_op,
+                         num_groups=len(winner.groups), source="race")
+        self.log.info(
+            "autotune: committed %s (%d groups, comm_op=%s, %.4g s/step) "
+            "-> %s", winner.label, len(winner.groups), winner.comm_op,
+            winner.measured_step_s, path,
+        )
+        self.autotune_report = {
+            "source": "race", "cache_path": path,
+            **{k: cache_entry[k] for k in (
+                "winner", "groups", "dcn_groups", "comm_op",
+                "measured_step_s", "race", "refit")},
+            "gate": self._gate_log, "race_s": race_s,
+            "losses": losses,
+        }
+        return self.autotune_report
+
+    def _schedule_cache_path(self) -> tuple[str, str]:
+        """(key, entry path) of this run's schedule-cache entry: the
+        configured lowering, model, world and numerics
+        (``parallel.autotune.cache_key``) under ``config.schedule_cache``
+        (default ``profiles/schedule_cache``)."""
+        from mgwfbp_tpu_torch.parallel import autotune as at
+
+        cfg = self.config
+        cache_dir = cfg.schedule_cache or os.path.join("profiles",
+                                                       "schedule_cache")
+        key = at.cache_key(
+            cfg.dnn, self.world, cfg.comm_op, cfg.dtype,
+            comm_dtype=cfg.comm_dtype, compressor=cfg.compressor,
+            density=cfg.density, batch_size=cfg.batch_size,
+            nsteps_update=cfg.nsteps_update, dcn_slices=cfg.dcn_slices,
+        )
+        return key, at.entry_path(cache_dir, key)
+
+    def _cached_schedule_entry(self) -> Optional[tuple[dict, str]]:
+        """(entry, path) of a committed schedule for this run's cache key
+        whose layer set matches the live model, else None (an unreadable
+        entry is logged): the cross-world resume consults it before
+        settling for the freshly solved schedule."""
+        from mgwfbp_tpu_torch.parallel import autotune as at
+
+        if self.reducer is None:
+            return None
+        _, path = self._schedule_cache_path()
+        try:
+            entry = at.load_cache_entry(path)
+        except ValueError as e:
+            self.log.warning("schedule cache entry unreadable: %s", e)
+            return None
+        if entry is None or entry.get("layer_names") != list(
+                self.reducer.schedule.layer_names):
+            return None
+        return entry, path
+
+    def _install_cached_schedule(self) -> bool:
+        """Install the cached schedule of this run's key when every process
+        has one (``_cached_schedule_entry``); True when it is live."""
+        cached = self._cached_schedule_entry()
+        if not coord.agree_all(cached is not None):
+            return False
+        entry, path = cached
+        self._install_entry(entry, "schedule-cache")
+        self.log.info("tuned schedule loaded from %s (%d groups, comm_op=%s)",
+                      path, self.reducer.num_groups, self.reducer.comm_op)
+        return True
+
+    def _install_entry(self, entry: dict, source: str) -> tuple:
+        """Make a committed cache entry's schedule live (nothing to do when
+        it is already); returns its (groups, DCN groups or None)."""
+        groups = tuple(tuple(int(i) for i in g) for g in entry["groups"])
+        dcn = tuple(tuple(int(i) for i in d)
+                    for d in entry.get("dcn_groups") or ()) or None
+        if not self._reducer_is_live(groups, entry["comm_op"], dcn):
+            self._swap_reducer(self._reducer_for(
+                groups, entry["comm_op"],
+                detail=f"{source}:{entry.get('winner', 'winner')}",
+                dcn_groups=dcn,
+            ))
+        return groups, dcn
+
+    def _sync_entry_times(self, entries) -> None:
+        """Replace each race entry's time with the group-agreed one, its
+        maximum over the processes (a synchronous group runs at its
+        straggler's pace; unmeasured anywhere -> None), so the argmin, the
+        refit's inputs and the cache entry are identical everywhere. No-op
+        on one process and on an empty race."""
+        if self.world == 1 or not entries:
+            return
+        idx, reduced = coord.all_argmin([e.measured_step_s for e in entries])
+        for e, t in zip(entries, reduced):
+            e.measured_step_s = float(t) if np.isfinite(t) else None
+        self.log.info("autotune: cross-process argmin -> candidate %d (%s)",
+                      idx, entries[idx].label)
+
+    def _reducer_for(self, groups, comm_op: str, detail: str = "",
+                     dcn_groups=None):
+        """A reducer of an explicit grouping (a raced candidate, a cache
+        hit) with the live cost model, tb, tf, wire dtype, compressor and
+        process groups, its hooks not attached (``_swap_reducer`` attaches
+        them). For hier, ``dcn_groups`` is the outer partition (None: one
+        cross-slice all-reduce per group)."""
+        cfg = self.config
+        reducer = make_merged_allreduce(
+            self.model, policy="auto", tb=self.tb, tf=self._tf_cache,
+            cost_model=self.cost_model,
+            comm_dtype=getattr(torch, cfg.comm_dtype) if cfg.comm_dtype
+            else None,
+            comm_op=comm_op, compressor=self._compressor,
+            optim_spec=self.optim_spec if comm_op in SHARDED_OPS else None,
+            world_size=self.world,
+            levels=self._two_level() if comm_op == "hier" else None,
+            groups=groups,
+            dcn_groups=dcn_groups if comm_op == "hier" else None,
+            policy_detail=detail,
+        )
+        reducer.detach()
+        return reducer
+
+    def _reducer_is_live(self, groups, comm_op: str, dcn_groups=None) -> bool:
+        """True when the live reducer already issues exactly this schedule
+        (the same lowering and groups, and for hier the same outer
+        partition): rebuilding it would only cost a state round trip."""
+        live = self.reducer
+        shape = tuple(tuple(int(i) for i in g) for g in groups)
+        if comm_op != live.comm_op or shape not in (
+            tuple(map(tuple, live.layout.groups)),
+            tuple(map(tuple, live.schedule.groups)),
+        ):
+            return False
+        if comm_op == "hier" and dcn_groups is not None:
+            want = tuple(tuple(int(i) for i in d) for d in dcn_groups)
+            live_dcn = live.schedule.dcn_groups or tuple(
+                tuple(d) for d in singleton_dcn_groups(len(shape)))
+            if want != live_dcn:
+                return False
+        return True
+
+    def _interchange_state(self) -> TrainState:
+        """The live train state in the form a checkpoint holds
+        (``TrainState``: parameters and batch statistics in Flax layout,
+        the optimizer as the optax tree), in host memory: what a schedule
+        swap carries from one reducer to another. On rs_opt_ag and
+        rs_fwd_ag a collective: the sharded optimizer state is gathered
+        (and rs_fwd_ag's parameters materialized first)."""
+        self._materialize()
+        paths, trace_paths, count_path = self._opt_layout()
+        step = int(self.train_step.step)
+        opt: dict = {}
+        if self._sharded_opt:
+            state = self.reducer.opt_state
+            slots = self.reducer.optim.gather(state)
+            to_flax = [rule[1] for rule in _param_rules(self.model).values()]
+            if trace_paths:
+                opt = {tp: f(torch.from_numpy(a)).contiguous().numpy()
+                       for tp, f, a in zip(trace_paths, to_flax, slots[0])}
+            count = int(state.count)
+        else:
+            if trace_paths:
+                moms = momentum_to_flax(self.model, self.optimizer)
+                opt = {tp: moms[p] for p, tp in zip(paths, trace_paths)}
+            count = step
+        opt[count_path] = np.asarray(count, np.int32)
+        return TrainState(step=step,
+                          params=host_leaves(self.model, "params"),
+                          batch_stats=host_leaves(self.model, "batch_stats"),
+                          opt_state=opt)
+
+    def _swap_reducer(self, reducer,
+                      state: Optional[TrainState] = None) -> None:
+        """Hot-swap the live merge schedule (the JAX trainer's seam): the
+        live state in the interchange form, taken under the OLD reducer
+        (``state``, when the caller took it already), the old reducer's
+        hooks removed and the new one's attached, a train step built over
+        it (``_reducer_op`` follows it, and with it the sharded-optimizer
+        and cross-step paths) and the state installed onto its layout (the
+        sharded optimizer and rs_fwd_ag's carry re-scattered).
+        Transactional: if that fails, the old reducer, a step over it and
+        the state are put back before the error propagates."""
+        old = self.reducer
+        if state is None:
+            state = self._interchange_state()
+        self._measured_group_times = None  # measured under the old schedule
+        old.detach()
+        try:
+            self._go_live(reducer, state)
+        except Exception:
+            reducer.detach()
+            self._go_live(old, state)
+            raise
+        self._sync_schedule_gauge()
+        # the drift detector's baselines described the old schedule
+        self._reset_drift_baselines()
+
+    def _go_live(self, reducer, state: TrainState) -> None:
+        """Attach ``reducer``, build the train step over it and install
+        ``state`` (the optimizer state with it)."""
+        self.reducer = reducer.attach()
+        self._reducer_op = reducer.comm_op
+        self.train_step = self._make_train_step()
+        self._install(state)
+
+    def _apply_train_step(self, batch) -> dict:
+        """One live train step on stacked host batches (the race's), the
+        carry threaded through; a genuine optimizer step (the iteration
+        advances), whose health statistics are dropped."""
+        metrics = self.step_batch(*self._to_device(*batch))
+        for k in [k for k in metrics if k.startswith(HEALTH_PREFIX)]:
+            metrics.pop(k)
+        self.iteration += 1
+        if self._race_losses is not None:
+            self._race_losses.append(float(metrics["loss"]))
+        return metrics
+
+    def _autotune_batches(self):
+        """Endless stacked train batches for the tuning phase: real data,
+        read as an epoch reads it (the loader's ``batches``, through the
+        prefetch), from a reserved epoch range (1 << 20 on), so the race's
+        steps are extra passes over the data, not a replay of an epoch's
+        batch sequence. Close it to stop its prefetch."""
+        n = self.config.nsteps_update
+        epoch = 1 << 20
+        while True:
+            with contextlib.closing(self.bundle.train.batches(epoch)) as it:
+                micro: list = []
+                for batch in it:
+                    micro.append(batch_fields(batch))
+                    if len(micro) == n:
+                        yield [_stack(list(f)) for f in zip(*micro)]
+                        micro = []
+            epoch += 1
+
+    def _verify_live_step(self, batch_iter) -> list:
+        """Observe the live reducer's next step (and, on rs_fwd_ag, the
+        next forward's gathers) and check it against the reducer
+        (``analysis.schedule_check``): the gate every candidate passes
+        before it races. The step is a real one; the caller undoes it
+        when the gate rejects."""
+        from mgwfbp_tpu_torch.analysis.schedule_check import (
+            verify_step_against_reducer,
+        )
+
+        reducer = self.reducer
+        # the observed window starts from current parameters, so that
+        # rs_fwd_ag's gathers fall in the next forward
+        self._materialize()
+        params, _, _ = self._arrival_leaves()
+        tag = reducer.schedule.policy_detail or self.config.policy
+        findings, records = verify_step_against_reducer(
+            lambda: self._apply_train_step(next(batch_iter)), reducer,
+            [params[j] for j in reducer.perm], file=f"<live step {tag}>",
+        )
+        kinds: dict[str, int] = {}
+        for r in records:
+            kinds[r.kind] = kinds.get(r.kind, 0) + 1
+        self._gate_log.append({
+            "comm_op": reducer.comm_op, "num_groups": reducer.num_groups,
+            "collectives": len(records), "kinds": kinds,
+            "threads": sorted({r.thread for r in records}),
+            "rules": sorted({f.rule_id for f in findings}),
+        })
+        return findings
+
+    def _race_candidate(self, cand, batch_iter, steps: int):
+        """Verify one candidate, then give it warmup + ``steps`` real
+        training steps and record the measured step time. The verifier
+        observes the candidate's first step; when it rejects, the state
+        from before that step is put back (with the previous reducer), so
+        a rejected candidate takes no step."""
+        from mgwfbp_tpu_torch.analysis.rules import ERROR
+        from mgwfbp_tpu_torch.parallel import autotune as at
+        from mgwfbp_tpu_torch.profiling import time_carried_steps
+
+        pred = float(cand.predicted_total_s)
+        entry = at.RaceEntry(
+            label=cand.label, comm_op=cand.comm_op,
+            num_groups=len(cand.groups),
+            predicted_total_s=None if pred != pred else pred,
+            groups=cand.groups,
+        )
+        is_live = self._reducer_is_live(cand.groups, cand.comm_op,
+                                        cand.dcn_groups or None)
+        if is_live:
+            reducer = self.reducer
+        else:
+            try:
+                reducer = self._reducer_for(
+                    cand.groups, cand.comm_op,
+                    detail=f"autotune:{cand.label}",
+                    dcn_groups=cand.dcn_groups or None,
+                )
+            except Exception as e:  # noqa: BLE001 — a bad candidate must
+                # not take down the tuning phase; recorded and skipped
+                self.log.warning("autotune: candidate %s failed to build: "
+                                 "%s", cand.label, e)
+                return entry
+        # the layout may split dtype-mixed groups: race what is issued
+        entry.groups = reducer.layout.groups
+        entry.num_groups = reducer.layout.num_groups
+        entry.dcn_groups = reducer.schedule.dcn_groups
+        self._beat(f"autotune candidate {cand.label}",
+                   allow_s=COMPILE_ALLOW_S)
+        previous = self.reducer
+        before = (self._interchange_state(), self.carry, self.iteration)
+        try:
+            if not is_live:
+                self._swap_reducer(reducer, state=before[0])
+            findings = self._verify_live_step(batch_iter)
+        except Exception as e:  # noqa: BLE001 — same contract as above
+            self.log.warning("autotune: candidate %s failed to swap/verify: "
+                             "%s", cand.label, e)
+            self._undo_candidate(previous, before)
+            return entry
+        errors = [f for f in findings if f.severity == ERROR]
+        # every process takes the same branch
+        if not coord.agree_all(not errors):
+            self.log.warning(
+                "autotune: candidate %s REJECTED by the schedule verifier "
+                "(%s)", cand.label,
+                "; ".join(f"{f.rule_id}: {f.message}" for f in errors[:3])
+                or "rejected on another process",
+            )
+            self._undo_candidate(previous, before)
+            return entry
+        entry.verified = True
+
+        def step_once(state):
+            self._apply_train_step(next(batch_iter))
+            return state
+
+        try:
+            _, dt = time_carried_steps(step_once, None, steps, warmup=1,
+                                       device=self.device)
+        except Exception as e:  # noqa: BLE001 — a candidate that cannot
+            # run its steps is skipped, not fatal: the job trains without it
+            self.log.warning("autotune: candidate %s failed during its timed "
+                             "steps (%s); skipping", cand.label, e)
+            self.reducer.discard()
+            return entry
+        entry.measured_step_s = float(dt)
+        self.log.info(
+            "autotune: %s — %d group(s), verified, measured %.4g s/step%s",
+            cand.label, entry.num_groups, dt,
+            f" (predicted {entry.predicted_total_s:.4g})"
+            if entry.predicted_total_s else "",
+        )
+        return entry
+
+    def _undo_candidate(self, previous, before: tuple) -> None:
+        """Put back the reducer and the state from before a candidate's
+        observed step: its parameters, batch statistics, optimizer state,
+        step counter, carry and iteration."""
+        state, carry, iteration = before
+        if self.reducer is not previous:
+            self._swap_reducer(previous, state=state)
+        else:
+            self.reducer.discard()
+            self._install(state)
+        self.carry = carry
+        self.iteration = iteration
+
+    def _group_observations(self, batch_iter, entries, total_bytes: float,
+                            tb_total: float):
+        """(observations, source, measured group times, DCN observations)
+        for the cost-model refit (the JAX trainer's). On one process: a
+        profiler trace of two more live steps, each group charged its
+        range's collective kernel (``profiling.trace_group_times``; on
+        hier the DCN ranges too, ``trace_two_level_group_times``, so the
+        outer link refits from its own samples). On several processes, as
+        always in this package when a reducer exists: step-time deltas
+        across the raced schedules (``autotune.step_delta_observations``),
+        read from the agreed entry times, so the refit is identical on
+        every process (per-process traces are not); the DCN observations
+        are then None and a two-level model rescales both links."""
+        from mgwfbp_tpu_torch.parallel import autotune as at
+        from mgwfbp_tpu_torch.profiling import (
+            dcn_shard_nbytes,
+            trace_group_times,
+            trace_two_level_group_times,
+        )
+
+        reducer = self.reducer
+        num_groups = reducer.layout.num_groups
+        iters = 2
+
+        def run():
+            for _ in range(iters):
+                self._apply_train_step(next(batch_iter))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        measured = dcn_measured = None
+        hier = reducer.comm_op == "hier"
+        dcn_part = ([list(d) for d in reducer.schedule.dcn_groups]
+                    or [[gi] for gi in range(num_groups)]) if hier else []
+        if self.world > 1:
+            self.log.info("autotune: multi-process — trace attribution "
+                          "skipped, refitting from agreed step deltas")
+        else:
+            try:
+                if hier:
+                    measured, dcn_measured = trace_two_level_group_times(
+                        run, num_groups, len(dcn_part), iters=iters)
+                else:
+                    measured = trace_group_times(run, num_groups, iters=iters)
+            except Exception as e:  # noqa: BLE001 — profiling must never
+                # kill the tuning phase; the step-delta fallback applies
+                self.log.info("autotune: group trace failed (%s); using step "
+                              "deltas", e)
+        dcn_obs = None
+        if hier and dcn_measured is not None:
+            dcn_bytes = dcn_shard_nbytes(
+                reducer.layout, dcn_part,
+                self.world // int(self.config.dcn_slices),
+                reducer.comm_dtype)
+            dcn_obs = list(zip(dcn_bytes, dcn_measured))
+        if measured is not None and num_groups >= 2:
+            layout = reducer.layout
+            nbytes = [int(layout.group_sizes[gi]) * layout.dtypes[gi].itemsize
+                      for gi in range(num_groups)]
+            return list(zip(nbytes, measured)), "trace", measured, dcn_obs
+        if self.tb is None:
+            # step deltas subtract the backward's compute from each step;
+            # the size prior is a communication estimate, not compute
+            self.log.info("autotune: refit skipped — step-delta "
+                          "observations need a measured backward profile "
+                          "(run without --no-profile-backward)")
+            return [], "step-deltas", measured, dcn_obs
+        return (at.step_delta_observations(entries, total_bytes, tb_total),
+                "step-deltas", measured, dcn_obs)
+
+    def _maybe_drift_reautotune(self) -> None:
+        """Fire an armed drift re-race at a deterministic step boundary: on
+        several processes every process joins the agreement at every
+        agree-interval step (the gate reads group-uniform state only), so
+        one process's alarm pulls the group into the same race."""
+        if not self._drift_reautotune_enabled:
+            return
+        if self.world == 1:
+            if self._drift_reautotune_pending:
+                self._drift_reautotune()
+            return
+        if self.iteration % self._agree_interval != 0:
+            return
+        if coord.agree_any(self._drift_reautotune_pending):
+            self._drift_reautotune()
+
+    def _drift_reautotune(self) -> None:
+        """Re-race the schedule on the live job (``autotune(force=True)``):
+        the race re-measures, the refit corrects the cost model and the
+        measured argmin replaces the drifted schedule; the detector then
+        resets (its residuals described the old model)."""
+        self._drift_reautotune_pending = False
+        if self.reducer is None:
+            return
+        self.log.warning("cost-model drift: re-autotuning the merge schedule "
+                         "on the live job (MGWFBP_DRIFT_REAUTOTUNE=1)")
+        self.autotune(force=True)
+        self._reset_drift_baselines()
+
+    def _reset_drift_baselines(self) -> None:
+        """Resolve raised drift alarms and forget the detector's baselines
+        (a re-race installed a corrected model, or a swap changed the
+        schedule they described); the next log window is skipped, as the
+        run's first is."""
+        det = self._drift_detector
+        if det is None:
+            return
+        for a in det.clear_alarms():
+            self._emit_event("drift_alarm", kind=a.kind,
+                             step=int(self.iteration),
+                             residual=float(a.residual), band=float(a.band),
+                             active=False, group=int(a.group))
+        det.reset()
+        self._drift_window_seen = False
 
     def _start_serve_plane(self) -> None:
         """The in-process serving plane (``serve_shadow``): a ServingModel,
@@ -2178,10 +2998,14 @@ class Trainer:
             snap, f"resumed after resize ({old_world} -> {self.world})",
             anchor=anchor,
         )
+        # a schedule the autotuner committed at this world's key beats the
+        # freshly solved one
+        source = ("schedule-cache" if self._install_cached_schedule()
+                  else "relaunch-reshard")
         restore_s = time.perf_counter() - t0
         self._emit_event(
             "resize", old_world=int(old_world), new_world=int(self.world),
-            schedule_source="relaunch-reshard",
+            schedule_source=source,
             num_groups=(self.reducer.num_groups
                         if self.reducer is not None else 0),
             iteration=int(snap.iteration), restore_s=float(restore_s),
@@ -2491,6 +3315,10 @@ class Trainer:
                 self._watchdog = wd if wd.enabled else None
                 self._arm_signals()
                 self._start_serve_plane()
+                if cfg.autotune and self.autotune_report is None:
+                    # the race takes the first real steps (a cache hit
+                    # skips it)
+                    self.autotune()
                 if self.telemetry is not None and self.reducer is not None \
                         and self._measured_group_times is None:
                     self._trace_group_times()

@@ -43,7 +43,11 @@ lowering of the merged collectives (``all_reduce``, ``rs_ag``,
 with each all-gather deferred into the next step's forward, ``hier``: the
 two-level lowering over ``--dcn-slices`` slices, which it needs to be more
 than 1), ``--compressor topk --density D`` the top-k compressor
-(``--density 0``: the cost model's choice). A single-process launch first
+(``--density 0``: the cost model's choice). ``--autotune`` races verified
+candidate schedules for ``--autotune-steps`` real steps each before the
+first epoch and commits the fastest, cached under ``--schedule-cache``
+(a second run with the same key loads it without racing); at one process
+there is no reducer and nothing to tune. A single-process launch first
 probes the card under ``MGWFBP_INIT_TIMEOUT_S``
 (``utils.platform.preflight_backend``).
 
@@ -133,6 +137,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "[s * n / D, (s + 1) * n / D); the outer "
                         "data-parallel level of the two-level cost model "
                         "and of --comm-op hier")
+    p.add_argument("--autotune", action="store_true",
+                   help="closed-loop schedule autotuning: race verified "
+                        "candidate schedules for a few real training steps "
+                        "each, refit the cost model from the measurements, "
+                        "commit the measured argmin and cache it (see "
+                        "README 'Autotuning')")
+    p.add_argument("--autotune-steps", dest="autotune_steps", type=int,
+                   default=None,
+                   help="timed steps per raced candidate (plus one "
+                        "warmup step each)")
+    p.add_argument("--schedule-cache", dest="schedule_cache", default=None,
+                   help="directory for committed autotune schedules "
+                        "(default profiles/schedule_cache); a second run "
+                        "with the same schedule-cache key (see "
+                        "parallel/autotune.py cache_key) skips the race")
     p.add_argument("--norm-clip", dest="norm_clip", type=float, default=None,
                    help="clip gradients to this global norm")
     p.add_argument("--lr-schedule", dest="lr_schedule", default=None,
@@ -229,7 +248,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             "logdir", "checkpoint_dir", "seed", "num_batches_per_epoch",
             "telemetry_dir", "num_steps", "ckpt_every_steps", "ckpt_format",
             "bad_step_limit", "pretrain", "metrics_port", "compressor",
-            "density", "comm_op", "dcn_slices",
+            "density", "comm_op", "dcn_slices", "autotune_steps",
+            "schedule_cache",
         )
         if getattr(args, k, None) is not None
     }
@@ -252,6 +272,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         overrides["telemetry"] = True
     if args.telemetry or args.telemetry_dir or args.metrics_port is not None:
         overrides["telemetry"] = True
+    if args.autotune:
+        overrides["autotune"] = True
     return make_config(args.dnn, **overrides)
 
 

@@ -8,15 +8,19 @@ the JAX package's, and their wiring in the port's trainer.
     group; exact, the same host arithmetic);
   * ``DriftConfig.from_env`` reads the same ``MGWFBP_DRIFT_*`` /
     ``MGWFBP_STRAGGLER_*`` variables to the same values;
-  * ``MGWFBP_DRIFT_REAUTOTUNE=1`` is refused naming ROADMAP Queue 1 item 8
-    (the re-race is autotune's, which the port does not have), by the
-    function and by a ``Trainer``;
+  * ``MGWFBP_DRIFT_REAUTOTUNE=1`` reads as in JAX and, at two gloo ranks,
+    arms a forced re-race on a raised alarm, which installs its winner,
+    resets the detector and emits ``autotune_race`` and
+    ``autotune_commit``;
   * a CPU lenet ``Trainer`` whose steps slow down mid-run (a ``stall``
     fault per step) writes a ``step_trend`` ``drift_alarm`` that the JAX
     package's reader and schema accept.
 """
 
 import dataclasses
+import json
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -27,6 +31,17 @@ from mgwfbp_tpu.telemetry import events as jax_events
 from mgwfbp_tpu_torch.config import make_config
 from mgwfbp_tpu_torch.telemetry import drift, events
 from mgwfbp_tpu_torch.train import Trainer
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_autotune_worker as autotune_worker  # noqa: E402
+
+
+def autotune_worker_cfg(tmp: str) -> dict:
+    """A 2-rank LeNet run with telemetry and 20 steps in its epoch."""
+    return dict(batch_size=4, num_batches_per_epoch=20, max_epochs=1, seed=5,
+                augment=False, lr=0.01, logdir=os.path.join(tmp, "logs"),
+                checkpoint_dir=None, telemetry=True, autotune_steps=2,
+                schedule_cache=os.path.join(tmp, "cache"))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -135,16 +150,56 @@ def _lenet_cfg(tmp_path, **kw):
     return make_config("lenet", **base)
 
 
-def test_reautotune_is_refused_naming_item_8(tmp_path, monkeypatch):
-    monkeypatch.setenv("MGWFBP_DRIFT_REAUTOTUNE", "1")
-    assert drift.reautotune_enabled() and jax_drift.reautotune_enabled()
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 8"):
-        drift.refuse_reautotune()
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 8"):
-        Trainer(_lenet_cfg(tmp_path), device="cpu", synthetic_data=True,
-                profile_backward=False)
-    monkeypatch.setenv("MGWFBP_DRIFT_REAUTOTUNE", "0")
-    drift.refuse_reautotune()  # anything but 1 is off, as in JAX
+def test_reautotune_arms_a_forced_rerace(tmp_path, monkeypatch):
+    """``MGWFBP_DRIFT_REAUTOTUNE=1`` reads as the JAX package reads it, and
+    at two gloo ranks (``tests/torch_autotune_worker.py``) a raised
+    ``step_trend`` alarm (a 2 s stall on both ranks at steps 6 and 7)
+    arms a forced re-race at the next agreed step: it races, installs its
+    winner, emits ``autotune_race`` and ``autotune_commit`` (source race)
+    and resolves the raised alarm (the detector reset)."""
+    for value, on in (("1", True), ("0", False), ("", False)):
+        monkeypatch.setenv("MGWFBP_DRIFT_REAUTOTUNE", value)
+        assert drift.reautotune_enabled() is on
+        assert jax_drift.reautotune_enabled() is on
+    env = {
+        "MGWFBP_DRIFT_REAUTOTUNE": "1", "MGWFBP_LOG_INTERVAL": "1",
+        "MGWFBP_DRIFT_WINDOW": "3", "MGWFBP_DRIFT_HYSTERESIS": "1",
+        # a host may run the first steps 60x slower than the rest (0.24
+        # against 0.004 s seen here), and they set the baseline: a 2 s stall
+        # still reads over 6x it
+        "MGWFBP_DRIFT_TREND_BAND": "5", "MGWFBP_DRIFT_EWMA_ALPHA": "0.9",
+        "MGWFBP_AGREE_INTERVAL": "1",
+        "MGWFBP_FAULT_PLAN": "stall@secs=2,step=6;stall@secs=2,step=7",
+    }
+    tmp = str(tmp_path)
+    run = {"name": "drift", "action": "fit", "env": env,
+           "cfg": autotune_worker_cfg(tmp)}
+    outs = autotune_worker.run_ranks(2, tmp, {"tasks": ["race"],
+                                              "race": {"runs": [run]}})
+    for out in outs:
+        rows = events.read_event_set(str(out["drift/events"]))
+        raised = [a for a in events.events_of(rows, "drift_alarm")
+                  if a["active"]]
+        assert raised and raised[0]["kind"] == "step_trend"
+        # every re-race was armed by a raised alarm (a loaded host can
+        # raise another after the first re-race's reset)
+        commits = events.events_of(rows, "autotune_commit")
+        assert commits and len(commits) <= len(raised)
+        assert all(c["source"] == "race" for c in commits)
+        races = events.events_of(rows, "autotune_race")
+        assert races and all(r["verified"] for r in races)
+        order = [(r["event"], r.get("active")) for r in rows
+                 if r["event"] in ("drift_alarm", "autotune_commit")]
+        first = order.index(("drift_alarm", True))
+        assert order.index(("autotune_commit", None)) > first
+        assert ("drift_alarm", False) in order[first:]
+        report = json.loads(str(out["drift/report"]))
+        assert report["source"] == "race"
+        assert report["winner"] == commits[-1]["winner"]
+        assert json.loads(str(out["drift/groups_after"])) == \
+            report["groups"]
+        for r in rows:  # the JAX schema accepts every record
+            assert all(k in r for k in jax_events.EVENT_TYPES[r["event"]])
 
 
 def test_trainer_writes_a_step_trend_drift_alarm(tmp_path, monkeypatch):
