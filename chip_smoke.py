@@ -245,6 +245,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
          (d)'s: the race's winner against the schedule solved on (d)'s
          constants in interleaved windows (a reading, not a check);
      no flash launch in any run.
+ 15. (o) the static analysis of the port on the card's machine:
+     (o1) ``python -m mgwfbp_tpu_torch.analysis --device cuda --json``: the
+         lint, race, lockstep and annotation passes over the port's tree
+         and the step pass observing LeNet steps of every policy and
+         lowering at 2 gloo ranks sharing the card; exit 0; then each
+         static pass again in this process, timed (the step pass's
+         seconds: the CLI's less theirs), and the findings by family
+         (suppressed ones counted apart);
+     (o2) one LeNet step at one worker on the card, observed: a gradient
+         hook that calls ``.item()`` gives SCH005 on autograd's device
+         thread; the clean step gives no finding and synchronises once,
+         in its declared metrics read-back, against the synchronisations
+         ``torch.cuda.set_sync_debug_mode("warn")`` reports for it.
 
 Every phase runs with TF32 off (``utils.device.set_matmul_precision``).
 
@@ -258,7 +271,8 @@ summary ({"zoo_summary": [...]}; each model's full line is printed as it
 finishes), the speech model ({"lstman4": ...}), supervision
 ({"supervise": ...}), the telemetry plane ({"telemetry": ...}), the
 lowerings ({"lowerings": ...}), the cross-step and two-level lowerings
-({"cross_step": ...}), autotuning ({"autotune": ...}), the card's name
+({"cross_step": ...}), autotuning ({"autotune": ...}), the static
+analysis ({"analysis": ...}), the card's name
 and power limit
 (nvidia-smi), the kernels line
 ({"kernels": [...]}) and, last, {"ok": true, "device": {...}}.
@@ -273,6 +287,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -4715,6 +4730,160 @@ def phase_autotune(consts: dict, device: str = "cuda:0") -> dict:
             "n1": {"ranks": n1}, "n2": {"ranks": n2}, "n3": {"ranks": n3}}
 
 
+ANALYSIS_TIMEOUT_S = 300  # (o1): the CLI, its step pass included
+
+
+def _analysis_cli() -> tuple[dict, float]:
+    """(o1): the CLI's JSON document and its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mgwfbp_tpu_torch.analysis", "--device",
+         "cuda", "--json"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=ANALYSIS_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    try:
+        doc = json.loads(proc.stdout)
+    except ValueError:
+        doc = None
+    if proc.returncode != 0 or doc is None:
+        fail(f"analysis (o1): the CLI exited {proc.returncode}: "
+             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    return doc, secs
+
+
+def _analysis_passes(cli_s: float) -> dict:
+    """(o1): each static pass in this process, timed, and the step pass's
+    seconds as the CLI's less theirs (running it again here would double
+    the phase); findings by family."""
+    from mgwfbp_tpu_torch.analysis import ast_lint, race_check, spmd_check
+    from mgwfbp_tpu_torch.analysis.rules import SuppressionTracker, family
+
+    tracker = SuppressionTracker()
+    pkg = os.path.dirname(os.path.abspath(
+        sys.modules["mgwfbp_tpu_torch"].__file__))
+    passes = (
+        ("lint", lambda: ast_lint.lint_paths([pkg], tracker)),
+        ("thr", lambda: race_check.check_paths(tracker=tracker)),
+        ("run", lambda: spmd_check.check_paths(tracker=tracker)),
+        ("ana", tracker.unused_findings),
+    )
+    seconds, found = {}, []
+    for name, run in passes:
+        t0 = time.perf_counter()
+        found += run()
+        seconds[name] = time.perf_counter() - t0
+    seconds["step (the CLI's less the static passes)"] = (
+        cli_s - sum(seconds.values()))
+    by_family: dict = {}
+    for f in found:
+        by_family[family(f.rule_id)] = by_family.get(family(f.rule_id), 0) + 1
+    suppressed: dict = {}
+    for f in tracker.suppressed_findings:
+        k = family(f.rule_id)
+        suppressed[k] = suppressed.get(k, 0) + 1
+    if found:
+        fail("analysis (o1): findings on the shipped tree: "
+             + "; ".join(f.format() for f in found[:10]))
+    return {"seconds": seconds, "findings_by_family": by_family,
+            "suppressed_by_family": suppressed}
+
+
+def _analysis_seeded_sync() -> dict:
+    """(o2): a hook's .item() on the card is SCH005 on autograd's thread;
+    the clean step synchronises once, in its declared read-back."""
+    import warnings
+
+    from mgwfbp_tpu_torch import models as zoo
+    from mgwfbp_tpu_torch.analysis import step_pass
+    from mgwfbp_tpu_torch.analysis.schedule_check import verify_observed_step
+    from mgwfbp_tpu_torch.optim import make_optimizer
+    from mgwfbp_tpu_torch.train.step import READBACK_SCOPE, TrainStep
+
+    dev = torch.device("cuda")
+    model, meta = zoo.create_model("lenet")
+    model.to(dev)
+    opt, lr_fn = make_optimizer(model.parameters(), 0.1, momentum=0.9,
+                                weight_decay=0.0)[:2]
+    step = TrainStep(model, opt, lr_fn, norm_clip=1.0)
+    data = step_pass.batches(meta, dev, 0)
+    step(*next(data))
+    clean = verify_observed_step(lambda: step(*next(data)), step,
+                                 file="<o2 clean>")
+    if clean.findings or [(s.op, s.scopes) for s in clean.syncs] != [
+            ("Tensor.tolist", (READBACK_SCOPE,))]:
+        fail(f"analysis (o2): the clean step: {clean.findings} "
+             f"{clean.syncs}")
+    step(*next(data))
+    batch = next(data)  # its pageable host-to-device copies are not the step's
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(*batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    debug_syncs = [str(w.message).splitlines()[0] for w in caught
+                   if "called a synchronizing" in str(w.message)]
+    threads = []
+
+    def hook(g):
+        threads.append(threading.current_thread().name)
+        g.sum().item()
+        return g
+
+    handle = step.params[0].register_hook(hook)
+    try:
+        seeded = verify_observed_step(lambda: step(*next(data)), step,
+                                      file="<o2 seeded>")
+    finally:
+        handle.remove()
+    sch005 = [f for f in seeded.findings if f.rule_id == "SCH005"]
+    hook_syncs = [s for s in seeded.syncs
+                  if s.op == "aten._local_scalar_dense"]
+    if not sch005 or not hook_syncs:
+        fail(f"analysis (o2): the hook's .item() on the card gave no "
+             f"SCH005: {seeded.findings} {seeded.syncs}")
+    if dev.type == "cuda" and (
+            hook_syncs[0].thread == threading.current_thread().name):
+        fail("analysis (o2): the hook ran on the step's own thread, not on "
+             "autograd's device thread")
+    return {"sch005": [f.message for f in sch005],
+            "hook_thread": threads[0] if threads else None,
+            "sync_thread": hook_syncs[0].thread,
+            "main_thread": threading.current_thread().name,
+            "observed_syncs_clean_step": len(clean.syncs),
+            "sync_debug_warnings_clean_step": len(debug_syncs),
+            "sync_debug_messages": debug_syncs}
+
+
+def phase_analysis() -> dict:
+    """(o) The port's static analysis on the card's machine (module
+    docstring)."""
+    t0 = time.perf_counter()
+    doc, cli_s = _analysis_cli()
+    passes = _analysis_passes(cli_s)
+    o2 = _analysis_seeded_sync()
+    secs = time.perf_counter() - t0
+    print(f"analysis (o1): the CLI exited 0 in {cli_s:.1f} s "
+          f"(errors {doc['errors']}, by family {doc['errors_by_family']}, "
+          f"suppressed {sum(f['suppressed'] for f in doc['findings'])}); "
+          "passes "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in passes["seconds"].items())
+          + f"; findings {passes['findings_by_family']}, suppressed "
+          f"{passes['suppressed_by_family']}", flush=True)
+    print(f"analysis (o2): the hook's .item() ran on thread "
+          f"{o2['hook_thread']!r} (main {o2['main_thread']!r}) and gave "
+          f"SCH005 there ({o2['sync_thread']!r}); the clean step: "
+          f"{o2['observed_syncs_clean_step']} observed synchronisation(s), "
+          f"{o2['sync_debug_warnings_clean_step']} by set_sync_debug_mode "
+          f"{o2['sync_debug_messages']}", flush=True)
+    print(f"analysis (o): {secs:.1f} s", flush=True)
+    return {"seconds": secs, "cli_seconds": cli_s,
+            "cli_exit_code": doc["exit_code"], "o1": passes, "o2": o2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -4749,6 +4918,7 @@ def main() -> int:
     lowerings = phase_lowerings()
     cross_step = phase_cross_step()
     autotune = phase_autotune(calibrated)
+    analysis = phase_analysis()
 
     serve = rows[0]
     kernels = [{
@@ -4787,6 +4957,7 @@ def main() -> int:
     print(json.dumps({"lowerings": lowerings}))
     print(json.dumps({"cross_step": cross_step}))
     print(json.dumps({"autotune": autotune}))
+    print(json.dumps({"analysis": analysis}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -51,28 +51,53 @@ built the step, under the JAX rule ids (``analysis.rules``):
           concatenated shards at the wire dtype, and no DCN range on
           another lowering.
 
-SCH005, SCH006, SCH008 and SCH010 check properties of a traced program
-(host callbacks, donated buffers, the guard's and the health statistics'
-traced form) that one eager step does not have; they stay with ROADMAP.md
-Queue 1 item 9.
+The rules the JAX verifier reads off a traced program's host callbacks,
+donated buffers and guard are held on the same observed step by
+``HostObserver``, armed for the same window: a ``TorchDispatchMode`` (which
+autograd's thread-local state carries onto the thread that runs the
+gradient hooks on the card) records every ``aten._local_scalar_dense`` and
+every synchronous device-to-host ``_to_copy`` / ``copy_`` (``.item()``,
+``float(t)``, ``if t:``, ``.cpu()`` of a card tensor), and
+``Tensor.tolist`` / ``Tensor.numpy`` (which dispatch nothing on a CPU
+tensor) and ``isfinite`` (composite: below the Python dispatch key it is
+abs/ne/eq) are wrapped for the window, each record with the ranges open on
+its thread:
 
-``verify_step_against_reducer(run_step, reducer, leaves)`` does both:
-observe ``run_step()`` and check. Observing runs the step for real; the
-autotuner (``Trainer._verify_live_step``) undoes the step of a candidate
-this rejects.
+  SCH005  no host synchronisation outside the step's one declared metrics
+          read-back (the ``metrics_readback`` range, ``train.step``), and
+          one synchronisation inside it;
+  SCH006  the storages (``untyped_storage().data_ptr()``) of every
+          parameter and module buffer, every optimizer state tensor,
+          ``TrainStep.buffers`` and the sharded lowerings' optimizer slots
+          and carried parameter shards are the same before and after the
+          step (the counterpart of donation: state updated in place);
+  SCH008  a ``grad_guard=True`` step calls ``isfinite`` inside its
+          ``finite_check`` range, a ``grad_guard=False`` step does not;
+  SCH010  (``compare_footprints``) the same step with the health
+          statistics on issues the same collectives by kind and the same
+          number of host synchronisations as with them off.
+
+``verify_step_against_reducer(run_step, reducer, leaves)`` observes
+``run_step()`` and checks the collectives; ``verify_observed_step`` adds
+the host-side rules of its ``TrainStep``. Observing runs the step for
+real; the autotuner (``Trainer._verify_live_step``) undoes the step of a
+candidate the collective check rejects.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 from typing import Any, Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from mgwfbp_tpu_torch.analysis.rules import Finding
 from mgwfbp_tpu_torch.parallel import buckets as buckets_lib
+from mgwfbp_tpu_torch.train.step import FINITE_CHECK_SCOPE, READBACK_SCOPE
 from mgwfbp_tpu_torch.parallel.allreduce import (
     CLIP_NORM_SCOPE,
     DCN_GROUP_SCOPE_PREFIX,
@@ -192,7 +217,7 @@ class CollectiveObserver:
 
     def __enter__(self) -> "CollectiveObserver":
         with _ACTIVE_LOCK:
-            if _active:
+            if any(isinstance(a, CollectiveObserver) for a in _active):
                 raise RuntimeError("a CollectiveObserver is already armed "
                                    "in this process")
             _active.append(self)
@@ -613,3 +638,322 @@ def verify_step_against_reducer(
             reducer.materialize()
     records = list(obs.records)
     return check_collectives(records, reducer, grad_leaves, file=file), records
+
+
+# -- the host-side rules (SCH005, SCH006, SCH008, SCH010) ----------------------
+
+
+
+@dataclasses.dataclass(frozen=True)
+class HostSync:
+    """One observed host synchronisation: the op (``aten.<name>``, or
+    ``Tensor.tolist`` / ``Tensor.numpy``), the ranges open on the issuing
+    thread, the window's phase and the thread's name."""
+
+    op: str
+    scopes: tuple[str, ...]
+    phase: str = "step"
+    thread: str = ""
+
+
+_READS = threading.local()  # .depth: inside a recorded Tensor read-back
+
+
+def _on_host(device) -> bool:
+    return device is None or torch.device(device).type == "cpu"
+
+
+def _sync_op(func, args, kwargs) -> Optional[str]:
+    """The name of a dispatched op that blocks the host on the device,
+    None for any other."""
+    packet = func.overloadpacket
+    if packet is torch.ops.aten._local_scalar_dense:
+        return "aten._local_scalar_dense"
+    if packet is torch.ops.aten._to_copy and args:
+        src = args[0]
+        if (isinstance(src, torch.Tensor) and not _on_host(src.device)
+                and _on_host(kwargs.get("device", src.device))
+                and not kwargs.get("non_blocking", False)):
+            return "aten._to_copy"
+    if packet is torch.ops.aten.copy_ and len(args) >= 2:
+        dst, src = args[0], args[1]
+        non_blocking = (args[2] if len(args) > 2
+                        else kwargs.get("non_blocking", False))
+        if (isinstance(src, torch.Tensor) and not _on_host(src.device)
+                and _on_host(dst.device) and not non_blocking):
+            return "aten.copy_"
+    return None
+
+
+class _SyncDispatch(TorchDispatchMode):
+    def __init__(self, observer: "HostObserver"):
+        super().__init__()
+        self.observer = observer
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if not getattr(_READS, "depth", 0):
+            op = _sync_op(func, args, kwargs)
+            if op is not None:
+                self.observer._note(op)
+        return func(*args, **kwargs)
+
+
+class HostObserver:
+    """Record the host synchronisations (``syncs``) and the ``isfinite``
+    calls (``guard_calls``: the ranges open at each) of the code run while
+    armed (a context manager, entered on the thread that runs the step;
+    one at a time per process). The dispatch mode is thread-local state,
+    which autograd carries onto the thread that runs the gradient hooks;
+    ``Tensor.tolist``, ``Tensor.numpy`` and ``isfinite`` are wrapped for
+    the window on the class and the module, for every thread: a torch
+    function mode would not see them, since it is popped while it handles
+    the ``backward`` call that runs the hooks. ``phase`` names the part of
+    the window the following records belong to."""
+
+    _READ_METHODS = (("tolist", "Tensor.tolist"), ("numpy", "Tensor.numpy"))
+
+    def __init__(self):
+        self.syncs: list[HostSync] = []
+        self.guard_calls: list[tuple[str, ...]] = []
+        self.phase = "step"
+        self._lock = threading.Lock()
+        self._mode = None
+        self._watch = None
+        self._saved: list = []
+
+    def _note(self, op: str) -> None:
+        rec = HostSync(op, open_scopes(), self.phase,
+                       threading.current_thread().name)
+        with self._lock:
+            self.syncs.append(rec)
+
+    def _read(self, orig, label: str):
+        observer = self
+
+        def read(t, *args, **kwargs):
+            observer._note(label)
+            # the copy a card tensor's read dispatches is this read, not
+            # another synchronisation
+            _READS.depth = getattr(_READS, "depth", 0) + 1
+            try:
+                return orig(t, *args, **kwargs)
+            finally:
+                _READS.depth -= 1
+
+        return read
+
+    def _guard(self, orig):
+        observer = self
+
+        def isfinite(*args, **kwargs):
+            observer.guard_calls.append(open_scopes())
+            return orig(*args, **kwargs)
+
+        return isfinite
+
+    def _patch(self, owner, name: str, wrapper) -> None:
+        self._saved.append((owner, name, owner.__dict__.get(name)))
+        setattr(owner, name, wrapper)
+
+    def __enter__(self) -> "HostObserver":
+        with _ACTIVE_LOCK:
+            if any(isinstance(a, HostObserver) for a in _active):
+                raise RuntimeError("a HostObserver is already armed in "
+                                   "this process")
+            _active.append(self)
+        self._watch = watch_scopes()
+        self._watch.__enter__()
+        for name, label in self._READ_METHODS:
+            self._patch(torch.Tensor, name,
+                        self._read(getattr(torch.Tensor, name), label))
+        self._patch(torch.Tensor, "isfinite",
+                    self._guard(torch.Tensor.isfinite))
+        self._patch(torch, "isfinite", self._guard(torch.isfinite))
+        self._mode = _SyncDispatch(self)
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._mode.__exit__(*exc)
+        self._mode = None
+        for owner, name, orig in reversed(self._saved):
+            if orig is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, orig)
+        self._saved = []
+        self._watch.__exit__(*exc)
+        with _ACTIVE_LOCK:
+            _active.remove(self)
+        return False
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def state_storages(train_step) -> dict[str, int]:
+    """{what: storage address} of the state a step must update in place:
+    the module's parameters and buffers, the optimizer's state tensors,
+    ``TrainStep.buffers`` and, on the sharded lowerings, the reducer's
+    optimizer slots and carried parameter shards."""
+    out: dict[str, int] = {}
+    model = train_step.model
+    names = {}
+    for name, p in model.named_parameters():
+        out[f"parameter {name}"] = _storage(p)
+        names[p] = name
+    for name, b in model.named_buffers():
+        out[f"buffer {name}"] = _storage(b)
+    if train_step.buffers is not None:
+        out["TrainStep.buffers"] = _storage(train_step.buffers)
+    opt = train_step.optimizer
+    if opt is not None:
+        for p, st in opt.state.items():
+            for k, v in st.items():
+                if isinstance(v, torch.Tensor):
+                    out[f"optimizer state {names.get(p, '?')}.{k}"] = (
+                        _storage(v))
+    reducer = train_step.reducer
+    if reducer is not None:
+        state = getattr(reducer, "opt_state", None)
+        if state is not None:
+            for si, slot in enumerate(state.slots):
+                for gi, t in enumerate(slot):
+                    out[f"sharded optimizer slot {si} group {gi}"] = (
+                        _storage(t))
+        shards = getattr(reducer, "param_shards", None)
+        for gi, t in enumerate(shards or ()):
+            out[f"carried parameter shard group {gi}"] = _storage(t)
+    return out
+
+
+def check_host_syncs(syncs: Sequence[HostSync], *,
+                     file: str = "<observed step>") -> list[Finding]:
+    """SCH005: no synchronisation outside the declared read-back, and one
+    inside it."""
+    out: list[Finding] = []
+    declared = 0
+    for s in syncs:
+        if READBACK_SCOPE in s.scopes:
+            declared += 1
+            if declared > 1:
+                out.append(Finding(file, 0, "SCH005", (
+                    f"'{s.op}' is synchronisation {declared} of the "
+                    f"declared {READBACK_SCOPE} range (thread {s.thread}): "
+                    "the step reads its metrics back once")))
+            continue
+        out.append(Finding(file, 0, "SCH005", (
+            f"host synchronisation '{s.op}' outside the declared "
+            f"{READBACK_SCOPE} range (ranges: {list(s.scopes) or '<none>'}, "
+            f"thread {s.thread}, phase {s.phase})")))
+    return out
+
+
+def check_state_in_place(before: dict[str, int], after: dict[str, int], *,
+                         file: str = "<observed step>") -> list[Finding]:
+    """SCH006: every state tensor present before the step keeps its
+    storage."""
+    out: list[Finding] = []
+    for what, ptr in before.items():
+        now = after.get(what)
+        if now is None:
+            out.append(Finding(file, 0, "SCH006",
+                               f"{what} is gone after the step"))
+        elif now != ptr:
+            out.append(Finding(file, 0, "SCH006", (
+                f"{what} was rebound to a fresh storage by the step: state "
+                "not updated in place")))
+    return out
+
+
+def check_guard(guard_calls: Sequence[tuple[str, ...]], grad_guard: bool, *,
+                file: str = "<observed step>") -> list[Finding]:
+    """SCH008 in both directions."""
+    inside = sum(FINITE_CHECK_SCOPE in scopes for scopes in guard_calls)
+    if grad_guard and not inside:
+        return [Finding(file, 0, "SCH008", (
+            "grad_guard=True but the step calls no isfinite inside its "
+            f"{FINITE_CHECK_SCOPE} range: the non-finite guard is missing "
+            f"({len(guard_calls)} isfinite call(s) outside it)"))]
+    if not grad_guard and inside:
+        return [Finding(file, 0, "SCH008", (
+            f"grad_guard=False but the step still calls isfinite {inside} "
+            f"time(s) inside its {FINITE_CHECK_SCOPE} range: the disabled "
+            "guard was not removed"))]
+    return []
+
+
+@dataclasses.dataclass
+class StepObservation:
+    """One observed step: its collectives, host synchronisations,
+    ``isfinite`` calls' ranges and findings."""
+
+    records: list
+    syncs: list
+    guard_calls: list
+    findings: list
+
+
+def verify_observed_step(
+    run_step: Callable[[], Any],
+    train_step,
+    grad_leaves: Optional[Sequence[Any]] = None,
+    *,
+    file: str = "<observed step>",
+) -> StepObservation:
+    """Observe ``run_step()`` (one real ``train_step`` call, every rank at
+    the same point) with the collective and the host observers armed and
+    apply SCH005, SCH006 and SCH008 and, when the step has a reducer,
+    ``check_collectives`` (``grad_leaves`` in arrival order; the
+    reducer's ``arrival_params`` by default). On rs_fwd_ag the window takes in the next
+    forward's gathers, as ``verify_step_against_reducer``."""
+    reducer = train_step.reducer
+    before = state_storages(train_step)
+    with CollectiveObserver() as obs, HostObserver() as host:
+        run_step()
+        if reducer is not None and reducer.comm_op == "rs_fwd_ag":
+            obs.phase = host.phase = "next"
+            reducer.materialize()
+    after = state_storages(train_step)
+    records = list(obs.records)
+    findings: list[Finding] = []
+    if reducer is not None:
+        if grad_leaves is None:
+            grad_leaves = list(reducer.arrival_params)
+        findings += check_collectives(records, reducer, grad_leaves,
+                                      file=file)
+    findings += check_host_syncs(host.syncs, file=file)
+    findings += check_state_in_place(before, after, file=file)
+    findings += check_guard(host.guard_calls, train_step.grad_guard,
+                            file=file)
+    return StepObservation(records, list(host.syncs),
+                           list(host.guard_calls), findings)
+
+
+def compare_footprints(base: StepObservation, stats: StepObservation, *,
+                       file: str = "<health-stats step>") -> list[Finding]:
+    """SCH010: the stats-on step issues the collectives of the stats-off
+    step, kind for kind, and as many host synchronisations."""
+    out: list[Finding] = []
+    fp_base = collections.Counter(r.kind for r in base.records)
+    fp_stats = collections.Counter(r.kind for r in stats.records)
+    for kind in sorted(set(fp_base) | set(fp_stats)):
+        b, s = fp_base.get(kind, 0), fp_stats.get(kind, 0)
+        if s > b:
+            out.append(Finding(file, 0, "SCH010", (
+                f"health statistics added {s - b} '{kind}' collective(s) "
+                f"({b} -> {s}) — the stats must ride the EXISTING metrics "
+                "all-reduce, not new collectives")))
+        elif s < b:
+            out.append(Finding(file, 0, "SCH010", (
+                f"health statistics REMOVED {b - s} '{kind}' collective(s) "
+                f"({b} -> {s}) — the stats build no longer realizes the "
+                "same schedule as the plain step")))
+    if len(stats.syncs) != len(base.syncs):
+        out.append(Finding(file, 0, "SCH010", (
+            f"health statistics changed the step's host synchronisations "
+            f"({len(base.syncs)} -> {len(stats.syncs)}) — the stats must "
+            "ride the one metrics read-back")))
+    return out

@@ -826,6 +826,7 @@ class Checkpointer:
         self.drain_async(durable=wait)
         t0 = time.perf_counter()
         step, entry, nbytes, already = self._sharded_head(manifest, files)
+        # mgwfbp: group-uniform -- 'already' is the agree_all dedup vote from _sharded_head: every process holds the same value
         if already:
             self._promote_sharded(step, manifest, entry)
             return {"duration_s": time.perf_counter() - t0, "bytes": 0}
@@ -963,6 +964,7 @@ class Checkpointer:
         self.drain_async()
         t0 = time.perf_counter()
         step, entry, nbytes, already = self._sharded_head(manifest, files)
+        # mgwfbp: group-uniform -- 'already' is the agree_all dedup vote from _sharded_head: every process holds the same value
         if already:
             self._promote_sharded(step, manifest, entry)
             return {"duration_s": time.perf_counter() - t0, "bytes": 0}

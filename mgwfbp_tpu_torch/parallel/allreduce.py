@@ -520,7 +520,9 @@ class MergedAllreduce:
     ``optim`` (rs_opt_ag, rs_fwd_ag) select the lowering (module
     docstring); ``opt_state`` is this rank's sharded optimizer state and,
     on rs_fwd_ag, ``param_shards`` this rank's shard of each group's
-    parameters; rs_fwd_ag's forward pre-hooks go on ``module``'s
+    parameters, both updated in their own storage every step (the
+    counterpart of the JAX step's donated state); rs_fwd_ag's forward
+    pre-hooks go on ``module``'s
     submodules. With ``track_compression_error`` set, the top-k hooks keep
     each group's relative compression error ||g - topk(g)|| / ||g|| of
     the LOCAL bucket at the wire dtype (``compression_errors``, one float32
@@ -1024,8 +1026,9 @@ class MergedAllreduce:
                     count, clip_scale, self.rank, lr=lr,
                 )
                 g_shards[gi] = None
+                # the state is updated in its own storage (SCH006)
                 for s in range(optim.num_slots):
-                    state.slots[s][gi] = slots_out[s]
+                    state.slots[s][gi].copy_(slots_out[s])
                 after(gi, new_p)
         state.count = count + 1
 
@@ -1094,11 +1097,12 @@ class MergedAllreduce:
         shards = self.param_shards
 
         def keep(gi, new_p):
-            shards[gi] = new_p
+            shards[gi].copy_(new_p)  # in the carry's storage (SCH006)
 
         self._update_shards(g_shards, lambda gi: shards[gi], lr, keep)
         self._stale = True
 
+    @torch.no_grad()
     def scatter_params(self) -> None:
         """The carry from the module's current parameters: this rank's
         shard of every group's padded bucket (after a restore or any other

@@ -14,6 +14,9 @@ mismatched collectives and the group deadlocks:
   all_argmin              the agreed argmin of per-candidate timings
   barrier                 named rendezvous with a real timeout
 
+Each is decorated ``@group_op`` (the registry ``GROUP_OPS``), which is how
+the SPMD lockstep checker (``analysis.spmd_check``) finds them.
+
 Transport: a gloo side group over every rank of the running
 ``torch.distributed`` world, made on first use (``dist.new_group``, which
 every rank reaches at the same program point because every call here is a
@@ -68,6 +71,42 @@ class CoordinationTimeout(RuntimeError):
 
 def _env_seconds(name: str) -> float:
     return env_float(name, DEFAULT_BARRIER_TIMEOUT_S)
+
+
+# ---------------------------------------------------------------------------
+# group-operation registry
+# ---------------------------------------------------------------------------
+
+# name -> {"blocking": bool, "uniform_result": bool}. Populated by the
+# @group_op decorator below; the SPMD lockstep checker
+# (analysis/spmd_check.py) discovers its op list from these decorations:
+# the checker and the transport cannot drift, because a new primitive is
+# a new decoration, and the decoration IS the registration.
+GROUP_OPS: dict[str, dict] = {}
+
+
+def group_op(fn=None, *, blocking: bool = True, uniform_result: bool = True):
+    """Mark a function as a LOCKSTEP GROUP OPERATION: when
+    ``process_count() > 1`` every process must call it, in the same
+    order, with same-shaped payloads, or the group deadlocks.
+
+    ``blocking``: the call cannot return until every process arrives (true
+    for every primitive here: each is a gloo collective or a monitored
+    barrier). ``uniform_result``: the return value is identical on every
+    process, so host decisions branching on it keep the group in lockstep
+    (the checker treats such results as group-uniform sanitizers). The
+    decorator registers the function and returns it unchanged.
+    """
+    def register(f):
+        GROUP_OPS[f.__name__] = {
+            "blocking": bool(blocking),
+            "uniform_result": bool(uniform_result),
+        }
+        return f
+
+    if fn is not None:
+        return register(fn)
+    return register
 
 
 def process_count() -> int:
@@ -139,6 +178,7 @@ def _all_reduce(values: list[float], op, name: str) -> list[float]:
     return t.tolist()
 
 
+@group_op
 def agree_any(flag: bool) -> bool:
     """True everywhere iff ANY process passed True (one signalled process
     drains the whole group)."""
@@ -148,6 +188,7 @@ def agree_any(flag: bool) -> bool:
                        "agree_any")[0] > 0.0
 
 
+@group_op
 def agree_all(flag: bool) -> bool:
     """True everywhere iff EVERY process passed True (roll back only when
     every process can restore; promote a checkpoint only when every
@@ -158,6 +199,7 @@ def agree_all(flag: bool) -> bool:
                        "agree_all")[0] > 0.0
 
 
+@group_op
 def broadcast_flag(value: float, source: int = 0) -> float:
     """Process ``source``'s scalar, identical everywhere (the rollback's
     restore step, the derived agree interval)."""
@@ -167,6 +209,7 @@ def broadcast_flag(value: float, source: int = 0) -> float:
     return _all_reduce([contrib], dist.ReduceOp.SUM, "broadcast_flag")[0]
 
 
+@group_op
 def agree_uniform(value: float) -> bool:
     """True iff every process passed the same scalar (the step key a
     checkpoint commit is about to write)."""
@@ -177,6 +220,7 @@ def agree_uniform(value: float) -> bool:
     return hi == -neg_lo
 
 
+@group_op
 def gather_values(value: float) -> list[float]:
     """Every process's scalar, in process order, identical everywhere
     (one-hot rows summed over the same transport)."""
@@ -187,6 +231,7 @@ def gather_values(value: float) -> list[float]:
     return _all_reduce(row, dist.ReduceOp.SUM, "gather_values")
 
 
+@group_op
 def gather_vectors(values: Sequence[float]) -> list[list[float]]:
     """Every process's float vector, in process order, identical
     everywhere. Every process must pass the same length (the lockstep
@@ -205,6 +250,7 @@ def gather_vectors(values: Sequence[float]) -> list[list[float]]:
     return [reduced[i * k:(i + 1) * k] for i in range(n)]
 
 
+@group_op
 def all_argmin(values: Sequence[Optional[float]]) -> tuple[int, list[float]]:
     """Agreed argmin over per-candidate timings. ``values[i]`` is this
     process's time for candidate i (None or non-finite: not measured
@@ -222,6 +268,7 @@ def all_argmin(values: Sequence[Optional[float]]) -> tuple[int, list[float]]:
     return int(np.argmin(vals)), vals
 
 
+@group_op(uniform_result=False)
 def barrier(name: str, timeout_s: Optional[float] = None) -> None:
     """Named rendezvous of every process, bounded by ``timeout_s`` (default
     ``MGWFBP_BARRIER_TIMEOUT_S``); ``monitored_barrier`` names the ranks

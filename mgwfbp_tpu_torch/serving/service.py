@@ -128,10 +128,11 @@ class PredictService:
         drained = []
         if self._carry is not None:
             drained.append(self._carry)
-            # _carry is dispatcher-owned; this write runs after
-            # _stop.set() + thread.join(), so the dispatcher has exited
-            # (or, past the join timeout, is wedged inside a forward and
-            # will never touch _carry again before process exit)
+            # mgwfbp: thread-safe -- _carry is dispatcher-owned; this
+            # write runs after _stop.set() + thread.join(), so the
+            # dispatcher has exited (or, past the join timeout, is wedged
+            # inside a forward and will never touch _carry again before
+            # process exit)
             self._carry = None
         while True:
             try:

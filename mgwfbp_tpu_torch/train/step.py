@@ -92,7 +92,9 @@ snapshot, the restore and the cross-rank average are one operation each.
 The step's own collectives run in the ranges the JAX step declares for
 them (``metrics_reduce``, ``bstats_reduce``, ``flat_grad_reduce``;
 ``parallel.allreduce.collective_scope``), which the schedule verifier
-(``analysis.schedule_check``) tells from a merge group's.
+(``analysis.schedule_check``) tells from a merge group's; the guard's count
+runs in ``finite_check`` and the one device-to-host read of the metrics in
+``metrics_readback``, the ranges its host-side rules (SCH008, SCH005) read.
 """
 
 from __future__ import annotations
@@ -316,14 +318,23 @@ def leaf_norms(tensors) -> torch.Tensor:
     return torch.stack(norms).float()
 
 
+# the ranges the step declares for the schedule verifier's host-side rules
+# (``analysis.schedule_check``): the guard's count (SCH008) and the one
+# device-to-host read of the metrics (SCH005)
+FINITE_CHECK_SCOPE = "finite_check"
+READBACK_SCOPE = "metrics_readback"
+
+
 def nonfinite_count(tensors) -> torch.Tensor:
     """Number of non-finite elements over ``tensors``, as a float32 scalar
-    (one concatenation and one count, not a handful of kernels per leaf)."""
-    tensors = [t.reshape(-1) for t in tensors]
-    if not tensors:
-        return torch.zeros(())
-    flat = torch.cat(tensors) if len(tensors) > 1 else tensors[0]
-    return torch.count_nonzero(~torch.isfinite(flat)).float()
+    (one concatenation and one count, not a handful of kernels per leaf),
+    in the ``finite_check`` range."""
+    with collective_scope(FINITE_CHECK_SCOPE):
+        tensors = [t.reshape(-1) for t in tensors]
+        if not tensors:
+            return torch.zeros(())
+        flat = torch.cat(tensors) if len(tensors) > 1 else tensors[0]
+        return torch.count_nonzero(~torch.isfinite(flat)).float()
 
 
 class TrainStep:
@@ -383,6 +394,7 @@ class TrainStep:
             self._compression)
         self._health_dev: Optional[torch.Tensor] = None  # the last step's
         self._old_params: Optional[list[torch.Tensor]] = None
+        self._old_shards: Optional[list[torch.Tensor]] = None
         self._group_matrix: Optional[torch.Tensor] = None
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor, carry=None,
@@ -474,18 +486,21 @@ class TrainStep:
         metrics = metrics[:3]
         prev = self._health_dev
         self._health_dev = None
-        if prev is not None:
-            # the previous step's statistics ride this step's read-back
-            host = torch.cat([metrics.float(), prev]).tolist()
-            loss_v, metric_v, bad = host[:3]
-            prev_health = dict(zip(self.health_keys, host[3:]))
-        else:
-            loss_v, metric_v, bad = metrics.tolist()
-            prev_health = {}
+        # the step's one host synchronisation: the guard decides on the host
+        with collective_scope(READBACK_SCOPE):
+            if prev is not None:
+                # the previous step's statistics ride this step's read-back
+                host = torch.cat([metrics.float(), prev]).tolist()
+                loss_v, metric_v, bad = host[:3]
+                prev_health = dict(zip(self.health_keys, host[3:]))
+            else:
+                loss_v, metric_v, bad = metrics.tolist()
+                prev_health = {}
         old_shards = None
         if bad == 0.0:
             if self.cross_step:
-                old_shards = list(reducer.param_shards)
+                if norms is not None:
+                    old_shards = self._snapshot_shards()
                 reducer.reduce_and_defer(lr=self.lr_fn(self.step))
             elif self.sharded:
                 reducer.reduce_and_update(lr=self.lr_fn(self.step))
@@ -529,6 +544,16 @@ class TrainStep:
             if self._old_params is None:
                 self._old_params = [torch.empty_like(p) for p in self.params]
             torch._foreach_copy_(self._old_params, self.params)
+
+    def _snapshot_shards(self) -> list[torch.Tensor]:
+        """rs_fwd_ag: copy the carried shards, which the update overwrites
+        in place, into the preallocated snapshot (the ratio's old side)."""
+        with torch.no_grad():
+            shards = self.reducer.param_shards
+            if self._old_shards is None:
+                self._old_shards = [torch.empty_like(s) for s in shards]
+            torch._foreach_copy_(self._old_shards, shards)
+            return self._old_shards
 
     def _grad_norms(self) -> torch.Tensor:
         """[global, per group...] L2 norms of the gradients in ``.grad``

@@ -265,6 +265,33 @@ def derive_agree_interval(step_s: float, grace_s: float = 30.0) -> int:
     return int(min(max(grace_s * 0.5 / step_s, 1.0), 1000.0))
 
 
+def check_lowering(cfg: TrainConfig, world: int) -> None:
+    """The checks of the configured lowering that the configuration and
+    the world alone decide (the JAX trainer's messages): the comm op, the
+    hier mesh, the ``--dcn-slices`` divisibility, a sharded lowering under
+    a policy that builds no buckets, and, above one worker, a sharded
+    lowering with a compressor. ``train_cli`` runs them before the
+    rendezvous, so that every rank of a rejected launch fails alike."""
+    check_comm_op(cfg.comm_op)
+    check_hier(cfg.comm_op, cfg.dcn_slices)
+    if cfg.dcn_slices < 1 or world % cfg.dcn_slices:
+        raise ValueError(
+            f"--dcn-slices {cfg.dcn_slices} does not divide the world "
+            f"of {world} rank(s)")
+    if cfg.policy in ("none", "xla"):
+        if cfg.comm_op in SHARDED_OPS:
+            raise ValueError(
+                f"--comm-op {cfg.comm_op} requires a merge policy "
+                "(mgwfbp/auto/threshold/single/wfbp); policy "
+                f"{cfg.policy!r} issues no bucket collectives")
+        return
+    sparse = cfg.compressor not in (None, "", "none")
+    if world > 1 and cfg.comm_op in SHARDED_OPS and sparse:
+        raise ValueError(
+            f"--comm-op {cfg.comm_op} cannot combine with --compressor "
+            "(the shard update needs the dense reduction)")
+
+
 def _elastic_resume_enabled() -> bool:
     """True when a relaunch may resume from a sibling tag written at
     another world size. The supervisor exports MGWFBP_ELASTIC_RESUME=1 for
@@ -315,14 +342,6 @@ def _stack(parts: list):
     if isinstance(parts[0], torch.Tensor):
         return torch.stack(parts)
     return np.stack(parts)
-
-
-def _env_interval(name: str, default: str) -> int:
-    raw = (os.environ.get(name) or "").strip()
-    try:
-        return max(int(raw or default), 1)
-    except ValueError:
-        raise ValueError(f"{name}={raw!r} is not an integer") from None
 
 
 class Trainer:
@@ -379,8 +398,10 @@ class Trainer:
         self._evaluated = False  # an evaluation ran in this process
         # MGWFBP_DRIFT_REAUTOTUNE=1: a raised drift alarm arms a forced
         # re-race at the next agreed step boundary
+        # mgwfbp: group-uniform -- MGWFBP_DRIFT_REAUTOTUNE is group-uniform env (the supervisor exports one environment)
         self._drift_reautotune_enabled = reautotune_enabled()
         self._drift_reautotune_pending = False
+        # mgwfbp: group-uniform -- set by autotune(): race winners ride all_argmin, cache hits agree_all
         self.autotune_report: Optional[dict] = None
         # the race's losses and the gate's per-candidate observations
         # (autotune)
@@ -398,6 +419,7 @@ class Trainer:
         # drift, stragglers and health (telemetry/{drift,health}.py): host
         # arithmetic at the logging cadence; the straggler probe is a
         # collective, so its gate reads group-uniform state only
+        # mgwfbp: group-uniform -- MGWFBP_* detector thresholds parse the one supervisor-exported environment
         self._drift_cfg = DriftConfig.from_env()
         self._drift_detector = (
             DriftDetector(self._drift_cfg) if config.telemetry else None
@@ -482,6 +504,7 @@ class Trainer:
         # shared by every reducer the autotuner builds
         self._compressor = None
         self._levels = None
+        # mgwfbp: group-uniform -- the merge schedule solves from broadcast-identical profiles; later swaps ride group-agreed commits
         self.reducer = self._build_reducer(profile_backward)
         if self.reducer is not None:
             s = self.reducer.schedule
@@ -512,6 +535,7 @@ class Trainer:
         self.train_step = self._make_train_step()
         self.carry = self._zero_carry()
         self.start_epoch = 0
+        # mgwfbp: group-uniform -- the step counter advances in lockstep; resume/rollback targets are broadcast-agreed
         self.iteration = 0
         self.losses: list[float] = []  # every optimizer step's mean loss
         self._init_resilience()
@@ -537,10 +561,16 @@ class Trainer:
         # (one tiny collective; the drain lags by at most N steps). Unset:
         # derived once from the first measured step time against
         # MGWFBP_PREEMPT_GRACE_S, process 0's choice broadcast
-        self._agree_interval = _env_interval("MGWFBP_AGREE_INTERVAL", "1")
-        self._agree_interval_auto = not (
+        raw_interval = (
             os.environ.get("MGWFBP_AGREE_INTERVAL") or ""
         ).strip()
+        try:
+            self._agree_interval = max(int(raw_interval or "1"), 1)
+        except ValueError:
+            raise ValueError(
+                f"MGWFBP_AGREE_INTERVAL={raw_interval!r} is not an integer"
+            ) from None
+        self._agree_interval_auto = not raw_interval
         raw_grace = (os.environ.get("MGWFBP_PREEMPT_GRACE_S") or "").strip()
         try:
             self._preempt_grace_s = float(raw_grace or "30")
@@ -771,20 +801,10 @@ class Trainer:
         worker, where rs_opt_ag runs the replicated optimizer; rs_opt_ag
         takes no compressor."""
         cfg = self.config
-        check_comm_op(cfg.comm_op)
         # fail fast: config and world alone decide these
-        check_hier(cfg.comm_op, cfg.dcn_slices)
-        if cfg.dcn_slices < 1 or self.world % cfg.dcn_slices:
-            raise ValueError(
-                f"--dcn-slices {cfg.dcn_slices} does not divide the world "
-                f"of {self.world} rank(s)")
+        check_lowering(cfg, self.world)
         sparse = cfg.compressor not in (None, "", "none")
         if cfg.policy in ("none", "xla"):
-            if cfg.comm_op in SHARDED_OPS:
-                raise ValueError(
-                    f"--comm-op {cfg.comm_op} requires a merge policy "
-                    "(mgwfbp/auto/threshold/single/wfbp); policy "
-                    f"{cfg.policy!r} issues no bucket collectives")
             return None  # one mean per leaf, no hooks
         if self.world == 1:
             self.log.info(
@@ -798,10 +818,6 @@ class Trainer:
                 if sparse else "",
             )
             return None
-        if cfg.comm_op in SHARDED_OPS and sparse:
-            raise ValueError(
-                f"--comm-op {cfg.comm_op} cannot combine with --compressor "
-                "(the shard update needs the dense reduction)")
         return cfg.comm_op
 
     def _build_reducer(self, profile_backward: bool):
@@ -1157,6 +1173,7 @@ class Trainer:
         tensors = self._to_device(*fields)
         self._local_busy_s += time.perf_counter() - self._t_anchor
         t_step = self.telemetry.now() if self.telemetry else 0.0
+        # mgwfbp: group-uniform -- the step's metrics ride its metrics_reduce all-reduce (train/step.py), so the nonfinite count is identical on every rank
         metrics = self.step_batch(*tensors)
         self._note_health(metrics, epoch)
         self.iteration += 1
@@ -1668,6 +1685,7 @@ class Trainer:
 
         # ---- frontier ------------------------------------------------
         specs = self._layer_specs()
+        # mgwfbp: group-uniform -- the cost model is the configured prior or the broadcast-identical profile; refits solve from the agreed observations
         cost_model = self.cost_model
         tb = (list(self.tb) if self.tb is not None
               else size_prior_tb(specs, cost_model))
@@ -1734,9 +1752,10 @@ class Trainer:
                         dcn_groups=best.dcn_groups or None,
                     ))
                 total_bytes = float(sum(s.nbytes for s in specs))
-                obs, obs_source, measured_groups, dcn_obs = (
-                    self._group_observations(batch_iter, entries, total_bytes,
-                                             float(sum(tb))))
+                # mgwfbp: group-uniform -- on several processes the observations are step deltas of the agreed entry times (_sync_entry_times); traces refit only a one-process run
+                observed = self._group_observations(
+                    batch_iter, entries, total_bytes, float(sum(tb)))
+                obs, obs_source, measured_groups, dcn_obs = observed
                 # whose groups a trace's per-group seconds belong to
                 traced_schedule = (
                     self.reducer.comm_op,
@@ -1774,6 +1793,7 @@ class Trainer:
                                              for b, t in obs],
                         }
                         self.cost_model = new_model
+                        # mgwfbp: group-uniform -- a pure re-solve of the uniform specs, profile and refit model
                         resolved = build_schedule(
                             specs, tb, tf=tf, policy="auto",
                             cost_model=new_model, comm_op=cfg.comm_op,
@@ -2883,6 +2903,7 @@ class Trainer:
         if snap.mid_epoch:
             self.start_epoch = snap.epoch
             self._resume_epoch = snap.epoch
+            # mgwfbp: group-uniform -- the restore step is group-agreed (broadcast / sibling-probe agreement)
             self._resume_skip_steps = snap.epoch_step
             self._resume_carry = snap.carry
         else:
@@ -2905,8 +2926,7 @@ class Trainer:
         snap = None
         if self.checkpointer is not None:
             snap = self._restore_step(self.checkpointer, None)
-        # checkpoint visibility is uniform: every process reads the same
-        # shared directory, and the commit barrier published it
+        # mgwfbp: group-uniform -- checkpoint visibility is uniform on the shared checkpoint FS (the commit barrier publishes the manifest and the sidecar before any process proceeds)
         if snap is None and self.checkpointer is not None and (
             _elastic_resume_enabled()
         ):
@@ -2980,6 +3000,7 @@ class Trainer:
             snap = self._restore_step(ckpt, step)
         finally:
             ckpt.close()
+        # mgwfbp: group-uniform -- the agreed step is read from the shared checkpoint FS, whose commit barrier published it to every process
         if snap is None:
             return False
         meta = snap.manifest_meta or {}
@@ -3106,6 +3127,9 @@ class Trainer:
                 _signal.signal(s, h)
             except ValueError:
                 pass
+        # mgwfbp: thread-safe -- GIL-atomic bool store; the signal context
+        # only ever flips it False, so the worst interleaving with the
+        # main-thread arm/disarm pair is one redundant disarm
         self._signals_armed = False
 
     def _on_preempt_signal(self, signum, frame) -> None:
@@ -3119,6 +3143,10 @@ class Trainer:
                 f"second {name} during preemption drain — escalating "
                 "(next signal kills outright)"
             )
+        # mgwfbp: thread-safe -- one-word flag store is GIL-atomic; the
+        # signal context is the only concurrent writer and the step loop
+        # consumes the flag at boundaries, so a lost re-set at worst delays
+        # the drain by the one step the escalation path covers
         self._preempt_signal = name
 
     def _wedge(self, secs: float) -> None:

@@ -295,11 +295,20 @@ def main(argv: Optional[list[str]] = None) -> int:
         resolve_launch_env,
     )
     from mgwfbp_tpu_torch.runtime.coordination import CoordinationTimeout
-    from mgwfbp_tpu_torch.train.trainer import Trainer
+    from mgwfbp_tpu_torch.train.trainer import Trainer, check_lowering
     from mgwfbp_tpu_torch.utils.faults import PREEMPT_RC, Preempted
     from mgwfbp_tpu_torch.utils.platform import preflight_backend
 
     env_coord, env_num, env_pid = resolve_launch_env()
+    try:
+        # before the rendezvous: a rank that failed inside it would leave
+        # and take the group down while a peer still waited there, which
+        # then died of the store's error instead of this message
+        world = (args.num_processes if args.num_processes is not None
+                 else env_num)
+        check_lowering(cfg, int(world or 1))
+    except ValueError as e:
+        parser.error(str(e))
     multi_process = bool(
         (args.coordinator or env_coord) is not None
         or (args.process_id if args.process_id is not None

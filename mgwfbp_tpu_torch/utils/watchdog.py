@@ -75,6 +75,10 @@ class ProgressWatchdog:
     def enabled(self) -> bool:
         return self.timeout_s > 0
 
+    # mgwfbp: thread-safe -- lock-free heartbeat by design: stores are
+    # GIL-atomic and the watcher tolerates one stale or lenient check (the
+    # _last/_allow ordering below); a lock here would let a wedged holder
+    # stall the very thread meant to detect wedges
     def beat(self, phase: str = "step", allow_s: float = 0.0) -> None:
         """Record progress. ``allow_s`` extends the deadline of the phase
         being entered (a known-long silent phase) until the next beat."""

@@ -121,12 +121,15 @@ def _jax_error(**kw) -> str:
     return str(e.value)
 
 
-@pytest.mark.parametrize("flags,kw", [
+REJECTED = [
     (("--comm-op", "rs_opt_ag", "--compressor", "topk", "--density", "0.01"),
      dict(comm_op="rs_opt_ag", compressor="topk", density=0.01)),
     (("--comm-op", "rs_opt_ag", "--policy", "none"),
      dict(comm_op="rs_opt_ag", policy="none")),
-])
+]
+
+
+@pytest.mark.parametrize("flags,kw", REJECTED)
 def test_rejected_combinations_fail_as_in_jax(tmp_path, monkeypatch, flags,
                                               kw):
     for k, v in SYNTH.items():
@@ -136,3 +139,25 @@ def test_rejected_combinations_fail_as_in_jax(tmp_path, monkeypatch, flags,
     for rc, _, err in outs:
         assert rc != 0
         assert want in err
+
+
+@pytest.mark.parametrize("flags,kw", REJECTED)
+def test_rejected_combination_fails_before_the_rendezvous(tmp_path, flags,
+                                                          kw):
+    # one rank of a two-process launch, its peer never started: the
+    # configuration is refused before the rendezvous, which would wait for
+    # the peer (a rank that left the rendezvous took the group down while
+    # its peer still waited there, which then died of the store's error
+    # instead of this message)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    res = subprocess.run(
+        [sys.executable, "-m", "mgwfbp_tpu_torch.train_cli", "--dnn",
+         "lenet", "--synthetic", "--device", "cpu", *flags,
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", "1"],
+        capture_output=True, text=True, timeout=120, cwd=str(tmp_path),
+        env=dict(os.environ, PYTHONPATH=ROOT, MGWFBP_COORD_TIMEOUT_S="600"))
+    assert res.returncode == 2, res.stderr[-3000:]
+    assert _jax_error(**kw) in res.stderr

@@ -1,9 +1,9 @@
 """The port's schedule verifier (``mgwfbp_tpu_torch/analysis``), the gate
 of the autotuner's race, against the JAX package's rules.
 
-  * the rule ids, severities and summaries of the ported rules (SCH001-
-    SCH004, SCH007, SCH009) equal the JAX registry's, and ``Finding``
-    formats as the JAX one does;
+  * the registry's ids equal the JAX registry's, the severities and
+    summaries of the collective rules (SCH001-SCH004, SCH007, SCH009)
+    equal it, and ``Finding`` formats as the JAX one does;
   * ``layout_problems`` equals the JAX ``BucketLayout.validate`` on the
     same layouts, sound and broken (a dropped leaf, a duplicated one, a
     wrong offset), message for message;
@@ -49,7 +49,9 @@ PORTED = ("SCH001", "SCH002", "SCH003", "SCH004", "SCH007", "SCH009")
 
 
 def test_ported_rules_equal_jax_registry():
-    assert sorted(rules.RULES) == list(PORTED)
+    # the whole registry is ported since the static analysis; the
+    # collective rules keep the JAX summaries word for word
+    assert sorted(rules.RULES) == sorted(jax_rules.RULES)
     for rid in PORTED:
         assert rules.RULES[rid].severity == jax_rules.RULES[rid].severity
         assert rules.RULES[rid].summary == jax_rules.RULES[rid].summary
