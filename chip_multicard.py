@@ -80,6 +80,18 @@ and each winner against the configured lowering's solved schedule, and
 one JSON line ``{"multicard_autotune": ...}``. ``--device cpu --processes
 2 --autotune --model resnet20 --dtype float32 --batch-size 4`` rehearses it
 over gloo.
+
+With ``--seq-parallel S`` it runs another step instead: N processes (one
+per card, NCCL) in rings of S (data N / S x seq S) run the checks of
+``chip_smoke.py``'s phase (p2), through ``chip_smoke.seq_rank``: the ring
+against ``local_attention`` on each card (p1), one step of ``train_cli
+--seq-parallel S``'s Trainer (dropout off, a constant rate) against a dense
+step on the world's global batch, and SEQ_STEPS steps of the user's command
+(the full-width transformer preset, policy auto over the world): the
+median step, the ring's point-to-point operations per step, the merge
+groups and those the group order held back. Prints one JSON line
+``{"multicard_seq": ...}``. ``--device cpu --processes 4 --seq-parallel 2``
+rehearses it over gloo.
 """
 
 from __future__ import annotations
@@ -817,6 +829,54 @@ def telemetry_phase(n: int, device: str, out_dir: str, batch_size: int,
     return out
 
 
+def seq_rank(seq: int, device: str, out_dir: str) -> dict:
+    """One rank of the --seq-parallel step (its world from the launch
+    environment): ``chip_smoke.seq_rank`` without (p3)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from mgwfbp_tpu_torch.parallel.mesh import init_distributed
+
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.runtime import coordination
+
+    dev = init_distributed(device)
+    work = os.path.join(out_dir, f"seq_work.p{os.environ['MGWFBP_PROCESS_ID']}")
+    os.makedirs(work, exist_ok=True)
+    try:
+        return chip_smoke.seq_rank(dev, work, seq, long=False)
+    finally:
+        coordination.release()
+        dist.destroy_process_group()
+
+
+def seq_phase(n: int, device: str, out_dir: str, seq: int, env: dict) -> dict:
+    """The --seq-parallel step: fails when a rank reports a problem."""
+    t0 = time.perf_counter()
+    outs = _run_group(
+        n, ["chip_multicard", "--seq-rank", "--seq-parallel", str(seq),
+            "--device", device, "--out-dir", out_dir],
+        out_dir, "seq", 300, env)
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    for r in ranks:
+        if r["problems"]:
+            print(f"chip_multicard: seq rank {r['rank']}: "
+                  f"{'; '.join(r['problems'])}", file=sys.stderr, flush=True)
+            raise SystemExit(1)
+    secs = time.perf_counter() - t0
+    for r in ranks:
+        p1, par, tim = r["p1"], r["p2_parity"], r["p2"]
+        print(f"seq rank {r['rank']}: (p1) {p1['backend']} max abs err "
+              f"{p1['max_abs_err']}; (p2) step 1 "
+              f"{par['rel_l2_to_dense_step']:.3g} from the dense step over "
+              f"{par['global_rows']} rows (moved {par['step_rel_l2']:.3g}); "
+              f"median {tim['step_ms_median']:.2f} ms, "
+              f"{tim['p2p_per_step'][0]} p2p per step, {tim['num_groups']} "
+              f"groups, {tim['held_groups']} held", flush=True)
+    return {"processes": n, "seq": seq, "data": n // seq, "device": device,
+            "seconds": secs, "ranks": ranks}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="chip_multicard")
     p.add_argument("--processes", type=int, default=None,
@@ -842,11 +902,20 @@ def main(argv=None) -> int:
     p.add_argument("--autotune", action="store_true",
                    help="run the autotune step instead (--batch-size "
                         "defaults to 128 there)")
+    p.add_argument("--seq-parallel", dest="seq_parallel", type=int,
+                   default=None,
+                   help="run the sequence-parallel step instead, rings of "
+                        "this many ranks")
     p.add_argument("--lowerings-rank", default=None,
                    help=argparse.SUPPRESS)
+    p.add_argument("--seq-rank", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--model", default="resnet50")
     p.add_argument("--dtype", default="bfloat16")
     args = p.parse_args(argv)
+    if args.seq_rank:
+        print(json.dumps(seq_rank(args.seq_parallel, args.device,
+                                  args.out_dir)), flush=True)
+        return 0
     if args.lowerings_rank:
         print(json.dumps(lowerings_rank(args.lowerings_rank, args.model,
                                         args.dtype, args.batch_size,
@@ -891,6 +960,11 @@ def main(argv=None) -> int:
         print(json.dumps({"multicard_autotune": autotune_phase(
             n, args.device, args.out_dir, args.batch_size, args.model,
             args.dtype, env)}), flush=True)
+        return 0
+    if args.seq_parallel:
+        print(json.dumps({"multicard_seq": seq_phase(
+            n, args.device, args.out_dir, args.seq_parallel, env)}),
+            flush=True)
         return 0
     if args.lowerings:
         print(json.dumps({"multicard_lowerings": lowerings_phase(

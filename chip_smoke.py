@@ -259,6 +259,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
          in its declared metrics read-back, against the synchronisations
          ``torch.cuda.set_sync_debug_mode("warn")`` reports for it.
 
+ 16. (p) sequence parallelism (``phase_seq``): SEQ_WORLD gloo processes
+     sharing the card form one ring (NCCL takes one rank a card; gloo's
+     point-to-point takes host tensors, so the ring stages K/V through the
+     host), the full-width transformer (vocab 10000, d_model 256, 4 heads,
+     4 layers, d_ff 1024):
+     (p1) ``ring_attention`` on each rank's time slice of seeded (16, 64,
+         4, 64) float32 tensors, causal, and its q, k, v gradients, against
+         ``local_attention`` on the whole sequence (SEQ_TOL); 2 (S - 1)
+         point-to-point operations each way;
+     (p2) ``train_cli --seq-parallel 2``'s Trainer: one step (dropout off,
+         a constant rate) against a world-1 dense step on the gathered
+         global batch (SEQ_STEP_RTOL, relative L2 of the parameters); then
+         the user's command (the preset: window 64, batch 16, policy auto)
+         for SEQ_STEPS steps and its evaluation: the median step, the
+         ring's point-to-point operations per step (2 (S - 1) per layer,
+         forward and backward), the groups and those held back, no flash
+         launch;
+     (p3) one ``TrainStep`` at SEQ_LONG_T tokens and batch SEQ_LONG_BATCH:
+         each rank's peak memory over the model and its median step on the
+         ring, against the whole window through ``local_attention`` in
+         this process alone (seq 1). Every number beside the card's name
+         and power limit (the line before the kernels line).
+
 Every phase runs with TF32 off (``utils.device.set_matmul_precision``).
 
 Output, last lines: a JSON line each for the phase-2 shape table, the
@@ -272,7 +295,8 @@ finishes), the speech model ({"lstman4": ...}), supervision
 ({"supervise": ...}), the telemetry plane ({"telemetry": ...}), the
 lowerings ({"lowerings": ...}), the cross-step and two-level lowerings
 ({"cross_step": ...}), autotuning ({"autotune": ...}), the static
-analysis ({"analysis": ...}), the card's name
+analysis ({"analysis": ...}), sequence parallelism ({"seq": ...}), the
+card's name
 and power limit
 (nvidia-smi), the kernels line
 ({"kernels": [...]}) and, last, {"ok": true, "device": {...}}.
@@ -4884,6 +4908,388 @@ def phase_analysis() -> dict:
             "cli_exit_code": doc["exit_code"], "o1": passes, "o2": o2}
 
 
+# ---------------------------------------------------------------------------
+# phase (p): sequence parallelism (ring attention, --seq-parallel)
+# ---------------------------------------------------------------------------
+
+SEQ_WORLD = 2  # (p): two gloo ranks sharing the card, one ring of 2
+SEQ_TOL = 2e-5  # (p1): ring vs local_attention, float32 (tests' bound)
+SEQ_RING_SHAPE = (16, 64, 4, 64)  # (p1): (B, T, H, D) of the trained model
+SEQ_STEP_RTOL = 1e-5  # (p2): step-1 parameters vs the dense step, rel. L2
+SEQ_STEPS = 10  # (p2): train_cli steps of the timed run
+SEQ_LONG_T = 4096  # (p3): the window of the memory comparison
+SEQ_LONG_BATCH = 2
+SEQ_LONG_STEPS = 5  # (p3): timed steps, after 2 of warm-up
+SEQ_TIMEOUT_S = 300  # (p): each rank's join
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def seq_ring_check(dev, group, seq: int, pos: int) -> dict:
+    """(p1) ``ring_attention`` on this rank's time slice of seeded (B, T, H,
+    D) = SEQ_RING_SHAPE float32 tensors, causal, and its q, k, v gradients
+    under a seeded upstream gradient, against ``local_attention`` on the
+    whole sequence on the same device: the max abs errors, the
+    point-to-point operations of the forward and of the backward, and
+    whether the shift stages through the host."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.parallel import ringattn
+
+    gen = torch.Generator().manual_seed(5)
+    full = [torch.randn(SEQ_RING_SHAPE, generator=gen).to(dev)
+            for _ in range(4)]
+    t = SEQ_RING_SHAPE[1] // seq
+    sl = slice(pos * t, (pos + 1) * t)
+    q, k, v = (a[:, sl].clone().requires_grad_(True) for a in full[:3])
+    before = ringattn.p2p_ops
+    out = ringattn.ring_attention(q, k, v, group, causal=True)
+    fwd = ringattn.p2p_ops - before
+    (out * full[3][:, sl]).sum().backward()
+    bwd = ringattn.p2p_ops - before - fwd
+    qf, kf, vf = (a.clone().requires_grad_(True) for a in full[:3])
+    ref = ringattn.local_attention(qf, kf, vf, causal=True)
+    (ref * full[3]).sum().backward()
+    err = {"out": (out - ref[:, sl]).abs().max().item()}
+    for name, a, b in (("dq", q, qf), ("dk", k, kf), ("dv", v, vf)):
+        err[name] = (a.grad - b.grad[:, sl]).abs().max().item()
+    return {"shape": list(SEQ_RING_SHAPE), "max_abs_err": err,
+            "p2p_forward": fwd, "p2p_backward": bwd,
+            "backend": dist.get_backend(group),
+            "staged_through_host": ringattn.staged(group, q)}
+
+
+def _seq_cli_config(argv: list):
+    from mgwfbp_tpu_torch import train_cli
+
+    args = train_cli.build_parser().parse_args(argv)
+    return args, train_cli.config_from_args(args)
+
+
+def _seq_argv(work: str, seq: int, steps: int, name: str, *extra) -> list:
+    """The user's ``train_cli`` command of (p2): the full-width
+    transformer preset (vocab 10000, d_model 256, 4 heads, 4 layers, d_ff
+    1024, 64-token windows, batch 16) on synthetic PTB."""
+    return ["--dnn", "transformer", "--synthetic", "--seq-parallel",
+            str(seq), "--epochs", "1", "--num-batches-per-epoch", str(steps),
+            "--logdir", os.path.join(work, name), *extra]
+
+
+def seq_parity(dev, work: str, seq: int) -> dict:
+    """(p2) One step of ``train_cli --seq-parallel S``'s Trainer (dropout
+    off, so that the masks do not differ) against a world-1 dense step
+    (the same initial weights, the world's global batch gathered from the
+    rings, the trainer's optimizer and learning rate) computed here:
+    the relative L2 of the parameters after step 1."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.models import create_model, for_training
+    from mgwfbp_tpu_torch.optim import make_optimizer, set_lr
+    from mgwfbp_tpu_torch.train import Trainer
+    from mgwfbp_tpu_torch.train.step import forward_loss
+
+    # a constant rate: the preset's cosine warms up from 0, and a step of
+    # rate 0 would match anything
+    args, cfg = _seq_cli_config(_seq_argv(work, seq, 1, "parity",
+                                          "--no-profile-backward",
+                                          "--lr-schedule", "const"))
+    tr = Trainer(cfg, device=dev, synthetic_data=True, profile_backward=False)
+    try:
+        for m in tr.model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        ref = for_training(create_model("transformer")[0])
+        ref.load_state_dict(tr.model.state_dict())
+        ref.to(dev).train()
+        init = torch.cat([p.detach().reshape(-1)
+                          for p in ref.parameters()]).double()
+        for m in ref.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        seen: list = []
+        train_on = tr._train_on
+
+        def capture(epoch, fields):
+            seen.append([torch.as_tensor(np.asarray(f)) for f in fields[:2]])
+            return train_on(epoch, fields)
+
+        tr._train_on = capture
+        tr.train_epoch(0)
+        # the world's global batch: each data index's rows, from ring
+        # position 0 of every ring, in data order
+        # position 0 of every ring, in data order (NCCL gathers on the
+        # card, gloo on the host)
+        on = dev if dist.get_backend() == "nccl" else torch.device("cpu")
+        rows = []
+        for t in seen[0]:
+            t = t.to(on).contiguous()
+            every = [torch.empty_like(t) for _ in range(tr.world)]
+            dist.all_gather(every, t)
+            rows.append(torch.cat(every[::seq], dim=1)[0].to(dev))
+        opt, *_ = make_optimizer(ref.parameters(), cfg.lr,
+                                 momentum=cfg.momentum,
+                                 weight_decay=cfg.weight_decay)
+        loss, _, _ = forward_loss(ref, "lm", rows[0], rows[1])
+        loss.backward()
+        set_lr(opt, tr.lr_fn(0))
+        opt.step()
+        got = torch.cat([p.detach().reshape(-1)
+                         for p in tr.model.parameters()]).double()
+        want = torch.cat([p.detach().reshape(-1)
+                          for p in ref.parameters()]).double()
+        rel = ((got - want).norm() / want.norm()).item()
+        return {"rel_l2_to_dense_step": rel, "bound": SEQ_STEP_RTOL,
+                "lr": tr.lr_fn(0),
+                "step_rel_l2": ((want - init).norm() / init.norm()).item(),
+                "loss_seq": tr.losses[0], "loss_dense": loss.item(),
+                "global_rows": int(rows[0].shape[0])}
+    finally:
+        tr.close()
+
+
+def seq_timed(dev, work: str, seq: int) -> dict:
+    """(p2) ``train_cli --seq-parallel S`` as a user runs it (the preset's
+    dropout, the backward profile, policy auto): SEQ_STEPS steps (fewer
+    where the epoch is shorter) and the epoch's evaluation; each step's wall time (synchronised), the ring's
+    point-to-point operations per step, the merge groups and those the
+    strict group order held back, the flash kernel's launches."""
+    from mgwfbp_tpu_torch.ops import flash_attention
+    from mgwfbp_tpu_torch.parallel import ringattn
+    from mgwfbp_tpu_torch.train import Trainer
+
+    args, cfg = _seq_cli_config(_seq_argv(work, seq, SEQ_STEPS, "timed"))
+    tr = Trainer(cfg, device=dev, synthetic_data=True)
+    try:
+        times, p2p = [], []
+        train_on = tr._train_on
+
+        def timed(epoch, fields):
+            _sync(dev)
+            before, t0 = ringattn.p2p_ops, time.perf_counter()
+            out = train_on(epoch, fields)
+            _sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            p2p.append(ringattn.p2p_ops - before)
+            return out
+
+        tr._train_on = timed
+        flash_attention.launches = 0  # this path's run starts here
+        metrics = tr.fit(args.epochs)
+        flash = flash_attention.launches  # ... and ends here
+        reducer = tr.reducer
+        groups = ([list(g) for g in reducer.schedule.groups]
+                  if reducer is not None else [])
+        return {
+            "step_ms": times, "step_ms_median": float(np.median(times[2:])),
+            "p2p_per_step": p2p, "layers": tr.model.num_layers,
+            "num_groups": len(groups),
+            "held_groups": (_held_groups(groups, reducer.arrivals)
+                            if reducer is not None else 0),
+            "comm_op": tr.comm_op, "losses": list(tr.losses),
+            "eval": metrics.get("eval"), "flash_launches": flash,
+            "data_size": tr.data_size, "seq_size": tr.seq_size,
+        }
+    finally:
+        tr.close()
+
+
+def _long_step(dev, group, seq: int, pos: int) -> dict:
+    """(p3) The full-width transformer at SEQ_LONG_T tokens and batch
+    SEQ_LONG_BATCH (this rank's T/S slice on a ring, the whole window
+    through ``local_attention`` without one): the peak memory of the steps
+    over what the model and optimizer hold, and the median step."""
+    from mgwfbp_tpu_torch.models import create_model, for_training
+    from mgwfbp_tpu_torch.models.common import init_weights
+    from mgwfbp_tpu_torch.train import TrainStep
+
+    model = for_training(create_model("transformer")[0])
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    model.set_seq_group(group)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01)
+    step = TrainStep(model, opt, lambda s: 0.01, task="lm", seq_group=group)
+    gen = torch.Generator().manual_seed(9)
+    x, y = (torch.randint(0, model.vocab_size,
+                          (1, SEQ_LONG_BATCH, SEQ_LONG_T), generator=gen)
+            for _ in range(2))
+    t = SEQ_LONG_T // seq
+    x, y = (a[..., pos * t:(pos + 1) * t].to(dev) for a in (x, y))
+    _sync(dev)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for k in range(2 + SEQ_LONG_STEPS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        m = step(x, y)
+        _sync(dev)
+        if k >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0)
+    out = {"seq": seq, "tokens_per_rank": t, "batch": SEQ_LONG_BATCH,
+           "peak_bytes_over_model": int(peak - base), "peak_bytes": int(peak),
+           "step_ms_median": float(np.median(times)), "step_ms": times,
+           "loss": m["loss"]}
+    del model, opt, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def seq_rank(dev, work: str, seq: int, long: bool = True) -> dict:
+    """Every part of (p) in this rank of a running world: (p1) on a ring of
+    ``parallel.mesh.seq_groups``, (p2) ``seq_parity`` and ``seq_timed``,
+    and with ``long`` (p3) on the ring. The problems found are returned,
+    not raised,
+    so that the caller reads every rank's."""
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.parallel.mesh import seq_groups
+    from mgwfbp_tpu_torch.utils.device import set_matmul_precision
+
+    set_matmul_precision(None)
+    rank = dist.get_rank()
+    group = seq_groups(seq)
+    pos = rank % seq
+    res: dict = {"rank": rank, "problems": []}
+    t0 = time.perf_counter()
+    res["p1"] = p1 = seq_ring_check(dev, group, seq, pos)
+    worst = max(p1["max_abs_err"].values())
+    if not worst <= SEQ_TOL:
+        res["problems"].append(f"(p1) ring vs local_attention {worst:.3g} "
+                               f"> {SEQ_TOL}")
+    if [p1["p2p_forward"], p1["p2p_backward"]] != [2 * (seq - 1)] * 2:
+        res["problems"].append(f"(p1) p2p {p1['p2p_forward']} + "
+                               f"{p1['p2p_backward']}, want {2 * (seq - 1)}"
+                               " each")
+    res["p2_parity"] = par = seq_parity(dev, work, seq)
+    if not par["step_rel_l2"] > 100 * SEQ_STEP_RTOL:
+        res["problems"].append(f"(p2) the dense step moved the parameters "
+                               f"by {par['step_rel_l2']:.3g} only")
+    if not par["rel_l2_to_dense_step"] <= SEQ_STEP_RTOL:
+        res["problems"].append(
+            f"(p2) parameters after step 1 {par['rel_l2_to_dense_step']:.3g}"
+            f" from the dense step, bound {SEQ_STEP_RTOL}")
+    res["p2"] = tim = seq_timed(dev, work, seq)
+    # SEQ_STEPS, or the epoch's steps where the data extent leaves fewer
+    want = 2 * 2 * (seq - 1) * tim["layers"]
+    steps = len(tim["p2p_per_step"])
+    if steps < 3 or tim["p2p_per_step"] != [want] * steps:
+        res["problems"].append(f"(p2) p2p per step {tim['p2p_per_step']}, "
+                               f"want {want}")
+    losses = tim["losses"]
+    if not (len(losses) == steps and np.all(np.isfinite(losses))
+            and np.isfinite((tim["eval"] or {}).get("loss", np.nan))):
+        res["problems"].append(f"(p2) losses {losses}, eval {tim['eval']}")
+    if tim["flash_launches"] != 0:
+        res["problems"].append(f"(p2) {tim['flash_launches']} flash "
+                               "launches on the ring's path")
+    if long:
+        res["p3"] = _long_step(dev, group, seq, pos)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _seq_gloo_rank(rank: int, world: int, rdv: str, work: str,
+                   out_path: str) -> None:
+    """(p) One of SEQ_WORLD processes sharing the card over gloo."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                            world_size=world, rank=rank)
+    res: dict = {"rank": rank, "problems": ["did not finish"]}
+    try:
+        res = seq_rank(torch.device("cuda", 0), work, world)
+    finally:
+        from mgwfbp_tpu_torch.runtime import coordination
+
+        coordination.release()
+        dist.destroy_process_group()
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+
+
+def phase_seq() -> dict:
+    """(p) Sequence parallelism on the card: SEQ_WORLD gloo ranks sharing
+    it form one ring (NCCL takes one rank a card); (p1) the ring against
+    ``local_attention``, (p2) ``train_cli --seq-parallel`` against a dense
+    step and timed, (p3) the peak memory at SEQ_LONG_T tokens against
+    seq 1 (module docstring)."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_seq_") as d:
+        ctx = mp.get_context("spawn")
+        outs = [os.path.join(d, f"rank{r}.json") for r in range(SEQ_WORLD)]
+        procs = [ctx.Process(target=_seq_gloo_rank,
+                             args=(r, SEQ_WORLD, os.path.join(d, "rdv"), d,
+                                   outs[r]))
+                 for r in range(SEQ_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SEQ_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 1.0))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in procs]
+        results = []
+        for path in outs:
+            if os.path.exists(path):
+                with open(path) as f:
+                    results.append(json.load(f))
+    if codes != [0] * SEQ_WORLD or len(results) != SEQ_WORLD:
+        fail(f"seq (p): ranks exited {codes}")
+    for r in results:
+        if r["problems"]:
+            fail(f"seq (p) rank {r['rank']}: {'; '.join(r['problems'])}")
+    # (p3) at seq 1: the whole window through local_attention, alone on
+    # the card, in this process (a world of one), its peak over its own
+    # baseline as the ranks' are
+    dense = _long_step(torch.device("cuda", 0), None, 1, 0)
+    r0 = results[0]
+    p1, par, tim, ring = r0["p1"], r0["p2_parity"], r0["p2"], r0["p3"]
+    if not (np.isfinite(ring["loss"]) and np.isfinite(dense["loss"])):
+        fail(f"seq (p3): losses {ring['loss']} (ring), {dense['loss']}")
+    secs = time.perf_counter() - t0
+    print(f"seq (p1): ring of {SEQ_WORLD} over {p1['backend']} (staged "
+          f"through the host: {p1['staged_through_host']}) at (B, T, H, D) "
+          f"{tuple(p1['shape'])} float32 causal against local_attention: "
+          f"max abs err {p1['max_abs_err']} (bound {SEQ_TOL}); "
+          f"{p1['p2p_forward']} + {p1['p2p_backward']} p2p ops", flush=True)
+    print(f"seq (p2): train_cli --seq-parallel {SEQ_WORLD}: parameters "
+          f"after step 1 {par['rel_l2_to_dense_step']:.3g} from a world-1 "
+          f"dense step (relative L2, bound {SEQ_STEP_RTOL}; the step "
+          f"moved them {par['step_rel_l2']:.3g} at lr {par['lr']}; loss "
+          f"{par['loss_seq']:.6f} vs {par['loss_dense']:.6f}); "
+          f"{SEQ_STEPS} steps: median {tim['step_ms_median']:.2f} ms, "
+          f"{tim['p2p_per_step'][0]} p2p ops per step "
+          f"({tim['layers']} layers), {tim['num_groups']} groups "
+          f"({tim['comm_op']}), {tim['held_groups']} held, eval "
+          f"{tim['eval']}", flush=True)
+    print(f"seq (p3): T={SEQ_LONG_T}, batch {SEQ_LONG_BATCH}: peak "
+          f"{ring['peak_bytes_over_model'] / 2**20:.1f} MiB per rank at seq "
+          f"{SEQ_WORLD} ({ring['tokens_per_rank']} tokens a rank) against "
+          f"{dense['peak_bytes_over_model'] / 2**20:.1f} MiB at seq 1 "
+          f"(local_attention); step {ring['step_ms_median']:.2f} ms (two "
+          f"processes sharing the card) against {dense['step_ms_median']:.2f}"
+          f" ms alone; (p) {secs:.1f} s", flush=True)
+    return {"world": SEQ_WORLD, "seconds": secs,
+            "ranks": [{k: r[k] for k in ("rank", "p1", "p2_parity", "p2",
+                                         "seconds")} for r in results],
+            "p3": {"ring": [r["p3"] for r in results], "dense": dense}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -4919,6 +5325,7 @@ def main() -> int:
     cross_step = phase_cross_step()
     autotune = phase_autotune(calibrated)
     analysis = phase_analysis()
+    seq = phase_seq()
 
     serve = rows[0]
     kernels = [{
@@ -4958,6 +5365,7 @@ def main() -> int:
     print(json.dumps({"cross_step": cross_step}))
     print(json.dumps({"autotune": autotune}))
     print(json.dumps({"analysis": analysis}))
+    print(json.dumps({"seq": seq}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -3,8 +3,7 @@
 One dataclass with per-model presets, ``MGWFBP_<FIELD>`` environment
 overrides and keyword overrides, resolved by ``make_config`` exactly as the
 JAX package resolves them. Only the fields the port's training path reads
-are kept; the rest of the JAX config (sequence parallelism) is listed in
-ROADMAP.md.
+are kept.
 ``deterministic`` is the port's own (torch's deterministic algorithms;
 the JAX package has no counterpart to switch).
 """
@@ -27,10 +26,17 @@ class TrainConfig:
     max_epochs: int = 141
     nsteps_update: int = 1  # gradient accumulation micro-steps
     augment: bool = True  # train-split augmentation
-    num_steps: Optional[int] = None  # LM window length override (default 35)
+    # LM window length override (default 35; seq-parallel transformers
+    # need num_steps % seq_parallel == 0)
+    num_steps: Optional[int] = None
 
     # distributed: the number of data-parallel workers (one per card)
     nworkers: int = 1
+    # sequence parallelism: the ranks of one ring (parallel.mesh.seq_groups)
+    # share the batch rows and shard an LM window's time dimension; the
+    # world holds nworkers x seq_parallel ranks, rank r at data index
+    # r // seq_parallel
+    seq_parallel: int = 1
     # slices of a multi-slice deployment: the outer data-parallel level
     # whose collectives cross the slower link (the two-level cost model;
     # --comm-op hier lowers the hierarchy explicitly). Slice s holds ranks
@@ -195,13 +201,14 @@ def make_config(dnn: str, **overrides) -> TrainConfig:
     return TrainConfig(**base)
 
 
-def check_hier(comm_op: str, dcn_slices: int) -> None:
+def check_hier(comm_op: str, dcn_slices: int, seq: int = 1) -> None:
     """Raise (the JAX trainer's message) for ``hier`` without a multi-slice
-    world; the port has no sequence parallelism, so seq is 1."""
-    if comm_op == "hier" and int(dcn_slices) <= 1:
+    world, or with sequence parallelism."""
+    if comm_op == "hier" and (int(dcn_slices) <= 1 or int(seq) > 1):
         raise ValueError(
             "--comm-op hier needs a multi-slice mesh (--dcn-slices > 1) and "
-            f"no sequence parallelism; got dcn={int(dcn_slices)}, seq=1"
+            f"no sequence parallelism; got dcn={int(dcn_slices)}, "
+            f"seq={int(seq)}"
         )
 
 

@@ -21,6 +21,12 @@ order (``dist.new_group`` is collective over the world; on the card the
 world is bound to its device, so NCCL may split the communicators), and
 ``runtime.coordination.release`` destroys them before the interpreter
 finalizes.
+
+``seq_groups`` splits the world into the rings of sequence parallelism,
+laid out as the JAX package's ``make_mesh`` lays a (data, seq) mesh
+(``np.asarray(devs).reshape(data, seq)``): rank r has data index ``r // S``
+and seq index ``r % S``, and its ring is ranks [d * S, (d + 1) * S). Every
+rank creates every ring, in one order, and ``release`` destroys them.
 """
 
 from __future__ import annotations
@@ -223,3 +229,34 @@ def two_level_groups(dcn: int) -> TwoLevelGroups:
             mine.append(g)
     coordination.register_subgroups(mine)
     return TwoLevelGroups(inner=inner, outer=outer, ici=ici, dcn=dcn)
+
+
+def check_seq(seq: int, world: int, dcn: int = 1) -> None:
+    """Refuse (the JAX ``make_mesh`` message) a world that ``seq * dcn``
+    does not divide."""
+    seq, dcn = max(int(seq), 1), max(int(dcn), 1)
+    if world % (seq * dcn):
+        raise ValueError(
+            f"{world} devices not divisible by seq={seq} x dcn={dcn}")
+
+
+def seq_groups(seq: int, dcn: int = 1) -> dist.ProcessGroup:
+    """Split the running world into rings of ``seq`` consecutive ranks and
+    return this rank's (a collective: every rank calls it at the same
+    point). The rings take the world's backend and collective timeout and
+    are registered with ``coordination.register_subgroups``."""
+    world, me = dist.get_world_size(), dist.get_rank()
+    seq = int(seq)
+    if seq < 1:
+        raise ValueError(f"--seq-parallel must be >= 1, got {seq}")
+    check_seq(seq, world, dcn)
+    timeout = datetime.timedelta(seconds=env_float(
+        COORD_TIMEOUT_ENV, DEFAULT_BARRIER_TIMEOUT_S))
+    ring = None
+    for d in range(world // seq):
+        ranks = list(range(d * seq, (d + 1) * seq))
+        g = dist.new_group(ranks, timeout=timeout)
+        if me in ranks:
+            ring = g
+    coordination.register_subgroups([ring])
+    return ring

@@ -249,6 +249,7 @@ class Supervisor:
         # the live fan-in server's port (None: off, 0: ephemeral)
         self.fleet_port = fleet_port
         self.fleet_server = None
+        self._fleet_file_explicit = fleet_file is not None
         self.fleet_file = fleet_file or (
             os.path.join(log_dir, "fleet.json") if log_dir else None)
         self._ports_dir: Optional[str] = None
@@ -531,6 +532,8 @@ class Supervisor:
         env.setdefault("MGWFBP_ELASTIC_RESUME", "1")
         if self._metrics_enabled():
             env["MGWFBP_METRICS_PORT_FILE"] = self._port_file(idx)
+            if self._fleet_armed():
+                env.setdefault("MGWFBP_METRICS_HOST", "0.0.0.0")
         return env
 
     def _spawn(self, idx: int, incarnation: int, port: int):
@@ -559,7 +562,18 @@ class Supervisor:
         if self._metrics_enabled():
             env["MGWFBP_METRICS_PORT_FILE"] = self._port_file(idx,
                                                               role="serve")
+            if self._fleet_armed():
+                env.setdefault("MGWFBP_METRICS_HOST", "0.0.0.0")
         return env
+
+    def _fleet_armed(self) -> bool:
+        """True with the fleet plane armed (a fan-in server, or a fleet.json
+        named by the caller for an external Prometheus): the children then
+        default to a routable bind (``MGWFBP_METRICS_HOST=0.0.0.0``), which
+        off-host consumers can reach, and their port files advertise the
+        routable address. A plain supervised run keeps the loopback default,
+        since the endpoints are unauthenticated; an operator's value wins."""
+        return self.fleet_port is not None or self._fleet_file_explicit
 
     def _spawn_serve(self, i: int) -> None:
         """(Re)spawn replica ``i`` into slot ``i``; its log is appended to,

@@ -60,6 +60,44 @@ PROFILE_MAX_STEPS = 50
 _STEP_WINDOW = 20
 
 
+def routable_host() -> str:
+    """This machine's best routable address, for advertising a wildcard
+    bind (0.0.0.0) to off-host scrapers: the fleet fan-in and an external
+    Prometheus reading fleet.json need an address a peer host can dial,
+    and the wildcard is not one. Resolution: the kernel's outbound-route
+    pick (a UDP connect sends nothing), then the hostname's address, then
+    loopback; each step degrades, none raises."""
+    import socket as _socket
+
+    try:
+        s = _socket.socket(_socket.AF_INET, _socket.SOCK_DGRAM)
+        try:
+            s.connect(("10.255.255.255", 9))
+            host = s.getsockname()[0]
+            if host and not host.startswith("0."):
+                return host
+        finally:
+            s.close()
+    except OSError:
+        pass
+    try:
+        host = _socket.gethostbyname(_socket.gethostname())
+        if host:
+            return host
+    except OSError:
+        pass
+    return "127.0.0.1"
+
+
+def advertised_host(bound_host: str) -> str:
+    """The address peers should dial for a server bound at ``bound_host``:
+    a wildcard bind advertises the routable address, a concrete bind
+    itself."""
+    if bound_host in ("", "0.0.0.0", "::"):
+        return routable_host()
+    return bound_host
+
+
 def serve_port_offset() -> int:
     """The serving role's displacement above the training port band."""
     raw = (os.environ.get(SERVE_PORT_OFFSET_ENV) or "").strip()
@@ -693,13 +731,13 @@ def write_port_file(
 ) -> None:
     """Persist the ACTUAL bound endpoint (atomic JSON sidecar), so a
     caller that asked for an ephemeral port can find it. A wildcard bind
-    is advertised as loopback here (cross-host advertising comes with the
-    fleet slice of the port)."""
+    is advertised as the routable address (``advertised_host``), which a
+    scraper on another host can dial."""
     host = server.host
     doc = {
         "process": int(process_index),
         "role": str(role),
-        "host": "127.0.0.1" if host in ("", "0.0.0.0", "::") else host,
+        "host": advertised_host(host),
         "bound_host": host,
         "port": int(server.port),
         "pid": os.getpid(),

@@ -65,6 +65,15 @@ One ``TrainStep`` call is one optimizer step:
     (old and new, every rank's summed by one two-element all-reduce);
   * a reducer built with ``comm_op='hier'`` reduces through
     ``synchronize`` like the single-level lowerings;
+  * ``seq_group`` (sequence parallelism, ``parallel.mesh.seq_groups``):
+    the model is a windowed LM whose blocks attend through that ring
+    (``TransformerLM.set_seq_group``) and x, y are this rank's time slice
+    of its data index's rows. Each rank's loss is the mean over its token
+    slice, so the global loss gradient is the mean over every rank: the
+    reducer and the plain path reduce over the whole world, as the JAX
+    step's ``red_axes = data_axes + (seq_axis,)`` does, and the metrics
+    average over it. A model with a BPTT carry is refused (the JAX
+    step's message);
 
   * ``health_stats`` (the JAX step's ``_health_stat_entries``): the L2
     norm of the post-reduction gradients (before clipping; the local ones,
@@ -361,7 +370,13 @@ class TrainStep:
         task: str = "classify",
         compute_dtype: Optional[torch.dtype] = None,
         health_stats: bool = False,
+        seq_group=None,
     ):
+        if seq_group is not None and not hasattr(model, "seq_group"):
+            raise ValueError(
+                "sequence parallelism is for windowed lm models; BPTT carry "
+                "models shard only the data axis"
+            )
         if task not in self.METRICS:
             raise ValueError(f"task must be one of {sorted(self.METRICS)}, "
                              f"got {task!r}")
@@ -375,6 +390,7 @@ class TrainStep:
         self.grad_guard = grad_guard
         self.norm_clip = norm_clip
         self.compute_dtype = compute_dtype
+        self.seq_group = seq_group
         self.world = world_size()
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.buffers = flatten_buffers(model)
@@ -641,7 +657,9 @@ def lm_eval_sums(model: nn.Module, x: torch.Tensor, y: torch.Tensor,
                  carry=None, compute_dtype: Optional[torch.dtype] = None):
     """([loss, count] summed over one eval batch, new carry): each sample's
     loss is its mean token loss (the JAX eval step's lm sums); a model
-    with a BPTT carry takes and returns one."""
+    with a BPTT carry takes and returns one. On a seq ring each rank sums
+    its time slice's means, so summed over the world the count is S times
+    the samples and loss / count the true mean token loss."""
     out = model_forward(model, x, carry, compute_dtype)
     if carry is not None:
         logits, carry = out

@@ -53,6 +53,20 @@ language model both also hold its ``loss`` and ``perplexity``), the
 accounting and one ``comm_group`` record per merge group
 (``telemetry/overlap.py``).
 
+Sequence parallelism (the JAX trainer's seq axis): with
+``config.seq_parallel`` S the world is (world / S) data workers of S ranks
+each; rank r has data index r // S and ring position r % S, and ranks
+[d S, (d + 1) S) form ring d (``parallel.mesh.seq_groups``). A ring's
+members load the same windows (``ShardInfo(r // S, world / S)``), each
+trains on its time slice of them (``_to_device``) through the ring's
+attention (``TransformerLM.set_seq_group``), and every reduction spans the
+world. The data extent names the run (``config.nworkers``, the tag) and
+prices the cost model, as the JAX trainer's ``data_size`` does; the
+backward and forward profiles time the model without its ring on the
+slice; the evaluation reports true samples (``count / S``). A model
+without seq support or with a carry, a window or a world that S does not
+divide, and hier are refused in the JAX trainer's words.
+
 Resilience (the JAX trainer's layer). With ``checkpoint_dir`` the trainer
 commits shard-native checkpoints through ``checkpoint.Checkpointer``: at
 epoch boundaries, every ``ckpt_every_steps`` optimizer steps (written by a
@@ -201,7 +215,13 @@ from mgwfbp_tpu_torch.parallel.costmodel import (
     lookup_alpha_beta,
     resolve_profile,
 )
-from mgwfbp_tpu_torch.parallel.mesh import rank, two_level_groups, world_size
+from mgwfbp_tpu_torch.parallel.mesh import (
+    check_seq,
+    rank,
+    seq_groups,
+    two_level_groups,
+    world_size,
+)
 from mgwfbp_tpu_torch.parallel.solver import (
     LayerSpec,
     check_comm_op,
@@ -268,12 +288,14 @@ def derive_agree_interval(step_s: float, grace_s: float = 30.0) -> int:
 def check_lowering(cfg: TrainConfig, world: int) -> None:
     """The checks of the configured lowering that the configuration and
     the world alone decide (the JAX trainer's messages): the comm op, the
-    hier mesh, the ``--dcn-slices`` divisibility, a sharded lowering under
+    hier mesh, the mesh's divisibility by ``--seq-parallel`` and
+    ``--dcn-slices``, a sharded lowering under
     a policy that builds no buckets, and, above one worker, a sharded
     lowering with a compressor. ``train_cli`` runs them before the
     rendezvous, so that every rank of a rejected launch fails alike."""
     check_comm_op(cfg.comm_op)
-    check_hier(cfg.comm_op, cfg.dcn_slices)
+    check_hier(cfg.comm_op, cfg.dcn_slices, cfg.seq_parallel)
+    check_seq(cfg.seq_parallel, world, cfg.dcn_slices)
     if cfg.dcn_slices < 1 or world % cfg.dcn_slices:
         raise ValueError(
             f"--dcn-slices {cfg.dcn_slices} does not divide the world "
@@ -356,7 +378,18 @@ class Trainer:
         self.device = resolve_device(device)
         self.world = world_size()
         self.rank = rank()
-        config.nworkers = self.world
+        # sequence parallelism (the JAX trainer's (data, seq) mesh): rings
+        # of seq_parallel consecutive ranks share their batch rows and
+        # shard each window's time dimension; rank r has data index r // S
+        # and ring position r % S. The data extent names the run (the tag's
+        # worker count) and sizes its cost model; every collective spans
+        # the whole world
+        self.seq_size = max(int(config.seq_parallel or 1), 1)
+        check_seq(self.seq_size, self.world, config.dcn_slices)
+        self.data_size = self.world // self.seq_size
+        self.data_index, self.seq_index = divmod(self.rank, self.seq_size)
+        self.seq_group = None  # this rank's ring (``_bind_seq_ring``)
+        config.nworkers = self.data_size
         # this process's faults; the hard kinds (kill, wedge) only of this
         # supervisor incarnation, so a healed relaunch, which resumes below
         # the fault's step, does not fire again the fault it died of
@@ -448,7 +481,8 @@ class Trainer:
         self._probe_iter = 0
         self._probe_busy = 0.0
         self._measured_group_times: Optional[list[float]] = None
-        self.shard = ShardInfo(self.rank, self.world)
+        # the S members of a ring load the same windows
+        self.shard = ShardInfo(self.data_index, self.data_size)
         model, self.meta = zoo.create_model(config.dnn, dataset=config.dataset)
         image_hw = None
         if self.meta.task == "classify" and self.meta.input_shape[0] >= 256:
@@ -466,12 +500,17 @@ class Trainer:
             )
         self.model = zoo.for_training(model)
         self._apply_lm_window()
+        if self.seq_size > 1:
+            self._bind_seq_ring()
         init_weights(self.model, torch.Generator().manual_seed(config.seed))
         # dropout draws from torch's global generator: a function of the
         # seed and the rank, so that ranks draw different masks (the JAX
-        # step folds the device index into its dropout key)
+        # step folds the data index into its dropout key, then the seq
+        # index)
         torch.manual_seed(
-            int(np.random.SeedSequence([config.seed, self.rank])
+            int(np.random.SeedSequence(
+                [config.seed, self.rank] if self.seq_size == 1
+                else [config.seed, self.data_index, self.seq_index])
                 .generate_state(1)[0])
         )
         self.model.to(self.device)
@@ -492,7 +531,7 @@ class Trainer:
             lr_schedule=config.lr_schedule, dataset=config.dataset,
             max_epochs=config.max_epochs, warmup_epochs=config.warmup_epochs,
             num_batches_per_epoch=max(self._steps_per_epoch(), 1),
-            norm_clip=config.norm_clip, world_size=self.world,
+            norm_clip=config.norm_clip, world_size=self.data_size,
             return_spec=True,
         )
         self.cost_model = None
@@ -732,12 +771,48 @@ class Trainer:
             self.model, self.optimizer, self.lr_fn, reducer=self.reducer,
             nsteps_update=cfg.nsteps_update, grad_guard=cfg.grad_guard,
             norm_clip=(
-                scaled_clip_threshold(cfg.norm_clip, self.world)
+                scaled_clip_threshold(cfg.norm_clip, self.data_size)
                 if cfg.norm_clip is not None else None
             ),
             task=self.meta.task, compute_dtype=self.compute_dtype,
-            health_stats=self._health_on,
+            health_stats=self._health_on, seq_group=self.seq_group,
         )
+
+    def _bind_seq_ring(self) -> None:
+        """Refuse what the JAX trainer refuses under a seq axis (a model
+        without seq support or with a BPTT carry, a window the seq extent
+        does not divide), then make the world's rings
+        (``parallel.mesh.seq_groups``, a collective) and bind this rank's
+        to the model."""
+        if not hasattr(self.model, "seq_group") or self.meta.has_carry:
+            raise ValueError(
+                f"model {self.config.dnn!r} does not support sequence "
+                "parallelism (needs a carry-free lm model with a "
+                "seq_axis attribute, e.g. 'transformer')"
+            )
+        t = self.meta.input_shape[0]
+        if t % self.seq_size != 0:
+            raise ValueError(
+                f"sequence length {t} not divisible by seq mesh extent "
+                f"{self.seq_size}"
+            )
+        self.seq_group = seq_groups(self.seq_size, self.config.dcn_slices)
+        self.model.set_seq_group(self.seq_group)
+        self.log.info(
+            "sequence parallelism: %d ring(s) of %d rank(s); this rank: "
+            "data index %d, ring position %d, tokens [%d, %d) of %d",
+            self.data_size, self.seq_size, self.data_index, self.seq_index,
+            self.seq_index * t // self.seq_size,
+            (self.seq_index + 1) * t // self.seq_size, t,
+        )
+
+    def _seq_free(self):
+        """A context in which the model runs without its ring (the
+        profiles time the seq-free model on the T/S slice, as the JAX
+        trainer times its axis-free model): no ring traffic inside."""
+        if self.seq_group is None:
+            return contextlib.nullcontext()
+        return self.model.seq_free()
 
     def _apply_lm_window(self) -> None:
         """Windowed-LM length override (``num_steps``): the meta the batches
@@ -788,11 +863,21 @@ class Trainer:
             t = t.to(self.device, non_blocking=True)
             return t if dtype is None else t.to(dtype)
 
+        if self.seq_group is not None:
+            # this ring position's time slice [s T/S, (s+1) T/S) of x and
+            # y (the JAX batch spec P(None, data, seq))
+            x, y = (self._time_slice(a) for a in (x, y))
         xt = put(x)
         rest = tuple(put(a, torch.int64) for a in (y, *lengths))
         if self.meta.task in ("lm", "ctc"):
             return (xt, *rest)
         return (xt.movedim(-1, -3).contiguous(), *rest)
+
+    def _time_slice(self, a):
+        """Tokens (..., T) -> this rank's slice (..., T/S) of the time
+        axis."""
+        t = a.shape[-1] // self.seq_size
+        return a[..., self.seq_index * t:(self.seq_index + 1) * t]
 
     def _resolve_comm_op(self) -> Optional[str]:
         """The lowering the reducer will take, None where none is built
@@ -829,15 +914,17 @@ class Trainer:
             return None
         sparse = cfg.compressor not in (None, "", "none")
         dcn = int(cfg.dcn_slices)
-        ici = self.world // dcn
+        # the JAX trainer prices the data extent (the seq axis's ranks
+        # share the link), while the reducer spans the world
+        ici = self.data_size // dcn
         if cfg.comm_profile:
             self.cost_model = resolve_profile(
-                load_profile(cfg.comm_profile), self.world
+                load_profile(cfg.comm_profile), self.data_size
             )
             self.log.info(
                 "cost model: %s resolved at world %d (%s, alpha %.4g s, "
                 "beta %.4g s/B, gamma %.4g s, overlap %.3g)",
-                cfg.comm_profile, self.world,
+                cfg.comm_profile, self.data_size,
                 type(self.cost_model).__name__, self.cost_model.alpha,
                 # a two-level model has a beta per link, none overall
                 getattr(self.cost_model, "beta", float("nan")),
@@ -863,10 +950,11 @@ class Trainer:
                 "%d (no --comm-profile)", dcn, ici,
             )
         else:
-            self.cost_model = lookup_alpha_beta(cfg.connection, self.world)
+            self.cost_model = lookup_alpha_beta(cfg.connection,
+                                                 self.data_size)
             self.log.info(
                 "cost model: the %r prior at world %d (no --comm-profile)",
-                cfg.connection, self.world,
+                cfg.connection, self.data_size,
             )
         if cfg.policy in ("mgwfbp", "auto") and profile_backward:
             self.tb = self._profile_backward()
@@ -945,9 +1033,10 @@ class Trainer:
 
         t0 = time.perf_counter()
         self.model.train()
-        tb = benchmark_backward(
-            self.model, loss_of, params, perm, warmup=2, iters=10,
-        )
+        with self._seq_free():
+            tb = benchmark_backward(
+                self.model, loss_of, params, perm, warmup=2, iters=10,
+            )
         if self.world > 1:
             vals = torch.tensor(list(tb), dtype=torch.float64, device=self.device)
             dist.broadcast(vals, 0)
@@ -985,8 +1074,9 @@ class Trainer:
 
         t0 = time.perf_counter()
         self.model.train()
-        tf = benchmark_forward(self.model, loss_of, params, perm,
-                               warmup=2, iters=10)
+        with self._seq_free():
+            tf = benchmark_forward(self.model, loss_of, params, perm,
+                                   warmup=2, iters=10)
         if self.world > 1:
             vals = torch.tensor(list(tf), dtype=torch.float64,
                                 device=self.device)
@@ -1108,7 +1198,7 @@ class Trainer:
                     self._maybe_derive_agree_interval(dt)
                     self._observe_drift_window(dt)
                     metric = self.train_step.metric
-                    samples_s = cfg.batch_size * self.world * n / dt
+                    samples_s = cfg.batch_size * self.data_size * n / dt
                     self.log.info(
                         "epoch %d iter %d: loss %.4f%s | %.4f s/iter, %.1f "
                         "samples/s", epoch, self.iteration, metrics["loss"],
@@ -1694,8 +1784,10 @@ class Trainer:
         # the configured all_reduce path races under it
         comm_ops = (
             ("all_reduce",) if self._compressor is not None
-            else at.allowed_comm_ops(cfg.comm_op,
-                                     multi_slice=cfg.dcn_slices > 1)
+            # hier candidates need the (ici, dcn) mesh and no seq ring
+            else at.allowed_comm_ops(
+                cfg.comm_op,
+                multi_slice=cfg.dcn_slices > 1 and self.seq_group is None)
         )
         candidates = at.build_candidates(
             specs, tb, cost_model, comm_ops, tf=tf,
@@ -2474,7 +2566,9 @@ class Trainer:
             dist.all_reduce(sums)
         loss, count = sums.tolist()
         loss /= max(count, 1.0)
-        return {"loss": loss, "count": count,
+        # a ring counts each sample once per member (its loss sums carry
+        # the same factor, so the mean is exact): report true samples
+        return {"loss": loss, "count": count / self.seq_size,
                 "perplexity": float(np.exp(loss))}
 
     def _evaluate_ctc(self) -> dict:
@@ -2660,7 +2754,7 @@ class Trainer:
             "step": int(self.iteration),
             "world": int(self.world),
             "process_count": int(self.world),
-            "mesh_axes": {"data": int(self.world), "seq": 1},
+            "mesh_axes": self._mesh_axes(),
             "comm_op": self.comm_op,
             "leaves": self._tree_leaf_docs({keystr(p): (s, "float32")
                                   for p, s in p_shapes.items()}),
@@ -2735,6 +2829,14 @@ class Trainer:
                 torch.cuda.get_rng_state(self.device).numpy().copy()
             )
         return manifest, files
+
+    def _mesh_axes(self) -> dict:
+        """The extents of the JAX trainer's mesh for this world: (dcn,)
+        data, seq."""
+        dcn = int(self.config.dcn_slices)
+        axes = {"dcn": dcn} if dcn > 1 else {}
+        axes.update(data=int(self.data_size // dcn), seq=int(self.seq_size))
+        return axes
 
     def _sharded_opt_payload(self, manifest: dict, files: dict) -> None:
         """The sharded ``opt`` section of an rs_opt_ag run, as the JAX
@@ -2949,7 +3051,7 @@ class Trainer:
         root = self.config.checkpoint_dir
         parts = self.config.tag().split("-")
         try:
-            i = parts.index(f"n{self.world}")
+            i = parts.index(f"n{self.data_size}")
         except ValueError:
             return []
         try:
@@ -2965,7 +3067,7 @@ class Trainer:
             if not (q[i].startswith("n") and q[i][1:].isdigit()):
                 continue
             world = int(q[i][1:])
-            if world == self.world:
+            if world == self.data_size:
                 continue
             steps = peek_steps(os.path.join(root, name))
             if steps:
@@ -2993,7 +3095,7 @@ class Trainer:
         if step < 0 or old_world < 0:
             return False
         parts = self.config.tag().split("-")
-        parts[parts.index(f"n{self.world}")] = f"n{old_world}"
+        parts[parts.index(f"n{self.data_size}")] = f"n{old_world}"
         sibling = os.path.join(self.config.checkpoint_dir, "-".join(parts))
         ckpt = Checkpointer(sibling)
         try:
@@ -3016,7 +3118,7 @@ class Trainer:
                     or old_nbpe != new_nbpe):
                 anchor = (step_now, new_epoch_off)
         self._apply_snapshot(
-            snap, f"resumed after resize ({old_world} -> {self.world})",
+            snap, f"resumed after resize ({old_world} -> {self.data_size})",
             anchor=anchor,
         )
         # a schedule the autotuner committed at this world's key beats the
@@ -3025,7 +3127,7 @@ class Trainer:
                   else "relaunch-reshard")
         restore_s = time.perf_counter() - t0
         self._emit_event(
-            "resize", old_world=int(old_world), new_world=int(self.world),
+            "resize", old_world=int(old_world), new_world=int(self.data_size),
             schedule_source=source,
             num_groups=(self.reducer.num_groups
                         if self.reducer is not None else 0),
@@ -3034,7 +3136,7 @@ class Trainer:
         self.log.warning(
             "elastic resize: resumed iteration %d from %s (world %d -> %d; "
             "read at the live world in %.3f s)", snap.iteration, sibling,
-            old_world, self.world, restore_s,
+            old_world, self.data_size, restore_s,
         )
         return True
 
@@ -3045,7 +3147,7 @@ class Trainer:
         counterpart here: at the running world this is a no-op, any other
         count is resize-by-relaunch (``ResizeUnsupported`` carries the
         recipe, as the JAX trainer's multi-process branch raises)."""
-        if nworkers == self.world:
+        if nworkers == self.data_size:
             return
         if self.config.dcn_slices > 1:
             raise ResizeUnsupported(

@@ -55,6 +55,16 @@ probes the card under ``MGWFBP_INIT_TIMEOUT_S``
         --comm-op rs_fwd_ag                # with 2 or more processes
     python -m mgwfbp_tpu_torch.train_cli --dnn resnet20 --synthetic \\
         --comm-op hier --dcn-slices 2      # with 4 processes: 2 x 2
+
+``--seq-parallel S`` trains a windowed LM (the transformer) with each
+window's time dimension sharded over rings of S processes
+(``parallel.mesh.seq_groups``: ranks [d * S, (d + 1) * S) form ring d and
+share their batch rows, rank r holding time slice r % S) through ring
+attention; the world must be a multiple of S, the window too, and a model
+with a BPTT carry, or ``--comm-op hier``, is refused:
+
+    python -m mgwfbp_tpu_torch.train_cli --dnn transformer --synthetic \\
+        --seq-parallel 2                   # with 2 processes: 1 x 2
 """
 
 from __future__ import annotations
@@ -93,7 +103,13 @@ def build_parser() -> argparse.ArgumentParser:
                    type=int, default=None,
                    help="cap optimizer steps per epoch (smoke runs)")
     p.add_argument("--num-steps", dest="num_steps", type=int, default=None,
-                   help="LM window length (default: the preset's, else 35)")
+                   help="LM window length (default: the preset's, else 35; "
+                        "must divide by --seq-parallel)")
+    p.add_argument("--seq-parallel", dest="seq_parallel", type=int,
+                   default=None,
+                   help="ranks per sequence-parallel ring: each ring shares "
+                        "its batch rows and shards the LM window over ring "
+                        "attention (windowed LMs, e.g. transformer)")
     p.add_argument("--nsteps-update", dest="nsteps_update", type=int,
                    default=None, help="gradient accumulation micro-steps")
     p.add_argument("--policy", default=None,
@@ -249,7 +265,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             "telemetry_dir", "num_steps", "ckpt_every_steps", "ckpt_format",
             "bad_step_limit", "pretrain", "metrics_port", "compressor",
             "density", "comm_op", "dcn_slices", "autotune_steps",
-            "schedule_cache",
+            "schedule_cache", "seq_parallel",
         )
         if getattr(args, k, None) is not None
     }
@@ -282,7 +298,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
     try:
-        check_hier(cfg.comm_op, cfg.dcn_slices)
+        check_hier(cfg.comm_op, cfg.dcn_slices, cfg.seq_parallel)
     except ValueError as e:
         parser.error(str(e))
     if args.print_config:

@@ -9,7 +9,8 @@
   * on the port's own run, ``evaluate`` equals the trainer's evaluation
     at the end of the run, and ``--all-epochs`` reports every boundary;
   * ``model_average_evaluate`` of one run twice equals that run;
-  * ``lstman4`` (WER) is refused naming ROADMAP Queue 1 item 3.
+  * ``lstman4``'s WER evaluation is ported: with no checkpoint to read,
+    the evaluator says "no checkpoint under".
 """
 
 import json
@@ -140,7 +141,7 @@ def test_evaluate_equals_the_trainers_own_and_all_epochs(narrow, tmp_path,
     assert avg["perplexity"] == pytest.approx(got["perplexity"], rel=1e-6)
 
 
-def test_wer_evaluation_is_refused_by_name():
+def test_wer_evaluation_reports_no_checkpoint_under():
     """lstman4's WER evaluation is ported: the evaluator builds the speech
     model's trainer and, with no checkpoint to read, says so."""
     with pytest.raises(FileNotFoundError, match="no checkpoint under"):
