@@ -1,6 +1,8 @@
-"""Compare the serving path of two checkouts of the port on one CUDA card.
+"""Compare the serving path, or with ``--train`` the training step, of two
+checkouts of the port on one CUDA card.
 
     python3 chip_compare.py PARENT_DIR CHANGE_DIR
+    python3 chip_compare.py --train PARENT_DIR CHANGE_DIR
 
 Each directory is the root of a checkout (for example the parent commit
 unpacked with `git archive` into a directory that .gitignore lists). The
@@ -19,6 +21,17 @@ transformer at full width with random weights from seed 0:
     host time of 20 calls (`run_padded_ms`), and one call's device time in
     all (`forward_device_ms`) and in the flash kernel (`flash_in_forward_ms`)
     from torch.profiler.
+
+With ``--train`` each turn measures instead, through each checkout's own
+``Trainer`` at one worker (synthetic data, seeded random weights): for
+full-width ResNet-20 at batch 32 and the preset transformer (window 64,
+batch 16), the trainer loop's ms per step over one timed epoch (30 and 10
+steps, after one of warm-up; `loop_ms_per_step`), and on one fixed device
+batch the median step with a synchronisation after each (CUDA events,
+`step_ms_synced`), the mean of 20 back-to-back steps closed by one
+synchronisation (`step_ms_back_to_back`) and torch.profiler's busy share
+over 10 back-to-back steps (`busy_share`); then the bench's ResNet-50 row
+`none` (batch 128, bfloat16, 5 + 20 steps; `bench_resnet50_none_ms`).
 
 Prints one JSON line per turn and, last, the card's name and power limit.
 Exits non-zero without a card.
@@ -111,10 +124,85 @@ print(json.dumps(out))
 '''
 
 
-def run_turn(root: str, label: str) -> dict:
+CHILD_TRAIN = r'''
+import json, tempfile, time
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from mgwfbp_tpu_torch import bench
+from mgwfbp_tpu_torch.config import make_config
+from mgwfbp_tpu_torch.train import Trainer
+from mgwfbp_tpu_torch.utils.device import set_matmul_precision
+
+set_matmul_precision(None)
+CUDA = torch.autograd.DeviceType.CUDA
+
+
+def timing(step, x, y, n=20):
+    for _ in range(5):
+        step(x, y)
+    torch.cuda.synchronize()
+    synced = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(x, y)
+        end.record()
+        torch.cuda.synchronize()
+        synced.append(start.elapsed_time(end))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(x, y)
+    torch.cuda.synchronize()
+    back = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step(x, y)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == CUDA)
+    return {"step_ms_synced": float(np.median(synced)),
+            "step_ms_back_to_back": back, "busy_share": busy / wall_us}
+
+
+out = {}
+work = tempfile.mkdtemp(prefix="mgwfbp_compare_")
+for name, steps, kw in (("resnet20", 30, {"batch_size": 32}),
+                        ("transformer", 10, {})):
+    cfg = make_config(name, num_batches_per_epoch=steps,
+                      logdir=f"{work}/{name}", checkpoint_dir=None, **kw)
+    tr = Trainer(cfg, device="cuda", synthetic_data=True,
+                 profile_backward=False)
+    tr.train_epoch(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train_epoch(1)
+    loop = (time.perf_counter() - t0) * 1e3 / steps
+    xb, yb = tr.bundle.train.load_batch(0, 0)
+    x, y = tr._to_device(xb[None], yb[None])
+    out[name] = {"loop_ms_per_step": loop, **timing(tr.step_batch, x, y)}
+    tr.close()
+set_matmul_precision(torch.bfloat16)
+grid = bench._Grid("resnet50", 128, 20, torch.device("cuda"),
+                   torch.bfloat16, None)
+try:
+    dt, _ = grid.time_policy("none", None)
+finally:
+    grid.close()
+out["bench_resnet50_none_ms"] = dt * 1e3
+print(json.dumps(out))
+'''
+
+
+def run_turn(root: str, label: str, child: str = CHILD) -> dict:
     root = os.path.abspath(root)
     res = subprocess.run(
-        [sys.executable, "-c", CHILD], capture_output=True, text=True,
+        [sys.executable, "-c", child], capture_output=True, text=True,
         timeout=600, cwd=root, env=dict(os.environ, PYTHONPATH=root),
     )
     if res.returncode != 0:
@@ -124,16 +212,20 @@ def run_turn(root: str, label: str) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) != 3:
+    args = sys.argv[1:]
+    child = CHILD
+    if args[:1] == ["--train"]:
+        args, child = args[1:], CHILD_TRAIN
+    if len(args) != 2:
         raise SystemExit(__doc__)
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_compare: needs a CUDA card")
-    parent, change = sys.argv[1:]
+    parent, change = args
     for label, root in (("parent", parent), ("change", change),
                         ("change", change), ("parent", parent)):
-        print(json.dumps(run_turn(root, label)), flush=True)
+        print(json.dumps(run_turn(root, label, child)), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

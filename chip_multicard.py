@@ -312,9 +312,10 @@ def lowerings_rank(label: str, model_name: str, dtype: str, batch_size: int,
         for k in range(LOWERINGS_STEPS):
             x, y = batch(k)
             t0 = time.perf_counter()
-            m = step(x, y)  # ends in the metrics' host read
+            m = step(x, y)
+            loss = float(m["loss"])  # waits for the step: nothing in it does
             times.append(time.perf_counter() - t0)
-            losses.append(m["loss"])
+            losses.append(loss)
         peak = torch.cuda.max_memory_allocated(dev) if cuda else None
         launches = reducer.launches
         breakdown = None

@@ -255,9 +255,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
          (suppressed ones counted apart);
      (o2) one LeNet step at one worker on the card, observed: a gradient
          hook that calls ``.item()`` gives SCH005 on autograd's device
-         thread; the clean step gives no finding and synchronises once,
-         in its declared metrics read-back, against the synchronisations
-         ``torch.cuda.set_sync_debug_mode("warn")`` reports for it.
+         thread; the clean step gives no finding and no synchronisation,
+         and ``torch.cuda.set_sync_debug_mode("warn")`` reports none for
+         it.
 
  16. (p) sequence parallelism (``phase_seq``): SEQ_WORLD gloo processes
      sharing the card form one ring (NCCL takes one rank a card; gloo's
@@ -282,6 +282,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
          this process alone (seq 1). Every number beside the card's name
          and power limit (the line before the kernels line).
 
+ 17. (q) the zero-sync step loop (``phase_zero_sync``): the step decides
+     its non-finite guard on the card and reads nothing back; the trainer
+     reads each step's metrics late:
+     (q1) full-width ResNet-20, batch 32, through its Trainer: ZS_STEPS
+         steps under ``HostObserver`` and ``torch.cuda.set_sync_debug_mode
+         ("warn")``, which must see no synchronisation; the step's median
+         with a synchronisation after each (the earlier phases' step_ms),
+         the mean of ZS_STEPS back-to-back steps, the busy share of a
+         profiled back-to-back window, and the trainer loop's ms per step
+         over a ZS_LOOP_STEPS-step epoch;
+     (q2) ``MGWFBP_FAULT_PLAN=nan@step=3`` at
+         ``MGWFBP_GUARD_CHECK_INTERVAL=5`` over ZS_NAN_STEPS steps: one
+         ``bad_step`` at step 3, the counter at ZS_NAN_STEPS - 1, finite
+         parameters, at most ceil(steps / 5) + 1 reads in the epoch;
+     (q3) the preset transformer (window 64, batch 16): (q1)'s checks and
+         timings;
+     (q4) the bench's ResNet-50 ``none`` row (batch 128, bfloat16, 10
+         timed steps) with ``MGWFBP_BN_DTYPE`` unset and ``bfloat16``,
+         interleaved twice. A ``{"zero_sync": ...}`` line with the card's
+         name and power limit.
+
 Every phase runs with TF32 off (``utils.device.set_matmul_precision``).
 
 Output, last lines: a JSON line each for the phase-2 shape table, the
@@ -296,7 +317,7 @@ finishes), the speech model ({"lstman4": ...}), supervision
 lowerings ({"lowerings": ...}), the cross-step and two-level lowerings
 ({"cross_step": ...}), autotuning ({"autotune": ...}), the static
 analysis ({"analysis": ...}), sequence parallelism ({"seq": ...}), the
-card's name
+zero-sync loop ({"zero_sync": ...}), the card's name
 and power limit
 (nvidia-smi), the kernels line
 ({"kernels": [...]}) and, last, {"ok": true, "device": {...}}.
@@ -858,7 +879,8 @@ def train_phase_trainer(ckpt_root: str) -> dict:
             fail("the committed step does not read back equal to the live "
                  "parameters")
     # step time: one fixed batch, CUDA events around each step, median of
-    # 20 after 5 of warm-up (each step ends in the metrics' host read)
+    # 20 after 5 of warm-up, a synchronisation after each (the step itself
+    # reads nothing back)
     xb, yb = tr.bundle.train.load_batch(0, 0)
     x, y = tr._to_device(xb[None], yb[None])
     times = []
@@ -955,7 +977,7 @@ def _reducer_run(dev, bundle, tb, connection: str, nworkers: int) -> dict:
         before = reducer.launches
         m = step(x[None], y[None])
         launches.append(reducer.launches - before)
-        if not np.isfinite(m["loss"]):
+        if not np.isfinite(float(m["loss"])):
             fail(f"reducer phase ({connection}): non-finite loss at step {k}")
     for h in hooks:
         h.remove()
@@ -1570,7 +1592,8 @@ def _lm_run(name: str, root: str) -> dict:
              "live parameters")
     window = _lm_window_check(tr, name)
     # step time: one fixed batch, CUDA events around each step, median of
-    # 20 after 5 of warm-up (each step ends in the metrics' host read)
+    # 20 after 5 of warm-up, a synchronisation after each (the step itself
+    # reads nothing back)
     xb, yb = tr.bundle.train.load_batch(0, 0)
     x, y = tr._to_device(xb[None], yb[None])
     tokens = xb.size
@@ -1758,8 +1781,8 @@ def _bf16_vs_f32_logits(tr, x: torch.Tensor) -> dict:
 
 
 def _timed_steps(step, x, y, n: int = 20, warmup: int = 5) -> list[float]:
-    """ms of each of n steps after warm-up, CUDA events around each (each
-    step ends in the metrics' host read)."""
+    """ms of each of n steps after warm-up, CUDA events around each and a
+    synchronisation after each (the step itself reads nothing back)."""
     times = []
     for i in range(warmup + n):
         start = torch.cuda.Event(enable_timing=True)
@@ -2323,7 +2346,7 @@ def _zoo_run(name: str, batch: int, dtype: str, root: str) -> dict:
         m = tr.train_step(x, y)
         end.record()
         torch.cuda.synchronize()
-        losses.append(m["loss"])
+        losses.append(float(m["loss"]))
         launches.append(reducer.launches - before)
         if i >= 3:
             times.append(start.elapsed_time(end))
@@ -2751,13 +2774,14 @@ def supervise_heal(work: str) -> dict:
             "--metrics-port", "0"]
     env = dict(MGWFBP_METRICS_PORT="0", MGWFBP_LIVENESS_GRACE_S=str(SUP_GRACE_S))
     ref, heal = os.path.join(work, "ref"), os.path.join(work, "heal")
+    # the two runs side by side: each is deterministic on its own
     t0 = time.perf_counter()
-    p = _supervise(ref + "/sup", _resnet20_args(ref, *args), _sup_env(**env))
-    _wait_supervised(p, ref + "/sup", "uninterrupted run")
-    ref_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    p_ref = _supervise(ref + "/sup", _resnet20_args(ref, *args),
+                       _sup_env(**env))
     p = _supervise(heal + "/sup", _resnet20_args(heal, *args),
                    _sup_env(SUP_PLAN, **env))
+    _wait_supervised(p_ref, ref + "/sup", "uninterrupted run")
+    ref_s = time.perf_counter() - t0
     err = _wait_supervised(p, heal + "/sup", "heal run")
     heal_s = time.perf_counter() - t0
     codes = [line.split("exit codes ", 1)[1] for line in err.splitlines()
@@ -3169,18 +3193,37 @@ SUPERVISE_PARTS = (("j1", "heal", "supervise_heal"),
 
 
 def phase_supervise(parts: tuple = ("j1", "j2", "j3", "j4", "j5")) -> dict:
+    """The parts named; (j1) runs on a thread of its own beside (j4) and
+    (j3): its lives wait on process starts, a drain and a wedge's grace
+    more than they compute. (j2) removes the native library and (j5) times
+    steps, so both run alone after."""
+    import concurrent.futures
+
     t0 = time.perf_counter()
-    out = {}
+    done = {}
+    pool = concurrent.futures.ThreadPoolExecutor(1)
     with tempfile.TemporaryDirectory(prefix="mgwfbp_supervise_") as work:
         try:
+            side = (pool.submit(supervise_heal, work) if "j1" in parts
+                    else None)
             for key, name, fn in SUPERVISE_PARTS:
-                if key in parts:
-                    out[name] = globals()[fn](work)
+                if key in parts and key in ("j4", "j3"):
+                    done[key] = globals()[fn](work)
+            if side is not None:
+                done["j1"] = side.result()
+            for key, name, fn in SUPERVISE_PARTS:
+                if key in parts and key not in done:
+                    done[key] = globals()[fn](work)
         except BaseException:
+            _kill_children()  # ends the other thread's wait
             _log_tails(work)
             raise
         finally:
             _kill_children()
+            pool.shutdown(wait=True)
+            _kill_children()
+    out = {name: done[key] for key, name, _ in SUPERVISE_PARTS
+           if key in parts}
     out["wall_s"] = time.perf_counter() - t0
     return out
 
@@ -3485,11 +3528,12 @@ def telemetry_health_cost(work: str) -> list[dict]:
             counts, kernels = {}, {}
             for mode in ("off", "on"):
                 step.health_stats = mode == "on"
-                step(x, y)  # the mode's read-back pattern is established
+                step(x, y)  # the mode's first step allocates its buffers
                 counts[mode], kernels[mode] = _sync_counts(
                     lambda: step(x, y))
             step.health_stats = True
-            health = step.take_health()
+            health = {k: float(v) for k, v in step(x, y).items()
+                      if k.startswith("health/")}
             param_bytes = sum(p.numel() * p.element_size()
                               for p in step.params)
         finally:
@@ -3750,7 +3794,7 @@ def _lowering_one_rank(dev, bundle, label: str, op: str, clip,
         before = reducer.launches
         m = step(x[None], y[None])
         launches.append(reducer.launches - before)
-        if not np.isfinite(m["loss"]):
+        if not np.isfinite(float(m["loss"])):
             fail(f"lowerings (l1) {label}: non-finite loss at step {k}")
     for h in hooks:
         h.remove()
@@ -3905,7 +3949,7 @@ def _lowering_gloo_rank(rank: int, world: int, rdv: str, out_path: str) -> None:
                     x = torch.from_numpy(xb).to(dev).movedim(-1, -3)
                     y = torch.from_numpy(yb.astype(np.int64)).to(dev)
                     m = step(x.contiguous()[None], y[None])
-                    if not np.isfinite(m["loss"]):
+                    if not np.isfinite(float(m["loss"])):
                         r["identical"] = False
                     flat = _flat_params(model).cpu()
                     gathered = [torch.empty_like(flat) for _ in range(world)]
@@ -4193,7 +4237,7 @@ def xstep_one_rank() -> dict:
                     before = reducer.launches
                     m = step(x, y)
                     per[op].append(reducer.launches - before)
-                    if not np.isfinite(m["loss"]):
+                    if not np.isfinite(float(m["loss"])):
                         fail(f"cross-step (m1) {op}: non-finite loss at "
                              f"step {k}")
                     flats[op] = (_carried_flat(reducer) if op == "rs_fwd_ag"
@@ -4303,7 +4347,7 @@ def _hier_gloo_rank(rank: int, world: int, rdv: str, out_path: str) -> None:
                         before = reducer.launches
                         m = step(x.contiguous()[None], y[None])
                         r["launches"].append(reducer.launches - before)
-                        r["identical"] &= bool(np.isfinite(m["loss"]))
+                        r["identical"] &= bool(np.isfinite(float(m["loss"])))
                         flat = _flat_params(model).cpu()
                         gathered = [torch.empty_like(flat)
                                     for _ in range(world)]
@@ -4815,14 +4859,14 @@ def _analysis_passes(cli_s: float) -> dict:
 
 def _analysis_seeded_sync() -> dict:
     """(o2): a hook's .item() on the card is SCH005 on autograd's thread;
-    the clean step synchronises once, in its declared read-back."""
+    the clean step does not synchronise."""
     import warnings
 
     from mgwfbp_tpu_torch import models as zoo
     from mgwfbp_tpu_torch.analysis import step_pass
     from mgwfbp_tpu_torch.analysis.schedule_check import verify_observed_step
     from mgwfbp_tpu_torch.optim import make_optimizer
-    from mgwfbp_tpu_torch.train.step import READBACK_SCOPE, TrainStep
+    from mgwfbp_tpu_torch.train.step import TrainStep
 
     dev = torch.device("cuda")
     model, meta = zoo.create_model("lenet")
@@ -4834,8 +4878,7 @@ def _analysis_seeded_sync() -> dict:
     step(*next(data))
     clean = verify_observed_step(lambda: step(*next(data)), step,
                                  file="<o2 clean>")
-    if clean.findings or [(s.op, s.scopes) for s in clean.syncs] != [
-            ("Tensor.tolist", (READBACK_SCOPE,))]:
+    if clean.findings or clean.syncs:
         fail(f"analysis (o2): the clean step: {clean.findings} "
              f"{clean.syncs}")
     step(*next(data))
@@ -5134,7 +5177,7 @@ def _long_step(dev, group, seq: int, pos: int) -> dict:
     out = {"seq": seq, "tokens_per_rank": t, "batch": SEQ_LONG_BATCH,
            "peak_bytes_over_model": int(peak - base), "peak_bytes": int(peak),
            "step_ms_median": float(np.median(times)), "step_ms": times,
-           "loss": m["loss"]}
+           "loss": float(m["loss"])}
     del model, opt, step
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -5290,6 +5333,237 @@ def phase_seq() -> dict:
             "p3": {"ring": [r["p3"] for r in results], "dense": dense}}
 
 
+ZS_STEPS = 20  # (q1), (q3): steps under set_sync_debug_mode, and timed
+ZS_LOOP_STEPS = 30  # (q1): the trainer loop's timed epoch
+ZS_NAN_STEPS, ZS_NAN_INTERVAL = 10, 5  # (q2): nan@step=3 at interval 5
+ZS_BENCH_ITERS = 10  # (q4): the bench's timed steps per row
+ZS_BENCH_BATCH = 128
+
+
+def _zs_timing(step, x, y) -> dict:
+    """One fixed batch: the median step with a synchronisation after each
+    (CUDA events: the earlier phases' step_ms), the mean of ZS_STEPS
+    back-to-back steps closed by one synchronisation (the host clock: how
+    the loop runs them now that no step waits), and the busy share of a
+    profiled back-to-back window."""
+    synced = _timed_steps(step, x, y, n=ZS_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ZS_STEPS):
+        step(x, y)
+    torch.cuda.synchronize()
+    back = (time.perf_counter() - t0) * 1e3 / ZS_STEPS
+    prof = _step_profile(lambda: step(x, y), steps=10)
+    return {"step_ms_synced": float(np.median(synced)),
+            "step_ms_back_to_back": back,
+            "busy_share": prof["busy_share"],
+            "profiled_wall_ms_per_step": prof["wall_ms_per_step"],
+            "device_ms_per_step": prof["device_ms_per_step"],
+            "kernels_per_step": prof["kernels_per_step"]}
+
+
+def _zs_syncs(step, x, y) -> dict:
+    """Host synchronisations inside ZS_STEPS steps: the port's observer
+    (``analysis.schedule_check.HostObserver``) and
+    ``torch.cuda.set_sync_debug_mode("warn")``, both of which must see
+    none."""
+    import warnings
+
+    from mgwfbp_tpu_torch.analysis.schedule_check import HostObserver
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with HostObserver() as host:
+                for _ in range(ZS_STEPS):
+                    step(x, y)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    debug = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)]
+    if host.syncs or debug:
+        fail(f"zero-sync (q1): host synchronisations inside {ZS_STEPS} "
+             f"steps: observed {[s.op for s in host.syncs]}, "
+             f"sync debug {debug}")
+    return {"steps": ZS_STEPS, "observed_syncs": len(host.syncs),
+            "sync_debug_warnings": len(debug)}
+
+
+def _zs_env(**env):
+    """Set (a value) or unset (None) environment variables; returns the
+    previous values for ``_zs_env(**previous)``."""
+    prev = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return prev
+
+
+def zero_sync_resnet20(work: str) -> dict:
+    """(q1) full-width ResNet-20, batch 32, synthetic CIFAR-10, one worker:
+    no synchronisation inside ZS_STEPS steps, the step's timings, and the
+    trainer loop's ms per step over a ZS_LOOP_STEPS-step epoch (after one
+    of warm-up) with its late reads."""
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.train import Trainer
+
+    cfg = make_config("resnet20", batch_size=32,
+                      num_batches_per_epoch=ZS_LOOP_STEPS,
+                      logdir=os.path.join(work, "r20"), checkpoint_dir=None)
+    tr = Trainer(cfg, device=TRAIN_DEVICE, synthetic_data=True,
+                 profile_backward=False)
+    try:
+        tr.train_epoch(0)  # cuDNN's first use, the loader's start
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_epoch(1)
+        loop_ms = (time.perf_counter() - t0) * 1e3 / ZS_LOOP_STEPS
+        if len(tr.losses) != 2 * ZS_LOOP_STEPS or not np.isfinite(
+                tr.losses).all():
+            fail(f"zero-sync (q1): the loop's losses {tr.losses}")
+        xb, yb = tr.bundle.train.load_batch(0, 0)
+        x, y = tr._to_device(xb[None], yb[None])
+        out = {"model": "resnet20", "batch": 32,
+               "params": sum(p.numel() for p in tr.model.parameters()),
+               "loop_ms_per_step": loop_ms,
+               "syncs": _zs_syncs(tr.train_step, x, y),
+               **_zs_timing(tr.train_step, x, y)}
+    finally:
+        tr.close()
+    return out
+
+
+def zero_sync_nan(work: str) -> dict:
+    """(q2) ``nan@step=3`` at ``MGWFBP_GUARD_CHECK_INTERVAL=5`` on the
+    ResNet-20 trainer: the step skips on the card (the counter ends at
+    ZS_NAN_STEPS - 1, the parameters finite), the late read reports one
+    ``bad_step`` at step 3, and the epoch reads the card at most
+    ceil(steps / 5) + 1 times."""
+    from mgwfbp_tpu_torch.analysis.schedule_check import HostObserver
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.telemetry import events_of, read_events
+    from mgwfbp_tpu_torch.train import Trainer
+
+    prev = _zs_env(MGWFBP_FAULT_PLAN="nan@step=3",
+                   MGWFBP_GUARD_CHECK_INTERVAL=str(ZS_NAN_INTERVAL),
+                   MGWFBP_LOG_INTERVAL="1000")
+    try:
+        cfg = make_config("resnet20", batch_size=32, telemetry=True,
+                          num_batches_per_epoch=ZS_NAN_STEPS,
+                          logdir=os.path.join(work, "nan"),
+                          checkpoint_dir=None)
+        tr = Trainer(cfg, device=TRAIN_DEVICE, synthetic_data=True,
+                     profile_backward=False)
+        try:
+            with HostObserver() as host:
+                out = tr.train_epoch(0)
+            stream = tr.telemetry.path
+            counter = tr.train_step.step
+            finite = all(bool(torch.isfinite(p).all())
+                         for p in tr.model.parameters())
+            losses = list(tr.losses)
+        finally:
+            tr.close()
+    finally:
+        _zs_env(**prev)
+    bad = events_of(read_events(stream), "bad_step")
+    reads = len(host.syncs)
+    limit = -(-ZS_NAN_STEPS // ZS_NAN_INTERVAL) + 1
+    if ([b["step"] for b in bad] != [3] or counter != ZS_NAN_STEPS - 1
+            or not finite or not np.isnan(losses[2])
+            or not np.isfinite(out["loss"]) or reads > limit):
+        fail(f"zero-sync (q2): bad steps {bad}, counter {counter}, finite "
+             f"{finite}, losses {losses}, reads {reads} (at most {limit})")
+    return {"interval": ZS_NAN_INTERVAL, "steps": ZS_NAN_STEPS,
+            "bad_steps": [b["step"] for b in bad],
+            "nonfinite": bad[0]["nonfinite"], "step_counter": counter,
+            "reads_per_epoch": reads, "reads_limit": limit}
+
+
+def zero_sync_transformer(work: str) -> dict:
+    """(q3) the preset transformer (window 64, batch 16) through its
+    trainer: no synchronisation inside ZS_STEPS steps, and the timings."""
+    from mgwfbp_tpu_torch.config import make_config
+    from mgwfbp_tpu_torch.train import Trainer
+
+    cfg = make_config("transformer", num_batches_per_epoch=5,
+                      logdir=os.path.join(work, "tf"), checkpoint_dir=None)
+    tr = Trainer(cfg, device=TRAIN_DEVICE, synthetic_data=True,
+                 profile_backward=False)
+    try:
+        tr.train_epoch(0)
+        xb, yb = tr.bundle.train.load_batch(0, 0)
+        x, y = tr._to_device(xb[None], yb[None])
+        if tuple(x.shape[1:]) != (16, 64):
+            fail(f"zero-sync (q3): the preset batch is {tuple(x.shape)}")
+        out = {"model": "transformer", "batch": 16, "window": 64,
+               "syncs": _zs_syncs(tr.step_batch, x, y),
+               **_zs_timing(tr.step_batch, x, y)}
+    finally:
+        tr.close()
+    return out
+
+
+def zero_sync_bench() -> dict:
+    """(q4) the bench's ResNet-50 row ``none`` (batch 128, bfloat16, one
+    worker: what the trainer runs there) with ``MGWFBP_BN_DTYPE`` unset
+    and ``bfloat16``, twice each, interleaved; every row's losses are read
+    after its window."""
+    from mgwfbp_tpu_torch import bench
+    from mgwfbp_tpu_torch.utils.device import set_matmul_precision
+
+    rows: dict = {"unset": [], "bfloat16": []}
+    set_matmul_precision(torch.bfloat16)
+    try:
+        for mode in ("unset", "bfloat16", "unset", "bfloat16"):
+            prev = _zs_env(MGWFBP_BN_DTYPE=None if mode == "unset" else mode)
+            try:
+                grid = bench._Grid("resnet50", ZS_BENCH_BATCH, ZS_BENCH_ITERS,
+                                   torch.device("cuda"), torch.bfloat16, None)
+                try:
+                    dt, _ = grid.time_policy("none", None)
+                finally:
+                    grid.close()
+            finally:
+                _zs_env(**prev)
+            rows[mode].append(dt * 1e3)
+    finally:
+        set_matmul_precision(None)
+    return {mode: {"step_ms": ms, "images_per_s": [
+                ZS_BENCH_BATCH * 1e3 / t for t in ms]}
+            for mode, ms in rows.items()} | {
+        "batch": ZS_BENCH_BATCH, "iters": ZS_BENCH_ITERS,
+        "dtype": "bfloat16", "policy": "none"}
+
+
+def phase_zero_sync() -> dict:
+    """(q) the zero-sync step loop on the card (module docstring)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_zero_sync_") as work:
+        out = {"resnet20": zero_sync_resnet20(work),
+               "nan": zero_sync_nan(work),
+               "transformer": zero_sync_transformer(work),
+               "bench_resnet50": zero_sync_bench()}
+    out["seconds"] = time.perf_counter() - t0
+    r20, tf, b = out["resnet20"], out["transformer"], out["bench_resnet50"]
+    print(f"zero-sync (q): no synchronisation in {ZS_STEPS} steps; "
+          f"resnet20 b32 {r20['step_ms_synced']:.2f} ms synced, "
+          f"{r20['step_ms_back_to_back']:.2f} ms back to back, busy "
+          f"{r20['busy_share']}, loop {r20['loop_ms_per_step']:.2f} ms; "
+          f"transformer 16x64 {tf['step_ms_synced']:.2f} / "
+          f"{tf['step_ms_back_to_back']:.2f} ms, busy {tf['busy_share']}; "
+          f"nan@step=3 at interval {ZS_NAN_INTERVAL}: bad steps "
+          f"{out['nan']['bad_steps']}, {out['nan']['reads_per_epoch']} "
+          f"read(s); resnet50 none {b['unset']['step_ms']} ms, "
+          f"MGWFBP_BN_DTYPE=bfloat16 {b['bfloat16']['step_ms']} ms; "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -5326,6 +5600,7 @@ def main() -> int:
     autotune = phase_autotune(calibrated)
     analysis = phase_analysis()
     seq = phase_seq()
+    zero_sync = phase_zero_sync()
 
     serve = rows[0]
     kernels = [{
@@ -5366,6 +5641,7 @@ def main() -> int:
     print(json.dumps({"autotune": autotune}))
     print(json.dumps({"analysis": analysis}))
     print(json.dumps({"seq": seq}))
+    print(json.dumps({"zero_sync": zero_sync, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

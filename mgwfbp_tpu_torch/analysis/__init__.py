@@ -20,8 +20,8 @@ first:
     suppression without a reason, is itself an error.
   * ``step_pass`` (``schedule_check``): observe real train steps at two
     gloo ranks and verify that each realizes the merge schedule (group
-    count, bucket sizes/dtypes, no stray collectives), synchronises the
-    host only in its declared metrics read-back, updates its state in
+    count, bucket sizes/dtypes, no stray collectives), never synchronises
+    with the host, updates its state in
     place, carries the guard exactly when configured, and that the health
     statistics add no collective or synchronisation. SCH001..SCH010; a
     failure to build or run at all is TRC000 (exit bit 16). The

@@ -198,7 +198,7 @@ TORCH_SUMMARIES = {
               "lax.cond / jnp.where",
     "SCH005": "a torch step has no host callbacks; what stalls it is a "
               "device-to-host read (.item(), float(t), .cpu(), a branch "
-              "on a tensor) outside its one declared metrics read-back",
+              "on a tensor) anywhere inside the step",
     "SCH006": "torch has no buffer donation; its counterpart is that the "
               "step updates parameters, optimizer state and buffers in "
               "their own storages",

@@ -63,9 +63,9 @@ tensor) and ``isfinite`` (composite: below the Python dispatch key it is
 abs/ne/eq) are wrapped for the window, each record with the ranges open on
 its thread:
 
-  SCH005  no host synchronisation outside the step's one declared metrics
-          read-back (the ``metrics_readback`` range, ``train.step``), and
-          one synchronisation inside it;
+  SCH005  no host synchronisation inside the observed step: the step
+          decides its guard on the device and returns its metrics there
+          (``train.step``), and the trainer reads them late, outside it;
   SCH006  the storages (``untyped_storage().data_ptr()``) of every
           parameter and module buffer, every optimizer state tensor,
           ``TrainStep.buffers`` and the sharded lowerings' optimizer slots
@@ -97,7 +97,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from mgwfbp_tpu_torch.analysis.rules import Finding
 from mgwfbp_tpu_torch.parallel import buckets as buckets_lib
-from mgwfbp_tpu_torch.train.step import FINITE_CHECK_SCOPE, READBACK_SCOPE
+from mgwfbp_tpu_torch.train.step import FINITE_CHECK_SCOPE
 from mgwfbp_tpu_torch.parallel.allreduce import (
     CLIP_NORM_SCOPE,
     DCN_GROUP_SCOPE_PREFIX,
@@ -831,24 +831,12 @@ def state_storages(train_step) -> dict[str, int]:
 
 def check_host_syncs(syncs: Sequence[HostSync], *,
                      file: str = "<observed step>") -> list[Finding]:
-    """SCH005: no synchronisation outside the declared read-back, and one
-    inside it."""
-    out: list[Finding] = []
-    declared = 0
-    for s in syncs:
-        if READBACK_SCOPE in s.scopes:
-            declared += 1
-            if declared > 1:
-                out.append(Finding(file, 0, "SCH005", (
-                    f"'{s.op}' is synchronisation {declared} of the "
-                    f"declared {READBACK_SCOPE} range (thread {s.thread}): "
-                    "the step reads its metrics back once")))
-            continue
-        out.append(Finding(file, 0, "SCH005", (
-            f"host synchronisation '{s.op}' outside the declared "
-            f"{READBACK_SCOPE} range (ranges: {list(s.scopes) or '<none>'}, "
-            f"thread {s.thread}, phase {s.phase})")))
-    return out
+    """SCH005: no host synchronisation inside the step."""
+    return [Finding(file, 0, "SCH005", (
+        f"host synchronisation '{s.op}' inside the step (ranges: "
+        f"{list(s.scopes) or '<none>'}, thread {s.thread}, phase "
+        f"{s.phase}): the step must not wait for the device"))
+        for s in syncs]
 
 
 def check_state_in_place(before: dict[str, int], after: dict[str, int], *,
@@ -955,5 +943,5 @@ def compare_footprints(base: StepObservation, stats: StepObservation, *,
         out.append(Finding(file, 0, "SCH010", (
             f"health statistics changed the step's host synchronisations "
             f"({len(base.syncs)} -> {len(stats.syncs)}) — the stats must "
-            "ride the one metrics read-back")))
+            "add no read-back")))
     return out

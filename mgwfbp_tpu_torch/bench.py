@@ -34,8 +34,9 @@ the production configuration, as in ``bench.py``: ``none`` at one worker
 schedules are solved on tb measured by the hooks at the timed batch.
 
 Timing: CUDA events around the timed loop and one synchronisation after
-it (each step still ends in its own host read of the metrics, where the
-non-finite guard decides). FLOPs per step come from
+it. No step reads anything back (the non-finite guard decides on the
+card); the timed steps' losses are read once, after the window, and a
+non-finite one turns the row into an error. FLOPs per step come from
 ``torch.utils.flop_counter.FlopCounterMode`` over one forward and backward;
 MFU is FLOPs over step time over the peak for the compute dtype
 (``utils.platform.peak_flops``), and an MFU above 1.0 turns the payload
@@ -246,9 +247,9 @@ class _Grid:
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
             t0 = time.perf_counter()
-            metrics = {}
+            losses = []
             for _ in range(self.iters):
-                metrics = step(x, y)
+                losses.append(step(x, y)["loss"])
             if cuda:
                 end.record()
             _sync(self.device)
@@ -257,7 +258,7 @@ class _Grid:
         finally:
             if reducer is not None:
                 reducer.detach()
-        if not metrics["loss"] == metrics["loss"]:
+        if not bool(torch.stack(losses).isfinite().all()):
             raise RuntimeError(f"policy {policy}: non-finite loss in the "
                                "timed loop")
         return dt, reducer.num_groups if reducer is not None else 0

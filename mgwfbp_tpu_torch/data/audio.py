@@ -133,6 +133,15 @@ class AudioBatchLoader:
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
+    def set_batch_size(self, batch_size: int) -> None:
+        """Re-batch the duration-sorted utterances at a new size (batching
+        is eager here, so the batches are cut again), at most all of
+        them."""
+        if batch_size <= 0:
+            raise ValueError("batch_size must be positive")
+        self.batch_size = min(batch_size, len(self.utts))
+        self._rebatch()
+
     @property
     def num_batches(self) -> int:
         return len(self._global_batches) // self.shard.nranks

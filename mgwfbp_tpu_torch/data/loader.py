@@ -68,6 +68,14 @@ class ShardedLoader:
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
+    def set_batch_size(self, batch_size: int) -> None:
+        """Re-batch the same shard (a larger eval batch,
+        ``MGWFBP_EVAL_BATCH``); batching is lazy, so the attribute is the
+        behaviour."""
+        if batch_size <= 0:
+            raise ValueError("batch_size must be positive")
+        self.batch_size = batch_size
+
     @property
     def num_batches(self) -> int:
         per_rank = len(self._epoch_indices(self.epoch))
@@ -187,13 +195,21 @@ class PrefetchLoader:
         self.depth = max(int(depth), 1)
         self.pin_memory = pin_memory
 
-    # the epoch, the length and the dataset pass through to the inner loader
+    # the epoch, the batch size, the length and the dataset pass through to
+    # the inner loader
     def set_epoch(self, epoch: int) -> None:
         self.inner.set_epoch(epoch)
+
+    def set_batch_size(self, batch_size: int) -> None:
+        self.inner.set_batch_size(batch_size)
 
     @property
     def epoch(self) -> int:
         return self.inner.epoch
+
+    @property
+    def batch_size(self) -> int:
+        return self.inner.batch_size
 
     @property
     def dataset(self):

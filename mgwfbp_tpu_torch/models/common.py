@@ -33,6 +33,13 @@ float32 (Flax ``force_float32_reductions``), normalizes in float32 and
 returns the compute dtype, and merges its update into the master as a
 delta (see ``BatchNorm.forward``).
 
+``MGWFBP_BN_DTYPE`` (the JAX package's ``bn_kwargs``, read when a
+``BatchNorm`` is built, as Flax reads it when the module is traced) sets
+every batch norm's own dtype with Flax's ``force_float32_reductions=False``:
+the statistics reduce in that dtype (``bn_dtype``; see
+``BatchNorm._forward_stat_dtype``) and the output is rounded to it. Unset,
+nothing changes.
+
 Each module records its children's Flax names in ``FLAX_NAMES`` so that
 ``convert`` maps parameters and batch statistics leaf by leaf.
 """
@@ -40,6 +47,7 @@ Each module records its children's Flax names in ``FLAX_NAMES`` so that
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Union
 
 import torch
@@ -118,6 +126,25 @@ class SameConv2d(nn.Conv2d):
                         self.groups)
 
 
+def bn_dtype() -> Optional[torch.dtype]:
+    """``MGWFBP_BN_DTYPE`` as a torch dtype (``bfloat16``, ``float16``,
+    ``float32``), None when unset: the JAX package's ``bn_kwargs``, the
+    ablation switch of the batch norms' reduction dtype."""
+    s = os.environ.get("MGWFBP_BN_DTYPE")
+    if not s:
+        return None
+    dtype = getattr(torch, s, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"MGWFBP_BN_DTYPE={s!r} is not a floating dtype")
+    return dtype
+
+
+def _as(value: float, dtype: torch.dtype) -> float:
+    """A Python scalar rounded to ``dtype``: what JAX's weak typing makes of
+    a Python float that meets an array of that dtype."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def _train_batch_norm(x, mean, var, weight, bias, momentum: float,
                       epsilon: float) -> torch.Tensor:
     """Training-mode batch norm by the batch statistics. torch's op itself,
@@ -129,7 +156,8 @@ def _train_batch_norm(x, mean, var, weight, bias, momentum: float,
 
 class BatchNorm(nn.Module):
     """``flax.linen.BatchNorm`` over the channel dim of NCHW input (or of
-    (N, C) rows: the speech model's sequence-wise batch norm)."""
+    (N, C) rows: the speech model's sequence-wise batch norm), with the
+    dtype of ``MGWFBP_BN_DTYPE`` as ``stat_dtype`` when it is set."""
 
     def __init__(self, num_features: int, momentum: float = BN_MOMENTUM,
                  epsilon: float = BN_EPSILON):
@@ -137,12 +165,15 @@ class BatchNorm(nn.Module):
         self.num_features = num_features
         self.momentum = momentum
         self.epsilon = epsilon
+        self.stat_dtype = bn_dtype()
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.stat_dtype is not None:
+            return self._forward_stat_dtype(x)
         if x.dtype != self.running_mean.dtype:
             return self._forward_low(x)
         if not self.training:
@@ -182,6 +213,51 @@ class BatchNorm(nn.Module):
             # torch keeps the unbiased variance; Flax the biased one
             self._merge_quantized(x.dtype, mean, var * ((n - 1) / n))
         return y
+
+    def _forward_stat_dtype(self, x: torch.Tensor) -> torch.Tensor:
+        """Flax's batch norm with ``dtype=stat_dtype`` and
+        ``force_float32_reductions=False``, term for term: the input cast
+        to that dtype, mean and variance by E[x^2] - E[x]^2 (clipped at 0)
+        with every result rounded to it (the sums accumulate in float32 on
+        both sides), the running statistics updated from them (Python
+        scalars rounded to the dtype, as JAX's weak typing rounds them),
+        ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` with the scale
+        and bias in float32, and the output rounded to the dtype. The
+        output comes back in x's dtype: a later Flax layer promotes the
+        rounded values to its own float32, as torch's layers need."""
+        dt = self.stat_dtype
+        view = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            xs = x.to(dt)
+            dims = (0,) + tuple(range(2, x.dim()))  # all but the channels
+            mean = xs.mean(dims)
+            var = torch.clamp_min((xs * xs).mean(dims) - mean * mean, 0.0)
+            with torch.no_grad():
+                self._merge_stat_dtype(x.dtype, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+            if x.dtype != mean.dtype:  # the JAX eval step casts them
+                mean, var = (t.to(x.dtype).float() for t in (mean, var))
+        eps = _as(self.epsilon, var.dtype)
+        mul = torch.rsqrt(var + eps).view(view) * self.weight.float().view(view)
+        y = (x - mean.view(view)) * mul + self.bias.float().view(view)
+        return y.to(dt).to(x.dtype)
+
+    def _merge_stat_dtype(self, dtype: torch.dtype, mean: torch.Tensor,
+                          var: torch.Tensor) -> None:
+        """The running update of ``_forward_stat_dtype``: ``m * ra + (1 -
+        m) * stat`` with the statistic's product in its dtype; at a lower
+        compute dtype on the cast master q, all of it in that dtype, merged
+        into the float32 master as a delta (``_merge_quantized``)."""
+        m = self.momentum
+        c = _as(1.0 - m, mean.dtype)
+        for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
+            if dtype == buf.dtype:
+                buf.mul_(m).add_(stat * c)
+            else:
+                q = buf.to(dtype)
+                new = q * _as(m, dtype) + (stat * c).to(dtype)
+                buf.add_(new.float() - q.float())
 
     def _merge_quantized(self, dtype: torch.dtype, mean: torch.Tensor,
                          var: torch.Tensor) -> None:

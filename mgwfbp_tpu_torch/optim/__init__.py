@@ -182,6 +182,62 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
+@torch.no_grad()
+def sgd_update_(optimizer: torch.optim.Optimizer, lr: torch.Tensor,
+                ok: Optional[torch.Tensor] = None) -> None:
+    """``optimizer.step()`` of a ``torch.optim.SGD`` from its parameters'
+    ``.grad``, with the learning rate a 0-dim tensor on the parameters'
+    device (each group's own ``lr`` is not read) and no host read: the
+    train step's update, which must not wait for the device. Every term
+    is torch's (``_multi_tensor_sgd``: the coupled decay, the momentum
+    trace, Nesterov, dampening) and rounds as torch's does: the last,
+    ``p + (-lr) * u``, is ``addcmul`` by the 0-dim rate, which rounds as
+    ``add(u, alpha=-lr)`` does (one rounding where the kernel fuses the
+    product), one launch per parameter.
+
+    ``ok`` (a 0-dim bool tensor) makes a bad step an exact no-op on the
+    device: the decay term and the learning rate are multiplied by it and
+    the momentum becomes 1, so parameters and momentum buffers keep their
+    values. That needs every term finite, so the caller zeroes the
+    gradients of a bad step first (``torch.where`` over its flat buckets).
+    A parameter without a momentum buffer gets a zero one, which the first
+    update turns into the gradient, as torch's ``clone`` does."""
+    if not isinstance(optimizer, torch.optim.SGD):
+        raise TypeError(
+            "the train step runs SGD's update on the device; got "
+            f"{type(optimizer).__name__}")
+    lr_eff = lr if ok is None else lr * ok
+    for group in optimizer.param_groups:
+        params = [p for p in group["params"] if p.grad is not None]
+        wd, mom = group["weight_decay"], group["momentum"]
+        for dtype in dict.fromkeys(p.dtype for p in params):
+            ps = [p for p in params if p.dtype == dtype]
+            gs = [p.grad for p in ps]
+            if group.get("maximize", False):
+                gs = torch._foreach_neg(gs)
+            if wd:
+                gs = torch._foreach_add(gs, ps, alpha=wd)
+                if ok is not None:  # the decay term of a bad step
+                    torch._foreach_mul_(gs, ok.to(dtype))
+            if mom:
+                bufs = []
+                for p in ps:
+                    st = optimizer.state[p]
+                    if st.get("momentum_buffer") is None:
+                        st["momentum_buffer"] = torch.zeros_like(p)
+                    bufs.append(st["momentum_buffer"])
+                if ok is None:
+                    torch._foreach_mul_(bufs, mom)
+                else:
+                    keep = torch.full((), mom, dtype=dtype, device=ok.device)
+                    torch._foreach_mul_(bufs, keep.masked_fill_(~ok, 1.0))
+                torch._foreach_add_(bufs, gs, alpha=1 - group["dampening"])
+                gs = (torch._foreach_add(gs, bufs, alpha=mom)
+                      if group["nesterov"] else bufs)
+            neg = -lr_eff.to(dtype)
+            torch._foreach_addcmul_(ps, gs, [neg.expand_as(p) for p in ps])
+
+
 __all__ = [
     "OptimSpec",
     "as_step_fn",
@@ -192,4 +248,5 @@ __all__ = [
     "schedules",
     "set_lr",
     "sgd_state_layout",
+    "sgd_update_",
 ]

@@ -103,7 +103,7 @@ import contextlib
 import dataclasses
 import re
 import threading
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -254,17 +254,32 @@ def arrival_order(
 # ---------------------------------------------------------------------------
 
 
+def _count_tensor(count: int, device=None) -> torch.Tensor:
+    return torch.full((), int(count), dtype=torch.int64, device=device)
+
+
 @dataclasses.dataclass
 class ShardedOptState:
     """This rank's optimizer state on the rs_opt_ag path: ``slots[s][gi]``
     is slot s (the momentum trace; Adam's two moments) of merge group gi,
-    a flat tensor of ``shard_size(gi)`` elements, and ``count`` the
-    optimizer updates completed (the learning-rate schedule and Adam's
-    bias correction read it). The JAX package holds the same buffers as
-    global (world, shard) arrays; here each rank holds its own row."""
+    a flat tensor of ``shard_size(gi)`` elements, and ``count_t`` the
+    optimizer updates completed, a 0-dim int64 tensor on the device (the
+    learning-rate schedule and Adam's bias correction read it; a skipped
+    step does not advance it, and the step never reads it on the host).
+    The JAX package holds the same buffers as global (world, shard)
+    arrays; here each rank holds its own row."""
 
-    count: int
+    count_t: torch.Tensor
     slots: list[list[torch.Tensor]]
+
+    @property
+    def count(self) -> int:
+        """The count on the host: a read of the device counter."""
+        return int(self.count_t)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self.count_t.fill_(int(value))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -316,7 +331,7 @@ class ShardedOptimStep:
     # -- state and its accounting -----------------------------------------
     def init(self, device=None) -> ShardedOptState:
         """Fresh (zero) state of one rank."""
-        return ShardedOptState(count=0, slots=[
+        return ShardedOptState(count_t=_count_tensor(0, device), slots=[
             [torch.zeros(self.shard_size(gi), dtype=self.layout.dtypes[gi],
                          device=device)
              for gi in range(self.layout.num_groups)]
@@ -382,7 +397,8 @@ class ShardedOptimStep:
                     device, self.layout.dtypes[gi])
                 for gi, buf in enumerate(self.pack_slot(leaves))
             ])
-        return ShardedOptState(count=int(count), slots=slots)
+        return ShardedOptState(count_t=_count_tensor(count, device),
+                               slots=slots)
 
     def gather(self, state: ShardedOptState, group=None) -> list[list[np.ndarray]]:
         """Every rank's shards all-gathered (a collective when the world
@@ -431,24 +447,29 @@ class ShardedOptimStep:
         grad: torch.Tensor,
         param: torch.Tensor,
         slots_in: Sequence[torch.Tensor],
-        count: int,
+        count: Union[int, torch.Tensor],
         clip_scale: Optional[tuple[torch.Tensor, torch.Tensor]],
         rank: int,
-        lr: Optional[float] = None,
+        lr: Union[float, torch.Tensor, None] = None,
     ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
         """One group's optimizer step on its shard, term for term the JAX
         package's (optax's trace / scale_by_adam / add_decayed_weights /
         scale_by_learning_rate): ``count`` is the number of COMPLETED
-        updates (the learning rate reads it before the increment, Adam's
-        bias correction after). ``clip_scale`` is (global norm, threshold)
-        as scalar tensors, applied as optax's ``select(norm < max, g,
-        g / norm * max)``. ``lr`` overrides ``spec.learning_rate(count)``.
+        updates, an int or a 0-dim device tensor (the learning rate reads
+        it before the increment, Adam's bias correction after).
+        ``clip_scale`` is (global norm, threshold) as scalar tensors,
+        applied as optax's ``select(norm < max, g, g / norm * max)``.
+        ``lr`` (a float or a 0-dim device tensor) overrides
+        ``spec.learning_rate(count)``, which reads a tensor count on the
+        host.
 
         The terms a + c * b are rounded as ``torch.optim.SGD`` rounds them
         (``torch.add(a, b, alpha=c)``, one rounding where the kernel fuses
-        the product), so that on the same gradients a sharded SGD step
-        gives the replicated one's parameters bit for bit; optax rounds
-        the product and the sum apart, a difference of one rounding."""
+        the product; by a tensor rate ``torch.addcmul``, which rounds
+        alike, as ``optim.sgd_update_`` does), so that on the same
+        gradients a sharded SGD step gives the replicated one's
+        parameters bit for bit; optax rounds the product and the sum
+        apart, a difference of one rounding."""
         spec = self.spec
         g = grad
         if clip_scale is not None:
@@ -459,7 +480,7 @@ class ShardedOptimStep:
         if spec.weight_decay:
             mask = self._mask_shard(gi, rank, g)
         if lr is None:
-            lr = spec.learning_rate(count)
+            lr = spec.learning_rate(int(count))
         if spec.kind == "sgd":
             if spec.weight_decay:
                 g = torch.add(g, param * mask, alpha=spec.weight_decay)
@@ -474,13 +495,17 @@ class ShardedOptimStep:
             mu = spec.b1 * slots_in[0] + (1.0 - spec.b1) * g
             nu = spec.b2 * slots_in[1] + (1.0 - spec.b2) * g * g
             # optax computes the corrections in the update's dtype
-            c = torch.full((), count + 1, dtype=g.dtype, device=g.device)
+            c = (torch.full((), count + 1, dtype=g.dtype, device=g.device)
+                 if not isinstance(count, torch.Tensor)
+                 else (count + 1).to(g.dtype))
             mu_hat = mu / (1.0 - spec.b1 ** c)
             nu_hat = nu / (1.0 - spec.b2 ** c)
             u = mu_hat / (torch.sqrt(nu_hat) + spec.eps)
             if spec.weight_decay:  # decoupled: after the preconditioner
                 u = torch.add(u, param * mask, alpha=spec.weight_decay)
             new_slots = (mu, nu)
+        if isinstance(lr, torch.Tensor):
+            return torch.addcmul(param, u, -lr.to(u.dtype)), new_slots
         return torch.add(param, u, alpha=-float(lr)), new_slots
 
 
@@ -1009,28 +1034,36 @@ class MergedAllreduce:
                                  device=local.device))
 
     def _update_shards(self, g_shards: list[torch.Tensor], p_shard,
-                       lr: Optional[float], after) -> None:
+                       lr, after, ok: Optional[torch.Tensor] = None) -> None:
         """Run the optimizer on every group's shard: ``p_shard(gi)`` gives
         the parameter shard, ``after(gi, new shard)`` takes the result; the
-        state's count advances by one."""
+        state's count advances by one. With ``ok`` (a 0-dim bool device
+        tensor, the step's guard) each group's new shard and state are
+        ``torch.where(ok, new, old)`` and the count advances by ``ok``: a
+        bad step keeps them exactly, with no host branch."""
         optim, state = self.optim, self.opt_state
         clip_scale = self._clip_scale(g_shards)
-        count = state.count
-        if lr is None:
-            lr = optim.spec.learning_rate(count)
+        count = state.count_t
+        if lr is None:  # a direct call: the count read on the host
+            lr = optim.spec.learning_rate(int(count))
         for gi in range(self.num_groups):
             with collective_scope(group_scope_name(gi)):
+                p = p_shard(gi)
+                old = [state.slots[s][gi] for s in range(optim.num_slots)]
                 new_p, slots_out = optim.update_shard(
-                    gi, g_shards[gi], p_shard(gi),
-                    [state.slots[s][gi] for s in range(optim.num_slots)],
-                    count, clip_scale, self.rank, lr=lr,
+                    gi, g_shards[gi], p, old, count, clip_scale, self.rank,
+                    lr=lr,
                 )
                 g_shards[gi] = None
+                if ok is not None:
+                    new_p = torch.where(ok, new_p, p)
+                    slots_out = [torch.where(ok, n, o)
+                                 for n, o in zip(slots_out, old)]
                 # the state is updated in its own storage (SCH006)
                 for s in range(optim.num_slots):
                     state.slots[s][gi].copy_(slots_out[s])
                 after(gi, new_p)
-        state.count = count + 1
+        count.add_(1 if ok is None else ok)
 
     def _own_shard(self, gi: int) -> torch.Tensor:
         """This rank's slice of group gi's padded parameter bucket."""
@@ -1059,14 +1092,17 @@ class MergedAllreduce:
                     [views[k] for k in views])
 
     @torch.no_grad()
-    def reduce_and_update(self, lr: Optional[float] = None) -> None:
+    def reduce_and_update(self, lr=None,
+                          ok: Optional[torch.Tensor] = None) -> None:
         """The rs_opt_ag step: wait for the reduce-scatters, take the mean
         (each shard cast back to its group's dtype first), clip by the
         global norm when the optimizer does (one all-reduce), update this
         rank's shard of every group's parameters and optimizer state,
         all-gather the updated parameters and unpack them into the
-        parameters' data. ``lr`` overrides ``spec.learning_rate(count)``;
-        the state's count advances by one."""
+        parameters' data. ``lr`` (a float or a 0-dim device tensor)
+        overrides ``spec.learning_rate(count)``; the state's count advances
+        by one, or by ``ok`` (``_update_shards``). The all-gathers run
+        whatever ``ok`` says: a bad step gathers the unchanged shards."""
         if self.comm_op != "rs_opt_ag":
             raise RuntimeError(
                 "reduce_and_update() requires comm_op='rs_opt_ag' (built "
@@ -1076,19 +1112,21 @@ class MergedAllreduce:
         self._update_shards(
             g_shards, self._own_shard, lr,
             lambda gi, new_p: gathers.append(
-                (gi, *self._launch_gather(gi, new_p))))
+                (gi, *self._launch_gather(gi, new_p))), ok)
         for gi, work, full in gathers:
             self._unpack_params(gi, work, full)
 
     # -- the cross-step pipeline (rs_fwd_ag) ------------------------------
     @torch.no_grad()
-    def reduce_and_defer(self, lr: Optional[float] = None) -> None:
+    def reduce_and_defer(self, lr=None,
+                         ok: Optional[torch.Tensor] = None) -> None:
         """The rs_fwd_ag step's backward half (the JAX package's
         ``merged_rs_defer``): wait for the reduce-scatters, take the mean,
         clip, update the carried parameter shards and optimizer state as
         ``reduce_and_update`` does, and gather nothing. The module's
         parameters are one update stale until the next forward (or
-        ``materialize``) gathers them."""
+        ``materialize``) gathers them. ``lr`` and ``ok`` as in
+        ``reduce_and_update``."""
         if self.comm_op != "rs_fwd_ag":
             raise RuntimeError(
                 "reduce_and_defer() requires comm_op='rs_fwd_ag' (built by "
@@ -1099,7 +1137,7 @@ class MergedAllreduce:
         def keep(gi, new_p):
             shards[gi].copy_(new_p)  # in the carry's storage (SCH006)
 
-        self._update_shards(g_shards, lambda gi: shards[gi], lr, keep)
+        self._update_shards(g_shards, lambda gi: shards[gi], lr, keep, ok)
         self._stale = True
 
     @torch.no_grad()

@@ -709,8 +709,10 @@ def time_carried_steps(
     step keeps it in place, as the port's ``TrainStep`` does); ``warmup``
     steps run untimed, then one window of ``iters`` closed by a
     synchronisation of ``device`` (``torch.cuda.synchronize`` on the card,
-    nothing on the CPU, the default). Returns (final state, seconds per
-    step)."""
+    nothing on the CPU, the default): the port's step reads nothing back,
+    so that synchronisation is the window's only wait, and ``step_once``
+    keeps what it must read on the device until after the window. Returns
+    (final state, seconds per step)."""
     device = torch.device(device if device is not None else "cpu")
     for _ in range(max(warmup, 0)):
         state = step_once(state)

@@ -23,15 +23,26 @@ One ``TrainStep`` call is one optimizer step:
     order, each micro-step starting from the previous one's carry
     detached, and comes out detached; a windowed LM (the transformer)
     passes none;
-  * the non-finite guard: the reduced gradients' non-finite values are
-    counted and, when the count is not zero, the WHOLE pre-step state is
-    kept: parameters, momentum buffers and the step counter (the optimizer
-    does not run), the carry that came in, and the batch-norm running
-    statistics, which torch updates in place during the forward and the
-    step therefore restores from a snapshot taken before it;
-  * the learning rate is set from ``lr_fn(step)`` before every update;
+  * the non-finite guard, decided on the device as the JAX step's
+    ``bad_step_guard`` does, never on the host: the reduced gradients'
+    non-finite values are counted, the count rides the metrics' mean, and
+    ``ok`` (a 0-dim bool tensor, count == 0) masks the update. A bad step
+    keeps the WHOLE pre-step state exactly: parameters and momentum
+    buffers (the gradients are zeroed and the update made an exact no-op,
+    ``optim.sgd_update_``; the sharded lowerings select the old shards and
+    slots with ``torch.where``), the step counter, the carry that came in
+    (``torch.where``) and the batch-norm running statistics, which torch
+    updates in place during the forward, selected from a snapshot taken
+    before it. Every rank issues the same collectives whatever the flag
+    says;
+  * the step counter is a 0-dim int64 device tensor advanced by ``ok``,
+    and the learning rate ``lr_fn(step)`` is read from a device table of
+    the schedule indexed by it, so the schedule's index stays put on a bad
+    step with nothing read back (``step`` reads the counter on the host,
+    outside the step);
   * batch-norm running statistics and the metrics (mean loss, accuracy or
-    perplexity, non-finite count) are averaged across ranks;
+    perplexity, non-finite count) are averaged across ranks, the running
+    statistics on every step;
   * ``compute_dtype`` (bfloat16): the JAX step's mixed-precision policy.
     The forward and backward run on copies of the parameters, the input
     and the carry cast to that dtype (``model_forward``, through
@@ -61,7 +72,8 @@ One ``TrainStep`` call is one optimizer step:
     which reads all the parameters at once) and ends with
     ``reduce_and_defer`` (the module's parameters stay one update stale
     until the next step's forward). A skipped step keeps the pre-step
-    shards and count. The update ratio is then taken on the shards
+    shards and count (selected on the device). The update ratio is then
+    taken on the shards
     (old and new, every rank's summed by one two-element all-reduce);
   * a reducer built with ``comm_op='hier'`` reduces through
     ``synchronize`` like the single-level lowerings;
@@ -84,26 +96,26 @@ One ``TrainStep`` call is one optimizer step:
     step, as the JAX step's update of non-finite gradients gives). Each
     leaf's norm is taken once, accumulated in float32 (float64 leaves in
     float64), by the multi-tensor ``torch._foreach_norm``; the old
-    parameters are copied into a preallocated snapshot each step. The
-    statistics stay on the device as one float32 vector; the NEXT step
-    appends it to its own metrics read-back (one concatenation, the same
-    single device-to-host copy and synchronisation as without them) and
-    returns the host values under ``health/`` keys, describing the
-    previous step. With a sparsifying compressor they also hold each merge
-    group's relative top-k compression error on the local bucket at the
-    wire dtype (the JAX step's ``_compression_error_entries``, which the
-    reducer's hooks measure as they select), averaged over the ranks.
-    ``take_health`` reads the last step's vector (at an epoch's end);
-    ``discard_health`` drops it (a rollback).
+    parameters are copied into a preallocated snapshot each step. They
+    describe THIS step and come back with its metrics under ``health/``
+    keys, as the JAX step's do. With a sparsifying compressor they also
+    hold each merge group's relative top-k compression error on the local
+    bucket at the wire dtype (the JAX step's
+    ``_compression_error_entries``, which the reducer's hooks measure as
+    they select), averaged over the ranks.
 
-The model's buffers are re-seated as views of one flat tensor, so the
-snapshot, the restore and the cross-rank average are one operation each.
-The step's own collectives run in the ranges the JAX step declares for
-them (``metrics_reduce``, ``bstats_reduce``, ``flat_grad_reduce``;
+The step does not synchronise with the host: it returns its metrics as
+0-dim device tensors (views of one vector), and a caller reads them when
+it needs them, the trainer one step late (``Trainer._note_step``), the
+timing loops after their window. The model's buffers are re-seated as
+views of one flat tensor, so the snapshot, the selection and the
+cross-rank average are one operation each. The step's own collectives run
+in the ranges the JAX step declares for them (``metrics_reduce``,
+``bstats_reduce``, ``flat_grad_reduce``;
 ``parallel.allreduce.collective_scope``), which the schedule verifier
 (``analysis.schedule_check``) tells from a merge group's; the guard's count
-runs in ``finite_check`` and the one device-to-host read of the metrics in
-``metrics_readback``, the ranges its host-side rules (SCH008, SCH005) read.
+runs in ``finite_check``, the range SCH008 reads, and SCH005 holds that
+nothing inside the step reads the device on the host.
 """
 
 from __future__ import annotations
@@ -116,7 +128,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mgwfbp_tpu_torch.models.lstm import repackage_carry
-from mgwfbp_tpu_torch.optim import clip_by_global_norm_, set_lr
+from mgwfbp_tpu_torch.optim import clip_by_global_norm_, sgd_update_
 from mgwfbp_tpu_torch.parallel.allreduce import (
     SHARDED_OPS,
     MergedAllreduce,
@@ -327,11 +339,9 @@ def leaf_norms(tensors) -> torch.Tensor:
     return torch.stack(norms).float()
 
 
-# the ranges the step declares for the schedule verifier's host-side rules
-# (``analysis.schedule_check``): the guard's count (SCH008) and the one
-# device-to-host read of the metrics (SCH005)
+# the range the step declares for the guard's count, which the schedule
+# verifier's SCH008 reads (``analysis.schedule_check``)
 FINITE_CHECK_SCOPE = "finite_check"
-READBACK_SCOPE = "metrics_readback"
 
 
 def nonfinite_count(tensors) -> torch.Tensor:
@@ -353,7 +363,9 @@ class TrainStep:
     H, W) images and y (n, B) labels, x and y (n, B, T) tokens, or x (n, B,
     T, F) spectrograms, y (n, B, L) labels and lengths (n, B) each, on the
     model's device, n = ``nsteps_update`` micro-batches. ``task`` is the
-    model's (``ModelMeta.task``): classify, lm or ctc."""
+    model's (``ModelMeta.task``): classify, lm or ctc. The metrics are
+    0-dim device tensors: ``loss``, the task's metric, ``grads_nonfinite``
+    and, with ``health_stats``, the ``health/`` statistics of this step."""
 
     METRICS = {"classify": "accuracy", "lm": "perplexity", "ctc": None}
 
@@ -384,7 +396,6 @@ class TrainStep:
         self.task = task
         self.metric = self.METRICS[task]
         self.optimizer = optimizer
-        self.lr_fn = lr_fn
         self.reducer = reducer
         self.nsteps_update = int(nsteps_update)
         self.grad_guard = grad_guard
@@ -394,7 +405,15 @@ class TrainStep:
         self.world = world_size()
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.buffers = flatten_buffers(model)
-        self.step = 0  # optimizer updates applied: the schedule's count
+        device = self.params[0].device if self.params else None
+        # the optimizer updates applied (the schedule's count) are _base on
+        # the host plus _pos on the device; _calls counts the steps since
+        # _base, which bounds _pos and so the learning-rate table's extent
+        self._base = 0
+        self._pos = torch.zeros((), dtype=torch.int64, device=device)
+        self._calls = 0
+        self._lr_fn = lr_fn
+        self._lr_table: Optional[torch.Tensor] = None
         # rs_opt_ag, rs_fwd_ag: the reducer runs the optimizer on its
         # shards; rs_fwd_ag carries the parameters as shards between steps
         self.sharded = reducer is not None and reducer.comm_op in SHARDED_OPS
@@ -408,10 +427,51 @@ class TrainStep:
         self.health_keys = health_keys(
             reducer.num_groups if reducer is not None else 0,
             self._compression)
-        self._health_dev: Optional[torch.Tensor] = None  # the last step's
         self._old_params: Optional[list[torch.Tensor]] = None
         self._old_shards: Optional[list[torch.Tensor]] = None
         self._group_matrix: Optional[torch.Tensor] = None
+
+    # -- the step counter and the learning rate --------------------------
+    @property
+    def step(self) -> int:
+        """Optimizer updates applied (the schedule's count, the JAX state's
+        ``step``): a read of the device counter, so never inside a step."""
+        return self._base + int(self._pos)
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self._base = int(value)
+        self._pos.zero_()
+        self._calls = 0
+        self._lr_table = None
+
+    @property
+    def lr_fn(self) -> Callable[[int], float]:
+        return self._lr_fn
+
+    @lr_fn.setter
+    def lr_fn(self, fn: Callable[[int], float]) -> None:
+        self._lr_fn = fn
+        self._lr_table = None
+
+    def _lr(self) -> torch.Tensor:
+        """``lr_fn(step)`` as a 0-dim float64 device tensor, with no host
+        read of the counter: a device table of ``lr_fn(_base + i)`` indexed
+        by ``_pos``. The counter is at most the steps taken since ``_base``,
+        so the table covers it once it holds one entry more than those; it
+        is rebuilt at twice the length when it does not (the upload from
+        pinned memory does not wait for the device)."""
+        table = self._lr_table
+        if table is None or self._calls >= table.numel():
+            n = max(256, self._calls + 1,
+                    2 * table.numel() if table is not None else 0)
+            host = torch.tensor([float(self._lr_fn(self._base + i))
+                                 for i in range(n)], dtype=torch.float64)
+            if self._pos.device.type == "cuda":
+                host = host.pin_memory()
+            table = self._lr_table = host.to(self._pos.device,
+                                             non_blocking=True)
+        return table.index_select(0, self._pos.reshape(1)).reshape(())
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor, carry=None,
                  lengths=None):
@@ -425,10 +485,11 @@ class TrainStep:
                 f"y {tuple(y.shape)}"
             )
         model, reducer = self.model, self.reducer
+        guard = self.grad_guard
         model.train()
         snapshot = (
             self.buffers.clone()
-            if self.grad_guard and self.buffers is not None else None
+            if guard and self.buffers is not None else None
         )
         carry_in = carry
         for p in self.params:
@@ -471,10 +532,12 @@ class TrainStep:
                     for g in grads:  # one flat mean per leaf, no hooks
                         dist.all_reduce(g)
                         g.div_(self.world)
-            reduced = grads
+            # with the guard, the gradients become views of flat buffers
+            # (one per dtype): one count and one zeroing each
+            reduced = self._flatten_grads() if guard else grads
         metrics = torch.stack([
             loss_sum / n, metric_sum / n,
-            nonfinite_count(reduced) if self.grad_guard
+            nonfinite_count(reduced) if guard
             else torch.zeros((), device=x.device),
         ])
         # health values that differ per rank ride the metrics' mean: the
@@ -500,57 +563,66 @@ class TrainStep:
             if self._compression:
                 comp = metrics[metrics.shape[0] - self.reducer.num_groups:]
         metrics = metrics[:3]
-        prev = self._health_dev
-        self._health_dev = None
-        # the step's one host synchronisation: the guard decides on the host
-        with collective_scope(READBACK_SCOPE):
-            if prev is not None:
-                # the previous step's statistics ride this step's read-back
-                host = torch.cat([metrics.float(), prev]).tolist()
-                loss_v, metric_v, bad = host[:3]
-                prev_health = dict(zip(self.health_keys, host[3:]))
-            else:
-                loss_v, metric_v, bad = metrics.tolist()
-                prev_health = {}
+        # the guard, on the device: the count is the ranks' mean, so every
+        # rank selects alike
+        ok = metrics[2] == 0 if guard else None
+        lr = self._lr()
         old_shards = None
-        if bad == 0.0:
-            if self.cross_step:
-                if norms is not None:
-                    old_shards = self._snapshot_shards()
-                reducer.reduce_and_defer(lr=self.lr_fn(self.step))
-            elif self.sharded:
-                reducer.reduce_and_update(lr=self.lr_fn(self.step))
-            else:
-                if self.norm_clip is not None:
-                    clip_by_global_norm_([p.grad for p in self.params],
-                                         self.norm_clip)
-                set_lr(self.optimizer, self.lr_fn(self.step))
-                self.optimizer.step()
-            self.step += 1
-            if self.world > 1 and self.buffers is not None:
-                with collective_scope("bstats_reduce"):
-                    dist.all_reduce(self.buffers)
-                self.buffers.div_(self.world)
+        if self.cross_step:
+            if norms is not None:
+                old_shards = self._snapshot_shards()
+            reducer.reduce_and_defer(lr=lr, ok=ok)
+        elif self.sharded:
+            reducer.reduce_and_update(lr=lr, ok=ok)
         else:
+            if ok is not None:
+                # a bad step's gradients become zeros: the masked update
+                # then keeps every value exactly
+                with torch.no_grad():
+                    for buf in reduced:
+                        buf.masked_fill_(~ok, 0.0)
+            if self.norm_clip is not None:
+                clip_by_global_norm_([p.grad for p in self.params],
+                                     self.norm_clip)
+            sgd_update_(self.optimizer, lr, ok)
+        self._pos.add_(1 if ok is None else ok)
+        self._calls += 1
+        if self.world > 1 and self.buffers is not None:
+            with collective_scope("bstats_reduce"):
+                dist.all_reduce(self.buffers)
+            self.buffers.div_(self.world)
+        if ok is not None:
             # a skipped step never happened: the forward's running
             # statistics and the carry go back too
-            if self.sharded:
-                reducer.discard()
             if snapshot is not None:
-                self.buffers.copy_(snapshot)
-            carry = carry_in
+                torch.where(ok, self.buffers, snapshot, out=self.buffers)
+            if carry is not None:
+                carry = _select(ok, carry, carry_in)
+        vec = metrics
         if norms is not None:
-            self._health_dev = self._health_vector(norms, bad == 0.0, comp,
-                                                   old_shards)
+            vec = torch.cat([vec, self._health_vector(
+                norms, ok, comp, old_shards).to(vec.dtype)])
         for p in self.params:
             p.grad = None
-        out = {"loss": loss_v, "grads_nonfinite": bad, **prev_health}
-        if self.metric is not None:
-            out[self.metric] = metric_v
+        names = (["loss", self.metric, "grads_nonfinite"]
+                 + (self.health_keys if norms is not None else []))
+        out = {k: v for k, v in zip(names, vec.unbind()) if k is not None}
         if carry_in is None:
             return out
         return out, carry
 
+    def _flatten_grads(self) -> list[torch.Tensor]:
+        """The gradients concatenated into one flat tensor per dtype, each
+        ``.grad`` re-seated as a view of it; returns the flat tensors."""
+        flats = []
+        params = [p for p in self.params if p.grad is not None]
+        for dtype in dict.fromkeys(p.dtype for p in params):
+            ps = [p for p in params if p.dtype == dtype]
+            flat = torch.cat([p.grad.reshape(-1) for p in ps])
+            for p, v in zip(ps, flat.split([p.numel() for p in ps])):
+                p.grad = v.view_as(p)
+            flats.append(flat)
+        return flats
 
     # -- health statistics ---------------------------------------------
     def _snapshot_params(self) -> None:
@@ -592,14 +664,16 @@ class TrainStep:
             return torch.cat([sq.sum().reshape(1),
                               self._group_matrix @ sq]).sqrt()
 
-    def _health_vector(self, norms: torch.Tensor, applied: bool,
+    def _health_vector(self, norms: torch.Tensor,
+                       ok: Optional[torch.Tensor],
                        comp: Optional[torch.Tensor] = None,
                        old_shards: Optional[list] = None) -> torch.Tensor:
         """[grad_norm, group norms..., update_ratio, compression errors...]
         of this step (on rs_fwd_ag the ratio from ``old_shards`` and the
-        carried ones)."""
+        carried ones); the ratio is NaN where ``ok`` says the step was
+        skipped."""
         with torch.no_grad():
-            if applied and old_shards is not None:
+            if old_shards is not None:
                 new = self.reducer.param_shards
                 sq = torch.stack([
                     leaf_norms(old_shards).square().sum(),
@@ -609,29 +683,22 @@ class TrainStep:
                     with collective_scope("metrics_reduce"):
                         dist.all_reduce(sq, group=self.reducer.group)
                 pnorm, unorm = sq.sqrt().unbind()
-                ratio = (unorm / pnorm.clamp_min(1e-12)).reshape(1)
-            elif applied:
+            else:
                 pnorm = leaf_norms(self._old_params).square().sum().sqrt()
                 torch._foreach_sub_(self._old_params, self.params)
                 unorm = leaf_norms(self._old_params).square().sum().sqrt()
-                ratio = (unorm / pnorm.clamp_min(1e-12)).reshape(1)
-            else:
-                ratio = torch.full((1,), float("nan"),
-                                   device=norms.device)
+            ratio = (unorm / pnorm.clamp_min(1e-12)).reshape(1)
+            if ok is not None:
+                ratio = torch.where(ok, ratio, float("nan"))
             return torch.cat([norms, ratio]
                              + ([comp] if comp is not None else []))
 
-    def take_health(self) -> dict:
-        """The last step's health statistics on the host (one read), and
-        forget them; {} when there are none."""
-        prev, self._health_dev = self._health_dev, None
-        if prev is None:
-            return {}
-        return dict(zip(self.health_keys, prev.tolist()))
 
-    def discard_health(self) -> None:
-        """Drop the last step's statistics unread (a rollback)."""
-        self._health_dev = None
+def _select(ok: torch.Tensor, new, old):
+    """``torch.where(ok, new, old)`` over a (nested) tuple of tensors."""
+    if isinstance(new, (tuple, list)):
+        return type(new)(_select(ok, a, b) for a, b in zip(new, old))
+    return torch.where(ok, new, old)
 
 
 @torch.no_grad()

@@ -82,9 +82,20 @@ function of seed, epoch and batch index); ``pretrain`` loads the weights
 and counters of another run and starts a fresh optimizer. SIGTERM and
 SIGINT drain at a step boundary (at several processes, at deterministic
 agreement points): a synchronous checkpoint, a ``preempt`` event, then
-``Preempted``, which ``train_cli`` turns into rc 75. ``bad_step_limit``
-consecutive non-finite steps roll back to the newest checkpoint; a second
-rollback with no finite step between aborts. ``MGWFBP_FAULT_PLAN`` injects
+``Preempted``, which ``train_cli`` turns into rc 75.
+
+The step loop never waits on the card (the JAX trainer's zero-sync loop):
+the step decides its non-finite guard on the device and returns its
+metrics as device tensors, and the trainer queues each step's metrics as
+a non-blocking copy to the host and reads them LATE (``_note_step``): once
+more than ``MGWFBP_GUARD_CHECK_INTERVAL`` steps (default 1) are queued,
+every step but the newest is drained in one read, and the queue is
+drained at an epoch's end (and before a profile window or a race), and
+cleared by a preemption drain and a rollback. A drained step appends its
+loss to ``losses``, emits its ``health`` record and feeds the guard:
+``bad_step_limit`` consecutive non-finite steps roll back to the newest
+checkpoint; a second rollback with no finite step between aborts. The log
+line (``MGWFBP_LOG_INTERVAL``) reads its step's metrics when it prints. ``MGWFBP_FAULT_PLAN`` injects
 NaN steps, preemptions, stalls, SIGKILLs and wedges deterministically
 (``utils/faults.py``; ``kill`` and ``wedge`` fire only in the supervisor
 incarnation they name, ``MGWFBP_INCARNATION``).
@@ -104,11 +115,10 @@ relaunch (``runtime.ResizeUnsupported``).
 
 The telemetry plane (the JAX trainer's, with telemetry on):
   * health: ``TrainStep(health_stats=...)`` (``config.health_stats``)
-    computes the gradient norms and the update ratio on the device; the
-    next step's read-back carries them, so a ``health`` record lands one
-    step late with no added synchronisation, and feeds the health
-    detector (``telemetry/health.py``), whose edges are ``health_alarm``
-    records;
+    computes the gradient norms and the update ratio on the device with
+    the step's metrics; they drain with them, so a ``health`` record lands
+    late with no added synchronisation, and feeds the health detector
+    (``telemetry/health.py``), whose edges are ``health_alarm`` records;
   * drift and stragglers (``telemetry/drift.py``): each log window's step
     time, and the per-group comm against the cost model (absolute once a
     /profile window measured per-group device time), give ``drift_alarm``
@@ -161,6 +171,7 @@ batches of a reserved epoch range; their health statistics are dropped.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import os
@@ -323,6 +334,12 @@ def _elastic_resume_enabled() -> bool:
     return raw in ("1", "true", "yes")
 
 
+def _host_metrics(metrics: dict) -> dict:
+    """A step's metrics (0-dim device tensors) on the host: one read."""
+    keys = list(metrics)
+    return dict(zip(keys, torch.stack([metrics[k] for k in keys]).tolist()))
+
+
 class _RollbackRequested(Exception):
     """K consecutive non-finite steps: unwind ``train_epoch`` so that
     ``_fit_epochs`` restores the newest checkpoint and continues."""
@@ -438,7 +455,7 @@ class Trainer:
         self.autotune_report: Optional[dict] = None
         # the race's losses and the gate's per-candidate observations
         # (autotune)
-        self._race_losses: Optional[list[float]] = None
+        self._race_losses: Optional[list[torch.Tensor]] = None
         self._gate_log: list[dict] = []
         self._metrics_agg = None
         self._metrics_server = None
@@ -470,9 +487,18 @@ class Trainer:
             HealthDetector(HealthConfig.from_env())
             if self._health_on and health_enabled() else None
         )
-        # (iteration, epoch, loss) of the step whose health statistics the
-        # next step's read-back carries
-        self._health_pending: Optional[tuple[int, int, float]] = None
+        # every step's metrics (its loss, the guard's count, the health
+        # statistics) are read LATE: each step queues a non-blocking copy
+        # to the host, and everything but the newest is drained in one
+        # read, so reading never waits for the step just launched.
+        # MGWFBP_GUARD_CHECK_INTERVAL=N drains every N steps (detection
+        # lags by at most N steps; the step's own guard protects the
+        # state either way)
+        # mgwfbp: group-uniform -- fills at the deterministic step cadence; identical length everywhere
+        self._pending: collections.deque = collections.deque()
+        self._guard_interval = max(
+            int(os.environ.get("MGWFBP_GUARD_CHECK_INTERVAL", "1")), 1)
+        self._last_metrics: dict = {}  # the newest drained step's, on the host
         # the straggler probe's signal: each process's LOCAL busy seconds
         # (loader wait, batch preparation, injected stalls; up to the
         # step's launch), which synchronous SGD does not equalise
@@ -498,6 +524,11 @@ class Trainer:
                 config.dnn, dataset=config.dataset,
                 num_classes=self.bundle.num_classes,
             )
+        # the eval batch apart from the train batch (MGWFBP_EVAL_BATCH), for
+        # carry-free models only: a carry's batch is its layout
+        eval_bs = os.environ.get("MGWFBP_EVAL_BATCH")
+        if eval_bs and not self.meta.has_carry:
+            self.bundle.val.set_batch_size(max(int(eval_bs), 1))
         self.model = zoo.for_training(model)
         self._apply_lm_window()
         if self.seq_size > 1:
@@ -576,7 +607,8 @@ class Trainer:
         self.start_epoch = 0
         # mgwfbp: group-uniform -- the step counter advances in lockstep; resume/rollback targets are broadcast-agreed
         self.iteration = 0
-        self.losses: list[float] = []  # every optimizer step's mean loss
+        self.losses: list[float] = []  # every optimizer step's mean loss,
+        # appended as its metrics drain
         self._init_resilience()
 
     # ------------------------------------------------------------------
@@ -1129,8 +1161,8 @@ class Trainer:
         stop = (None if max_steps is None
                 else skip_micro + max(max_steps - epoch_pos, 0) * n)
         log_interval = int(os.environ.get("MGWFBP_LOG_INTERVAL", "10"))
-        metrics: dict = {}
-        first_loss = None
+        self._last_metrics = {}
+        first = len(self.losses)  # this epoch's first step's loss, once read
         wd_phase = f"train epoch {epoch}"
         if self._stepped:
             self._beat(wd_phase)
@@ -1155,8 +1187,6 @@ class Trainer:
                 epoch_pos += 1
                 epoch_steps += 1
                 window_iters += 1
-                if first_loss is None:
-                    first_loss = metrics["loss"]
                 if (cfg.ckpt_every_steps and self.checkpointer is not None
                         and epoch_pos % cfg.ckpt_every_steps == 0):
                     self._beat(f"step checkpoint iter {self.iteration}",
@@ -1194,6 +1224,9 @@ class Trainer:
                 if max_steps is not None and epoch_pos >= max_steps:
                     break
                 if self.iteration % log_interval == 0:
+                    # the log line reads this step's metrics (one read on
+                    # the log cadence, as the JAX trainer's)
+                    metrics = _host_metrics(metrics)
                     dt = (time.time() - t_window) / max(window_iters, 1)
                     self._maybe_derive_agree_interval(dt)
                     self._observe_drift_window(dt)
@@ -1223,15 +1256,17 @@ class Trainer:
                 "epoch %d: dropped %d trailing micro-batch(es)", epoch,
                 len(micro),
             )
-        # the last step's health statistics: one read at the epoch's end
-        self._drain_health()
-        out = {k: v for k, v in metrics.items() if k != "grads_nonfinite"}
-        if first_loss is not None:
-            out["first_loss"] = first_loss
+        # every step's metrics have been computed by now: the epoch's last
+        # read (a tail of bad steps can still ask for the rollback here)
+        self._drain_pending()
+        out = {k: v for k, v in self._last_metrics.items()
+               if k != "grads_nonfinite"}
+        if len(self.losses) > first:
+            out["first_loss"] = self.losses[first]
         epoch_dur = time.time() - t_epoch
         if self.telemetry is not None and epoch_steps > 0:
             self.telemetry.emit("epoch", epoch=int(epoch), steps=epoch_steps,
-                                dur_s=epoch_dur, **self._lm_fields(metrics))
+                                dur_s=epoch_dur, **self._lm_fields(out))
             self._emit_overlap(epoch_dur / epoch_steps, epoch)
         self.log.info(
             "epoch %d done in %.1f s (lr %.5f)", epoch, epoch_dur,
@@ -1242,9 +1277,11 @@ class Trainer:
     def _train_on(self, epoch: int, fields: list) -> dict:
         """One optimizer step on stacked host micro-batches (x, y[,
         lengths]): the fault plan's NaN, the copy to the card, the step,
-        its telemetry span, the loss record and the guard (which raises
-        _RollbackRequested after bad_step_limit non-finite steps)."""
-        cfg = self.config
+        its telemetry span and the late read of the metrics
+        (``_note_step``: the loss record, the health statistics and the
+        guard, which raises _RollbackRequested after bad_step_limit
+        non-finite steps). Returns the step's metrics as device tensors,
+        the health statistics taken out."""
         stall_s = self._faults.stall_secs("train", self.iteration + 1)
         if stall_s > 0:
             self.log.warning("fault injection: stalling %.3g s before step "
@@ -1265,21 +1302,16 @@ class Trainer:
         t_step = self.telemetry.now() if self.telemetry else 0.0
         # mgwfbp: group-uniform -- the step's metrics ride its metrics_reduce all-reduce (train/step.py), so the nonfinite count is identical on every rank
         metrics = self.step_batch(*tensors)
-        self._note_health(metrics, epoch)
         self.iteration += 1
         if self.telemetry is not None:
+            # the span times the launch, not the device: nothing is read
             self.telemetry.emit(
                 "step", step=self.iteration, epoch=int(epoch),
                 start_s=t_step, dur_s=self.telemetry.now() - t_step,
-                **self._lm_fields(metrics),
             )
-        self.losses.append(metrics["loss"])
-        # the guard: the count is averaged across ranks, so every rank
-        # takes the same branch
-        if cfg.grad_guard:
-            self._check_guard_value(self.iteration, epoch,
-                                    metrics["grads_nonfinite"])
-        return metrics
+        self._note_step(epoch, metrics)
+        return {k: v for k, v in metrics.items()
+                if not k.startswith(HEALTH_PREFIX)}
 
     def _lm_fields(self, metrics: dict) -> dict:
         """The loss and perplexity a language model's step and epoch
@@ -1360,34 +1392,63 @@ class Trainer:
                           len(measured))
 
     # ------------------------------------------------------------------
-    # The telemetry plane: health, drift, stragglers, /profile windows.
-    # Every emission is host arithmetic over host data; the only device
-    # reads are the step's own read-back (which carries the previous
-    # step's health), the epoch's last health read and the windows.
+    # The late reads and the telemetry plane: guard, health, drift,
+    # stragglers, /profile windows. Every emission is host arithmetic over
+    # host data; the only device reads are the late drains of the steps'
+    # metrics (whatever the guard and telemetry say, so neither adds a
+    # read), the log line's and the windows.
     # ------------------------------------------------------------------
 
-    def _note_health(self, metrics: dict, epoch: int) -> None:
-        """Strip the previous step's ``health/`` values from this step's
-        metrics, emit them as its ``health`` record, and remember this
-        step's (iteration, epoch, loss) for the next read-back."""
-        vals = {k: metrics.pop(k) for k in
-                [k for k in metrics if k.startswith(HEALTH_PREFIX)]}
-        if not self._health_on:
+    def _note_step(self, epoch: int, metrics: dict) -> None:
+        """Queue this step's metrics, copied to the host without waiting
+        (a pinned copy and an event on the card), and drain every queued
+        step but the newest once more than ``MGWFBP_GUARD_CHECK_INTERVAL``
+        are queued: those copies were launched before this step, so the
+        one read waits for nothing this step does."""
+        keys = list(metrics)
+        vec = torch.stack([metrics[k] for k in keys])
+        ready = None
+        if vec.is_cuda:
+            vec = vec.to("cpu", non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        self._pending.append((self.iteration, int(epoch), keys, vec, ready))
+        if len(self._pending) <= self._guard_interval:
             return
-        if vals and self._health_pending is not None:
-            self._emit_health(self._health_pending, vals)
-        self._health_pending = (self.iteration + 1, int(epoch),
-                                float(metrics["loss"]))
+        items = [self._pending.popleft()
+                 for _ in range(len(self._pending) - 1)]
+        self._drain_items(items)
 
-    def _drain_health(self) -> None:
-        """Read and emit the last step's health statistics (one read, at
-        an epoch's end or before a profile window)."""
-        if not self._health_on:
+    def _drain_pending(self) -> None:
+        """Read every queued step's metrics (at an epoch's end, and before
+        steps that are not the loop's: a profile window, a race)."""
+        items = list(self._pending)
+        self._pending.clear()
+        self._drain_items(items)
+
+    def _drain_items(self, items: list) -> None:
+        """One read of the queued steps' metrics, then per step in order:
+        the loss record, the health record and the guard."""
+        if not items:
             return
-        vals = self.train_step.take_health()
-        pending, self._health_pending = self._health_pending, None
-        if vals and pending is not None:
-            self._emit_health(pending, vals)
+        if items[-1][4] is not None:
+            items[-1][4].synchronize()  # the copies are in stream order
+        flat = torch.cat([vec for *_, vec, _ in items]).tolist()
+        off = 0
+        for it, ep, keys, _, _ in items:
+            # mgwfbp: group-uniform -- the metrics ride the step's metrics_reduce all-reduce (train/step.py): every rank reads the same values
+            vals = dict(zip(keys, flat[off:off + len(keys)]))
+            off += len(keys)
+            health = {k: vals.pop(k) for k in
+                      [k for k in vals if k.startswith(HEALTH_PREFIX)]}
+            self.losses.append(vals["loss"])
+            self._last_metrics = vals
+            if health and self._health_on:
+                self._emit_health((it, ep, vals["loss"]), health)
+            # the count is the ranks' mean and the cadence deterministic,
+            # so every rank reaches the same verdict at the same step
+            if self.config.grad_guard:
+                self._check_guard_value(it, ep, vals["grads_nonfinite"])
 
     def _emit_health(self, pending: tuple, vals: dict) -> None:
         it, ep, loss = pending
@@ -1423,11 +1484,8 @@ class Trainer:
                              active=bool(a.active), group=int(a.group))
 
     def _reset_health_detector(self) -> None:
-        """After a rollback: drop the unread statistics, resolve raised
-        alarms and forget the baselines (they describe a model that is
-        gone)."""
-        self.train_step.discard_health()
-        self._health_pending = None
+        """After a rollback: resolve raised alarms and forget the
+        baselines (they describe a model that is gone)."""
         det = self._health_detector
         if det is None:
             return
@@ -1592,14 +1650,22 @@ class Trainer:
                 self.log.warning("profile: cannot create %s (%s); the trace "
                                  "will not be kept", trace_dir, e)
                 trace_dir = None
+        # the loop's queued steps first: the window's own metrics are not
+        # a step of the loop's and are dropped. The drain may end a bad
+        # streak in a rollback (group-uniform: every rank raises here);
+        # the taken request then fails, so /profile can be armed again
+        try:
+            self._drain_pending()
+        except _RollbackRequested as rb:
+            if agg is not None:
+                agg.fail_profile(f"rolled back after {rb.bad_steps} bad "
+                                 "step(s) before the window began")
+            raise
         self.log.info("profile window: tracing %d live step(s) at iter %d%s",
                       steps, self.iteration,
                       f" -> {trace_dir}" if trace_dir else "")
         self._beat(f"profile window ({steps} steps)",
                    allow_s=COMPILE_ALLOW_S)
-        # the last normal step's health first: the window's own
-        # statistics are not a step of the loop's and are dropped
-        self._drain_health()
         batches = self._window_batches()
 
         def run():
@@ -1632,7 +1698,6 @@ class Trainer:
                 agg.fail_profile(str(e))
             return
         finally:
-            self.train_step.discard_health()
             self._beat("profile window done")
         wall_s = time.perf_counter() - t0
         attribution = "trace" if measured is not None else "none"
@@ -1801,9 +1866,9 @@ class Trainer:
             "autotune: racing %d candidate(s), %d timed step(s) each "
             "(cache key %s)", len(candidates), steps, key,
         )
-        # the last loop step's health statistics first; the race's own are
-        # dropped (its steps are not the loop's)
-        self._drain_health()
+        # the loop's queued steps first; the race's own metrics are not
+        # the loop's (only their losses are kept, read after the race)
+        self._drain_pending()
         t_race = time.perf_counter()
         self._race_losses = []
         self._gate_log = []
@@ -1910,9 +1975,10 @@ class Trainer:
         # the entries already agreed)
         self._sync_entry_times(entries)
         timed = [e for e in entries if e.measured_step_s is not None]
-        self.train_step.discard_health()
         race_s = time.perf_counter() - t_race
         losses, self._race_losses = self._race_losses, None
+        # the race's losses: one read, after its timed windows
+        losses = torch.stack(losses).tolist() if losses else []
 
         # ---- commit the measured argmin + persist --------------------
         if not timed:
@@ -2178,13 +2244,14 @@ class Trainer:
     def _apply_train_step(self, batch) -> dict:
         """One live train step on stacked host batches (the race's), the
         carry threaded through; a genuine optimizer step (the iteration
-        advances), whose health statistics are dropped."""
+        advances), whose health statistics are dropped and whose loss is
+        kept on the device (read once, after the race)."""
         metrics = self.step_batch(*self._to_device(*batch))
         for k in [k for k in metrics if k.startswith(HEALTH_PREFIX)]:
             metrics.pop(k)
         self.iteration += 1
         if self._race_losses is not None:
-            self._race_losses.append(float(metrics["loss"]))
+            self._race_losses.append(metrics["loss"])
         return metrics
 
     def _autotune_batches(self):
@@ -2430,7 +2497,13 @@ class Trainer:
             return
         self.log.warning("cost-model drift: re-autotuning the merge schedule "
                          "on the live job (MGWFBP_DRIFT_REAUTOTUNE=1)")
-        self.autotune(force=True)
+        try:
+            self.autotune(force=True)
+        except _RollbackRequested:
+            # the race's first drain ended a bad streak: race after the
+            # rollback
+            self._drift_reautotune_pending = True
+            raise
         self._reset_drift_baselines()
 
     def _reset_drift_baselines(self) -> None:
@@ -3305,6 +3378,7 @@ class Trainer:
         """The in-flight step is done: checkpoint the exact position and
         unwind with Preempted (``train_cli`` exits rc 75)."""
         name = self._preempt_signal or "SIGTERM"
+        self._pending.clear()  # a drain outranks the bad-step policy
         if self.checkpointer is not None:
             self._beat("preemption drain checkpoint",
                        allow_s=CHECKPOINT_ALLOW_S)
@@ -3403,6 +3477,7 @@ class Trainer:
         self._last_rollback_iteration = snap.iteration
         self._good_step_since_rollback = False
         self._bad_streak = 0
+        self._pending.clear()  # the queued steps' state is gone
         self._warned_no_rollback = False
         self._apply_snapshot(snap, "rolled back", emit_resume=False)
         self._reset_health_detector()

@@ -250,8 +250,8 @@ def test_compression_error_with_a_bfloat16_wire_by_kept_energy(
 
 def test_train_step_reports_the_compression_error(one_rank_group):
     """``TrainStep(health_stats=True)`` over a top-k reducer returns each
-    group's ``health/comp_err_gNNNN`` one step late, as the reducer
-    measured it, beside the norms."""
+    group's ``health/comp_err_gNNNN`` with the step's own metrics, as the
+    reducer measured it in that step, beside the norms."""
     from mgwfbp_tpu_torch.models.resnet_cifar import CifarResNet
     from mgwfbp_tpu_torch.optim import make_optimizer
     from mgwfbp_tpu_torch.parallel.allreduce import make_merged_allreduce
@@ -267,8 +267,8 @@ def test_train_step_reports_the_compression_error(one_rank_group):
     x = torch.from_numpy(rng.randn(1, 2, 3, 16, 16).astype(np.float32))
     y = torch.from_numpy(rng.randint(0, 10, (1, 2)))
     step(x, y)
-    first = [float(e) for e in red.compression_errors]
     out = step(x, y)
+    first = [float(e) for e in red.compression_errors]
     keys = [f"health/comp_err_g{gi:04d}" for gi in range(red.num_groups)]
     assert [k for k in out if k.startswith("health/comp_err_g")] == keys
     np.testing.assert_allclose([out[k] for k in keys], first, rtol=1e-6)

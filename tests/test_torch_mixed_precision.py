@@ -249,7 +249,10 @@ def test_bf16_policy_casts_the_program_and_keeps_the_state():
     assert fired == [2] * len(params)
     assert {d for d in seen if d[0] != "grad"} == {(torch.bfloat16,) * 2}
     assert {d for d in seen if d[0] == "grad"} == {("grad", torch.float32)}
-    assert all(isinstance(v, float) for v in out.values())
+    # the metrics stay on the device: 0-dim float32 tensors, read by the
+    # caller when it needs them
+    assert all(isinstance(v, torch.Tensor) and v.dim() == 0
+               and v.dtype == torch.float32 for v in out.values())
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert all(b.dtype == torch.float32 for b in model.buffers())
     assert all(s["momentum_buffer"].dtype == torch.float32

@@ -161,10 +161,12 @@ def test_trainer_bundle_reads_in_jax_and_postmortems_match(
     doc = jax_recorder.read_bundle(bundles[0])
     assert doc["manifest"]["trigger"] == "bad_step"
     assert doc["manifest"]["step"] == 2
+    # the guard reads step 2's flag one step late, after step 3 was
+    # launched (the JAX trainer's late read): the ring holds step 3's span
     assert [r["step"] for r in doc["events"] if r["event"] == "step"] == [
-        1, 2]
+        1, 2, 3]
     assert doc["status"]["run"]["model"] == "lenet"
-    assert doc["schedule"]["iteration"] == 2
+    assert doc["schedule"]["iteration"] == 3
     # the trigger armed a window; its result is in the bundle
     assert doc["profile"]["attribution"] == "none"
     assert doc["profile"]["steps"] == 2

@@ -250,10 +250,11 @@ def test_rollback_abandons_an_in_flight_async_save(narrow, tmp_path,
     t.checkpointer.poll_async = slow_poll
     t.fit(1)
     (rb,) = _events(tmp_path, cfg, "rollback")
-    # step 2's save committed when step 4's began; step 4's was in flight
-    # at the rollback after step 6 and was abandoned
-    assert rb["restored_iteration"] == 2
-    # the replay re-saved step 4 over the abandoned payload
+    # the guard reads step 6's flag one step late, after step 7: step 4's
+    # save committed when step 6's began; step 6's, submitted during the
+    # bad streak, was in flight at the rollback and was abandoned
+    assert rb["restored_iteration"] == 4
+    # the replay re-saved step 6 over the abandoned payload
     assert t.checkpointer.all_steps() == [2, 4, 6]
     t.close()
 
@@ -264,6 +265,16 @@ def test_persistent_nans_abort_instead_of_rollback_livelock(narrow, tmp_path,
     cfg = _cfg(logdir=str(tmp_path), checkpoint_dir=str(tmp_path / "ckpt"),
                ckpt_every_steps=2, bad_step_limit=1)
     t = _trainer(cfg)
+    real_poll = t.checkpointer.poll_async
+
+    def committing_poll(block=False, durable=False):
+        # every save has committed by the next step's poll, so both
+        # rollbacks land on step 4 whatever the host's load (an in-flight
+        # save abandoned at a rollback is
+        # test_rollback_abandons_an_in_flight_async_save's case)
+        return real_poll(block=True, durable=durable)
+
+    t.checkpointer.poll_async = committing_poll
     with pytest.raises(RuntimeError, match="persistent non-finite"):
         t.fit(1)
     t.close()

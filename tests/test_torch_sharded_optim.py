@@ -514,6 +514,10 @@ def test_a_non_finite_step_keeps_the_sharded_state(one_rank_group):
     bad[0, 0, 0, 0, 0] = float("nan")
     out = step(bad, y)
     assert out["grads_nonfinite"] > 0
+    # the skipped step's health: NaN update ratio, and the local gradient
+    # norm (the sharded path's) holds the NaN
+    assert np.isnan(out["health/update_ratio"])
+    assert np.isnan(out["health/grad_norm"])
     assert red.opt_state.count == before[2] == step.step == before[3] == 1
     for a, b in zip(model.parameters(), before[0]):
         assert torch.equal(a.detach(), b)
@@ -521,8 +525,5 @@ def test_a_non_finite_step_keeps_the_sharded_state(one_rank_group):
         assert torch.equal(a, b)
     out = step(x, y)  # the next finite step runs
     assert out["grads_nonfinite"] == 0 and red.opt_state.count == 2
-    # the skipped step's health: NaN update ratio, and the local gradient
-    # norm (the sharded path's) holds the NaN
-    assert np.isnan(out["health/update_ratio"])
-    assert np.isnan(out["health/grad_norm"])
+    assert np.isfinite(out["health/update_ratio"])
     red.detach()

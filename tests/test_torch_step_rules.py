@@ -1,6 +1,6 @@
 """The schedule rules the port holds one OBSERVED step to on the host side
-(``analysis.schedule_check``): SCH005 (host synchronisation outside the
-declared metrics read-back), SCH006 (state not updated in place), SCH008
+(``analysis.schedule_check``): SCH005 (host synchronisation inside the
+step), SCH006 (state not updated in place), SCH008
 (the guard present exactly when configured) and SCH010 (the health
 statistics add no collective and no synchronisation).
 
@@ -14,8 +14,9 @@ rule asked for); the guard's count outside its range, and a guard-off
 build that still counts; a health-statistics build with an extra
 all-reduce or an extra read-back. The JAX suite's own tests of these
 rules do not all pass on the CPU, so the port's rules are held by their
-own mutations, both ways. Then the pieces in-process: the synchronising-op
-classifier, the observer's window, the one declared read-back."""
+own mutations, both ways. Then the pieces in-process: the synchronising-op classifier,
+the observer's window, a one-process step with no synchronisation at all
+and the same step with one ``.item()`` added."""
 
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ def test_sharded_state_rebinding_names_the_state(ranks):
 
 def test_hook_read_is_reported_outside_the_read_back(ranks):
     msg = ranks[0]["sch005/hook_item"][0][1]
-    assert "aten._local_scalar_dense" in msg and "metrics_readback" in msg
+    assert "aten._local_scalar_dense" in msg and "inside the step" in msg
     assert "Tensor.tolist" in ranks[0]["sch005/hook_tolist"][0][1]
 
 
@@ -122,21 +123,37 @@ def test_observer_window_restores_what_it_wraps():
     assert len(obs.syncs) == 2
 
 
-def test_one_process_step_has_one_declared_read_back():
+def test_one_process_step_has_no_host_sync():
+    """The step decides its guard on the device and returns device
+    metrics: no synchronisation inside it, and one ``.item()`` added to
+    its update draws SCH005."""
     from mgwfbp_tpu_torch import models as zoo
     from mgwfbp_tpu_torch.analysis import step_pass
     from mgwfbp_tpu_torch.analysis.schedule_check import verify_observed_step
     from mgwfbp_tpu_torch.optim import make_optimizer
-    from mgwfbp_tpu_torch.train.step import READBACK_SCOPE, TrainStep
+    from mgwfbp_tpu_torch.train import step as step_mod
 
     model, meta = zoo.create_model("lenet")
     opt, lr_fn = make_optimizer(model.parameters(), 0.1, momentum=0.9,
                                 weight_decay=0.0)[:2]
-    step = TrainStep(model, opt, lr_fn, norm_clip=1.0)
+    step = step_mod.TrainStep(model, opt, lr_fn, norm_clip=1.0)
     data = step_pass.batches(meta, "cpu", 0)
     step(*next(data))
     obs = verify_observed_step(lambda: step(*next(data)), step)
     assert obs.findings == []
-    assert [(s.op, s.scopes) for s in obs.syncs] == [
-        ("Tensor.tolist", (READBACK_SCOPE,))]
+    assert obs.syncs == []
     assert obs.guard_calls == [("finite_check",)]
+
+    real_update = step_mod.sgd_update_
+
+    def reading(optimizer, lr, ok=None):
+        lr.item()
+        real_update(optimizer, lr, ok)
+
+    step_mod.sgd_update_ = reading
+    try:
+        obs = verify_observed_step(lambda: step(*next(data)), step)
+    finally:
+        step_mod.sgd_update_ = real_update
+    assert [f.rule_id for f in obs.findings] == ["SCH005"]
+    assert [s.op for s in obs.syncs] == ["aten._local_scalar_dense"]

@@ -88,48 +88,55 @@ def _cases(world: int, rank: int) -> dict:
         mutate=hook_read(lambda g: 1 if g.abs().sum() > 0 else 0)).findings)
 
     # SCH006: a parameter rebound out of place by the update
+    real_update = step_mod.sgd_update_
+
     def rebind_param(step, reducer):
-        opt_step, p = step.optimizer.step, step.params[1]
+        p = step.params[1]
 
         def rebinding(*a, **k):
-            out = opt_step(*a, **k)
+            real_update(*a, **k)
             p.data = p.data.clone()
-            return out
-        step.optimizer.step = rebinding
+        step_mod.sgd_update_ = rebinding
 
-    record("sch006/param_rebound", observed(
-        "sch006/param_rebound", mutate=rebind_param).findings)
+    try:
+        record("sch006/param_rebound", observed(
+            "sch006/param_rebound", mutate=rebind_param).findings)
+    finally:
+        step_mod.sgd_update_ = real_update
 
     # SCH006: the sharded state rebound to the update's fresh tensors, as
     # the reducer's _update_shards and reduce_and_defer did before their
     # state was updated in place (cut from that code)
-    def parent_update_shards(self, g_shards, p_shard, lr, after):
+    def parent_update_shards(self, g_shards, p_shard, lr, after, ok=None):
         optim, state = self.optim, self.opt_state
         clip_scale = self._clip_scale(g_shards)
-        count = state.count
-        if lr is None:
-            lr = optim.spec.learning_rate(count)
+        count = state.count_t
         for gi in range(self.num_groups):
             with collective_scope(group_scope_name(gi)):
+                p = p_shard(gi)
+                old = [state.slots[s][gi] for s in range(optim.num_slots)]
                 new_p, slots_out = optim.update_shard(
-                    gi, g_shards[gi], p_shard(gi),
-                    [state.slots[s][gi] for s in range(optim.num_slots)],
-                    count, clip_scale, self.rank, lr=lr,
+                    gi, g_shards[gi], p, old, count, clip_scale, self.rank,
+                    lr=lr,
                 )
                 g_shards[gi] = None
+                if ok is not None:
+                    new_p = torch.where(ok, new_p, p)
+                    slots_out = [torch.where(ok, n, o)
+                                 for n, o in zip(slots_out, old)]
                 for s in range(optim.num_slots):
                     state.slots[s][gi] = slots_out[s]
                 after(gi, new_p)
-        state.count = count + 1
+        count.add_(1 if ok is None else ok)
 
-    def parent_defer(self, lr=None):
+    def parent_defer(self, lr=None, ok=None):
         g_shards = self._reduced_shards("reduce_and_defer")
         shards = self.param_shards
 
         def keep(gi, new_p):
             shards[gi] = new_p
 
-        self._update_shards(g_shards, lambda gi: shards[gi], lr, keep)
+        self._update_shards(g_shards, lambda gi: shards[gi], lr, keep, ok)
         self._stale = True
 
     def parent_sharded(step, reducer):
@@ -195,8 +202,7 @@ def _cases(world: int, rank: int) -> dict:
             dist.all_reduce(torch.zeros(1))
 
     def extra_read_back(v):
-        with collective_scope(step_mod.READBACK_SCOPE):
-            v.tolist()
+        v.tolist()
 
     for op in ("all_reduce", "rs_opt_ag"):
         record(f"clean/health_{op}", footprint(f"health_{op}", op))

@@ -193,10 +193,11 @@ def _traj(spec: dict, rank: int, world: int, out: dict) -> None:
             x = torch.from_numpy(xs[k, rank * b:(rank + 1) * b]).to(dtype)
             y = torch.from_numpy(ys[k, rank * b:(rank + 1) * b])
             before = reducer.launches
-            step(x[None], y[None])
+            m = step(x[None], y[None])
             launches.append(reducer.launches - before)
             if health:
-                stats.append(list(step.take_health().values()))
+                stats.append([float(v) for k, v in m.items()
+                              if k.startswith("health/")])
             now = (_carried_leaves(reducer) if op == "rs_fwd_ag"
                    else leaves)
             out[f"{label}/params{k + 1}"] = _flat(now)
