@@ -300,8 +300,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
          timings;
      (q4) the bench's ResNet-50 ``none`` row (batch 128, bfloat16, 10
          timed steps) with ``MGWFBP_BN_DTYPE`` unset and ``bfloat16``,
-         interleaved twice. A ``{"zero_sync": ...}`` line with the card's
-         name and power limit.
+         interleaved twice;
+     (q5) ``MGWFBP_BN_DTYPE=bfloat16`` in a float32 ResNet-20 (batch 32):
+         the training batch norm's own forward and backward
+         (``models.common._StatDtypeNorm``) on the card against the same
+         step on the CPU: the loss at 2e-2, every gradient finite, the
+         gradient's cosine with the CPU's at least ZS_BN_COS (the card's
+         own noise beside it), and the step's ms against the variable
+         unset. A ``{"zero_sync": ...}`` line with the card's name and
+         power limit.
+ 18. (r) the operator tools on the card (``phase_tools``), each in a
+     subprocess under ``mgwfbp_tpu_torch.tools.nojax`` (JAX, Flax, optax,
+     orbax and the JAX package refused):
+     (r1) ``telemetry_report`` on (j3)'s process-0 stream (two gloo
+         processes, so it holds an overlap snapshot) with
+         ``--chrome-trace`` and ``--prometheus``: rc 0, one table row per
+         group of the stream's latest snapshot, a trace that parses and a
+         Prometheus dump that ``parse_metrics_text`` reads; and on (k)'s
+         stream, written by the card's trainer: rc 0;
+     (r2) ``telemetry_merge --out`` on (j3)'s two streams: one monotonic
+         timeline and one table row per process;
+     (r3) ``autotune_report`` on (n)'s cache entry: the winner and every
+         raced label;
+     (r4) the fault smoke's single-process lifecycle with ``--device
+         cuda`` (skipped when less than FAULT_NEED_S of the smoke's 1200 s
+         are left; the line says so).
+     A ``{"tools": ...}`` line with each tool's rc and seconds and the
+     phase's seconds.
 
 Every phase runs with TF32 off (``utils.device.set_matmul_precision``).
 
@@ -317,7 +342,8 @@ finishes), the speech model ({"lstman4": ...}), supervision
 lowerings ({"lowerings": ...}), the cross-step and two-level lowerings
 ({"cross_step": ...}), autotuning ({"autotune": ...}), the static
 analysis ({"analysis": ...}), sequence parallelism ({"seq": ...}), the
-zero-sync loop ({"zero_sync": ...}), the card's name
+zero-sync loop ({"zero_sync": ...}), the tools ({"tools": ...}), the
+card's name
 and power limit
 (nvidia-smi), the kernels line
 ({"kernels": [...]}) and, last, {"ok": true, "device": {...}}.
@@ -326,8 +352,10 @@ and power limit
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -2978,6 +3006,7 @@ def supervise_cross_world(work: str) -> dict:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    _keep("j3_logs", os.path.join(root, "logs"))  # the n2 streams, for (r)
     t0 = time.perf_counter()
     p = _supervise(os.path.join(root, "sup1"), args, _sup_env(**synth))
     _wait_supervised(p, os.path.join(root, "sup1"), "world-1 resume")
@@ -3593,6 +3622,7 @@ def phase_telemetry() -> dict:
                          f"step={TEL_STALL_STEP}", MGWFBP_METRICS_PORT="0"),
                 sup_args=("--fleet-port", "0"))
             out["trainer"] = telemetry_trainer(work, sup, log_dir, logs)
+            _keep("k_logs", logs)  # the card trainer's stream, for (r)
             out["shadow"] = telemetry_shadow(work, replica, ckpt, tel_dir)
             out["health_cost"] = telemetry_health_cost(work)
         except BaseException:
@@ -4729,6 +4759,8 @@ def phase_autotune(consts: dict, device: str = "cuda:0") -> dict:
             if os.path.exists(path):
                 with open(path) as f:
                     results.append(json.load(f))
+        if os.path.isdir(os.path.join(work, "cache")):
+            _keep("n_cache", os.path.join(work, "cache"))  # for (r)
     secs = time.perf_counter() - t0
     if codes != [0] * AT_WORLD or len(results) != AT_WORLD or not all(
             "n3" in r for r in results):
@@ -5338,6 +5370,11 @@ ZS_LOOP_STEPS = 30  # (q1): the trainer loop's timed epoch
 ZS_NAN_STEPS, ZS_NAN_INTERVAL = 10, 5  # (q2): nan@step=3 at interval 5
 ZS_BENCH_ITERS = 10  # (q4): the bench's timed steps per row
 ZS_BENCH_BATCH = 128
+# (q5): the least cosine of the card's bfloat16-statistics gradient with the
+# CPU's. The gradient is rounding noise at percents (the batch norm's
+# backward cancels nearly all its terms in bfloat16), so the check is a
+# direction, with the card's own noise (a 1e-7 change of the input) beside it
+ZS_BN_COS = 0.95
 
 
 def _zs_timing(step, x, y) -> dict:
@@ -5540,6 +5577,72 @@ def zero_sync_bench() -> dict:
         "dtype": "bfloat16", "policy": "none"}
 
 
+def zero_sync_bn_stat_dtype() -> dict:
+    """(q5) ``MGWFBP_BN_DTYPE=bfloat16`` in a float32 ResNet-20, batch 32:
+    one training step's loss and gradients on the card (the batch norm's
+    ``_StatDtypeNorm``) against the same step on the CPU from the same
+    weights and batch, the card's noise floor (the step on the batch
+    changed by 1e-7 relative), and the step's ms, unset and set."""
+    from mgwfbp_tpu_torch.models.common import BatchNorm
+    from mgwfbp_tpu_torch.models.resnet_cifar import CifarResNet
+    from mgwfbp_tpu_torch.train.step import forward_loss
+
+    gen = torch.Generator().manual_seed(18)
+    x = torch.randn(32, 3, 32, 32, generator=gen)
+    y = torch.randint(0, 10, (32,), generator=gen)
+    nudged = x * (1 + 1e-7 * torch.randn(x.shape, generator=gen))
+
+    def grads(m, xx, yy):
+        m.zero_grad()
+        loss, _, _ = forward_loss(m, "classify", xx, yy)
+        loss.backward()
+        return loss.detach(), torch.cat([p.grad.flatten()
+                                         for p in m.parameters()])
+
+    def cos(a, b):
+        return float(a @ b / (a.norm() * b.norm()))
+
+    out: dict = {"model": "resnet20", "batch": 32}
+    models = {}
+    for mode in ("unset", "bfloat16"):
+        prev = _zs_env(MGWFBP_BN_DTYPE=None if mode == "unset" else mode)
+        try:
+            torch.manual_seed(0)
+            models[mode] = CifarResNet(depth=20).train()
+        finally:
+            _zs_env(**prev)
+    m = models["bfloat16"]
+    if not all(b.stat_dtype == torch.bfloat16 for b in m.modules()
+               if isinstance(b, BatchNorm)):
+        fail("zero-sync (q5): the batch norms do not take MGWFBP_BN_DTYPE")
+    state = {k: v.clone() for k, v in m.state_dict().items()}
+    loss_cpu, g_cpu = grads(m, x, y)
+    m.load_state_dict(state)
+    m.cuda()
+    xd, yd, nd = x.cuda(), y.cuda(), nudged.cuda()
+    loss_gpu, g_gpu = (t.cpu() for t in grads(m, xd, yd))
+    m.load_state_dict(state)
+    _, g_nudged = (t.cpu() for t in grads(m, nd, yd))
+    rel_loss = float((loss_gpu - loss_cpu).abs() / loss_cpu.abs())
+    out.update(loss_rel=rel_loss, cos_cpu=cos(g_gpu, g_cpu),
+               cos_noise=cos(g_gpu, g_nudged),
+               rel_cpu=float((g_gpu - g_cpu).norm() / g_cpu.norm()),
+               rel_noise=float((g_gpu - g_nudged).norm() / g_gpu.norm()))
+    if not torch.isfinite(g_gpu).all() or rel_loss > 2e-2 or (
+            out["cos_cpu"] < ZS_BN_COS):
+        fail(f"zero-sync (q5): the card's bfloat16-statistics step against "
+             f"the CPU's: {out}")
+    for mode, model in models.items():
+        model.cuda()
+
+        def step(xx, yy, model=model):
+            grads(model, xx, yy)
+
+        out[f"{mode}_step_ms"] = float(np.median(_timed_steps(
+            step, xd, yd, n=ZS_STEPS)))
+    return out
+
+
 def phase_zero_sync() -> dict:
     """(q) the zero-sync step loop on the card (module docstring)."""
     t0 = time.perf_counter()
@@ -5547,9 +5650,11 @@ def phase_zero_sync() -> dict:
         out = {"resnet20": zero_sync_resnet20(work),
                "nan": zero_sync_nan(work),
                "transformer": zero_sync_transformer(work),
-               "bench_resnet50": zero_sync_bench()}
+               "bench_resnet50": zero_sync_bench(),
+               "bn_stat_dtype": zero_sync_bn_stat_dtype()}
     out["seconds"] = time.perf_counter() - t0
     r20, tf, b = out["resnet20"], out["transformer"], out["bench_resnet50"]
+    bn = out["bn_stat_dtype"]
     print(f"zero-sync (q): no synchronisation in {ZS_STEPS} steps; "
           f"resnet20 b32 {r20['step_ms_synced']:.2f} ms synced, "
           f"{r20['step_ms_back_to_back']:.2f} ms back to back, busy "
@@ -5560,7 +5665,171 @@ def phase_zero_sync() -> dict:
           f"{out['nan']['bad_steps']}, {out['nan']['reads_per_epoch']} "
           f"read(s); resnet50 none {b['unset']['step_ms']} ms, "
           f"MGWFBP_BN_DTYPE=bfloat16 {b['bfloat16']['step_ms']} ms; "
+          f"float32 resnet20 at bfloat16 statistics: loss rel "
+          f"{bn['loss_rel']:.2e}, gradient cosine with the CPU "
+          f"{bn['cos_cpu']:.4f} (noise {bn['cos_noise']:.4f}), step "
+          f"{bn['bfloat16_step_ms']:.2f} ms against {bn['unset_step_ms']:.2f} "
+          f"unset; "
           f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase (r): the operator tools on the card
+# ---------------------------------------------------------------------------
+
+SMOKE_T0 = time.monotonic()  # the script's start: (r4) reads the time left
+SMOKE_LIMIT_S = 1200.0  # the whole run's limit
+TOOL_TIMEOUT_S = 120  # each report tool
+FAULT_TIMEOUT_S = 300  # (r4): two train_cli processes and their stall
+# (r4) runs when this much of the smoke's limit is left: twice the 52.5 s
+# it took on the card alone, with room for the lines after it (on the
+# card's host the lifecycle takes as long on the CPU, so it is never
+# moved there)
+FAULT_NEED_S = 110.0
+END_MARGIN_S = 15.0  # the lines printed after phase (r)
+KEPT: dict = {}  # name -> a copy of what an earlier phase wrote, for (r)
+
+
+def _keep(name: str, src: str) -> None:
+    """Copy ``src`` (a file or directory an earlier phase wrote inside its
+    own temporary directory) aside for phase (r)."""
+    if "_dir" not in KEPT:
+        KEPT["_dir"] = tempfile.mkdtemp(prefix="mgwfbp_tools_in_")
+    dst = os.path.join(KEPT["_dir"], name)
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    KEPT[name] = dst
+
+
+def _tool(rows: list, name: str, module: str, *args: str,
+          timeout_s: float = TOOL_TIMEOUT_S) -> subprocess.CompletedProcess:
+    """One tool in a subprocess with JAX refused; its rc and seconds join
+    ``rows``; a non-zero rc fails the run."""
+    from mgwfbp_tpu_torch.tools import nojax
+
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(nojax.argv(module, *args), capture_output=True,
+                             text=True, timeout=timeout_s,
+                             env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                                 os.path.abspath(__file__))))
+    except subprocess.TimeoutExpired:
+        fail(f"tools (r): {name} did not end within {timeout_s} s")
+    rows.append({"name": name, "rc": res.returncode,
+                 "seconds": time.perf_counter() - t0})
+    if res.returncode != 0:
+        print(res.stdout[-3000:], file=sys.stderr)
+        print(res.stderr[-3000:], file=sys.stderr)
+        fail(f"tools (r): {name} exited {res.returncode}")
+    return res
+
+
+def phase_tools() -> dict:
+    """(r) The port's operator tools on what the earlier phases wrote, each
+    in a subprocess with JAX and the JAX package refused: the report and
+    its exports on (j3)'s and (k)'s streams, the merge of (j3)'s two
+    streams, the autotune report of (n)'s cache entry, and the fault
+    smoke's single-process lifecycle on the card."""
+    from mgwfbp_tpu_torch.telemetry import read_event_set
+    from mgwfbp_tpu_torch.telemetry.export import (
+        latest_snapshot,
+        parse_metrics_text,
+    )
+
+    t0 = time.perf_counter()
+    rows: list = []
+    out: dict = {}
+    work = tempfile.mkdtemp(prefix="mgwfbp_tools_")
+    try:
+        n2 = [d for d in glob.glob(os.path.join(KEPT["j3_logs"], "*"))
+              if "-n2-" in os.path.basename(d)]
+        if len(n2) != 1:
+            fail(f"tools (r): (j3) left no single n2 tag directory: {n2}")
+        streams = sorted(glob.glob(os.path.join(n2[0], "telemetry.p*.jsonl")))
+        if len(streams) != 2:
+            fail(f"tools (r): (j3)'s streams {streams}")
+        # (r1) the report and its exports
+        trace = os.path.join(work, "trace.json")
+        prom = os.path.join(work, "metrics.prom")
+        res = _tool(rows, "telemetry_report",
+                    "mgwfbp_tpu_torch.tools.telemetry_report", streams[0],
+                    "--chrome-trace", trace, "--prometheus", prom)
+        snap, groups = latest_snapshot(read_event_set(streams[0]))
+        text = res.stdout
+        table = text[text.index("overlap snapshot"):].splitlines()[2:]
+        table = table[:next(i for i, line in enumerate(table)
+                            if line.startswith("  total comm"))]
+        got = [int(line.split()[0]) for line in table]
+        if snap is None or got != [int(g["group"]) for g in groups]:
+            fail(f"tools (r1): overlap table groups {got} against the "
+                 f"snapshot's {[g['group'] for g in groups]}")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        with open(prom) as f:
+            values = parse_metrics_text(f.read())
+        if not events or not values.get("mgwfbp_steps_total"):
+            fail("tools (r1): the trace or the Prometheus dump is empty")
+        (k_stream,) = glob.glob(os.path.join(KEPT["k_logs"], "*",
+                                             "telemetry.jsonl"))
+        res = _tool(rows, "telemetry_report_k",
+                    "mgwfbp_tpu_torch.tools.telemetry_report", k_stream)
+        if "training health" not in res.stdout:
+            fail("tools (r1): (k)'s report has no health section")
+        out["r1"] = {"groups": got, "trace_events": len(events),
+                     "metrics": len(values)}
+        # (r2) the merge
+        merged_path = os.path.join(work, "merged.jsonl")
+        res = _tool(rows, "telemetry_merge",
+                    "mgwfbp_tpu_torch.tools.telemetry_merge", *streams,
+                    "--out", merged_path)
+        with open(merged_path) as f:
+            merged = [json.loads(line) for line in f]
+        ts = [r["t"] for r in merged]
+        procs = [line.split()[0] for line in res.stdout.splitlines()[3:]
+                 if line.strip()]
+        if ts != sorted(ts) or procs != ["0", "1"] or (
+                "2 stream(s), 2 process(es)" not in res.stdout):
+            fail(f"tools (r2): merge report {res.stdout!r}")
+        out["r2"] = {"records": len(merged), "processes": procs}
+        # (r3) the autotune report
+        (entry,) = glob.glob(os.path.join(KEPT["n_cache"], "*.json"))
+        with open(entry) as f:
+            doc = json.load(f)
+        res = _tool(rows, "autotune_report",
+                    "mgwfbp_tpu_torch.tools.autotune_report", entry)
+        labels = [e["label"] for e in doc["race"]]
+        if f"committed winner: {doc['winner']}" not in res.stdout or not (
+                labels and all(lb in res.stdout for lb in labels)):
+            fail(f"tools (r3): the report misses the winner {doc['winner']} "
+                 f"or a label of {labels}")
+        out["r3"] = {"winner": doc["winner"], "labels": len(labels)}
+        # (r4) the fault smoke on the card, unless the time left says not
+        left = SMOKE_LIMIT_S - (time.monotonic() - SMOKE_T0)
+        if left < FAULT_NEED_S:
+            out["r4"] = {"skipped": f"{left:.0f} s left of the smoke's "
+                                    f"{SMOKE_LIMIT_S:.0f}"}
+        else:
+            res = _tool(rows, "fault_smoke",
+                        "mgwfbp_tpu_torch.tools.fault_smoke", "--device",
+                        "cuda", timeout_s=min(FAULT_TIMEOUT_S,
+                                              left - END_MARGIN_S))
+            result = json.loads(res.stdout.strip().splitlines()[-1])
+            if result.get("fault_smoke") != "ok" or (
+                    result["final_step"], result["resume_iteration"]) != (
+                    12, 4):
+                fail(f"tools (r4): fault smoke {result}")
+            out["r4"] = {"left_s": left, **result}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(KEPT.get("_dir", ""), ignore_errors=True)
+    out["tools"] = rows
+    out["seconds"] = time.perf_counter() - t0
+    print("tools (r): " + ", ".join(
+        f"{r['name']} rc {r['rc']} {r['seconds']:.2f} s" for r in rows)
+        + ("; fault smoke skipped: " + out["r4"]["skipped"]
+           if "skipped" in out["r4"] else "")
+        + f"; phase {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -5601,6 +5870,7 @@ def main() -> int:
     analysis = phase_analysis()
     seq = phase_seq()
     zero_sync = phase_zero_sync()
+    tools = phase_tools()
 
     serve = rows[0]
     kernels = [{
@@ -5642,6 +5912,7 @@ def main() -> int:
     print(json.dumps({"analysis": analysis}))
     print(json.dumps({"seq": seq}))
     print(json.dumps({"zero_sync": zero_sync, "card": card}))
+    print(json.dumps({"tools": tools, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

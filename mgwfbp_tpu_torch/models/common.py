@@ -37,8 +37,12 @@ delta (see ``BatchNorm.forward``).
 ``BatchNorm`` is built, as Flax reads it when the module is traced) sets
 every batch norm's own dtype with Flax's ``force_float32_reductions=False``:
 the statistics reduce in that dtype (``bn_dtype``; see
-``BatchNorm._forward_stat_dtype``) and the output is rounded to it. Unset,
-nothing changes.
+``BatchNorm._forward_stat_dtype``) and the output is handed on in it, as
+Flax hands it on. Each later layer takes what JAX's type promotion gives
+it: a residual sum of two such branches stays in that dtype (torch's
+tensor promotion is JAX's here), and a conv or dense layer whose weights
+are float32 computes in float32 on the promoted input (``SameConv2d``,
+``Dense``, ``promote``). Unset, nothing changes.
 
 Each module records its children's Flax names in ``FLAX_NAMES`` so that
 ``convert`` maps parameters and batch statistics leaf by leaf.
@@ -98,6 +102,28 @@ def valid_out(size: int, window: int, stride: int = 1) -> int:
     return (size - window) // stride + 1
 
 
+def promote(x: torch.Tensor, weight: torch.Tensor) -> tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """``x`` and ``weight`` in the type JAX promotes the pair to, as a Flax
+    ``Conv`` or ``Dense`` promotes its input and kernel (``promote_dtype``):
+    a bfloat16 batch-norm output meets float32 weights in float32. Equal
+    types come back as they are."""
+    if x.dtype == weight.dtype:
+        return x, weight
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    return x.to(dt), weight.to(dt)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` on the promoted pair of input and weights (``promote``):
+    the dense layers that read a batch norm's output."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w = promote(x, self.weight)
+        return F.linear(x, w, None if self.bias is None
+                        else self.bias.to(w.dtype))
+
+
 class SameConv2d(nn.Conv2d):
     """``flax.linen.Conv`` on NCHW: ``padding`` "SAME" (the default, Flax's
     pads), "VALID" or explicit ``((top, bottom), (left, right))``; square or
@@ -117,13 +143,14 @@ class SameConv2d(nn.Conv2d):
         self.kernel_init = kernel_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w = promote(x, self.weight)
+        b = None if self.bias is None else self.bias.to(w.dtype)
         ph, pw = _pads(x, self.kernel_size, self.stride, self.flax_padding)
         if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, self.weight, self.bias, self.stride,
-                            (ph[0], pw[0]), 1, self.groups)
+            return F.conv2d(x, w, b, self.stride, (ph[0], pw[0]), 1,
+                            self.groups)
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0, 1,
-                        self.groups)
+        return F.conv2d(x, w, b, self.stride, 0, 1, self.groups)
 
 
 def bn_dtype() -> Optional[torch.dtype]:
@@ -152,6 +179,66 @@ def _train_batch_norm(x, mean, var, weight, bias, momentum: float,
     normalizes that value to 0 (the V3 aux head's 1x1 map at batch 1)."""
     return torch.batch_norm(x, weight, bias, mean, var, True, momentum,
                             epsilon, torch.backends.cudnn.enabled)
+
+
+class _StatDtypeNorm(torch.autograd.Function):
+    """The training batch norm of ``_forward_stat_dtype`` on a float32 input,
+    forward and backward, rounded where the JAX package's jitted step
+    rounds on XLA's CPU backend (its optimised HLO, which keeps a value in
+    float32 where a bfloat16 round trip feeds a float32 consumer): the
+    squares and every sum in float32, the statistics, their products and
+    ``var + eps`` rounded to the dtype, ``rsqrt`` and the output's terms in
+    float32, the output rounded. The backward takes the same path: the
+    statistics' cotangents rounded term by term, the input's two bfloat16
+    terms summed in float32. The batch norm's backward cancels nearly all
+    of its terms, so a unit of difference in one of them shows in the whole
+    gradient; the JAX ``rsqrt`` derivative is ``g * (-0.5 * ans / x)``.
+    Inputs: x (N, C, ...), scale, bias (float32), the dtype and epsilon;
+    outputs: y in the dtype, the batch mean and variance in the dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, dt, eps):
+        view = (1, -1) + (1,) * (x.dim() - 2)
+        dims = (0,) + tuple(range(2, x.dim()))
+        inv_n = 1.0 / (x.numel() // x.shape[1])
+        xb = x.to(dt).float()
+        mean = (xb.sum(dims) * inv_n).to(dt)
+        mu2 = ((xb * xb).sum(dims) * inv_n).to(dt)
+        vpre = mu2 - mean * mean
+        var = torch.clamp_min(vpre, 0.0)
+        v = (var + _as(eps, dt)).float()
+        r = torch.rsqrt(v)
+        mf = mean.float()
+        y = (x - mf.view(view)) * (r * scale).view(view) + bias.view(view)
+        ctx.save_for_backward(x, scale, mf, vpre, var, v, r)
+        ctx.dt, ctx.view, ctx.dims, ctx.inv_n = dt, view, dims, inv_n
+        ctx.mark_non_differentiable(mean, var)  # the running update's
+        return y.to(dt), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, scale, mf, vpre, var, v, r = ctx.saved_tensors
+        dt, view, dims, inv_n = ctx.dt, ctx.view, ctx.dims, ctx.inv_n
+
+        def rnd(t):
+            return t.to(dt).float()
+
+        g = gy.float()
+        rs = (r * scale).view(view)
+        a = (g * (x - mf.view(view))).sum(dims)
+        dscale = r * a
+        dbias = g.sum(dims)
+        d_mean = rnd(-(g * rs).sum(dims))
+        dr = rnd(a * scale)
+        dv = rnd(dr * rnd(rnd(rnd(r) / v) * -0.5))
+        mask = (vpre >= 0).float() / (1.0 + (var == 0).float())
+        dvpre = dv * mask
+        d_msq = -rnd(dvpre)
+        d_mean = d_mean + rnd(d_msq * rnd(mf * 2.0))
+        from_mean = rnd(d_mean * inv_n).view(view)
+        from_sq = rnd(rnd(dvpre * inv_n).view(view) * (rnd(x) * 2.0))
+        dx = g * rs + (from_mean + from_sq)
+        return dx, dscale, dbias, None, None
 
 
 class BatchNorm(nn.Module):
@@ -222,11 +309,16 @@ class BatchNorm(nn.Module):
         both sides), the running statistics updated from them (Python
         scalars rounded to the dtype, as JAX's weak typing rounds them),
         ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` with the scale
-        and bias in float32, and the output rounded to the dtype. The
-        output comes back in x's dtype: a later Flax layer promotes the
-        rounded values to its own float32, as torch's layers need."""
+        and bias in float32, and the output in the dtype, as Flax hands
+        it on (a later conv or dense layer promotes it: ``promote``)."""
         dt = self.stat_dtype
         view = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training and x.dtype == torch.float32 and dt != x.dtype:
+            y, mean, var = _StatDtypeNorm.apply(
+                x, self.weight.float(), self.bias.float(), dt, self.epsilon)
+            with torch.no_grad():
+                self._merge_stat_dtype(x.dtype, mean, var)
+            return y
         if self.training:
             xs = x.to(dt)
             dims = (0,) + tuple(range(2, x.dim()))  # all but the channels
@@ -241,7 +333,7 @@ class BatchNorm(nn.Module):
         eps = _as(self.epsilon, var.dtype)
         mul = torch.rsqrt(var + eps).view(view) * self.weight.float().view(view)
         y = (x - mean.view(view)) * mul + self.bias.float().view(view)
-        return y.to(dt).to(x.dtype)
+        return y.to(dt)
 
     def _merge_stat_dtype(self, dtype: torch.dtype, mean: torch.Tensor,
                           var: torch.Tensor) -> None:

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mgwfbp_tpu_torch.models.common import BatchNorm, SameConv2d
+from mgwfbp_tpu_torch.models.common import BatchNorm, Dense, SameConv2d, promote
 from mgwfbp_tpu_torch.models.lstm import OptimizedLSTMCell
 
 BN_MOMENTUM = 0.9
@@ -141,6 +141,9 @@ class BatchRNN(nn.Module):
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         if self.bn is not None:
             x = sequence_batch_norm(self.bn, x)
+        # a bfloat16 batch-norm output meets the cells' float32 kernels in
+        # float32, as Flax's Dense layers of the cell promote it
+        x = promote(x, self.fwd.ii_weight)[0]
         y = self._scan(self.fwd, x)
         if self.bwd is not None:
             rev = self._scan(self.bwd, flip_sequences(x, lengths))
@@ -198,7 +201,7 @@ class DeepSpeech(nn.Module):
             width = hidden_size
         self.lookahead = None if bidirectional else Lookahead(hidden_size)
         self.bn = BatchNorm(hidden_size, BN_MOMENTUM)
-        self.fc = nn.Linear(hidden_size, num_classes, bias=False)
+        self.fc = Dense(hidden_size, num_classes, bias=False)
 
     def forward(self, spect: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None):

@@ -22,6 +22,7 @@ from torch import nn
 
 from mgwfbp_tpu_torch.models.common import (
     BatchNorm,
+    Dense,
     SameConv2d,
     avg_pool,
     global_avg_pool,
@@ -87,7 +88,7 @@ class DenseNet(nn.Module):
                 ch = int(ch * compression)
         self.layers = nn.ModuleList(layers)
         self.bn = BatchNorm(ch)
-        self.fc = nn.Linear(ch, num_classes)
+        self.fc = Dense(ch, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x)

@@ -18,6 +18,7 @@ from torch import nn
 
 from mgwfbp_tpu_torch.models.common import (
     ConvBN,
+    Dense,
     avg_pool,
     flatten,
     global_avg_pool,
@@ -61,8 +62,8 @@ class AuxHead(nn.Module):
         super().__init__()
         h, w = (valid_out(n, 5, 3) for n in hw)
         self.conv = ConvBN(cin, 128, 1)
-        self.fcs = nn.ModuleList([nn.Linear(h * w * 128, 1024),
-                                  nn.Linear(1024, num_classes)])
+        self.fcs = nn.ModuleList([Dense(h * w * 128, 1024),
+                                  Dense(1024, num_classes)])
         self.drop = nn.Dropout(0.7)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -105,7 +106,7 @@ class GoogLeNet(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.aux1, self.aux2 = aux["aux1"], aux["aux2"]
         self.drop = nn.Dropout(0.4)
-        self.fc = nn.Linear(ch, num_classes)
+        self.fc = Dense(ch, num_classes)
 
     def forward(self, x: torch.Tensor):
         x = max_pool(self.stem(x), 3, 2, "SAME")

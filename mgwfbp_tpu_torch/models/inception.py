@@ -19,6 +19,7 @@ from torch import nn
 
 from mgwfbp_tpu_torch.models.common import (
     ConvBN,
+    Dense,
     avg_pool,
     global_avg_pool,
     max_pool,
@@ -141,7 +142,7 @@ class InceptionV3Aux(nn.Module):
         super().__init__()
         self.convs = nn.ModuleList([ConvBN(cin, 128, 1),
                                     ConvBN(128, 768, 5, padding=V)])
-        self.fc = nn.Linear(768, num_classes)
+        self.fc = Dense(768, num_classes)
 
     def forward(self, x):
         x = run(self.convs, avg_pool(x, 5, 3))
@@ -170,7 +171,7 @@ class InceptionV3(nn.Module):
         blocks.append(InceptionE3(blocks[-1].out_channels))
         self.blocks = nn.ModuleList(blocks)
         self.drop = nn.Dropout(0.5)
-        self.fc = nn.Linear(blocks[-1].out_channels, num_classes)
+        self.fc = Dense(blocks[-1].out_channels, num_classes)
 
     def forward(self, x):
         s = self.stem
@@ -312,7 +313,7 @@ class InceptionV4(nn.Module):
                 blocks.append(kind(blocks[-1].out_channels))
         self.blocks = nn.ModuleList(blocks)
         self.drop = nn.Dropout(0.2)
-        self.fc = nn.Linear(blocks[-1].out_channels, num_classes)
+        self.fc = Dense(blocks[-1].out_channels, num_classes)
 
     def forward(self, x):
         x = run(self.blocks, x)

@@ -18,6 +18,7 @@ from mgwfbp_tpu_torch.models.common import (
     BasicBlock,
     BatchNorm,
     ConvBN,
+    Dense,
     SameConv2d,
 )
 
@@ -75,7 +76,7 @@ class CifarResNet(nn.Module):
                 ch = width
         self.blocks = nn.ModuleList(blocks)
         self.bn = BatchNorm(ch) if preact else None
-        self.fc = nn.Linear(ch, num_classes)
+        self.fc = Dense(ch, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x)

@@ -19,6 +19,7 @@ from torch import nn
 from mgwfbp_tpu_torch.models.common import (
     BasicBlock,
     ConvBN,
+    Dense,
     global_avg_pool,
     max_pool,
 )
@@ -74,7 +75,7 @@ class ResNet(nn.Module):
                 blocks.append(block(ch, width, 2 if (stage > 0 and i == 0) else 1))
                 ch = width * expansion
         self.blocks = nn.ModuleList(blocks)
-        self.fc = nn.Linear(ch, num_classes)
+        self.fc = Dense(ch, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = max_pool(self.stem(x), 3, 2)

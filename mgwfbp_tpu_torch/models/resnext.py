@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mgwfbp_tpu_torch.models.common import ConvBN, global_avg_pool
+from mgwfbp_tpu_torch.models.common import ConvBN, Dense, global_avg_pool
 
 
 class ResNeXtBlock(nn.Module):
@@ -58,7 +58,7 @@ class ResNeXt29(nn.Module):
                                            stride))
                 ch = width
         self.blocks = nn.ModuleList(blocks)
-        self.fc = nn.Linear(ch, num_classes)
+        self.fc = Dense(ch, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x)

@@ -16,6 +16,7 @@ from torch import nn
 
 from mgwfbp_tpu_torch.models.common import (
     ConvBN,
+    Dense,
     SameConv2d,
     flatten,
     max_pool,
@@ -58,7 +59,7 @@ class VGGCifar(nn.Module):
         self.cfg = cfg
         self.convs, n = _features(cfg, input_hwc,
                                   lambda a, b: ConvBN(a, b, 3))
-        self.fc = nn.Linear(n, num_classes)
+        self.fc = Dense(n, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         convs = iter(self.convs)
@@ -78,8 +79,8 @@ class VGGImageNet(nn.Module):
         self.cfg = cfg
         self.convs, n = _features(cfg, input_hwc,
                                   lambda a, b: SameConv2d(a, b, 3, bias=True))
-        self.fcs = nn.ModuleList([nn.Linear(n, 4096), nn.Linear(4096, 4096),
-                                  nn.Linear(4096, num_classes)])
+        self.fcs = nn.ModuleList([Dense(n, 4096), Dense(4096, 4096),
+                                  Dense(4096, num_classes)])
         self.drop = nn.Dropout(0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

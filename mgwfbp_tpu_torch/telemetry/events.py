@@ -7,9 +7,10 @@ a ``header`` carrying ``schema_version``, every following line one event::
     {"event": "step", "wall": 1722760000.1, "step": 12, "epoch": 0,
      "start_s": 3.41, "dur_s": 0.021}
 
-The schema, the file names and the reader are the JAX package's, so
-``tools/telemetry_report.py`` and ``tools/telemetry_merge.py`` read the
-port's streams as they read its own. The port's trainer writes ``header``,
+The schema, the file names and the reader are the JAX package's, so the
+port's ``python -m mgwfbp_tpu_torch.tools.telemetry_report`` and
+``python -m mgwfbp_tpu_torch.tools.telemetry_merge`` (and the JAX
+package's ``tools/`` scripts of the same names) read the port's streams. The port's trainer writes ``header``,
 ``step``, ``epoch``, ``overlap``, ``comm_group``, the resilience records
 (``checkpoint``, ``preempt``, ``resume``, ``bad_step``, ``rollback``),
 ``resize``, ``watchdog_stall``, ``failure``, the live plane's
@@ -87,7 +88,8 @@ _JSON_SCALARS = (str, int, float, bool, type(None))
 
 def stream_filename(process_index: int = 0, process_count: int = 1) -> str:
     """``telemetry.jsonl`` for one process, ``telemetry.pN.jsonl`` for
-    process N of a group (``tools/telemetry_merge.py`` joins them)."""
+    process N of a group (``mgwfbp_tpu_torch.tools.telemetry_merge`` joins
+    them)."""
     if process_count <= 1:
         return "telemetry.jsonl"
     return f"telemetry.p{int(process_index)}.jsonl"

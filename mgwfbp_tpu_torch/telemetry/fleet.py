@@ -116,10 +116,11 @@ def scrape_fleet(
 
 
 def straggler_table(children: list[ChildScrape]) -> list[dict]:
-    """LIVE analog of `tools/telemetry_merge.straggler_table`: one row per
-    reachable child with a step-seconds window gauge, its excess over the
-    fastest process (the group-synchronous cost it adds — the merge
-    tool's mean-excess-vs-fastest semantics applied to the live rolling
+    """LIVE analog of `mgwfbp_tpu_torch.tools.telemetry_merge`'s
+    `straggler_table`: one row per reachable child with a step-seconds
+    window gauge, its excess over the fastest process (the
+    group-synchronous cost it adds — the merge tool's
+    mean-excess-vs-fastest semantics applied to the live rolling
     `mgwfbp_step_seconds` window instead of merged post-hoc spans)."""
     rows = []
     for c in children:

@@ -1449,6 +1449,12 @@ class Trainer:
             # so every rank reaches the same verdict at the same step
             if self.config.grad_guard:
                 self._check_guard_value(it, ep, vals["grads_nonfinite"])
+        if self._recorder is not None:
+            # a bundle's `postmortem` record waits for the next record
+            # (it must follow its trigger's row, which is out now): emit it
+            # here, so /postmortems lists the bundle of a step read late
+            # while the loop goes on, not when the next record comes
+            self._recorder.flush_events()
 
     def _emit_health(self, pending: tuple, vals: dict) -> None:
         it, ep, loss = pending

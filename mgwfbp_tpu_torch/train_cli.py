@@ -221,7 +221,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the event stream: step spans, and per epoch "
                         "an epoch record, the overlap accounting and one "
                         "comm_group record per merge group; render with "
-                        "tools/telemetry_report.py")
+                        "python -m mgwfbp_tpu_torch.tools.telemetry_report")
     p.add_argument("--telemetry-dir", dest="telemetry_dir", default=None,
                    help="directory for the event stream (default "
                         "<logdir>/<tag>; implies --telemetry)")

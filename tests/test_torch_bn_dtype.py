@@ -10,20 +10,23 @@ training and evaluation, its output, its running statistics and, in
 training, the gradients of its input, scale and bias; a small CIFAR
 ResNet's loss and batch statistics of one training forward
 (``make_loss_fn``), at float32 and under the bfloat16 compute policy, and
-its evaluation logits. Every comparison holds at 2e-2 (relative L2, and
-elementwise against 2e-2 of the largest magnitude): the bfloat16 rounding
-of two implementations' statistics may differ by one unit in the last
-place. A whole network's gradients are not held at 2e-2: Flax keeps a
-float32 model's batch-norm output in bfloat16 into the residual sum, which
-the port's float32 layers take as float32 (the same rounded values, summed
-without rounding), and the backward of a bfloat16 network amplifies such a
-difference (tests/test_torch_mixed_precision.py holds a bfloat16 step
-against its envelope).
+its evaluation logits; and, on nine data draws, one training step's
+parameter gradients of a float32 small ResNet against ``jax.grad`` of
+``make_loss_fn`` (where a draw misses, the witness that XLA's ``rsqrt``
+alone separates the two: see the test). Every
+comparison holds at 2e-2 (relative L2, and elementwise against 2e-2 of
+the largest magnitude; the gradients by relative L2 per parameter): the
+bfloat16 rounding of two implementations' statistics may differ by one
+unit in the last place. The batch norm hands its output on in bfloat16,
+as Flax does, so a residual sum of two batch-norm branches is rounded to
+bfloat16 on both sides and the next conv or dense layer computes in
+float32 on the promoted input (``models.common.promote``).
 Unset (or empty), the switch changes nothing: every output is bit-identical
 to the default path's."""
 
 from __future__ import annotations
 
+import functools
 from functools import partial
 
 import flax.linen as fnn
@@ -104,11 +107,11 @@ def test_batch_norm_matches_flax_at_bf16(bf16, shape, train):
     if train:
         xt.requires_grad_(True)
     got = bn(xt)
-    assert got.dtype == torch.float32  # rounded to bf16, promoted back
-    assert torch.equal(got, got.to(torch.bfloat16).float())
+    assert got.dtype == torch.bfloat16  # handed on in bf16, as Flax does
     if len(shape) == 4:
         got = got.permute(0, 2, 3, 1)
-    _close(got.detach().numpy(), np.asarray(want, np.float32), "output")
+    _close(got.detach().float().numpy(), np.asarray(want, np.float32),
+           "output")
     stats = upd["batch_stats"]
     _close(bn.running_mean.numpy(), stats["mean"], "mean")
     _close(bn.running_var.numpy(), stats["var"], "var")
@@ -198,6 +201,105 @@ def test_resnet_eval_matches_jax_at_bf16_stats(bf16):
     with torch.no_grad():
         got = m(_nchw(x))
     _close(got.numpy(), np.asarray(want, np.float32), "logits")
+
+
+# nine data draws: (init seed, batch seed)
+DRAWS = [(i, b) for i in (0, 1, 5) for b in (3, 4, 6)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step_grad():
+    """``jax.grad`` of the JAX ``make_loss_fn`` of the small ResNet, jitted
+    once for every draw (the batch norm's dtype is read when it traces, so
+    only the bfloat16 test calls it)."""
+    jm = JaxResNet(**SMALL)
+    meta = ModelMeta(name="resnet8", dataset="cifar10", num_classes=10,
+                     input_shape=(16, 16, 3))
+    loss_fn = make_loss_fn(jm, meta)
+
+    def f(params, bstats, x, y):
+        return loss_fn(params, bstats, {"x": x, "y": y},
+                       jax.random.PRNGKey(0), None)
+
+    return jax.jit(jax.grad(f, has_aux=True))
+
+
+_xla_rsqrt = jax.jit(jax.lax.rsqrt)  # XLA's float32 rsqrt on the CPU
+
+
+def _port_step_grads(params, bstats, x, y) -> dict:
+    """The port's float32 small ResNet's parameter gradients of one
+    training step, by Flax path."""
+    from mgwfbp_tpu_torch.convert import _param_rules
+
+    m = _port(params, bstats).train()
+    m.zero_grad()
+    loss, _, _ = forward_loss(m, "classify", _nchw(x),
+                              torch.from_numpy(y).long())
+    assert loss.dtype == torch.float32
+    loss.backward()
+    return {path: to_flax(p.grad).double().numpy()
+            for path, (p, to_flax, _) in _param_rules(m).items()}
+
+
+def _rel_l2(got: dict, want: dict) -> dict:
+    assert sorted(got) == sorted(want)
+    return {k: float(np.linalg.norm(got[k] - want[k])
+                     / max(np.linalg.norm(want[k]), 1e-30)) for k in want}
+
+
+@pytest.mark.parametrize("init_seed,batch_seed", DRAWS)
+def test_resnet_step_gradients_match_jax_at_bf16_stats(bf16, monkeypatch,
+                                                       init_seed, batch_seed):
+    """One training step of a float32 small ResNet: every parameter's
+    gradient against ``jax.grad`` of the JAX ``make_loss_fn``, both with
+    MGWFBP_BN_DTYPE=bfloat16, at 2e-2 relative L2 each, on nine draws. The
+    residual sums of bfloat16 batch-norm outputs round to bfloat16 on both
+    sides.
+
+    The comparison is one of rounding: the batch norm's backward cancels
+    nearly all its terms in bfloat16, so a last-bit change of one float32
+    value can move a gradient by percents (a 1e-7 relative change of the
+    input moves ResNet-20's by 13-15 %). Both sides round at the same
+    places (``models.common._StatDtypeNorm``) but compute ``rsqrt`` by
+    different float32 approximations, which differ in the last bit on
+    about a third of inputs; where such a bit lands on a bfloat16 rounding
+    boundary, a draw misses (init seed 5, batch seed 6: the stem's scale,
+    2.02 %). The witness: fed XLA's own ``rsqrt`` values, the port's step
+    is within the tolerance on every draw, that one included."""
+    jm, params, bstats = _jax_init(init_seed)
+    x, y = _batch(batch_seed)
+    want = flatten_flax(jax.tree_util.tree_map(
+        np.asarray, _jax_step_grad()(params, bstats, x, y)[0]))
+    want = {k: np.asarray(v, np.float64) for k, v in want.items()}
+    m = _port(params, bstats).train()
+    with torch.no_grad():
+        block = m.blocks[0]
+        branch = block.conv2(block.conv1(m.stem(_nchw(x))))
+    assert branch.dtype == torch.bfloat16  # as Flax hands it on
+    own = _rel_l2(_port_step_grads(params, bstats, x, y), want)
+
+    torch_rsqrt = torch.rsqrt
+    differing = []
+
+    def rsqrt(v):
+        r = torch.from_numpy(np.asarray(_xla_rsqrt(v.detach().numpy())))
+        differing.append(int((r != torch_rsqrt(v)).sum()))
+        return r
+
+    monkeypatch.setattr(torch, "rsqrt", rsqrt)
+    fed = _rel_l2(_port_step_grads(params, bstats, x, y), want)
+    monkeypatch.undo()
+    assert len(differing) == sum(isinstance(b, BatchNorm)
+                                 for b in m.modules())
+    bad = {k: r for k, r in fed.items() if r > TOL}
+    assert not bad, ("fed XLA's rsqrt", bad)
+    missed = {k: r for k, r in own.items() if r > TOL}
+    # a miss of the port's own step is the rsqrt's last bit alone: the two
+    # rsqrt differ on this draw's inputs, and fed XLA's, each missed
+    # parameter agrees a hundred times closer than the tolerance
+    assert not missed or sum(differing) > 0, missed
+    assert all(fed[k] <= TOL / 100 for k in missed), (missed, fed)
 
 
 def _run_default(monkeypatch, value):

@@ -183,6 +183,32 @@ def test_trainer_bundle_reads_in_jax_and_postmortems_match(
     assert live["recent"][0]["path"] == bundles[0]
 
 
+def test_a_late_read_bad_steps_bundle_is_listed_at_its_drain(
+        tmp_path, monkeypatch):
+    """The guard reads step 2's flag late, in the drain of step 3's queue;
+    the bundle's ``postmortem`` record goes out at the end of that drain,
+    so the live /postmortems lists it while the loop goes on (a stall
+    before the next record would otherwise hide it)."""
+    monkeypatch.setenv("MGWFBP_FAULT_PLAN", "nan@step=2")
+    t = Trainer(_lenet_cfg(tmp_path), device="cpu", synthetic_data=True,
+                profile_backward=False)
+    seen = []
+    drain = t._drain_items
+
+    def spy(items):
+        drain(items)
+        seen.append(([it for it, *_ in items],
+                     t._metrics_agg.postmortems()["total"]))
+
+    monkeypatch.setattr(t, "_drain_items", spy)
+    try:
+        t.fit(1)
+    finally:
+        t.close()
+    (at,) = [total for steps, total in seen if 2 in steps]
+    assert at == 1
+
+
 def test_postmortem_off_writes_no_bundle(tmp_path, monkeypatch):
     monkeypatch.setenv("MGWFBP_FAULT_PLAN", "nan@step=2")
     monkeypatch.setenv("MGWFBP_POSTMORTEM", "0")
