@@ -92,6 +92,19 @@ median step, the ring's point-to-point operations per step, the merge
 groups and those the group order held back. Prints one JSON line
 ``{"multicard_seq": ...}``. ``--device cpu --processes 4 --seq-parallel 2``
 rehearses it over gloo.
+
+With ``--tools`` it runs another step instead: the measuring tools at N
+processes (one per card, NCCL; ResNet-20 at ``--batch-size`` per card): a
+family calibrated over the first 1, 2, 4 .. ranks (``calibrate
+--world-sizes``), then ``tools.overlap_report`` (its collective rows must
+be NCCL kernels, each with the compute that ran beside it, and each merge
+group's predicted time beside its kernels' measured one),
+``tools.policy_grid`` at N, ``tools.scaling_efficiency`` at every extent
+with predictions on the family, and ``tools.two_level_validation`` at
+(N / 2) x 2. Prints one JSON line ``{"multicard_tools": ...}``.
+``--device cpu --processes 4 --tools --batch-size 4 --min-log2 8
+--max-log2 10 --iters 2 --warmup 1 --gamma-total-log2 12`` rehearses it
+over gloo.
 """
 
 from __future__ import annotations
@@ -878,6 +891,92 @@ def seq_phase(n: int, device: str, out_dir: str, seq: int, env: dict) -> dict:
             "seconds": secs, "ranks": ranks}
 
 
+TOOLS_MODEL = "resnet20"  # --tools: every tool's model, batch 32 per card
+TOOLS_DCN = 2  # --tools: two_level_validation's slices
+
+
+def _tool_report(n: int, device: str, out_dir: str, name: str, args: list,
+                 env: dict) -> dict:
+    """``python -m mgwfbp_tpu_torch.tools.<name> args`` at N processes,
+    rank 0's artifact (``--out``) and the seconds."""
+    path = os.path.join(out_dir, f"{name}.json")
+    t0 = time.perf_counter()
+    _run_group(n, [f"mgwfbp_tpu_torch.tools.{name}", *args, "--device",
+                   device, "--out", path], out_dir, name, 900, env)
+    with open(path) as f:
+        doc = json.load(f)
+    doc = doc.get("meta", doc)  # two_level_validation writes a profile
+    doc["seconds"] = time.perf_counter() - t0
+    return doc
+
+
+def tools_phase(n: int, device: str, out_dir: str, batch_size: int,
+                env: dict, sweep: list, family: str, extents: str) -> dict:
+    """``--tools``: the measuring tools at N processes (one per card,
+    NCCL): a family calibrated over the first 1, 2, 4 .. ranks, then
+    overlap_report (its collective rows are NCCL kernels, each with the
+    compute that ran beside it), policy_grid at N, scaling_efficiency at
+    every extent (predictions on the family) and two_level_validation at
+    (N / TOOLS_DCN) x TOOLS_DCN."""
+    from mgwfbp_tpu_torch.profiling import is_collective_kernel
+
+    t0 = time.perf_counter()
+    _run_group(n, ["mgwfbp_tpu_torch.calibrate", "--out", family,
+                   "--world-sizes", extents, "--device", device, *sweep],
+               out_dir, "calibrate", 900, env)
+    calibrate_s = time.perf_counter() - t0
+    r20 = ["--model", TOOLS_MODEL, "--batch", str(batch_size)]
+    ov = _tool_report(n, device, out_dir, "overlap_report",
+                      [*r20, "--comm-profile", family], env)
+    colls = ov["collectives"]
+    if device == "cuda" and not (colls and all(
+            is_collective_kernel(c["name"]) for c in colls)):
+        print(f"chip_multicard: overlap_report's collectives {colls[:3]}",
+              file=sys.stderr, flush=True)
+        raise SystemExit(1)
+    grid = _tool_report(n, device, out_dir, "policy_grid",
+                        [*r20, "--comm-profile", family], env)
+    scaling = _tool_report(n, device, out_dir, "scaling_efficiency",
+                           [*r20, "--comm-profile", family], env)
+    pairs = [sweep[i:i + 2] for i in range(0, len(sweep), 2)
+             if sweep[i] != "--gamma-total-log2"]
+    two = _tool_report(n, device, out_dir, "two_level_validation",
+                       ["--ici", str(n // TOOLS_DCN), "--dcn", str(TOOLS_DCN),
+                        *(x for pair in pairs for x in pair)], env)
+    print(f"overlap_report: {ov['n_collective_events']} collective kernels, "
+          f"{ov['total_collective_us']:.1f} us, {ov['overlapped_us']:.1f} us "
+          f"beside compute (fraction {ov['overlap_fraction']}), "
+          f"{ov['merge_groups']} groups; predicted vs measured per group: "
+          + ", ".join(f"{r['predicted_s'] * 1e6:.1f}/"
+                      f"{r.get('measured_s', float('nan')) * 1e6:.1f} us"
+                      for r in ov.get("predicted_vs_actual", [])[:8]),
+          flush=True)
+    print("policy_grid: " + ", ".join(
+        f"{p} {r['sec_per_iter'] * 1e3:.2f} ms ({r['merge_groups']} groups)"
+        for p, r in grid["policies"].items())
+        + f"; noise bound {grid['noise_pair']['bound_s'] * 1e3:.3f} ms; "
+        f"fastest {grid['conclusion']['fastest_by_median']}", flush=True)
+    print("scaling_efficiency: " + ", ".join(
+        f"{k}: {v['sec_per_iter'] * 1e3:.2f} ms eff {v['efficiency']}"
+        for k, v in scaling["measured_weak_scaling"].items()), flush=True)
+    print(f"two_level_validation {two['mesh']}: median gap "
+          f"{two['median_abs_gap_sampled_frac']} (corrected "
+          f"{two['median_abs_gap_corrected_frac']}), hier/flat "
+          f"{two['median_hier_vs_flat']}; solved hier/flat measured "
+          f"{two['solved_schedule']['solved_hier_vs_flat_measured']}, "
+          f"predicted "
+          f"{two['solved_schedule']['solved_hier_vs_flat_predicted']}",
+          flush=True)
+    return {"processes": n, "device": device, "calibrate_s": calibrate_s,
+            "overlap_report": {k: ov[k] for k in (
+                "n_collective_events", "total_collective_us",
+                "overlapped_us", "overlap_fraction", "collectives",
+                "n_compute_events", "merge_groups", "predicted_vs_actual",
+                "device_kind", "seconds") if k in ov},
+            "policy_grid": grid, "scaling_efficiency": scaling,
+            "two_level_validation": two}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="chip_multicard")
     p.add_argument("--processes", type=int, default=None,
@@ -907,6 +1006,8 @@ def main(argv=None) -> int:
                    default=None,
                    help="run the sequence-parallel step instead, rings of "
                         "this many ranks")
+    p.add_argument("--tools", action="store_true",
+                   help="run the measuring tools' step instead")
     p.add_argument("--lowerings-rank", default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--seq-rank", action="store_true", help=argparse.SUPPRESS)
@@ -966,6 +1067,11 @@ def main(argv=None) -> int:
         print(json.dumps({"multicard_seq": seq_phase(
             n, args.device, args.out_dir, args.seq_parallel, env)}),
             flush=True)
+        return 0
+    if args.tools:
+        print(json.dumps({"multicard_tools": tools_phase(
+            n, args.device, args.out_dir, args.batch_size, env, sweep,
+            family, extents)}), flush=True)
         return 0
     if args.lowerings:
         print(json.dumps({"multicard_lowerings": lowerings_phase(

@@ -221,14 +221,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
          optimizer state per rank half the replicated bytes plus the pad;
      (l3) ``python -m mgwfbp_tpu_torch.train_cli --dnn resnet20 --comm-op
          rs_opt_ag`` for LOWER_CLI_STEPS steps: the world-1 fallback (the
-         replicated optimizer) logged and the loss falling; then
+         replicated optimizer) logged and the loss falling; beside it
          ``--compressor topk --density 0``: no density is chosen at one
          worker (no reducer, the JAX trainer's rule), and what the chooser
-         picks for ResNet-20 on two links is printed.
+         picks for ResNet-20 on two links is printed. Both start with
+         (l2) and run beside it (neither (l2) nor (l3) times anything it
+         checks);
  13. (m) the cross-step and two-level lowerings: rs_fwd_ag against
      rs_opt_ag at one rank over NCCL, hier at HIER_WORLD gloo ranks on the
-     card, ``train_cli --comm-op rs_fwd_ag`` and an all_reduce restore of
-     its step (``phase_cross_step``).
+     card, ``train_cli --comm-op rs_fwd_ag`` (started with the hier ranks
+     and run beside them) and an all_reduce restore of its step
+     (``phase_cross_step``).
  14. (n) closed-loop schedule autotuning, ``train_cli --dnn resnet20
      --synthetic --autotune --autotune-steps 3`` at full width (float32,
      batch 32, the 10GbE constants at 2 workers) in AT_WORLD gloo
@@ -309,7 +312,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
          own noise beside it), and the step's ms against the variable
          unset. A ``{"zero_sync": ...}`` line with the card's name and
          power limit.
- 18. (r) the operator tools on the card (``phase_tools``), each in a
+ 18. (s) the measuring tools on the card (``phase_measure``), each in a
+     subprocess under ``tools.nojax``, all started together but (s5)'s
+     steps, which start once its files are written (the tools' times are
+     taken beside each other's):
+     (s1) ``overlap_report``, ResNet-20 b32 at one worker, two traced
+         steps: the parse finds the card's compute kernels, no collective
+         kernel (NCCL launches none over one rank) and one prediction per
+         group;
+     (s2) ``gamma_sensitivity`` on the card's tb and (d)'s profile (kept
+         aside by ``_keep``): the 1.0x row's groups equal
+         ``build_schedule(policy="auto")`` on the same tb in this process;
+     (s3) ``policy_grid`` at MEASURE_WORLD gloo ranks sharing the card
+         (``--backend gloo``): each policy's groups equal its solve on the
+         grid's tb, and the noise pair is there (the machinery, not a link);
+     (s4) ``scaling_efficiency`` at world 1 with predictions at (d)'s
+         extents, each labelled with the card's name, every efficiency in
+         (0, 1];
+     (s5) ``input_bench --make-data --imagenet-n 256`` (the CIFAR leg must
+         run; the HDF5 leg fails naming h5py where it is missing, and the
+         line says which legs ran), then ResNet-20 over the three loader
+         legs: both throughput ratios finite;
+     (s6) ``mfu_ablation`` at MEASURE_MFU_ITERS timed steps: all five
+         ResNet-50 rows, ``baseline_b128``'s FLOPs equal to
+         ``bench.flops_per_step`` in this process, ``batch_64``'s half of
+         them (relative MEASURE_FLOPS_RTOL), every MFU in (0, 1].
+     A ``{"measure": ...}`` line with each check's numbers and each
+     tool's rc and seconds.
+ 19. (r) the operator tools on the card (``phase_tools``), each in a
      subprocess under ``mgwfbp_tpu_torch.tools.nojax`` (JAX, Flax, optax,
      orbax and the JAX package refused):
      (r1) ``telemetry_report`` on (j3)'s process-0 stream (two gloo
@@ -342,7 +372,9 @@ finishes), the speech model ({"lstman4": ...}), supervision
 lowerings ({"lowerings": ...}), the cross-step and two-level lowerings
 ({"cross_step": ...}), autotuning ({"autotune": ...}), the static
 analysis ({"analysis": ...}), sequence parallelism ({"seq": ...}), the
-zero-sync loop ({"zero_sync": ...}), the tools ({"tools": ...}), the
+zero-sync loop ({"zero_sync": ...}), the measuring tools ({"measure":
+...}), each phase's seconds ({"phase_seconds": ...}), the tools
+({"tools": ...}), the
 card's name
 and power limit
 (nvidia-smi), the kernels line
@@ -1433,6 +1465,7 @@ def phase_calibrate(b: dict, gloo: dict) -> dict:
             meta = json.load(f)["meta"]
         family = load_profile(prof_path)
         layers = load_layer_profile(layer_path)
+        _keep("d_calibrate", d)  # the card's profile, for (s)
     calibrate_s = time.perf_counter() - t0
     card = torch.cuda.get_device_name(0)
     measured = resolve_profile(family, 1)
@@ -2286,7 +2319,8 @@ def phase_resilience() -> dict:
 ZOO = (("googlenet", 64, "bfloat16"), ("inceptionv4", 64, "bfloat16"),
        ("densenet201", 64, "bfloat16"), ("vgg16", 128, "float32"))
 ZOO_WARMUP_STEPS = 3  # through the trainer's own loop
-ZOO_TIMED_STEPS = 20  # on a fixed device batch, after 3 more of warm-up
+ZOO_TIMED_STEPS = 10  # on a fixed device batch, after 3 more of warm-up
+ZOO_PROFILE_STEPS = 3  # profiled steps per model (the busy share, kernels)
 ZOO_CPU_IMAGES = 2
 # the card's float32 eval forward of the trained weights, converted into a
 # fresh CPU module, against that module's forward: TF32 is off, and cuDNN's
@@ -2378,7 +2412,8 @@ def _zoo_run(name: str, batch: int, dtype: str, root: str) -> dict:
         launches.append(reducer.launches - before)
         if i >= 3:
             times.append(start.elapsed_time(end))
-    prof = _step_profile(lambda: tr.train_step(x, y))
+    prof = _step_profile(lambda: tr.train_step(x, y),
+                         steps=ZOO_PROFILE_STEPS)
     arrivals = list(reducer.arrivals)
     groups = [list(g) for g in reducer.schedule.groups]
     g = reducer.num_groups
@@ -4070,11 +4105,10 @@ def lowerings_gloo() -> dict:
             "ranks_identical_every_step": True, "runs": results[0]}
 
 
-def _cli(work: str, name: str, steps: int,
-         *flags: str) -> tuple[str, list, float]:
-    """``python -m mgwfbp_tpu_torch.train_cli --dnn resnet20`` on the card
-    with the given flags for ``steps`` steps (telemetry on): its stderr,
-    its ``health`` records (each step's loss) and its seconds."""
+def _cli_start(work: str, name: str, steps: int, *flags: str) -> dict:
+    """Start ``python -m mgwfbp_tpu_torch.train_cli --dnn resnet20`` on the
+    card with the given flags for ``steps`` steps (telemetry on);
+    ``_cli_finish`` joins it."""
     logdir = os.path.join(work, name)
     cmd = [sys.executable, "-m", "mgwfbp_tpu_torch.train_cli", "--dnn",
            "resnet20", "--synthetic", "--epochs", "1",
@@ -4082,31 +4116,64 @@ def _cli(work: str, name: str, steps: int,
            "--logdir", logdir, *flags]
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
         __file__)), MGWFBP_FAULT_PLAN="")
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                         timeout=LOWER_TIMEOUT_S)
-    if res.returncode != 0:
-        fail(f"lowerings (l3) {name}: rc {res.returncode}:\n"
-             + "\n".join(res.stderr.splitlines()[-15:]))
-    health = [e for e in _tag_stream(logdir) if e.get("event") == "health"]
-    return res.stderr, health, time.perf_counter() - t0
+    return {"name": name, "logdir": logdir, "t0": time.perf_counter(),
+            "proc": subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     env=env)}
 
 
-def lowerings_cli(work: str) -> dict:
+def _cli_finish(run: dict) -> tuple[str, list, float]:
+    """A started CLI run's stderr, its ``health`` records (each step's
+    loss) and its seconds; a non-zero rc or LOWER_TIMEOUT_S from its start
+    fails the smoke."""
+    p = run["proc"]
+    try:
+        _, err = p.communicate(timeout=max(
+            LOWER_TIMEOUT_S - (time.perf_counter() - run["t0"]), 1.0))
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait(10)
+        fail(f"train_cli {run['name']}: no end within {LOWER_TIMEOUT_S} s")
+    if p.returncode != 0:
+        fail(f"train_cli {run['name']}: rc {p.returncode}:\n"
+             + "\n".join(err.splitlines()[-15:]))
+    health = [e for e in _tag_stream(run["logdir"])
+              if e.get("event") == "health"]
+    return err, health, time.perf_counter() - run["t0"]
+
+
+def _kill_runs(runs) -> None:
+    """Kill every started CLI run that is still alive (a failed check
+    beside them must not leave them running)."""
+    for run in runs:
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+            run["proc"].wait(10)
+
+
+def lowerings_cli_start(work: str) -> list:
+    """(l3)'s two CLI runs, started together (beside (l2), which times
+    nothing)."""
+    return [_cli_start(work, "rs_opt_ag", LOWER_CLI_STEPS, "--comm-op",
+                       "rs_opt_ag"),
+            _cli_start(work, "topk", LOWER_CLI_TOPK_STEPS, "--compressor",
+                       "topk", "--density", "0")]
+
+
+def lowerings_cli(runs: list) -> dict:
     """(l3) ``train_cli --comm-op rs_opt_ag`` at one worker on the card:
     the world-1 fallback (the replicated optimizer) logged, and the loss
-    of the last 5 steps below the first 5's; then ``--compressor topk
-    --density 0``: no reducer at one worker, so the chooser picks no
+    of the last 5 steps below the first 5's; beside it ``--compressor
+    topk --density 0``: no reducer at one worker, so the chooser picks no
     density (the JAX trainer's rule); what the chooser picks for
     ResNet-20 on LOWER_LINK and on the 1GbE table at 16 workers is
-    printed beside it."""
+    printed beside it. The seconds are the two runs' side by side."""
     from mgwfbp_tpu_torch.parallel.costmodel import (
         choose_density,
         lookup_alpha_beta,
     )
 
-    err, health, secs = _cli(work, "rs_opt_ag", LOWER_CLI_STEPS,
-                             "--comm-op", "rs_opt_ag")
+    err, health, secs = _cli_finish(runs[0])
     if "--comm-op rs_opt_ag runs the replicated optimizer" not in err:
         fail("lowerings (l3): the world-1 fallback was not logged")
     losses = [float(h["loss"]) for h in health]
@@ -4114,8 +4181,7 @@ def lowerings_cli(work: str) -> dict:
             np.isfinite(losses)) or not (
             np.mean(losses[-5:]) < np.mean(losses[:5])):
         fail(f"lowerings (l3): losses {losses} do not fall")
-    err2, health2, secs2 = _cli(work, "topk", LOWER_CLI_TOPK_STEPS,
-                                "--compressor", "topk", "--density", "0")
+    err2, health2, secs2 = _cli_finish(runs[1])
     if "--compressor topk unused, no density chosen" not in err2:
         fail("lowerings (l3): the compressor at one worker was not logged "
              "as unused")
@@ -4143,9 +4209,13 @@ def phase_lowerings() -> dict:
     """(l) The single-level lowerings on the card: (l1), (l2), (l3)."""
     t0 = time.perf_counter()
     one = lowerings_one_rank()
-    gloo = lowerings_gloo()
     with tempfile.TemporaryDirectory(prefix="mgwfbp_lower_cli_") as work:
-        cli = lowerings_cli(work)
+        runs = lowerings_cli_start(work)
+        try:
+            gloo = lowerings_gloo()
+            cli = lowerings_cli(runs)
+        finally:
+            _kill_runs(runs)
     secs = time.perf_counter() - t0
     print(f"lowerings (l): {secs:.1f} s", flush=True)
     return {"one_rank_nccl": one, "two_ranks_gloo": gloo, "cli": cli,
@@ -4509,16 +4579,22 @@ def hier_gloo() -> dict:
             "runs": r}
 
 
-def xstep_cli(work: str) -> dict:
+def xstep_cli_start(work: str) -> dict:
+    """(m3)'s first CLI run, started beside (m2), which times nothing."""
+    return _cli_start(work, "rs_fwd_ag", XSTEP_CLI_STEPS, "--comm-op",
+                      "rs_fwd_ag", "--checkpoint-dir",
+                      os.path.join(work, "ck"))
+
+
+def xstep_cli(work: str, run: dict) -> dict:
     """(m3) ``train_cli --comm-op rs_fwd_ag`` for XSTEP_CLI_STEPS steps on
-    the card with a checkpoint: at one worker the world-1 fallback (the
-    replicated optimizer) logged and the loss falling; then an
-    ``--comm-op all_reduce`` run of the same tag restores its step and
-    trains the next epoch (the same epoch length: the schedule's anchor
-    is the checkpoint's)."""
+    the card with a checkpoint (``run``, started by ``xstep_cli_start``):
+    at one worker the world-1 fallback (the replicated optimizer) logged
+    and the loss falling; then an ``--comm-op all_reduce`` run of the same
+    tag restores its step and trains the next epoch (the same epoch
+    length: the schedule's anchor is the checkpoint's)."""
     ck = os.path.join(work, "ck")
-    err, health, secs = _cli(work, "rs_fwd_ag", XSTEP_CLI_STEPS,
-                             "--comm-op", "rs_fwd_ag", "--checkpoint-dir", ck)
+    err, health, secs = _cli_finish(run)
     if "--comm-op rs_fwd_ag runs the replicated optimizer" not in err:
         fail("cross-step (m3): the world-1 fallback was not logged")
     losses = [float(h["loss"]) for h in health]
@@ -4526,9 +4602,9 @@ def xstep_cli(work: str) -> dict:
             np.isfinite(losses)) or not (
             np.mean(losses[-5:]) < np.mean(losses[:5])):
         fail(f"cross-step (m3): losses {losses} do not fall")
-    err2, health2, secs2 = _cli(work, "restore", XSTEP_CLI_STEPS,
-                                "--comm-op", "all_reduce",
-                                "--checkpoint-dir", ck)
+    err2, health2, secs2 = _cli_finish(_cli_start(
+        work, "restore", XSTEP_CLI_STEPS, "--comm-op", "all_reduce",
+        "--checkpoint-dir", ck))
     mark = f"resumed from epoch 0 (iter {XSTEP_CLI_STEPS})"
     if mark not in err2:
         fail(f"cross-step (m3): the all_reduce run did not log {mark!r}")
@@ -4557,9 +4633,13 @@ def phase_cross_step() -> dict:
     (m3)."""
     t0 = time.perf_counter()
     one = xstep_one_rank()
-    hier = hier_gloo()
     with tempfile.TemporaryDirectory(prefix="mgwfbp_xstep_cli_") as work:
-        cli = xstep_cli(work)
+        run = xstep_cli_start(work)
+        try:
+            hier = hier_gloo()
+            cli = xstep_cli(work, run)
+        finally:
+            _kill_runs([run])
     secs = time.perf_counter() - t0
     print(f"cross-step (m): {secs:.1f} s", flush=True)
     return {"one_rank_nccl": one, "hier_gloo": hier, "cli": cli,
@@ -5702,27 +5782,66 @@ def _keep(name: str, src: str) -> None:
     KEPT[name] = dst
 
 
-def _tool(rows: list, name: str, module: str, *args: str,
-          timeout_s: float = TOOL_TIMEOUT_S) -> subprocess.CompletedProcess:
-    """One tool in a subprocess with JAX refused; its rc and seconds join
-    ``rows``; a non-zero rc fails the run."""
+def _start_tool(module: str, *args: str, n: int = 1) -> dict:
+    """Start ``module`` with JAX refused, in n processes of one world when
+    n > 1 (a localhost rendezvous in the launch environment that
+    ``parallel.mesh.init_distributed`` reads); ``_finish_tool`` joins it."""
+    from mgwfbp_tpu_torch.runtime.supervisor import free_port
     from mgwfbp_tpu_torch.tools import nojax
 
-    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    if n > 1:
+        env.update(MGWFBP_COORDINATOR=f"127.0.0.1:{free_port()}",
+                   MGWFBP_NUM_PROCESSES=str(n))
+    procs = [subprocess.Popen(
+        nojax.argv(module, *args), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env={**env, **({"MGWFBP_PROCESS_ID": str(r)} if n > 1 else {})})
+        for r in range(n)]
+    return {"procs": procs, "t0": time.perf_counter()}
+
+
+def _finish_tool(rows: list, name: str, run: dict,
+                 timeout_s: float = TOOL_TIMEOUT_S,
+                 phase: str = "measure (s)") -> list[str]:
+    """Join a ``_start_tool`` run within ``timeout_s`` of its start: its
+    standard outputs; its rc and seconds join ``rows``; a non-zero rc or a
+    hang fails the run (``phase`` names it; every process of it is killed
+    first)."""
+    outs, codes = [], []
     try:
-        res = subprocess.run(nojax.argv(module, *args), capture_output=True,
-                             text=True, timeout=timeout_s,
-                             env=dict(os.environ, PYTHONPATH=os.path.dirname(
-                                 os.path.abspath(__file__))))
-    except subprocess.TimeoutExpired:
-        fail(f"tools (r): {name} did not end within {timeout_s} s")
-    rows.append({"name": name, "rc": res.returncode,
-                 "seconds": time.perf_counter() - t0})
-    if res.returncode != 0:
-        print(res.stdout[-3000:], file=sys.stderr)
-        print(res.stderr[-3000:], file=sys.stderr)
-        fail(f"tools (r): {name} exited {res.returncode}")
-    return res
+        for p in run["procs"]:
+            left = timeout_s - (time.perf_counter() - run["t0"])
+            try:
+                out, err = p.communicate(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                fail(f"{phase}: {name} did not end within {timeout_s} s")
+            outs.append(out)
+            codes.append(p.returncode)
+            if p.returncode:
+                print(out[-3000:], file=sys.stderr)
+                print(err[-3000:], file=sys.stderr)
+    finally:
+        for p in run["procs"]:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    rows.append({"name": name, "rc": codes if len(codes) > 1 else codes[0],
+                 "seconds": time.perf_counter() - run["t0"]})
+    if codes != [0] * len(codes):
+        fail(f"{phase}: {name} exited {codes}")
+    return outs
+
+
+def _tool(rows: list, name: str, module: str, *args: str,
+          timeout_s: float = TOOL_TIMEOUT_S,
+          phase: str = "tools (r)") -> subprocess.CompletedProcess:
+    """One tool in a subprocess with JAX refused, run to its end
+    (``_start_tool``, ``_finish_tool``)."""
+    (out,) = _finish_tool(rows, name, _start_tool(module, *args),
+                          timeout_s, phase)
+    return subprocess.CompletedProcess(module, 0, stdout=out)
 
 
 def phase_tools() -> dict:
@@ -5833,6 +5952,206 @@ def phase_tools() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase (s): the measuring tools on the card
+# ---------------------------------------------------------------------------
+
+MEASURE_BATCH = 32  # ResNet-20's per-worker batch in (s1)-(s5)
+MEASURE_WORLD = 2  # (s3): gloo ranks sharing the card
+MEASURE_IMAGENET_N = 256  # (s5): --make-data --imagenet-n
+MEASURE_INPUT_ITERS = 30  # (s5): timed steps per leg (3 of warm-up)
+MEASURE_MFU_ITERS = 3  # (s6): timed steps per row
+MEASURE_FLOPS_RTOL = 1e-6  # (s6): batch_64's FLOPs against half of b128's
+
+
+def _resnet20_specs() -> list:
+    """ResNet-20's LayerSpecs in arrival order (shapes only)."""
+    from mgwfbp_tpu_torch.models import create_model
+    from mgwfbp_tpu_torch.tools.overlap_report import arrival_layers
+
+    with torch.device("meta"):
+        model, _ = create_model("resnet20")
+    return arrival_layers(model, 4)
+
+
+def phase_measure() -> dict:
+    """(s) The port's measuring tools on the card, each in a subprocess with
+    JAX refused, at their smallest honest arguments (module docstring), all
+    started together, but for (s5)'s steps, which start once its files are
+    written. The checks are of the tools' machinery; their times are
+    taken beside each other's."""
+    from mgwfbp_tpu_torch.bench import flops_per_step, make_model
+    from mgwfbp_tpu_torch.parallel.costmodel import (
+        load_profile,
+        lookup_alpha_beta,
+        resolve_profile,
+    )
+    from mgwfbp_tpu_torch.parallel.solver import build_schedule
+
+    t0 = time.perf_counter()
+    rows: list = []
+    out: dict = {}
+    work = tempfile.mkdtemp(prefix="mgwfbp_measure_")
+    tool = "mgwfbp_tpu_torch.tools."
+    data_dir = os.path.join(work, "data")
+    r20 = ("--model", "resnet20", "--batch", str(MEASURE_BATCH))
+    paths = {k: os.path.join(work, f"{k}.json") for k in (
+        "s1", "s2", "s3", "s4", "s5", "s6")}
+    running: list = []
+
+    def start(*args, n: int = 1) -> dict:
+        run = _start_tool(*args, n=n)
+        running.append(run)
+        return run
+
+    def doc(key):
+        with open(paths[key]) as f:
+            return json.load(f)
+
+    try:
+        if "d_calibrate" in KEPT:
+            profile = os.path.join(KEPT["d_calibrate"], "profile.json")
+        else:  # (s) alone: the card's profile as (d) makes it
+            profile = os.path.join(work, "profile.json")
+            _tool(rows, "calibrate", "mgwfbp_tpu_torch.calibrate", "--out",
+                  profile, "--prior-extend", "56GbIB", phase="measure (s)")
+        make = start(tool + "input_bench", "--make-data", "--data-dir",
+                     data_dir, "--imagenet-n", str(MEASURE_IMAGENET_N))
+        s1 = start(tool + "overlap_report", *r20, "--steps", "2", "--out",
+                   paths["s1"])
+        s2 = start(tool + "gamma_sensitivity", "--models", "resnet20",
+                   "--batch", str(MEASURE_BATCH), "--comm-profile", profile,
+                   "--out", paths["s2"])
+        s4 = start(tool + "scaling_efficiency", *r20, "--iters", "3",
+                   "--warmup", "1", "--comm-profile", profile, "--out",
+                   paths["s4"])
+        s3 = start(tool + "policy_grid", *r20, "--iters", "6", "--warmup",
+                   "2", "--rounds", "3", "--backend", "gloo", "--out",
+                   paths["s3"], n=MEASURE_WORLD)
+        s6 = start(tool + "mfu_ablation", "--iters", str(MEASURE_MFU_ITERS),
+                   "--out", paths["s6"])
+        _finish_tool(rows, "overlap_report", s1)
+        ov = doc("s1")
+        pva = ov.get("predicted_vs_actual", [])
+        if (ov["n_compute_events"] <= 0 or ov["compute_us"] <= 0
+                or ov["n_collective_events"] != 0
+                or len(pva) != ov["merge_groups"]):
+            fail(f"measure (s1): {ov['n_compute_events']} compute kernels, "
+                 f"{ov['n_collective_events']} collectives (one rank: "
+                 f"none), {len(pva)} predictions of {ov['merge_groups']} "
+                 "groups")
+        out["s1"] = {k: ov[k] for k in (
+            "n_compute_events", "compute_us", "n_collective_events",
+            "merge_groups", "seconds")}
+        _finish_tool(rows, "gamma_sensitivity", s2)
+        g = doc("s2")["models"]["resnet20"]
+        solved = build_schedule(
+            _resnet20_specs(), g["tb_s"], policy="auto",
+            cost_model=resolve_profile(load_profile(profile), 2))
+        if [list(x) for x in solved.groups] != g["groups_at_1.0"]:
+            fail(f"measure (s2): the 1.0x row's {len(g['groups_at_1.0'])} "
+                 f"groups differ from build_schedule's {solved.num_groups}")
+        out["s2"] = {"num_groups": solved.num_groups,
+                     "flips": g["schedule_flips_at"],
+                     "max_regret_frac": g["max_regret_frac"],
+                     "tb_total_s": g["tb_total_s"]}
+        _finish_tool(rows, "scaling_efficiency", s4)
+        sc = doc("s4")
+        card = torch.cuda.get_device_name(0)
+        pred = sc["predicted_targets"]
+        effs = [p["predicted_efficiency"] for t in pred.values()
+                for p in t["policies"].values()]
+        if (sc["measured_weak_scaling"]["1"]["efficiency"] != 1.0 or not pred
+                or not all(card in t for t in pred)
+                or not all(0.0 < e <= 1.0 for e in effs)):
+            fail(f"measure (s4): measured {sc['measured_weak_scaling']}, "
+                 f"targets {sorted(pred)}")
+        out["s4"] = {"t1_sec_per_iter": sc["t1_sec_per_iter"],
+                     "targets": {t: {p: r["predicted_efficiency"] for p, r in
+                                     v["policies"].items()}
+                                 for t, v in pred.items()}}
+        (made,) = _finish_tool(rows, "input_bench --make-data", make)
+        legs = json.loads(made.strip().splitlines()[-1])["legs"]
+        if legs.get("cifar10") != "ok":
+            fail(f"measure (s5): --make-data legs {legs}")
+        s5 = start(tool + "input_bench", "--model", "resnet20", "--data-dir",
+                   data_dir, "--iters", str(MEASURE_INPUT_ITERS), "--warmup",
+                   "3", "--out", paths["s5"])
+        model, meta = make_model("resnet50", "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(128, 3, 224, 224, device="cuda", generator=gen)
+        y = torch.randint(0, 1000, (128,), device="cuda", generator=gen)
+        want = flops_per_step(model, x, y, torch.bfloat16)
+        del model, x, y
+        torch.cuda.empty_cache()
+        _finish_tool(rows, "policy_grid", s3)
+        grid = doc("s3")
+        prior = lookup_alpha_beta("ici", MEASURE_WORLD)
+        for pol, groups in grid["groups"].items():
+            solved = build_schedule(_resnet20_specs(), grid["tb_s"],
+                                    policy=pol.split("#")[0],
+                                    cost_model=prior)
+            if [list(x) for x in solved.groups] != groups:
+                fail(f"measure (s3): {pol}'s groups differ from its solve")
+        if "noise_pair" not in grid or grid["n_devices"] != MEASURE_WORLD:
+            fail(f"measure (s3): no noise pair, or {grid['n_devices']} "
+                 "devices")
+        out["s3"] = {"sec_per_iter": {p: r["sec_per_iter"] for p, r in
+                                      grid["policies"].items()},
+                     "merge_groups": {p: r["merge_groups"] for p, r in
+                                      grid["policies"].items()},
+                     "noise_bound_s": grid["noise_pair"]["bound_s"],
+                     "fastest": grid["conclusion"]["fastest_by_median"]}
+        _finish_tool(rows, "input_bench", s5)
+        ib = doc("s5")["results"]
+        ratios = [ib.get("real_over_synthetic_throughput"),
+                  ib.get("prefetch_over_no_prefetch_throughput")]
+        if not all(r is not None and np.isfinite(r) for r in ratios):
+            fail(f"measure (s5): ratios {ratios}")
+        out["s5"] = {"legs": legs, "results": ib}
+        _finish_tool(rows, "mfu_ablation", s6)
+        mfu = doc("s6")["rows"]
+        base, half = mfu["baseline_b128"], mfu["batch_64"]
+        if (base["flops_per_step"] != want
+                or abs(half["flops_per_step"] * 2 - want)
+                > MEASURE_FLOPS_RTOL * want
+                or not all(0.0 < r["mfu"] <= 1.0 for r in mfu.values())):
+            fail(f"measure (s6): FLOPs {base['flops_per_step']} against "
+                 f"bench.flops_per_step {want}, batch_64 "
+                 f"{half['flops_per_step']}, MFU "
+                 f"{[r['mfu'] for r in mfu.values()]}")
+        out["s6"] = {n: {k: r[k] for k in ("sec_per_iter", "images_per_sec",
+                                           "mfu", "flops_per_step")}
+                     for n, r in mfu.items()}
+    finally:
+        for run in running:
+            for p in run["procs"]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(10)
+        shutil.rmtree(work, ignore_errors=True)
+    out["tools"] = rows
+    out["seconds"] = time.perf_counter() - t0
+    print(f"measure (s1): resnet20 b{MEASURE_BATCH}, "
+          f"{out['s1']['n_compute_events']} compute kernels "
+          f"({out['s1']['compute_us']:.1f} us), no collective kernel at one "
+          f"rank, {out['s1']['merge_groups']} groups; (s2) auto "
+          f"{out['s2']['num_groups']} group(s) = build_schedule, flips at "
+          f"{out['s2']['flips']}; (s3) {MEASURE_WORLD} gloo ranks: "
+          + ", ".join(f"{p} {v * 1e3:.2f} ms"
+                      for p, v in out["s3"]["sec_per_iter"].items())
+          + f", noise bound {out['s3']['noise_bound_s'] * 1e3:.2f} ms; (s4) "
+          f"t1 {out['s4']['t1_sec_per_iter'] * 1e3:.2f} ms, "
+          f"{len(out['s4']['targets'])} targets; (s5) legs {legs}, "
+          f"real/synthetic {ratios[0]}, prefetch/none {ratios[1]}; (s6) "
+          + ", ".join(f"{n} {r['images_per_sec']:.1f} img/s MFU "
+                      f"{r['mfu']:.4f}" for n, r in out["s6"].items())
+          + "; " + ", ".join(f"{r['name']} {r['seconds']:.1f} s"
+                             for r in rows)
+          + f"; phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -5852,25 +6171,35 @@ def main() -> int:
         flush=True,
     )
     gen = torch.Generator().manual_seed(0)
-    phase_build()
-    rows = phase_kernels(gen)
-    launches, latencies = phase_serve(gen)
-    reducer_b, train = phase_train()
-    calibrated = phase_calibrate(reducer_b, train["gloo"])
-    lm = phase_lm()
-    resnet50 = phase_resnet50()
-    resilience = phase_resilience()
-    zoo = phase_zoo()
-    lstman4 = phase_lstman4()
-    supervise = phase_supervise()
-    telemetry = phase_telemetry()
-    lowerings = phase_lowerings()
-    cross_step = phase_cross_step()
-    autotune = phase_autotune(calibrated)
-    analysis = phase_analysis()
-    seq = phase_seq()
-    zero_sync = phase_zero_sync()
-    tools = phase_tools()
+    phase_s: dict = {}  # each phase's seconds, printed with the results
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return res
+
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, gen)
+    launches, latencies = timed("serve", phase_serve, gen)
+    reducer_b, train = timed("a-c train", phase_train)
+    calibrated = timed("d calibrate", phase_calibrate, reducer_b,
+                       train["gloo"])
+    lm = timed("e lm", phase_lm)
+    resnet50 = timed("f resnet50", phase_resnet50)
+    resilience = timed("g resilience", phase_resilience)
+    zoo = timed("h zoo", phase_zoo)
+    lstman4 = timed("i lstman4", phase_lstman4)
+    supervise = timed("j supervise", phase_supervise)
+    telemetry = timed("k telemetry", phase_telemetry)
+    lowerings = timed("l lowerings", phase_lowerings)
+    cross_step = timed("m cross_step", phase_cross_step)
+    autotune = timed("n autotune", phase_autotune, calibrated)
+    analysis = timed("o analysis", phase_analysis)
+    seq = timed("p seq", phase_seq)
+    zero_sync = timed("q zero_sync", phase_zero_sync)
+    measure = timed("s measure", phase_measure)
+    tools = timed("r tools", phase_tools)
 
     serve = rows[0]
     kernels = [{
@@ -5912,6 +6241,9 @@ def main() -> int:
     print(json.dumps({"analysis": analysis}))
     print(json.dumps({"seq": seq}))
     print(json.dumps({"zero_sync": zero_sync, "card": card}))
+    print(json.dumps({"measure": measure, "card": card}))
+    print(json.dumps({"phase_seconds": phase_s,
+                      "smoke_s": time.monotonic() - SMOKE_T0}))
     print(json.dumps({"tools": tools, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

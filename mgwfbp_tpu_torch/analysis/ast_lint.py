@@ -41,6 +41,8 @@ from mgwfbp_tpu_torch.analysis.rules import (
     Finding,
     SuppressionTracker,
     filter_suppressed,
+    parse_source,
+    tree_nodes,
 )
 
 # capturing calls, by dotted name with any leading ``torch.`` removed; the
@@ -137,21 +139,20 @@ def _is_graph_capture(item: ast.withitem) -> bool:
     return fn is not None and (fn.endswith("cuda.graph") or fn == "graph")
 
 
-class _CapturedNameCollector(ast.NodeVisitor):
+def _captured_names(nodes) -> set[str]:
     """Names passed by reference into capturing calls, module-wide."""
-
-    def __init__(self) -> None:
-        self.names: set[str] = set()
-
-    def visit_Call(self, node: ast.Call) -> None:
-        if _is_capturing(_dotted(node.func)):
-            for arg in node.args[:1]:  # the function operand is leading
-                elts = arg.elts if isinstance(arg, ast.Tuple) else [arg]
-                for e in elts:  # make_graphed_callables takes a tuple
-                    name = _dotted(e)
-                    if name is not None and "." not in name:
-                        self.names.add(name)
-        self.generic_visit(node)
+    names: set[str] = set()
+    for node in nodes:
+        if not (isinstance(node, ast.Call)
+                and _is_capturing(_dotted(node.func))):
+            continue
+        for arg in node.args[:1]:  # the function operand is leading
+            elts = arg.elts if isinstance(arg, ast.Tuple) else [arg]
+            for e in elts:  # make_graphed_callables takes a tuple
+                name = _dotted(e)
+                if name is not None and "." not in name:
+                    names.add(name)
+    return names
 
 
 def _param_names(fn: ast.FunctionDef | ast.AsyncFunctionDef) -> set[str]:
@@ -351,19 +352,29 @@ def lint_source(
     """Lint one module's source; returns noqa-filtered findings.
     Consumed suppressions land on `tracker` (ANA001 accounting)."""
     if tracker is not None:
-        tracker.scan_lines(path, source.splitlines())
+        tracker.scan_source(path, source)
     try:
-        tree = ast.parse(source, filename=path)
+        tree = parse_source(source, path)
     except SyntaxError as e:
         return [Finding(path, e.lineno or 0, "JIT000",
                         f"unparseable module: {e.msg}")]
-    collector = _CapturedNameCollector()
-    collector.visit(tree)
-    captured_names = collector.names
+    nodes = tree_nodes(tree)
+    captured_names = _captured_names(nodes)
+    # most modules capture nothing: then no function is traced and no
+    # graph block exists, and the walks below would find nothing
+    graphs = any(isinstance(n, ast.With)
+                 and any(_is_graph_capture(it) for it in n.items)
+                 for n in nodes)
+    any_decorated = any(isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))
+                    and any(_is_capture_decorator(d)
+                            for d in n.decorator_list)
+                    for n in nodes)
 
     findings: list = []
 
     def check_graph_blocks(scope) -> None:
+        if not graphs:
+            return
         fn = scope if isinstance(
             scope, (ast.FunctionDef, ast.AsyncFunctionDef)) else None
         for block in _graph_blocks(scope):
@@ -394,7 +405,8 @@ def lint_source(
                 visit_functions(child, inside_traced)
 
     check_graph_blocks(tree)
-    visit_functions(tree, False)
+    if graphs or any_decorated or captured_names:
+        visit_functions(tree, False)
     return filter_suppressed(findings, source.splitlines(), tracker)
 
 

@@ -1070,7 +1070,7 @@ class RaceChecker:
             )
         for mod in self.modules:
             if self.tracker is not None:
-                self.tracker.scan_lines(mod.path, mod.lines)
+                self.tracker.scan_source(mod.path, mod.source)
             out.extend(filter_suppressed(
                 sorted(
                     by_mod.get(mod.path, []),

@@ -39,7 +39,9 @@ tell WHICH family failed from the code alone.
 
 from __future__ import annotations
 
+import ast
 import dataclasses
+import functools
 import re
 from typing import Iterable, Optional, Sequence
 
@@ -278,11 +280,35 @@ def has_reason(source_line: str) -> bool:
     return _REASON.search(source_line) is not None
 
 
+@functools.lru_cache(maxsize=512)
+def parse_source(source: str, path: str = "<string>") -> ast.Module:
+    """The module's tree, parsed once per process for each (path, source)
+    and shared by every pass (lint, THR, RUN): the passes read trees and
+    never change them."""
+    return ast.parse(source, filename=path)
+
+
+def tree_nodes(tree: ast.AST) -> tuple:
+    """Every node of ``tree`` (``ast.walk`` order), walked once and kept on
+    the shared tree."""
+    cached = tree.__dict__.get("_mgwfbp_nodes")
+    if cached is None:
+        cached = tree._mgwfbp_nodes = tuple(ast.walk(tree))
+    return cached
+
+
 def comment_lines(source: str) -> Optional[dict[int, str]]:
     """{lineno: comment_text} for every REAL comment token — docstrings
     quoting the annotation grammar must not register as markers. None
     when the source does not tokenize (caller falls back to line scan).
-    """
+    Tokenized once per source text (the lint, the passes and the tracker
+    all ask)."""
+    found = _comment_lines(source)
+    return None if found is None else dict(found)
+
+
+@functools.lru_cache(maxsize=512)
+def _comment_lines(source: str) -> Optional[dict[int, str]]:
     import io
     import tokenize
 

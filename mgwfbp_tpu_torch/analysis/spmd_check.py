@@ -89,6 +89,8 @@ from mgwfbp_tpu_torch.analysis.rules import (
     comment_lines,
     filter_suppressed,
     has_group_uniform_marker,
+    parse_source,
+    tree_nodes,
 )
 
 # --- lattice ---------------------------------------------------------------
@@ -136,9 +138,9 @@ def discover_group_ops(
     a new primitive is discovered the moment it is decorated."""
     path = transport_path or TRANSPORT_PATH
     with open(path, "r", encoding="utf-8") as f:
-        tree = ast.parse(f.read(), filename=path)
+        tree = parse_source(f.read(), path)
     ops: dict[str, GroupOp] = {}
-    for node in ast.walk(tree):
+    for node in tree_nodes(tree):
         if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
             continue
         for dec in node.decorator_list:
@@ -250,7 +252,7 @@ class ModuleInfo:
         self.path = path
         self.source = source
         self.lines = source.splitlines()
-        self.tree = ast.parse(source, filename=path)
+        self.tree = parse_source(source, path)
         self.coord_aliases: set[str] = set()
         self.op_imports: dict[str, str] = {}  # local name -> op name
         self.module_aliases: dict[str, str] = {}  # alias -> module tail
@@ -267,7 +269,7 @@ class ModuleInfo:
         self._scan_consts()
 
     def _scan_imports(self) -> None:
-        for node in ast.walk(self.tree):
+        for node in tree_nodes(self.tree):
             if isinstance(node, ast.Import):
                 for a in node.names:
                     tail = a.name.rsplit(".", 1)[-1]
@@ -486,7 +488,7 @@ class Checker:
 
     def _collect_serving_locks(self) -> None:
         for mod in self.serving_modules:
-            for node in ast.walk(mod.tree):
+            for node in tree_nodes(mod.tree):
                 if isinstance(node, ast.With):
                     for item in node.items:
                         tok = _is_lock_expr(item.context_expr)
@@ -1213,14 +1215,14 @@ class Checker:
         for mod in self.modules:
             fs = by_mod.get(mod.path, [])
             if self.tracker is not None:
-                self.tracker.scan_lines(mod.path, mod.lines)
+                self.tracker.scan_source(mod.path, mod.source)
             out.extend(filter_suppressed(
                 sorted(fs, key=lambda f: (f.line, f.rule_id)),
                 mod.lines, self.tracker,
             ))
         for mod in self.serving_modules:
             if self.tracker is not None:
-                self.tracker.scan_lines(mod.path, mod.lines)
+                self.tracker.scan_source(mod.path, mod.source)
         return out
 
     # continuation machinery ------------------------------------------
@@ -1584,7 +1586,7 @@ def _count_attrs(cls: ast.ClassDef) -> set[str]:
     process-count call (``self.world = world_size()``)."""
     counts: set[str] = set()
     other: set[str] = set()
-    for node in ast.walk(cls):
+    for node in tree_nodes(cls):
         if isinstance(node, (ast.Assign, ast.AnnAssign, ast.AugAssign)):
             targets = (node.targets if isinstance(node, ast.Assign)
                        else [node.target])
@@ -1636,22 +1638,29 @@ def _own_exprs(stmt) -> Iterable[Optional[ast.AST]]:
             yield t
 
 
-def _walk_no_defs(node, skip_root_def: bool = False):
+_DEFS = (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda, ast.ClassDef)
+
+
+def _walk_no_defs(node, skip_root_def: bool = False) -> tuple:
     """ast.walk in DOCUMENT (preorder) order that does not descend into
     nested function/class defs — source order matters for the
-    last-write-wins environment."""
-    stack = [node]
-    first = True
-    while stack:
-        n = stack.pop()
-        if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
-                          ast.Lambda, ast.ClassDef)):
-            if not (first and skip_root_def):
-                first = False
+    last-write-wins environment. The fixpoint asks for the same subtrees
+    in every round, so each node keeps its walk (the trees are shared and
+    never changed)."""
+    if isinstance(node, _DEFS) and not skip_root_def:
+        return ()
+    cached = node.__dict__.get("_mgwfbp_walk")
+    if cached is None:
+        out = [node]
+        stack = list(reversed(list(ast.iter_child_nodes(node))))
+        while stack:
+            n = stack.pop()
+            if isinstance(n, _DEFS):
                 continue
-        first = False
-        yield n
-        stack.extend(reversed(list(ast.iter_child_nodes(n))))
+            out.append(n)
+            stack.extend(reversed(list(ast.iter_child_nodes(n))))
+        cached = node._mgwfbp_walk = tuple(out)
+    return cached
 
 
 def _walk_no_defs_stmts(stmts):

@@ -156,6 +156,91 @@ def flops_per_step(model, x, y, compute_dtype) -> int:
     return int(counter.get_total_flops())
 
 
+def make_model(model_name: str, device, seed: int = 0):
+    """(module on ``device`` in training mode, meta) of an image
+    classifier, its weights from a seeded generator."""
+    import torch
+
+    from mgwfbp_tpu_torch import models as zoo
+    from mgwfbp_tpu_torch.models.common import init_weights
+
+    model, meta = zoo.create_model(model_name)
+    if meta.task != "classify":
+        raise ValueError(f"only image classifiers are timed here; "
+                         f"{model_name!r} is a {meta.task} model")
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(device).train(), meta
+
+
+def random_batch(meta, nsteps: int, batch: int, device, seed: int = 0):
+    """(x, y): ``nsteps`` micro-batches of ``batch`` random images (NCHW)
+    and labels, drawn from a seeded numpy generator."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    x = rs.randn(nsteps, batch, *meta.input_shape).astype(np.float32)
+    y = rs.randint(0, meta.num_classes, (nsteps, batch))
+    return (torch.from_numpy(x).to(device).movedim(-1, -3).contiguous(),
+            torch.from_numpy(y.astype(np.int64)).to(device))
+
+
+def time_steps(step, x, y, iters: int, device, what: str = "step") -> float:
+    """Seconds per step of ``iters`` steps of ``step(x, y)`` after WARMUP:
+    CUDA events around the timed steps on the card (the host clock on the
+    CPU), one synchronisation after the last; the losses, read after the
+    window, must be finite."""
+    import torch
+
+    for _ in range(WARMUP):
+        step(x, y)
+    _sync(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    losses = [step(x, y)["loss"] for _ in range(iters)]
+    if cuda:
+        end.record()
+    _sync(device)
+    dt = (start.elapsed_time(end) / 1e3 if cuda
+          else time.perf_counter() - t0) / iters
+    if not bool(torch.stack(losses).isfinite().all()):
+        raise RuntimeError(f"{what}: non-finite loss in the timed loop")
+    return dt
+
+
+def measure_tb(model, x, y, compute_dtype=None, warmup: int = 2,
+               iters: int = 5, task: str = "classify"):
+    """``model``'s tb in arrival order, measured by the gradient hooks on
+    the batch (x, y) (``profiling.benchmark_backward``); over several
+    ranks, rank 0's, so that every rank solves the same schedule (as the
+    trainer broadcasts it)."""
+    import torch
+    import torch.distributed as dist
+
+    from mgwfbp_tpu_torch.convert import flax_leaves, keystr
+    from mgwfbp_tpu_torch.parallel.allreduce import arrival_order
+    from mgwfbp_tpu_torch.parallel.mesh import world_size
+    from mgwfbp_tpu_torch.profiling import TbProfile, benchmark_backward
+    from mgwfbp_tpu_torch.train.step import forward_loss
+
+    leaves = flax_leaves(model)
+    perm = arrival_order(len(leaves), names=[keystr(p) for p, _ in leaves])
+    tb = benchmark_backward(
+        model,
+        lambda: forward_loss(model, task, x, y, None, compute_dtype)[0],
+        [t for _, t in leaves], perm, warmup=warmup, iters=iters,
+    )
+    if world_size() > 1:
+        vals = torch.tensor(list(tb), dtype=torch.float64, device=x.device)
+        dist.broadcast(vals, 0)
+        tb = TbProfile(vals.tolist(), source=tb.source)
+    return tb
+
+
 class _Grid:
     """One batch size's tb measurement and policy grid. Every policy
     starts from the same initial state (weights, batch statistics) and a
@@ -163,104 +248,60 @@ class _Grid:
 
     def __init__(self, model_name: str, batch: int, iters: int, device,
                  compute_dtype, cost_model):
-        import numpy as np
-        import torch
-
-        from mgwfbp_tpu_torch import models as zoo
-        from mgwfbp_tpu_torch.models.common import init_weights
-
         self.device, self.iters = device, iters
         self.compute_dtype, self.cost_model = compute_dtype, cost_model
-        self.model, self.meta = zoo.create_model(model_name)
-        if self.meta.task != "classify":
-            raise ValueError(f"the bench times image classifiers; "
-                             f"{model_name!r} is a {self.meta.task} model")
-        init_weights(self.model, torch.Generator().manual_seed(0))
-        self.model.to(device).train()
+        self.model, self.meta = make_model(model_name, device)
         self.init_state = {k: v.detach().clone()
                            for k, v in self.model.state_dict().items()}
-        rs = np.random.RandomState(0)
-        x = rs.randn(batch, *self.meta.input_shape).astype(np.float32)
-        y = rs.randint(0, self.meta.num_classes, (batch,))
-        self.x = torch.from_numpy(x).to(device).movedim(-1, -3).contiguous()
-        self.y = torch.from_numpy(y.astype(np.int64)).to(device)
+        x, y = random_batch(self.meta, 1, batch, device)
+        self.x, self.y = x[0], y[0]
 
     def tb(self):
-        import torch
-        import torch.distributed as dist
+        return measure_tb(self.model, self.x, self.y, self.compute_dtype)
 
-        from mgwfbp_tpu_torch.convert import flax_leaves, keystr
-        from mgwfbp_tpu_torch.parallel.allreduce import arrival_order
-        from mgwfbp_tpu_torch.parallel.mesh import world_size
-        from mgwfbp_tpu_torch.profiling import TbProfile, benchmark_backward
-        from mgwfbp_tpu_torch.train.step import forward_loss
-
-        leaves = flax_leaves(self.model)
-        perm = arrival_order(len(leaves), names=[keystr(p) for p, _ in leaves])
-        tb = benchmark_backward(
-            self.model,
-            lambda: forward_loss(self.model, "classify", self.x, self.y, None,
-                                 self.compute_dtype)[0],
-            [t for _, t in leaves], perm, warmup=2, iters=5,
-        )
-        if world_size() > 1:
-            # every rank must solve the same schedule: rank 0's tb, as the
-            # trainer broadcasts it
-            vals = torch.tensor(list(tb), dtype=torch.float64,
-                                device=self.device)
-            dist.broadcast(vals, 0)
-            tb = TbProfile(vals.tolist(), source=tb.source)
-        return tb
-
-    def time_policy(self, policy: str, tb) -> tuple[float, int]:
-        """(seconds per step, merge groups) over ``iters`` steps after
-        WARMUP, by CUDA events on the card (the host clock on the CPU)."""
-        import torch
-
+    def build_step(self, policy: str, tb, group=None, nsteps: int = 1):
+        """(TrainStep over ``nsteps`` micro-batches, reducer or None) of
+        ``policy`` on this grid's model from its initial state, with a fresh
+        optimizer; the reducer (over ``group``, the default process group
+        when None) is attached until the caller detaches it."""
         from mgwfbp_tpu_torch.optim import make_optimizer
         from mgwfbp_tpu_torch.parallel.allreduce import make_merged_allreduce
         from mgwfbp_tpu_torch.train.step import TrainStep
 
         model = self.model
         model.load_state_dict(self.init_state)
+        threshold = 0
+        if policy.startswith("threshold:"):
+            # "threshold:N" rows: the reference's static-threshold sweep
+            policy, threshold = "threshold", int(policy.split(":", 1)[1])
         reducer = None
-        if policy != "none":
+        if policy not in ("none", "xla"):
+            # every policy is priced on the one tb (its groups need it only
+            # for mgwfbp and auto)
             reducer = make_merged_allreduce(
-                model, policy=policy,
-                tb=tb if policy in ("mgwfbp", "auto") else None,
-                cost_model=self.cost_model,
+                model, policy=policy, tb=tb, cost_model=self.cost_model,
+                threshold=threshold, group=group,
             )
         opt, lr_fn, _ = make_optimizer(
             model.parameters(), 0.01, momentum=0.9, weight_decay=1e-4,
             lr_schedule="const", dataset="imagenet", num_batches_per_epoch=1,
         )
-        step = TrainStep(model, opt, lr_fn, reducer=reducer,
-                         compute_dtype=self.compute_dtype)
-        x, y = self.x[None], self.y[None]
+        return TrainStep(model, opt, lr_fn, reducer=reducer, group=group,
+                         nsteps_update=nsteps,
+                         compute_dtype=self.compute_dtype), reducer
+
+    def time_policy(self, policy: str, tb) -> tuple[float, int]:
+        """(seconds per step, merge groups) over ``iters`` steps after
+        WARMUP, by CUDA events on the card (the host clock on the CPU)."""
+        import torch
+
+        step, reducer = self.build_step(policy, tb)
         try:
-            for _ in range(WARMUP):
-                step(x, y)
-            _sync(self.device)
-            cuda = self.device.type == "cuda"
-            if cuda:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-            t0 = time.perf_counter()
-            losses = []
-            for _ in range(self.iters):
-                losses.append(step(x, y)["loss"])
-            if cuda:
-                end.record()
-            _sync(self.device)
-            dt = (start.elapsed_time(end) / 1e3 if cuda
-                  else time.perf_counter() - t0) / self.iters
+            dt = time_steps(step, self.x[None], self.y[None], self.iters,
+                            self.device, what=f"policy {policy}")
         finally:
             if reducer is not None:
                 reducer.detach()
-        if not bool(torch.stack(losses).isfinite().all()):
-            raise RuntimeError(f"policy {policy}: non-finite loss in the "
-                               "timed loop")
         return dt, reducer.num_groups if reducer is not None else 0
 
     def run(self) -> tuple[list, dict, int]:

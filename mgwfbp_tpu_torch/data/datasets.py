@@ -44,8 +44,13 @@ def synthetic_images(
 def _smooth_field(rng: np.random.RandomState, hwc, low: int = 8) -> np.ndarray:
     """Low-frequency random field: white noise at `low` resolution,
     bilinearly upsampled to (H, W, C), unit RMS."""
-    h, w, c = hwc
-    coarse = rng.randn(low, low, c)
+    return _upsample(rng.randn(low, low, hwc[2]), hwc)
+
+
+def _upsample(coarse: np.ndarray, hwc) -> np.ndarray:
+    """``_smooth_field``'s upsampling of one coarse draw."""
+    h, w, _ = hwc
+    low = coarse.shape[0]
     ys = np.linspace(0, low - 1, h)
     xs = np.linspace(0, low - 1, w)
     y0 = np.floor(ys).astype(int)
@@ -81,26 +86,42 @@ def synthetic_images_hard(
     train and val builds), the samples from ``seed``."""
     h, w, c = hwc
     wrng = np.random.RandomState(world_seed)
-    basis = np.stack([_smooth_field(wrng, hwc) for _ in range(num_classes)])
-    styles = np.stack([_smooth_field(wrng, hwc) for _ in range(n_styles)])
+    # every field is drawn (the stream stays the JAX package's), and only
+    # those the samples use are upsampled: the same bytes, without 1000
+    # full-size class fields at ImageNet's size
+    coarse = [wrng.randn(8, 8, c) for _ in range(num_classes + n_styles)]
     rng = np.random.RandomState(seed)
     labels = rng.randint(0, num_classes, size=n).astype(np.int32)
     style_ix = rng.randint(0, n_styles, size=n)
-    x = (
-        128.0
-        + class_amp * basis[labels]
-        + style_amp * styles[style_ix]
-        + noise_std * rng.randn(n, h, w, c)
-    )
+    used_b, b_ix = np.unique(labels, return_inverse=True)
+    used_s, s_ix = np.unique(style_ix, return_inverse=True)
+    basis = np.stack([_upsample(coarse[k], hwc) for k in used_b])
+    styles = np.stack([_upsample(coarse[num_classes + k], hwc)
+                       for k in used_s])
+    # the float64 sum is made and rounded to uint8 a block of samples at a
+    # time (the noise drawn in the same order), and the shifts and flips,
+    # pixel permutations that commute with the rounding, move the uint8
+    # images: the same bytes without an n x H x W x C float64 array
+    b_ix, s_ix = b_ix.reshape(-1), s_ix.reshape(-1)
+    data = np.empty((n, h, w, c), np.uint8)
+    block = max(1, (1 << 21) // (h * w * c))
+    for lo in range(0, n, block):
+        hi = min(lo + block, n)
+        x = (
+            128.0
+            + class_amp * basis[b_ix[lo:hi]]
+            + style_amp * styles[s_ix[lo:hi]]
+            + noise_std * rng.randn(hi - lo, h, w, c)
+        )
+        data[lo:hi] = np.clip(x, 0, 255).astype(np.uint8)
     dy = rng.randint(-max_shift, max_shift + 1, size=n)
     dx = rng.randint(-max_shift, max_shift + 1, size=n)
     flip = rng.rand(n) < 0.5
     for i in range(n):
         if dy[i] or dx[i]:
-            x[i] = np.roll(x[i], (dy[i], dx[i]), axis=(0, 1))
+            data[i] = np.roll(data[i], (dy[i], dx[i]), axis=(0, 1))
         if flip[i]:
-            x[i] = x[i, :, ::-1]
-    data = np.clip(x, 0, 255).astype(np.uint8)
+            data[i] = data[i, :, ::-1]
     return ArrayDataset(data=data, labels=labels, num_classes=num_classes)
 
 
@@ -188,3 +209,27 @@ def load_imagenet_hdf5(data_dir: str,
         if os.path.exists(path):
             return HDF5ImageDataset(path, split)
     return None
+
+
+def create_hdf5(
+    images: np.ndarray, labels: np.ndarray, val_images: np.ndarray,
+    val_labels: np.ndarray, out_path: str,
+) -> None:
+    """Write the single-file HDF5 layout ``HDF5ImageDataset`` reads (the
+    JAX package's ``create_hdf5``, after the reference's
+    scripts/create_hdf5.py: N x S x S x 3 uint8 images and int64 labels
+    under ``train_``/``val_`` keys), with the same keys, dtypes and
+    calls, so both packages write the same bytes. Needs ``h5py``: its
+    absence raises ModuleNotFoundError naming it."""
+    try:
+        import h5py
+    except ModuleNotFoundError as e:
+        raise ModuleNotFoundError(
+            f"create_hdf5 needs h5py, which is not installed: {e}",
+            name="h5py") from None
+
+    with h5py.File(out_path, "w") as f:
+        f.create_dataset("train_img", data=images, dtype="uint8")
+        f.create_dataset("train_labels", data=labels.astype(np.int64))
+        f.create_dataset("val_img", data=val_images, dtype="uint8")
+        f.create_dataset("val_labels", data=val_labels.astype(np.int64))

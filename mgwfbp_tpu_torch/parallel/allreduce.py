@@ -1332,6 +1332,7 @@ def make_merged_allreduce(
     groups: Optional[Sequence[Sequence[int]]] = None,
     dcn_groups: Optional[Sequence[Sequence[int]]] = None,
     policy_detail: Optional[str] = None,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> MergedAllreduce:
     """Solve the merge schedule for ``module``'s parameters
     (``plan_merged_allreduce``) and return the reducer with its hooks
@@ -1343,7 +1344,8 @@ def make_merged_allreduce(
     two_level_groups``). ``groups`` (arrival-order index groups covering
     every leaf once) and, for hier, ``dcn_groups`` bypass the policy, as in
     ``solver.build_schedule``; ``policy_detail`` labels the schedule.
-    Collectives run on the default process group."""
+    Collectives run over ``group`` (the default process group when None;
+    the measuring tools time the first n ranks of a world)."""
     if comm_op in SHARDED_OPS and (optim_spec is None or world_size is None):
         raise ValueError(
             f"comm_op={comm_op!r} requires optim_spec and world_size")
@@ -1358,5 +1360,5 @@ def make_merged_allreduce(
     return MergedAllreduce(
         schedule, layout, p, params, mean=mean, comm_dtype=comm_dtype,
         comm_op=comm_op, compressor=compressor, optim=optim, levels=levels,
-        module=module,
+        module=module, group=group,
     ).attach()

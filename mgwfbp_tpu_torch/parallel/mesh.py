@@ -104,6 +104,7 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     init_method: Optional[str] = None,
+    backend: Optional[str] = None,
 ) -> torch.device:
     """Start the process group unless one is running; returns the device
     this process trains on. Arguments left None come from
@@ -111,7 +112,9 @@ def init_distributed(
     ``tcp://host:port``. A single process with no launch signal starts
     nothing (it needs no collective). In a multi-process world "cuda"
     without an index means this rank's card (``local_device_index``),
-    which becomes the current CUDA device."""
+    which becomes the current CUDA device. ``backend`` overrides the
+    device's (``backend_for``): gloo on the card lets several ranks share
+    one card, which NCCL refuses."""
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dist.is_available() and dist.is_initialized():
         return resolve_device(dev)
@@ -147,8 +150,9 @@ def init_distributed(
                 f"this host has {torch.cuda.device_count()} card(s)"
             )
         torch.cuda.set_device(dev)
+    backend = backend or backend_for(dev)
     dist.init_process_group(
-        backend_for(dev), init_method=init_method,
+        backend, init_method=init_method,
         world_size=int(num_processes), rank=int(process_id),
         # the bound on every collective of the world, the side group's
         # too. A survivor blocked in an NCCL all-reduce whose peer died
@@ -159,22 +163,24 @@ def init_distributed(
         # after --drain-grace
         timeout=datetime.timedelta(seconds=env_float(
             COORD_TIMEOUT_ENV, DEFAULT_BARRIER_TIMEOUT_S)),
-        **({"device_id": dev} if dev.type == "cuda" else {}),
+        **({"device_id": dev} if backend == "nccl" else {}),
     )
     return dev
 
 
-def start_group(device_arg, rdv_dir: str) -> tuple[torch.device, bool]:
+def start_group(device_arg, rdv_dir: str,
+                backend: Optional[str] = None) -> tuple[torch.device, bool]:
     """(device, started): the running world, else the launch environment's,
     else a one-rank group of this process alone (rendezvous in
     ``rdv_dir``), so that collectives run even at one worker; ``started``
-    says this call started it."""
+    says this call started it. ``backend``: as in ``init_distributed``."""
     running = dist.is_initialized()
-    device = init_distributed(device_arg)
+    device = init_distributed(device_arg, backend=backend)
     if not dist.is_initialized():
         device = init_distributed(
             device, num_processes=1, process_id=0,
             init_method=f"file://{os.path.join(rdv_dir, 'rendezvous')}",
+            backend=backend,
         )
     return device, not running
 

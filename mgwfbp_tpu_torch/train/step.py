@@ -383,7 +383,11 @@ class TrainStep:
         compute_dtype: Optional[torch.dtype] = None,
         health_stats: bool = False,
         seq_group=None,
+        group=None,
     ):
+        # group: the process group the step's reductions span (the default
+        # when None; the measuring tools time the first n ranks of a world
+        # over a subgroup, which the reducer must span too)
         if seq_group is not None and not hasattr(model, "seq_group"):
             raise ValueError(
                 "sequence parallelism is for windowed lm models; BPTT carry "
@@ -402,7 +406,9 @@ class TrainStep:
         self.norm_clip = norm_clip
         self.compute_dtype = compute_dtype
         self.seq_group = seq_group
-        self.world = world_size()
+        self.group = group
+        self.world = (world_size() if group is None
+                      else dist.get_world_size(group))
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.buffers = flatten_buffers(model)
         device = self.params[0].device if self.params else None
@@ -530,7 +536,7 @@ class TrainStep:
             if self.world > 1:
                 with collective_scope("flat_grad_reduce"):
                     for g in grads:  # one flat mean per leaf, no hooks
-                        dist.all_reduce(g)
+                        dist.all_reduce(g, group=self.group)
                         g.div_(self.world)
             # with the guard, the gradients become views of flat buffers
             # (one per dtype): one count and one zeroing each
@@ -553,7 +559,7 @@ class TrainStep:
             metrics = torch.cat([metrics, *(t.to(metrics.dtype) for t in local)])
         if self.world > 1:
             with collective_scope("metrics_reduce"):
-                dist.all_reduce(metrics)
+                dist.all_reduce(metrics, group=self.group)
             metrics.div_(self.world)
         norms = comp = None
         if self.health_stats:
@@ -589,7 +595,7 @@ class TrainStep:
         self._calls += 1
         if self.world > 1 and self.buffers is not None:
             with collective_scope("bstats_reduce"):
-                dist.all_reduce(self.buffers)
+                dist.all_reduce(self.buffers, group=self.group)
             self.buffers.div_(self.world)
         if ok is not None:
             # a skipped step never happened: the forward's running
