@@ -1,8 +1,11 @@
-"""Compare the serving path, or with ``--train`` the training step, of two
-checkouts of the port on one CUDA card.
+"""Compare the serving path, with ``--train`` the training step, or with
+``--order`` the merged collectives' launch order, of two checkouts of the
+port on one CUDA card (``--order-nccl``: on four).
 
     python3 chip_compare.py PARENT_DIR CHANGE_DIR
     python3 chip_compare.py --train PARENT_DIR CHANGE_DIR
+    python3 chip_compare.py --order PARENT_DIR CHANGE_DIR
+    python3 chip_compare.py --order-nccl PARENT_DIR CHANGE_DIR
 
 Each directory is the root of a checkout (for example the parent commit
 unpacked with `git archive` into a directory that .gitignore lists). The
@@ -32,6 +35,25 @@ batch the median step with a synchronisation after each (CUDA events,
 synchronisation (`step_ms_back_to_back`) and torch.profiler's busy share
 over 10 back-to-back steps (`busy_share`); then the bench's ResNet-50 row
 `none` (batch 128, bfloat16, 5 + 20 steps; `bench_resnet50_none_ms`).
+
+With ``--order`` each turn runs two ranks over gloo sharing card 0 (with
+``--order-nccl`` four ranks over NCCL, one a card), each a child process
+of that checkout, and measures at rank 0, for full-width ResNet-20 at
+batch 32 (float32) and ResNet-50 at batch 128 (bfloat16), each under the
+merged policies mgwfbp (on the reference's 56Gb IB constants at 16
+workers, tb measured by rank 0's hooks in the first turn, which every turn
+solves on) and wfbp: the median step of 20 after 3 (CUDA events, a
+synchronisation after each; `step_ms`), the groups held back on the last
+step's hooks under group order and along the groups' launch order that
+step (`held_by_group_order`, `held_as_launched`), then, over 3 traced
+steps at rank 0, the NCCL kernels' time and the part of it that compute
+kernels overlapped (`tools.overlap_report.summarize_overlap`; none over
+gloo), the streams they ran on and how often another kernel started
+between two of them, and the overlap replay's hidden and exposed seconds
+(`telemetry.summarize`, along the reducer's launch sequence where the
+checkout has one). ``--order``
+then runs smoke phase (m1) of the checkout alone (`chip_smoke.
+xstep_one_rank`): rs_fwd_ag's forward stall against rs_opt_ag at one rank.
 
 Prints one JSON line per turn and, last, the card's name and power limit.
 Exits non-zero without a card.
@@ -199,6 +221,178 @@ print(json.dumps(out))
 '''
 
 
+CHILD_ORDER = r'''
+import json, os, sys, tempfile
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, world, backend, rdv, tb_path = (int(sys.argv[1]), int(sys.argv[2]),
+                                      sys.argv[3], sys.argv[4], sys.argv[5])
+dev = torch.device("cuda", rank if backend == "nccl" else 0)
+torch.cuda.set_device(dev)
+dist.init_process_group(backend, init_method=f"file://{rdv}",
+                        world_size=world, rank=rank)
+from mgwfbp_tpu_torch import bench
+from mgwfbp_tpu_torch.parallel.costmodel import lookup_alpha_beta
+from mgwfbp_tpu_torch.profiling import trace_group_rows
+from mgwfbp_tpu_torch.telemetry import summarize
+from mgwfbp_tpu_torch.tools import overlap_report
+from mgwfbp_tpu_torch.utils.device import set_matmul_precision
+
+
+def lanes(logdir):
+    """The traced kernels' streams (NCCL's, the others'), and the share of
+    NCCL kernels after which, in start order, another kernel starts before
+    the next NCCL kernel (1: each collective ran between compute kernels;
+    low: the collectives ran in one burst)."""
+    ev = overlap_report._device_events(overlap_report._load_trace_events(logdir))
+    kern = sorted((e for e in ev if e.get("cat") == "kernel"),
+                  key=lambda e: e["ts"])
+    is_nccl = [overlap_report._is_collective(e["name"]) for e in kern]
+    follows = [b for a, b in zip(is_nccl, is_nccl[1:]) if a]
+    streams = lambda want: sorted({e.get("args", {}).get("stream")  # noqa: E731
+                                   for e, c in zip(kern, is_nccl) if c == want})
+    return {"nccl_streams": streams(True), "other_streams": streams(False),
+            "nccl_followed_by_other": (follows.count(False) / len(follows)
+                                       if follows else None)}
+
+
+def held(groups, arrivals, sequence):
+    # allreduce.held_groups, which the parent checkout lacks
+    pos = {k: i for i, k in enumerate(arrivals)}
+    n, launched_at = 0, -1
+    for gi in sequence:
+        complete_at = max(pos[k] for k in groups[gi])
+        launched_at = max(launched_at, complete_at)
+        n += launched_at > complete_at
+    return n
+
+
+cost = lookup_alpha_beta("56GbIB", 16)
+# the first turn's tb (rank 0's hooks), so that every turn solves the same
+# mgwfbp schedule
+tbs = json.load(open(tb_path)) if os.path.exists(tb_path) else {}
+out = {}
+for name, batch, dtype in (("resnet20", 32, None),
+                           ("resnet50", 128, torch.bfloat16)):
+    set_matmul_precision(dtype)
+    grid = bench._Grid(name, batch, 1, dev, dtype, cost)
+    if name not in tbs:
+        tb = torch.tensor(list(grid.tb()), dtype=torch.float64,
+                          device=dev if backend == "nccl" else "cpu")
+        dist.broadcast(tb, 0)
+        tbs[name] = tb.cpu().tolist()
+    tb = tbs[name]
+    x, y = grid.x[None], grid.y[None]
+    for policy in ("mgwfbp", "wfbp"):
+        step, reducer = grid.build_step(policy, tb)
+        for _ in range(3):
+            step(x, y)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(20):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(x, y)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        groups = [list(g) for g in reducer.layout.groups]
+        arrivals, log = list(reducer.arrivals), list(reducer.launch_log)
+        sequence = getattr(reducer, "launch_sequence", None)
+        logdir = tempfile.mkdtemp(prefix="mgwfbp_order_")
+
+        def run():
+            for _ in range(3):
+                step(x, y)
+            torch.cuda.synchronize()
+
+        if rank == 0:  # the other ranks take the same steps untraced
+            trace_group_rows(run, logdir=logdir)
+        else:
+            run()
+        traced = overlap_report.summarize_overlap(logdir) if rank == 0 else {}
+        step_ms = float(np.median(times))
+        kw = {} if sequence is None else {"order": sequence}
+        replay = summarize(reducer, cost, tb, step_ms / 1e3, **kw)
+        out[f"{name}/{policy}"] = {} if rank else {
+            "groups": len(groups), "step_ms": step_ms,
+            "step_ms_range": [float(min(times)), float(max(times))],
+            "held_by_group_order": held(groups, arrivals, range(len(groups))),
+            "held_as_launched": held(groups, arrivals, log),
+            "launched_in_group_order": log == list(range(len(groups))),
+            "nccl_kernels_per_step": traced["n_collective_events"] / 3,
+            "nccl_us_per_step": traced["total_collective_us"] / 3,
+            "nccl_overlapped_us_per_step": traced["overlapped_us"] / 3,
+            "nccl_overlap_fraction": traced["overlap_fraction"],
+            "replay_hidden_ms": replay.hidden_s * 1e3,
+            "replay_exposed_ms": replay.exposed_s * 1e3,
+            "replay_efficiency": replay.efficiency,
+            **lanes(logdir),
+        }
+        reducer.detach()
+    grid.close()
+    del grid
+    torch.cuda.empty_cache()
+dist.destroy_process_group()
+if rank == 0:
+    if not os.path.exists(tb_path):
+        with open(tb_path, "w") as f:
+            json.dump(tbs, f)
+    print(json.dumps(out))
+'''
+
+
+CHILD_STALL = r'''
+import json
+import chip_smoke as cs
+from mgwfbp_tpu_torch.utils.device import set_matmul_precision
+
+set_matmul_precision(None)
+r = cs.xstep_one_rank()
+print(json.dumps({
+    "forward_stall_host_ms": r["forward_stall_host_ms"],
+    "in_forward_order": r["runs"]["rs_fwd_ag"]["traced_step"][
+        "in_forward_order"],
+    "forward_host_ms_median": {
+        op: r["runs"][op]["forward_host_ms_median"]
+        for op in ("rs_opt_ag", "rs_fwd_ag")},
+}))
+'''
+
+
+def run_ranks(root: str, label: str, world: int, backend: str,
+              tb_path: str) -> dict:
+    """One turn of CHILD_ORDER: ``world`` ranks of the checkout at ``root``,
+    rank 0's line; ``tb_path`` holds the first turn's tb (written by it)."""
+    import tempfile
+
+    root = os.path.abspath(root)
+    env = dict(os.environ, PYTHONPATH=root)
+    with tempfile.TemporaryDirectory(prefix="mgwfbp_order_rdv_") as d:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", CHILD_ORDER, str(r), str(world), backend,
+             os.path.join(d, "rdv"), tb_path], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=root, env=env)
+            for r in range(world)]
+        try:
+            outs = [p.communicate(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    if any(p.returncode for p in procs):
+        raise SystemExit(f"{label} ({root}) failed:\n" + "\n".join(
+            f"rank {r}: rc {p.returncode}\n{o[1][-3000:]}"
+            for r, (p, o) in enumerate(zip(procs, outs))))
+    doc = json.loads(outs[0][0].strip().splitlines()[-1])
+    return {"turn": label, "root": root, "world": world, "backend": backend,
+            **doc}
+
+
 def run_turn(root: str, label: str, child: str = CHILD) -> dict:
     root = os.path.abspath(root)
     res = subprocess.run(
@@ -213,9 +407,13 @@ def run_turn(root: str, label: str, child: str = CHILD) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    child = CHILD
+    child, order = CHILD, None
     if args[:1] == ["--train"]:
         args, child = args[1:], CHILD_TRAIN
+    elif args[:1] == ["--order"]:
+        args, order = args[1:], (2, "gloo")
+    elif args[:1] == ["--order-nccl"]:
+        args, order = args[1:], (4, "nccl")
     if len(args) != 2:
         raise SystemExit(__doc__)
     import torch
@@ -223,9 +421,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_compare: needs a CUDA card")
     parent, change = args
-    for label, root in (("parent", parent), ("change", change),
-                        ("change", change), ("parent", parent)):
-        print(json.dumps(run_turn(root, label, child)), flush=True)
+    turns = (("parent", parent), ("change", change), ("change", change),
+             ("parent", parent))
+    import tempfile
+
+    tb_dir = tempfile.TemporaryDirectory(prefix="mgwfbp_order_tb_")
+    for label, root in turns:
+        if order is None:
+            print(json.dumps(run_turn(root, label, child)), flush=True)
+        else:
+            print(json.dumps(run_ranks(
+                root, label, *order, os.path.join(tb_dir.name, "tb.json"))),
+                flush=True)
+    tb_dir.cleanup()
+    if order == (2, "gloo"):
+        for label, root in turns:
+            print(json.dumps({"stall": run_turn(root, label, CHILD_STALL)}),
+                  flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

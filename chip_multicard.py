@@ -42,7 +42,11 @@ them. The healer shrinks the group to N-1, which resumes from the last
 committed step under the n-N tag and trains to the end. Prints one JSON
 line ``{"multicard_heal": ...}``: the exit codes of each incarnation, the
 seconds from the kill to the survivors' exit, the heal, the resize and the
-final step.
+final step, and a survivor's timeline: its exit trace
+(``MGWFBP_STACK_SAMPLE_S``: the main thread's frames and the teardown's
+steps) and torch's C++ log at INFO (the NCCL watchdog's timeout, its
+dump, the abort), each line in seconds after the kill (``heal: survivor``
+lines).
 
 With ``--lowerings`` it runs another step instead: N processes (one per
 card, NCCL) train ResNet-50 (``--model``) at bfloat16 (``--dtype``) at
@@ -112,6 +116,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import signal
 import socket
@@ -600,12 +605,50 @@ def autotune_phase(n: int, device: str, out_dir: str, batch_size: int,
 
 
 HEAL_COORD_TIMEOUT_S = 30
+HEAL_SAMPLE_S = 5  # the survivors' stack samples (the exit trace)
 
 
 def _stamp(line: str) -> float:
     """Wall time of a log line (``YYYY-mm-dd HH:MM:SS,mmm ...``)."""
     day, ms = line[:23].split(",")
     return time.mktime(time.strptime(day, "%Y-%m-%d %H:%M:%S")) + int(ms) / 1e3
+
+
+_GLOG = re.compile(r"\[[IWEF](\d\d)(\d\d) (\d\d):(\d\d):(\d\d)\.(\d+)")
+_TRACE_WALL = re.compile(r"mgwfbp exit trace: .* wall (\d+\.\d+)")
+
+
+def _line_wall(line: str, year: int):
+    """Wall time of a survivor's log line: the exit trace's ``wall``,
+    torch's C++ log prefix (``[E1018 18:47:35.826073503``, this year), or
+    the Python logger's; None for any other line."""
+    m = _TRACE_WALL.search(line)
+    if m:
+        return float(m.group(1))
+    m = _GLOG.search(line)
+    if m:
+        mo, d, hh, mm, ss, frac = m.groups()
+        return time.mktime((year, int(mo), int(d), int(hh), int(mm),
+                            int(ss), 0, 0, -1)) + float("0." + frac)
+    if re.match(r"\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}", line):
+        return _stamp(line)
+    return None
+
+
+def survivor_timeline(log_path: str, kill_wall: float, exit_wall: float,
+                      limit: int = 80) -> list:
+    """(seconds after the kill, line) for every timestamped line of a
+    survivor's log from the kill to its exit: torch's NCCL watchdog and
+    c10d lines, the exit trace's marks and stack samples
+    (``MGWFBP_STACK_SAMPLE_S``), the trainer's log."""
+    year = time.localtime(kill_wall).tm_year
+    out = []
+    with open(log_path, errors="replace") as f:
+        for line in f.read().splitlines():
+            t = _line_wall(line, year)
+            if t is not None and kill_wall - 1.0 <= t <= exit_wall + 1.0:
+                out.append([round(t - kill_wall, 3), line[:240]])
+    return out[:limit]
 
 
 def heal_phase(n: int, device: str, out_dir: str, batch_size: int,
@@ -632,7 +675,9 @@ def heal_phase(n: int, device: str, out_dir: str, batch_size: int,
     full_env = dict(os.environ, PYTHONPATH=ROOT, **env,
                     MGWFBP_FAULT_PLAN=f"kill@step={kill_step},proc={n - 1}",
                     MGWFBP_COORD_TIMEOUT_S=str(HEAL_COORD_TIMEOUT_S),
-                    MGWFBP_AGREE_INTERVAL="1000", MGWFBP_METRICS_PORT="0")
+                    MGWFBP_AGREE_INTERVAL="1000", MGWFBP_METRICS_PORT="0",
+                    MGWFBP_STACK_SAMPLE_S=str(HEAL_SAMPLE_S),
+                    TORCH_CPP_LOG_LEVEL="INFO")
     t0 = time.perf_counter()
     with open(os.path.join(root, "supervise.err"), "w") as err:
         p = subprocess.Popen(cmd, stdout=err, stderr=subprocess.STDOUT,
@@ -669,10 +714,13 @@ def heal_phase(n: int, device: str, out_dir: str, batch_size: int,
         survivor = [ln for ln in f.read().splitlines()
                     if "Watchdog" in ln or "timeout" in ln.lower()
                     or "coordination" in ln][-6:]
+    timeline = survivor_timeline(os.path.join(log_dir, "p0.i0.log"),
+                                 _stamp(first_exit), _stamp(all_exit))
     out = {
         "processes": n, "device": device, "kill_step": kill_step,
         "coord_timeout_s": HEAL_COORD_TIMEOUT_S, "exit_codes": codes,
         "kill_to_survivors_exit_s": _stamp(all_exit) - _stamp(first_exit),
+        "survivor_timeline": timeline,
         "heal": heal[0], "resize": resize[0] if resize else None,
         "final_step": steps[-1]["step"] if steps else None,
         "survivor_log": survivor, "wall_s": wall,
@@ -685,6 +733,8 @@ def heal_phase(n: int, device: str, out_dir: str, batch_size: int,
           f"{resize[0]['new_world'] if resize else None} at iteration "
           f"{resize[0]['iteration'] if resize else None}; final step "
           f"{out['final_step']}", flush=True)
+    for t, line in timeline:
+        print(f"heal: survivor p0 +{t:.3f} s: {line}", flush=True)
     return out
 
 

@@ -37,17 +37,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (b) the merged all-reduce at one worker over NCCL, policy mgwfbp on a
          tb the hooks measure on the card, on the ici prior (one leaf per
          group) and on MERGING_LINK (which must merge leaves): each of
-         REDUCER_STEPS steps launches num_groups all-reduces in group
-         order and its reduced gradients equal, bit for bit, a copy taken
-         before the reduction; the hooks' arrival order is printed beside
-         the reducer's permutation;
+         REDUCER_STEPS steps launches num_groups all-reduces, the first in
+         group order and the later ones along the launch sequence the
+         first measured (a permutation of the groups), and its reduced
+         gradients equal, bit for bit, a copy taken before the reduction;
+         the hooks' arrival order is printed beside the reducer's
+         permutation, and the groups held back on the last step's hooks
+         under group order (the launch order before the sequence was
+         measured) and under the launch sequence;
          Two more steps of each run are traced (profiling.
          trace_group_times): per-group device times, or None and why;
      (c) two processes on the one card over gloo, GLOO_STEPS steps of
          mgwfbp on each of GLOO_LINKS: merged gradients equal the
          leaf-by-leaf all_reduce and both ranks' parameters are identical,
-         bit for bit, every step; then a few unchecked steps timed, and
-         telemetry.overlap.summarize of that reducer at that step time;
+         bit for bit, every step; both ranks launch one sequence (the
+         last step's logs compared), and the groups held back under group
+         order and under it; then a few unchecked steps timed, and
+         telemetry.overlap.summarize of that reducer at that step time
+         along its launch sequence;
      (d) calibration on the card: ``mgwfbp_tpu_torch.calibrate
          --prior-extend 56GbIB`` at one worker over NCCL and ``--forward
          --model resnet20``, both read back and checked (the card's name
@@ -119,8 +126,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      trainer's own loop, then ZOO_TIMED_STEPS on one device batch (CUDA
      events, median) after 3 more, each launching num_groups all-reduces
      with every leaf's hook firing once; torch.profiler's busy share and
-     kernels per step; the groups held back by the strict group order for
-     the merged schedule and for one leaf per group; peak memory; the
+     kernels per step; the groups held back under group order (for the
+     merged schedule and for one leaf per group) and along the measured
+     launch sequence, which the last step's log must equal; peak memory; the
      first and last loss, all finite; the card's float32 eval forward of
      the trained weights against the same weights converted into a CPU
      module (ZOO_CPU_TOL); no flash launch. One ``{"zoo": ...}`` line per
@@ -984,16 +992,38 @@ def _grad_copies(params):
     return copies, hooks
 
 
-def _held_groups(groups, arrivals) -> int:
-    """Groups that were complete before a lower group had launched, so that
-    the strict group order held their launch back."""
-    pos = {k: i for i, k in enumerate(arrivals)}
-    held, launched_at = 0, -1
-    for members in groups:
-        complete_at = max(pos[k] for k in members)
-        launched_at = max(launched_at, complete_at)
-        held += launched_at > complete_at
-    return held
+def _held_groups(groups, arrivals, sequence=None) -> int:
+    """Groups that were complete before a group ahead of them in the launch
+    ``sequence`` (group order when None) had launched, so that the one
+    chain of launches held them back (``allreduce.held_groups``)."""
+    from mgwfbp_tpu_torch.parallel.allreduce import held_groups
+
+    return held_groups(groups, arrivals, sequence)
+
+
+def _check_sequence(label: str, reducer) -> None:
+    """The launch-order contract after a measured step: the last step's
+    log is a permutation of the groups and is the adopted sequence."""
+    log, g = reducer.launch_log, reducer.num_groups
+    if sorted(log) != list(range(g)) or log != reducer.launch_sequence:
+        fail(f"{label}: groups launched in the order {log}, the launch "
+             f"sequence is {reducer.launch_sequence} ({g} groups)")
+
+
+_CARD: list = []
+
+
+def _card() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit``'s line (read once)."""
+    if not _CARD:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+        _CARD.append((smi.stdout.strip().splitlines()
+                      or ["nvidia-smi unavailable"])[0])
+    return _CARD[0]
 
 
 def _reducer_run(dev, bundle, tb, connection: str, nworkers: int) -> dict:
@@ -1049,8 +1079,7 @@ def _reducer_run(dev, bundle, tb, connection: str, nworkers: int) -> dict:
     if launches != [g] * REDUCER_STEPS:
         fail(f"{label}: all-reduce launches per step {launches}, expected "
              f"{g} (num_groups) each")
-    if reducer.launch_log != list(range(g)):
-        fail(f"{label}: groups launched in the order {reducer.launch_log}")
+    _check_sequence(label, reducer)
     if not checks["bitwise"]:
         fail(f"{label}: reduced gradients differ from the copies taken "
              "before the reduction")
@@ -1060,6 +1089,9 @@ def _reducer_run(dev, bundle, tb, connection: str, nworkers: int) -> dict:
         "num_groups": g, "groups": groups,
         "largest_group": max(len(gr) for gr in groups),
         "held_by_group_order": _held_groups(groups, reducer.arrivals),
+        "held_now": _held_groups(groups, reducer.arrivals,
+                                 reducer.launch_sequence),
+        "launch_sequence": reducer.launch_sequence,
         "predicted_nonoverlap_s": reducer.schedule.predicted_nonoverlap_time,
         "allreduce_launches_per_step": launches,
         "bitwise_equal_to_pre_reduction_copy": True,
@@ -1122,7 +1154,8 @@ def train_phase_reducer() -> dict:
     a tb the hooks measure on the card, REDUCER_STEPS steps on each of two
     cost models: the ``ici`` prior at one worker (every leaf its own group)
     and the reference's comm-bound MERGING_LINK (groups of many leaves).
-    Each step launches num_groups all-reduces, in group order, and its
+    Each step launches num_groups all-reduces (the first in group order,
+    the later ones along the measured launch sequence), and its
     reduced gradients equal, bit for bit, the same backward's gradients
     copied before the reduction (the mean over one rank is the identity)."""
     import torch.distributed as dist
@@ -1174,6 +1207,8 @@ def train_phase_reducer() -> dict:
         "policy": "mgwfbp", "cost_model": ici["cost_model"],
         "num_groups": ici["num_groups"], "groups": ici["groups"],
         "predicted_nonoverlap_s": ici["predicted_nonoverlap_s"],
+        "held_by_group_order": ici["held_by_group_order"],
+        "held_now": ici["held_now"],
         "allreduce_launches_per_step": ici["allreduce_launches_per_step"],
         "bitwise_equal_to_pre_reduction_copy": True,
         "merging": merged, "trace": ici["trace"],
@@ -1187,11 +1222,12 @@ def train_phase_reducer() -> dict:
     }
     for r in runs:
         print(f"train (b): {r['cost_model']}: {r['num_groups']} groups "
-              f"(largest {r['largest_group']} leaves, "
-              f"{r['held_by_group_order']} held back by the group order), "
+              f"(largest {r['largest_group']} leaves; held back "
+              f"{r['held_by_group_order']} under group order, "
+              f"{r['held_now']} along the launch sequence), "
               f"{r['allreduce_launches_per_step'][0]} all-reduces per step "
               f"over {REDUCER_STEPS} steps, reduced == pre-reduction bit for "
-              "bit", flush=True)
+              f"bit; {_card()}", flush=True)
         t = r["trace"]
         times, ranges = t["group_times_s"], t["range_device_s"]
         print(f"train (b): {r['cost_model']}: traced group all-reduce times "
@@ -1282,6 +1318,13 @@ def _gloo_rank(rank: int, world: int, rdv: str, out_path: str,
             result["num_groups"] = reducer.num_groups
             result["num_leaves"] = len(params)
             result["launches"] = reducer.launches
+            groups = [list(gr) for gr in reducer.layout.groups]
+            result["launch_log"] = list(reducer.launch_log)
+            result["launch_sequence"] = reducer.launch_sequence
+            result["held_by_group_order"] = _held_groups(groups,
+                                                         reducer.arrivals)
+            result["held_now"] = _held_groups(groups, reducer.arrivals,
+                                              reducer.launch_sequence)
             for h in hooks:
                 h.remove()
             reducer.synchronize = sync
@@ -1302,8 +1345,8 @@ GLOO_TIMED_STEPS = 3  # phase (c): unchecked steps timed for the overlap
 def _gloo_overlap(step, reducer, bundle, dev, tb, cost_model) -> dict:
     """GLOO_TIMED_STEPS steps without the checks (``measure_step_time``: the
     host clock, a synchronisation at the end), and the overlap accounting of this
-    reducer at that step time (starts replayed from tb in the arrival
-    permutation's order)."""
+    reducer at that step time (starts replayed from tb along its launch
+    sequence)."""
     from mgwfbp_tpu_torch.profiling import measure_step_time
     from mgwfbp_tpu_torch.telemetry import summarize
 
@@ -1312,11 +1355,11 @@ def _gloo_overlap(step, reducer, bundle, dev, tb, cost_model) -> dict:
     y = torch.from_numpy(yb.astype(np.int64)).to(dev)[None]
     step_s = measure_step_time(step, x, y, warmup=1, iters=GLOO_TIMED_STEPS,
                                device=dev)
-    s = summarize(reducer, cost_model, tb, step_s)
+    s = summarize(reducer, cost_model, tb, step_s,
+                  order=reducer.launch_sequence)
     return {**s.to_event_fields(),
-            "note": "starts replayed from tb in the arrival permutation's "
-                    "order, which places the stem among the first arrivals "
-                    "although its hooks fire last"}
+            "note": "starts replayed from tb along the reducer's launch "
+                    "sequence (the order its hooks completed the groups in)"}
 
 
 def train_phase_gloo(tb: list) -> dict:
@@ -1359,6 +1402,14 @@ def train_phase_gloo(tb: list) -> dict:
     for rank_results in results:
         if len(rank_results) != len(GLOO_LINKS):
             fail(f"gloo phase: {rank_results}")
+        for r, r0 in zip(rank_results, results[0]):
+            g = r["num_groups"]
+            if (r["launch_log"] != r0["launch_log"]
+                    or r["launch_log"] != r["launch_sequence"]
+                    or sorted(r["launch_log"]) != list(range(g))):
+                fail(f"gloo phase: rank {r['rank']} launched "
+                     f"{r['launch_log']} (sequence {r['launch_sequence']}), "
+                     f"rank 0 {r0['launch_log']}")
         for r in rank_results:
             if r["steps"] != GLOO_STEPS or not r["merged_equals_leafwise"] or (
                 not r["params_identical"]
@@ -1372,16 +1423,24 @@ def train_phase_gloo(tb: list) -> dict:
         print(f"train (c): 2 ranks over gloo, {r['cost_model']}: "
               f"{GLOO_STEPS} steps, {r['num_groups']} groups; merged == "
               "leaf-by-leaf and the ranks' parameters equal, bit for bit, "
-              "after every step", flush=True)
+              "after every step; both ranks launch one sequence; held back "
+              + ", ".join(f"{rr[i]['held_by_group_order']} / "
+                          f"{rr[i]['held_now']}" for rr in results)
+              + f" (rank 0, rank 1) under group order / along the launch "
+              f"sequence; {_card()}", flush=True)
         ov = r["overlap"]
         print(f"train (c): {r['cost_model']}: overlap ({ov['attribution']}) "
               f"efficiency {ov['efficiency']:.4f}: {ov['comm_s'] * 1e3:.4f} ms "
               f"comm per step = {ov['hidden_s'] * 1e3:.4f} hidden + "
               f"{ov['exposed_s'] * 1e3:.4f} exposed, step "
-              f"{ov['step_s'] * 1e3:.3f} ms", flush=True)
+              f"{ov['step_s'] * 1e3:.3f} ms; {_card()}", flush=True)
         runs.append({"cost_model": r["cost_model"],
                      "num_groups": r["num_groups"],
                      "launches": [rr[i]["launches"] for rr in results],
+                     "held_by_group_order": [rr[i]["held_by_group_order"]
+                                             for rr in results],
+                     "held_now": [rr[i]["held_now"] for rr in results],
+                     "launch_sequence": r["launch_sequence"],
                      "overlap": [rr[i]["overlap"] for rr in results]})
     return {"world": world, "steps": GLOO_STEPS,
             "num_groups": runs[0]["num_groups"], "launches": runs[0]["launches"],
@@ -2417,6 +2476,7 @@ def _zoo_run(name: str, batch: int, dtype: str, root: str) -> dict:
     arrivals = list(reducer.arrivals)
     groups = [list(g) for g in reducer.schedule.groups]
     g = reducer.num_groups
+    _check_sequence(f"zoo {name}", reducer)
     peak = torch.cuda.max_memory_allocated()
     if launches != [g] * len(launches):
         fail(f"zoo {name}: all-reduce launches per step {launches}, "
@@ -2444,6 +2504,8 @@ def _zoo_run(name: str, batch: int, dtype: str, root: str) -> dict:
         "top_kernels_ms_per_step": prof["top_kernels_ms_per_step"],
         "num_groups": g, "largest_group": max(len(gr) for gr in groups),
         "held_groups": _held_groups(groups, arrivals),
+        "held_groups_now": _held_groups(groups, arrivals,
+                                        reducer.launch_sequence),
         "held_groups_one_leaf_per_group": _held_groups(
             [[k] for k in range(len(names))], arrivals),
         "cost_model": f"{MERGING_LINK[0]} at {MERGING_LINK[1]} workers",
@@ -2485,13 +2547,15 @@ def phase_zoo() -> list[dict]:
                       f"{r['step_ms']:.2f} ms ({r['images_per_s']:.0f} "
                       f"images/s), busy {r['busy_share']}, "
                       f"{r['kernels_per_step']:.0f} kernels per step, "
-                      f"{r['num_groups']} groups ({r['held_groups']} held; "
+                      f"{r['num_groups']} groups ({r['held_groups']} held "
+                      f"under group order, {r['held_groups_now']} along the "
+                      f"launch sequence; "
                       f"{r['held_groups_one_leaf_per_group']} of "
                       f"{r['leaves']} one leaf per group), peak "
                       f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, loss "
                       f"{r['loss_first']:.4f} -> {r['loss_last']:.4f}, card "
                       f"vs CPU {r['cpu_check']['max_abs_err']:.2e}, "
-                      f"{r['wall_s']:.1f} s", flush=True)
+                      f"{r['wall_s']:.1f} s; {_card()}", flush=True)
                 rows.append(r)
     finally:
         dist.destroy_process_group()
@@ -2690,6 +2754,7 @@ def phase_lstman4() -> dict:
         arrivals = list(reducer.arrivals)
         groups = [list(g) for g in reducer.schedule.groups]
         g = reducer.num_groups
+        _check_sequence("lstman4", reducer)
         if launches != [g] * len(launches):
             fail(f"lstman4: all-reduce launches per step {launches}, "
                  f"expected {g}")
@@ -2716,6 +2781,8 @@ def phase_lstman4() -> dict:
             "peak_memory_bytes": int(peak),
             "num_groups": g, "largest_group": max(len(gr) for gr in groups),
             "held_groups": _held_groups(groups, arrivals),
+            "held_groups_now": _held_groups(groups, arrivals,
+                                            reducer.launch_sequence),
             "held_groups_one_leaf_per_group": _held_groups(
                 [[k] for k in range(len(names))], arrivals),
             "cost_model": f"{MERGING_LINK[0]} at {MERGING_LINK[1]} workers",
@@ -2740,12 +2807,13 @@ def phase_lstman4() -> dict:
           f"(evaluator {offline['wer']:.4f}), step {step_ms:.2f} ms "
           f"({out['utterances_per_s']:.1f} utterances/s), busy "
           f"{out['busy_share']}, {out['kernels_per_step']:.0f} kernels per "
-          f"step, {g} groups ({out['held_groups']} held; "
+          f"step, {g} groups ({out['held_groups']} held under group order, "
+          f"{out['held_groups_now']} along the launch sequence; "
           f"{out['held_groups_one_leaf_per_group']} of {len(names)} one leaf "
           f"per group), peak {peak / 2**30:.2f} GiB, card vs CPU "
           f"{cpu['max_abs_err']:.2e} ({cpu['same_greedy_decode']} of "
-          f"{cpu['utterances']} decode alike), {out['wall_s']:.1f} s",
-          flush=True)
+          f"{cpu['utterances']} decode alike), {out['wall_s']:.1f} s; "
+          f"{_card()}", flush=True)
     return out
 
 
@@ -4305,8 +4373,10 @@ def xstep_one_rank() -> dict:
     from its carried shards, which the next forward gathers), the
     collectives per step; then the step time of all_reduce, rs_opt_ag and
     rs_fwd_ag (CUDA events, median of XSTEP_TIMED_STEPS) and one traced
-    step of each: rs_fwd_ag's all-gathers are waited for inside the
-    forward, by the pre-hooks of the modules that first use each group."""
+    step of each: rs_fwd_ag's all-gathers, launched in the forward's
+    measured first-use order, are waited for inside the forward by the
+    pre-hooks of the modules that first use each group, the first wait
+    for the first group gathered."""
     import torch.distributed as dist
 
     from mgwfbp_tpu_torch.data import data_prepare
@@ -4373,6 +4443,8 @@ def xstep_one_rank() -> dict:
                 traced = [_forward_window(step, x, y)
                           for _ in range(XSTEP_TRACED_STEPS)]
                 r["traced_step"] = traced[0]
+                if op == "rs_fwd_ag":
+                    r["gather_sequence"] = reducer.gather_sequence
                 r["forward_host_ms_median"] = float(np.median(
                     [t["forward_host_ms"] for t in traced]))
                 reducer.detach()
@@ -4401,9 +4473,16 @@ def xstep_one_rank() -> dict:
               f"{t['group_ranges_in_forward']} group range(s) "
               f"inside ({t['in_forward_host_ms']:.3f} ms host, "
               f"{t['group_range_device_ms']:.4f} ms device)", flush=True)
+    seq = runs["rs_fwd_ag"]["gather_sequence"]
+    waited = [int(n[len("mgwfbp_group"):]) for n in tr["in_forward_order"]]
+    if waited[:1] != seq[:1]:
+        fail(f"cross-step (m1): rs_fwd_ag gathered {seq} but its forward "
+             f"waited first for group {waited[:1]}")
     print(f"cross-step (m1): rs_fwd_ag equals rs_opt_ag bit for bit after "
           f"each of {XSTEP_STEPS} steps; forward stall against rs_opt_ag "
-          f"{stall:.3f} ms (medians of the traced host forwards)", flush=True)
+          f"{stall:.3f} ms (medians of the traced host forwards) with the "
+          f"gathers in the forward's first-use order {seq} (the forward "
+          f"waited {waited}); {_card()}", flush=True)
     return {"runs": runs, "steps": XSTEP_STEPS, "bitwise_every_step": True,
             "forward_stall_host_ms": stall}
 
@@ -5209,8 +5288,9 @@ def seq_timed(dev, work: str, seq: int) -> dict:
     """(p2) ``train_cli --seq-parallel S`` as a user runs it (the preset's
     dropout, the backward profile, policy auto): SEQ_STEPS steps (fewer
     where the epoch is shorter) and the epoch's evaluation; each step's wall time (synchronised), the ring's
-    point-to-point operations per step, the merge groups and those the
-    strict group order held back, the flash kernel's launches."""
+    point-to-point operations per step, the merge groups and those held
+    back under group order and along the launch sequence, the flash
+    kernel's launches."""
     from mgwfbp_tpu_torch.ops import flash_attention
     from mgwfbp_tpu_torch.parallel import ringattn
     from mgwfbp_tpu_torch.train import Trainer
@@ -5243,6 +5323,9 @@ def seq_timed(dev, work: str, seq: int) -> dict:
             "num_groups": len(groups),
             "held_groups": (_held_groups(groups, reducer.arrivals)
                             if reducer is not None else 0),
+            "held_groups_now": (_held_groups(groups, reducer.arrivals,
+                                             reducer.launch_sequence)
+                                if reducer is not None else 0),
             "comm_op": tr.comm_op, "losses": list(tr.losses),
             "eval": metrics.get("eval"), "flash_launches": flash,
             "data_size": tr.data_size, "seq_size": tr.seq_size,
@@ -5430,7 +5513,8 @@ def phase_seq() -> dict:
           f"{SEQ_STEPS} steps: median {tim['step_ms_median']:.2f} ms, "
           f"{tim['p2p_per_step'][0]} p2p ops per step "
           f"({tim['layers']} layers), {tim['num_groups']} groups "
-          f"({tim['comm_op']}), {tim['held_groups']} held, eval "
+          f"({tim['comm_op']}), {tim['held_groups']} held under group "
+          f"order, {tim['held_groups_now']} along the launch sequence, eval "
           f"{tim['eval']}", flush=True)
     print(f"seq (p3): T={SEQ_LONG_T}, batch {SEQ_LONG_BATCH}: peak "
           f"{ring['peak_bytes_over_model'] / 2**20:.1f} MiB per rank at seq "
@@ -6160,11 +6244,7 @@ def main() -> int:
 
     set_matmul_precision(None)  # float32 phases: TF32 off (the trainer's)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    card = (smi.stdout.strip().splitlines() or ["nvidia-smi unavailable"])[0]
+    card = _card()
     print(
         f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}",
@@ -6230,7 +6310,8 @@ def main() -> int:
     print(json.dumps({"resilience": resilience}))
     print(json.dumps({"zoo_summary": [
         {k: r[k] for k in ("model", "step_ms", "images_per_s", "busy_share",
-                           "num_groups", "held_groups", "peak_memory_bytes")}
+                           "num_groups", "held_groups", "held_groups_now",
+                           "peak_memory_bytes")}
         for r in zoo]}))
     print(json.dumps({"lstman4": lstman4}))
     print(json.dumps({"supervise": supervise}))

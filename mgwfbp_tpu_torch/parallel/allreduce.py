@@ -41,14 +41,12 @@ lowering (``comm_op``):
     shards (``param_shards``, the JAX package's ``ShardedParams``) and
     gathers nothing. The module's parameters are then one update stale.
     The next step's forward starts with ``gather_params()``, which
-    launches every group's all-gather in reverse group order (the
-    forward-consumption order), and a forward pre-hook on every module
-    that owns parameters waits for its parameters' groups and copies them
-    into the parameters' storage (``torch._foreach_copy_``; ``.data`` is
-    never rebound, since cuDNN's LSTM keeps views of its flat weights).
-    The wait is by actual first use, so a group whose layers run first
-    but whose gather was issued late stalls the forward
-    (ROADMAP.md Queue 3). Any other reader of the parameters calls
+    launches every group's all-gather in the gather sequence (below), and
+    a forward pre-hook on every module that owns parameters waits for its
+    parameters' groups and copies them into the parameters' storage
+    (``torch._foreach_copy_``; ``.data`` is never rebound, since cuDNN's
+    LSTM keeps views of its flat weights). Any other reader of the
+    parameters calls
     ``materialize()`` first; a forward that finds the parameters stale with
     no gather in flight raises;
   * ``hier`` (two-level, over ``parallel.mesh.two_level_groups``): each
@@ -65,10 +63,11 @@ lowering (``comm_op``):
 
 Three rules hold the collectives to the schedule:
 
-  * groups launch strictly in group-index order: group k goes once it is
-    complete AND groups 0..k-1 have launched, so every rank issues the
-    same sequence of collectives (NCCL needs it; it is also the JAX
-    lowering's "sequential" token chain and the solver's serial link);
+  * groups launch strictly along one launch sequence (``launch_sequence``):
+    the next group of the sequence goes once it is complete AND every
+    group before it in the sequence has launched, so every rank issues
+    the same collectives in the same order (NCCL needs it; it is also the
+    JAX lowering's "sequential" token chain and the solver's serial link);
   * a micro-step that is not the last of an accumulation launches nothing
     (``begin(active=False)``);
   * ``policy="none"`` builds no reducer (the train step reduces leaf by
@@ -77,7 +76,26 @@ Three rules hold the collectives to the schedule:
 The permutation from leaves to arrival order is the JAX package's
 (``arrival_order``: natural-sorted Flax paths, reversed), so both packages
 solve identical schedules. The order in which hooks actually fire is
-recorded in ``arrivals``.
+recorded in ``arrivals``, and it is not that permutation: ResNet-20's stem
+is first in the permutation and its hooks fire last, so under group-index
+order every group after the stem's would wait for the end of the backward.
+The launch sequence is therefore measured. The first armed backward of a
+newly attached reducer launches in group-index order; from its
+``arrivals`` rank 0 takes the order in which the groups completed
+(``completion_order``) and, on rs_fwd_ag, from the forward before it the
+order in which the modules' pre-hooks first asked for each group (groups
+no module asks for last). It publishes both once in the process group's
+rendezvous store, and every rank adopts them before its next armed
+backward (rs_fwd_ag: before its next ``gather_params``). From then on the
+hooks launch along the measured sequence, and a rank whose hooks fire in
+another order waits as before: correctness never depends on the ranks'
+hook orders agreeing. Neither the schedule nor any value changes, only
+when each collective is issued; XLA's scheduler issues the JAX package's
+collectives as their inputs exist, which is what this restores. hier's
+cross-slice all-reduces follow in the order the sequence completes their
+DCN groups. Measuring adds no collective and no device synchronisation:
+rank 0 writes one key, the others read it. ``attach`` after ``detach``
+measures again.
 
 While ``torch.profiler`` records, each group's pack, collectives, update
 and unpack run inside a ``record_function`` range named
@@ -101,6 +119,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import re
 import threading
 from typing import Any, Optional, Sequence, Union
@@ -247,6 +266,48 @@ def arrival_order(
     if names is not None:
         return list(reversed(forward_order(names)))
     return list(reversed(range(num_leaves)))
+
+
+def completion_order(groups: Sequence[Sequence[int]],
+                     arrivals: Sequence[int]) -> list[int]:
+    """The merge groups in the order their last member's hook fired in
+    ``arrivals`` (arrival positions, as the reducer records them)."""
+    pos = {int(k): i for i, k in enumerate(arrivals)}
+    done = [max(pos[int(k)] for k in members) for members in groups]
+    return sorted(range(len(groups)), key=done.__getitem__)
+
+
+def held_groups(groups: Sequence[Sequence[int]], arrivals: Sequence[int],
+                sequence: Optional[Sequence[int]] = None) -> int:
+    """Groups that were complete before a group ahead of them in the
+    launch ``sequence`` (group-index order when None) had launched, so
+    that the one chain of launches held them back, on the hook order
+    ``arrivals``."""
+    pos = {int(k): i for i, k in enumerate(arrivals)}
+    held, launched_at = 0, -1
+    for gi in range(len(groups)) if sequence is None else sequence:
+        complete_at = max(pos[int(k)] for k in groups[gi])
+        launched_at = max(launched_at, complete_at)
+        held += launched_at > complete_at
+    return held
+
+
+# the launch sequences rank 0 measured, in the default process group's
+# store: one key per measurement, named by the reducer's process group and
+# that group's count of measurements (every rank of the group measures its
+# reducers in one order, so the counts agree)
+_ORDER_KEY = "mgwfbp_launch_order"
+_order_counts: dict[str, int] = {}
+_order_lock = threading.Lock()
+
+
+def _order_key(group) -> str:
+    pg = (group if group is not None
+          else dist.distributed_c10d._get_default_group())
+    with _order_lock:
+        n = _order_counts.get(pg.group_name, 0)
+        _order_counts[pg.group_name] = n + 1
+    return f"{_ORDER_KEY}/{pg.group_name}/{n}"
 
 
 # ---------------------------------------------------------------------------
@@ -537,7 +598,10 @@ class MergedAllreduce:
     for rs_opt_ag and rs_fwd_ag, one reduce-scatter and one all-gather per
     group plus one all-reduce per DCN group for hier); ``launch_log`` and
     ``arrivals`` record the group indices launched and the arrival
-    positions whose hooks fired, in order, since the last ``begin``.
+    positions whose hooks fired, in order, since the last ``begin``;
+    ``launch_sequence`` and, on rs_fwd_ag, ``gather_sequence`` are the
+    orders the collectives are issued in (measured once per attach,
+    module docstring).
     Collectives run over ``group`` (the default process group when None),
     hier's over ``levels`` (``parallel.mesh.TwoLevelGroups``) with the
     schedule's outer partition as ``dcn_groups`` (one DCN group per group
@@ -629,14 +693,24 @@ class MergedAllreduce:
                     self._dcn_of[gi] = di
         self._side_stream = None  # hier's cross-slice stream on the card
         self.track_compression_error = False
-        self.compression_errors: list[torch.Tensor] = []
+        self._comp_errors: dict[int, torch.Tensor] = {}
         self.launches = 0
         self.launch_log: list[int] = []
         self.arrivals: list[int] = []
         self._active = False
         self._scale = 1.0
         self._pending: list[int] = []
-        self._next = 0
+        self._next = 0  # position in the launch sequence
+        # the launch sequences: "measure" (index order; the next complete
+        # armed backward measures), "adopt" (measured, taken up at the
+        # next armed begin or gather), "adopted"
+        self._order_state = "measure"
+        self._seq: list[int] = []
+        self._gather_seq: list[int] = []
+        self._dcn_seq: list[int] = []
+        self._first_use: dict[int, None] = {}
+        self._order_key: Optional[str] = None
+        self._measured: Optional[dict] = None
         self._inflight: list[_Inflight] = []
         self._handles: list[Any] = []
         # hier: each group's (shard, reduce-scatter work) and the launched
@@ -653,6 +727,7 @@ class MergedAllreduce:
         self._gathers: dict[int, tuple] = {}
         self._stale = False
         self._fwd_handles: list[Any] = []
+        self._reset_order()
         if comm_op == "rs_fwd_ag":
             self.scatter_params()
 
@@ -676,6 +751,25 @@ class MergedAllreduce:
         return self.compressor is not None and self.compressor.sparse()
 
     @property
+    def launch_sequence(self) -> list[int]:
+        """The order the hooks launch the groups in: group-index order
+        until the measured sequence is adopted."""
+        return list(self._seq)
+
+    @property
+    def gather_sequence(self) -> list[int]:
+        """rs_fwd_ag: the order ``gather_params`` launches the all-gathers
+        in: reverse group order until the forward's measured first-use
+        order is adopted."""
+        return list(self._gather_seq)
+
+    @property
+    def compression_errors(self) -> list[torch.Tensor]:
+        """The top-k errors of the groups launched since ``begin``, in
+        group order."""
+        return [self._comp_errors[gi] for gi in sorted(self._comp_errors)]
+
+    @property
     def stale(self) -> bool:
         """rs_fwd_ag: the module's parameters lag the carried shards by one
         update (no gather launched yet)."""
@@ -686,6 +780,7 @@ class MergedAllreduce:
         rs_fwd_ag, one forward pre-hook per submodule of ``module`` that
         owns parameters."""
         if not self._handles:
+            self._reset_order()
             for k, p in enumerate(self._arr):
                 self._handles.append(p.register_post_accumulate_grad_hook(
                     lambda _p, k=k: self._on_grad(k)
@@ -711,14 +806,70 @@ class MergedAllreduce:
         self._handles = []
         self._fwd_handles = []
 
+    def _reset_order(self) -> None:
+        """Back to group-index order, to be measured again."""
+        g = self.num_groups
+        self._order_state = "measure"
+        self._seq = list(range(g))
+        self._gather_seq = list(reversed(range(g)))
+        self._dcn_seq = list(range(len(self.dcn_groups)))
+        self._first_use = {}
+
+    def _store(self):
+        return dist.distributed_c10d._get_default_store()
+
+    def _measure(self) -> None:
+        """After the first complete armed backward: rank 0 takes the order
+        its groups completed in and the forward's first-use order, and
+        publishes them (one store key, no collective)."""
+        if self._order_state != "measure":
+            return
+        self._order_key = _order_key(self.group)
+        if self.rank == 0:
+            g = self.num_groups
+            used = list(self._first_use)
+            self._measured = {
+                "launch": completion_order(self.layout.groups, self.arrivals),
+                "gather": used + [gi for gi in reversed(range(g))
+                                  if gi not in self._first_use],
+            }
+            if self.world > 1:
+                self._store().set(self._order_key,
+                                  json.dumps(self._measured))
+        self._order_state = "adopt"
+
+    def _adopt(self) -> None:
+        """Take up rank 0's measured sequences (the other ranks wait for
+        its key)."""
+        if self._order_state != "adopt":
+            return
+        found = self._measured if self.rank == 0 else json.loads(
+            self._store().get(self._order_key))
+        g = self.num_groups
+        for name in ("launch", "gather"):
+            if sorted(found[name]) != list(range(g)):
+                raise RuntimeError(
+                    f"the published {name} sequence {found[name][:8]}... is "
+                    f"not a permutation of this reducer's {g} groups")
+        self._seq = [int(gi) for gi in found["launch"]]
+        self._gather_seq = [int(gi) for gi in found["gather"]]
+        at = {gi: i for i, gi in enumerate(self._seq)}
+        self._dcn_seq = sorted(
+            range(len(self.dcn_groups)),
+            key=lambda di: max(at[gi] for gi in self.dcn_groups[di]))
+        self._order_state = "adopted"
+
     def begin(self, active: bool = True, scale: float = 1.0) -> None:
         """Arm (or, for a micro-step that is not the last, disarm) the hooks
         for the next backward; ``scale`` multiplies every gradient before
-        the reduction (1 / micro-steps when accumulating)."""
+        the reduction (1 / micro-steps when accumulating). An armed begin
+        takes up a measured launch sequence."""
         if self._inflight:
             raise RuntimeError(
                 "begin() with collectives in flight: synchronize() first"
             )
+        if active:
+            self._adopt()
         self._active = active
         self._scale = float(scale)
         self._pending = [len(g) for g in self.layout.groups]
@@ -730,16 +881,18 @@ class MergedAllreduce:
         self._dcn_next = 0
         self._dcn_inflight = []
         if self.track_compression_error:
-            self.compression_errors = []
+            self._comp_errors = {}
 
     def _on_grad(self, k: int) -> None:
         if not self._active:
             return
         self.arrivals.append(k)
         self._pending[self._group_of[k]] -= 1
-        while self._next < self.num_groups and self._pending[self._next] == 0:
-            with collective_scope(group_scope_name(self._next)):
-                self._pack_and_launch(self._next)
+        seq, g = self._seq, self.num_groups
+        while self._next < g and self._pending[seq[self._next]] == 0:
+            gi = seq[self._next]
+            with collective_scope(group_scope_name(gi)):
+                self._pack_and_launch(gi)
             self._next += 1
             if self.comm_op == "hier":
                 # beside the group ranges, not inside them
@@ -771,8 +924,7 @@ class MergedAllreduce:
         else:
             self._launch_all_reduce(gi, buf)
             if self.track_compression_error:
-                self.compression_errors.append(
-                    torch.zeros((), device=buf.device))
+                self._comp_errors[gi] = torch.zeros((), device=buf.device)
         self.launch_log.append(gi)
 
     def _launch_all_reduce(self, gi: int, buf: torch.Tensor) -> None:
@@ -828,11 +980,12 @@ class MergedAllreduce:
         self._dcn_pending[self._dcn_of[gi]] -= 1
 
     def _launch_ready_dcn(self) -> None:
-        """Launch, in DCN-group order, every cross-slice all-reduce whose
-        members have all been scattered."""
+        """Launch, in the order the launch sequence completes the DCN
+        groups (DCN-group order until one is adopted), every cross-slice
+        all-reduce whose members have all been scattered."""
         while (self._dcn_next < len(self.dcn_groups)
-               and self._dcn_pending[self._dcn_next] == 0):
-            di = self._dcn_next
+               and self._dcn_pending[self._dcn_seq[self._dcn_next]] == 0):
+            di = self._dcn_seq[self._dcn_next]
             members = self.dcn_groups[di]
             shards = [self._hier_shard[gi][0] for gi in members]
             if len({t.dtype for t in shards}) > 1:
@@ -886,8 +1039,7 @@ class MergedAllreduce:
         if k >= n:
             self._launch_all_reduce(gi, buf)
             if self.track_compression_error:
-                self.compression_errors.append(
-                    torch.zeros((), device=buf.device))
+                self._comp_errors[gi] = torch.zeros((), device=buf.device)
             return
         vals, idx = self.compressor.select(buf, k)
         if self.track_compression_error:
@@ -895,9 +1047,9 @@ class MergedAllreduce:
             # is ||g||^2 - ||topk(g)||^2, accumulated in float32
             total = torch.sum(torch.square(buf.float()))
             kept = torch.sum(torch.square(vals.float()))
-            self.compression_errors.append(torch.sqrt(
+            self._comp_errors[gi] = torch.sqrt(
                 torch.clamp_min(total - kept, 0.0)
-                / torch.clamp_min(total, 1e-30)))
+                / torch.clamp_min(total, 1e-30))
         g_vals = vals.new_empty(self.world * k)
         g_idx = idx.new_empty(self.world * k)
         works = [
@@ -919,6 +1071,7 @@ class MergedAllreduce:
                 f"merge groups {missing[:8]} never completed: some "
                 "parameters received no gradient in this backward"
             )
+        self._measure()
 
     def _reduced_bucket(self, f: _Inflight) -> torch.Tensor:
         """A waited group's summed bucket at the wire dtype, unpadded."""
@@ -931,8 +1084,8 @@ class MergedAllreduce:
     def synchronize(self) -> list[torch.Tensor]:
         """Wait for every group's collectives, take the mean and write the
         reduced gradients into ``.grad``. Returns the reduced buckets in
-        the parameters' dtype. On hier this launches the all-gathers
-        first (already divided by the world)."""
+        the parameters' dtype, in group order. On hier this launches the
+        all-gathers first (already divided by the world)."""
         if self.comm_op in SHARDED_OPS:
             raise RuntimeError(
                 f"comm_op={self.comm_op!r} folds the optimizer into the "
@@ -940,7 +1093,7 @@ class MergedAllreduce:
                 "reduce_and_defer() (rs_fwd_ag) instead of synchronize() "
                 "and optimizer.step()")
         self._check_complete("synchronize")
-        out = []
+        out = {}
         try:
             if self.comm_op == "hier":
                 waits = [(gi, [work], buf)
@@ -965,13 +1118,13 @@ class MergedAllreduce:
                         buf, self.layout, gi, self._shapes
                     ).items():
                         self._arr[k].grad = view
-                out.append(buf)
+                out[gi] = buf
         finally:
             self._inflight = []
             self._dcn_inflight = []
             self._hier_shard = {}
             self._active = False
-        return out
+        return [out[gi] for gi in sorted(out)]
 
     def discard(self) -> None:
         """Wait for the launched collectives and drop their results (a
@@ -992,7 +1145,7 @@ class MergedAllreduce:
     # -- the sharded optimizer (rs_opt_ag, rs_fwd_ag) ----------------------
     def _reduced_shards(self, what: str) -> list[torch.Tensor]:
         """Wait for the reduce-scatters and return each group's mean shard
-        in the group's dtype."""
+        in the group's dtype, in group order."""
         if self.comm_op not in SHARDED_OPS:
             raise RuntimeError(
                 f"{what}() requires comm_op='rs_opt_ag' or 'rs_fwd_ag' "
@@ -1000,7 +1153,7 @@ class MergedAllreduce:
                 "world_size=))")
         self._check_complete(what)
         try:
-            g_shards = []
+            g_shards = {}
             for f in self._inflight:
                 with collective_scope(group_scope_name(f.gi)):
                     f.works[0].wait()
@@ -1009,11 +1162,11 @@ class MergedAllreduce:
                         shard = shard.to(self.layout.dtypes[f.gi])
                     if self.mean:
                         shard = shard / self.world
-                    g_shards.append(shard)
+                    g_shards[f.gi] = shard
         finally:
             self._inflight = []
             self._active = False
-        return g_shards
+        return [g_shards[gi] for gi in sorted(g_shards)]
 
     def _clip_scale(self, g_shards: list[torch.Tensor]):
         """(global norm, threshold) when the optimizer clips: the shards'
@@ -1153,12 +1306,14 @@ class MergedAllreduce:
     def gather_params(self) -> None:
         """The rs_fwd_ag step's forward half (the JAX package's
         ``merged_fwd_allgather``): launch every group's all-gather of its
-        carried shard, in reverse group order (group G-1 holds the first
-        forward layers). The forward pre-hooks wait for them; nothing is
-        launched when the parameters are current."""
+        carried shard, in the gather sequence (the forward's measured
+        first-use order once adopted, reverse group order before). The
+        forward pre-hooks wait for them; nothing is launched when the
+        parameters are current."""
         if not self._stale:
             return
-        for gi in reversed(range(self.num_groups)):
+        self._adopt()
+        for gi in self._gather_seq:
             with collective_scope(group_scope_name(gi)):
                 self._gathers[gi] = self._launch_gather(
                     gi, self.param_shards[gi])
@@ -1179,7 +1334,10 @@ class MergedAllreduce:
         self.finish_gather()
 
     def _need(self, gs: tuple) -> None:
-        """A module's forward pre-hook: wait for its parameters' groups."""
+        """A module's forward pre-hook: wait for its parameters' groups
+        (and, until the sequences are measured, note their first use)."""
+        if self._order_state == "measure":
+            self._first_use.update(dict.fromkeys(gs))
         if not self._gathers:
             if self._stale:
                 raise RuntimeError(

@@ -10,7 +10,13 @@ asked for "cuda" without an index is bound to its own card on the host
 (NCCL takes one rank per card: a group of several processes on a one-card
 machine runs ``--device cpu``, over gloo). Every collective is bounded by
 ``MGWFBP_COORD_TIMEOUT_S`` (600 s by default); on the card NCCL's watchdog
-ends a process whose collective timed out.
+ends a process whose collective timed out. After the timeout torch's
+watchdog broadcasts a debug dump and then sleeps four times
+``TORCH_NCCL_WAIT_TIMEOUT_DUMP_MILSEC`` (15 s by default: 60 s) before it
+takes the process down, so a survivor of a dead peer left three timeouts of
+30 s after the kill; the flight recorder's dump takes about a second, and
+``init_distributed`` sets that variable to ``NCCL_DUMP_WAIT_MS`` unless the
+environment sets it.
 
 ``two_level_groups`` splits the world into the two levels of the ``hier``
 lowering, laid out as the JAX package's ``make_mesh`` lays a multi-slice
@@ -46,6 +52,12 @@ from mgwfbp_tpu_torch.runtime.coordination import (
 )
 from mgwfbp_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from mgwfbp_tpu_torch.utils.platform import env_float
+
+# torch's NCCL watchdog waits after a collective's timeout for its debug
+# dump before it takes the process down (module docstring); the port's
+# default for that wait, in milliseconds
+NCCL_DUMP_WAIT_ENV = "TORCH_NCCL_WAIT_TIMEOUT_DUMP_MILSEC"
+NCCL_DUMP_WAIT_MS = 1000
 
 
 def _env_int(env, name: str) -> Optional[int]:
@@ -151,6 +163,8 @@ def init_distributed(
             )
         torch.cuda.set_device(dev)
     backend = backend or backend_for(dev)
+    if backend == "nccl":
+        os.environ.setdefault(NCCL_DUMP_WAIT_ENV, str(NCCL_DUMP_WAIT_MS))
     dist.init_process_group(
         backend, init_method=init_method,
         world_size=int(num_processes), rank=int(process_id),

@@ -48,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from mgwfbp_tpu_torch.utils.platform import env_float
+from mgwfbp_tpu_torch.utils.watchdog import exit_mark
 
 BARRIER_TIMEOUT_ENV = "MGWFBP_BARRIER_TIMEOUT_S"
 COORD_TIMEOUT_ENV = "MGWFBP_COORD_TIMEOUT_S"
@@ -148,10 +149,12 @@ def release() -> None:
     global _side
     _side = None
     live = dist.distributed_c10d._world.pg_map if dist.is_available() else {}
+    exit_mark(f"coordination.release: {len(_subgroups)} subgroup(s)")
     while _subgroups:
         g = _subgroups.pop()
         if dist.is_initialized() and g in live:
             dist.destroy_process_group(g)
+    exit_mark("coordination.release done")
 
 
 atexit.register(release)

@@ -11,11 +11,19 @@ hidden / total communication.
 
 Per-group durations come from a trace (``profiling.trace_group_times``:
 ``attribution`` "trace") or, where the trace attributes nothing, from the
-cost model (``solver.effective_cost_fn``: "cost-model"). Starts are always
-replayed from tb in the arrival permutation's order, which for ResNet-20
-places the stem among the first arrivals although its hooks fire last
-(ROADMAP.md Queue 3): the replayed hidden share can overstate what the
-strict launch order allows. The reducer's ``comm_op`` prices each group
+cost model (``solver.effective_cost_fn``: "cost-model"). Starts are
+replayed from tb along a launch ``order``: by default group-index order
+with each group ready at the cumulative tb of its last arrival position
+(the JAX package's replay); given the reducer's ``launch_sequence`` (the
+order the hooks measured the groups completing in, which the reducer
+launches them in), the backward is replayed in that sequence, each group
+ready once it and every group before it have their tb, and the link
+serves the groups in that order. Under index order ResNet-20's stem sits
+among the first arrivals although its hooks fire last, so that replay
+overstates the hidden share; the trainer's telemetry passes the
+sequence. rs_fwd_ag's all-gathers are replayed in its
+``gather_sequence`` when given (reverse group order by default). The
+reducer's ``comm_op`` prices each group
 (``all_reduce`` and ``rs_ag`` by the collective, ``rs_opt_ag`` with its
 shard update's ``update_beta`` term). ``rs_fwd_ag`` replays two phases
 (``attribute_overlap_cross_step``): each group's deferred all-gather
@@ -173,11 +181,38 @@ class OverlapSummary:
         return out
 
 
+def _ready_times(groups: Sequence[Sequence[int]], tb: Sequence[float],
+                 order: Optional[Sequence[int]]
+                 ) -> tuple[list[float], list[int], float]:
+    """(each group's ready time, the launch order, the backward's end):
+    index order with the cumulative tb of each group's last arrival
+    position when ``order`` is None, else the backward replayed along
+    ``order`` (a permutation of the groups)."""
+    ready = np.cumsum(np.asarray(tb, dtype=np.float64))
+    bwd_end = float(ready[-1]) if len(ready) else 0.0
+    n = len(groups)
+    if order is None:
+        return ([float(ready[max(g)]) if len(g) and len(ready) else 0.0
+                 for g in groups], list(range(n)), bwd_end)
+    order = [int(gi) for gi in order]
+    if sorted(order) != list(range(n)):
+        raise ValueError(f"launch order {order[:8]}... is not a "
+                         f"permutation of the {n} groups")
+    at, t = [0.0] * n, 0.0
+    if not len(ready):
+        return at, order, bwd_end
+    for gi in order:
+        t += float(sum(float(tb[k]) for k in groups[gi]))
+        at[gi] = t
+    return at, order, bwd_end
+
+
 def attribute_overlap(
     groups: Sequence[Sequence[int]],
     tb: Sequence[float],
     comm_s: Sequence[float],
     nbytes: Sequence[int],
+    order: Optional[Sequence[int]] = None,
 ) -> list[GroupOverlap]:
     """Replay the backward/comm timeline and split each group's comm time.
 
@@ -188,29 +223,29 @@ def attribute_overlap(
     before the backward end is hidden, the rest exposed. Durations may be
     measured (trace) or predicted (cost model); starts are always
     model-replayed — a trace yields per-scope totals, not start offsets.
+    ``order`` is the launch sequence the link serves the groups in
+    (``_ready_times``); the rows stay in group order.
     """
     if len(groups) != len(comm_s) or len(groups) != len(nbytes):
         raise ValueError(
             f"groups/comm_s/nbytes disagree: {len(groups)}/"
             f"{len(comm_s)}/{len(nbytes)}"
         )
-    ready = np.cumsum(np.asarray(tb, dtype=np.float64))
-    bwd_end = float(ready[-1]) if len(ready) else 0.0
+    ready, order, bwd_end = _ready_times(groups, tb, order)
     link_free = 0.0
-    out: list[GroupOverlap] = []
-    for gi, g in enumerate(groups):
+    out: list[Optional[GroupOverlap]] = [None] * len(groups)
+    for gi in order:
         t = float(comm_s[gi])
-        ready_at = float(ready[max(g)]) if len(g) and len(ready) else 0.0
-        start = max(link_free, ready_at)
+        start = max(link_free, ready[gi])
         hidden = min(max(bwd_end - start, 0.0), t)
-        out.append(GroupOverlap(
+        out[gi] = GroupOverlap(
             group=gi,
             nbytes=int(nbytes[gi]),
             start_s=start,
             comm_s=t,
             hidden_s=hidden,
             exposed_s=t - hidden,
-        ))
+        )
         link_free = start + t
     return out
 
@@ -222,6 +257,8 @@ def attribute_overlap_cross_step(
     rs_s: Sequence[float],
     ag_s: Sequence[float],
     nbytes: Sequence[int],
+    order: Optional[Sequence[int]] = None,
+    gather_order: Optional[Sequence[int]] = None,
 ) -> tuple[list[GroupOverlap], float]:
     """The cross-step (rs_fwd_ag) replay: each group's comm splits into a
     deferred all-gather leg racing the FORWARD timeline (issued in
@@ -237,19 +274,28 @@ def attribute_overlap_cross_step(
     Returns (rows, fwd_end_s): fwd_end_s is where the forward REGION
     actually ends — sum(tf) plus any AG-deadline stall — i.e. where the
     backward the RS starts were computed against begins; renderers must
-    anchor the backward there, not at sum(tf)."""
+    anchor the backward there, not at sum(tf).
+
+    ``order`` is the reduce-scatters' launch sequence (``_ready_times``)
+    and ``gather_order`` the all-gathers' (reverse group order when
+    None); the rows stay in group order."""
     n = len(groups)
     if any(len(x) != n for x in (rs_s, ag_s, nbytes)):
         raise ValueError(
             f"groups/rs_s/ag_s/nbytes disagree: {n}/{len(rs_s)}/"
             f"{len(ag_s)}/{len(nbytes)}"
         )
+    if gather_order is None:
+        gather_order = list(reversed(range(n)))
+    elif sorted(int(gi) for gi in gather_order) != list(range(n)):
+        raise ValueError(f"gather order {list(gather_order)[:8]}... is not "
+                         f"a permutation of the {n} groups")
     tf_total = float(np.sum(np.asarray(tf, np.float64))) if len(tf) else 0.0
     # forward phase replay (simulate_cross_step's recurrence)
     link = 0.0
     fwd = 0.0
     ag_starts = [0.0] * n
-    for gi in reversed(range(n)):
+    for gi in gather_order:
         ag_starts[gi] = link
         link += float(ag_s[gi])
         fwd = max(fwd, link) + float(
@@ -259,18 +305,19 @@ def attribute_overlap_cross_step(
     # backward phase replay, offset to the forward's end; the RS link
     # opens once the AG queue drained (a comm-bound tail can outlive the
     # forward compute)
-    ready = fwd_end + np.cumsum(np.asarray(tb, dtype=np.float64))
-    bwd_end = float(ready[-1]) if len(ready) else fwd_end
+    ready, order, bwd = _ready_times(groups, tb, order)
+    bwd_end = fwd_end + bwd if len(tb) else fwd_end
     link_free = max(link, fwd_end)
-    out: list[GroupOverlap] = []
-    for gi, g in enumerate(groups):
+    out: list[Optional[GroupOverlap]] = [None] * n
+    for gi in order:
         t_ag = float(ag_s[gi])
         t_rs = float(rs_s[gi])
         hidden_ag = min(max(fwd_end - ag_starts[gi], 0.0), t_ag)
-        ready_at = float(ready[max(g)]) if len(g) and len(ready) else fwd_end
+        ready_at = (fwd_end + ready[gi] if len(groups[gi]) and len(tb)
+                    else fwd_end)
         rs_start = max(link_free, ready_at)
         hidden_rs = min(max(bwd_end - rs_start, 0.0), t_rs)
-        out.append(GroupOverlap(
+        out[gi] = GroupOverlap(
             group=gi,
             nbytes=int(nbytes[gi]),
             start_s=rs_start,
@@ -279,7 +326,7 @@ def attribute_overlap_cross_step(
             exposed_s=(t_rs - hidden_rs) + (t_ag - hidden_ag),
             ag_start_s=ag_starts[gi],
             ag_s=t_ag,
-        ))
+        )
         link_free = rs_start + t_rs
     return out, fwd_end
 
@@ -292,6 +339,7 @@ def attribute_overlap_two_level(
     dcn_s: Sequence[float],
     ag_s: Sequence[float],
     nbytes: Sequence[int],
+    order: Optional[Sequence[int]] = None,
 ) -> list[GroupOverlap]:
     """The hierarchical (hier) replay: two serial links race the backward
     (`solver.simulate_groups_two_level`'s recurrence). Per inner group the
@@ -301,7 +349,10 @@ def attribute_overlap_two_level(
     (`dcn_s`, one entry per DCN group), whose time and hidden share are
     apportioned to member groups by payload. hidden = time inside the
     backward window on EITHER link; the per-row ici_s/dcn_s split is what
-    names the bottleneck link."""
+    names the bottleneck link. ``order`` is the launch sequence
+    (``_ready_times``): the reduce-scatters and the all-gathers follow it,
+    and the DCN collectives go in the order it completes their DCN
+    groups (DCN-group order when None); the rows stay in group order."""
     n = len(groups)
     if any(len(x) != n for x in (rs_s, ag_s, nbytes)):
         raise ValueError(
@@ -312,8 +363,11 @@ def attribute_overlap_two_level(
         raise ValueError(
             f"dcn_groups/dcn_s disagree: {len(dcn_groups)}/{len(dcn_s)}"
         )
-    ready = np.cumsum(np.asarray(tb, dtype=np.float64))
-    bwd_end = float(ready[-1]) if len(ready) else 0.0
+    dcn_order = list(range(len(dcn_groups)))
+    if order is not None:
+        at = {int(gi): i for i, gi in enumerate(order)}
+        dcn_order.sort(key=lambda di: max(at[gi] for gi in dcn_groups[di]))
+    ready, order, bwd_end = _ready_times(groups, tb, order)
 
     def hidden_in_bwd(start: float, dur: float) -> float:
         return min(max(bwd_end - start, 0.0), dur)
@@ -322,8 +376,8 @@ def attribute_overlap_two_level(
     ici_free = 0.0
     rs_start = [0.0] * n
     rs_done = [0.0] * n
-    for gi, g in enumerate(groups):
-        start = max(ici_free, float(ready[max(g)]) if len(g) else 0.0)
+    for gi in order:
+        start = max(ici_free, ready[gi])
         rs_start[gi] = start
         ici_free = start + float(rs_s[gi])
         rs_done[gi] = ici_free
@@ -332,7 +386,8 @@ def attribute_overlap_two_level(
     dcn_done = [0.0] * n
     g_dcn = [0.0] * n
     g_dcn_hidden = [0.0] * n
-    for di, d in enumerate(dcn_groups):
+    for di in dcn_order:
+        d = dcn_groups[di]
         t = float(dcn_s[di])
         start = max(dcn_free, max(rs_done[gi] for gi in d))
         dcn_free = start + t
@@ -344,8 +399,8 @@ def attribute_overlap_two_level(
             g_dcn[gi] = t * share
             g_dcn_hidden[gi] = hidden * share
     # ICI link, AG phase
-    out: list[GroupOverlap] = []
-    for gi in range(n):
+    out: list[Optional[GroupOverlap]] = [None] * n
+    for gi in order:
         start = max(ici_free, dcn_done[gi])
         t_ag = float(ag_s[gi])
         ici_free = start + t_ag
@@ -355,7 +410,7 @@ def attribute_overlap_two_level(
             + hidden_in_bwd(start, t_ag)
         )
         comm = float(rs_s[gi]) + g_dcn[gi] + t_ag
-        out.append(GroupOverlap(
+        out[gi] = GroupOverlap(
             group=gi,
             nbytes=int(nbytes[gi]),
             start_s=rs_start[gi],
@@ -364,7 +419,7 @@ def attribute_overlap_two_level(
             exposed_s=comm - hidden,
             ici_s=float(rs_s[gi]) + t_ag,
             dcn_s=g_dcn[gi],
-        ))
+        )
     return out
 
 
@@ -398,6 +453,8 @@ def summarize(
     step_s: float,
     measured: Optional[Sequence[float]] = None,
     tf: Optional[Sequence[float]] = None,
+    order: Optional[Sequence[int]] = None,
+    gather_order: Optional[Sequence[int]] = None,
 ) -> OverlapSummary:
     """Full overlap accounting for one live schedule regime.
 
@@ -408,6 +465,10 @@ def summarize(
     (defaults to `solver.forward_prior_tf(tb)`); per-group comm — trace
     totals cover BOTH legs of a group's scope — splits between the legs in
     the cost model's phase proportions (`solver.cross_step_phase_costs`).
+    ``order`` (the reducer's ``launch_sequence``) and, for rs_fwd_ag,
+    ``gather_order`` (its ``gather_sequence``) are the orders the replay
+    issues the collectives in; index order (and reverse group order for
+    the gathers) when None.
     """
     comm, nbytes, attribution = group_comm_times(
         reducer, cost_model, measured
@@ -458,7 +519,8 @@ def summarize(
                 rs_s.append(float(r))
                 ag_s.append(float(a))
         rows = attribute_overlap_two_level(
-            reducer.layout.groups, dcn_part, tb, rs_s, dcn_s, ag_s, nbytes
+            reducer.layout.groups, dcn_part, tb, rs_s, dcn_s, ag_s, nbytes,
+            order=order,
         )
         return OverlapSummary(
             step_s=float(step_s),
@@ -482,7 +544,8 @@ def summarize(
             rs_s.append(t * frac)
             ag_s.append(t * (1.0 - frac))
         rows, fwd_end = attribute_overlap_cross_step(
-            reducer.layout.groups, tb, tf, rs_s, ag_s, nbytes
+            reducer.layout.groups, tb, tf, rs_s, ag_s, nbytes,
+            order=order, gather_order=gather_order,
         )
         return OverlapSummary(
             step_s=float(step_s),
@@ -492,7 +555,8 @@ def summarize(
             groups=tuple(rows),
             attribution=attribution,
         )
-    rows = attribute_overlap(reducer.layout.groups, tb, comm, nbytes)
+    rows = attribute_overlap(reducer.layout.groups, tb, comm, nbytes,
+                             order=order)
     return OverlapSummary(
         step_s=float(step_s),
         tb_total_s=float(sum(float(t) for t in tb)),

@@ -16,7 +16,10 @@ kernels are the collectives (``profiling.is_collective_kernel``, beside the
 JAX tool's name markers); copies and the JAX tool's non-compute markers
 are not compute. ``predicted_vs_actual`` pairs each merge group's
 predicted collective time with the mean device time of the NCCL kernels
-launched inside that group's ``mgwfbp_groupNNNN`` range.
+launched inside that group's ``mgwfbp_groupNNNN`` range;
+``launch_sequence`` is the order the reducer issued the groups in, and
+``held_groups`` the groups that order held back on the last traced step's
+hooks, beside those group-index order would have held.
 
 ``--mode hlo``: there is no HLO in torch. Its counterpart reads the same
 facts from the trace's launch order (the kernels in the order they were
@@ -317,6 +320,18 @@ def capture_and_report(model_name, batch, policy, nsteps, steps=5,
     out = summarize_overlap(logdir)
     out.update(_header(model_name, policy, nsteps, world, device, reducer))
     out["trace_dir"] = logdir
+    if reducer is not None:
+        # the order the traced steps issued the groups' collectives in, and
+        # the groups that order held back on the last step's hooks beside
+        # those group order would have held
+        from mgwfbp_tpu_torch.parallel.allreduce import held_groups
+
+        groups = [list(g) for g in reducer.layout.groups]
+        out["launch_sequence"] = reducer.launch_sequence
+        out["held_groups"] = {
+            "group_order": held_groups(groups, reducer.arrivals),
+            "launch_sequence": held_groups(groups, reducer.arrivals,
+                                           reducer.launch_sequence)}
     if reducer is not None and reducer.schedule.predicted_group_times:
         # the reference logs the prediction and times each merged tensor's
         # all-reduce in its loop (distributed_optimizer.py:256-259,

@@ -279,6 +279,7 @@ from mgwfbp_tpu_torch.utils.watchdog import (
     CHECKPOINT_ALLOW_S,
     COMPILE_ALLOW_S,
     ProgressWatchdog,
+    exit_mark,
 )
 
 # after an abort-bound watchdog_stall event the process waits this long
@@ -1335,6 +1336,8 @@ class Trainer:
         summary = summarize(
             self.reducer, self.cost_model, self._overlap_tb(), step_s,
             measured=self._measured_group_times, tf=self._tf_cache,
+            order=self.reducer.launch_sequence,
+            gather_order=self.reducer.gather_sequence,
         )
         self.telemetry.emit("overlap", step=self.iteration, epoch=int(epoch),
                             **summary.to_event_fields())
@@ -1342,8 +1345,8 @@ class Trainer:
             self.telemetry.emit("comm_group", **fields)
         self.log.info(
             "overlap (%s): %.4g s comm/step = %.4g hidden + %.4g exposed -> "
-            "efficiency %.3f (starts replayed in the arrival permutation's "
-            "order)", summary.attribution, summary.comm_s, summary.hidden_s,
+            "efficiency %.3f (starts replayed along the reducer's launch "
+            "sequence)", summary.attribution, summary.comm_s, summary.hidden_s,
             summary.exposed_s, summary.efficiency,
         )
 
@@ -3318,6 +3321,7 @@ class Trainer:
         # boundary. A second signal before that escalates: disarm (a third
         # kills outright) and interrupt now
         name = _signal.Signals(signum).name
+        exit_mark(f"{name} handled at step {self.iteration}")
         if self._preempt_signal is not None:
             self._disarm_signals()
             raise KeyboardInterrupt(

@@ -314,6 +314,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     from mgwfbp_tpu_torch.train.trainer import Trainer, check_lowering
     from mgwfbp_tpu_torch.utils.faults import PREEMPT_RC, Preempted
     from mgwfbp_tpu_torch.utils.platform import preflight_backend
+    from mgwfbp_tpu_torch.utils.watchdog import exit_mark, start_stack_sampler
 
     env_coord, env_num, env_pid = resolve_launch_env()
     try:
@@ -341,6 +342,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         args.device, coordinator=args.coordinator,
         num_processes=args.num_processes, process_id=args.process_id,
     )
+    start_stack_sampler()
     trainer = None
     try:
         trainer = Trainer(
@@ -365,16 +367,21 @@ def main(argv: Optional[list[str]] = None) -> int:
             "timeout_s": ct.timeout_s,
             "iteration": trainer.iteration if trainer else None,
         }), flush=True)
+        exit_mark(f"coordination timeout in {ct.op}: closing the trainer")
         if trainer is not None:
             trainer.close()
+        exit_mark("trainer closed: os._exit")
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(PREEMPT_RC)
     finally:
+        exit_mark("leaving: closing the trainer")
         if trainer is not None:
             trainer.close()
         if dist.is_initialized():
+            exit_mark("trainer closed: destroy_process_group")
             dist.destroy_process_group()
+        exit_mark("process group destroyed")
     print(json.dumps(metrics), flush=True)
     return 0
 

@@ -152,3 +152,62 @@ class ProgressWatchdog:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=2)
+
+
+# ---------------------------------------------------------------------------
+# the exit trace: where a process's teardown spends its time
+# ---------------------------------------------------------------------------
+
+# seconds between samples of the main thread's stack; unset or 0 disarms
+# the exit trace (``exit_mark`` then writes nothing)
+STACK_SAMPLE_ENV = "MGWFBP_STACK_SAMPLE_S"
+EXIT_TRACE_PREFIX = "mgwfbp exit trace:"
+
+
+def _trace_armed() -> bool:
+    return env_float(STACK_SAMPLE_ENV, 0.0) > 0.0
+
+
+def exit_mark(what: str) -> None:
+    """With ``MGWFBP_STACK_SAMPLE_S`` set, one stderr line placing a step of
+    the process's teardown in time (monotonic and wall seconds), to be read
+    beside NCCL's own timestamped lines when a survivor of a dead peer is
+    slow to leave."""
+    if _trace_armed():
+        print(f"{EXIT_TRACE_PREFIX} {what} monotonic {time.monotonic():.3f} "
+              f"wall {time.time():.3f}", file=sys.stderr, flush=True)
+
+
+def _sample(main_ident: int, interval_s: float) -> None:
+    while True:
+        time.sleep(interval_s)
+        frame = sys._current_frames().get(main_ident)
+        if frame is None or not _trace_armed():
+            return
+        where = " <- ".join(
+            f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno} "
+            f"{f.f_code.co_name}"
+            for f in _innermost(frame, 4))
+        exit_mark(f"main thread at {where}")
+
+
+def _innermost(frame, n: int) -> list:
+    out = []
+    while frame is not None and len(out) < n:
+        out.append(frame)
+        frame = frame.f_back
+    return out
+
+
+def start_stack_sampler() -> Optional[threading.Thread]:
+    """With ``MGWFBP_STACK_SAMPLE_S`` set: a daemon thread that writes the
+    main thread's innermost frames every that many seconds as an
+    ``exit_mark`` line (where a blocked teardown waits), until the main
+    thread ends or the variable is unset; None otherwise."""
+    if not _trace_armed():
+        return None
+    t = threading.Thread(
+        target=_sample, name="mgwfbp-stack-sampler", daemon=True,
+        args=(threading.main_thread().ident, env_float(STACK_SAMPLE_ENV, 0.0)))
+    t.start()
+    return t

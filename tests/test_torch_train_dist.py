@@ -157,6 +157,7 @@ def test_groups_launch_in_index_order_on_every_rank(two_ranks, four_ranks):
         for policy in POLICIES:
             logs = [r[f"{policy}/launch_log"].tolist() for r in ranks]
             g = int(ranks[0][f"{policy}/num_groups"])
+            assert all(log == logs[0] for log in logs), (policy, logs)
             assert all(log == list(range(g)) for log in logs), (policy, logs)
             assert all(int(r[f"{policy}/launches"]) == g for r in ranks)
     # the policies really differ in how many collectives they issue
