@@ -107,7 +107,20 @@ the clip's all-reduce inside ``CLIP_NORM_SCOPE``; an untraced step launches
 exactly the same work with no annotation. While a schedule observer
 watches (``watch_scopes``, armed by ``analysis.schedule_check``), the same
 ranges are kept per thread (``open_scopes``), so that every collective of
-a step is attributed to the range it was issued in.
+a step is attributed to the range it was issued in. The ranges are
+``telemetry.spans``' (``collective_scope`` is its ``span``).
+
+On a step the span recorder has armed (``telemetry.spans``; while
+torch.profiler records, or inside ``spans.recording()``) the reducer marks
+each group's ready(g), on the hook's stream right after the pack and
+before the collective, and done(g). On a card done(g) is an event on an
+observer stream the reducer owns, recorded after that stream has waited
+(on the device) for each of the group's works, so it neither blocks the
+host nor reorders the NCCL stream; hier's is its all-gather's. Over gloo
+it is the host clock when the wait returns in ``synchronize`` (or the
+sharded lowerings' ``_reduced_shards``): an upper bound. hier's
+cross-slice all-reduces have no marks of their own, and rs_fwd_ag's
+parameter all-gathers in the next forward none at all.
 
 ``make_merged_allreduce`` solves the schedule by ``policy`` or takes an
 explicit grouping (``groups``, and hier's ``dcn_groups``): the autotuner's
@@ -153,6 +166,15 @@ from mgwfbp_tpu_torch.parallel.solver import (
     size_prior_tb,
     two_level_leg_costs,
 )
+from mgwfbp_tpu_torch.telemetry import spans
+# the reducer's and the step's collective scopes are the port's one span
+# primitive (``telemetry.spans``), under the name the verifier and every
+# caller import
+from mgwfbp_tpu_torch.telemetry.spans import (  # noqa: F401
+    open_scopes,
+    span as collective_scope,
+    watch_scopes,
+)
 
 _DIGITS = re.compile(r"(\d+)")
 
@@ -184,68 +206,6 @@ def group_scope_name(gi: int) -> str:
 def dcn_group_scope_name(di: int) -> str:
     """Profiler-range label of DCN group ``di`` (hier lowering)."""
     return f"{DCN_GROUP_SCOPE_PREFIX}{di:04d}"
-
-
-# the open ranges of each thread, kept while a schedule observer is armed
-# (``watch_scopes``): the collectives of a step are attributed to the range
-# they were issued in, on whatever thread issued them (the card's autograd
-# thread runs the gradient hooks)
-_SCOPE_TLS = threading.local()
-_scope_watchers = 0
-_scope_watch_lock = threading.Lock()
-
-
-@contextlib.contextmanager
-def watch_scopes():
-    """Keep every thread's open ``collective_scope`` ranges while inside
-    (``open_scopes``; ``analysis.schedule_check`` arms it)."""
-    global _scope_watchers
-    with _scope_watch_lock:
-        _scope_watchers += 1
-    try:
-        yield
-    finally:
-        with _scope_watch_lock:
-            _scope_watchers -= 1
-
-
-def open_scopes() -> tuple[str, ...]:
-    """The ``collective_scope`` ranges open on the calling thread,
-    outermost first (empty unless ``watch_scopes`` is armed)."""
-    return tuple(getattr(_SCOPE_TLS, "stack", ()))
-
-
-class _Scope:
-    def __init__(self, name: str, watched: bool, profiled: bool):
-        self.name = name
-        self.watched = watched
-        self.range = (torch.profiler.record_function(name) if profiled
-                      else None)
-
-    def __enter__(self):
-        if self.watched:
-            _SCOPE_TLS.stack = open_scopes() + (self.name,)
-        if self.range is not None:
-            self.range.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        if self.range is not None:
-            self.range.__exit__(*exc)
-        if self.watched:
-            _SCOPE_TLS.stack = open_scopes()[:-1]
-        return False
-
-
-def collective_scope(name: str):
-    """A range named ``name``: a profiler range while torch.profiler
-    records, and an entry of the thread's ``open_scopes`` while a schedule
-    observer watches; else nothing."""
-    profiled = torch.autograd._profiler_enabled()
-    watched = _scope_watchers > 0
-    if not (profiled or watched):
-        return contextlib.nullcontext()
-    return _Scope(name, watched, profiled)
 
 
 def _natural_key(name: str) -> tuple:
@@ -578,13 +538,21 @@ class ShardedOptimStep:
 @dataclasses.dataclass
 class _Inflight:
     """One launched group: its collectives' works and the tensors they
-    fill (``out``; the top-k path adds the indices and the bucket size)."""
+    fill (``out``; the top-k path adds the indices and the bucket size).
+    ``keep`` holds every other tensor the collectives read or write that
+    the reducer holds nowhere else (the packed bucket of the sharded
+    lowerings, rs_ag's summed shard, top-k's selected values and indices)
+    until the step's own waits: a wait on another stream (the observer's,
+    ``MergedAllreduce._observe``) ends NCCL's hold on them, and the
+    allocator could then hand their memory to the step's stream while the
+    collective still reads it."""
 
     gi: int
     works: list
     out: torch.Tensor
     idx: Optional[torch.Tensor] = None
     n: int = 0
+    keep: tuple = ()
 
 
 class MergedAllreduce:
@@ -692,6 +660,9 @@ class MergedAllreduce:
                 for gi in d:
                     self._dcn_of[gi] = di
         self._side_stream = None  # hier's cross-slice stream on the card
+        # the stream each armed step's done(g) marks are recorded on
+        # (``_observe``)
+        self._observer_stream = None
         self.track_compression_error = False
         self._comp_errors: dict[int, torch.Tensor] = {}
         self.launches = 0
@@ -915,6 +886,9 @@ class MergedAllreduce:
             buf.mul_(self._scale)
         if self.comm_dtype is not None and buf.dtype != self.comm_dtype:
             buf = buf.to(self.comm_dtype)
+        step = spans.armed_step()
+        if step is not None:
+            step.ready[gi] = step.mark()
         if self.sparse and buf.is_floating_point():
             self._launch_topk(gi, buf)
         elif self.comm_op == "hier":
@@ -926,6 +900,26 @@ class MergedAllreduce:
             if self.track_compression_error:
                 self._comp_errors[gi] = torch.zeros((), device=buf.device)
         self.launch_log.append(gi)
+        if self._observed(step) and self.comm_op != "hier":
+            self._observe(step, gi, self._inflight[-1].works)
+
+    def _observed(self, step) -> bool:
+        """Whether an armed ``step``'s done(g) marks are events on the
+        observer stream (NCCL on a card); else they are taken when the
+        host's wait returns (gloo: an upper bound)."""
+        return step is not None and step.cuda and self._ordered
+
+    def _observe(self, step, gi: int, works) -> None:
+        """done(g): the observer stream waits for ``works`` on the device
+        and records the mark; the host goes on, and the NCCL stream is
+        not reordered."""
+        if self._observer_stream is None:
+            self._observer_stream = torch.cuda.Stream(
+                device=self._arr[0].device)
+        with torch.cuda.stream(self._observer_stream):
+            for work in works:
+                work.wait()
+            step.done[gi] = step.mark()
 
     def _launch_all_reduce(self, gi: int, buf: torch.Tensor) -> None:
         work = dist.all_reduce(
@@ -945,7 +939,7 @@ class MergedAllreduce:
         )
         self.launches += 1
         if self.comm_op in SHARDED_OPS:
-            self._inflight.append(_Inflight(gi, [work], shard))
+            self._inflight.append(_Inflight(gi, [work], shard, keep=(buf,)))
             return
         if not self._ordered:
             work.wait()
@@ -953,7 +947,8 @@ class MergedAllreduce:
             buf, shard, group=self.group, async_op=True
         )
         self.launches += 1
-        self._inflight.append(_Inflight(gi, [work, gather], buf))
+        self._inflight.append(_Inflight(gi, [work, gather], buf,
+                                        keep=(shard,)))
 
     # -- hier -------------------------------------------------------------
     def _side(self, like: torch.Tensor):
@@ -1021,6 +1016,7 @@ class MergedAllreduce:
                 reduced[gi] = cat[off:off + n]
                 off += n
         out = []
+        step = spans.armed_step()
         for f in self._inflight:
             shard = reduced[f.gi]
             with collective_scope(group_scope_name(f.gi)), self._side(shard):
@@ -1030,6 +1026,10 @@ class MergedAllreduce:
                                          group=self.levels.inner,
                                          async_op=True)
             self.launches += 1
+            if self._observed(step):
+                # the gather ends the group's chain (its scatter, then its
+                # DCN group's all-reduce)
+                self._observe(step, f.gi, [work])
             out.append((f.gi, work, f.out))
         return out
 
@@ -1059,7 +1059,8 @@ class MergedAllreduce:
                                         async_op=True),
         ]
         self.launches += 2
-        self._inflight.append(_Inflight(gi, works, g_vals, g_idx, n))
+        self._inflight.append(_Inflight(gi, works, g_vals, g_idx, n,
+                                        keep=(vals, idx)))
 
     def _check_complete(self, what: str) -> None:
         if not self._active:
@@ -1094,6 +1095,8 @@ class MergedAllreduce:
                 "and optimizer.step()")
         self._check_complete("synchronize")
         out = {}
+        step = spans.armed_step()
+        host_done = step is not None and not self._observed(step)
         try:
             if self.comm_op == "hier":
                 waits = [(gi, [work], buf)
@@ -1106,6 +1109,8 @@ class MergedAllreduce:
                 with collective_scope(group_scope_name(gi)):
                     for work in works:
                         work.wait()
+                    if host_done:
+                        step.done[gi] = step.mark()
                     if divided:
                         buf = what[:self.layout.group_sizes[gi]]
                     else:
@@ -1152,11 +1157,15 @@ class MergedAllreduce:
                 "(built by make_merged_allreduce(..., optim_spec=, "
                 "world_size=))")
         self._check_complete(what)
+        step = spans.armed_step()
+        host_done = step is not None and not self._observed(step)
         try:
             g_shards = {}
             for f in self._inflight:
                 with collective_scope(group_scope_name(f.gi)):
                     f.works[0].wait()
+                    if host_done:
+                        step.done[f.gi] = step.mark()
                     shard = f.out
                     if shard.dtype != self.layout.dtypes[f.gi]:
                         shard = shard.to(self.layout.dtypes[f.gi])

@@ -115,7 +115,12 @@ in the ranges the JAX step declares for them (``metrics_reduce``,
 ``parallel.allreduce.collective_scope``), which the schedule verifier
 (``analysis.schedule_check``) tells from a merge group's; the guard's count
 runs in ``finite_check``, the range SCH008 reads, and SCH005 holds that
-nothing inside the step reads the device on the host.
+nothing inside the step reads the device on the host. After its argument
+checks the step runs in four phase spans (``telemetry.spans``:
+``train_step.forward``, ``.backward``, ``.reduce``, ``.update``; profiler
+ranges, which the step's collective ranges nest in), and a step the span
+recorder has armed marks the end of its backward (B) for the reducer's
+group marks (``parallel.allreduce``).
 """
 
 from __future__ import annotations
@@ -135,6 +140,7 @@ from mgwfbp_tpu_torch.parallel.allreduce import (
     collective_scope,
 )
 from mgwfbp_tpu_torch.parallel.mesh import world_size
+from mgwfbp_tpu_torch.telemetry import spans
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -343,6 +349,13 @@ def leaf_norms(tensors) -> torch.Tensor:
 # verifier's SCH008 reads (``analysis.schedule_check``)
 FINITE_CHECK_SCOPE = "finite_check"
 
+# the step's phases (``TrainStep.__call__``): profiler ranges that together
+# cover the step after its argument checks
+FORWARD_SPAN = "train_step.forward"
+BACKWARD_SPAN = "train_step.backward"
+REDUCE_SPAN = "train_step.reduce"
+UPDATE_SPAN = "train_step.update"
+
 
 def nonfinite_count(tensors) -> torch.Tensor:
     """Number of non-finite elements over ``tensors``, as a float32 scalar
@@ -436,6 +449,7 @@ class TrainStep:
         self._old_params: Optional[list[torch.Tensor]] = None
         self._old_shards: Optional[list[torch.Tensor]] = None
         self._group_matrix: Optional[torch.Tensor] = None
+        self._phases = spans.Phases()
 
     # -- the step counter and the learning rate --------------------------
     @property
@@ -490,6 +504,26 @@ class TrainStep:
                 f"expected {n} micro-batches, got x {tuple(x.shape)}, "
                 f"y {tuple(y.shape)}"
             )
+        rec = spans.begin_step(x.is_cuda)
+        try:
+            return self._run(x, y, carry, lengths, rec)
+        finally:
+            self._phases.end()
+            spans.end_step(rec)
+
+    def _run(self, x, y, carry, lengths, rec):
+        """The step after its argument checks, in phase spans: forward
+        (the prelude, then each micro-step from ``reducer.begin`` through
+        the loss), backward (``loss.backward()`` and the micro-step's
+        bookkeeping), reduce (the wait on the gradients' collectives:
+        ``synchronize``, the flat per-leaf reduce, or the sharded
+        lowerings' ``reduce_and_update`` / ``reduce_and_defer``) and
+        update (the rest, twice on the sharded lowerings, around their
+        reduce). An armed step (``rec``) marks B at the end of the last
+        backward."""
+        phase = self._phases
+        phase.to(FORWARD_SPAN)
+        n = self.nsteps_update
         model, reducer = self.model, self.reducer
         guard = self.grad_guard
         model.train()
@@ -509,6 +543,8 @@ class TrainStep:
         loss_sum = torch.zeros((), device=x.device)
         metric_sum = torch.zeros((), device=x.device)
         for i in range(n):
+            if i:
+                phase.to(FORWARD_SPAN)
             if reducer is not None:
                 reducer.begin(active=i == n - 1, scale=1.0 / n)
             loss, metric, carry = forward_loss(
@@ -519,17 +555,22 @@ class TrainStep:
             if self.cross_step:
                 # a group no module's pre-hook consumed lands here
                 reducer.finish_gather()
+            phase.to(BACKWARD_SPAN)
             loss.backward()
             if carry is not None:
                 carry = repackage_carry(carry)
             with torch.no_grad():
                 loss_sum += loss.detach()
                 metric_sum += metric
+        if rec is not None:
+            rec.backward_end = rec.mark()
         if self.sharded:
             reduced = [p.grad for p in self.params]  # local, never reduced
         elif reducer is not None:
+            phase.to(REDUCE_SPAN)
             reduced = reducer.synchronize()
         else:
+            phase.to(REDUCE_SPAN)
             grads = [p.grad for p in self.params]
             if n > 1:
                 torch._foreach_mul_(grads, 1.0 / n)
@@ -541,6 +582,7 @@ class TrainStep:
             # with the guard, the gradients become views of flat buffers
             # (one per dtype): one count and one zeroing each
             reduced = self._flatten_grads() if guard else grads
+        phase.to(UPDATE_SPAN)
         metrics = torch.stack([
             loss_sum / n, metric_sum / n,
             nonfinite_count(reduced) if guard
@@ -577,9 +619,13 @@ class TrainStep:
         if self.cross_step:
             if norms is not None:
                 old_shards = self._snapshot_shards()
+            phase.to(REDUCE_SPAN)
             reducer.reduce_and_defer(lr=lr, ok=ok)
+            phase.to(UPDATE_SPAN)
         elif self.sharded:
+            phase.to(REDUCE_SPAN)
             reducer.reduce_and_update(lr=lr, ok=ok)
+            phase.to(UPDATE_SPAN)
         else:
             if ok is not None:
                 # a bad step's gradients become zeros: the masked update

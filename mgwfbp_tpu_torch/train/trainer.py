@@ -252,6 +252,7 @@ from mgwfbp_tpu_torch.profiling import (
     trace_group_times,
 )
 from mgwfbp_tpu_torch.telemetry import EventWriter, stream_filename, summarize
+from mgwfbp_tpu_torch.telemetry import spans
 from mgwfbp_tpu_torch.telemetry.drift import (
     DriftConfig,
     DriftDetector,
@@ -392,6 +393,10 @@ class Trainer:
         profile_backward: bool = True,
         synthetic_data: Optional[bool] = None,
     ):
+        t_init = time.perf_counter()
+        # the set-up's phases on the host clock (``telemetry.spans``),
+        # logged in one line at the end
+        setup = spans.SetupSpans()
         self.config = config
         self.device = resolve_device(device)
         self.world = world_size()
@@ -510,62 +515,70 @@ class Trainer:
         self._measured_group_times: Optional[list[float]] = None
         # the S members of a ring load the same windows
         self.shard = ShardInfo(self.data_index, self.data_size)
-        model, self.meta = zoo.create_model(config.dnn, dataset=config.dataset)
+        with setup.span("setup.model"):
+            model, self.meta = zoo.create_model(config.dnn,
+                                                dataset=config.dataset)
         image_hw = None
         if self.meta.task == "classify" and self.meta.input_shape[0] >= 256:
             image_hw = tuple(self.meta.input_shape[:2])  # the inceptions' 299
-        self.bundle = data_prepare(
-            config.dataset, data_dir=config.data_dir,
-            batch_size=config.batch_size, shard=self.shard, seed=config.seed,
-            synthetic=synthetic_data, augment=config.augment,
-            num_steps=config.num_steps, image_hw=image_hw,
-        )
-        if self.bundle.num_classes != self.meta.num_classes:
-            model, self.meta = zoo.create_model(
-                config.dnn, dataset=config.dataset,
-                num_classes=self.bundle.num_classes,
+        with setup.span("setup.data"):
+            self.bundle = data_prepare(
+                config.dataset, data_dir=config.data_dir,
+                batch_size=config.batch_size, shard=self.shard,
+                seed=config.seed, synthetic=synthetic_data,
+                augment=config.augment, num_steps=config.num_steps,
+                image_hw=image_hw,
             )
-        # the eval batch apart from the train batch (MGWFBP_EVAL_BATCH), for
-        # carry-free models only: a carry's batch is its layout
-        eval_bs = os.environ.get("MGWFBP_EVAL_BATCH")
-        if eval_bs and not self.meta.has_carry:
-            self.bundle.val.set_batch_size(max(int(eval_bs), 1))
-        self.model = zoo.for_training(model)
-        self._apply_lm_window()
-        if self.seq_size > 1:
-            self._bind_seq_ring()
-        init_weights(self.model, torch.Generator().manual_seed(config.seed))
-        # dropout draws from torch's global generator: a function of the
-        # seed and the rank, so that ranks draw different masks (the JAX
-        # step folds the data index into its dropout key, then the seq
-        # index)
-        torch.manual_seed(
-            int(np.random.SeedSequence(
-                [config.seed, self.rank] if self.seq_size == 1
-                else [config.seed, self.data_index, self.seq_index])
-                .generate_state(1)[0])
-        )
-        self.model.to(self.device)
+        with setup.span("setup.model"):
+            if self.bundle.num_classes != self.meta.num_classes:
+                model, self.meta = zoo.create_model(
+                    config.dnn, dataset=config.dataset,
+                    num_classes=self.bundle.num_classes,
+                )
+            # the eval batch apart from the train batch (MGWFBP_EVAL_BATCH),
+            # for carry-free models only: a carry's batch is its layout
+            eval_bs = os.environ.get("MGWFBP_EVAL_BATCH")
+            if eval_bs and not self.meta.has_carry:
+                self.bundle.val.set_batch_size(max(int(eval_bs), 1))
+            self.model = zoo.for_training(model)
+            self._apply_lm_window()
+            if self.seq_size > 1:
+                self._bind_seq_ring()
+            init_weights(self.model,
+                         torch.Generator().manual_seed(config.seed))
+            # dropout draws from torch's global generator: a function of
+            # the seed and the rank, so that ranks draw different masks
+            # (the JAX step folds the data index into its dropout key,
+            # then the seq index)
+            torch.manual_seed(
+                int(np.random.SeedSequence(
+                    [config.seed, self.rank] if self.seq_size == 1
+                    else [config.seed, self.data_index, self.seq_index])
+                    .generate_state(1)[0])
+            )
+            self.model.to(self.device)
         if self.world > 1:
             # identical replicas from rank 0, as the reference's
-            # broadcast_parameters does
-            with torch.no_grad():
+            # broadcast_parameters does (the run's first collective)
+            with setup.span("setup.broadcast"), torch.no_grad():
                 for t in self.model.state_dict().values():
                     dist.broadcast(t, 0)
         # the schedule's anchor: the step -> epoch conversion continues from
         # it (a checkpoint carries it; it moves only on elastic resizes)
         self._sched_step_offset = 0
         self._sched_epoch_offset = 0.0
-        (self.optimizer, self.lr_fn, self.epoch_schedule,
-         self.optim_spec) = make_optimizer(
-            self.model.parameters(), config.lr,
-            momentum=config.momentum, weight_decay=config.weight_decay,
-            lr_schedule=config.lr_schedule, dataset=config.dataset,
-            max_epochs=config.max_epochs, warmup_epochs=config.warmup_epochs,
-            num_batches_per_epoch=max(self._steps_per_epoch(), 1),
-            norm_clip=config.norm_clip, world_size=self.data_size,
-            return_spec=True,
-        )
+        with setup.span("setup.optimizer"):
+            (self.optimizer, self.lr_fn, self.epoch_schedule,
+             self.optim_spec) = make_optimizer(
+                self.model.parameters(), config.lr,
+                momentum=config.momentum, weight_decay=config.weight_decay,
+                lr_schedule=config.lr_schedule, dataset=config.dataset,
+                max_epochs=config.max_epochs,
+                warmup_epochs=config.warmup_epochs,
+                num_batches_per_epoch=max(self._steps_per_epoch(), 1),
+                norm_clip=config.norm_clip, world_size=self.data_size,
+                return_spec=True,
+            )
         self.cost_model = None
         self.tb: Optional[TbProfile] = None
         # the measured forward profile (rs_fwd_ag's schedule is priced on
@@ -575,8 +588,9 @@ class Trainer:
         # shared by every reducer the autotuner builds
         self._compressor = None
         self._levels = None
-        # mgwfbp: group-uniform -- the merge schedule solves from broadcast-identical profiles; later swaps ride group-agreed commits
-        self.reducer = self._build_reducer(profile_backward)
+        with setup.span("setup.reducer"):
+            # mgwfbp: group-uniform -- the merge schedule solves from broadcast-identical profiles; later swaps ride group-agreed commits
+            self.reducer = self._build_reducer(profile_backward)
         if self.reducer is not None:
             s = self.reducer.schedule
             self.log.info(
@@ -603,7 +617,8 @@ class Trainer:
                 self.reducer.num_groups,
             )
         self._sync_schedule_gauge()
-        self.train_step = self._make_train_step()
+        with setup.span("setup.train_step"):
+            self.train_step = self._make_train_step()
         self.carry = self._zero_carry()
         self.start_epoch = 0
         # mgwfbp: group-uniform -- the step counter advances in lockstep; resume/rollback targets are broadcast-agreed
@@ -611,6 +626,10 @@ class Trainer:
         self.losses: list[float] = []  # every optimizer step's mean loss,
         # appended as its metrics drain
         self._init_resilience()
+        setup.publish()
+        self.log.info("set-up: %s (Trainer.__init__ %.3f s)", ", ".join(
+            f"{k} {v:.3f} s" for k, v in setup.seconds().items()),
+            time.perf_counter() - t_init)
 
     # ------------------------------------------------------------------
     def _init_resilience(self) -> None:
@@ -1639,8 +1658,12 @@ class Trainer:
         (``trace.json``; ``trace.pN.json`` for process N of a group),
         attribute per-group device time (``profiling.trace_group_times``),
         gather it across processes (a zero row where a process attributed
-        nothing: the lockstep shape), hand the result to the aggregator
-        and emit a ``profile`` record. The window synchronises the card;
+        nothing: the lockstep shape), add each group's median
+        ``ready_to_done_ms`` and ``after_backward_ms`` and the window's
+        median ``comm_tail_ms`` from the span recorder's marks
+        (``telemetry.spans``: the window's steps run under the profiler,
+        so the recorder is armed), hand the result to the aggregator and
+        emit a ``profile`` record. The window synchronises the card;
         it runs on demand only, under the watchdog's compile allowance.
         The JAX trainer's join with the compiled step's HLO text has no
         counterpart (there is no HLO here)."""
@@ -1710,6 +1733,9 @@ class Trainer:
             self._beat("profile window done")
         wall_s = time.perf_counter() - t0
         attribution = "trace" if measured is not None else "none"
+        # the window's steps ran under the profiler, so the span recorder
+        # marked each group's ready and done events (``telemetry.spans``)
+        marked, tail_ms = spans.group_medians(spans.recent_steps(steps))
         groups_doc: list[dict] = []
         if self.reducer is not None:
             predicted = nbytes = None
@@ -1724,6 +1750,7 @@ class Trainer:
                     row["predicted_s"] = float(predicted[gi])
                 if measured is not None:
                     row["device_s"] = float(measured[gi])
+                row.update(marked.get(gi, {}))
                 groups_doc.append(row)
         per_process = None
         if self.world > 1 and num_groups:
@@ -1741,6 +1768,7 @@ class Trainer:
             "attribution": attribution,
             "trace_dir": trace_dir,
             "groups": groups_doc,
+            "comm_tail_ms": tail_ms,
         }
         if per_process is not None:
             result["per_process_device_s"] = {

@@ -5,8 +5,9 @@ _run_profile_window``) and the straggler probe, on the CPU.
     at the next step boundary on the training thread; the status and the
     result carry the JAX plane's keys (``supported``, ``state``,
     ``max_steps``, ``result`` with ``steps``, ``iteration``, ``wall_s``,
-    ``attribution``, ``trace_dir``, ``groups``); one worker has no reducer,
-    so ``attribution`` is ``"none"``; the window's Chrome trace is on disk
+    ``attribution``, ``trace_dir``, ``groups``, and the port's
+    ``comm_tail_ms``); one worker has no reducer, so ``attribution`` is
+    ``"none"`` and the tail None; the window's Chrome trace is on disk
     under ``<logdir>/<tag>/profile/iterNNNNNNNN``; a ``profile`` record
     lands in the stream; the window's steps are genuine optimizer steps
     (the iteration moves on by 2); a bad query answers 400, a second arm
@@ -15,7 +16,9 @@ _run_profile_window``) and the straggler probe, on the CPU.
     is armed, the group agrees on the window through ``gather_values`` at
     the agree interval, and both ranks' results hold
     ``per_process_device_s`` of the lockstep shape (one row per rank, one
-    entry per merge group; zeros, since the CPU attributes nothing);
+    entry per merge group; zeros, since the CPU attributes nothing), and
+    each group row the span recorder's ``ready_to_done_ms`` and
+    ``after_backward_ms`` beside the result's ``comm_tail_ms``;
   * the same two ranks under a 0.6 s ``stall`` on rank 1 before steps 5-7
     (rank 0's busy time is a millisecond; the alarm needs 0.1 s): both
     streams carry the identical ``straggler`` records naming process 1,
@@ -59,7 +62,7 @@ def _get(port: int, path: str) -> tuple[int, dict]:
 
 
 RESULT_KEYS = {"steps", "iteration", "wall_s", "attribution", "trace_dir",
-               "groups"}
+               "groups", "comm_tail_ms"}
 
 
 def test_profile_window_on_a_cpu_trainer(tmp_path):
@@ -94,6 +97,7 @@ def test_profile_window_on_a_cpu_trainer(tmp_path):
     result = status["result"]
     assert set(result) == RESULT_KEYS
     assert result["attribution"] == "none" and result["groups"] == []
+    assert result["comm_tail_ms"] is None  # no merge group to mark
     assert result["steps"] == 2 and result["iteration"] == 3
     assert result["trace_dir"].endswith(os.path.join("profile",
                                                      "iter00000001"))
@@ -164,6 +168,12 @@ def test_two_rank_window_has_the_lockstep_shape(two_ranks):
         assert [r["group"] for r in res["groups"]] == list(range(g))
         assert all(r["nbytes"] > 0 and r["predicted_s"] > 0
                    for r in res["groups"])
+        # the span recorder's marks of the window's steps: on gloo done(g)
+        # is the host's wait returning, after the group's launch and after
+        # the backward's end
+        assert all(r["ready_to_done_ms"] >= 0 and r["after_backward_ms"] >= 0
+                   for r in res["groups"])
+        assert res["comm_tail_ms"] >= 0
     # both ranks ran the same window at the same step, each wrote its trace
     assert results[0]["iteration"] == results[1]["iteration"]
     assert results[0]["steps"] == results[1]["steps"] == 2
